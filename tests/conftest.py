@@ -139,6 +139,10 @@ def pytest_configure(config):
         "markers",
         "slow: out-of-window lanes (tier-1 runs -m 'not slow'); each "
         "trim keeps a named fast in-window representative")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (CUDA kernels of lightgbm_tpu_torch); "
+        "skips where torch.cuda.is_available() is False")
 
 
 @pytest.fixture

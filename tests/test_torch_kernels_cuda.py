@@ -1,0 +1,125 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``; every test skips where torch.cuda.is_available() is
+False.  The file imports neither jax nor lightgbm_tpu, so on a machine
+with a card and no JAX it runs without the suite's conftest:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
+
+Tolerances: split_pair's kernel runs the plain version's f32 operations
+in the same order, so all 13 fields are bit-identical to the plain
+version on the CPU.  split_mega's partition (bins and payload words) is
+bit-identical and two launches are bit-identical.  Its f32 histogram is
+held to the f64 sums within rtol 1e-4 + 1e-5 x each bin's absolute mass
+(the sum of |grad| or |hess| over the bin's rows: f32 rounding grows
+with it), and to the plain version's f32 sums within rtol 1e-4 + 1e-4 x
+mass, the plain version's own rounding included.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lightgbm_tpu_torch.ops import split_mega as sm
+from lightgbm_tpu_torch.ops.partition import make_scalars
+from lightgbm_tpu_torch.ops import split_pair as sp
+
+PARAMS = [
+    dict(l1=0.0, l2=1e-3, max_delta_step=0.0, min_gain_to_split=0.0,
+         min_data_in_leaf=5, min_sum_hessian=1e-3, max_depth=0),
+    dict(l1=0.5, l2=2.0, max_delta_step=0.7, min_gain_to_split=0.1,
+         min_data_in_leaf=20, min_sum_hessian=1.0, max_depth=3),
+]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda", 0)
+
+
+def _pair_case(seed, F=28, BF=255):
+    rng = np.random.RandomState(seed)
+    half = np.zeros((F, 8), np.int32)
+    half[:, 0] = rng.randint(3, BF + 1, F)
+    half[:, 1] = rng.randint(0, 3, F)
+    half[:, 2] = np.where(half[:, 1] == 1, rng.randint(0, 3, F), 0)
+    hg = rng.randn(2 * F, BF).astype(np.float32)
+    hh = rng.uniform(0.01, 2.0, (2 * F, BF)).astype(np.float32)
+    info = np.zeros((2 * F, 8), np.float32)
+    for c in range(2):
+        rows = slice(c * F, (c + 1) * F)
+        info[rows, 0] = hg[c * F].sum()
+        info[rows, 1] = hh[c * F].sum()
+        info[rows, 2] = 2000 + 100 * c
+        info[rows, 3] = 2 + c
+        info[rows, 4] = rng.rand(F) > 0.1
+    return [torch.as_tensor(a) for a in
+            (hg, hh, np.concatenate([half, half]), info)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("pi", range(len(PARAMS)))
+def test_split_pair_kernel_bit_identical_to_plain(card, seed, pi):
+    args = _pair_case(seed)
+    want = sp.split_pair_plain(*args, **PARAMS[pi])
+    got = sp.split_pair(*(a.to(card) for a in args), **PARAMS[pi])
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trial", [0, 1, 2])
+def test_split_mega_kernel_matches_plain(card, trial):
+    rng = np.random.RandomState(trial)
+    G, n_pad = 28, 1 << 20
+    pb = torch.as_tensor(rng.randint(0, 255, (G, n_pad)).astype(np.uint8))
+    pg = torch.as_tensor(rng.randn(8, n_pad).astype(np.float32))
+    sc = make_scalars(4096 + trial, 900_000 + 77 * trial, trial + 3, 0, 0,
+                      255, int(rng.randint(0, 255)), trial,
+                      int(rng.randint(0, 255)), 1)
+    outs = []
+    for _ in range(2):
+        b, g = pb.to(card), pg.to(card)
+        nl, acc = sm.split_mega(b, g, sc, num_bins=255, num_groups=G)
+        outs.append((b.cpu(), g.cpu(), nl.cpu(), acc.cpu()))
+    b0, g0 = pb.clone(), pg.clone()
+    ref, mass = sm.hist_reference(b0, g0, sc, num_bins=255, num_groups=G)
+    enl, eacc = sm.split_mega_plain(b0, g0, sc, num_bins=255, num_groups=G)
+    for b, g, nl, acc in outs:
+        assert int(nl) == int(enl)
+        assert torch.equal(b, b0)
+        assert torch.equal(g.view(torch.int32), g0.view(torch.int32))
+        err = (acc.double() - ref).abs()
+        assert bool((err <= 1e-4 * ref.abs() + 1e-5 * mass).all())
+        err = (acc.double() - eacc.double()).abs()
+        assert bool((err <= 1e-4 * eacc.double().abs() + 1e-4 * mass).all())
+    assert torch.equal(outs[0][3].view(torch.int32),
+                       outs[1][3].view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_split_mega_kernel_zero_count(card):
+    pb = torch.randint(0, 255, (28, 8192), dtype=torch.uint8, device=card)
+    pg = torch.randn(8, 8192, device=card)
+    b, g = pb.clone(), pg.clone()
+    nl, acc = sm.split_mega(b, g, make_scalars(3000, 0, 5, 0, 0, 200, 0, 0,
+                                               100, 0),
+                            num_bins=255, num_groups=28)
+    assert int(nl) == 0 and not acc.any()
+    assert torch.equal(b, pb) and torch.equal(g, pg)
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_on_bad_arguments(card):
+    pb = torch.zeros((28, 8192), dtype=torch.uint8, device=card)
+    with pytest.raises(ValueError):
+        sm.split_mega(pb, torch.zeros((8, 8192), dtype=torch.float64,
+                                      device=card),
+                      make_scalars(0, 10, 0, 0, 0, 255, 0, 0, 1, 0),
+                      num_bins=255, num_groups=28)
+    with pytest.raises(ValueError):
+        sm.split_mega(pb, torch.zeros((8, 8192), device=card),
+                      make_scalars(8000, 500, 0, 0, 0, 255, 0, 0, 1, 0),
+                      num_bins=255, num_groups=28)

@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -9,13 +9,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      edge cases included;
   4. train the HIGGS shape (10.5M x 28, seed 7, as bench.py makes it;
      binary, num_leaves=255, max_bin=255) for a few iterations through
-     lightgbm_tpu_torch on the card, with every kernel's launch count
-     reset just before and read just after; then predict 100k rows,
-     save, reload and predict again; then the port on the card against
-     the port on the CPU on examples/binary_classification;
+     lightgbm_tpu_torch on the card, on each of the learner's two split
+     paths in turn -- the mega path (split_mega + split_pair) and the
+     histogram-subtraction path (tpu_megakernel=off: partition +
+     leaf_hist + hist_rmw + split_pair) -- from one constructed Dataset,
+     with every kernel's launch count reset just before each path and
+     read just after; then, for each path, predict 100k rows, save,
+     reload and predict again, profile one more iteration, and train
+     the port on the card against the port on the CPU on
+     examples/binary_classification;
   5. each kernel against its plain version on inputs captured from the
-     first tree, and its time at those shapes beside the least time the
-     card could take for the same work.
+     first tree of its path, and its time at those shapes beside the
+     least time the card could take for the same work.
 The line before the last is a JSON object of per-kernel numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -34,6 +39,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 ROWS, FEATURES, ITERS = 10_500_000, 28, 4
 PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3
 PEAK_F32_S = 67e12              # H100 SXM f32 outside the tensor cores
+NAN_WORD = 0x7FC00001           # a NaN payload whose bits a float move
+#                                 could rewrite
+T0 = time.time()
 
 
 def fail(msg):
@@ -44,6 +52,10 @@ def fail(msg):
 def check(cond, msg):
     if not cond:
         fail(msg)
+
+
+def say(msg):
+    print(f"[{time.time() - T0:7.1f} s] {msg}", flush=True)
 
 
 def make_data(rows):
@@ -93,6 +105,13 @@ def graph_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def bound(nbytes, ops):
+    """(least ms on the card, what bounds it) for nbytes moved and ops f32
+    operations."""
+    tb, to = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
 def hist_excess(h, ref, mass, rtol, atol):
     """How far |h - ref| exceeds rtol*|ref| + atol*mass (<= 0 passes):
     f32 sums err in proportion to the bins' absolute mass, so the
@@ -136,6 +155,57 @@ def check_mega(sm, pb, pg, sc, B, G, what):
             "plain_vs_f64": float((eacc.double() - ref).abs().max()),
             "max_abs_bin": float(ref.abs().max()),
             "max_bin_mass": float(mass.max())}
+
+
+def check_partition(tpart, pb, pg, sc, what):
+    """Kernel vs plain on the card: bins, all 8 payload rows as words and
+    the left count bit-identical.  Returns the kernel's partitioned
+    buffers and left count, and the largest difference (0)."""
+    b, g = pb.clone(), pg.clone()
+    nl = tpart.partition_leaf(b, g, sc)
+    b0, g0 = pb.clone(), pg.clone()
+    enl = tpart.partition_leaf_plain(b0, g0, sc)
+    torch.cuda.synchronize()
+    check(int(nl) == int(enl), f"{what}: left count {int(nl)} vs {int(enl)}")
+    err = max(float((b.int() - b0.int()).abs().max()) if b.numel() else 0.0,
+              float((g.view(torch.int32).long()
+                     - g0.view(torch.int32).long()).abs().max()))
+    check(err == 0.0, f"{what}: bins or payload words differ by {err}")
+    return b, g, nl, err
+
+
+def check_leaf_hist(th, pb, pg, start, cnt, child, B, G, what):
+    """Kernel vs the f64 sums of leaf_hist_reference within rtol 1e-4 /
+    atol 1e-5 x bin mass; the plain version (f64 sums rounded once) within
+    the same bar; two kernel launches bit-identical."""
+    kw = dict(num_bins=B, num_groups=G, child=child)
+    runs = [th.leaf_hist(pb, pg, start, cnt, planes=True, **kw)
+            for _ in range(2)]
+    ref, mass = th.leaf_hist_reference(pb, pg, start, cnt, **kw)
+    plain = th.leaf_hist_plain(pb, pg, start, cnt, planes=True, **kw)
+    torch.cuda.synchronize()
+    for h in (runs[0], plain):
+        ex = hist_excess(h, ref, mass, 1e-4, 1e-5)
+        check(ex <= 0, f"{what}: histogram off the f64 sums by {ex}")
+    check(torch.equal(runs[0].view(torch.int32), runs[1].view(torch.int32)),
+          f"{what}: two launches differ")
+    return {"vs_plain": float((runs[0] - plain).abs().max()),
+            "kernel_vs_f64": float((runs[0].double() - ref).abs().max()),
+            "max_abs_bin": float(ref.abs().max()),
+            "max_bin_mass": float(mass.max())}
+
+
+def check_rmw(hs, state, small, idx, what):
+    """Kernel vs plain on the card: the state and both children
+    bit-identical.  Returns the largest difference (0)."""
+    st, st0 = state.clone(), state.clone()
+    ch = hs.hist_rmw(st, small, idx)
+    ch0 = hs.hist_rmw_plain(st0, small, idx)
+    torch.cuda.synchronize()
+    ok = (torch.equal(st.view(torch.int32), st0.view(torch.int32))
+          and torch.equal(ch.view(torch.int32), ch0.view(torch.int32)))
+    check(ok, f"{what}: state or children differ from the plain version")
+    return float((ch - ch0).abs().max())
 
 
 def near_ties(sp, args, kw):
@@ -182,7 +252,7 @@ def check_pair(sp, args, kw, what):
     return float(diff.nan_to_num(0.0).max())
 
 
-def profile_iteration(bst, plain_s):
+def profile_iteration(bst, plain_s, label):
     """One more boosting iteration under torch.profiler: device time by
     kernel, and the device's busy share of the profiled iteration's wall
     time and of ``plain_s``, an iteration's wall time without it."""
@@ -202,15 +272,94 @@ def profile_iteration(bst, plain_s):
             and getattr(e, "device_time_total", 0) > 0]
     busy = sum(ms for _, ms, _ in rows)
     if not rows:
-        print(f"profile: iteration {wall * 1e3:.1f} ms; device time not "
-              f"measured (the profiler saw no device events)")
+        print(f"profile {label}: iteration {wall * 1e3:.1f} ms; device "
+              f"time not measured (the profiler saw no device events)")
         return
-    print(f"profile: iteration {wall * 1e3:.1f} ms wall, device busy "
-          f"{busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%; "
+    print(f"profile {label}: iteration {wall * 1e3:.1f} ms wall, device "
+          f"busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%; "
           f"{100 * busy / (plain_s * 1e3):.1f}% of the "
           f"{plain_s * 1e3:.1f} ms median iteration without the profiler)")
-    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:12]:
+    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:14]:
         print(f"  {ms:9.3f} ms  x{n:<6d} {key[:90]}")
+
+
+def train_path(lgt, learner_mod, mods, ds, params, label, capture):
+    """Train ITERS iterations of one split path with every kernel's launch
+    count set to 0 just before and read just after.  ``capture`` maps a
+    name of learner_mod to a function that records a call's inputs; it
+    wraps that name during the first iteration only."""
+    bst = lgt.Booster(params=params, train_set=ds)
+    real = {name: getattr(learner_mod, name) for name in capture}
+
+    def wrap(name):
+        def call(*a, **k):
+            capture[name](*a, **k)
+            return real[name](*a, **k)
+        return call
+
+    for m in mods.values():
+        m.launches = 0
+    for name in capture:
+        setattr(learner_mod, name, wrap(name))
+    iter_s, losses, splits = [], [], 0
+    for it in range(ITERS):
+        t0 = time.time()
+        bst.update()
+        torch.cuda.synchronize()
+        iter_s.append(time.time() - t0)
+        splits += bst._gbdt.models[-1].num_leaves - 1
+        losses.append(bst.eval_train()[0][2])
+        if it == 0:
+            for name, fn in real.items():
+                setattr(learner_mod, name, fn)
+    launches = {k: m.launches for k, m in mods.items()}
+    say(f"train {label}: per-iteration s {[round(s, 3) for s in iter_s]}; "
+        f"splits {splits} over {ITERS} trees; launches {launches}; host "
+        f"syncs {bst._gbdt.learner.syncs}; binary_logloss {losses}")
+    check(all(a > b for a, b in zip(losses, losses[1:])),
+          f"{label}: training logloss does not fall: {losses}")
+    return bst, iter_s, losses, splits, launches
+
+
+def check_predict(lgt, bst, Xp, label):
+    t0 = time.time()
+    p1 = bst.predict(Xp, raw_score=True)
+    pred_s = time.time() - t0
+    check(p1.shape == (len(Xp),) and np.isfinite(p1).all(),
+          f"{label}: raw predictions not finite / wrong shape")
+    out_dir = os.path.join(ROOT, "build")
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        path = os.path.join(tmp, "model.txt")
+        bst.save_model(path)
+        p2 = lgt.Booster(model_file=path).predict(Xp, raw_score=True)
+    check(np.array_equal(p1, p2), f"{label}: reloaded predictions differ: "
+                                  f"max {np.abs(p1 - p2).max()}")
+    say(f"predict {label}: {len(Xp)} rows in {pred_s:.3f} s; save/reload "
+        f"equal")
+
+
+def card_vs_cpu(lgt, d, extra, label):
+    """The port on the card against the port on the CPU, small input:
+    identical trees, leaf values within rtol 1e-4 / atol 1e-5."""
+    small = dict({"objective": "binary", "num_leaves": 15, "verbosity": -1},
+                 **extra)
+    b_gpu = lgt.train(small, lgt.Dataset(d[:, 1:], label=d[:, 0]), 5)
+    b_cpu = lgt.train(dict(small, device_type="cpu"),
+                      lgt.Dataset(d[:, 1:], label=d[:, 0]), 5)
+    for a, b in zip(b_gpu._gbdt.models, b_cpu._gbdt.models):
+        check(a.split_feature.tolist() == b.split_feature.tolist()
+              and a.threshold_bin.tolist() == b.threshold_bin.tolist()
+              and a.left_child.tolist() == b.left_child.tolist(),
+              f"{label}: card and CPU trees differ on "
+              f"examples/binary_classification")
+        check(np.allclose(a.leaf_value, b.leaf_value, rtol=1e-4, atol=1e-5),
+              f"{label}: card and CPU leaf values differ")
+    err = float(np.abs(b_gpu.predict(d[:, 1:], raw_score=True)
+                       - b_cpu.predict(d[:, 1:], raw_score=True)).max())
+    check(err < 1e-5, f"{label}: card vs CPU raw predictions differ by {err}")
+    say(f"reference {label}: card vs CPU on binary.train, 5 trees "
+        f"identical, max raw err {err:.2e}")
 
 
 def main():
@@ -230,17 +379,22 @@ def main():
     sys.path.insert(0, ROOT)
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.models import learner as learner_mod
+    from lightgbm_tpu_torch.ops import hist_state as hs
+    from lightgbm_tpu_torch.ops import histogram as th
     from lightgbm_tpu_torch.ops import kernels
+    from lightgbm_tpu_torch.ops import partition as tpart
     from lightgbm_tpu_torch.ops import split_mega as sm
     from lightgbm_tpu_torch.ops import split_pair as sp
     from lightgbm_tpu_torch.ops.partition import (S_CNT, S_COL, decide_left,
                                                   make_scalars, scalars_start)
+    mods = {"split_mega": sm, "split_pair": sp, "partition": tpart,
+            "leaf_hist": th, "hist_rmw": hs}
 
     # ---- 2. build ----------------------------------------------------
     t0 = time.time()
     built = kernels.build_all()
-    print(f"build: {time.time() - t0:.2f} s wall, per kernel "
-          f"{ {k: round(v, 2) for k, v in built.items()} }", flush=True)
+    say(f"build: {time.time() - t0:.2f} s wall, per kernel "
+        f"{ {k: round(v, 2) for k, v in built.items()} }")
     for name, text in kernels.build_log.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -255,6 +409,8 @@ def main():
     pg = torch.as_tensor(rng.randn(8, n_pad).astype(np.float32), device=dev)
     pg[2] = torch.arange(n_pad, device=dev, dtype=torch.int32).view(
         torch.float32)
+    pg[5, ::7] = torch.tensor([NAN_WORD], dtype=torch.int32,
+                              device=dev).view(torch.float32)
     cases = {
         "cnt0": (5000, 0, 3, 0, 0, 255, 0, 0, 100, 0),
         "unaligned": (4096 + 77, 300_001, 5, 0, 0, 255, 0, 0, 128, 1),
@@ -265,9 +421,25 @@ def main():
         "bundled": (123, 33_333, 2, 10, 1, 60, 0, 1, 30, 0),
         "small": (4096 + 5, 700, 2, 0, 0, 255, 0, 0, 100, 0),
     }
-    for what, sc in cases.items():
-        check_mega(sm, pb, pg, make_scalars(*sc), B, G, f"split_mega {what}")
-    print(f"split_mega synthetic: {len(cases)} cases ok", flush=True)
+    for what, c in cases.items():
+        sc = make_scalars(*c)
+        check_mega(sm, pb, pg, sc, B, G, f"split_mega {what}")
+        b, g, nl, _ = check_partition(tpart, pb, pg, sc, f"partition {what}")
+        check_leaf_hist(th, pb, pg, c[0], c[1], None, B, G,
+                        f"leaf_hist {what}")
+        for side in (0, 1):
+            check_leaf_hist(th, b, g, c[0], c[1], (nl, side), B, G,
+                            f"leaf_hist {what} child {side}")
+    say(f"split_mega, partition, leaf_hist synthetic: {len(cases)} cases "
+        f"ok (leaf_hist on the whole range and on both children)")
+    state = torch.as_tensor(rng.randn(256, 2, G, 256).astype(np.float32) * 50,
+                            device=dev)
+    small = torch.as_tensor(rng.randn(2, G, 256).astype(np.float32),
+                            device=dev)
+    for idx in ((5, 5, 9, 1), (5, 5, 9, 0), (3, 255, 255, 1),
+                (3, 255, 255, 0), (0, 0, 1, 1)):
+        check_rmw(hs, state, small, idx, f"hist_rmw {idx}")
+    say("hist_rmw synthetic: 5 cases ok (wa == wb included)")
 
     F, BF = FEATURES, 255
     half = np.zeros((F, 8), np.int32)
@@ -293,105 +465,98 @@ def main():
         info[:F, 3], info[F:, 3] = 3.0, 4.0
         info[:, 4] = 1.0
         check_pair(sp, (hg, hh, fmeta, info), kw, f"split_pair synthetic {i}")
-    print("split_pair synthetic: ok", flush=True)
+    say("split_pair synthetic: ok")
+    del pb, pg, state, small
 
-    # ---- 4. the main path --------------------------------------------
+    # ---- 4. the main paths -------------------------------------------
     t0 = time.time()
     X, y = make_data(ROWS)
-    print(f"data: {X.shape} in {time.time() - t0:.1f} s", flush=True)
+    say(f"data: {X.shape} in {time.time() - t0:.1f} s")
     params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
               "learning_rate": 0.1, "verbosity": -1}
     t0 = time.time()
     ds = lgt.Dataset(X, label=y)
     ds.construct(params)
-    print(f"dataset construct: {time.time() - t0:.1f} s", flush=True)
-
-    captured = {"mega": [], "pair": []}
-    real_mega, real_pair = learner_mod.split_mega, learner_mod.split_pair
-
-    def capture_mega(pb_, pg_, *a, **k):
-        if len(captured["mega"]) < 3 and a[0][S_CNT] > 0 \
-                and k.get("move", True):
-            captured["mega"].append((pb_.clone(), pg_.clone(), a, k))
-        return real_mega(pb_, pg_, *a, **k)
-
-    def capture_pair(*a, **k):
-        if len(captured["pair"]) < 3:
-            captured["pair"].append(
-                (tuple(t.clone() for t in a), dict(k)))
-        return real_pair(*a, **k)
-
-    bst = lgt.Booster(params=params, train_set=ds)
-    lr = bst._gbdt.learner
-    sm.launches = 0
-    sp.launches = 0
-    learner_mod.split_mega, learner_mod.split_pair = capture_mega, capture_pair
-    iter_s, losses, splits = [], [], 0
-    for it in range(ITERS):
-        t0 = time.time()
-        bst.update()
-        torch.cuda.synchronize()
-        iter_s.append(time.time() - t0)
-        splits += bst._gbdt.models[-1].num_leaves - 1
-        losses.append(bst.eval_train()[0][2])
-        if it == 0:
-            learner_mod.split_mega, learner_mod.split_pair = (real_mega,
-                                                              real_pair)
-    launches = {"split_mega": sm.launches, "split_pair": sp.launches}
-    print(f"train: per-iteration s {[round(s, 3) for s in iter_s]}; "
-          f"splits {splits} over {ITERS} trees; launches {launches}; "
-          f"host syncs {lr.syncs}; binary_logloss {losses}", flush=True)
-    for k, v in launches.items():
-        check(v == splits + ITERS, f"{k}: {v} launches, expected one per "
-                                   f"split plus one per tree (root)")
-    check(all(a > b for a, b in zip(losses, losses[1:])),
-          f"training logloss does not fall: {losses}")
-
+    say(f"dataset construct: {time.time() - t0:.1f} s")
     Xp = X[:100_000]
-    t0 = time.time()
-    p1 = bst.predict(Xp, raw_score=True)
-    pred_s = time.time() - t0
-    check(p1.shape == (100_000,) and np.isfinite(p1).all(),
-          "raw predictions not finite / wrong shape")
-    out_dir = os.path.join(ROOT, "build")
-    os.makedirs(out_dir, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        path = os.path.join(tmp, "model.txt")
-        bst.save_model(path)
-        loaded = lgt.Booster(model_file=path)
-        p2 = loaded.predict(Xp, raw_score=True)
-    check(np.array_equal(p1, p2), f"reloaded predictions differ: max "
-                                  f"{np.abs(p1 - p2).max()}")
-    print(f"predict: 100000 rows in {pred_s:.3f} s; save/reload equal",
-          flush=True)
-
-    # the port on the card against the port on the CPU, small input
     d = np.loadtxt(os.path.join(ROOT, "examples", "binary_classification",
                                 "binary.train"))
-    small = {"objective": "binary", "num_leaves": 15, "verbosity": -1}
-    b_gpu = lgt.train(small, lgt.Dataset(d[:, 1:], label=d[:, 0]), 5)
-    b_cpu = lgt.train(dict(small, device_type="cpu"),
-                      lgt.Dataset(d[:, 1:], label=d[:, 0]), 5)
-    for a, b in zip(b_gpu._gbdt.models, b_cpu._gbdt.models):
-        check(a.split_feature.tolist() == b.split_feature.tolist()
-              and a.threshold_bin.tolist() == b.threshold_bin.tolist()
-              and a.left_child.tolist() == b.left_child.tolist(),
-              "card and CPU trees differ on examples/binary_classification")
-        check(np.allclose(a.leaf_value, b.leaf_value, rtol=1e-4, atol=1e-5),
-              "card and CPU leaf values differ")
-    ref_err = float(np.abs(b_gpu.predict(d[:, 1:], raw_score=True)
-                           - b_cpu.predict(d[:, 1:], raw_score=True)).max())
-    check(ref_err < 1e-5, f"card vs CPU raw predictions differ by {ref_err}")
-    print(f"reference: card vs CPU on binary.train, 5 trees identical, "
-          f"max raw err {ref_err:.2e}", flush=True)
+
+    cap = {"mega": [], "pair": [], "partition": [], "leaf_hist": [],
+           "rmw": [], "sub_pair": []}
+
+    def keep(key, n, item):
+        if len(cap[key]) < n:
+            cap[key].append(item())
+
+    def capture_mega(pb_, pg_, sc, **k):
+        if sc[S_CNT] > 0 and k.get("move", True):
+            keep("mega", 3, lambda: (pb_.clone(), pg_.clone(), sc, k))
+
+    def pair_capture(key):
+        def fn(*a, **k):
+            keep(key, 3, lambda: (tuple(t.clone() for t in a), dict(k)))
+        return fn
+
+    def capture_partition(pb_, pg_, sc):
+        keep("partition", 2, lambda: (pb_.clone(), pg_.clone(), sc))
+
+    def capture_leaf_hist(pb_, pg_, start, cnt, **k):
+        child = k.get("child")
+        k = dict(k, child=None if child is None
+                 else (child[0].clone(), child[1]))
+        keep("leaf_hist", 2, lambda: (pb_.clone(), pg_.clone(), start, cnt,
+                                      k))
+
+    def capture_rmw(state_, small_, idx):
+        keep("rmw", 2, lambda: (state_.clone(), small_.clone(), tuple(idx)))
+
+    # the mega path (the default)
+    bst, iter_s, losses_mega, splits, launches = train_path(
+        lgt, learner_mod, mods, ds, params, "mega",
+        {"split_mega": capture_mega, "split_pair": pair_capture("pair")})
+    for k in ("split_mega", "split_pair"):
+        check(launches[k] == splits + ITERS,
+              f"mega: {k}: {launches[k]} launches, expected one per split "
+              f"plus one per tree (root)")
+    for k in ("partition", "leaf_hist", "hist_rmw"):
+        check(launches[k] == 0, f"mega: {k} launched {launches[k]} times")
+    launches_by_path = {"mega": launches}
+    check_predict(lgt, bst, Xp, "mega")
+    profile_iteration(bst, float(np.median(iter_s[1:])), "mega")
+    card_vs_cpu(lgt, d, {}, "mega")
+    del bst
+
+    # the histogram-subtraction path, from the same Dataset
+    bst, iter_s, losses_sub, splits, launches = train_path(
+        lgt, learner_mod, mods, ds, dict(params, tpu_megakernel="off"),
+        "subtraction",
+        {"partition_leaf": capture_partition, "leaf_hist": capture_leaf_hist,
+         "hist_rmw": capture_rmw, "split_pair": pair_capture("sub_pair")})
+    check(bst._gbdt.learner.subtract, "tpu_megakernel=off did not select "
+                                      "the subtraction path")
+    for k, want in (("partition", splits), ("hist_rmw", splits),
+                    ("leaf_hist", splits + ITERS),
+                    ("split_pair", splits + ITERS), ("split_mega", 0)):
+        check(launches[k] == want, f"subtraction: {k}: {launches[k]} "
+                                   f"launches, expected {want}")
+    launches_by_path["subtraction"] = launches
+    print(f"binary_logloss per iteration: mega {losses_mega}, subtraction "
+          f"{losses_sub} (the two paths sum in other orders, so their trees "
+          f"are only numerically equal)", flush=True)
+    check_predict(lgt, bst, Xp, "subtraction")
+    profile_iteration(bst, float(np.median(iter_s[1:])), "subtraction")
+    card_vs_cpu(lgt, d, {"tpu_megakernel": "off"}, "subtraction")
+    del bst, X, y, ds
 
     # ---- 5. captured inputs and timings ------------------------------
-    check(captured["mega"] and captured["pair"], "nothing captured")
+    for key in cap:
+        check(cap[key], f"nothing captured for {key}")
     mega_err = 0.0
-    for i, (cpb, cpg, a, k) in enumerate(captured["mega"]):
-        errs = check_mega(sm, cpb, cpg, a[0], k["num_bins"], k["num_groups"],
+    for i, (cpb, cpg, sc, k) in enumerate(cap["mega"]):
+        errs = check_mega(sm, cpb, cpg, sc, k["num_bins"], k["num_groups"],
                           f"split_mega captured {i}")
-        print(f"  split_mega captured {i} ({a[0][S_CNT]} rows): max |err| "
+        print(f"  split_mega captured {i} ({sc[S_CNT]} rows): max |err| "
               f"kernel vs plain {errs['vs_plain']!r}, kernel vs f64 "
               f"{errs['kernel_vs_f64']!r}, plain vs f64 "
               f"{errs['plain_vs_f64']!r}; largest |bin sum| "
@@ -399,17 +564,38 @@ def main():
               f"{errs['max_bin_mass']!r}", flush=True)
         mega_err = max(mega_err, errs["vs_plain"])
     pair_err = 0.0
-    for i, (a, k) in enumerate(captured["pair"]):
-        pair_err = max(pair_err, check_pair(sp, a, k,
-                                            f"split_pair captured {i}"))
-    print("captured inputs: kernels agree with plain versions", flush=True)
+    for key in ("pair", "sub_pair"):
+        for i, (a, k) in enumerate(cap[key]):
+            pair_err = max(pair_err, check_pair(sp, a, k,
+                                                f"split_pair {key} {i}"))
+    part_err = 0.0
+    for i, (cpb, cpg, sc) in enumerate(cap["partition"]):
+        part_err = max(part_err, check_partition(
+            tpart, cpb, cpg, sc, f"partition captured {i}")[3])
+    lh_err = 0.0
+    for i, (cpb, cpg, start, cnt, k) in enumerate(cap["leaf_hist"]):
+        errs = check_leaf_hist(th, cpb, cpg, start, cnt, k["child"],
+                               k["num_bins"], k["num_groups"],
+                               f"leaf_hist captured {i}")
+        print(f"  leaf_hist captured {i} (range of {cnt} rows, child "
+              f"{None if k['child'] is None else k['child'][1]}): max |err| "
+              f"kernel vs plain {errs['vs_plain']!r}, kernel vs f64 "
+              f"{errs['kernel_vs_f64']!r}; largest |bin sum| "
+              f"{errs['max_abs_bin']!r}, largest bin mass "
+              f"{errs['max_bin_mass']!r}", flush=True)
+        lh_err = max(lh_err, errs["vs_plain"])
+    rmw_err = 0.0
+    for i, (cst, csm, idx) in enumerate(cap["rmw"]):
+        rmw_err = max(rmw_err, check_rmw(hs, cst, csm, idx,
+                                         f"hist_rmw captured {i}"))
+    say("captured inputs: kernels agree with plain versions")
 
     # split_mega at the first split of the first tree (the root's rows)
-    cpb, cpg, a, k = captured["mega"][0]
-    sc = a[0]
+    cpb, cpg, sc, k = cap["mega"][0]
     cnt, R = sc[S_CNT], cpb.shape[0]
-    hist_bytes = k["num_groups"] * 4 * 256 * 4
-    mega_bytes = 2 * cnt * (R + 32) + hist_bytes
+    Gk = k["num_groups"]
+    hist_bytes = Gk * 4 * 256 * 4
+    mega_bound, mega_by = bound(2 * cnt * (R + 32) + hist_bytes, 2 * cnt * Gk)
     b, g = cpb.clone(), cpg.clone()
     mega_ms = cuda_ms(lambda: sm.split_mega(b, g, sc, **k), 10)
     b, g = cpb.clone(), cpg.clone()
@@ -419,57 +605,127 @@ def main():
     # bin) indices (prepared outside the timing) is printed as a
     # yardstick for the histogram half alone
     s0 = scalars_start(sc)
-    seg = cpb[:k["num_groups"], s0:s0 + cnt].long()
+    seg = cpb[:Gk, s0:s0 + cnt].long()
     gl = decide_left(cpb[sc[S_COL], s0:s0 + cnt], *sc[S_COL + 1:])
     Bp = 256
-    idx = (seg + (torch.arange(seg.shape[0], device=dev) * 4 * Bp)[:, None]
+    idx = (seg + (torch.arange(Gk, device=dev) * 4 * Bp)[:, None]
            + torch.where(gl, 0, 2 * Bp)[None, :]).reshape(-1)
     idx = torch.cat([idx, idx + Bp])
-    vals = torch.cat([cpg[0, s0:s0 + cnt].expand(seg.shape[0], -1).reshape(-1),
-                      cpg[1, s0:s0 + cnt].expand(seg.shape[0], -1).reshape(-1)])
-    hist = torch.zeros(seg.shape[0] * 4 * Bp, device=dev)
+    vals = torch.cat([cpg[0, s0:s0 + cnt].expand(Gk, -1).reshape(-1),
+                      cpg[1, s0:s0 + cnt].expand(Gk, -1).reshape(-1)])
+    hist = torch.zeros(Gk * 4 * Bp, device=dev)
     mega_lib_ms = cuda_ms(lambda: hist.index_add_(0, idx, vals), 5)
-    del seg, idx, vals
+    del seg, idx, vals, b, g
+    say(f"split_mega @ {cnt} rows x {R} groups: {mega_ms:.3f} ms, plain "
+        f"{mega_plain_ms:.3f} ms, bound {mega_bound:.3f} ms ({mega_by}); "
+        f"no single PyTorch call computes the split, library_ms null; "
+        f"index_add_ of the histogram half alone {mega_lib_ms:.3f} ms")
+    cap["mega"].clear()
 
-    pa, pk = captured["pair"][1]
+    # partition at the first split of the first subtraction tree
+    cpb, cpg, sc = cap["partition"][0]
+    cnt, R = sc[S_CNT], cpb.shape[0]
+    part_bound, part_by = bound(2 * cnt * (R + 32), cnt)
+    b, g = cpb.clone(), cpg.clone()
+    part_ms = cuda_ms(lambda: tpart.partition_leaf(b, g, sc), 10)
+    b, g = cpb.clone(), cpg.clone()
+    part_plain_ms = cuda_ms(lambda: tpart.partition_leaf_plain(b, g, sc), 3,
+                            1)
+    del b, g
+    say(f"partition @ {cnt} rows x {R} groups + 8 payload rows: "
+        f"{part_ms:.3f} ms, plain {part_plain_ms:.3f} ms, bound "
+        f"{part_bound:.3f} ms ({part_by}); no single PyTorch call "
+        f"partitions in place, library_ms null")
+    cap["partition"].clear()
+
+    # leaf_hist at the root of the first subtraction tree, and at its
+    # first smaller child
+    lh_ms = {}
+    for i, (cpb, cpg, start, cnt, k) in enumerate(cap["leaf_hist"]):
+        lh_ms[i] = cuda_ms(lambda: th.leaf_hist(cpb, cpg, start, cnt, **k),
+                           10)
+    cpb, cpg, start, cnt, k = cap["leaf_hist"][0]
+    check(k["child"] is None and cnt == ROWS, "first leaf_hist call is not "
+                                              "the root's")
+    Gk = k["num_groups"]
+    _, Bp = sm.hist_geometry(k["num_bins"])
+    lh_bound, lh_by = bound(cnt * (Gk + 8) + 2 * Gk * Bp * 4, 2 * cnt * Gk)
+    lh_plain_ms = cuda_ms(lambda: th.leaf_hist_plain(cpb, cpg, start, cnt,
+                                                     **k), 3, 1)
+    # library yardstick: one index_add_ over precomputed (plane, group,
+    # bin) indices, prepared outside the timing
+    seg = cpb[:Gk, start:start + cnt].long()
+    idx = (seg + (torch.arange(Gk, device=dev) * Bp)[:, None]).reshape(-1)
+    idx = torch.cat([idx, idx + Gk * Bp])
+    vals = torch.cat([cpg[0, start:start + cnt].expand(Gk, -1).reshape(-1),
+                      cpg[1, start:start + cnt].expand(Gk, -1).reshape(-1)])
+    hist = torch.zeros(2 * Gk * Bp, device=dev)
+    lh_lib_ms = cuda_ms(lambda: hist.index_add_(0, idx, vals), 5)
+    del seg, idx, vals
+    c1 = cap["leaf_hist"][1]
+    say(f"leaf_hist @ root, {cnt} rows x {Gk} groups: {lh_ms[0]:.3f} ms, "
+        f"plain {lh_plain_ms:.3f} ms, bound {lh_bound:.3f} ms ({lh_by}), "
+        f"index_add_ {lh_lib_ms:.3f} ms; at the first split's smaller child "
+        f"(grid for the parent's {c1[3]} rows): {lh_ms[1]:.3f} ms")
+    cap["leaf_hist"].clear()
+
+    # hist_rmw at the first split of the first subtraction tree
+    cst, csm, idx = cap["rmw"][0]
+    slot = csm.numel() * 4
+    rmw_bound, rmw_by = bound(6 * slot, csm.numel())
+    st = cst.clone()
+    rmw_ms = graph_ms(lambda: hs.hist_rmw(st, csm, idx), 200)
+    rmw_py_ms = cuda_ms(lambda: hs.hist_rmw(st, csm, idx), 200)
+    rmw_plain_ms = cuda_ms(lambda: hs.hist_rmw_plain(st, csm, idx), 50)
+    sub_ms = graph_ms(lambda: torch.sub(st[idx[0]], csm), 200)
+    say(f"hist_rmw @ slot {tuple(csm.shape)}: {rmw_ms:.4f} ms (graph "
+        f"replay; {rmw_py_ms:.4f} ms a call launched from Python), plain "
+        f"{rmw_plain_ms:.4f} ms, bound {rmw_bound:.6f} ms ({rmw_by}); no "
+        f"single PyTorch call updates the state, library_ms null; "
+        f"torch.sub of the two slots alone {sub_ms:.4f} ms (graph replay)")
+
+    pa, pk = cap["pair"][1]
     pair_ms = graph_ms(lambda: sp.split_pair(*pa, **pk), 200)
     pair_py_ms = cuda_ms(lambda: sp.split_pair(*pa, **pk), 200)
     pair_plain_ms = cuda_ms(lambda: sp.split_pair_plain(*pa, **pk), 5)
     F2, BFp = pa[0].shape
-    pair_bytes = 2 * F2 * BFp * 4 + 2 * F2 * 8 * 4 + 2 * 13 * 4
-    pair_ops = F2 * BFp * 60          # masks, scans and two gains per bin
-    pair_bound = max(pair_bytes / PEAK_BYTES_S, pair_ops / PEAK_F32_S) * 1e3
-    pair_by = ("bytes" if pair_bytes / PEAK_BYTES_S
-               >= pair_ops / PEAK_F32_S else "operations")
-    mega_ops = 2 * cnt * k["num_groups"]    # one grad and one hess add
-    mega_by = ("bytes" if mega_bytes / PEAK_BYTES_S
-               >= mega_ops / PEAK_F32_S else "operations")
-    mega_bound = max(mega_bytes / PEAK_BYTES_S, mega_ops / PEAK_F32_S) * 1e3
-    print(f"split_mega @ {cnt} rows x {R} groups: {mega_ms:.3f} ms, plain "
-          f"{mega_plain_ms:.3f} ms, bound {mega_bound:.3f} ms ({mega_by}); "
-          f"no single PyTorch call computes the split, library_ms null; "
-          f"index_add_ of the histogram half alone {mega_lib_ms:.3f} ms",
-          flush=True)
-    print(f"split_pair @ ({F2}, {BFp}): {pair_ms:.4f} ms (graph replay; "
-          f"{pair_py_ms:.4f} ms a call launched from Python), plain "
-          f"{pair_plain_ms:.3f} ms, bound {pair_bound:.6f} ms ({pair_by}); "
-          f"no single PyTorch call computes the pair search, library_ms "
-          f"null", flush=True)
-    profile_iteration(bst, float(np.median(iter_s[1:])))
+    pair_bound, pair_by = bound(
+        2 * F2 * BFp * 4 + 2 * F2 * 8 * 4 + 2 * 13 * 4,
+        F2 * BFp * 60)        # masks, scans and two gains per bin
+    say(f"split_pair @ ({F2}, {BFp}): {pair_ms:.4f} ms (graph replay; "
+        f"{pair_py_ms:.4f} ms a call launched from Python), plain "
+        f"{pair_plain_ms:.3f} ms, bound {pair_bound:.6f} ms ({pair_by}); "
+        f"no single PyTorch call computes the pair search, library_ms "
+        f"null")
+
+    def total(name):
+        return sum(v[name] for v in launches_by_path.values())
+
+    def row(name, source, replaces, err, ms, plain_ms, bnd, by, lib):
+        return {"name": name, "route": "cuda",
+                "source": f"lightgbm_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": total(name),
+                "launches_by_path": {p: v[name] for p, v in
+                                     launches_by_path.items()},
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd, "bound_by": by, "library_ms": lib}
+
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": [
-        {"name": "split_mega", "route": "cuda",
-         "source": "lightgbm_tpu_torch/csrc/split_mega.cu",
-         "replaces": "lightgbm_tpu/ops/split_megakernel_pallas.py:202",
-         "launches": launches["split_mega"], "max_abs_err": mega_err,
-         "ms": mega_ms, "plain_ms": mega_plain_ms, "bound_ms": mega_bound,
-         "bound_by": mega_by, "library_ms": None},
-        {"name": "split_pair", "route": "cuda",
-         "source": "lightgbm_tpu_torch/csrc/split_pair.cu",
-         "replaces": "lightgbm_tpu/ops/split_pallas.py:61",
-         "launches": launches["split_pair"], "max_abs_err": pair_err,
-         "ms": pair_ms, "plain_ms": pair_plain_ms, "bound_ms": pair_bound,
-         "bound_by": pair_by, "library_ms": None},
+        row("split_mega", "split_mega.cu",
+            "lightgbm_tpu/ops/split_megakernel_pallas.py:202", mega_err,
+            mega_ms, mega_plain_ms, mega_bound, mega_by, None),
+        row("split_pair", "split_pair.cu",
+            "lightgbm_tpu/ops/split_pallas.py:61", pair_err, pair_ms,
+            pair_plain_ms, pair_bound, pair_by, None),
+        row("partition", "partition.cu",
+            "lightgbm_tpu/ops/partition_pallas.py:258", part_err, part_ms,
+            part_plain_ms, part_bound, part_by, None),
+        row("leaf_hist", "leaf_hist.cu", "lightgbm_tpu/ops/histogram.py:204",
+            lh_err, lh_ms[0], lh_plain_ms, lh_bound, lh_by, lh_lib_ms),
+        row("hist_rmw", "hist_rmw.cu",
+            "lightgbm_tpu/ops/hist_state_pallas.py:48", rmw_err, rmw_ms,
+            rmw_plain_ms, rmw_bound, rmw_by, None),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -417,17 +417,30 @@ _PARAMS: List[_Param] = [
     _p("gpu_use_dp", False, bool),
     _p("num_gpu", 1, int, (), ">0"),
     # --- TPU-specific (new in this framework) ---
+    # On the GPU (lightgbm_tpu_torch) each knob below keeps its name so one
+    # params dict trains in both packages; the comment's last line says
+    # what it means here.  Values the port has no path for raise
+    # NotImplementedError (_UNSUPPORTED).
     _p("tpu_hist_dtype", "float32", str),       # float32 | bfloat16_pair
+    # GPU: float32 only; the histograms sum f32 grad/hess.
     _p("tpu_hist_kernel", "xla", str),          # xla | pallas
+    # GPU: xla and pallas both run the hand-written leaf-histogram
+    # kernel csrc/leaf_hist.cu on the tpu_megakernel=off path (the mega
+    # path builds its histograms inside csrc/split_mega.cu).
     # per-leaf histogram state: "auto" = lane-flattened state updated in
     # place by the Pallas RMW kernel (ops/hist_state_pallas.py) when the
     # fast serial path is active; "xla" = (L+1, G, B, 2) dynamic-slice
     # state (the fallback and the A/B baseline)
+    # GPU: auto and xla both run csrc/hist_rmw.cu on a (leaves, 2, G, Bp)
+    # state on the tpu_megakernel=off path.
     _p("tpu_hist_state", "auto", str),
     # measurement-only: duplicate one component inside the compiled tree
     # loop with a runtime-opaque select so tools/ab_bench.py can read its
     # IN-CONTEXT cost as the paired e2e delta ("" | "hist" | "search")
+    # GPU: not supported ("" only).
     _p("tpu_ab_double", "", str),
+    # GPU: pallas only -- the hand-written partition (csrc/partition.cu,
+    # or the one inside csrc/split_mega.cu on the mega path).
     _p("tpu_partition_kernel", "pallas", str),  # pallas | xla
     # split mega-kernel: partition + BOTH children's histograms in one
     # Pallas program per split (ops/split_megakernel_pallas.py) — no
@@ -436,6 +449,10 @@ _PARAMS: List[_Param] = [
     # on TPU and falls back to the current split path; "pallas" forces
     # the attempt; "xla" runs the same math as plain XLA ops (the
     # correctness oracle, any backend); "off" disables
+    # GPU: auto and pallas run csrc/split_mega.cu per split; off runs the
+    # histogram-subtraction path (csrc/partition.cu, csrc/leaf_hist.cu for
+    # the smaller child, csrc/hist_rmw.cu for parent minus smaller); xla
+    # is not supported.
     _p("tpu_megakernel", "auto", str),
     # frontier-batched tree growth: grow the top-K gain leaves of the
     # current frontier per while-loop step instead of 1, amortizing the
@@ -447,13 +464,17 @@ _PARAMS: List[_Param] = [
     # any backend (falls back to 1 with a warning when forced splits,
     # monotone constraints, CEGB, extra_trees, feature_fraction_bynode,
     # interaction constraints or a parallel tree learner are active)
+    # GPU: auto and 1 grow one leaf per step; other values are not
+    # supported yet.
     _p("tpu_frontier_k", "auto", str),
     # radix-4 compaction network in the partition/mega kernels: half the
     # roll-network steps of the binary network (bit-identical layouts;
     # an instruction-budget lever — see PERF.md round 6)
+    # GPU: no effect; the card's partition has no roll network.
     _p("tpu_compact_radix", False, bool),
     # run the Pallas kernels through the interpreter on any backend
     # (testing/debug: enables the kernel paths off-TPU; SLOW)
+    # GPU: no effect; device_type=cpu runs the kernels' plain versions.
     _p("tpu_kernel_interpret", False, bool),
     # rows per partition/histogram chunk; 4096 measured best end-to-end
     # on v5e (round 3: fixed cost 15.9 -> 12.1 ms/iter vs 8192 at equal
@@ -461,6 +482,8 @@ _PARAMS: List[_Param] = [
     # BENCH_history.jsonl trajectory for a same-fingerprint chunk-sweep
     # winner before falling back to 4096 (ops/chunkpolicy.py); also the
     # SEED of the leaf-size-adaptive menu below
+    # GPU: sets only the row padding of the (G, N_pad) buffers; the
+    # kernels pick their own tiles.
     _p("tpu_row_chunk", "4096", str),
     # leaf-size-adaptive chunk policy (ops/chunkpolicy.py): per-leaf
     # histogram/partition passes pick their chunk width from a bounded
@@ -470,12 +493,15 @@ _PARAMS: List[_Param] = [
     # "auto" = adaptive in the small-leaf regime (or per a measured
     # same-fingerprint chunk-sweep verdict) on the plain XLA serial
     # path; "fixed" = the base grid everywhere; "adaptive" = force on
+    # GPU: no effect; the histogram kernels size their chunks per leaf.
     _p("tpu_chunk_policy", "auto", str),
     # ride the rowid row inside the spare packed-bin bytes when G <= G32-4
     # (one fewer payload sublane through the partition roll networks)
+    # GPU: no effect; the partition moves all 8 payload rows as words.
     _p("tpu_pack_rowid", False, bool),
     # disable the fused single-program iteration (A/B + debugging; the
     # eager per-stage dispatch path is the fallback)
+    # GPU: True only; the port has the fused physical-order iteration.
     _p("tpu_fused_iteration", True, bool),
     # data-parallel histogram sync: "scatter" = ReduceScatter ownership
     # (psum_scatter + per-device feature ownership + winner election),
@@ -483,7 +509,10 @@ _PARAMS: List[_Param] = [
     # (data_parallel_tree_learner.cpp:282-296) — each histogram element
     # crosses the wire once instead of ndev times; "psum" = full-hist
     # allreduce (the round-4 behavior)
+    # GPU: no effect; the port has the serial learner only.
     _p("tpu_data_hist_sync", "scatter", str),
+    # GPU: tpu_feature_block, tpu_min_bucket_log2 and tpu_donate_state
+    # have no effect (TPU blocking, bucketing and XLA buffer donation).
     _p("tpu_feature_block", 64, int, (), ">0"),  # feature groups per histogram block
     _p("tpu_min_bucket_log2", 10, int, (), ">=0"),  # smallest partition bucket
     _p("tpu_donate_state", True, bool),
@@ -654,10 +683,13 @@ _UNSUPPORTED = [
     ("tpu_frontier_k", lambda c: str(c.tpu_frontier_k).strip().lower()
      not in ("auto", "", "1")),
     ("tpu_megakernel", lambda c: str(c.tpu_megakernel).strip().lower()
-     not in ("auto", "pallas", "")),
+     not in ("auto", "pallas", "", "off")),
     ("tpu_partition_kernel",
      lambda c: str(c.tpu_partition_kernel).lower() != "pallas"),
-    ("tpu_hist_kernel", lambda c: str(c.tpu_hist_kernel).lower() != "xla"),
+    ("tpu_hist_kernel", lambda c: str(c.tpu_hist_kernel).lower()
+     not in ("xla", "pallas")),
+    ("tpu_hist_state", lambda c: str(c.tpu_hist_state).lower()
+     not in ("auto", "xla")),
     ("tpu_hist_dtype", lambda c: str(c.tpu_hist_dtype).lower() != "float32"),
     ("tpu_ab_double", lambda c: not _off(c.tpu_ab_double)),
     ("tpu_fused_iteration", lambda c: not bool(c.tpu_fused_iteration)),

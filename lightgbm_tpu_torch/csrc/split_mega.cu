@@ -30,12 +30,9 @@
 //                     with no float atomics.  Cost: one shuffle-free
 //                     shared-memory staging round per 32 rows.
 //   mega_hist_reduce  sums the per-chunk partials in chunk order.
-//   mega_count        left count per 2048-row tile.
-//   mega_scan         one block: exclusive scan of the tile counts; the
-//                     total is the left count.
-//   mega_scatter      per tile, a ballot scan of the decisions gives
-//                     each row its stable destination in a scratch copy.
-//   mega_copy         copies the scratch back over the leaf range.
+//   then the partition phases of csrc/partition.cuh (tile counts, one-
+//   block scan, ballot-scan scatter to scratch, copy-back), shared with
+//   csrc/partition.cu.
 // The row reads of mega_hist are repeated for each group block of a
 // chunk; blockIdx.x runs over groups so those blocks run together and
 // the repeated payload reads hit L2.
@@ -48,10 +45,6 @@
 #define HIST_WARPS 8
 #define HIST_THREADS (HIST_WARPS * 32)
 #define MAX_BP 256
-#define TILE_THREADS 256
-#define TILE_ROWS 2048
-#define GHI_ROWS 8
-#define SCAN_THREADS 1024
 
 __global__ void mega_hist(const uint8_t* __restrict__ bins, long long Np,
                           const float* __restrict__ ghi, long long start,
@@ -119,109 +112,6 @@ __global__ void mega_hist_reduce(const float* __restrict__ partials,
   hist[i] = s;
 }
 
-__global__ void mega_count(const uint8_t* __restrict__ bins, long long Np,
-                           long long start, int cnt, SplitDecision d,
-                           int* __restrict__ tile_cnt) {
-  __shared__ int wsum[TILE_THREADS / 32];
-  const long long base = (long long)blockIdx.x * TILE_ROWS;
-  const uint8_t* crow = bins + (long long)d.col * Np + start;
-  int c = 0;
-  for (int p = 0; p < TILE_ROWS; p += TILE_THREADS) {
-    const long long i = base + p + threadIdx.x;
-    if (i < cnt) c += decide_left(crow[i], d);
-  }
-  c = __reduce_add_sync(0xffffffffu, c);
-  if ((threadIdx.x & 31) == 0) wsum[threadIdx.x >> 5] = c;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int s = 0;
-    for (int k = 0; k < TILE_THREADS / 32; ++k) s += wsum[k];
-    tile_cnt[blockIdx.x] = s;
-  }
-}
-
-__global__ void mega_scan(int* __restrict__ tile_cnt, int ntiles,
-                          int* __restrict__ nl_out) {
-  __shared__ int sums[SCAN_THREADS];
-  const int t = threadIdx.x;
-  const int per = (ntiles + SCAN_THREADS - 1) / SCAN_THREADS;
-  const int lo = min(ntiles, t * per);
-  const int hi = min(ntiles, lo + per);
-  int local = 0;
-  for (int j = lo; j < hi; ++j) local += tile_cnt[j];
-  sums[t] = local;
-  __syncthreads();
-  for (int off = 1; off < SCAN_THREADS; off <<= 1) {
-    const int v = t >= off ? sums[t - off] : 0;
-    __syncthreads();
-    sums[t] += v;
-    __syncthreads();
-  }
-  int run = sums[t] - local;
-  for (int j = lo; j < hi; ++j) {
-    const int v = tile_cnt[j];
-    tile_cnt[j] = run;
-    run += v;
-  }
-  if (t == SCAN_THREADS - 1) nl_out[0] = sums[t];
-}
-
-__global__ void mega_scatter(const uint8_t* __restrict__ bins,
-                             const uint32_t* __restrict__ ghi, long long Np,
-                             int R, long long start, int cnt, SplitDecision d,
-                             const int* __restrict__ tile_loff,
-                             const int* __restrict__ nl_ptr,
-                             uint8_t* __restrict__ sbins,
-                             uint32_t* __restrict__ sghi, long long scap) {
-  __shared__ int warp_l[TILE_THREADS / 32];
-  const long long base = (long long)blockIdx.x * TILE_ROWS;
-  const long long nl = *nl_ptr;
-  long long lbefore = tile_loff[blockIdx.x];
-  const uint8_t* crow = bins + (long long)d.col * Np + start;
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  for (int p = 0; p < TILE_ROWS; p += TILE_THREADS) {
-    const long long i = base + p + threadIdx.x;
-    const bool active = i < cnt;
-    const int left = active ? decide_left(crow[i], d) : 0;
-    const unsigned bal = __ballot_sync(0xffffffffu, left);
-    if (lane == 0) warp_l[w] = __popc(bal);
-    __syncthreads();
-    int woff = 0, ptotal = 0;
-    for (int k = 0; k < TILE_THREADS / 32; ++k) {
-      if (k < w) woff += warp_l[k];
-      ptotal += warp_l[k];
-    }
-    if (active) {
-      const long long L = lbefore + woff + __popc(bal & ((1u << lane) - 1u));
-      const long long dest = left ? L : nl + (i - L);
-      const long long src = start + i;
-      for (int r = 0; r < R; ++r) sbins[r * scap + dest] = bins[r * Np + src];
-      for (int k = 0; k < GHI_ROWS; ++k)
-        sghi[k * scap + dest] = ghi[k * Np + src];
-    }
-    lbefore += ptotal;
-    __syncthreads();
-  }
-}
-
-__global__ void mega_copy(uint8_t* __restrict__ bins,
-                          uint32_t* __restrict__ ghi, long long Np, int R,
-                          long long start, int cnt,
-                          const uint8_t* __restrict__ sbins,
-                          const uint32_t* __restrict__ sghi, long long scap) {
-  const int row = blockIdx.y;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < cnt; i += (long long)gridDim.x * blockDim.x) {
-    if (row < R)
-      bins[row * Np + start + i] = sbins[row * scap + i];
-    else
-      ghi[(row - R) * Np + start + i] = sghi[(row - R) * scap + i];
-  }
-}
-
-__global__ void mega_set_count(int* nl_out, int v) { nl_out[0] = v; }
-
 extern "C" int split_mega_launch(
     uint8_t* bins, int R, long long Np, uint32_t* ghi, float* partials,
     int chunk_rows, int nchunks, int* tile_cnt, int ntiles, int* nl_out,
@@ -235,7 +125,7 @@ extern "C" int split_mega_launch(
     return (int)cudaErrorInvalidValue;
   if (cnt == 0) {
     cudaMemsetAsync(hist, 0, sizeof(float) * 4 * (size_t)G * Bp, s);
-    mega_set_count<<<1, 1, 0, s>>>(nl_out, 0);
+    part_set_count<<<1, 1, 0, s>>>(nl_out, 0);
     return (int)cudaGetLastError();
   }
   const SplitDecision d{col, bstart, isb, nb, dbin, mtype, thr, dl};
@@ -246,17 +136,10 @@ extern "C" int split_mega_launch(
   mega_hist_reduce<<<(n + 255) / 256, 256, 0, s>>>(partials, nchunks, n,
                                                    hist);
   if (!move) {
-    mega_set_count<<<1, 1, 0, s>>>(nl_out, cnt);
+    part_set_count<<<1, 1, 0, s>>>(nl_out, cnt);
     return (int)cudaGetLastError();
   }
-  mega_count<<<ntiles, TILE_THREADS, 0, s>>>(bins, Np, start, cnt, d,
-                                             tile_cnt);
-  mega_scan<<<1, SCAN_THREADS, 0, s>>>(tile_cnt, ntiles, nl_out);
-  mega_scatter<<<ntiles, TILE_THREADS, 0, s>>>(bins, ghi, Np, R, start, cnt,
-                                               d, tile_cnt, nl_out, sbins,
-                                               sghi, scap);
-  const int cblocks = min((cnt + 255) / 256, 4096);
-  mega_copy<<<dim3(cblocks, R + GHI_ROWS), 256, 0, s>>>(
-      bins, ghi, Np, R, start, cnt, sbins, sghi, scap);
+  partition_phases(bins, ghi, R, Np, start, cnt, d, tile_cnt, ntiles, nl_out,
+                   sbins, sghi, scap, s);
   return (int)cudaGetLastError();
 }

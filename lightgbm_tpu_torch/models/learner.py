@@ -1,20 +1,34 @@
-"""Leaf-wise tree learner of the slice: the serial K=1 mega-kernel path.
+"""Leaf-wise tree learner of the port: the serial K=1 learner with two
+split bodies.
 
-Port of the main path of lightgbm_tpu/models/learner.py
-(``SerialTreeLearner._build_tree_impl`` with ``tpu_megakernel`` on,
-the Pallas pair search, ``tpu_frontier_k=1``) for all-numerical uint8
-data without EFB bundles.
+Port of the K=1 path of lightgbm_tpu/models/learner.py
+(``SerialTreeLearner._build_tree_impl`` with the Pallas pair search,
+``tpu_frontier_k=1``) for all-numerical uint8 data without EFB bundles.
 
 Rows are physically partitioned by leaf, as in the JAX learner: the
 (G, N_pad) uint8 bin matrix and the (8, N_pad) f32 payload (grad, hess,
 row-id bits, score, objective rows) are reordered together on every
-split, so each leaf is one contiguous row range.  Every split runs the
-two kernels of the slice:
+split, so each leaf is one contiguous row range.  The body is chosen at
+construction from ``tpu_megakernel``:
 
-  * ``ops/split_mega.py:split_mega`` partitions the chosen leaf and, from
-    the same decision, builds both children's histograms;
-  * ``ops/split_pair.py:split_pair`` finds both children's best splits
-    and returns their packed leafmat segments.
+  * the mega path (``auto`` / ``pallas``, the default): per split,
+    ``ops/split_mega.py:split_mega`` partitions the chosen leaf and,
+    from the same decision, builds both children's histograms.  The
+    root's histogram is a ``split_mega`` call with an all-left decision
+    that moves no rows.
+  * the histogram-subtraction path (``off``; JAX learner.py:2282-2344):
+    the learner keeps one histogram slot per leaf
+    (``ops/hist_state.py``).  The root's histogram is
+    ``ops/histogram.py:leaf_hist`` over all rows, into slot 0.  Per
+    split, ``ops/partition.py:partition_leaf`` partitions the leaf,
+    ``leaf_hist`` builds the smaller child's histogram only -- the
+    child with the smaller bag-aware count (``LM_BLCNT <= LM_BRCNT``,
+    ties left), its rows read on the device from the partition's left
+    count -- and ``ops/hist_state.py:hist_rmw`` derives the larger
+    child as parent minus smaller and writes both slots.
+
+Both then run ``ops/split_pair.py:split_pair``, which finds both
+children's best splits and returns their packed leafmat segments.
 
 The JAX learner runs the whole tree inside one jitted while-loop.  This
 port runs an eager Python loop over splits: the packed per-leaf and
@@ -22,9 +36,8 @@ per-node matrices (``leafmat`` (NLF, L+1) and ``nodemat`` (NND, nodes+1),
 int fields bitcast into f32 with ``_i2f`` / ``_f2i``) live on the host,
 and each split costs one device-to-host copy of its 27 result words
 (the left count and the two 13-field rows) -- the host sync the
-learner counts in ``syncs``.  The root's histogram is a ``split_mega``
-call with an all-left decision that moves no rows, and the root's best
-split is a ``split_pair`` call on the root histogram.
+learner counts in ``syncs``.  The root's best split is a
+``split_pair`` call on (root, root).
 """
 
 from __future__ import annotations
@@ -36,7 +49,10 @@ import torch
 
 from ..config import Config, DEFAULT_ROW_CHUNK, parse_row_chunk
 from ..dataset import BinnedDataset
-from ..ops.partition import make_scalars
+from ..ops.hist_state import hist_rmw, new_state
+from ..ops.histogram import leaf_hist
+from ..ops.partition import (S_CNT, make_scalars, partition_leaf,
+                             scalars_start)
 from ..ops.split_mega import split_mega, unpack_hist4
 from ..ops.split_pair import split_pair
 
@@ -97,7 +113,6 @@ class SerialTreeLearner:
         self.G = max(dataset.num_groups, 1)
         self.B = max(dataset.max_group_bins, 2)
         self.F = len(meta["feature"])
-        self.BF = int(meta["num_bin"].max()) if self.F else 2
         self.L = config.num_leaves
         self.max_splits = self.L - 1
         self.N = dataset.num_data
@@ -140,6 +155,10 @@ class SerialTreeLearner:
         self.min_sum_hessian = float(config.min_sum_hessian_in_leaf)
         self.max_depth = int(config.max_depth)
         self.syncs = 0          # device-to-host round trips, all trees
+        # the histogram-subtraction body keeps one histogram slot per leaf
+        self.subtract = str(config.tpu_megakernel).strip().lower() == "off"
+        self.state = (new_state(self.L, self.G, self.B, self.device)
+                      if self.subtract else None)
 
     # ------------------------------------------------------------------
     def _search(self, hg, hh, info):
@@ -165,12 +184,50 @@ class SerialTreeLearner:
             info[rows, 4] = 1.0
         return torch.as_tensor(info, device=self.device)
 
+    def _root_hist(self, part_bins, part_ghi):
+        """The root's (G, Bp) grad and hess histogram planes."""
+        G, B = self.G, self.B
+        if self.subtract:
+            planes = leaf_hist(part_bins, part_ghi, self.row0, self.N,
+                               num_bins=B, num_groups=G, planes=True)
+            self.state[0] = planes
+            return planes[0], planes[1]
+        # an all-left mega call that moves no rows
+        _, acc = split_mega(part_bins, part_ghi,
+                            make_scalars(self.row0, self.N, 0, 0, 0, B, 0,
+                                         0, 255, 0),
+                            num_bins=B, num_groups=G, move=False)
+        hl_g, hl_h, _, _ = unpack_hist4(acc, B)
+        return hl_g, hl_h
+
+    def _split(self, part_bins, part_ghi, scalars, leaf: int, new_leaf: int,
+               small_is_left: bool):
+        """Partition ``leaf`` (its left child keeps the slot, the right
+        child takes ``new_leaf``); returns the (1,) left count on the
+        device and the children's (2G, Bp) grad and hess histograms, the
+        left child's rows first (the pair search masks every bin past a
+        feature's num_bin)."""
+        G, B = self.G, self.B
+        if self.subtract:
+            nl = partition_leaf(part_bins, part_ghi, scalars)
+            small = leaf_hist(part_bins, part_ghi, scalars_start(scalars),
+                              scalars[S_CNT], num_bins=B, num_groups=G,
+                              child=(nl, 0 if small_is_left else 1),
+                              planes=True)
+            ch = hist_rmw(self.state, small,
+                          (leaf, leaf, new_leaf, int(small_is_left)))
+            return nl, ch[0].reshape(2 * G, -1), ch[1].reshape(2 * G, -1)
+        nl, acc = split_mega(part_bins, part_ghi, scalars, num_bins=B,
+                             num_groups=G)
+        hl_g, hl_h, hr_g, hr_h = unpack_hist4(acc, B)
+        return nl, torch.cat([hl_g, hr_g]), torch.cat([hl_h, hr_h])
+
     def build_tree(self, part_bins: torch.Tensor, part_ghi: torch.Tensor,
                    bag_cnt: int) -> Dict[str, Any]:
         """Grow one tree over the payload in ``part_ghi`` (rows 0/1 hold
         this iteration's grad/hess), partitioning both buffers in place.
         Returns the host record of ``_unpack_state``."""
-        L, F, BF, B, G = self.L, self.F, self.BF, self.B, self.G
+        L, F = self.L, self.F
         nodes = self.max_splits
         lm = np.zeros((NLF, L + 1), np.float32)
         lm[LM_BGAIN] = NEG_INF
@@ -179,21 +236,16 @@ class SerialTreeLearner:
         lm.view(np.int32)[[LM_PARENT, LM_FORCED]] = -1
         nm = np.zeros((NND, nodes + 1), np.float32)
 
-        # root: histogram from an all-left, no-move mega call, best split
-        # from a pair search over (root, root)
-        _, acc = split_mega(part_bins, part_ghi,
-                            make_scalars(self.row0, self.N, 0, 0, 0, B, 0,
-                                         0, 255, 0),
-                            num_bins=B, num_groups=G, move=False)
-        hl_g, hl_h, _, _ = unpack_hist4(acc, B)
-        sum_g = hl_g[0].sum()
-        sum_h = hl_h[0].sum()
+        # root: its histogram, then the best split from a pair search
+        # over (root, root)
+        hg, hh = self._root_hist(part_bins, part_ghi)
+        sum_g = hg[0].sum()
+        sum_h = hh[0].sum()
         if F:
             info = self._info([(0, 0, bag_cnt, 0)] * 2)
             info[:, 0] = sum_g
             info[:, 1] = sum_h
-            tile = self._search(torch.cat([hl_g[:, :BF], hl_g[:, :BF]]),
-                                torch.cat([hl_h[:, :BF], hl_h[:, :BF]]),
+            tile = self._search(torch.cat([hg, hg]), torch.cat([hh, hh]),
                                 info)[0]
         else:
             tile = torch.full((13,), NEG_INF, device=self.device)
@@ -220,12 +272,13 @@ class SerialTreeLearner:
             start = int(_f2i(pcol[LM_START]))
             cnt = int(_f2i(pcol[LM_CNT]))
             cnt_g = int(_f2i(pcol[LM_CNT_G]))
-            nl, acc = split_mega(part_bins, part_ghi,
-                                 make_scalars(start, cnt, col, bstart, isb,
-                                              nb, dbin, mtype, thr, dl),
-                                 num_bins=B, num_groups=G)
             left_cnt_g = int(_f2i(pcol[LM_BLCNT]))
             right_cnt_g = int(_f2i(pcol[LM_BRCNT]))
+            nl, hg, hh = self._split(
+                part_bins, part_ghi,
+                make_scalars(start, cnt, col, bstart, isb, nb, dbin, mtype,
+                             thr, dl),
+                best_leaf, new_leaf, left_cnt_g <= right_cnt_g)
             lsg, lsh = pcol[LM_BLSG], pcol[LM_BLSH]
             rsg, rsh = pcol[LM_BRSG], pcol[LM_BRSH]
             lout, rout = pcol[LM_BLOUT], pcol[LM_BROUT]
@@ -247,12 +300,9 @@ class SerialTreeLearner:
                 side = int(_f2i(pcol[LM_PSIDE]))
                 nm.view(np.int32)[ND_LEFT if side == 0 else ND_RIGHT, p] = s
 
-            hl_g, hl_h, hr_g, hr_h = unpack_hist4(acc, B)
             tile = self._search(
-                torch.cat([hl_g[:, :BF], hr_g[:, :BF]]),
-                torch.cat([hl_h[:, :BF], hr_h[:, :BF]]),
-                self._info([(lsg, lsh, left_cnt_g, depth_child),
-                            (rsg, rsh, right_cnt_g, depth_child)]))
+                hg, hh, self._info([(lsg, lsh, left_cnt_g, depth_child),
+                                    (rsg, rsh, right_cnt_g, depth_child)]))
             host = torch.cat([nl.view(torch.float32), tile.reshape(-1)]).cpu()
             self.syncs += 1
             host = host.numpy()

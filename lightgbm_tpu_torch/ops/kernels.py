@@ -28,7 +28,8 @@ from typing import Dict, Iterable, Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-KERNELS = ("split_pair", "split_mega")
+KERNELS = ("split_pair", "split_mega", "partition", "leaf_hist",
+           "hist_rmw")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -92,13 +93,15 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel, built first if needed."""
+    """The loaded library of one kernel.  The first use of a kernel whose
+    library is missing builds every kernel of ``KERNELS`` that is missing,
+    all together."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             path = _lib_path(name)
             if not os.path.exists(path):
-                build_all([name])
+                build_all()
             lib = ctypes.CDLL(path)
             _libs[name] = lib
         return lib

@@ -5,8 +5,8 @@ Counterpart of the TPU kernel ``split_megakernel_pallas``
 (lightgbm_tpu/ops/split_megakernel_pallas.py).  ``split_mega``
 dispatches on the device of its inputs: CPU tensors run
 ``split_mega_plain`` (plain PyTorch: the ``both_children_hist_xla``
-histogram math plus the stable partition of
-``models/learner.py:_partition_leaf``), CUDA tensors launch the
+histogram math plus ``ops/partition.py:partition_leaf_plain``), CUDA
+tensors launch the
 hand-written kernel ``csrc/split_mega.cu`` or raise.
 
 Buffers (partitioned IN PLACE):
@@ -33,10 +33,9 @@ import ctypes
 import torch
 
 from . import kernels
-from .partition import S_CNT, S_COL, decide_left, scalars_start
+from .partition import (GHI_ROWS, S_CNT, S_COL, TILE_ROWS, leaf_decisions,
+                        partition_leaf_plain, scalars_start)
 
-GHI_ROWS = 8
-TILE_ROWS = 2048            # rows per partition tile (csrc TILE_ROWS)
 MIN_CHUNK_ROWS = 4096       # rows per histogram block, at least
 MAX_CHUNKS = 128            # histogram chunks per leaf, at most
 
@@ -66,13 +65,6 @@ def hist_chunks(cnt: int):
     return chunk, max(1, -(-cnt // chunk))
 
 
-def _leaf(part_bins, scalars):
-    """(start, cnt, the leaf's split-column bins, goes-left flags)."""
-    start, cnt = scalars_start(scalars), scalars[S_CNT]
-    colv = part_bins[scalars[S_COL], start:start + cnt]
-    return start, cnt, decide_left(colv, *scalars[S_COL + 1:])
-
-
 def _hist_add(hist, bins, gl, g, h, Bp: int) -> None:
     """Add the rows' grad/hess into the flat (G, 4, Bp) histogram."""
     G, cnt = bins.shape
@@ -91,7 +83,7 @@ def hist_reference(part_bins, part_ghi, scalars, *, num_bins: int,
     any f32 order of summation errs in proportion to the mass."""
     G = num_groups
     BH, Bp = hist_geometry(num_bins)
-    start, cnt, gl = _leaf(part_bins, scalars)
+    start, cnt, gl = leaf_decisions(part_bins, scalars)
     seg = part_bins[:G, start:start + cnt]
     g = part_ghi[0, start:start + cnt].double()
     h = part_ghi[1, start:start + cnt].double()
@@ -109,21 +101,18 @@ def split_mega_plain(part_bins, part_ghi, scalars, *, num_bins: int,
     BH, Bp = hist_geometry(num_bins)
     dev = part_bins.device
     hist = torch.zeros(G * 4 * Bp, dtype=torch.float32, device=dev)
-    start, cnt, gl = _leaf(part_bins, scalars)
+    start, cnt, gl = leaf_decisions(part_bins, scalars)
     if cnt == 0:
         return (torch.zeros(1, dtype=torch.int32, device=dev),
                 hist.view(G, 4 * BH, 16))
     s, e = start, start + cnt
-    seg = part_bins[:, s:e]
-    _hist_add(hist, seg[:G], gl, part_ghi[0, s:e], part_ghi[1, s:e], Bp)
+    _hist_add(hist, part_bins[:G, s:e], gl, part_ghi[0, s:e],
+              part_ghi[1, s:e], Bp)
     if not move:
         return (torch.full((1,), cnt, dtype=torch.int32, device=dev),
                 hist.view(G, 4 * BH, 16))
-    order = torch.cat([torch.nonzero(gl)[:, 0], torch.nonzero(~gl)[:, 0]])
-    part_bins[:, s:e] = seg[:, order]
-    words = part_ghi.view(torch.int32)
-    words[:, s:e] = words[:, s:e][:, order]
-    return gl.sum().to(torch.int32).reshape(1), hist.view(G, 4 * BH, 16)
+    return (partition_leaf_plain(part_bins, part_ghi, scalars),
+            hist.view(G, 4 * BH, 16))
 
 
 def split_mega(part_bins, part_ghi, scalars, *, num_bins: int,

@@ -86,7 +86,8 @@ def test_cuda_request_without_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("mod", ["ops/kernels.py", "ops/split_pair.py",
-                                 "ops/split_mega.py"])
+                                 "ops/split_mega.py", "ops/partition.py",
+                                 "ops/histogram.py", "ops/hist_state.py"])
 def test_kernel_wrappers_have_no_fallback(mod):
     """No try/except in the build and launch paths: a kernel that does not
     build or launch raises to the caller."""

@@ -13,13 +13,20 @@ bit-identical and two launches are bit-identical.  Its f32 histogram is
 held to the f64 sums within rtol 1e-4 + 1e-5 x each bin's absolute mass
 (the sum of |grad| or |hess| over the bin's rows: f32 rounding grows
 with it), and to the plain version's f32 sums within rtol 1e-4 + 1e-4 x
-mass, the plain version's own rounding included.
+mass, the plain version's own rounding included.  The partition and
+hist_rmw kernels are bit-identical to their plain versions (words moved;
+one f32 subtraction).  leaf_hist's f32 sums are held to the f64 sums of
+leaf_hist_reference within rtol 1e-4 + 1e-5 x mass, and two launches
+are bit-identical.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from lightgbm_tpu_torch.ops import hist_state as hs
+from lightgbm_tpu_torch.ops import histogram as th
+from lightgbm_tpu_torch.ops import partition as tpart
 from lightgbm_tpu_torch.ops import split_mega as sm
 from lightgbm_tpu_torch.ops.partition import make_scalars
 from lightgbm_tpu_torch.ops import split_pair as sp
@@ -123,3 +130,97 @@ def test_wrappers_raise_on_bad_arguments(card):
         sm.split_mega(pb, torch.zeros((8, 8192), device=card),
                       make_scalars(8000, 500, 0, 0, 0, 255, 0, 0, 1, 0),
                       num_bins=255, num_groups=28)
+
+
+PART_CASES = {
+    "cnt0": (5000, 0, 3, 0, 0, 255, 0, 0, 100, 0),
+    "unaligned": (4096 + 77, 300_001, 5, 0, 0, 255, 0, 0, 128, 1),
+    "all_left": (4096, 50_000, 1, 0, 0, 255, 0, 0, 255, 0),
+    "all_right": (4096, 50_000, 1, 0, 0, 255, 0, 0, -1, 0),
+    "zero_missing": (9000, 70_000, 7, 0, 0, 255, 40, 1, 90, 1),
+    "nan_missing": (9000, 70_000, 8, 0, 0, 255, 0, 2, 200, 1),
+    "bundled": (123, 33_333, 2, 10, 1, 60, 0, 1, 30, 0),
+}
+
+
+def _row_buffers(seed, G=28, n_pad=1 << 19):
+    rng = np.random.RandomState(seed)
+    pb = torch.as_tensor(rng.randint(0, 255, (G, n_pad)).astype(np.uint8))
+    pg = torch.as_tensor(rng.randn(8, n_pad).astype(np.float32))
+    pg[1] = pg[1].abs()
+    pg[2] = torch.arange(n_pad, dtype=torch.int32).view(torch.float32)
+    pg[5, ::7] = torch.tensor([0x7FC00001], dtype=torch.int32).view(
+        torch.float32)
+    return pb, pg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PART_CASES))
+def test_partition_kernel_bit_identical_to_plain(card, case):
+    pb, pg = _row_buffers(1)
+    sc = make_scalars(*PART_CASES[case])
+    b, g = pb.to(card), pg.to(card)
+    nl = tpart.partition_leaf(b, g, sc)
+    b0, g0 = pb.clone(), pg.clone()
+    enl = tpart.partition_leaf_plain(b0, g0, sc)
+    assert int(nl) == int(enl)
+    assert torch.equal(b.cpu(), b0)
+    assert torch.equal(g.cpu().view(torch.int32), g0.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PART_CASES))
+def test_leaf_hist_kernel_matches_f64(card, case):
+    """The whole range, then each child of the partition, read from the
+    left count on the card."""
+    G, B = 28, 255
+    pb, pg = _row_buffers(2)
+    start, cnt = PART_CASES[case][:2]
+    b, g = pb.to(card), pg.to(card)
+    kw = dict(num_bins=B, num_groups=G)
+    calls = [dict()]
+    nl = tpart.partition_leaf(b, g, make_scalars(*PART_CASES[case]))
+    calls += [dict(child=(nl, 0)), dict(child=(nl, 1))]
+    for extra in calls:
+        runs = [th.leaf_hist(b, g, start, cnt, planes=True, **kw, **extra)
+                for _ in range(2)]
+        host = {k: (v if k != "child" else (v[0].cpu(), v[1]))
+                for k, v in extra.items()}
+        ref, mass = th.leaf_hist_reference(b.cpu(), g.cpu(), start, cnt,
+                                           **kw, **host)
+        got = runs[0].cpu().double()
+        assert bool(((got - ref).abs() <= 1e-4 * ref.abs()
+                     + 1e-5 * mass).all())
+        assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx", [(2, 2, 4, 1), (2, 2, 4, 0), (0, 7, 7, 1)])
+def test_hist_rmw_kernel_bit_identical_to_plain(card, idx):
+    rng = np.random.RandomState(sum(idx))
+    state = torch.as_tensor(rng.randn(8, 2, 28, 256).astype(np.float32))
+    small = torch.as_tensor(rng.randn(2, 28, 256).astype(np.float32))
+    st = state.to(card)
+    got = hs.hist_rmw(st, small.to(card), idx)
+    want = hs.hist_rmw_plain(state, small, idx)
+    assert torch.equal(st.cpu().view(torch.int32), state.view(torch.int32))
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_new_wrappers_raise_on_bad_arguments(card):
+    pb = torch.zeros((28, 8192), dtype=torch.uint8, device=card)
+    pg = torch.zeros((8, 8192), device=card)
+    with pytest.raises(ValueError):
+        tpart.partition_leaf(pb, pg, make_scalars(8000, 500, 0, 0, 0, 255,
+                                                  0, 0, 1, 0))
+    with pytest.raises(ValueError):
+        th.leaf_hist(pb, pg, 0, 100, num_bins=255, num_groups=29)
+    with pytest.raises(ValueError):
+        th.leaf_hist(pb, pg, 0, 100, num_bins=255, num_groups=28,
+                     child=(torch.zeros(1, dtype=torch.int64, device=card),
+                            0))
+    state = torch.zeros((4, 2, 28, 256), device=card)
+    with pytest.raises(ValueError):
+        hs.hist_rmw(state, torch.zeros((2, 28, 256), device=card),
+                    (0, 4, 1, 1))

@@ -1,6 +1,12 @@
-"""The slice end to end: ``lightgbm_tpu_torch.train`` on the CPU against
-``lightgbm_tpu.train`` with the mega path in its XLA form
-(``tpu_megakernel=xla``, ``tpu_frontier_k=1``) on the repo's examples.
+"""The port end to end: ``lightgbm_tpu_torch.train`` on the CPU against
+``lightgbm_tpu.train`` on the repo's examples, for both split bodies of
+the learner:
+
+  * ``pair``: the port's mega path against the JAX mega path in its XLA
+    form (``tpu_megakernel=xla``, ``tpu_frontier_k=1``);
+  * ``sub_pair``: the port's histogram-subtraction path
+    (``tpu_megakernel=off``) against the JAX package's
+    (``tpu_megakernel=off``, ``tpu_frontier_k=1``).
 
 Tolerances: bin mappers, the binned matrix and tree structure (split
 features, bin and real thresholds, children, decision types, leaf
@@ -40,17 +46,33 @@ CASES = {
 }
 
 
-@pytest.fixture(scope="module", params=sorted(CASES))
-def pair(request):
-    rel, params = CASES[request.param]
+def _train_both(case, jax_mega, min_data_in_leaf, **port):
+    rel, params = CASES[case]
     X, y = _load(rel)
-    params = dict(params, verbosity=-1, min_data_in_leaf=10)
-    jb = lgb.train(dict(params, tpu_megakernel="xla", tpu_frontier_k=1),
+    params = dict(params, verbosity=-1, min_data_in_leaf=min_data_in_leaf)
+    jb = lgb.train(dict(params, tpu_megakernel=jax_mega, tpu_frontier_k=1),
                    lgb.Dataset(X, label=y), num_boost_round=ROUNDS)
     jb.num_trees()                        # materialize lagged trees
-    tb = lgt.train(dict(params, device_type="cpu"), lgt.Dataset(X, label=y),
-                   num_boost_round=ROUNDS)
+    tb = lgt.train(dict(params, device_type="cpu", **port),
+                   lgt.Dataset(X, label=y), num_boost_round=ROUNDS)
     return X, y, params, jb, tb
+
+
+@pytest.fixture(scope="module", params=sorted(CASES))
+def pair(request):
+    return _train_both(request.param, "xla", 10)
+
+
+# The subtraction chain carries each package's own f32 rounding down the
+# tree, and leaves a rounding residue in bins that are empty in exact
+# arithmetic.  Two thresholds around such a bin split the rows the same
+# way with exactly equal gains, and the residues decide which one each
+# package takes: with min_data_in_leaf 10 or 20 this happens at the last
+# split of one of the five regression trees (ROADMAP.md C).  At 5 none
+# of the trees meets such a tie.
+@pytest.fixture(scope="module", params=sorted(CASES))
+def sub_pair(request):
+    return _train_both(request.param, "off", 5, tpu_megakernel="off")
 
 
 def test_bins_bit_identical(pair):
@@ -74,6 +96,15 @@ def _structure(t):
 
 
 def test_tree_structure_identical(pair):
+    _check_structure(pair)
+
+
+def test_subtraction_tree_structure_identical(sub_pair):
+    assert sub_pair[4]._gbdt.learner.subtract
+    _check_structure(sub_pair)
+
+
+def _check_structure(pair):
     _, _, _, jb, tb = pair
     jt, tt = jb._gbdt.models, tb._gbdt.models
     assert len(jt) == len(tt) == ROUNDS
@@ -83,6 +114,14 @@ def test_tree_structure_identical(pair):
 
 
 def test_leaf_values_close(pair):
+    _check_leaf_values(pair)
+
+
+def test_subtraction_leaf_values_close(sub_pair):
+    _check_leaf_values(sub_pair)
+
+
+def _check_leaf_values(pair):
     _, _, _, jb, tb = pair
     for a, b in zip(jb._gbdt.models, tb._gbdt.models):
         np.testing.assert_allclose(b.leaf_value, a.leaf_value,
@@ -92,6 +131,14 @@ def test_leaf_values_close(pair):
 
 
 def test_raw_predictions_close(pair):
+    _check_predictions(pair)
+
+
+def test_subtraction_raw_predictions_close(sub_pair):
+    _check_predictions(sub_pair)
+
+
+def _check_predictions(pair):
     X, _, _, jb, tb = pair
     np.testing.assert_allclose(tb.predict(X, raw_score=True),
                                jb.predict(X, raw_score=True),
@@ -102,6 +149,14 @@ def test_raw_predictions_close(pair):
 
 
 def test_model_text_cross_loads(pair, tmp_path):
+    _check_model_text(pair, tmp_path)
+
+
+def test_subtraction_model_text_cross_loads(sub_pair, tmp_path):
+    _check_model_text(sub_pair, tmp_path)
+
+
+def _check_model_text(pair, tmp_path):
     X, _, _, jb, tb = pair
     path = tmp_path / "port_model.txt"
     tb.save_model(str(path))
@@ -154,6 +209,14 @@ def test_train_metrics_match_jax(pair):
     """binary_logloss / auc and l2 / rmse of the trained scores: the same
     metrics, in the same order, within rtol 1e-5 (the scores agree to
     atol 1e-5; the loss sums run in f32 in both packages)."""
+    _check_metrics(pair)
+
+
+def test_subtraction_train_metrics_match_jax(sub_pair):
+    _check_metrics(sub_pair)
+
+
+def _check_metrics(pair):
     _, _, _, jb, tb = pair
     je, te = jb.eval_train(), tb.eval_train()
     assert [e[1] for e in te] == [e[1] for e in je]
@@ -188,7 +251,8 @@ def test_dataset_from_jax_arrays_trains_the_same_trees(pair):
     ("bagging_fraction", 0.5), ("feature_fraction", 0.5),
     ("objective", "multiclass"), ("tpu_frontier_k", 4),
     ("linear_tree", True), ("tree_learner", "data"),
-    ("tpu_hist_kernel", "pallas")])
+    ("tpu_megakernel", "xla"), ("tpu_hist_dtype", "bfloat16_pair"),
+    ("tpu_hist_state", "flat")])
 def test_unsupported_param_raises_naming_it(param, value):
     X, y = _load(CASES["binary"][0])
     params = {"objective": "binary", "device_type": "cpu", param: value,
@@ -221,3 +285,33 @@ def test_weights_and_init_score_match_jax():
     np.testing.assert_allclose(tb.predict(X, raw_score=True),
                                jb.predict(X, raw_score=True), rtol=0,
                                atol=1e-5)
+
+
+def test_subtraction_path_calls_each_kernel_once_per_split(monkeypatch):
+    """Per tree: partition and hist_rmw once per split, leaf_hist and
+    split_pair once per split plus once for the root, split_mega never;
+    one host sync per split plus one for the root."""
+    from lightgbm_tpu_torch.models import learner as lm
+    calls = dict.fromkeys(["partition_leaf", "leaf_hist", "hist_rmw",
+                           "split_pair", "split_mega"], 0)
+    for name in calls:
+        real = getattr(lm, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            calls[_name] += 1
+            return _real(*a, **k)
+        monkeypatch.setattr(lm, name, counted)
+    X, y = _load(CASES["binary"][0])
+    for kernel in ("xla", "pallas"):
+        for k in calls:
+            calls[k] = 0
+        b = lgt.train({"objective": "binary", "num_leaves": 15,
+                       "verbosity": -1, "device_type": "cpu",
+                       "tpu_megakernel": "off", "tpu_hist_kernel": kernel},
+                      lgt.Dataset(X, label=y), num_boost_round=2)
+        splits = sum(t.num_leaves - 1 for t in b._gbdt.models)
+        assert splits == 28
+        assert calls == {"partition_leaf": splits, "hist_rmw": splits,
+                         "leaf_hist": splits + 2, "split_pair": splits + 2,
+                         "split_mega": 0}
+        assert b._gbdt.learner.syncs == splits + 2

@@ -6,7 +6,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   1. the card's name and power limit, torch and CUDA versions;
   2. build the CUDA kernels from csrc/ (one nvcc per source, together);
   3. each kernel against its plain PyTorch version on synthetic inputs,
-     edge cases included;
+     edge cases included, and split_mega and the partition on the cases
+     their tile-compacted partition and fixed-point histogram risk most
+     (start at every offset mod 16, counts around one tile, one row, a
+     leaf ending at N_pad, one bin, |grad| ~ 1e4) and over 20 launches;
   4. train the HIGGS shape (10.5M x 28, seed 7, as bench.py makes it;
      binary, num_leaves=255, max_bin=255) for a few iterations through
      lightgbm_tpu_torch on the card, on each of the learner's two split
@@ -15,8 +18,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      leaf_hist + hist_rmw + split_pair) -- from one constructed Dataset,
      with every kernel's launch count reset just before each path and
      read just after; then, for each path, predict 100k rows, save,
-     reload and predict again, profile one more iteration, and train
-     the port on the card against the port on the CPU on
+     reload and predict again, profile one more iteration (each
+     kernel's device time and launches beside its per-iteration bound,
+     from the profiled tree's split counts), and train the port on the
+     card against the port on the CPU on
      examples/binary_classification;
   5. each kernel against its plain version on inputs captured from the
      first tree of its path, and its time at those shapes beside the
@@ -121,37 +126,41 @@ def hist_excess(h, ref, mass, rtol, atol):
     return float((err - rtol * ref.abs() - atol * mass).max())
 
 
-def check_mega(sm, pb, pg, sc, B, G, what):
+def check_mega(sm, pb, pg, sc, B, G, what, absmax=None, runs=2):
     """Kernel vs plain on the card: the partition (bins, payload words,
-    left count) bit-identical; the kernel's histogram within rtol 1e-4 /
-    atol 1e-5 x bin mass of the f64 sums, and within rtol 1e-4 / atol
-    1e-4 x bin mass of the plain version's f32 sums (whose own rounding
-    grows with the rows per bin); two kernel launches bit-identical."""
-    runs = []
-    for _ in range(2):
+    left count) bit-identical to the plain version; the kernel's
+    fixed-point histogram bit-identical to hist_fixed_plain (integer sums
+    are exact in any order), within rtol 1e-4 / atol 1e-5 x bin mass of
+    the f64 sums, and within rtol 1e-4 / atol 1e-4 x bin mass of the
+    plain version's f32 sums (whose own rounding grows with the rows per
+    bin); ``runs`` kernel launches bit-identical."""
+    outs = []
+    for _ in range(runs):
         b, g = pb.clone(), pg.clone()
-        nl, acc = sm.split_mega(b, g, sc, num_bins=B, num_groups=G)
-        runs.append((b, g, nl, acc))
+        nl, acc = sm.split_mega(b, g, sc, num_bins=B, num_groups=G,
+                                absmax=absmax)
+        outs.append((b, g, nl, acc))
     b0, g0 = pb.clone(), pg.clone()
     ref, mass = sm.hist_reference(b0, g0, sc, num_bins=B, num_groups=G)
+    fixed = sm.hist_fixed_plain(b0, g0, sc, num_bins=B, num_groups=G,
+                                absmax=absmax)
     enl, eacc = sm.split_mega_plain(b0, g0, sc, num_bins=B, num_groups=G)
     torch.cuda.synchronize()
-    for b, g, nl, acc in runs:
+    for b, g, nl, acc in outs:
         check(int(nl) == int(enl), f"{what}: left count {int(nl)} vs "
                                    f"{int(enl)}")
         check(torch.equal(b, b0), f"{what}: bins differ")
         check(torch.equal(g.view(torch.int32), g0.view(torch.int32)),
               f"{what}: payload differs")
+        check(torch.equal(acc.view(torch.int32), fixed.view(torch.int32)),
+              f"{what}: histogram differs from hist_fixed_plain")
         ex = hist_excess(acc, ref, mass, 1e-4, 1e-5)
         check(ex <= 0, f"{what}: histogram off the f64 sums by {ex}")
         ex = hist_excess(acc, eacc, mass, 1e-4, 1e-4)
         check(ex <= 0, f"{what}: histogram off the plain version by {ex}")
-    check(torch.equal(runs[0][3].view(torch.int32),
-                      runs[1][3].view(torch.int32)),
-          f"{what}: two launches differ")
     ref = ref.to(torch.float64)
-    return {"vs_plain": float((runs[0][3] - eacc).abs().max()),
-            "kernel_vs_f64": float((runs[0][3].double() - ref).abs().max()),
+    return {"vs_plain": float((outs[0][3] - eacc).abs().max()),
+            "kernel_vs_f64": float((outs[0][3].double() - ref).abs().max()),
             "plain_vs_f64": float((eacc.double() - ref).abs().max()),
             "max_abs_bin": float(ref.abs().max()),
             "max_bin_mass": float(mass.max())}
@@ -172,6 +181,41 @@ def check_partition(tpart, pb, pg, sc, what):
                      - g0.view(torch.int32).long()).abs().max()))
     check(err == 0.0, f"{what}: bins or payload words differ by {err}")
     return b, g, nl, err
+
+
+def risk_cases(T, n_pad):
+    """Scalars (start, cnt, col, bstart, isb, nb, dbin, mtype, thr, dl)
+    and buffer variant of the cases that the tile-compacted partition and
+    the fixed-point histogram are most likely to get wrong."""
+    def c(start, cnt, thr=120):
+        return (start, cnt, 5, 0, 0, 255, 0, 0, thr, 1)
+    out = {f"offset {o}": (c(4096 + o, 5000), None) for o in range(16)}
+    for d in (-1, 0, 1):
+        out[f"tile{d:+d}"] = (c(4096, T + d), None)
+        out[f"unaligned tile{d:+d}"] = (c(4096 + 9, T + d), None)
+    out["one row"] = (c(4096 + 7, 1), None)
+    out["ends at N_pad"] = (c(n_pad - 3005, 3005), None)
+    out["one bin"] = (c(4096 + 1, 300_000), "one_bin")
+    out["all left, |grad| ~ 1e4"] = (c(4096 + 2, 300_000, 255), "scale")
+    out["all right, |grad| ~ 1e4"] = (c(4096 + 2, 300_000, -1), "scale")
+    out["|grad| ~ 1e4"] = (c(4096 + 2, 300_000), "scale")
+    return out
+
+
+def variant_buffers(variant, pb, pg):
+    """The synthetic buffers, or a variant: every group but the split
+    column in one bin (the most colliding adds), or grad and hess at
+    regression scale (|grad| ~ 1e4)."""
+    if variant == "one_bin":
+        vb = torch.full_like(pb, 7)
+        vb[5] = pb[5]
+        return vb, pg
+    if variant == "scale":
+        vg = pg.clone()
+        vg[:2] *= 1e4
+        vg[1].abs_()
+        return pb, vg
+    return pb, pg
 
 
 def check_leaf_hist(th, pb, pg, start, cnt, child, B, G, what):
@@ -252,10 +296,26 @@ def check_pair(sp, args, kw, what):
     return float(diff.nan_to_num(0.0).max())
 
 
+# device functions of each port kernel, per split path (the partition's
+# functions run inside split_mega on the mega path)
+KERNEL_FUNCS = {
+    "mega": {"mega_hist": "split_mega", "part_tiles": "split_mega",
+             "part_copyback": "split_mega", "part_set_count": "split_mega",
+             "pair_rows": "split_pair", "pair_final": "split_pair"},
+    "subtraction": {"part_tiles": "partition", "part_copyback": "partition",
+                    "part_set_count": "partition", "lh_rows": "leaf_hist",
+                    "lh_reduce": "leaf_hist", "rmw_pass": "hist_rmw",
+                    "pair_rows": "split_pair", "pair_final": "split_pair"},
+}
+
+
 def profile_iteration(bst, plain_s, label):
     """One more boosting iteration under torch.profiler: device time by
-    kernel, and the device's busy share of the profiled iteration's wall
-    time and of ``plain_s``, an iteration's wall time without it."""
+    device function, and the device's busy share of the profiled
+    iteration's wall time and of ``plain_s``, an iteration's wall time
+    without it.  Returns {port kernel: (device ms, device launches)} of
+    the iteration (KERNEL_FUNCS), or None when the profiler saw no device
+    events."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -274,13 +334,65 @@ def profile_iteration(bst, plain_s, label):
     if not rows:
         print(f"profile {label}: iteration {wall * 1e3:.1f} ms; device "
               f"time not measured (the profiler saw no device events)")
-        return
+        return None
     print(f"profile {label}: iteration {wall * 1e3:.1f} ms wall, device "
           f"busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%; "
           f"{100 * busy / (plain_s * 1e3):.1f}% of the "
           f"{plain_s * 1e3:.1f} ms median iteration without the profiler)")
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:14]:
         print(f"  {ms:9.3f} ms  x{n:<6d} {key[:90]}")
+    per = {}
+    for key, ms, n in rows:
+        fn = key.split("(")[0].split()[-1]
+        kernel = KERNEL_FUNCS[label].get(fn)
+        if kernel:
+            t, c = per.get(kernel, (0.0, 0))
+            per[kernel] = (t + ms, c + n)
+    return per
+
+
+def iteration_bounds(tree, label, G, R, Bp, N, pair_bytes):
+    """Per-iteration bound (ms) of each port kernel on one path: the sum
+    over the tree's splits of the kernel's bytes formula, each split's
+    rows from the tree's internal counts (no bagging: the bag-aware count
+    is the row count), plus the root's calls."""
+    ns = tree.num_leaves - 1
+    cnt = tree.internal_count[:ns].astype(np.float64)
+
+    def child(c):
+        return np.where(c >= 0, tree.internal_count[np.maximum(c, 0)],
+                        tree.leaf_count[np.maximum(~c, 0)])
+    small = np.minimum(child(tree.left_child[:ns]),
+                       child(tree.right_child[:ns])).astype(np.float64)
+    hist4, hist2 = G * 4 * Bp * 4, 2 * G * Bp * 4
+    move = float((2 * cnt * (R + 32)).sum())
+    nbytes = {"split_pair": (ns + 1) * pair_bytes}
+    if label == "mega":
+        nbytes["split_mega"] = N * (G + 8) + hist4 + move + ns * hist4
+    else:
+        nbytes["partition"] = move
+        nbytes["leaf_hist"] = (N * (G + 8) + hist2
+                               + float((small * (G + 8)).sum()) + ns * hist2)
+        nbytes["hist_rmw"] = ns * 6 * hist2
+    return {k: v / PEAK_BYTES_S * 1e3 for k, v in nbytes.items()}
+
+
+def report_iteration(per, bounds, tree, label):
+    """Print each kernel's device ms per iteration beside its bound, and
+    its device launches per call (the root's calls included)."""
+    ns = tree.num_leaves - 1
+    calls = {"split_mega": ns + 1, "split_pair": ns + 1, "partition": ns,
+             "leaf_hist": ns + 1, "hist_rmw": ns}
+    out = {}
+    for k, b in bounds.items():
+        ms, n = per.get(k, (0.0, 0)) if per else (None, 0)
+        out[k] = (ms, b)
+        print(f"  {label} {k}: "
+              f"{'not measured' if ms is None else f'{ms:.3f} ms'} device "
+              f"time per iteration, bound {b:.3f} ms; {n} device launches "
+              f"for {calls[k]} calls ({n / calls[k]:.3f} a call)",
+              flush=True)
+    return out
 
 
 def train_path(lgt, learner_mod, mods, ds, params, label, capture):
@@ -432,6 +544,26 @@ def main():
                             f"leaf_hist {what} child {side}")
     say(f"split_mega, partition, leaf_hist synthetic: {len(cases)} cases "
         f"ok (leaf_hist on the whole range and on both children)")
+    risk = risk_cases(tpart.tile_rows(G), n_pad)
+    for what, (c, variant) in risk.items():
+        vb, vg = variant_buffers(variant, pb, pg)
+        sc = make_scalars(*c)
+        check_mega(sm, vb, vg, sc, B, G, f"split_mega {what}", runs=1)
+        check_partition(tpart, vb, vg, sc, f"partition {what}")
+        del vb, vg
+    sc = make_scalars(4096 + 3, 400_000, 6, 0, 0, 255, 0, 0, 131, 0)
+    check_mega(sm, pb, pg, sc, B, G, "split_mega 20 launches", runs=20)
+    first = check_partition(tpart, pb, pg, sc, "partition 20 launches")
+    for _ in range(19):
+        again = check_partition(tpart, pb, pg, sc, "partition 20 launches")
+        check(torch.equal(first[0], again[0]) and torch.equal(
+            first[1].view(torch.int32), again[1].view(torch.int32))
+              and int(first[2]) == int(again[2]),
+              "partition: 20 launches differ")
+    say(f"split_mega, partition risk cases: {len(risk)} cases ok (start at "
+        f"every offset mod 16, counts around a {tpart.tile_rows(G)}-row "
+        f"tile, one row, ending at N_pad, one bin, |grad| ~ 1e4, all left "
+        f"/ right); 20 launches of each bit-identical")
     state = torch.as_tensor(rng.randn(256, 2, G, 256).astype(np.float32) * 50,
                             device=dev)
     small = torch.as_tensor(rng.randn(2, G, 256).astype(np.float32),
@@ -469,6 +601,9 @@ def main():
     del pb, pg, state, small
 
     # ---- 4. the main paths -------------------------------------------
+    # split_pair's bytes per call: the (2F, Bp) grad and hess planes, the
+    # (2F, 8) metadata and info blocks, the two 13-word results
+    pair_bytes = 2 * (2 * G) * 256 * 4 + 2 * (2 * G) * 8 * 4 + 2 * 13 * 4
     t0 = time.time()
     X, y = make_data(ROWS)
     say(f"data: {X.shape} in {time.time() - t0:.1f} s")
@@ -491,7 +626,7 @@ def main():
 
     def capture_mega(pb_, pg_, sc, **k):
         if sc[S_CNT] > 0 and k.get("move", True):
-            keep("mega", 3, lambda: (pb_.clone(), pg_.clone(), sc, k))
+            keep("mega", 3, lambda: (pb_.clone(), pg_.clone(), sc, dict(k)))
 
     def pair_capture(key):
         def fn(*a, **k):
@@ -523,7 +658,10 @@ def main():
         check(launches[k] == 0, f"mega: {k} launched {launches[k]} times")
     launches_by_path = {"mega": launches}
     check_predict(lgt, bst, Xp, "mega")
-    profile_iteration(bst, float(np.median(iter_s[1:])), "mega")
+    per = profile_iteration(bst, float(np.median(iter_s[1:])), "mega")
+    tree = bst._gbdt.models[-1]
+    iter_by_path = {"mega": report_iteration(per, iteration_bounds(
+        tree, "mega", G, G, 256, ROWS, pair_bytes), tree, "mega")}
     card_vs_cpu(lgt, d, {}, "mega")
     del bst
 
@@ -545,7 +683,11 @@ def main():
           f"{losses_sub} (the two paths sum in other orders, so their trees "
           f"are only numerically equal)", flush=True)
     check_predict(lgt, bst, Xp, "subtraction")
-    profile_iteration(bst, float(np.median(iter_s[1:])), "subtraction")
+    per = profile_iteration(bst, float(np.median(iter_s[1:])), "subtraction")
+    tree = bst._gbdt.models[-1]
+    iter_by_path["subtraction"] = report_iteration(per, iteration_bounds(
+        tree, "subtraction", G, G, 256, ROWS, pair_bytes), tree,
+        "subtraction")
     card_vs_cpu(lgt, d, {"tpu_megakernel": "off"}, "subtraction")
     del bst, X, y, ds
 
@@ -555,7 +697,7 @@ def main():
     mega_err = 0.0
     for i, (cpb, cpg, sc, k) in enumerate(cap["mega"]):
         errs = check_mega(sm, cpb, cpg, sc, k["num_bins"], k["num_groups"],
-                          f"split_mega captured {i}")
+                          f"split_mega captured {i}", absmax=k["absmax"])
         print(f"  split_mega captured {i} ({sc[S_CNT]} rows): max |err| "
               f"kernel vs plain {errs['vs_plain']!r}, kernel vs f64 "
               f"{errs['kernel_vs_f64']!r}, plain vs f64 "
@@ -598,8 +740,14 @@ def main():
     mega_bound, mega_by = bound(2 * cnt * (R + 32) + hist_bytes, 2 * cnt * Gk)
     b, g = cpb.clone(), cpg.clone()
     mega_ms = cuda_ms(lambda: sm.split_mega(b, g, sc, **k), 10)
+    # its histogram alone (the same call without the move), and so the
+    # partition's share of the split
+    mega_hist_ms = cuda_ms(lambda: sm.split_mega(b, g, sc,
+                                                 **dict(k, move=False)), 10)
     b, g = cpb.clone(), cpg.clone()
-    mega_plain_ms = cuda_ms(lambda: sm.split_mega_plain(b, g, sc, **k), 3, 1)
+    kp = dict(num_bins=k["num_bins"], num_groups=Gk)
+    mega_plain_ms = cuda_ms(lambda: sm.split_mega_plain(b, g, sc, **kp), 3,
+                            1)
     # no single PyTorch call partitions and builds both histograms, so
     # library_ms is null; one index_add_ over the leaf's (group, side,
     # bin) indices (prepared outside the timing) is printed as a
@@ -616,7 +764,9 @@ def main():
     hist = torch.zeros(Gk * 4 * Bp, device=dev)
     mega_lib_ms = cuda_ms(lambda: hist.index_add_(0, idx, vals), 5)
     del seg, idx, vals, b, g
-    say(f"split_mega @ {cnt} rows x {R} groups: {mega_ms:.3f} ms, plain "
+    say(f"split_mega @ {cnt} rows x {R} groups: {mega_ms:.3f} ms (its "
+        f"histogram alone {mega_hist_ms:.3f} ms, so the partition "
+        f"{mega_ms - mega_hist_ms:.3f} ms), plain "
         f"{mega_plain_ms:.3f} ms, bound {mega_bound:.3f} ms ({mega_by}); "
         f"no single PyTorch call computes the split, library_ms null; "
         f"index_add_ of the histogram half alone {mega_lib_ms:.3f} ms")
@@ -690,8 +840,7 @@ def main():
     pair_plain_ms = cuda_ms(lambda: sp.split_pair_plain(*pa, **pk), 5)
     F2, BFp = pa[0].shape
     pair_bound, pair_by = bound(
-        2 * F2 * BFp * 4 + 2 * F2 * 8 * 4 + 2 * 13 * 4,
-        F2 * BFp * 60)        # masks, scans and two gains per bin
+        pair_bytes, F2 * BFp * 60)    # masks, scans and two gains per bin
     say(f"split_pair @ ({F2}, {BFp}): {pair_ms:.4f} ms (graph replay; "
         f"{pair_py_ms:.4f} ms a call launched from Python), plain "
         f"{pair_plain_ms:.3f} ms, bound {pair_bound:.6f} ms ({pair_by}); "
@@ -702,13 +851,19 @@ def main():
         return sum(v[name] for v in launches_by_path.values())
 
     def row(name, source, replaces, err, ms, plain_ms, bnd, by, lib):
+        # per iteration: the mega path's numbers for split_pair, which
+        # both paths run (each path's under iter_ms_by_path)
+        it = {p: v[name] for p, v in iter_by_path.items() if name in v}
         return {"name": name, "route": "cuda",
                 "source": f"lightgbm_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": total(name),
                 "launches_by_path": {p: v[name] for p, v in
                                      launches_by_path.items()},
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd, "bound_by": by, "library_ms": lib}
+                "bound_ms": bnd, "bound_by": by, "library_ms": lib,
+                "iter_ms": next(iter(it.values()))[0],
+                "iter_bound_ms": next(iter(it.values()))[1],
+                "iter_ms_by_path": {p: v[0] for p, v in it.items()}}
 
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": [

@@ -13,12 +13,13 @@
 // nothing.  The TPU kernel's packed payload and roll-network compaction
 // are its own mechanism and are not carried over.
 //
-// What bounds it on this card: bytes.  Each row of the leaf is read and
-// written once by the contract (R bin bytes + 32 payload bytes); this
-// design moves it twice (scratch, then back), since blocks that run in
-// any order cannot overwrite rows another block has still to read.  The
-// phases are those of csrc/partition.cuh, shared with the split
-// mega-kernel.
+// What bounds it on this card: bytes, (R + 32) per row read and written
+// once by the contract.  The design is that of csrc/partition.cuh,
+// shared with the split mega-kernel: one tile pass that stages each tile
+// with 16-byte asynchronous copies, orders it in shared memory and finds
+// its place by a decoupled look-back, writing the lefts in place and the
+// rights to scratch, then a vectorised copy-back of the rights -- two
+// launches, (2 + 2 r / cnt) (R + 32) bytes per row for r rights.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -26,23 +27,25 @@
 #include "partition.cuh"
 
 extern "C" int partition_launch(uint8_t* bins, int R, long long Np,
-                                uint32_t* ghi, int* tile_cnt, int ntiles,
-                                int* nl_out, uint8_t* sbins, uint32_t* sghi,
+                                uint32_t* ghi, int* nl_out,
+                                unsigned long long* status, unsigned* ticket,
+                                unsigned epoch, int T, int ntiles,
+                                uint8_t* sbins, uint32_t* sghi,
                                 long long scap, long long start, int cnt,
                                 int col, int bstart, int isb, int nb,
                                 int dbin, int mtype, int thr, int dl,
                                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (R < 1 || col < 0 || col >= R || cnt < 0 || start < 0 ||
-      start + cnt > Np || (cnt > 0 && (scap < cnt ||
-                                       ntiles * (long long)TILE_ROWS < cnt)))
-    return (int)cudaErrorInvalidValue;
   if (cnt == 0) {
+    if (R < 1 || col < 0 || col >= R || start < 0 || start > Np)
+      return (int)cudaErrorInvalidValue;
     part_set_count<<<1, 1, 0, s>>>(nl_out, 0);
     return (int)cudaGetLastError();
   }
-  const SplitDecision d{col, bstart, isb, nb, dbin, mtype, thr, dl};
-  partition_phases(bins, ghi, R, Np, start, cnt, d, tile_cnt, ntiles, nl_out,
-                   sbins, sghi, scap, s);
-  return (int)cudaGetLastError();
+  const PartArgs a{bins, ghi, Np, R, start, cnt,
+                   SplitDecision{col, bstart, isb, nb, dbin, mtype, thr, dl},
+                   T, ntiles, status, ticket, epoch, nl_out, sbins, sghi,
+                   scap};
+  if (!part_args_ok(a)) return (int)cudaErrorInvalidValue;
+  return (int)partition_phases(a, s);
 }

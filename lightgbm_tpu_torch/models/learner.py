@@ -159,6 +159,7 @@ class SerialTreeLearner:
         self.subtract = str(config.tpu_megakernel).strip().lower() == "off"
         self.state = (new_state(self.L, self.G, self.B, self.device)
                       if self.subtract else None)
+        self._absmax = None
 
     # ------------------------------------------------------------------
     def _search(self, hg, hh, info):
@@ -196,7 +197,8 @@ class SerialTreeLearner:
         _, acc = split_mega(part_bins, part_ghi,
                             make_scalars(self.row0, self.N, 0, 0, 0, B, 0,
                                          0, 255, 0),
-                            num_bins=B, num_groups=G, move=False)
+                            num_bins=B, num_groups=G, move=False,
+                            absmax=self._absmax)
         hl_g, hl_h, _, _ = unpack_hist4(acc, B)
         return hl_g, hl_h
 
@@ -218,7 +220,7 @@ class SerialTreeLearner:
                           (leaf, leaf, new_leaf, int(small_is_left)))
             return nl, ch[0].reshape(2 * G, -1), ch[1].reshape(2 * G, -1)
         nl, acc = split_mega(part_bins, part_ghi, scalars, num_bins=B,
-                             num_groups=G)
+                             num_groups=G, absmax=self._absmax)
         hl_g, hl_h, hr_g, hr_h = unpack_hist4(acc, B)
         return nl, torch.cat([hl_g, hr_g]), torch.cat([hl_h, hr_h])
 
@@ -236,6 +238,10 @@ class SerialTreeLearner:
         lm.view(np.int32)[[LM_PARENT, LM_FORCED]] = -1
         nm = np.zeros((NND, nodes + 1), np.float32)
 
+        # the mega path's fixed-point histograms are scaled by one bound
+        # of |grad| and |hess| per tree, kept on the device
+        self._absmax = (None if self.subtract
+                        else part_ghi[:2].abs().amax(dim=1))
         # root: its histogram, then the best split from a pair search
         # over (root, root)
         hg, hh = self._root_hist(part_bins, part_ghi)

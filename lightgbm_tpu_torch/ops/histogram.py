@@ -38,10 +38,20 @@ import torch
 
 from . import kernels
 from .partition import GHI_ROWS
-from .split_mega import hist_chunks, hist_geometry
+from .split_mega import hist_geometry
+
+MIN_CHUNK_ROWS = 4096       # rows per histogram block, at least
+MAX_CHUNKS = 128            # histogram chunks per leaf, at most
 
 # launches of the CUDA kernel (the plain version is not counted)
 launches = 0
+
+
+def hist_chunks(cnt: int):
+    """(chunk_rows, nchunks) of the histogram grid for a leaf of cnt rows."""
+    per = -(-cnt // MAX_CHUNKS)
+    chunk = max(MIN_CHUNK_ROWS, -(-per // 256) * 256)
+    return chunk, max(1, -(-cnt // chunk))
 
 
 def as_gb2(planes: torch.Tensor, num_bins: int) -> torch.Tensor:

@@ -31,7 +31,6 @@ import torch
 from . import kernels
 
 GHI_ROWS = 8
-TILE_ROWS = 2048            # rows per partition tile (csrc/partition.cuh)
 
 # launches of the CUDA kernel (the plain version is not counted)
 launches = 0
@@ -112,31 +111,126 @@ def partition_leaf_cuda(part_bins, part_ghi, scalars) -> torch.Tensor:
     global launches
     R, Np = part_bins.shape
     start, cnt, col = scalars_start(scalars), scalars[S_CNT], scalars[S_COL]
-    kernels.require_cuda(part_bins, torch.uint8, "part_bins")
-    kernels.require_cuda(part_ghi, torch.float32, "part_ghi", (GHI_ROWS, Np))
-    if not 0 <= col < R:
-        raise ValueError(f"partition_leaf: column {col} outside [0, {R})")
-    if not (0 <= start and 0 <= cnt < (1 << 24) and start + cnt <= Np):
-        raise ValueError(f"partition_leaf: range [{start}, {start + cnt}) "
-                         f"outside [0, {Np}) or over 2^24 rows")
-    dev = part_bins.device
-    ntiles = max(1, -(-cnt // TILE_ROWS))
-    scap = max(cnt, 1)
-    tiles = torch.empty(ntiles, dtype=torch.int32, device=dev)
-    nl = torch.empty(1, dtype=torch.int32, device=dev)
-    sbins = torch.empty((R, scap), dtype=torch.uint8, device=dev)
-    sghi = torch.empty((GHI_ROWS, scap), dtype=torch.int32, device=dev)
+    check_rows(part_bins, part_ghi, start, cnt, col, "partition_leaf")
+    nl = torch.empty(1, dtype=torch.int32, device=part_bins.device)
     fn = kernels.load("partition").partition_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_longlong, ctypes.c_longlong]
-                   + [ctypes.c_int] * 9 + [ctypes.c_void_p])
-    err = fn(kernels.ptr(part_bins), R, Np, kernels.ptr(part_ghi),
-             kernels.ptr(tiles), ntiles, kernels.ptr(nl), kernels.ptr(sbins),
-             kernels.ptr(sghi), scap, start, *scalars[S_CNT:],
-             kernels.stream_ptr(dev))
+    fn.argtypes = PART_ARGTYPES + [ctypes.c_void_p]
+    err = fn(*part_launch_args(part_bins, part_ghi, nl, scalars),
+             kernels.stream_ptr(part_bins.device))
     kernels.check(err, "partition_launch")
     launches += 1
     return nl
+
+
+def check_rows(part_bins, part_ghi, start, cnt, col, what) -> None:
+    """Wrapper-side checks of the row buffers and the leaf range shared by
+    the partition and the split mega-kernel: the kernels stage rows with
+    16-byte copies, so N_pad is a multiple of 16 and both buffers start
+    16-byte aligned."""
+    R, Np = part_bins.shape
+    kernels.require_cuda(part_bins, torch.uint8, "part_bins")
+    kernels.require_cuda(part_ghi, torch.float32, "part_ghi", (GHI_ROWS, Np))
+    if not 0 <= col < R:
+        raise ValueError(f"{what}: column {col} outside [0, {R})")
+    if not (0 <= start and 0 <= cnt < (1 << 24) and start + cnt <= Np):
+        raise ValueError(f"{what}: range [{start}, {start + cnt}) outside "
+                         f"[0, {Np}) or over 2^24 rows")
+    if Np % 16 or (part_bins.data_ptr() | part_ghi.data_ptr()) % 16:
+        raise ValueError(f"{what}: N_pad {Np} is not a multiple of 16 or a "
+                         f"buffer is not 16-byte aligned")
+
+
+# (bins, R, Np, ghi, nl_out, status, ticket, epoch, T, ntiles, sbins,
+#  sghi, scap, start, cnt, col, bstart, isb, nb, dbin, mtype, thr, dl):
+# the leading arguments of partition_launch and split_mega_launch
+PART_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                  ctypes.c_void_p, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                  ctypes.c_longlong] + [ctypes.c_int] * 9)
+
+
+def part_launch_args(part_bins, part_ghi, nl, scalars, move=True) -> list:
+    """The PART_ARGTYPES values of one launch; with ``move`` the tile
+    status words, ticket and right-side scratch come from the device's
+    workspace and the launch takes a fresh epoch."""
+    R, Np = part_bins.shape
+    start, cnt = scalars_start(scalars), scalars[S_CNT]
+    ws = workspace(part_bins.device)
+    T = tile_rows(R)
+    ntiles = max(1, -(-(start + cnt - (start & ~15)) // T))
+    scap = -(-cnt // 16) * 16 + 16
+    if move and cnt > 0:
+        status, epoch = ws.status(ntiles)
+        sbins = ws.buffer("sbins", R * scap, torch.uint8)
+        sghi = ws.buffer("sghi", GHI_ROWS * scap, torch.int32)
+    else:
+        status, epoch, sbins, sghi = ws.ticket, 1, ws.ticket, ws.ticket
+    return [kernels.ptr(part_bins), R, Np, kernels.ptr(part_ghi),
+            kernels.ptr(nl), kernels.ptr(status), kernels.ptr(ws.ticket),
+            epoch, T, ntiles, kernels.ptr(sbins), kernels.ptr(sghi), scap,
+            start, *scalars[S_CNT:]]
+
+
+PART_SMEM = 72 * 1024       # shared memory of one tile: three fit an SM
+
+
+def part_smem_bytes(R: int, T: int) -> int:
+    """Shared memory of a tile of T rows (csrc/partition.cuh)."""
+    return 32 * T + ((R * T + 15) & ~15) + 4 * T
+
+
+def tile_rows(R: int) -> int:
+    """Rows per partition tile for R bin rows: the largest of 1024, 512,
+    ..., 32 whose staged tile fits PART_SMEM."""
+    for T in (1024, 512, 256, 128, 64, 32):
+        if part_smem_bytes(R, T) <= PART_SMEM:
+            return T
+    raise ValueError(f"partition: {R} bin rows do not fit a 32-row tile")
+
+
+class Workspace:
+    """Device scratch of the partition and the split mega-kernel, kept
+    between launches instead of allocated per call.  The ticket counter
+    and the mega-kernel's accumulator and done counters are zero between
+    launches (each launch leaves them so); the tile status words carry
+    the launch's epoch, so a word left by an earlier launch reads as not
+    yet published.  Launches on one device run in the order of its
+    current stream, which the workspace relies on."""
+
+    def __init__(self, device):
+        self.device = device
+        self._bufs = {}
+        self._epoch = 0
+        self.ticket = self.buffer("ticket", 4, torch.int32, zero=True)
+
+    def buffer(self, name, numel, dtype, zero=False):
+        buf = self._bufs.get(name)
+        if buf is None or buf.numel() < numel:
+            make = torch.zeros if zero else torch.empty
+            buf = make(max(numel, 1), dtype=dtype, device=self.device)
+            self._bufs[name] = buf
+        return buf
+
+    def status(self, ntiles):
+        """(status words, epoch) for a partition launch of ntiles tiles;
+        fresh zero words whenever they grow or the epoch would wrap."""
+        words = self._bufs.get("status")
+        if (words is None or words.numel() < ntiles
+                or self._epoch >= (1 << 32) - 1):
+            words = torch.zeros(ntiles, dtype=torch.int64, device=self.device)
+            self._bufs["status"] = words
+            self._epoch = 0
+        self._epoch += 1
+        return words, self._epoch
+
+
+_workspaces = {}
+
+
+def workspace(device) -> Workspace:
+    ws = _workspaces.get(device)
+    if ws is None:
+        ws = _workspaces[device] = Workspace(device)
+    return ws

@@ -5,9 +5,9 @@ Counterpart of the TPU kernel ``split_megakernel_pallas``
 (lightgbm_tpu/ops/split_megakernel_pallas.py).  ``split_mega``
 dispatches on the device of its inputs: CPU tensors run
 ``split_mega_plain`` (plain PyTorch: the ``both_children_hist_xla``
-histogram math plus ``ops/partition.py:partition_leaf_plain``), CUDA
-tensors launch the
-hand-written kernel ``csrc/split_mega.cu`` or raise.
+histogram math in f32 plus ``ops/partition.py:partition_leaf_plain``),
+CUDA tensors launch the hand-written kernel ``csrc/split_mega.cu`` or
+raise.
 
 Buffers (partitioned IN PLACE):
   part_bins: (R, N_pad) uint8, one row per feature group (R >= G);
@@ -24,20 +24,32 @@ with ``cnt == 0`` moves nothing and returns zeros.  With
 ``move=False`` the rows stay where they are and the left count is
 ``cnt``: the learner's root histogram is that call with an all-left
 decision.
+
+The two versions sum differently.  The plain version adds f32 values
+with ``index_add_``.  The kernel sums exactly in 64-bit fixed point:
+each grad (hess) becomes round(v * 2^k), k = ``fixed_exponent`` of a
+bound on |grad| (|hess|) and the leaf's row count, and each bin's
+integer sum is converted once to f32.  ``hist_fixed_plain`` is that
+arithmetic in plain PyTorch, bit-identical to the kernel.  The bound is
+``absmax``, a (2,) f32 tensor of max|grad| and max|hess| on the
+buffers' device over at least the leaf's rows (the learner passes one
+per tree); without it the kernel's wrapper takes it over the leaf.  The
+CUDA kernel needs N_pad a multiple of 16 and 16-byte aligned buffers.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from . import kernels
-from .partition import (GHI_ROWS, S_CNT, S_COL, TILE_ROWS, leaf_decisions,
-                        partition_leaf_plain, scalars_start)
+from .partition import (GHI_ROWS, PART_ARGTYPES, S_CNT, S_COL, check_rows,
+                        leaf_decisions, part_launch_args,
+                        partition_leaf_plain, scalars_start, workspace)
 
-MIN_CHUNK_ROWS = 4096       # rows per histogram block, at least
-MAX_CHUNKS = 128            # histogram chunks per leaf, at most
+FIXED_BITS = 62             # a bin's fixed-point sum stays below 2^62
 
 # launches of the CUDA kernel (the plain version is not counted)
 launches = 0
@@ -56,13 +68,6 @@ def unpack_hist4(acc, num_bins: int):
     _, Bp = hist_geometry(num_bins)
     h4 = acc.reshape(G, 4, Bp)
     return h4[:, 0], h4[:, 1], h4[:, 2], h4[:, 3]
-
-
-def hist_chunks(cnt: int):
-    """(chunk_rows, nchunks) of the histogram grid for a leaf of cnt rows."""
-    per = -(-cnt // MAX_CHUNKS)
-    chunk = max(MIN_CHUNK_ROWS, -(-per // 256) * 256)
-    return chunk, max(1, -(-cnt // chunk))
 
 
 def _hist_add(hist, bins, gl, g, h, Bp: int) -> None:
@@ -115,55 +120,85 @@ def split_mega_plain(part_bins, part_ghi, scalars, *, num_bins: int,
             hist.view(G, 4 * BH, 16))
 
 
+def fixed_exponent(amax: float, cnt: int) -> int:
+    """Exponent k of a plane's fixed-point scale 2^k: the largest k with
+    cnt * amax * 2^k < 2^FIXED_BITS (the f32 bound times a count below
+    2^24 is exact in double), clamped to the range a finite f32 needs.
+    Same function as fixed_exponent in csrc/split_mega.cu."""
+    _, e = math.frexp(float(amax) * float(cnt))
+    return min(max(FIXED_BITS - e, -100), 220)
+
+
+def leaf_absmax(part_ghi, start: int, cnt: int):
+    """(2,) f32 max|grad|, max|hess| over the leaf's rows."""
+    return part_ghi[:2, start:start + cnt].abs().amax(dim=1)
+
+
+def hist_fixed_plain(part_bins, part_ghi, scalars, *, num_bins: int,
+                     num_groups: int, absmax=None):
+    """The kernel's histogram in plain PyTorch, bit for bit: round(v *
+    2^k) in double to int64, ``index_add_`` in int64, then (int64 ->
+    double) * 2^-k -> f32.  ``absmax`` as for the kernel (default: over
+    the leaf)."""
+    G = num_groups
+    BH, Bp = hist_geometry(num_bins)
+    start, cnt, gl = leaf_decisions(part_bins, scalars)
+    acc = torch.zeros(G * 4 * Bp, dtype=torch.int64, device=part_bins.device)
+    if cnt == 0:
+        return acc.float().view(G, 4 * BH, 16)
+    s, e = start, start + cnt
+    if absmax is None:
+        absmax = leaf_absmax(part_ghi, start, cnt)
+    ks = [fixed_exponent(a, cnt) for a in absmax.tolist()]
+    g, h = (torch.round(part_ghi[p, s:e].double() * math.ldexp(1.0, ks[p]))
+            .long() for p in (0, 1))
+    _hist_add(acc, part_bins[:G, s:e], gl, g, h, Bp)
+    inv = torch.tensor([math.ldexp(1.0, -ks[p % 2]) for p in range(4)],
+                       dtype=torch.float64, device=acc.device)
+    return ((acc.view(G, 4, Bp).double() * inv[:, None]).float()
+            .view(G, 4 * BH, 16))
+
+
 def split_mega(part_bins, part_ghi, scalars, *, num_bins: int,
-               num_groups: int, move: bool = True):
+               num_groups: int, move: bool = True, absmax=None):
     """Partition the leaf of ``scalars`` in place and return
-    ``(left_count, hist)`` (see module doc)."""
+    ``(left_count, hist)`` (see module doc; the CPU's plain version does
+    not use ``absmax``)."""
     kw = dict(num_bins=num_bins, num_groups=num_groups, move=move)
     if part_bins.device.type == "cpu":
         return split_mega_plain(part_bins, part_ghi, scalars, **kw)
-    return split_mega_cuda(part_bins, part_ghi, scalars, **kw)
+    return split_mega_cuda(part_bins, part_ghi, scalars, absmax=absmax, **kw)
 
 
 def split_mega_cuda(part_bins, part_ghi, scalars, *, num_bins, num_groups,
-                    move=True):
+                    move=True, absmax=None):
     global launches
     R, Np = part_bins.shape
     G = num_groups
     BH, Bp = hist_geometry(num_bins)
     start, cnt, col = scalars_start(scalars), scalars[S_CNT], scalars[S_COL]
-    kernels.require_cuda(part_bins, torch.uint8, "part_bins")
-    kernels.require_cuda(part_ghi, torch.float32, "part_ghi", (GHI_ROWS, Np))
-    if not (0 < G <= R and 0 <= col < R and Bp <= 256):
-        raise ValueError(f"split_mega: bad geometry G={G} R={R} col={col} "
+    check_rows(part_bins, part_ghi, start, cnt, col, "split_mega")
+    if not (0 < G <= R and Bp <= 256):
+        raise ValueError(f"split_mega: bad geometry G={G} R={R} "
                          f"num_bins={num_bins}")
-    if not (0 <= start and 0 <= cnt < (1 << 24) and start + cnt <= Np):
-        raise ValueError(f"split_mega: range [{start}, {start + cnt}) "
-                         f"outside [0, {Np}) or over 2^24 rows")
     dev = part_bins.device
-    chunk, nchunks = hist_chunks(cnt)
-    ntiles = max(1, -(-cnt // TILE_ROWS))
-    partials = torch.empty(nchunks * G * 4 * Bp, dtype=torch.float32,
-                           device=dev)
-    tiles = torch.empty(ntiles, dtype=torch.int32, device=dev)
+    if absmax is None:
+        absmax = (leaf_absmax(part_ghi, start, cnt) if cnt
+                  else torch.zeros(2, device=dev))
+    kernels.require_cuda(absmax, torch.float32, "absmax", (2,))
+    ws = workspace(dev)
+    acc = ws.buffer("acc", G * 4 * Bp, torch.int64, zero=True)
+    done = ws.buffer("done", G, torch.int32, zero=True)
     nl = torch.empty(1, dtype=torch.int32, device=dev)
     hist = torch.empty((G, 4 * BH, 16), dtype=torch.float32, device=dev)
-    scap = cnt if (move and cnt > 0) else 1
-    sbins = torch.empty((R, scap), dtype=torch.uint8, device=dev)
-    sghi = torch.empty((GHI_ROWS, scap), dtype=torch.int32, device=dev)
     fn = kernels.load("split_mega").split_mega_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong]
-                   + [ctypes.c_int] * 12 + [ctypes.c_void_p])
-    err = fn(kernels.ptr(part_bins), R, Np, kernels.ptr(part_ghi),
-             kernels.ptr(partials), chunk, nchunks, kernels.ptr(tiles),
-             ntiles, kernels.ptr(nl), kernels.ptr(sbins), kernels.ptr(sghi),
-             scap, kernels.ptr(hist), start, *scalars[S_CNT:], G, Bp,
-             int(bool(move)), kernels.stream_ptr(dev))
+    fn.argtypes = PART_ARGTYPES + [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
+    err = fn(*part_launch_args(part_bins, part_ghi, nl, scalars, move),
+             kernels.ptr(absmax), kernels.ptr(acc), kernels.ptr(done),
+             kernels.ptr(hist), G, Bp, int(bool(move)),
+             kernels.stream_ptr(dev))
     kernels.check(err, "split_mega_launch")
     launches += 1
     return nl, hist

@@ -9,13 +9,15 @@ with a card and no JAX it runs without the suite's conftest:
 Tolerances: split_pair's kernel runs the plain version's f32 operations
 in the same order, so all 13 fields are bit-identical to the plain
 version on the CPU.  split_mega's partition (bins and payload words) is
-bit-identical and two launches are bit-identical.  Its f32 histogram is
-held to the f64 sums within rtol 1e-4 + 1e-5 x each bin's absolute mass
-(the sum of |grad| or |hess| over the bin's rows: f32 rounding grows
-with it), and to the plain version's f32 sums within rtol 1e-4 + 1e-4 x
-mass, the plain version's own rounding included.  The partition and
-hist_rmw kernels are bit-identical to their plain versions (words moved;
-one f32 subtraction).  leaf_hist's f32 sums are held to the f64 sums of
+bit-identical to the plain version, and its fixed-point histogram is
+bit-identical to hist_fixed_plain (integer sums are exact in any
+order); repeated launches are bit-identical.  The histogram is also held
+to the f64 sums within rtol 1e-4 + 1e-5 x each bin's absolute mass (the
+sum of |grad| or |hess| over the bin's rows), and to the plain
+version's f32 sums within rtol 1e-4 + 1e-4 x mass, the plain version's
+own rounding included.  The partition and hist_rmw kernels are
+bit-identical to their plain versions (words moved; one f32
+subtraction).  leaf_hist's f32 sums are held to the f64 sums of
 leaf_hist_reference within rtol 1e-4 + 1e-5 x mass, and two launches
 are bit-identical.
 """
@@ -93,9 +95,11 @@ def test_split_mega_kernel_matches_plain(card, trial):
         outs.append((b.cpu(), g.cpu(), nl.cpu(), acc.cpu()))
     b0, g0 = pb.clone(), pg.clone()
     ref, mass = sm.hist_reference(b0, g0, sc, num_bins=255, num_groups=G)
+    fixed = sm.hist_fixed_plain(b0, g0, sc, num_bins=255, num_groups=G)
     enl, eacc = sm.split_mega_plain(b0, g0, sc, num_bins=255, num_groups=G)
     for b, g, nl, acc in outs:
         assert int(nl) == int(enl)
+        assert torch.equal(acc.view(torch.int32), fixed.view(torch.int32))
         assert torch.equal(b, b0)
         assert torch.equal(g.view(torch.int32), g0.view(torch.int32))
         err = (acc.double() - ref).abs()
@@ -166,6 +170,97 @@ def test_partition_kernel_bit_identical_to_plain(card, case):
     assert int(nl) == int(enl)
     assert torch.equal(b.cpu(), b0)
     assert torch.equal(g.cpu().view(torch.int32), g0.view(torch.int32))
+
+
+def _risk_buffers(case, G=28, n_pad=1 << 19):
+    """Row buffers and the scalars of one risk case of the tile-compacted
+    partition and the fixed-point histogram (see RISK_CASES)."""
+    T = tpart.tile_rows(G)
+    pb, pg = _row_buffers(3, G, n_pad)
+    start, cnt = 4096, 5000
+    if case.startswith("offset"):
+        start += int(case[6:])
+    elif case in ("tile_minus_1", "tile", "tile_plus_1"):
+        cnt = T + {"tile_minus_1": -1, "tile": 0, "tile_plus_1": 1}[case]
+    elif case in ("unaligned_tile_minus_1", "unaligned_tile",
+                  "unaligned_tile_plus_1"):
+        start += 9
+        cnt = T + {"unaligned_tile_minus_1": -1, "unaligned_tile": 0,
+                   "unaligned_tile_plus_1": 1}[case]
+    elif case == "one_row":
+        start, cnt = 4096 + 7, 1
+    elif case == "ends_at_n_pad":
+        start, cnt = n_pad - 3000 - 5, 3005
+    elif case == "one_bin":
+        pb[:] = 7
+        pb[5] = torch.as_tensor(np.random.RandomState(4).randint(
+            0, 255, n_pad).astype(np.uint8))
+    elif case == "regression_scale":
+        pg[0] *= 1e4
+        pg[1] *= 1e4
+    thr = {"all_left": 255, "all_right": -1}.get(case, 120)
+    return pb, pg, make_scalars(start, cnt, 5, 0, 0, 255, 0, 0, thr, 1)
+
+
+RISK_CASES = ([f"offset{o}" for o in range(16)]
+              + ["tile_minus_1", "tile", "tile_plus_1",
+                 "unaligned_tile_minus_1", "unaligned_tile",
+                 "unaligned_tile_plus_1", "one_row", "ends_at_n_pad",
+                 "one_bin", "all_left", "all_right", "regression_scale"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RISK_CASES)
+def test_split_mega_and_partition_risk_cases(card, case):
+    """Start at every offset mod 16, counts around one partition tile,
+    one row, a leaf ending at N_pad, all rows in one bin, all left / all
+    right, |grad| ~ 1e4; the NaN payload word of _row_buffers rides along.
+    Partition bit-identical to the plain version; histogram bit-identical
+    to hist_fixed_plain and within the f64 bars."""
+    G = 28
+    pb, pg, sc = _risk_buffers(case, G)
+    b0, g0 = pb.clone(), pg.clone()
+    ref, mass = sm.hist_reference(b0, g0, sc, num_bins=255, num_groups=G)
+    fixed = sm.hist_fixed_plain(b0, g0, sc, num_bins=255, num_groups=G)
+    enl = tpart.partition_leaf_plain(b0, g0, sc)
+    for fn in ("split_mega", "partition"):
+        b, g = pb.to(card), pg.to(card)
+        if fn == "split_mega":
+            nl, acc = sm.split_mega(b, g, sc, num_bins=255, num_groups=G)
+            acc = acc.cpu()
+            assert torch.equal(acc.view(torch.int32), fixed.view(torch.int32))
+            err = (acc.double() - ref).abs()
+            assert bool((err <= 1e-4 * ref.abs() + 1e-5 * mass).all())
+        else:
+            nl = tpart.partition_leaf(b, g, sc)
+        assert int(nl) == int(enl)
+        assert torch.equal(b.cpu(), b0)
+        assert torch.equal(g.cpu().view(torch.int32), g0.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", ["split_mega", "partition"])
+def test_repeated_launches_bit_identical(card, fn):
+    """20 launches on one input give identical buffers, left counts and
+    histograms: a look-back that read a stale tile word, or a histogram
+    that depended on the order of its adds, would show here."""
+    pb, pg = _row_buffers(5)
+    sc = make_scalars(4096 + 3, 400_000, 6, 0, 0, 255, 0, 0, 131, 0)
+    first = None
+    for _ in range(20):
+        b, g = pb.to(card), pg.to(card)
+        if fn == "split_mega":
+            nl, acc = sm.split_mega(b, g, sc, num_bins=255, num_groups=28)
+        else:
+            nl, acc = tpart.partition_leaf(b, g, sc), torch.zeros(1)
+        got = (b.cpu(), g.cpu().view(torch.int32), int(nl),
+               acc.cpu().view(torch.int32))
+        if first is None:
+            first = got
+        assert torch.equal(got[0], first[0])
+        assert torch.equal(got[1], first[1])
+        assert got[2] == first[2]
+        assert torch.equal(got[3], first[3])
 
 
 @pytest.mark.cuda

@@ -132,3 +132,103 @@ def test_split_mega_dispatches_cpu_to_plain_version():
     _, pb, pg = _buffers(3)
     _port(pb, pg, (C, C, 1, 0, 0, 250, 0, 0, 100, 0))
     assert sm.launches == before
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fixed_exponent_matches_numpy_oracle(seed):
+    """The scale 2^k of the kernel's fixed-point histogram: k is the
+    largest with cnt * max|v| * 2^k < 2^62 (numpy's frexp as the oracle),
+    clamped to [-100, 220]."""
+    rng = np.random.RandomState(seed)
+    amax = np.concatenate([[0.0, 1.0, 0.25, 1e4, 3.0e38, 1e-40],
+                           rng.lognormal(0, 8, 50)]).astype(np.float32)
+    for a in amax:
+        for cnt in (1, 2, 1000, 1 << 23, (1 << 24) - 1):
+            k = sm.fixed_exponent(float(a), cnt)
+            want = 62 - int(np.frexp(np.float64(a) * cnt)[1])
+            assert k == min(max(want, -100), 220)
+            m = float(a) * cnt
+            if m > 0 and -100 < k < 220:
+                assert m * 2.0 ** k < 2.0 ** 62 <= m * 2.0 ** (k + 1)
+
+
+def _fixed_case(seed, scale=1.0):
+    rng, pb, pg = _buffers(seed)
+    pg[0] *= scale
+    pg[1] = np.abs(pg[1]) * scale
+    start, cnt = C + 5, 5 * C + 3
+    sc = tpart.make_scalars(start, cnt, 3, 0, 0, 250, 0, 0, 120, 1)
+    return rng, pb, pg, sc
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e4])
+def test_hist_fixed_plain_is_permutation_invariant(scale):
+    """Integer sums do not depend on the order of the rows: permuting the
+    leaf's rows (bins and payload together) leaves the histogram
+    bit-identical."""
+    rng, pb, pg, sc = _fixed_case(4, scale)
+    start, cnt = tpart.scalars_start(sc), sc[tpart.S_CNT]
+    want = sm.hist_fixed_plain(torch.as_tensor(pb), torch.as_tensor(pg), sc,
+                               num_bins=B, num_groups=G)
+    for _ in range(3):
+        perm = start + rng.permutation(cnt)
+        qb, qg = pb.copy(), pg.copy()
+        qb[:, start:start + cnt] = pb[:, perm]
+        qg[:, start:start + cnt] = pg[:, perm]
+        got = sm.hist_fixed_plain(torch.as_tensor(qb), torch.as_tensor(qg),
+                                  sc, num_bins=B, num_groups=G)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e4])
+def test_hist_fixed_plain_within_f64_bars(scale):
+    """Against the f64 sums: within chip_smoke.py's bars (rtol 1e-4 +
+    atol 1e-5 x bin mass), and within one f32 rounding of the exact sum
+    plus the fixed-point rounding of at most 2^-(k+1) per row."""
+    _, pb, pg, sc = _fixed_case(5, scale)
+    tb, tg = torch.as_tensor(pb), torch.as_tensor(pg)
+    got = sm.hist_fixed_plain(tb, tg, sc, num_bins=B, num_groups=G).double()
+    ref, mass = sm.hist_reference(tb, tg, sc, num_bins=B, num_groups=G)
+    err = (got - ref).abs()
+    assert bool((err <= 1e-4 * ref.abs() + 1e-5 * mass).all())
+    start, cnt = tpart.scalars_start(sc), sc[tpart.S_CNT]
+    amax = tg[:2, start:start + cnt].abs().amax(dim=1).tolist()
+    rnd = [cnt * 2.0 ** -(sm.fixed_exponent(a, cnt) + 1) for a in amax]
+    per_plane = torch.tensor(rnd * 2, dtype=torch.float64)
+    tol = ref.abs() * 2.0 ** -24 + per_plane.repeat_interleave(16).view(
+        1, 4 * 16, 1)
+    assert bool((err <= tol).all())
+
+
+def test_hist_fixed_plain_agrees_with_split_mega_plain():
+    """The fixed-point and the f32 histograms of one split agree to f32
+    rounding (the card runs the first, the CPU the second), and a bound
+    larger than the leaf's max|v| (the learner's per-tree bound) changes
+    only the rounding."""
+    _, pb, pg, sc = _fixed_case(6)
+    tb, tg = torch.as_tensor(pb), torch.as_tensor(pg)
+    kw = dict(num_bins=B, num_groups=G)
+    fixed = sm.hist_fixed_plain(tb, tg, sc, **kw)
+    wide = sm.hist_fixed_plain(tb, tg, sc, absmax=tg[:2].abs().amax(dim=1)
+                               * 4, **kw)
+    _, plain = sm.split_mega_plain(tb.clone(), tg.clone(), sc, **kw)
+    ref, mass = sm.hist_reference(tb, tg, sc, **kw)
+    for h in (fixed, wide, plain):
+        err = (h.double() - ref).abs()
+        assert bool((err <= 1e-4 * ref.abs() + 1e-5 * mass).all())
+    assert sm.hist_fixed_plain(tb, tg, tpart.make_scalars(
+        C, 0, 3, 0, 0, 250, 0, 0, 120, 1), **kw).abs().sum() == 0
+
+
+def test_partition_tile_rows_fit_shared_memory():
+    """The partition tile of csrc/partition.cuh: a multiple of 32 rows,
+    at most 1024, whose staged bytes fit the per-tile budget (three
+    tiles an SM), 1024 rows at the HIGGS width."""
+    assert tpart.tile_rows(28) == 1024
+    for R in (1, 28, 32, 64, 136, 500, 2000):
+        T = tpart.tile_rows(R)
+        assert T % 32 == 0 and 32 <= T <= 1024
+        assert tpart.part_smem_bytes(R, T) <= tpart.PART_SMEM
+        assert T == 1024 or tpart.part_smem_bytes(R, 2 * T) > tpart.PART_SMEM
+    with pytest.raises(ValueError):
+        tpart.tile_rows(10_000)

@@ -6,10 +6,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   1. the card's name and power limit, torch and CUDA versions;
   2. build the CUDA kernels from csrc/ (one nvcc per source, together);
   3. each kernel against its plain PyTorch version on synthetic inputs,
-     edge cases included, and split_mega and the partition on the cases
-     their tile-compacted partition and fixed-point histogram risk most
-     (start at every offset mod 16, counts around one tile, one row, a
-     leaf ending at N_pad, one bin, |grad| ~ 1e4) and over 20 launches;
+     edge cases included, and split_mega, the partition and leaf_hist
+     (the range and both children of its partition) on the cases their
+     tile-compacted partition and fixed-point histograms risk most (start
+     at every offset mod 16, counts around one tile, one row, a leaf
+     ending at N_pad, one bin, |grad| ~ 1e4, a child of no rows) and over
+     20 launches;
   4. train the HIGGS shape (10.5M x 28, seed 7, as bench.py makes it;
      binary, num_leaves=255, max_bin=255) for a few iterations through
      lightgbm_tpu_torch on the card, on each of the learner's two split
@@ -20,7 +22,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      read just after; then, for each path, predict 100k rows, save,
      reload and predict again, profile one more iteration (each
      kernel's device time and launches beside its per-iteration bound,
-     from the profiled tree's split counts), and train the port on the
+     from the profiled tree's split counts; every device function of the
+     path's kernels must show device time), and train the port on the
      card against the port on the CPU on
      examples/binary_classification;
   5. each kernel against its plain version on inputs captured from the
@@ -218,23 +221,31 @@ def variant_buffers(variant, pb, pg):
     return pb, pg
 
 
-def check_leaf_hist(th, pb, pg, start, cnt, child, B, G, what):
-    """Kernel vs the f64 sums of leaf_hist_reference within rtol 1e-4 /
-    atol 1e-5 x bin mass; the plain version (f64 sums rounded once) within
-    the same bar; two kernel launches bit-identical."""
-    kw = dict(num_bins=B, num_groups=G, child=child)
-    runs = [th.leaf_hist(pb, pg, start, cnt, planes=True, **kw)
-            for _ in range(2)]
-    ref, mass = th.leaf_hist_reference(pb, pg, start, cnt, **kw)
-    plain = th.leaf_hist_plain(pb, pg, start, cnt, planes=True, **kw)
+def check_leaf_hist(th, pb, pg, start, cnt, child, B, G, what, absmax=None,
+                    runs=2):
+    """Kernel vs plain on the card: the kernel's fixed-point histogram
+    bit-identical to leaf_hist_fixed_plain with the same bound (integer
+    sums are exact in any order) and within rtol 1e-4 / atol 1e-5 x bin
+    mass of the f64 sums of leaf_hist_reference; the plain version (f64
+    sums rounded once, what the CPU runs) within the same bar; ``runs``
+    kernel launches bit-identical."""
+    kw = dict(num_bins=B, num_groups=G, child=child, planes=True)
+    outs = [th.leaf_hist(pb, pg, start, cnt, absmax=absmax, **kw)
+            for _ in range(runs)]
+    ref, mass = th.leaf_hist_reference(pb, pg, start, cnt, num_bins=B,
+                                       num_groups=G, child=child)
+    fixed = th.leaf_hist_fixed_plain(pb, pg, start, cnt, absmax=absmax, **kw)
+    plain = th.leaf_hist_plain(pb, pg, start, cnt, **kw)
     torch.cuda.synchronize()
-    for h in (runs[0], plain):
+    for h in outs:
+        check(torch.equal(h.view(torch.int32), fixed.view(torch.int32)),
+              f"{what}: histogram differs from leaf_hist_fixed_plain")
+    for h in (outs[0], plain):
         ex = hist_excess(h, ref, mass, 1e-4, 1e-5)
         check(ex <= 0, f"{what}: histogram off the f64 sums by {ex}")
-    check(torch.equal(runs[0].view(torch.int32), runs[1].view(torch.int32)),
-          f"{what}: two launches differ")
-    return {"vs_plain": float((runs[0] - plain).abs().max()),
-            "kernel_vs_f64": float((runs[0].double() - ref).abs().max()),
+    return {"vs_plain": float((outs[0] - plain).abs().max()),
+            "kernel_vs_f64": float((outs[0].double() - ref).abs().max()),
+            "plain_vs_f64": float((plain.double() - ref).abs().max()),
             "max_abs_bin": float(ref.abs().max()),
             "max_bin_mass": float(mass.max())}
 
@@ -271,42 +282,35 @@ def near_ties(sp, args, kw):
 
 
 def check_pair(sp, args, kw, what):
-    """Kernel vs plain.  The plain version on the CPU runs the kernel's
-    exact f32 operation order, so every field must be bit-identical; the
-    plain version on the card (its f64 prefix sums reassociated) must
-    give identical int fields unless the winner is a near-tie, which is
-    printed.  Returns the largest float difference to the card's plain
-    version."""
+    """Kernel vs plain.  The plain version runs the kernel's exact f32
+    operation order and its blocked f64 prefix sums as elementwise adds,
+    so every field must be bit-identical to it, on the CPU and on the
+    card.  Near-ties (a runner-up on another feature within 1e-6) are
+    printed.  Returns the largest difference (0)."""
     got = sp.split_pair(*args, **kw).cpu()
     cpu = sp.split_pair_plain(*(a.cpu() for a in args), **kw)
     dev = sp.split_pair_plain(*args, **kw).cpu()
-    check(torch.equal(got.view(torch.int32), cpu.view(torch.int32)),
-          f"{what}: kernel vs plain (CPU) differ:\n{got}\n{cpu}")
-    ints = [1, 2, 3, 4, 5]
-    ties = near_ties(sp, args, kw)
-    for c, g1, g2 in ties:
+    for want, where in ((cpu, "CPU"), (dev, "card")):
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"{what}: kernel vs plain ({where}) differ:\n{got}\n{want}")
+    for c, g1, g2 in near_ties(sp, args, kw):
         print(f"  near-tie {what} child {c}: gains {g1!r} vs {g2!r}")
-    if not torch.equal(got[:, ints].view(torch.int32),
-                       dev[:, ints].view(torch.int32)):
-        check(bool(ties), f"{what}: int fields differ from the plain "
-                          f"version on the card without a near-tie")
-    flt = [0, 6, 7, 8, 9, 10, 11]
-    diff = torch.where(got[:, flt] == dev[:, flt], 0.0,
-                       (got[:, flt] - dev[:, flt]).abs())
-    return float(diff.nan_to_num(0.0).max())
+    return float((got - dev).nan_to_num(0.0).abs().max())
 
 
 # device functions of each port kernel, per split path (the partition's
-# functions run inside split_mega on the mega path)
+# functions run inside split_mega on the mega path); every one but
+# OPTIONAL_FUNCS must show device time in the profiled iteration
 KERNEL_FUNCS = {
     "mega": {"mega_hist": "split_mega", "part_tiles": "split_mega",
              "part_copyback": "split_mega", "part_set_count": "split_mega",
-             "pair_rows": "split_pair", "pair_final": "split_pair"},
+             "pair_search": "split_pair"},
     "subtraction": {"part_tiles": "partition", "part_copyback": "partition",
-                    "part_set_count": "partition", "lh_rows": "leaf_hist",
-                    "lh_reduce": "leaf_hist", "rmw_pass": "hist_rmw",
-                    "pair_rows": "split_pair", "pair_final": "split_pair"},
+                    "part_set_count": "partition",
+                    "leaf_hist_fixed": "leaf_hist", "rmw_pass": "hist_rmw",
+                    "pair_search": "split_pair"},
 }
+OPTIONAL_FUNCS = {"part_set_count"}     # runs only for a leaf of no rows
 
 
 def profile_iteration(bst, plain_s, label):
@@ -314,8 +318,8 @@ def profile_iteration(bst, plain_s, label):
     device function, and the device's busy share of the profiled
     iteration's wall time and of ``plain_s``, an iteration's wall time
     without it.  Returns {port kernel: (device ms, device launches)} of
-    the iteration (KERNEL_FUNCS), or None when the profiler saw no device
-    events."""
+    the iteration (KERNEL_FUNCS); fails when a device function of the
+    path's kernels shows no device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -331,23 +335,23 @@ def profile_iteration(bst, plain_s, label):
             if str(getattr(e, "device_type", "")).endswith("CUDA")
             and getattr(e, "device_time_total", 0) > 0]
     busy = sum(ms for _, ms, _ in rows)
-    if not rows:
-        print(f"profile {label}: iteration {wall * 1e3:.1f} ms; device "
-              f"time not measured (the profiler saw no device events)")
-        return None
+    check(rows, f"profile {label}: the profiler saw no device events")
     print(f"profile {label}: iteration {wall * 1e3:.1f} ms wall, device "
           f"busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%; "
           f"{100 * busy / (plain_s * 1e3):.1f}% of the "
           f"{plain_s * 1e3:.1f} ms median iteration without the profiler)")
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:14]:
         print(f"  {ms:9.3f} ms  x{n:<6d} {key[:90]}")
-    per = {}
+    per, seen = {}, set()
     for key, ms, n in rows:
         fn = key.split("(")[0].split()[-1]
         kernel = KERNEL_FUNCS[label].get(fn)
         if kernel:
+            seen.add(fn)
             t, c = per.get(kernel, (0.0, 0))
             per[kernel] = (t + ms, c + n)
+    missing = set(KERNEL_FUNCS[label]) - OPTIONAL_FUNCS - seen
+    check(not missing, f"profile {label}: no device time for {missing}")
     return per
 
 
@@ -385,13 +389,13 @@ def report_iteration(per, bounds, tree, label):
              "leaf_hist": ns + 1, "hist_rmw": ns}
     out = {}
     for k, b in bounds.items():
-        ms, n = per.get(k, (0.0, 0)) if per else (None, 0)
+        ms, n = per.get(k, (0.0, 0))
+        check(ms > 0, f"{label} {k}: no device time in the profiled "
+                      f"iteration")
         out[k] = (ms, b)
-        print(f"  {label} {k}: "
-              f"{'not measured' if ms is None else f'{ms:.3f} ms'} device "
-              f"time per iteration, bound {b:.3f} ms; {n} device launches "
-              f"for {calls[k]} calls ({n / calls[k]:.3f} a call)",
-              flush=True)
+        print(f"  {label} {k}: {ms:.3f} ms device time per iteration, "
+              f"bound {b:.3f} ms; {n} device launches for {calls[k]} calls "
+              f"({n / calls[k]:.3f} a call)", flush=True)
     return out
 
 
@@ -549,21 +553,31 @@ def main():
         vb, vg = variant_buffers(variant, pb, pg)
         sc = make_scalars(*c)
         check_mega(sm, vb, vg, sc, B, G, f"split_mega {what}", runs=1)
-        check_partition(tpart, vb, vg, sc, f"partition {what}")
-        del vb, vg
+        b, g, nl, _ = check_partition(tpart, vb, vg, sc, f"partition {what}")
+        check_leaf_hist(th, vb, vg, c[0], c[1], None, B, G,
+                        f"leaf_hist {what}", runs=1)
+        for side in (0, 1):
+            check_leaf_hist(th, b, g, c[0], c[1], (nl, side), B, G,
+                            f"leaf_hist {what} child {side}", runs=1)
+        del vb, vg, b, g
     sc = make_scalars(4096 + 3, 400_000, 6, 0, 0, 255, 0, 0, 131, 0)
     check_mega(sm, pb, pg, sc, B, G, "split_mega 20 launches", runs=20)
     first = check_partition(tpart, pb, pg, sc, "partition 20 launches")
+    for side in (0, 1):
+        check_leaf_hist(th, first[0], first[1], 4096 + 3, 400_000,
+                        (first[2], side), B, G,
+                        f"leaf_hist 20 launches child {side}", runs=20)
     for _ in range(19):
         again = check_partition(tpart, pb, pg, sc, "partition 20 launches")
         check(torch.equal(first[0], again[0]) and torch.equal(
             first[1].view(torch.int32), again[1].view(torch.int32))
               and int(first[2]) == int(again[2]),
               "partition: 20 launches differ")
-    say(f"split_mega, partition risk cases: {len(risk)} cases ok (start at "
-        f"every offset mod 16, counts around a {tpart.tile_rows(G)}-row "
-        f"tile, one row, ending at N_pad, one bin, |grad| ~ 1e4, all left "
-        f"/ right); 20 launches of each bit-identical")
+    say(f"split_mega, partition, leaf_hist risk cases: {len(risk)} cases ok "
+        f"(start at every offset mod 16, counts around a "
+        f"{tpart.tile_rows(G)}-row tile, one row, ending at N_pad, one bin, "
+        f"|grad| ~ 1e4, all left / right: a child of no rows); 20 launches "
+        f"of each bit-identical")
     state = torch.as_tensor(rng.randn(256, 2, G, 256).astype(np.float32) * 50,
                             device=dev)
     small = torch.as_tensor(rng.randn(2, G, 256).astype(np.float32),
@@ -718,11 +732,12 @@ def main():
     for i, (cpb, cpg, start, cnt, k) in enumerate(cap["leaf_hist"]):
         errs = check_leaf_hist(th, cpb, cpg, start, cnt, k["child"],
                                k["num_bins"], k["num_groups"],
-                               f"leaf_hist captured {i}")
+                               f"leaf_hist captured {i}", k["absmax"])
         print(f"  leaf_hist captured {i} (range of {cnt} rows, child "
               f"{None if k['child'] is None else k['child'][1]}): max |err| "
               f"kernel vs plain {errs['vs_plain']!r}, kernel vs f64 "
-              f"{errs['kernel_vs_f64']!r}; largest |bin sum| "
+              f"{errs['kernel_vs_f64']!r}, plain vs f64 "
+              f"{errs['plain_vs_f64']!r}; largest |bin sum| "
               f"{errs['max_abs_bin']!r}, largest bin mass "
               f"{errs['max_bin_mass']!r}", flush=True)
         lh_err = max(lh_err, errs["vs_plain"])
@@ -800,8 +815,11 @@ def main():
     Gk = k["num_groups"]
     _, Bp = sm.hist_geometry(k["num_bins"])
     lh_bound, lh_by = bound(cnt * (Gk + 8) + 2 * Gk * Bp * 4, 2 * cnt * Gk)
+    kp = {n: v for n, v in k.items() if n != "absmax"}
     lh_plain_ms = cuda_ms(lambda: th.leaf_hist_plain(cpb, cpg, start, cnt,
-                                                     **k), 3, 1)
+                                                     **kp), 3, 1)
+    lh_fixed_ms = cuda_ms(lambda: th.leaf_hist_fixed_plain(
+        cpb, cpg, start, cnt, **k), 3, 1)
     # library yardstick: one index_add_ over precomputed (plane, group,
     # bin) indices, prepared outside the timing
     seg = cpb[:Gk, start:start + cnt].long()
@@ -814,7 +832,8 @@ def main():
     del seg, idx, vals
     c1 = cap["leaf_hist"][1]
     say(f"leaf_hist @ root, {cnt} rows x {Gk} groups: {lh_ms[0]:.3f} ms, "
-        f"plain {lh_plain_ms:.3f} ms, bound {lh_bound:.3f} ms ({lh_by}), "
+        f"plain {lh_plain_ms:.3f} ms (its fixed-point twin "
+        f"{lh_fixed_ms:.3f} ms), bound {lh_bound:.3f} ms ({lh_by}), "
         f"index_add_ {lh_lib_ms:.3f} ms; at the first split's smaller child "
         f"(grid for the parent's {c1[3]} rows): {lh_ms[1]:.3f} ms")
     cap["leaf_hist"].clear()

@@ -18,29 +18,15 @@
 //
 // What bounds it on this card: bytes by the roofline, (R + 32) per row
 // moved by the partition and G + 9 read by the histogram; in practice
-// the histogram's shared-memory adds, two per (row, group).  The design:
-//   mega_hist  order-independent integer histograms.  Each grad and hess
-//              becomes a 64-bit fixed-point integer, round(v * 2^k) with
-//              one k per plane, the largest with cnt * max|v| * 2^k <
-//              2^62 (max|v| from a (2,) device tensor; no host sync), so
-//              no sum can overflow.  Integer addition is associative: the
-//              sums are the same whatever the order of lanes and blocks,
-//              so the adds are shared-memory atomics (each 64-bit add as
-//              two native 32-bit adds with a carry) -- no lane matching,
-//              no per-warp copies, no ordered reduction -- and the
-//              result is bit-identical run to run and to
-//              hist_fixed_plain.  A block holds the histograms of as
-//              many groups as its shared memory takes (8 KB a group at
-//              Bp = 256: all 28 of HIGGS in one block); each lane takes
-//              16 consecutive rows, reads their grad, hess and decision
-//              byte once for all the block's groups, and each group's
-//              bins as one 16-byte load.  Small leaves spread over more
-//              blocks with fewer groups each.  Blocks of one group set
-//              combine with 64-bit global atomics; the last block of the
-//              set (a done counter) converts once, (int64 -> double) *
-//              2^-k -> f32, and leaves the accumulator and counter at
-//              zero for the next launch.  A block alone in its set
-//              converts straight from shared memory.
+// the histogram's shared-memory adds, two 64-bit adds per (row, group).
+// The design:
+//   mega_hist  the order-independent fixed-point histogram of
+//              csrc/hist_fixed.cuh (shared with csrc/leaf_hist.cu), with
+//              four planes a group -- left grad, left hess, right grad,
+//              right hess -- and each row's side from the decision
+//              column, read once a 16-row unit with the rows' grad and
+//              hess.  8 KB a group at Bp = 256: all 28 of HIGGS in one
+//              block.
 //   then the two partition launches of csrc/partition.cuh, shared with
 //   csrc/partition.cu.  Three launches per split (one for move == 0).
 // The histogram is not fused into the partition's tile pass: the staged
@@ -49,40 +35,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
-
+#include "hist_fixed.cuh"
 #include "partition.cuh"
-
-#define HIST_THREADS 512
-#define MAX_BP 256
-#define FIXED_BITS 62
-
-// Add a 64-bit integer to a shared-memory accumulator held as a low and
-// a high 32-bit word, in two arrays so that consecutive bins sit in
-// consecutive banks.  A 64-bit shared atomic add compiles to a
-// compare-and-swap loop on this card; two native 32-bit adds do not: the
-// low add returns the old low word, and its carry joins the high part.
-// Every add that wraps the low word carries exactly once, so the pair
-// ends holding the sum modulo 2^64 whatever the order of the adds.
-__device__ __forceinline__ void shared_add_i64(unsigned* lo_word,
-                                               unsigned* hi_word,
-                                               long long v) {
-  const unsigned lo = (unsigned)v;
-  const unsigned hi = (unsigned)((unsigned long long)v >> 32);
-  const unsigned old = atomicAdd(lo_word, lo);
-  const unsigned c = old + lo < old ? 1u : 0u;
-  if (hi + c) atomicAdd(hi_word, hi + c);
-}
-
-// The exponent k of a plane's fixed-point scale 2^k: the largest with
-// cnt * amax * 2^k < 2^62 (the product is exact in double), clamped to
-// the range a finite f32 needs.  ops/split_mega.py fixed_exponent is the
-// same function.
-__device__ __forceinline__ int fixed_exponent(float amax, int cnt) {
-  int e;
-  frexp((double)amax * (double)cnt, &e);
-  return min(max(FIXED_BITS - e, -100), 220);
-}
 
 struct HistArgs {
   const uint8_t* bins;          // (R, Np)
@@ -102,12 +56,10 @@ struct HistArgs {
 
 __global__ void __launch_bounds__(HIST_THREADS, 1) mega_hist(HistArgs a) {
   extern __shared__ __align__(16) unsigned shist[];
-  __shared__ bool s_last;
   const int tid = threadIdx.x;
   const int Bp = a.Bp;
   const int g_lo = blockIdx.y * a.GB;
   const int gn = min(a.GB, a.G - g_lo);
-  const int nent = gn * 4 * Bp;
   unsigned* slo = shist;                  // low words, (gn, 4, Bp)
   unsigned* shi = shist + a.GB * 4 * Bp;  // high words
   for (int i = tid; i < 2 * a.GB * 4 * Bp; i += HIST_THREADS) shist[i] = 0u;
@@ -115,117 +67,45 @@ __global__ void __launch_bounds__(HIST_THREADS, 1) mega_hist(HistArgs a) {
     a.nl_out[0] = a.set_nl;
   const int kg = fixed_exponent(a.absmax[0], a.cnt);
   const int kh = fixed_exponent(a.absmax[1], a.cnt);
-  const double sg = ldexp(1.0, kg), sh = ldexp(1.0, kh);
   __syncthreads();
 
-  const long long end = a.start + a.cnt;
-  const long long a0 = a.start & ~15LL;
-  const long long nu = (end - a0 + 15) >> 4;
   const uint8_t* crow = a.bins + (long long)a.d.col * a.Np;
-  const float* grow = a.ghi;
-  const float* hrow = a.ghi + a.Np;
-  for (long long u = (long long)blockIdx.x * HIST_THREADS + tid; u < nu;
-       u += (long long)gridDim.x * HIST_THREADS) {
-    const long long r0 = a0 + (u << 4);
-    const uint4 cv = *(const uint4*)(crow + r0);
-    const unsigned cw[4] = {cv.x, cv.y, cv.z, cv.w};
-    long long gi[16], hi[16];
-    unsigned live = 0u, right = 0u;
+  const SplitDecision d = a.d;
+  hist_fixed_rows<4>(a.bins, a.Np, a.ghi, a.start, a.cnt, g_lo, gn, Bp,
+                     ldexp(1.0, kg), ldexp(1.0, kh), slo, shi,
+                     [&](long long r0) {
+                       const uint4 cv = *(const uint4*)(crow + r0);
+                       const unsigned cw[4] = {cv.x, cv.y, cv.z, cv.w};
+                       unsigned right = 0u;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float4 g4 = *(const float4*)(grow + r0 + 4 * k);
-      const float4 h4 = *(const float4*)(hrow + r0 + 4 * k);
-      const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
-      const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int t = 4 * k + b;
-        const bool v = r0 + t >= a.start && r0 + t < end;
-        live |= (unsigned)v << t;
-        right |= (unsigned)!decide_left((cw[k] >> (8 * b)) & 0xff, a.d) << t;
-        gi[t] = v ? __double2ll_rn((double)gv[b] * sg) : 0ll;
-        hi[t] = v ? __double2ll_rn((double)hv[b] * sh) : 0ll;
-      }
-    }
-    for (int gl = 0; gl < gn; ++gl) {
-      const uint4 bv =
-          *(const uint4*)(a.bins + (long long)(g_lo + gl) * a.Np + r0);
-      const unsigned bw[4] = {bv.x, bv.y, bv.z, bv.w};
-      const int hb = gl * 4 * Bp;
-#pragma unroll
-      for (int t = 0; t < 16; ++t) {
-        const int bin = (bw[t >> 2] >> ((t & 3) * 8)) & 0xff;
-        if (((live >> t) & 1u) && bin < Bp) {
-          const int e = hb + ((right >> t) & 1u) * 2 * Bp + bin;
-          shared_add_i64(slo + e, shi + e, gi[t]);
-          shared_add_i64(slo + e + Bp, shi + e + Bp, hi[t]);
-        }
-      }
-    }
-  }
+                       for (int t = 0; t < 16; ++t)
+                         right |= (unsigned)!decide_left(
+                                      (cw[t >> 2] >> (8 * (t & 3))) & 0xff,
+                                      d)
+                                  << t;
+                       return right;
+                     });
   __syncthreads();
 
   const long long base = (long long)g_lo * 4 * Bp;
-  const double ig = ldexp(1.0, -kg), ih = ldexp(1.0, -kh);
-  if (gridDim.x == 1) {
-    for (int i = tid; i < nent; i += HIST_THREADS) {
-      const long long v = (long long)(((unsigned long long)shi[i] << 32) |
-                                      slo[i]);
-      a.hist[base + i] = (float)((double)v * (((i / Bp) & 1) ? ih : ig));
-    }
-    return;
-  }
-  for (int i = tid; i < nent; i += HIST_THREADS) {
-    const unsigned long long v = ((unsigned long long)shi[i] << 32) | slo[i];
-    if (v) atomicAdd(a.acc + base + i, v);
-  }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0)
-    s_last = atomicAdd(a.done + blockIdx.y, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  for (int i = tid; i < nent; i += HIST_THREADS) {
-    const long long v = (long long)__ldcg(a.acc + base + i);
-    a.acc[base + i] = 0ull;
-    a.hist[base + i] = (float)((double)v * (((i / Bp) & 1) ? ih : ig));
-  }
-  if (tid == 0) a.done[blockIdx.y] = 0u;
+  float* out = a.hist + base;
+  hist_fixed_finish(slo, shi, gn * 4 * Bp, Bp, a.acc + base,
+                    a.done + blockIdx.y, ldexp(1.0, -kg), ldexp(1.0, -kh),
+                    [&](int i, float v) { out[i] = v; });
 }
 
-static int g_nsm = 0, g_smem_block = 0, g_smem_sm = 0;
-
-// Enqueue mega_hist (cnt > 0) with its grid: enough group sets to fill
-// the SMs when the leaf is small, as few as shared memory allows when it
-// is large.
+// Enqueue mega_hist (cnt > 0) on its grid (hist_grid).
 static cudaError_t launch_hist(HistArgs a, cudaStream_t s) {
-  if (!g_nsm) {
-    int dev;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&g_nsm, cudaDevAttrMultiProcessorCount, dev);
-    cudaDeviceGetAttribute(&g_smem_block,
-                           cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    cudaDeviceGetAttribute(&g_smem_sm,
-                           cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-  }
-  const int per_group = 4 * a.Bp * 8;
-  const int gbmax = std::min(a.G, (g_smem_block - 1024) / per_group);
-  if (gbmax < 1) return cudaErrorInvalidValue;
+  HistGrid g;
   const long long nu = (a.start + a.cnt - (a.start & ~15LL) + 15) >> 4;
-  const int need = (int)((nu + HIST_THREADS - 1) / HIST_THREADS);
-  int ngb = std::max((a.G + gbmax - 1) / gbmax,
-                     std::min(a.G, (g_nsm + need - 1) / need));
-  a.GB = (a.G + ngb - 1) / ngb;
-  ngb = (a.G + a.GB - 1) / a.GB;
-  const int smem = a.GB * per_group;
-  const int per_sm =
-      std::max(1, std::min(2048 / HIST_THREADS, g_smem_sm / (smem + 1024)));
-  const int nrb = std::max(1, std::min(need, g_nsm * per_sm / ngb));
-  cudaError_t e = cudaFuncSetAttribute(
-      mega_hist, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = hist_grid(a.G, 4, a.Bp, nu, &g);
   if (e != cudaSuccess) return e;
-  mega_hist<<<dim3(nrb, ngb), HIST_THREADS, smem, s>>>(a);
+  a.GB = g.GB;
+  e = cudaFuncSetAttribute(mega_hist,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           g.smem);
+  if (e != cudaSuccess) return e;
+  mega_hist<<<dim3(g.nrb, g.ngb), HIST_THREADS, g.smem, s>>>(a);
   return cudaGetLastError();
 }
 

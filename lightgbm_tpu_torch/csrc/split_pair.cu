@@ -4,34 +4,48 @@
 // (lightgbm_tpu/ops/split_pallas.py).  Its plain PyTorch version is
 // split_pair_plain in lightgbm_tpu_torch/ops/split_pair.py; the two run
 // the same f32 operations in the same order (this file is compiled with
-// --fmad=false, and both prefix sums run an f64 sum over the bins from
-// the left, rounded to f32 per bin), so they agree bit for bit with the
-// plain version run on the CPU.
+// --fmad=false) and the same f64 prefix sums (ops/split.py prefix_sum,
+// blocked as below, rounded to f32 per bin), so they agree bit for bit
+// with the plain version, on the CPU and on the card.
 //
 // What bounds it on this card: neither bytes nor operations.  The
 // inputs are two (2F, BF) f32 histograms (57 KB at F=28, BF=256) and the
-// work is a few thousand flops per row, so the kernel is launch- and
-// latency-bound: two launches of a few microseconds each.  The design
-// keeps it to two small launches and no host round-trip:
-//   1. pair_rows: one block per (child, feature) row, one thread per
-//      bin.  Six threads run the six sequential f64 prefix sums (masked
-//      grad/hess/count for the forward and the reverse scan) out of
-//      shared memory; every thread then scores its bin's forward and
-//      reverse candidates and the block reduces to the row's maximum
-//      gain and the minimum preference key among the candidates that
-//      reach it.
-//   2. pair_final: one thread per child walks the F rows in order
-//      and takes the minimum key among the rows that reach the child's
-//      maximum gain -- the reference's scan-order tie-break -- then
-//      writes the 13 leafmat fields (int fields bitcast into f32).
+// work is a few thousand flops per row, four correctly rounded f32
+// divisions a bin among them, so the kernel is launch- and
+// latency-bound: its time is the longest chain of dependent steps one
+// warp runs.  The design is one launch with no global scratch, no host
+// round-trip and no serial loop over the bins:
+//   one thread-block cluster per child, of up to 8 blocks on 8 SMs; one
+//   warp per work item, a (feature row, scan direction) pair -- the
+//   forward and the reverse scan share no data, so two warps take a row
+//   and each runs half the chain -- the warps striding over items when
+//   2F exceeds 64.  A lane holds 8 consecutive bins (BF <= 256, bins
+//   past BF zero).  Each masked prefix sum (grad, hess and count of the
+//   direction) is a local f64 scan over the lane's 8 bins, an exclusive
+//   5-step shuffle scan of the 32 lane totals in f64, and a per-bin add
+//   of the lane's offset rounded to f32.  Every lane then scores its
+//   bins' candidates, and the warp reduces to its best by shuffles: the
+//   maximum gain, then the minimum preference key among the candidates
+//   that reach it (exact in any order).  The items reduce by the same
+//   rule per warp, across a block's warps in shared memory, and across
+//   the cluster's blocks through distributed shared memory -- the
+//   reference's scan-order tie-break -- and one lane writes the 13
+//   leafmat fields (int fields bitcast into f32).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 #define MAX_BF 256
+#define LANE_BINS 8                 // MAX_BF / 32
+#define MAX_WARPS 8                 // warps a block
+#define MAX_CLUSTER 8               // blocks a child (portable cluster)
 #define K_EPS 1e-15f
 #define BIG_KEY (1 << 30)
+#define FULL 0xffffffffu
 
 // fmeta / info columns (ops/split_pair.py FM_*, IN_*)
 #define FM_NUM_BIN 0
@@ -70,22 +84,89 @@ __device__ __forceinline__ float leaf_gain(float g, float h, const Params& p) {
   return (s * s) / (h + p.l2);
 }
 
-// per-row winner: gain, key, left sums of the winning candidate
-struct RowBest {
+// A candidate: its gain, preference key and left sums.  Candidates
+// order by the larger gain, then the smaller key (keys are distinct).
+struct Cand {
   float gain, lg, lh, lc;
-  int key, is_rev;
+  int key;
 };
 
-__global__ void pair_rows(const float* __restrict__ hg,
-                          const float* __restrict__ hh,
-                          const int* __restrict__ fmeta,
-                          const float* __restrict__ info, int F, int BF,
-                          Params p, RowBest* __restrict__ rows) {
-  __shared__ float vals[6][MAX_BF];
-  __shared__ float red_g[MAX_BF];
-  __shared__ int red_k[MAX_BF];
-  const int r = blockIdx.x;
-  const int t = threadIdx.x;
+__device__ __forceinline__ bool better(const Cand& a, const Cand& b) {
+  return a.gain > b.gain || (a.gain == b.gain && a.key < b.key);
+}
+
+__device__ __forceinline__ Cand shfl_xor(const Cand& c, int m) {
+  return {__shfl_xor_sync(FULL, c.gain, m), __shfl_xor_sync(FULL, c.lg, m),
+          __shfl_xor_sync(FULL, c.lh, m), __shfl_xor_sync(FULL, c.lc, m),
+          __shfl_xor_sync(FULL, c.key, m)};
+}
+
+// The best candidate of the warp, in every lane.
+__device__ __forceinline__ Cand warp_best(Cand c) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) {
+    const Cand o = shfl_xor(c, m);
+    if (better(o, c)) c = o;
+  }
+  return c;
+}
+
+// Inclusive prefix sums of one row's 256 bins, the lane's 8 in v:
+// a local f64 scan, an exclusive shuffle scan of the lane totals, the
+// lane's offset added per bin, rounded to f32 (ops/split.py prefix_sum).
+// The local scan runs twice, for the lane total and then beside the
+// offset, so that no array of doubles stays live across the shuffles.
+__device__ __forceinline__ void row_scan(float (&v)[LANE_BINS], int lane) {
+  double tot = (double)v[0];
+#pragma unroll
+  for (int j = 1; j < LANE_BINS; ++j) tot = tot + (double)v[j];
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const double u = __shfl_up_sync(FULL, tot, d);
+    if (lane >= d) tot = tot + u;
+  }
+  double off = __shfl_up_sync(FULL, tot, 1);
+  if (lane == 0) off = 0.0;
+  double loc = (double)v[0];
+  v[0] = (float)(off + loc);
+#pragma unroll
+  for (int j = 1; j < LANE_BINS; ++j) {
+    loc = loc + (double)v[j];
+    v[j] = (float)(off + loc);
+  }
+}
+
+// The value at bin b of a scanned row, in every lane.
+__device__ __forceinline__ float row_at(const float (&v)[LANE_BINS], int b) {
+  float x = 0.0f;
+#pragma unroll
+  for (int j = 0; j < LANE_BINS; ++j)
+    if (j == (b & (LANE_BINS - 1))) x = v[j];
+  return __shfl_sync(FULL, x, b / LANE_BINS);
+}
+
+// The best candidate of one scan direction of row r (child c, feature
+// f), in every lane: the forward scan (missing values go right; left
+// sums are the prefix sums; keys ascend with the threshold after the
+// reverse scan's) or the reverse scan (missing values go left; right
+// sums are the row's total minus the prefix sums; keys descend with the
+// threshold).  The two need no data of each other, so two warps take
+// them.
+__device__ __forceinline__ Cand scan_best(const float* __restrict__ hg,
+                                          const float* __restrict__ hh,
+                                          const int* __restrict__ fmeta,
+                                          const float* __restrict__ info,
+                                          int r, int f, bool reverse, int BF,
+                                          const Params& p, int lane) {
+  const int t0 = lane * LANE_BINS;
+  // the lane's bins, read before the row's metadata arrives
+  float sg[LANE_BINS], sh[LANE_BINS], sn[LANE_BINS];
+#pragma unroll
+  for (int j = 0; j < LANE_BINS; ++j) {
+    const int t = t0 + j;
+    sg[j] = t < BF ? hg[r * BF + t] : 0.0f;
+    sh[j] = t < BF ? hh[r * BF + t] : 0.0f;
+  }
   const int nb = fmeta[r * 8 + FM_NUM_BIN];
   const int mtype = fmeta[r * 8 + FM_MISSING];
   const int dflt = fmeta[r * 8 + FM_DEFAULT];
@@ -98,124 +179,82 @@ __global__ void pair_rows(const float* __restrict__ hg,
   const bool zero_m = mtype == 1, nan_m = mtype == 2;
   const bool two_scan = (nb > 2) && (mtype != 0);
   const int bmax = nb - 1 - ((nan_m && two_scan) ? 1 : 0);
+  const float mgs = leaf_gain(sum_g, sum_h_tot, p) + p.min_gain_to_split;
+  const float mdl = p.min_data_in_leaf;
+  const bool depth_ok = p.max_depth <= 0 || depth < (float)p.max_depth;
+  const int key0 = f * (2 * BF);
 
-  if (t < BF) {
-    const bool in_range = t < nb;
-    const float g = hg[r * BF + t];
-    const float h = hh[r * BF + t];
-    const float cnt = in_range ? floorf(h * cnt_factor + 0.5f) : 0.0f;
+  // masked grad, hess and count of the direction's scan
+#pragma unroll
+  for (int j = 0; j < LANE_BINS; ++j) {
+    const int t = t0 + j;
+    const bool in_range = t < BF && t < nb;
     const bool at_dflt = t == dflt;
-    const bool mf = in_range && !(zero_m && at_dflt);
-    const bool mr = in_range && !(two_scan && zero_m && at_dflt) && t <= bmax;
-    vals[0][t] = mf ? g : 0.0f;
-    vals[1][t] = mf ? h : 0.0f;
-    vals[2][t] = mf ? cnt : 0.0f;
-    vals[3][t] = mr ? g : 0.0f;
-    vals[4][t] = mr ? h : 0.0f;
-    vals[5][t] = mr ? cnt : 0.0f;
+    const bool on = reverse ? in_range && !(two_scan && zero_m && at_dflt) &&
+                                  t <= bmax
+                            : in_range && !(zero_m && at_dflt);
+    sn[j] = on ? floorf(sh[j] * cnt_factor + 0.5f) : 0.0f;
+    sg[j] = on ? sg[j] : 0.0f;
+    sh[j] = on ? sh[j] : 0.0f;
   }
-  __syncthreads();
-  if (t < 6) {  // inclusive prefix sum: f64 running sum, f32 per bin
-    double acc = 0.0;
-    for (int b = 0; b < BF; ++b) {
-      acc = acc + (double)vals[t][b];
-      vals[t][b] = (float)acc;
+  row_scan(sg, lane);
+  row_scan(sh, lane);
+  row_scan(sn, lane);
+  float tg = 0.0f, th = 0.0f, tn = 0.0f;
+  if (reverse) {
+    tg = row_at(sg, BF - 1);
+    th = row_at(sh, BF - 1);
+    tn = row_at(sn, BF - 1);
+  }
+  Cand best{-INFINITY, 0.0f, 0.0f, 0.0f, BIG_KEY};
+#pragma unroll
+  for (int j = 0; j < LANE_BINS; ++j) {
+    const int t = t0 + j;
+    if (t >= BF) continue;
+    float lg, lh, lc, rg, rh, rc;
+    bool allowed;
+    int key;
+    if (reverse) {
+      rg = tg - sg[j];
+      rh = (th - sh[j]) + K_EPS;
+      rc = tn - sn[j];
+      lg = sum_g - rg;
+      lh = sum_h_tot - rh;
+      lc = num_data - rc;
+      allowed = t < nb && t <= bmax - 1 &&
+                !(two_scan && zero_m && t == dflt - 1);
+      key = key0 + BF - 1 - t;
+    } else {
+      lg = sg[j];
+      lh = sh[j] + K_EPS;
+      lc = sn[j];
+      rg = sum_g - lg;
+      rh = sum_h_tot - lh;
+      rc = num_data - lc;
+      allowed = two_scan && t < nb && t <= nb - 2 && !(zero_m && t == dflt);
+      key = key0 + BF + t;
     }
+    const float gain = leaf_gain(lg, lh, p) + leaf_gain(rg, rh, p);
+    const bool ok = lc >= mdl && rc >= mdl && lh >= p.min_sum_hessian &&
+                    rh >= p.min_sum_hessian;
+    const bool valid = allowed && ok && gain > mgs && fmask && depth_ok;
+    const Cand c{valid ? gain : -INFINITY, lg, lh, lc, key};
+    if (better(c, best)) best = c;
   }
-  __syncthreads();
-
-  float gf = -INFINITY, gr = -INFINITY;
-  float lg_f = 0.f, lh_f = 0.f, lc_f = 0.f, lg_r = 0.f, lh_r = 0.f,
-        lc_r = 0.f;
-  if (t < BF) {
-    const bool in_range = t < nb;
-    lg_f = vals[0][t];
-    lh_f = vals[1][t] + K_EPS;
-    lc_f = vals[2][t];
-    const float rg_f = sum_g - lg_f;
-    const float rh_f = sum_h_tot - lh_f;
-    const float rc_f = num_data - lc_f;
-    const float rg_r = vals[3][BF - 1] - vals[3][t];
-    const float rh_r = (vals[4][BF - 1] - vals[4][t]) + K_EPS;
-    const float rc_r = vals[5][BF - 1] - vals[5][t];
-    lg_r = sum_g - rg_r;
-    lh_r = sum_h_tot - rh_r;
-    lc_r = num_data - rc_r;
-    const float gain_f = leaf_gain(lg_f, lh_f, p) + leaf_gain(rg_f, rh_f, p);
-    const float gain_r = leaf_gain(lg_r, lh_r, p) + leaf_gain(rg_r, rh_r, p);
-    const float mgs = leaf_gain(sum_g, sum_h_tot, p) + p.min_gain_to_split;
-    const float mdl = p.min_data_in_leaf;
-    const bool depth_ok = p.max_depth <= 0 || depth < (float)p.max_depth;
-    const bool ok_f = lc_f >= mdl && rc_f >= mdl &&
-                      lh_f >= p.min_sum_hessian && rh_f >= p.min_sum_hessian;
-    const bool ok_r = lc_r >= mdl && rc_r >= mdl &&
-                      lh_r >= p.min_sum_hessian && rh_r >= p.min_sum_hessian;
-    const bool valid_f = two_scan && in_range && t <= nb - 2 &&
-                         !(zero_m && t == dflt) && ok_f && gain_f > mgs &&
-                         fmask && depth_ok;
-    const bool valid_r = in_range && t <= bmax - 1 &&
-                         !(two_scan && zero_m && t == dflt - 1) && ok_r &&
-                         gain_r > mgs && fmask && depth_ok;
-    gf = valid_f ? gain_f : -INFINITY;
-    gr = valid_r ? gain_r : -INFINITY;
-  }
-  // row maximum (exact in any order)
-  red_g[t] = fmaxf(gf, gr);
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (t < s) red_g[t] = fmaxf(red_g[t], red_g[t + s]);
-    __syncthreads();
-  }
-  const float rmax = red_g[0];
-  // preference keys (feature-major; reverse thresholds descending, then
-  // forward ascending): minimum among the candidates reaching rmax
-  const int feat = r % F;
-  int kr = BIG_KEY, kf = BIG_KEY;
-  if (t < BF) {
-    if (gr >= rmax) kr = feat * (2 * BF) + (BF - 1 - t);
-    if (gf >= rmax) kf = feat * (2 * BF) + BF + t;
-  }
-  __syncthreads();
-  red_k[t] = min(kr, kf);
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (t < s) red_k[t] = min(red_k[t], red_k[t + s]);
-    __syncthreads();
-  }
-  const int win = red_k[0];
-  if (t < BF && (kr == win || kf == win)) {
-    RowBest b;
-    b.gain = rmax;
-    b.key = win;
-    b.is_rev = kr == win;
-    b.lg = b.is_rev ? lg_r : lg_f;
-    b.lh = b.is_rev ? lh_r : lh_f;
-    b.lc = b.is_rev ? lc_r : lc_f;
-    rows[r] = b;
-  }
+  return warp_best(best);
 }
 
-__global__ void pair_final(const RowBest* __restrict__ rows,
-                           const int* __restrict__ fmeta,
-                           const float* __restrict__ info, int F, int BF,
-                           Params p, float* __restrict__ out) {
-  const int c = threadIdx.x;
-  if (c >= 2) return;
-  const RowBest* rb = rows + c * F;
-  float gmax = -INFINITY;
-  for (int f = 0; f < F; ++f) gmax = fmaxf(gmax, rb[f].gain);
-  int win = BIG_KEY, wr = 0;
-  for (int f = 0; f < F; ++f)
-    if (rb[f].gain >= gmax && rb[f].key < win) {
-      win = rb[f].key;
-      wr = f;
-    }
-  const RowBest b = rb[wr];
-  const int wfeat = win / (2 * BF);
+// Write child c's 13 leafmat fields from its best candidate b.
+__device__ void write_best(const Cand& b, const int* __restrict__ fmeta,
+                           const float* __restrict__ info, int c, int F,
+                           int BF, const Params& p, float* __restrict__ o) {
+  const int win = b.key;
+  const bool has_win = win < BIG_KEY;
+  const int wfeat = has_win ? win / (2 * BF) : 0;
   const int rr = win - wfeat * (2 * BF);
   const bool is_rev = rr < BF;
   const int thr = is_rev ? BF - 1 - rr : rr - BF;
-  const int row = c * F + wr;
+  const int row = c * F + wfeat;
   const int nb = fmeta[row * 8 + FM_NUM_BIN];
   const int mtype = fmeta[row * 8 + FM_MISSING];
   const bool two_scan = (nb > 2) && (mtype != 0);
@@ -227,9 +266,7 @@ __global__ void pair_final(const RowBest* __restrict__ rows,
   const float lg = b.lg, lh = b.lh, lc = b.lc;
   const float rg = sg - lg, rh = sh - lh, rc = nd - lc;
   const float shift = leaf_gain(sg, sh, p) + p.min_gain_to_split;
-  const bool has_win = win < BIG_KEY;
-  float* o = out + c * 13;
-  o[0] = has_win ? gmax - shift : -INFINITY;
+  o[0] = has_win ? b.gain - shift : -INFINITY;
   o[1] = __int_as_float(wfeat);
   o[2] = __int_as_float(thr);
   o[3] = dl;
@@ -244,23 +281,69 @@ __global__ void pair_final(const RowBest* __restrict__ rows,
   o[12] = 0.0f;
 }
 
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+    pair_search(const float* __restrict__ hg, const float* __restrict__ hh,
+                const int* __restrict__ fmeta,
+                const float* __restrict__ info, int F, int BF, Params p,
+                float* __restrict__ out) {
+  __shared__ Cand s_best[MAX_WARPS];
+  __shared__ Cand s_block;
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int ncl = (int)cluster.num_blocks();
+  const int c = blockIdx.x / ncl;
+  const int w = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  const Cand none{-INFINITY, 0.0f, 0.0f, 0.0f, BIG_KEY};
+  Cand best = none;
+  // work items: (feature row, scan direction), 2F a child
+  for (int u = w * ncl + rank; u < 2 * F; u += nw * ncl) {
+    const int f = u >> 1;
+    const Cand rb = scan_best(hg, hh, fmeta, info, c * F + f, f, u & 1, BF,
+                              p, lane);
+    if (better(rb, best)) best = rb;
+  }
+  if (lane == 0) s_best[w] = best;
+  __syncthreads();
+  if (w == 0) {
+    const Cand b = warp_best(lane < nw ? s_best[lane] : none);
+    if (lane == 0) s_block = b;
+  }
+  cluster.sync();
+  if (rank == 0 && w == 0) {
+    const Cand b = warp_best(
+        lane < ncl ? *cluster.map_shared_rank(&s_block, lane) : none);
+    if (lane == 0) write_best(b, fmeta, info, c, F, BF, p, out + c * 13);
+  }
+  cluster.sync();   // the blocks' shared memory stays until it is read
+}
+
 extern "C" int split_pair_launch(const float* hg, const float* hh,
                                  const int* fmeta, const float* info,
-                                 void* rows_scratch, float* out, int F,
-                                 int BF, float l1, float l2,
-                                 float max_delta_step,
+                                 float* out, int F, int BF, float l1,
+                                 float l2, float max_delta_step,
                                  float min_gain_to_split,
                                  float min_data_in_leaf,
                                  float min_sum_hessian, int max_depth,
                                  void* stream) {
   if (BF < 1 || BF > MAX_BF || F < 1) return (int)cudaErrorInvalidValue;
-  Params p{l1, l2, max_delta_step, min_gain_to_split, min_data_in_leaf,
-           min_sum_hessian, max_depth};
-  cudaStream_t s = (cudaStream_t)stream;
-  RowBest* rows = (RowBest*)rows_scratch;
-  pair_rows<<<2 * F, MAX_BF, 0, s>>>(hg, hh, fmeta, info, F, BF, p, rows);
-  pair_final<<<1, 32, 0, s>>>(rows, fmeta, info, F, BF, p, out);
-  return (int)cudaGetLastError();
+  const Params p{l1, l2, max_delta_step, min_gain_to_split, min_data_in_leaf,
+                 min_sum_hessian, max_depth};
+  const int ncl = 2 * F < MAX_CLUSTER ? 2 * F : MAX_CLUSTER;
+  const int per = (2 * F + ncl - 1) / ncl;
+  const int nw = per < MAX_WARPS ? per : MAX_WARPS;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2 * ncl);
+  cfg.blockDim = dim3(32 * nw);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = ncl;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, pair_search, hg, hh, fmeta, info, F,
+                                 BF, p, out);
 }
-
-extern "C" int split_pair_row_bytes() { return (int)sizeof(RowBest); }

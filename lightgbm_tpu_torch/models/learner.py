@@ -190,7 +190,8 @@ class SerialTreeLearner:
         G, B = self.G, self.B
         if self.subtract:
             planes = leaf_hist(part_bins, part_ghi, self.row0, self.N,
-                               num_bins=B, num_groups=G, planes=True)
+                               num_bins=B, num_groups=G, planes=True,
+                               absmax=self._absmax)
             self.state[0] = planes
             return planes[0], planes[1]
         # an all-left mega call that moves no rows
@@ -215,7 +216,7 @@ class SerialTreeLearner:
             small = leaf_hist(part_bins, part_ghi, scalars_start(scalars),
                               scalars[S_CNT], num_bins=B, num_groups=G,
                               child=(nl, 0 if small_is_left else 1),
-                              planes=True)
+                              planes=True, absmax=self._absmax)
             ch = hist_rmw(self.state, small,
                           (leaf, leaf, new_leaf, int(small_is_left)))
             return nl, ch[0].reshape(2 * G, -1), ch[1].reshape(2 * G, -1)
@@ -238,10 +239,10 @@ class SerialTreeLearner:
         lm.view(np.int32)[[LM_PARENT, LM_FORCED]] = -1
         nm = np.zeros((NND, nodes + 1), np.float32)
 
-        # the mega path's fixed-point histograms are scaled by one bound
-        # of |grad| and |hess| per tree, kept on the device
-        self._absmax = (None if self.subtract
-                        else part_ghi[:2].abs().amax(dim=1))
+        # the card's fixed-point histograms (split_mega, leaf_hist) are
+        # scaled by one bound of |grad| and |hess| per tree, kept on the
+        # device
+        self._absmax = part_ghi[:2].abs().amax(dim=1)
         # root: its histogram, then the best split from a pair search
         # over (root, root)
         hg, hh = self._root_hist(part_bins, part_ghi)

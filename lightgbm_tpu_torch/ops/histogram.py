@@ -23,10 +23,25 @@ Two options serve the histogram-subtraction split path
     ops/hist_state.py.  Otherwise the result is the (G, B, 2) view of
     those planes, the JAX functions' layout.
 
-The plain version sums in f64 and rounds to f32 once, so it is the
-correctly rounded sum; ``leaf_hist_reference`` returns those f64 sums
-with each bin's absolute mass, the yardstick any f32 order of summation
-is held to: ``|h - ref| <= rtol * |ref| + atol * mass``.
+The two versions sum differently.  The plain version, which the CPU
+runs, sums in f64 and rounds to f32 once, so it is the correctly rounded
+sum, and the JAX parity tests keep their fixtures and bars.  The kernel
+sums exactly in 64-bit fixed point, as the split mega-kernel's histogram
+does (ops/split_mega.py): each grad (hess) becomes round(v * 2^k), k =
+``fixed_exponent`` of a bound on |grad| (|hess|) and the count of rows
+the call sums (a child's count is read on the device), and each bin's
+integer sum is converted once to f32.  ``leaf_hist_fixed_plain`` is that
+arithmetic in plain PyTorch, bit-identical to the kernel.  The bound is
+``absmax``, a (2,) f32 tensor of max|grad| and max|hess| on the
+buffers' device over at least the rows summed (the learner passes one
+per tree); without it the kernel's wrapper takes it over
+``[start, start + cnt)``, a child's parent included, and so does
+``leaf_hist_fixed_plain``.  The CUDA kernel needs N_pad a multiple of
+16 and 16-byte aligned buffers.
+
+``leaf_hist_reference`` returns the f64 sums with each bin's absolute
+mass, the yardstick any f32 rounding of the sums is held to:
+``|h - ref| <= rtol * |ref| + atol * mass``.
 """
 
 from __future__ import annotations
@@ -37,21 +52,11 @@ from typing import Optional, Tuple
 import torch
 
 from . import kernels
-from .partition import GHI_ROWS
-from .split_mega import hist_geometry
-
-MIN_CHUNK_ROWS = 4096       # rows per histogram block, at least
-MAX_CHUNKS = 128            # histogram chunks per leaf, at most
+from .partition import check_rows, workspace
+from .split_mega import fixed_rows, hist_geometry, leaf_absmax
 
 # launches of the CUDA kernel (the plain version is not counted)
 launches = 0
-
-
-def hist_chunks(cnt: int):
-    """(chunk_rows, nchunks) of the histogram grid for a leaf of cnt rows."""
-    per = -(-cnt // MAX_CHUNKS)
-    chunk = max(MIN_CHUNK_ROWS, -(-per // 256) * 256)
-    return chunk, max(1, -(-cnt // chunk))
 
 
 def as_gb2(planes: torch.Tensor, num_bins: int) -> torch.Tensor:
@@ -67,19 +72,25 @@ def child_range(start: int, cnt: int, child) -> Tuple[int, int]:
     return (start, nl) if child[1] == 0 else (start + nl, cnt - nl)
 
 
+def _planes(part_bins, vals, s: int, c: int, G: int, Bp: int):
+    """(2, G, Bp) sums of the two (c,) value rows ``vals`` (grad-like,
+    hess-like; their dtype) over the bins of the rows [s, s + c)."""
+    dev = part_bins.device
+    idx = (part_bins[:G, s:s + c].long()
+           + (torch.arange(G, device=dev) * Bp)[:, None]).reshape(-1)
+    out = torch.zeros((2, G * Bp), dtype=vals[0].dtype, device=dev)
+    for p in range(2):
+        out[p].index_add_(0, idx, vals[p].expand(G, c).reshape(-1))
+    return out.view(2, G, Bp)
+
+
 def _planes64(part_bins, part_ghi, s: int, c: int, G: int, Bp: int,
               absolute: bool) -> torch.Tensor:
     """f64 (2, G, Bp) sums of grad / hess (or of their absolute values)
     over the rows [s, s + c)."""
-    dev = part_bins.device
-    idx = (part_bins[:G, s:s + c].long()
-           + (torch.arange(G, device=dev) * Bp)[:, None]).reshape(-1)
-    out = torch.zeros((2, G * Bp), dtype=torch.float64, device=dev)
-    for p in range(2):
-        v = part_ghi[p, s:s + c].double()
-        v = v.abs() if absolute else v
-        out[p].index_add_(0, idx, v.expand(G, c).reshape(-1))
-    return out.view(2, G, Bp)
+    vals = [part_ghi[p, s:s + c].double() for p in range(2)]
+    return _planes(part_bins, [v.abs() if absolute else v for v in vals],
+                   s, c, G, Bp)
 
 
 def leaf_hist_reference(part_bins, part_ghi, start: int, cnt: int, *,
@@ -102,32 +113,48 @@ def leaf_hist_plain(part_bins, part_ghi, start: int, cnt: int, *,
     return h if planes else as_gb2(h, num_bins)
 
 
+def leaf_hist_fixed_plain(part_bins, part_ghi, start: int, cnt: int, *,
+                          num_bins: int, num_groups: int, child=None,
+                          planes: bool = False, absmax=None):
+    """The kernel's arithmetic in plain PyTorch, bit for bit:
+    ``split_mega.fixed_rows`` of the rows summed (k from ``absmax`` and
+    their count), ``index_add_`` in int64, then (int64 -> double) * 2^-k
+    -> f32.  ``absmax`` as for the kernel (default: over
+    ``[start, start + cnt)``)."""
+    _, Bp = hist_geometry(num_bins)
+    if absmax is None:
+        absmax = leaf_absmax(part_ghi, start, cnt)
+    s, c = child_range(start, cnt, child)
+    vals, inv = fixed_rows(part_ghi, s, c, absmax)
+    acc = _planes(part_bins, vals, s, c, num_groups, Bp)
+    h = (acc.double() * inv[:, None, None]).float()
+    return h if planes else as_gb2(h, num_bins)
+
+
 def leaf_hist(part_bins, part_ghi, start: int, cnt: int, *, num_bins: int,
               num_groups: int,
               child: Optional[Tuple[torch.Tensor, int]] = None,
-              planes: bool = False) -> torch.Tensor:
-    """The leaf's histogram (see module doc)."""
+              planes: bool = False, absmax=None) -> torch.Tensor:
+    """The leaf's histogram (see module doc; the CPU's plain version does
+    not use ``absmax``)."""
     kw = dict(num_bins=num_bins, num_groups=num_groups, child=child,
               planes=planes)
     if part_bins.device.type == "cpu":
         return leaf_hist_plain(part_bins, part_ghi, start, cnt, **kw)
-    return leaf_hist_cuda(part_bins, part_ghi, start, cnt, **kw)
+    return leaf_hist_cuda(part_bins, part_ghi, start, cnt, absmax=absmax,
+                          **kw)
 
 
 def leaf_hist_cuda(part_bins, part_ghi, start, cnt, *, num_bins, num_groups,
-                   child=None, planes=False) -> torch.Tensor:
+                   child=None, planes=False, absmax=None) -> torch.Tensor:
     global launches
     R, Np = part_bins.shape
     G = num_groups
     _, Bp = hist_geometry(num_bins)
-    kernels.require_cuda(part_bins, torch.uint8, "part_bins")
-    kernels.require_cuda(part_ghi, torch.float32, "part_ghi", (GHI_ROWS, Np))
+    check_rows(part_bins, part_ghi, start, cnt, 0, "leaf_hist")
     if not (0 < G <= R and Bp <= 256):
         raise ValueError(f"leaf_hist: bad geometry G={G} R={R} "
                          f"num_bins={num_bins}")
-    if not (0 <= start and 0 <= cnt < (1 << 24) and start + cnt <= Np):
-        raise ValueError(f"leaf_hist: range [{start}, {start + cnt}) "
-                         f"outside [0, {Np}) or over 2^24 rows")
     nl, side = None, 0
     if child is not None:
         nl, side = child[0], int(child[1]) + 1
@@ -135,21 +162,24 @@ def leaf_hist_cuda(part_bins, part_ghi, start, cnt, *, num_bins, num_groups,
         if side not in (1, 2):
             raise ValueError(f"leaf_hist: child side {child[1]} not 0 or 1")
     dev = part_bins.device
-    chunk, nchunks = hist_chunks(cnt)
-    partials = torch.empty(nchunks * G * 2 * Bp, dtype=torch.float32,
-                           device=dev)
+    if absmax is None:
+        absmax = leaf_absmax(part_ghi, start, cnt)
+    kernels.require_cuda(absmax, torch.float32, "absmax", (2,))
+    ws = workspace(dev)
+    acc = ws.buffer("leaf_acc", G * 2 * Bp, torch.int64, zero=True)
+    done = ws.buffer("leaf_done", G, torch.int32, zero=True)
     hist = torch.empty((2, G, Bp), dtype=torch.float32, device=dev)
     fn = kernels.load("leaf_hist").leaf_hist_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 + [
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
     err = fn(kernels.ptr(part_bins), R, Np, kernels.ptr(part_ghi), start,
              cnt, None if nl is None else kernels.ptr(nl), side,
-             kernels.ptr(partials), chunk, nchunks, G, Bp, kernels.ptr(hist),
-             kernels.stream_ptr(dev))
+             kernels.ptr(absmax), kernels.ptr(acc), kernels.ptr(done), G, Bp,
+             kernels.ptr(hist), kernels.stream_ptr(dev))
     kernels.check(err, "leaf_hist_launch")
     launches += 1
     return hist if planes else as_gb2(hist, num_bins)

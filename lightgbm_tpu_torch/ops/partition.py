@@ -125,9 +125,9 @@ def partition_leaf_cuda(part_bins, part_ghi, scalars) -> torch.Tensor:
 
 def check_rows(part_bins, part_ghi, start, cnt, col, what) -> None:
     """Wrapper-side checks of the row buffers and the leaf range shared by
-    the partition and the split mega-kernel: the kernels stage rows with
-    16-byte copies, so N_pad is a multiple of 16 and both buffers start
-    16-byte aligned."""
+    the partition, the split mega-kernel and the leaf histogram: the
+    kernels read rows with 16-byte copies, so N_pad is a multiple of 16
+    and both buffers start 16-byte aligned."""
     R, Np = part_bins.shape
     kernels.require_cuda(part_bins, torch.uint8, "part_bins")
     kernels.require_cuda(part_ghi, torch.float32, "part_ghi", (GHI_ROWS, Np))
@@ -191,13 +191,15 @@ def tile_rows(R: int) -> int:
 
 
 class Workspace:
-    """Device scratch of the partition and the split mega-kernel, kept
-    between launches instead of allocated per call.  The ticket counter
-    and the mega-kernel's accumulator and done counters are zero between
-    launches (each launch leaves them so); the tile status words carry
-    the launch's epoch, so a word left by an earlier launch reads as not
-    yet published.  Launches on one device run in the order of its
-    current stream, which the workspace relies on."""
+    """Device scratch of the partition, the split mega-kernel and the leaf
+    histogram, kept between launches instead of allocated per call.  The
+    ticket counter and the histograms' accumulators and done counters
+    (``acc`` / ``done`` of the mega-kernel, ``leaf_acc`` / ``leaf_done``
+    of the leaf histogram) are zero between launches (each launch leaves
+    them so); the tile status words carry the launch's epoch, so a word
+    left by an earlier launch reads as not yet published.  Launches on
+    one device run in the order of its current stream, which the
+    workspace relies on."""
 
     def __init__(self, device):
         self.device = device

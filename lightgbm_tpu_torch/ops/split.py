@@ -73,14 +73,38 @@ def leaf_gain(sum_g, sum_h, l1: float, l2: float, max_delta_step: float):
     return s * s / (sum_h + l2)
 
 
+SCAN_LANES = 32     # lanes of the pair kernel's warp scan
+SCAN_BINS = 8       # bins a lane holds (256 bins / 32 lanes)
+
+
 def prefix_sum(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix sum along the last axis of an f32 tensor,
-    accumulated in f64 one bin at a time from the left and rounded to
-    f32 per bin -- the pair kernel's per-row scan (ops/split_pair.py),
-    so the two agree bit for bit on the CPU.  (A plain f32 scan over 256
-    bins rounds away low bits of the leaf totals; the f64 running sum
-    keeps the prefix sums correctly rounded.)"""
-    return torch.cumsum(x.double(), dim=-1).to(torch.float32)
+    """Inclusive prefix sum along the last axis of an f32 tensor, in f64
+    with the pair kernel's blocked association (csrc/split_pair.cu), and
+    rounded to f32 per bin, so the two agree bit for bit on the CPU and
+    on the card.  The axis is padded with zeros to 32 lanes of at least
+    8 bins; each lane's bins are summed from the left, the 32 lane totals
+    scanned in 5 shifted-add steps, and each lane's exclusive offset
+    added to its bins.  Elementwise f64 adds only (``torch.cumsum`` leaves
+    its order on the card unspecified).  (A plain f32 scan over 256 bins
+    rounds away low bits of the leaf totals; the f64 sums keep the prefix
+    sums within one f32 rounding of the exact ones.)"""
+    n = x.shape[-1]
+    per = max(SCAN_BINS, -(-n // SCAN_LANES))
+    xd = torch.nn.functional.pad(x.double(), (0, SCAN_LANES * per - n))
+    xd = xd.view(*x.shape[:-1], SCAN_LANES, per)
+    loc = [xd[..., 0]]
+    for j in range(1, per):
+        loc.append(loc[-1] + xd[..., j])
+    tot = loc[-1]
+    lane = torch.arange(SCAN_LANES, device=x.device)
+    d = 1
+    while d < SCAN_LANES:
+        up = torch.nn.functional.pad(tot[..., :-d], (d, 0))
+        tot = torch.where(lane >= d, tot + up, tot)
+        d *= 2
+    off = torch.nn.functional.pad(tot[..., :-1], (1, 0))
+    out = off[..., None] + torch.stack(loc, dim=-1)
+    return out.reshape(*x.shape[:-1], SCAN_LANES * per)[..., :n].float()
 
 
 def find_best_split_fast(feat_hist, ctx: SplitContext, sum_g, sum_h,

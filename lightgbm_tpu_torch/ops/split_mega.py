@@ -130,32 +130,43 @@ def fixed_exponent(amax: float, cnt: int) -> int:
 
 
 def leaf_absmax(part_ghi, start: int, cnt: int):
-    """(2,) f32 max|grad|, max|hess| over the leaf's rows."""
+    """(2,) f32 max|grad|, max|hess| over the leaf's rows (zeros for no
+    rows)."""
+    if cnt == 0:
+        return torch.zeros(2, dtype=torch.float32, device=part_ghi.device)
     return part_ghi[:2, start:start + cnt].abs().amax(dim=1)
+
+
+def fixed_rows(part_ghi, s: int, c: int, absmax):
+    """The fixed-point form of the grad and hess of the rows [s, s + c)
+    that both kernels' histograms sum: round(v * 2^k) in double to int64,
+    k = ``fixed_exponent`` of ``absmax`` (per plane) and c.  Returns the
+    two (c,) int64 rows and the (2,) f64 factors 2^-k that convert their
+    sums back."""
+    ks = [fixed_exponent(a, c) for a in absmax.tolist()]
+    vals = [torch.round(part_ghi[p, s:s + c].double()
+                        * math.ldexp(1.0, ks[p])).long() for p in (0, 1)]
+    inv = torch.tensor([math.ldexp(1.0, -k) for k in ks],
+                       dtype=torch.float64, device=part_ghi.device)
+    return vals, inv
 
 
 def hist_fixed_plain(part_bins, part_ghi, scalars, *, num_bins: int,
                      num_groups: int, absmax=None):
-    """The kernel's histogram in plain PyTorch, bit for bit: round(v *
-    2^k) in double to int64, ``index_add_`` in int64, then (int64 ->
-    double) * 2^-k -> f32.  ``absmax`` as for the kernel (default: over
-    the leaf)."""
+    """The kernel's histogram in plain PyTorch, bit for bit: ``fixed_rows``,
+    ``index_add_`` in int64, then (int64 -> double) * 2^-k -> f32.
+    ``absmax`` as for the kernel (default: over the leaf)."""
     G = num_groups
     BH, Bp = hist_geometry(num_bins)
     start, cnt, gl = leaf_decisions(part_bins, scalars)
     acc = torch.zeros(G * 4 * Bp, dtype=torch.int64, device=part_bins.device)
     if cnt == 0:
         return acc.float().view(G, 4 * BH, 16)
-    s, e = start, start + cnt
     if absmax is None:
         absmax = leaf_absmax(part_ghi, start, cnt)
-    ks = [fixed_exponent(a, cnt) for a in absmax.tolist()]
-    g, h = (torch.round(part_ghi[p, s:e].double() * math.ldexp(1.0, ks[p]))
-            .long() for p in (0, 1))
-    _hist_add(acc, part_bins[:G, s:e], gl, g, h, Bp)
-    inv = torch.tensor([math.ldexp(1.0, -ks[p % 2]) for p in range(4)],
-                       dtype=torch.float64, device=acc.device)
-    return ((acc.view(G, 4, Bp).double() * inv[:, None]).float()
+    (g, h), inv = fixed_rows(part_ghi, start, cnt, absmax)
+    _hist_add(acc, part_bins[:G, start:start + cnt], gl, g, h, Bp)
+    return ((acc.view(G, 4, Bp).double() * inv.repeat(2)[:, None]).float()
             .view(G, 4 * BH, 16))
 
 
@@ -183,8 +194,7 @@ def split_mega_cuda(part_bins, part_ghi, scalars, *, num_bins, num_groups,
                          f"num_bins={num_bins}")
     dev = part_bins.device
     if absmax is None:
-        absmax = (leaf_absmax(part_ghi, start, cnt) if cnt
-                  else torch.zeros(2, device=dev))
+        absmax = leaf_absmax(part_ghi, start, cnt)
     kernels.require_cuda(absmax, torch.float32, "absmax", (2,))
     ws = workspace(dev)
     acc = ws.buffer("acc", G * 4 * Bp, torch.int64, zero=True)

@@ -47,7 +47,7 @@ def split_pair_plain(hist_g, hist_h, fmeta, info, *, l1: float, l2: float,
                      min_data_in_leaf: int, min_sum_hessian: float,
                      max_depth: int) -> torch.Tensor:
     """Plain PyTorch version: the JAX kernel's arithmetic in f32, with
-    the kernel's f64-accumulated prefix sums (ops/split.py prefix_sum)."""
+    the kernel's blocked f64 prefix sums (ops/split.py prefix_sum)."""
     F2, BF = hist_g.shape
     F = F2 // 2
     dev = hist_g.device
@@ -175,22 +175,16 @@ def split_pair_cuda(hist_g, hist_h, fmeta, info, *, l1, l2, max_delta_step,
     kernels.require_cuda(hist_h, torch.float32, "hist_h", (F2, BF))
     kernels.require_cuda(fmeta, torch.int32, "fmeta", (F2, 8))
     kernels.require_cuda(info, torch.float32, "info", (F2, 8))
-    lib = kernels.load("split_pair")
-    fn = lib.split_pair_launch
+    fn = kernels.load("split_pair").split_pair_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
                    + [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_void_p])
-    lib.split_pair_row_bytes.restype = ctypes.c_int
-    lib.split_pair_row_bytes.argtypes = []
-    row_bytes = lib.split_pair_row_bytes()
     dev = hist_g.device
-    rows = torch.empty(F2 * row_bytes, dtype=torch.uint8, device=dev)
     out = torch.empty((2, OUT_FIELDS), dtype=torch.float32, device=dev)
     err = fn(kernels.ptr(hist_g), kernels.ptr(hist_h), kernels.ptr(fmeta),
-             kernels.ptr(info), kernels.ptr(rows), kernels.ptr(out),
-             F2 // 2, BF, l1, l2, max_delta_step, min_gain_to_split,
-             float(min_data_in_leaf), min_sum_hessian, int(max_depth),
-             kernels.stream_ptr(dev))
+             kernels.ptr(info), kernels.ptr(out), F2 // 2, BF, l1, l2,
+             max_delta_step, min_gain_to_split, float(min_data_in_leaf),
+             min_sum_hessian, int(max_depth), kernels.stream_ptr(dev))
     kernels.check(err, "split_pair_launch")
     launches += 1
     return out

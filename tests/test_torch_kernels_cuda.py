@@ -7,8 +7,8 @@ with a card and no JAX it runs without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 Tolerances: split_pair's kernel runs the plain version's f32 operations
-in the same order, so all 13 fields are bit-identical to the plain
-version on the CPU.  split_mega's partition (bins and payload words) is
+in the same order and its blocked f64 prefix sums, so all 13 fields are
+bit-identical to the plain version, on the CPU and on the card.  split_mega's partition (bins and payload words) is
 bit-identical to the plain version, and its fixed-point histogram is
 bit-identical to hist_fixed_plain (integer sums are exact in any
 order); repeated launches are bit-identical.  The histogram is also held
@@ -17,9 +17,9 @@ sum of |grad| or |hess| over the bin's rows), and to the plain
 version's f32 sums within rtol 1e-4 + 1e-4 x mass, the plain version's
 own rounding included.  The partition and hist_rmw kernels are
 bit-identical to their plain versions (words moved; one f32
-subtraction).  leaf_hist's f32 sums are held to the f64 sums of
-leaf_hist_reference within rtol 1e-4 + 1e-5 x mass, and two launches
-are bit-identical.
+subtraction).  leaf_hist's fixed-point histogram is bit-identical to
+leaf_hist_fixed_plain and held to the f64 sums of leaf_hist_reference
+within rtol 1e-4 + 1e-5 x mass; repeated launches are bit-identical.
 """
 
 import numpy as np
@@ -69,13 +69,23 @@ def _pair_case(seed, F=28, BF=255):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("shape", [(28, 255), (28, 256), (7, 31), (3, 16),
+                                   (45, 64), (70, 255)])
 @pytest.mark.parametrize("pi", range(len(PARAMS)))
-def test_split_pair_kernel_bit_identical_to_plain(card, seed, pi):
-    args = _pair_case(seed)
+def test_split_pair_kernel_bit_identical_to_plain(card, shape, pi):
+    """Kernel, plain version on the card and plain version on the CPU
+    agree bit for bit (the prefix sums are elementwise f64 adds in the
+    kernel's association), at widths that leave lanes without bins and
+    with more work items (feature row, scan direction) than one cluster
+    has warps."""
+    F, BF = shape
+    args = _pair_case(F + BF + pi, F, BF)
     want = sp.split_pair_plain(*args, **PARAMS[pi])
-    got = sp.split_pair(*(a.to(card) for a in args), **PARAMS[pi])
-    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    dev = [a.to(card) for a in args]
+    got = sp.split_pair(*dev, **PARAMS[pi]).cpu()
+    plain = sp.split_pair_plain(*dev, **PARAMS[pi]).cpu()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(plain.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -239,11 +249,12 @@ def test_split_mega_and_partition_risk_cases(card, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fn", ["split_mega", "partition"])
+@pytest.mark.parametrize("fn", ["split_mega", "partition", "leaf_hist"])
 def test_repeated_launches_bit_identical(card, fn):
     """20 launches on one input give identical buffers, left counts and
     histograms: a look-back that read a stale tile word, or a histogram
-    that depended on the order of its adds, would show here."""
+    that depended on the order of its adds or on an accumulator left
+    dirty by the launch before, would show here."""
     pb, pg = _row_buffers(5)
     sc = make_scalars(4096 + 3, 400_000, 6, 0, 0, 255, 0, 0, 131, 0)
     first = None
@@ -251,8 +262,14 @@ def test_repeated_launches_bit_identical(card, fn):
         b, g = pb.to(card), pg.to(card)
         if fn == "split_mega":
             nl, acc = sm.split_mega(b, g, sc, num_bins=255, num_groups=28)
-        else:
+        elif fn == "partition":
             nl, acc = tpart.partition_leaf(b, g, sc), torch.zeros(1)
+        else:
+            nl = tpart.partition_leaf(b, g, sc)
+            acc = torch.cat([th.leaf_hist(b, g, 4096 + 3, 400_000,
+                                          num_bins=255, num_groups=28,
+                                          child=child, planes=True)
+                             for child in (None, (nl, 0), (nl, 1))])
         got = (b.cpu(), g.cpu().view(torch.int32), int(nl),
                acc.cpu().view(torch.int32))
         if first is None:
@@ -263,30 +280,56 @@ def test_repeated_launches_bit_identical(card, fn):
         assert torch.equal(got[3], first[3])
 
 
+def _leaf_hist_check(card, pb, pg, start, cnt, child_sc):
+    """leaf_hist on the card over [start, start + cnt) and over both
+    children of its partition by the scalars child_sc: bit-identical to
+    leaf_hist_fixed_plain (with the default bound and with the learner's
+    per-tree bound) and within the f64 bars."""
+    G, B = 28, 255
+    kw = dict(num_bins=B, num_groups=G, planes=True)
+    b, g = pb.to(card), pg.to(card)
+    nl = tpart.partition_leaf(b, g, child_sc)
+    tree_bound = g[:2].abs().amax(dim=1)
+    hb, hg = b.cpu(), g.cpu()
+    for child in (None, (nl, 0), (nl, 1)):
+        host = None if child is None else (child[0].cpu(), child[1])
+        ref, mass = th.leaf_hist_reference(hb, hg, start, cnt, child=host,
+                                           num_bins=B, num_groups=G)
+        for absmax in (None, tree_bound):
+            got = th.leaf_hist(b, g, start, cnt, child=child, absmax=absmax,
+                               **kw).cpu()
+            want = th.leaf_hist_fixed_plain(
+                hb, hg, start, cnt, child=host,
+                absmax=None if absmax is None else absmax.cpu(), **kw)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+            assert bool(((got.double() - ref).abs() <= 1e-4 * ref.abs()
+                         + 1e-5 * mass).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(PART_CASES))
 def test_leaf_hist_kernel_matches_f64(card, case):
     """The whole range, then each child of the partition, read from the
-    left count on the card."""
-    G, B = 28, 255
+    left count on the card (all_left / all_right give a child of no
+    rows); bit-identical to leaf_hist_fixed_plain, within the f64
+    bars."""
     pb, pg = _row_buffers(2)
     start, cnt = PART_CASES[case][:2]
-    b, g = pb.to(card), pg.to(card)
-    kw = dict(num_bins=B, num_groups=G)
-    calls = [dict()]
-    nl = tpart.partition_leaf(b, g, make_scalars(*PART_CASES[case]))
-    calls += [dict(child=(nl, 0)), dict(child=(nl, 1))]
-    for extra in calls:
-        runs = [th.leaf_hist(b, g, start, cnt, planes=True, **kw, **extra)
-                for _ in range(2)]
-        host = {k: (v if k != "child" else (v[0].cpu(), v[1]))
-                for k, v in extra.items()}
-        ref, mass = th.leaf_hist_reference(b.cpu(), g.cpu(), start, cnt,
-                                           **kw, **host)
-        got = runs[0].cpu().double()
-        assert bool(((got - ref).abs() <= 1e-4 * ref.abs()
-                     + 1e-5 * mass).all())
-        assert torch.equal(runs[0], runs[1])
+    _leaf_hist_check(card, pb, pg, start, cnt,
+                     make_scalars(*PART_CASES[case]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [f"offset{o}" for o in range(16)]
+                         + ["one_row", "ends_at_n_pad", "one_bin",
+                            "regression_scale"])
+def test_leaf_hist_kernel_risk_cases(card, case):
+    """Start at every offset mod 16, one row, a leaf ending at N_pad, all
+    rows in one bin, |grad| ~ 1e4: the range and both children of its
+    partition, bit-identical to leaf_hist_fixed_plain."""
+    pb, pg, sc = _risk_buffers(case)
+    start, cnt = tpart.scalars_start(sc), sc[tpart.S_CNT]
+    _leaf_hist_check(card, pb, pg, start, cnt, sc)
 
 
 @pytest.mark.cuda

@@ -190,3 +190,52 @@ def test_split_pair_dispatches_cpu_to_plain_version():
                            ("hg", "hh", "fmeta", "info")), **PARAMS[0])
     assert np.array_equal(a.view(np.int32), b.numpy().view(np.int32))
     assert sp.launches == before
+
+
+def _blocked_scan_oracle(x):
+    """numpy emulation of the pair kernel's prefix-sum association (f64):
+    32 lanes of max(8, ceil(n/32)) bins, each lane's bins summed from the
+    left, an inclusive Hillis-Steele scan of the lane totals (lane l adds
+    lane l - d at d = 1, 2, 4, 8, 16), the exclusive offset added per
+    bin, rounded to f32."""
+    n = x.shape[-1]
+    per = max(8, -(-n // 32))
+    rows = x.reshape(-1, n).astype(np.float64)
+    out = np.empty(rows.shape, np.float32)
+    for i, row in enumerate(rows):
+        pad = np.zeros(32 * per)
+        pad[:n] = row
+        loc = np.empty((32, per))
+        for lane in range(32):
+            acc = pad[lane * per]
+            loc[lane, 0] = acc
+            for j in range(1, per):
+                acc = acc + pad[lane * per + j]
+                loc[lane, j] = acc
+        tot = loc[:, -1].copy()
+        for d in (1, 2, 4, 8, 16):
+            tot = np.array([tot[lane] + tot[lane - d] if lane >= d
+                            else tot[lane] for lane in range(32)])
+        off = np.concatenate([[0.0], tot[:-1]])
+        out[i] = (off[:, None] + loc).reshape(-1)[:n].astype(np.float32)
+    return out.reshape(x.shape)
+
+
+@pytest.mark.parametrize("n", [1, 16, 31, 255, 256, 300])
+def test_prefix_sum_blocked_association(n):
+    """ops/split.py prefix_sum equals the numpy emulation of its blocked
+    association bit for bit, and a sequential f64 oracle within one f32
+    rounding (plus the f64 rounding of either order)."""
+    rng = np.random.RandomState(n)
+    x = (rng.randn(3, 4, n) * np.exp(rng.randn(3, 4, n) * 4)).astype(
+        np.float32)
+    x[0, 0, ::3] = 0.0
+    x[0, 1] = -0.0
+    got = tsplit.prefix_sum(torch.as_tensor(x)).numpy()
+    assert got.dtype == np.float32 and got.shape == x.shape
+    want = _blocked_scan_oracle(x)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    seq = np.cumsum(x.astype(np.float64), axis=-1)
+    f64_err = 2 * n * 2.0 ** -53 * np.cumsum(np.abs(x.astype(np.float64)),
+                                             axis=-1)
+    assert (np.abs(got - seq) <= np.abs(seq) * 2.0 ** -24 + f64_err).all()

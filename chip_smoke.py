@@ -11,21 +11,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      tile-compacted partition and fixed-point histograms risk most (start
      at every offset mod 16, counts around one tile, one row, a leaf
      ending at N_pad, one bin, |grad| ~ 1e4, a child of no rows) and over
-     20 launches;
+     20 launches; leaf_hist's state launch (the histogram-state update
+     hist_rmw, folded into it) bit-identical to its plain twin on the
+     root, small left / small right, wa == wb, a child of no rows and a
+     child at each offset mod 16, the larger child's slot equal to a
+     direct fixed-point histogram of its rows;
   4. train the HIGGS shape (10.5M x 28, seed 7, as bench.py makes it;
      binary, num_leaves=255, max_bin=255) for a few iterations through
      lightgbm_tpu_torch on the card, on each of the learner's two split
      paths in turn -- the mega path (split_mega + split_pair) and the
      histogram-subtraction path (tpu_megakernel=off: partition +
-     leaf_hist + hist_rmw + split_pair) -- from one constructed Dataset,
-     with every kernel's launch count reset just before each path and
-     read just after; then, for each path, predict 100k rows, save,
-     reload and predict again, profile one more iteration (each
-     kernel's device time and launches beside its per-iteration bound,
-     from the profiled tree's split counts; every device function of the
-     path's kernels must show device time), and train the port on the
-     card against the port on the CPU on
-     examples/binary_classification;
+     leaf_hist with the state epilogue + split_pair) -- from one
+     constructed Dataset, with every kernel's launch count reset just
+     before each path and read just after (on the subtraction path every
+     split of the first tree is checked: the larger child's int64 slot
+     equals a direct fixed-point histogram of its rows); then, for each
+     path, predict 100k rows, save, reload and predict again, profile one
+     more iteration (each kernel's device time and launches beside its
+     per-iteration bound, from the profiled tree's split counts; every
+     device function of the path's kernels must show device time), time
+     the host side of each kernel wrapper's call, and train the port on
+     the card against the port on the CPU on
+     examples/binary_classification (and, on the subtraction path,
+     report how examples/regression's exactly-empty-bin ties fall);
   5. each kernel against its plain version on inputs captured from the
      first tree of its path, and its time at those shapes beside the
      least time the card could take for the same work.
@@ -250,17 +258,79 @@ def check_leaf_hist(th, pb, pg, start, cnt, child, B, G, what, absmax=None,
             "max_bin_mass": float(mass.max())}
 
 
-def check_rmw(hs, state, small, idx, what):
-    """Kernel vs plain on the card: the state and both children
-    bit-identical.  Returns the largest difference (0)."""
-    st, st0 = state.clone(), state.clone()
-    ch = hs.hist_rmw(st, small, idx)
-    ch0 = hs.hist_rmw_plain(st0, small, idx)
+def check_exact(th, pb, pg, start, cnt, k, state, what):
+    """The invariant the int64 histogram state buys, after a fused call
+    with keywords ``k``: each slot it wrote equals the direct fixed-point
+    sums of that leaf's own rows at the tree's scale, bit for bit (for a
+    split, the larger child's slot is parent minus smaller)."""
+    parent, wa, wb, sil = k["idx"]
+    kw = dict(num_bins=k["num_bins"], num_groups=k["num_groups"],
+              absmax=k["absmax"], kcnt=k["kcnt"])
+    if parent < 0:
+        want = {wa: th.leaf_hist_fixed_sums(pb, pg, start, cnt, **kw)[0]}
+    else:
+        nl = k["child"][0]
+        want = {slot: th.leaf_hist_fixed_sums(pb, pg, start, cnt,
+                                              child=(nl, side), **kw)[0]
+                for side, slot in ((0, wa), (1, wb)) if side or wa != wb}
+    for slot, sums in want.items():
+        check(torch.equal(state[slot], sums),
+              f"{what}: slot {slot} differs from the direct fixed-point "
+              f"sums of its rows")
+
+
+def check_fused(hs, th, pb, pg, start, cnt, k, state, what, exact=True):
+    """leaf_hist's state launch vs its plain twin on the card: the int64
+    state and the f32 children bit-identical to leaf_hist_rmw_fixed_plain
+    (the twin's fixed-point histogram at the tree's scale, then
+    hist_rmw_fixed_plain); with ``exact``, the slots it wrote equal the
+    direct sums of their rows (the parent slot must hold the parent's
+    sums).  ``state`` is left as the launch leaves it.  Returns the
+    largest difference of the children (0)."""
+    st0 = state.clone()
+    ch = hs.leaf_hist_rmw(pb, pg, start, cnt, state=state, **k)
+    ch0 = hs.leaf_hist_rmw_fixed_plain(pb, pg, start, cnt, state=st0, **k)
     torch.cuda.synchronize()
-    ok = (torch.equal(st.view(torch.int32), st0.view(torch.int32))
-          and torch.equal(ch.view(torch.int32), ch0.view(torch.int32)))
-    check(ok, f"{what}: state or children differ from the plain version")
+    check(torch.equal(state, st0), f"{what}: int64 state differs from "
+                                   f"leaf_hist_rmw_fixed_plain")
+    check(torch.equal(ch.view(torch.int32), ch0.view(torch.int32)),
+          f"{what}: children differ from leaf_hist_rmw_fixed_plain")
+    if exact:
+        check_exact(th, pb, pg, start, cnt, k, state, what)
     return float((ch - ch0).abs().max())
+
+
+def fused_cases(hs, th, tpart, make_scalars, pb, pg, B, G):
+    """The state launch on synthetic leaves: the root launch (no parent)
+    into the parent slot, the partition, then the smaller child's launch
+    -- small left and small right, into wa == wb, a child of no rows
+    (all left / all right), and a child at each offset mod 16."""
+    kcnt = pb.shape[1]                  # the tree's root count
+    absmax = pg[:2].abs().amax(dim=1)
+    cases = {
+        "small left": (4096, 300_000, 120, 0, (2, 2, 5, 1)),
+        "small right": (4096, 300_000, 120, 1, (2, 2, 5, 0)),
+        "wa == wb, small left": (4096 + 3, 300_000, 120, 0, (2, 7, 7, 1)),
+        "wa == wb, small right": (4096 + 3, 300_000, 120, 1, (2, 7, 7, 0)),
+        "right child of no rows": (4096 + 5, 5000, 255, 1, (2, 2, 5, 0)),
+        "left child of no rows": (4096 + 5, 5000, -1, 0, (2, 2, 5, 1)),
+    }
+    cases.update({f"offset {o}": (4096 + o, 5000, 120, o % 2,
+                                  (2, 2, 5, 1 - o % 2)) for o in range(16)})
+    err = 0.0
+    for what, (start, cnt, thr, side, idx) in cases.items():
+        b, g = pb.clone(), pg.clone()
+        state = hs.new_state(8, G, B, pb.device)
+        k = dict(num_bins=B, num_groups=G, absmax=absmax, kcnt=kcnt)
+        err = max(err, check_fused(hs, th, b, g, start, cnt,
+                                   dict(k, idx=(-1, idx[0], idx[0], 0)),
+                                   state, f"leaf_hist_rmw {what} root"))
+        nl = tpart.partition_leaf(b, g, make_scalars(start, cnt, 5, 0, 0,
+                                                     255, 0, 0, thr, 1))
+        err = max(err, check_fused(hs, th, b, g, start, cnt,
+                                   dict(k, idx=idx, child=(nl, side)),
+                                   state, f"leaf_hist_rmw {what}"))
+    return len(cases), err
 
 
 def near_ties(sp, args, kw):
@@ -307,10 +377,13 @@ KERNEL_FUNCS = {
              "pair_search": "split_pair"},
     "subtraction": {"part_tiles": "partition", "part_copyback": "partition",
                     "part_set_count": "partition",
-                    "leaf_hist_fixed": "leaf_hist", "rmw_pass": "hist_rmw",
+                    "leaf_hist_state": "leaf_hist",
                     "pair_search": "split_pair"},
 }
 OPTIONAL_FUNCS = {"part_set_count"}     # runs only for a leaf of no rows
+# the device launches of a path's kernels for the root's calls (the
+# root's histogram or histogram-only split_mega, and its pair search)
+ROOT_LAUNCHES = 2
 
 
 def profile_iteration(bst, plain_s, label):
@@ -359,7 +432,10 @@ def iteration_bounds(tree, label, G, R, Bp, N, pair_bytes):
     """Per-iteration bound (ms) of each port kernel on one path: the sum
     over the tree's splits of the kernel's bytes formula, each split's
     rows from the tree's internal counts (no bagging: the bag-aware count
-    is the row count), plus the root's calls."""
+    is the row count), plus the root's calls.  On the subtraction path
+    hist_rmw is leaf_hist's state epilogue: its bytes (a parent slot
+    read, two int64 slots and two f32 children written a split; one slot
+    and two f32 copies at the root) are in leaf_hist's bound too."""
     ns = tree.num_leaves - 1
     cnt = tree.internal_count[:ns].astype(np.float64)
 
@@ -375,20 +451,33 @@ def iteration_bounds(tree, label, G, R, Bp, N, pair_bytes):
         nbytes["split_mega"] = N * (G + 8) + hist4 + move + ns * hist4
     else:
         nbytes["partition"] = move
-        nbytes["leaf_hist"] = (N * (G + 8) + hist2
-                               + float((small * (G + 8)).sum()) + ns * hist2)
-        nbytes["hist_rmw"] = ns * 6 * hist2
+        nbytes["hist_rmw"] = (ns * 8 + 4) * hist2
+        nbytes["leaf_hist"] = (N * (G + 8) + float((small * (G + 8)).sum())
+                               + nbytes["hist_rmw"])
     return {k: v / PEAK_BYTES_S * 1e3 for k, v in nbytes.items()}
 
 
 def report_iteration(per, bounds, tree, label):
     """Print each kernel's device ms per iteration beside its bound, and
-    its device launches per call (the root's calls included)."""
+    its device launches per call (the root's calls included), and the
+    path's device launches a split."""
     ns = tree.num_leaves - 1
     calls = {"split_mega": ns + 1, "split_pair": ns + 1, "partition": ns,
-             "leaf_hist": ns + 1, "hist_rmw": ns}
+             "leaf_hist": ns + 1}
     out = {}
+    launches = sum(n for _, n in per.values())
+    print(f"  {label}: {launches} device launches of the path's kernels for "
+          f"{ns} splits and the root: "
+          f"{(launches - ROOT_LAUNCHES) / ns:.3f} a split", flush=True)
     for k, b in bounds.items():
+        if k == "hist_rmw":
+            check(k not in per, f"{label}: hist_rmw has device launches of "
+                                f"its own")
+            print(f"  {label} hist_rmw: no launch of its own (leaf_hist's "
+                  f"state epilogue), bound {b:.4f} ms per iteration, "
+                  f"inside leaf_hist's", flush=True)
+            out[k] = (None, b)
+            continue
         ms, n = per.get(k, (0.0, 0))
         check(ms > 0, f"{label} {k}: no device time in the profiled "
                       f"iteration")
@@ -399,18 +488,76 @@ def report_iteration(per, bounds, tree, label):
     return out
 
 
+class HostTimer:
+    """While installed: the host seconds of each call of the named
+    learner_mod entries (kernel wrappers, which launch and do not sync)."""
+
+    def __init__(self, learner_mod, names):
+        self.mod = learner_mod
+        self.real = {n: getattr(learner_mod, n) for n in names}
+        self.secs = {n: [] for n in names}
+
+    def __enter__(self):
+        for name, fn in self.real.items():
+            def call(*a, _fn=fn, _name=name, **k):
+                t0 = time.perf_counter()
+                out = _fn(*a, **k)
+                self.secs[_name].append(time.perf_counter() - t0)
+                return out
+            setattr(self.mod, name, call)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.mod, name, fn)
+
+    def us(self):
+        return {n: (1e6 * sum(v) / len(v), len(v))
+                for n, v in self.secs.items() if v}
+
+
+# the learner's kernel entries on each path
+HOST_ENTRIES = {"mega": ("split_mega", "split_pair"),
+                "subtraction": ("partition_leaf", "leaf_hist_rmw",
+                                "split_pair")}
+
+
+def host_costs(bst, learner_mod, label, plain_s):
+    """Profile one more iteration (profile_iteration) and run one more
+    without the profiler, timing the host side of each kernel wrapper's
+    call in both; prints the mean microseconds a call.  Returns the
+    profiled iteration's per-kernel device numbers and its tree."""
+    with HostTimer(learner_mod, HOST_ENTRIES[label]) as prof_t:
+        per = profile_iteration(bst, plain_s, label)
+    tree = bst._gbdt.models[-1]
+    with HostTimer(learner_mod, HOST_ENTRIES[label]) as plain_t:
+        bst.update()
+        torch.cuda.synchronize()
+    for what, t in (("profiled", prof_t), ("unprofiled", plain_t)):
+        print(f"host {label} ({what} iteration): microseconds of one Python "
+              f"call into each kernel wrapper, no sync, mean over the "
+              f"iteration's calls: " + ", ".join(
+                  f"{n} {us:.1f} (x{c})" for n, (us, c) in t.us().items()),
+              flush=True)
+    return per, tree
+
+
 def train_path(lgt, learner_mod, mods, ds, params, label, capture):
     """Train ITERS iterations of one split path with every kernel's launch
     count set to 0 just before and read just after.  ``capture`` maps a
-    name of learner_mod to a function that records a call's inputs; it
-    wraps that name during the first iteration only."""
+    name of learner_mod to a function that records a call's inputs and
+    may return a function that checks the call's result; it wraps that
+    name during the first iteration only."""
     bst = lgt.Booster(params=params, train_set=ds)
     real = {name: getattr(learner_mod, name) for name in capture}
 
     def wrap(name):
         def call(*a, **k):
-            capture[name](*a, **k)
-            return real[name](*a, **k)
+            after = capture[name](*a, **k)
+            out = real[name](*a, **k)
+            if after is not None:
+                after(out)
+            return out
         return call
 
     for m in mods.values():
@@ -453,6 +600,41 @@ def check_predict(lgt, bst, Xp, label):
                                   f"max {np.abs(p1 - p2).max()}")
     say(f"predict {label}: {len(Xp)} rows in {pred_s:.3f} s; save/reload "
         f"equal")
+
+
+def regression_ties(lgt):
+    """examples/regression on the subtraction path (31 leaves, lambda_l2
+    1, 5 trees), the card against the CPU, at min_data_in_leaf 10 and 20:
+    where the CPU's f32 subtraction leaves a residue in exactly-empty
+    bins that decides between tied thresholds (ROADMAP.md C), while the
+    card's int64 state leaves them exactly empty.  Reported, not checked:
+    prints, per setting, whether the trees agree and each split whose
+    feature or threshold bin differs."""
+    d = np.loadtxt(os.path.join(ROOT, "examples", "regression",
+                                "regression.train"))
+    for mdl in (10, 20):
+        p = {"objective": "regression", "num_leaves": 31, "lambda_l2": 1.0,
+             "min_data_in_leaf": mdl, "verbosity": -1,
+             "tpu_megakernel": "off"}
+        b_gpu = lgt.train(p, lgt.Dataset(d[:, 1:], label=d[:, 0]), 5)
+        b_cpu = lgt.train(dict(p, device_type="cpu"),
+                          lgt.Dataset(d[:, 1:], label=d[:, 0]), 5)
+        diffs = []
+        for t, (a, b) in enumerate(zip(b_gpu._gbdt.models,
+                                       b_cpu._gbdt.models)):
+            if a.num_leaves != b.num_leaves:
+                diffs.append(f"tree {t}: card {a.num_leaves} leaves, CPU "
+                             f"{b.num_leaves}")
+                continue
+            for i, fa in enumerate(a.split_feature.tolist()):
+                fb = b.split_feature[i]
+                ta, tb = a.threshold_bin[i], b.threshold_bin[i]
+                if fa != fb or ta != tb:
+                    diffs.append(f"tree {t} split {i}: card feature {fa} "
+                                 f"bin {ta}, CPU feature {fb} bin {tb}")
+        say(f"regression ties, subtraction path, min_data_in_leaf {mdl}: "
+            f"card and CPU trees "
+            f"{'identical' if not diffs else 'differ: ' + '; '.join(diffs)}")
 
 
 def card_vs_cpu(lgt, d, extra, label):
@@ -578,14 +760,12 @@ def main():
         f"{tpart.tile_rows(G)}-row tile, one row, ending at N_pad, one bin, "
         f"|grad| ~ 1e4, all left / right: a child of no rows); 20 launches "
         f"of each bit-identical")
-    state = torch.as_tensor(rng.randn(256, 2, G, 256).astype(np.float32) * 50,
-                            device=dev)
-    small = torch.as_tensor(rng.randn(2, G, 256).astype(np.float32),
-                            device=dev)
-    for idx in ((5, 5, 9, 1), (5, 5, 9, 0), (3, 255, 255, 1),
-                (3, 255, 255, 0), (0, 0, 1, 1)):
-        check_rmw(hs, state, small, idx, f"hist_rmw {idx}")
-    say("hist_rmw synthetic: 5 cases ok (wa == wb included)")
+    n_fused, _ = fused_cases(hs, th, tpart, make_scalars, pb, pg, B, G)
+    say(f"leaf_hist_rmw (hist_rmw folded into leaf_hist) synthetic: "
+        f"{n_fused} cases ok (root, small left / right, wa == wb, a child "
+        f"of no rows, a child at each offset mod 16): int64 state and f32 "
+        f"children bit-identical to leaf_hist_rmw_fixed_plain, every slot "
+        f"written equal to the direct fixed-point sums of its rows")
 
     F, BF = FEATURES, 255
     half = np.zeros((F, 8), np.int32)
@@ -612,7 +792,7 @@ def main():
         info[:, 4] = 1.0
         check_pair(sp, (hg, hh, fmeta, info), kw, f"split_pair synthetic {i}")
     say("split_pair synthetic: ok")
-    del pb, pg, state, small
+    del pb, pg
 
     # ---- 4. the main paths -------------------------------------------
     # split_pair's bytes per call: the (2F, Bp) grad and hess planes, the
@@ -631,8 +811,8 @@ def main():
     d = np.loadtxt(os.path.join(ROOT, "examples", "binary_classification",
                                 "binary.train"))
 
-    cap = {"mega": [], "pair": [], "partition": [], "leaf_hist": [],
-           "rmw": [], "sub_pair": []}
+    cap = {"mega": [], "pair": [], "partition": [], "lhr": [],
+           "sub_pair": []}
 
     def keep(key, n, item):
         if len(cap[key]) < n:
@@ -650,15 +830,23 @@ def main():
     def capture_partition(pb_, pg_, sc):
         keep("partition", 2, lambda: (pb_.clone(), pg_.clone(), sc))
 
-    def capture_leaf_hist(pb_, pg_, start, cnt, **k):
-        child = k.get("child")
-        k = dict(k, child=None if child is None
-                 else (child[0].clone(), child[1]))
-        keep("leaf_hist", 2, lambda: (pb_.clone(), pg_.clone(), start, cnt,
-                                      k))
+    exact_calls = []
 
-    def capture_rmw(state_, small_, idx):
-        keep("rmw", 2, lambda: (state_.clone(), small_.clone(), tuple(idx)))
+    def capture_lhr(pb_, pg_, start, cnt, state, **k):
+        # the root and the first three splits' inputs, the state before
+        # the call included; after every call of the first tree, the
+        # slots it wrote against direct sums of their rows
+        child = k.get("child")
+        kc = dict(k, child=None if child is None
+                  else (child[0].clone(), child[1]))
+        keep("lhr", 4, lambda: (pb_.clone(), pg_.clone(), start, cnt, kc,
+                                state.clone()))
+
+        def after(_):
+            check_exact(th, pb_, pg_, start, cnt, k, state,
+                        f"subtraction tree 0 call {len(exact_calls)}")
+            exact_calls.append(k["idx"])
+        return after
 
     # the mega path (the default)
     bst, iter_s, losses_mega, splits, launches = train_path(
@@ -672,8 +860,8 @@ def main():
         check(launches[k] == 0, f"mega: {k} launched {launches[k]} times")
     launches_by_path = {"mega": launches}
     check_predict(lgt, bst, Xp, "mega")
-    per = profile_iteration(bst, float(np.median(iter_s[1:])), "mega")
-    tree = bst._gbdt.models[-1]
+    per, tree = host_costs(bst, learner_mod, "mega",
+                           float(np.median(iter_s[1:])))
     iter_by_path = {"mega": report_iteration(per, iteration_bounds(
         tree, "mega", G, G, 256, ROWS, pair_bytes), tree, "mega")}
     card_vs_cpu(lgt, d, {}, "mega")
@@ -683,26 +871,32 @@ def main():
     bst, iter_s, losses_sub, splits, launches = train_path(
         lgt, learner_mod, mods, ds, dict(params, tpu_megakernel="off"),
         "subtraction",
-        {"partition_leaf": capture_partition, "leaf_hist": capture_leaf_hist,
-         "hist_rmw": capture_rmw, "split_pair": pair_capture("sub_pair")})
+        {"partition_leaf": capture_partition, "leaf_hist_rmw": capture_lhr,
+         "split_pair": pair_capture("sub_pair")})
     check(bst._gbdt.learner.subtract, "tpu_megakernel=off did not select "
                                       "the subtraction path")
-    for k, want in (("partition", splits), ("hist_rmw", splits),
+    # every leaf_hist launch of the path is a state launch (hist_rmw)
+    for k, want in (("partition", splits), ("hist_rmw", splits + ITERS),
                     ("leaf_hist", splits + ITERS),
                     ("split_pair", splits + ITERS), ("split_mega", 0)):
         check(launches[k] == want, f"subtraction: {k}: {launches[k]} "
                                    f"launches, expected {want}")
+    say(f"subtraction tree 0: {len(exact_calls)} state launches (the root "
+        f"and {len(exact_calls) - 1} splits), every slot written equal to "
+        f"the direct fixed-point sums of its rows at the tree's scale "
+        f"(each larger child exact as parent minus smaller)")
     launches_by_path["subtraction"] = launches
     print(f"binary_logloss per iteration: mega {losses_mega}, subtraction "
           f"{losses_sub} (the two paths sum in other orders, so their trees "
           f"are only numerically equal)", flush=True)
     check_predict(lgt, bst, Xp, "subtraction")
-    per = profile_iteration(bst, float(np.median(iter_s[1:])), "subtraction")
-    tree = bst._gbdt.models[-1]
+    per, tree = host_costs(bst, learner_mod, "subtraction",
+                           float(np.median(iter_s[1:])))
     iter_by_path["subtraction"] = report_iteration(per, iteration_bounds(
         tree, "subtraction", G, G, 256, ROWS, pair_bytes), tree,
         "subtraction")
     card_vs_cpu(lgt, d, {"tpu_megakernel": "off"}, "subtraction")
+    regression_ties(lgt)
     del bst, X, y, ds
 
     # ---- 5. captured inputs and timings ------------------------------
@@ -728,8 +922,8 @@ def main():
     for i, (cpb, cpg, sc) in enumerate(cap["partition"]):
         part_err = max(part_err, check_partition(
             tpart, cpb, cpg, sc, f"partition captured {i}")[3])
-    lh_err = 0.0
-    for i, (cpb, cpg, start, cnt, k) in enumerate(cap["leaf_hist"]):
+    lh_err = rmw_err = 0.0
+    for i, (cpb, cpg, start, cnt, k, cst) in enumerate(cap["lhr"]):
         errs = check_leaf_hist(th, cpb, cpg, start, cnt, k["child"],
                                k["num_bins"], k["num_groups"],
                                f"leaf_hist captured {i}", k["absmax"])
@@ -741,10 +935,9 @@ def main():
               f"{errs['max_abs_bin']!r}, largest bin mass "
               f"{errs['max_bin_mass']!r}", flush=True)
         lh_err = max(lh_err, errs["vs_plain"])
-    rmw_err = 0.0
-    for i, (cst, csm, idx) in enumerate(cap["rmw"]):
-        rmw_err = max(rmw_err, check_rmw(hs, cst, csm, idx,
-                                         f"hist_rmw captured {i}"))
+        rmw_err = max(rmw_err, check_fused(
+            hs, th, cpb, cpg, start, cnt, k, cst.clone(),
+            f"leaf_hist_rmw captured {i} (idx {k['idx']})"))
     say("captured inputs: kernels agree with plain versions")
 
     # split_mega at the first split of the first tree (the root's rows)
@@ -803,23 +996,24 @@ def main():
         f"partitions in place, library_ms null")
     cap["partition"].clear()
 
-    # leaf_hist at the root of the first subtraction tree, and at its
-    # first smaller child
-    lh_ms = {}
-    for i, (cpb, cpg, start, cnt, k) in enumerate(cap["leaf_hist"]):
-        lh_ms[i] = cuda_ms(lambda: th.leaf_hist(cpb, cpg, start, cnt, **k),
-                           10)
-    cpb, cpg, start, cnt, k = cap["leaf_hist"][0]
-    check(k["child"] is None and cnt == ROWS, "first leaf_hist call is not "
-                                              "the root's")
+    # leaf_hist at the root of the first subtraction tree: the plain
+    # launch and the learner's state launch
+    cpb, cpg, start, cnt, k, cst = cap["lhr"][0]
+    check(k["child"] is None and cnt == ROWS, "first leaf_hist_rmw call is "
+                                              "not the root's")
     Gk = k["num_groups"]
     _, Bp = sm.hist_geometry(k["num_bins"])
+    kp = dict(num_bins=k["num_bins"], num_groups=Gk, planes=True)
+    lh_ms = cuda_ms(lambda: th.leaf_hist(cpb, cpg, start, cnt,
+                                         absmax=k["absmax"], **kp), 10)
+    st = cst.clone()
+    lh_state_ms = cuda_ms(lambda: hs.leaf_hist_rmw(cpb, cpg, start, cnt,
+                                                   state=st, **k), 10)
     lh_bound, lh_by = bound(cnt * (Gk + 8) + 2 * Gk * Bp * 4, 2 * cnt * Gk)
-    kp = {n: v for n, v in k.items() if n != "absmax"}
     lh_plain_ms = cuda_ms(lambda: th.leaf_hist_plain(cpb, cpg, start, cnt,
                                                      **kp), 3, 1)
     lh_fixed_ms = cuda_ms(lambda: th.leaf_hist_fixed_plain(
-        cpb, cpg, start, cnt, **k), 3, 1)
+        cpb, cpg, start, cnt, absmax=k["absmax"], **kp), 3, 1)
     # library yardstick: one index_add_ over precomputed (plane, group,
     # bin) indices, prepared outside the timing
     seg = cpb[:Gk, start:start + cnt].long()
@@ -829,29 +1023,48 @@ def main():
                       cpg[1, start:start + cnt].expand(Gk, -1).reshape(-1)])
     hist = torch.zeros(2 * Gk * Bp, device=dev)
     lh_lib_ms = cuda_ms(lambda: hist.index_add_(0, idx, vals), 5)
-    del seg, idx, vals
-    c1 = cap["leaf_hist"][1]
-    say(f"leaf_hist @ root, {cnt} rows x {Gk} groups: {lh_ms[0]:.3f} ms, "
-        f"plain {lh_plain_ms:.3f} ms (its fixed-point twin "
-        f"{lh_fixed_ms:.3f} ms), bound {lh_bound:.3f} ms ({lh_by}), "
-        f"index_add_ {lh_lib_ms:.3f} ms; at the first split's smaller child "
-        f"(grid for the parent's {c1[3]} rows): {lh_ms[1]:.3f} ms")
-    cap["leaf_hist"].clear()
+    del seg, idx, vals, st
 
-    # hist_rmw at the first split of the first subtraction tree
-    cst, csm, idx = cap["rmw"][0]
-    slot = csm.numel() * 4
-    rmw_bound, rmw_by = bound(6 * slot, csm.numel())
+    # hist_rmw at the first split of the first subtraction tree: leaf_hist's
+    # plain launch and its state launch on the smaller child, in turns by
+    # graph replay; the epilogue's time is their difference
+    cpb, cpg, start, cnt, k, cst = cap["lhr"][1]
+    ck = dict(kp, child=k["child"], absmax=k["absmax"], kcnt=k["kcnt"])
     st = cst.clone()
-    rmw_ms = graph_ms(lambda: hs.hist_rmw(st, csm, idx), 200)
-    rmw_py_ms = cuda_ms(lambda: hs.hist_rmw(st, csm, idx), 200)
-    rmw_plain_ms = cuda_ms(lambda: hs.hist_rmw_plain(st, csm, idx), 50)
-    sub_ms = graph_ms(lambda: torch.sub(st[idx[0]], csm), 200)
-    say(f"hist_rmw @ slot {tuple(csm.shape)}: {rmw_ms:.4f} ms (graph "
-        f"replay; {rmw_py_ms:.4f} ms a call launched from Python), plain "
-        f"{rmw_plain_ms:.4f} ms, bound {rmw_bound:.6f} ms ({rmw_by}); no "
-        f"single PyTorch call updates the state, library_ms null; "
-        f"torch.sub of the two slots alone {sub_ms:.4f} ms (graph replay)")
+    turns = [(graph_ms(lambda: th.leaf_hist(cpb, cpg, start, cnt, **ck),
+                       100),
+              graph_ms(lambda: hs.leaf_hist_rmw(cpb, cpg, start, cnt,
+                                                state=st, **k), 100))
+             for _ in range(3)]
+    child_ms = float(np.mean([t[0] for t in turns]))
+    child_state_ms = float(np.mean([t[1] for t in turns]))
+    rmw_ms = child_state_ms - child_ms
+    small, inv = th.leaf_hist_fixed_sums(
+        cpb, cpg, start, cnt, num_bins=k["num_bins"], num_groups=Gk,
+        child=k["child"], absmax=k["absmax"], kcnt=k["kcnt"])
+    st = cst.clone()
+    rmw_plain_ms = cuda_ms(lambda: hs.hist_rmw_fixed_plain(st, small,
+                                                           k["idx"], inv), 50)
+    parent = k["idx"][0]
+    sub_ms = graph_ms(lambda: torch.sub(st[parent], small), 200)
+    st32, small32 = st[parent].float(), small.float()
+    sub32_ms = graph_ms(lambda: torch.sub(st32, small32), 200)
+    rmw_bound, rmw_by = bound(2 * Gk * Bp * (8 + 16 + 8), 2 * Gk * Bp)
+    say(f"leaf_hist @ root, {cnt} rows x {Gk} groups: {lh_ms:.3f} ms "
+        f"(the learner's state launch: {lh_state_ms:.3f} ms), plain "
+        f"{lh_plain_ms:.3f} ms (its fixed-point twin {lh_fixed_ms:.3f} ms), "
+        f"bound {lh_bound:.3f} ms ({lh_by}), index_add_ {lh_lib_ms:.3f} ms; "
+        f"at the first split's smaller child (grid for the parent's {cnt} "
+        f"rows), by graph replay in turns: {child_ms:.4f} ms, its state "
+        f"launch {child_state_ms:.4f} ms (turns {turns})")
+    say(f"hist_rmw (leaf_hist's state epilogue) @ slot (2, {Gk}, {Bp}): "
+        f"{rmw_ms:.4f} ms (state launch minus plain launch), plain "
+        f"hist_rmw_fixed_plain {rmw_plain_ms:.4f} ms, bound "
+        f"{rmw_bound:.6f} ms ({rmw_by}); library: torch.sub of the two int64 "
+        f"slots {sub_ms:.4f} ms (graph replay; of f32 copies "
+        f"{sub32_ms:.4f} ms)")
+    del st, st32, small32, small
+    cap["lhr"].clear()
 
     pa, pk = cap["pair"][1]
     pair_ms = graph_ms(lambda: sp.split_pair(*pa, **pk), 200)
@@ -873,6 +1086,7 @@ def main():
         # per iteration: the mega path's numbers for split_pair, which
         # both paths run (each path's under iter_ms_by_path)
         it = {p: v[name] for p, v in iter_by_path.items() if name in v}
+        first = next(iter(it.values()))
         return {"name": name, "route": "cuda",
                 "source": f"lightgbm_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": total(name),
@@ -880,8 +1094,7 @@ def main():
                                      launches_by_path.items()},
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd, "bound_by": by, "library_ms": lib,
-                "iter_ms": next(iter(it.values()))[0],
-                "iter_bound_ms": next(iter(it.values()))[1],
+                "iter_ms": first[0], "iter_bound_ms": first[1],
                 "iter_ms_by_path": {p: v[0] for p, v in it.items()}}
 
     print(f"card: {card}", flush=True)
@@ -896,10 +1109,10 @@ def main():
             "lightgbm_tpu/ops/partition_pallas.py:258", part_err, part_ms,
             part_plain_ms, part_bound, part_by, None),
         row("leaf_hist", "leaf_hist.cu", "lightgbm_tpu/ops/histogram.py:204",
-            lh_err, lh_ms[0], lh_plain_ms, lh_bound, lh_by, lh_lib_ms),
-        row("hist_rmw", "hist_rmw.cu",
+            lh_err, lh_ms, lh_plain_ms, lh_bound, lh_by, lh_lib_ms),
+        row("hist_rmw", "leaf_hist.cu",
             "lightgbm_tpu/ops/hist_state_pallas.py:48", rmw_err, rmw_ms,
-            rmw_plain_ms, rmw_bound, rmw_by, None),
+            rmw_plain_ms, rmw_bound, rmw_by, sub_ms),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -431,8 +431,9 @@ _PARAMS: List[_Param] = [
     # place by the Pallas RMW kernel (ops/hist_state_pallas.py) when the
     # fast serial path is active; "xla" = (L+1, G, B, 2) dynamic-slice
     # state (the fallback and the A/B baseline)
-    # GPU: auto and xla both run csrc/hist_rmw.cu on a (leaves, 2, G, Bp)
-    # state on the tpu_megakernel=off path.
+    # GPU: auto and xla both keep a (leaves, 2, G, Bp) int64 state of exact
+    # fixed-point sums on the tpu_megakernel=off path, updated by the state
+    # epilogue of csrc/leaf_hist.cu (ops/hist_state.py:leaf_hist_rmw).
     _p("tpu_hist_state", "auto", str),
     # measurement-only: duplicate one component inside the compiled tree
     # loop with a runtime-opaque select so tools/ab_bench.py can read its
@@ -450,8 +451,9 @@ _PARAMS: List[_Param] = [
     # the attempt; "xla" runs the same math as plain XLA ops (the
     # correctness oracle, any backend); "off" disables
     # GPU: auto and pallas run csrc/split_mega.cu per split; off runs the
-    # histogram-subtraction path (csrc/partition.cu, csrc/leaf_hist.cu for
-    # the smaller child, csrc/hist_rmw.cu for parent minus smaller); xla
+    # histogram-subtraction path (csrc/partition.cu, then csrc/leaf_hist.cu
+    # for the smaller child and, in the same launch, parent minus smaller
+    # in the histogram state); xla
     # is not supported.
     _p("tpu_megakernel", "auto", str),
     # frontier-batched tree growth: grow the top-K gain leaves of the

@@ -23,7 +23,10 @@
 // with 64-bit global atomics; the last block of the set (a done counter)
 // converts once, (int64 -> double) * 2^-k -> f32, and leaves the
 // accumulator and counter at zero for the next launch.  A block alone in
-// its set converts straight from shared memory.
+// its set converts straight from shared memory.  The conversion hands the
+// caller each exact int64 sum beside its f32 value (leaf_hist's state
+// epilogue keeps the integers), loads for several entries in flight at
+// once.
 //
 // The callers need Np a multiple of 16 and 16-byte aligned bins and
 // payload (rows are read as aligned 16-row units).
@@ -118,42 +121,71 @@ __device__ __forceinline__ void hist_fixed_rows(
   }
 }
 
+// Entries a thread converts per round in hist_fixed_finish: their loads
+// are all issued before any of their stores, so the round costs one
+// memory latency instead of one per entry (the stores may alias the
+// loads' buffers as far as the compiler knows, so it cannot reorder them
+// itself).
+#define FINISH_UNROLL 8
+
+// No load beside each entry (hist_fixed_finish's pre).
+struct NoPre {
+  __device__ long long operator()(int) const { return 0ll; }
+};
+
 // After the block's adds (and a __syncthreads): combine the block's nent
 // words with the other blocks of its group set and convert once.  acc is
 // the set's int64 accumulator and done its counter, both zero before and
-// left zero after; ig, ih are 2^-k of the two planes; store(i, v) writes
-// the f32 value of the block's entry i.
-template <class Store>
+// left zero after; ig, ih are 2^-k of the two planes.  Per entry i of the
+// block, pre(i) loads what the store needs beside the sum (leaf_hist's
+// state epilogue: the parent slot's entry), before any store of its
+// round; store(i, v, q, f) takes the entry's exact int64 sum v, pre's
+// value q and the f32 value f.
+template <class Pre, class Store>
 __device__ __forceinline__ void hist_fixed_finish(
     const unsigned* slo, const unsigned* shi, int nent, int Bp,
-    unsigned long long* acc, unsigned* done, double ig, double ih,
+    unsigned long long* acc, unsigned* done, double ig, double ih, Pre pre,
     Store store) {
   __shared__ bool s_last;
   const int tid = threadIdx.x;
-  if (gridDim.x == 1) {
+  const bool alone = gridDim.x == 1;
+  if (!alone) {
     for (int i = tid; i < nent; i += HIST_THREADS) {
-      const long long v = (long long)(((unsigned long long)shi[i] << 32) |
-                                      slo[i]);
-      store(i, (float)((double)v * (((i / Bp) & 1) ? ih : ig)));
+      const unsigned long long v =
+          ((unsigned long long)shi[i] << 32) | slo[i];
+      if (v) atomicAdd(acc + i, v);
     }
-    return;
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) s_last = atomicAdd(done, 1u) == gridDim.x - 1;
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();
   }
-  for (int i = tid; i < nent; i += HIST_THREADS) {
-    const unsigned long long v = ((unsigned long long)shi[i] << 32) | slo[i];
-    if (v) atomicAdd(acc + i, v);
+  constexpr int U = FINISH_UNROLL;
+  for (int i0 = tid; i0 < nent; i0 += U * HIST_THREADS) {
+    long long v[U], q[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * HIST_THREADS;
+      if (i < nent) {
+        v[u] = alone ? (long long)(((unsigned long long)shi[i] << 32) |
+                                   slo[i])
+                     : (long long)__ldcg(acc + i);
+        q[u] = pre(i);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * HIST_THREADS;
+      if (i < nent) {
+        if (!alone) acc[i] = 0ull;
+        store(i, v[u], q[u],
+              (float)((double)v[u] * (((i / Bp) & 1) ? ih : ig)));
+      }
+    }
   }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) s_last = atomicAdd(done, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  for (int i = tid; i < nent; i += HIST_THREADS) {
-    const long long v = (long long)__ldcg(acc + i);
-    acc[i] = 0ull;
-    store(i, (float)((double)v * (((i / Bp) & 1) ? ih : ig)));
-  }
-  if (tid == 0) *done = 0u;
+  if (!alone && tid == 0) *done = 0u;
 }
 
 // Grid of a fixed-point histogram launch over nu 16-row units of G

@@ -91,7 +91,8 @@ __global__ void __launch_bounds__(HIST_THREADS, 1) mega_hist(HistArgs a) {
   float* out = a.hist + base;
   hist_fixed_finish(slo, shi, gn * 4 * Bp, Bp, a.acc + base,
                     a.done + blockIdx.y, ldexp(1.0, -kg), ldexp(1.0, -kh),
-                    [&](int i, float v) { out[i] = v; });
+                    NoPre(),
+                    [&](int i, long long, long long, float v) { out[i] = v; });
 }
 
 // Enqueue mega_hist (cnt > 0) on its grid (hist_grid).

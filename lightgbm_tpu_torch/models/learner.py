@@ -18,14 +18,15 @@ construction from ``tpu_megakernel``:
     that moves no rows.
   * the histogram-subtraction path (``off``; JAX learner.py:2282-2344):
     the learner keeps one histogram slot per leaf
-    (``ops/hist_state.py``).  The root's histogram is
-    ``ops/histogram.py:leaf_hist`` over all rows, into slot 0.  Per
-    split, ``ops/partition.py:partition_leaf`` partitions the leaf,
-    ``leaf_hist`` builds the smaller child's histogram only -- the
+    (``ops/hist_state.py``; int64 fixed-point sums at one scale per
+    tree on the card).  ``ops/hist_state.py:leaf_hist_rmw`` builds the
+    root's histogram over all rows into slot 0.  Per split,
+    ``ops/partition.py:partition_leaf`` partitions the leaf, and
+    ``leaf_hist_rmw`` builds the smaller child's histogram only -- the
     child with the smaller bag-aware count (``LM_BLCNT <= LM_BRCNT``,
     ties left), its rows read on the device from the partition's left
-    count -- and ``ops/hist_state.py:hist_rmw`` derives the larger
-    child as parent minus smaller and writes both slots.
+    count -- derives the larger child as parent minus smaller and
+    writes both slots, in one launch on the card.
 
 Both then run ``ops/split_pair.py:split_pair``, which finds both
 children's best splits and returns their packed leafmat segments.
@@ -49,8 +50,7 @@ import torch
 
 from ..config import Config, DEFAULT_ROW_CHUNK, parse_row_chunk
 from ..dataset import BinnedDataset
-from ..ops.hist_state import hist_rmw, new_state
-from ..ops.histogram import leaf_hist
+from ..ops.hist_state import leaf_hist_rmw, new_state
 from ..ops.partition import (S_CNT, make_scalars, partition_leaf,
                              scalars_start)
 from ..ops.split_mega import split_mega, unpack_hist4
@@ -186,14 +186,15 @@ class SerialTreeLearner:
         return torch.as_tensor(info, device=self.device)
 
     def _root_hist(self, part_bins, part_ghi):
-        """The root's (G, Bp) grad and hess histogram planes."""
+        """The root's (G, Bp) grad and hess histograms twice, as (2G, Bp):
+        the pair search's inputs for (root, root)."""
         G, B = self.G, self.B
         if self.subtract:
-            planes = leaf_hist(part_bins, part_ghi, self.row0, self.N,
-                               num_bins=B, num_groups=G, planes=True,
-                               absmax=self._absmax)
-            self.state[0] = planes
-            return planes[0], planes[1]
+            ch = leaf_hist_rmw(part_bins, part_ghi, self.row0, self.N,
+                               num_bins=B, num_groups=G, state=self.state,
+                               idx=(-1, 0, 0, 0), absmax=self._absmax,
+                               kcnt=self.N)
+            return ch[0].reshape(2 * G, -1), ch[1].reshape(2 * G, -1)
         # an all-left mega call that moves no rows
         _, acc = split_mega(part_bins, part_ghi,
                             make_scalars(self.row0, self.N, 0, 0, 0, B, 0,
@@ -201,7 +202,7 @@ class SerialTreeLearner:
                             num_bins=B, num_groups=G, move=False,
                             absmax=self._absmax)
         hl_g, hl_h, _, _ = unpack_hist4(acc, B)
-        return hl_g, hl_h
+        return torch.cat([hl_g, hl_g]), torch.cat([hl_h, hl_h])
 
     def _split(self, part_bins, part_ghi, scalars, leaf: int, new_leaf: int,
                small_is_left: bool):
@@ -213,12 +214,13 @@ class SerialTreeLearner:
         G, B = self.G, self.B
         if self.subtract:
             nl = partition_leaf(part_bins, part_ghi, scalars)
-            small = leaf_hist(part_bins, part_ghi, scalars_start(scalars),
-                              scalars[S_CNT], num_bins=B, num_groups=G,
-                              child=(nl, 0 if small_is_left else 1),
-                              planes=True, absmax=self._absmax)
-            ch = hist_rmw(self.state, small,
-                          (leaf, leaf, new_leaf, int(small_is_left)))
+            ch = leaf_hist_rmw(part_bins, part_ghi, scalars_start(scalars),
+                               scalars[S_CNT], num_bins=B, num_groups=G,
+                               child=(nl, 0 if small_is_left else 1),
+                               state=self.state,
+                               idx=(leaf, leaf, new_leaf,
+                                    int(small_is_left)),
+                               absmax=self._absmax, kcnt=self.N)
             return nl, ch[0].reshape(2 * G, -1), ch[1].reshape(2 * G, -1)
         nl, acc = split_mega(part_bins, part_ghi, scalars, num_bins=B,
                              num_groups=G, absmax=self._absmax)
@@ -239,9 +241,9 @@ class SerialTreeLearner:
         lm.view(np.int32)[[LM_PARENT, LM_FORCED]] = -1
         nm = np.zeros((NND, nodes + 1), np.float32)
 
-        # the card's fixed-point histograms (split_mega, leaf_hist) are
-        # scaled by one bound of |grad| and |hess| per tree, kept on the
-        # device
+        # the card's fixed-point histograms (split_mega, leaf_hist_rmw)
+        # are scaled by one bound of |grad| and |hess| per tree, kept on
+        # the device (and the histogram state by the root's row count)
         self._absmax = part_ghi[:2].abs().amax(dim=1)
         # root: its histogram, then the best split from a pair search
         # over (root, root)
@@ -252,8 +254,7 @@ class SerialTreeLearner:
             info = self._info([(0, 0, bag_cnt, 0)] * 2)
             info[:, 0] = sum_g
             info[:, 1] = sum_h
-            tile = self._search(torch.cat([hg, hg]), torch.cat([hh, hh]),
-                                info)[0]
+            tile = self._search(hg, hh, info)[0]
         else:
             tile = torch.full((13,), NEG_INF, device=self.device)
         host = torch.cat([sum_g.reshape(1), sum_h.reshape(1), tile]).cpu()

@@ -1,58 +1,83 @@
-"""Kernel 5: the histogram-state read-modify-write of the
-histogram-subtraction split path.
+"""Kernel 5: the histogram state of the histogram-subtraction split path
+and its read-modify-write.
 
 Counterpart of the TPU kernel ``hist_rmw_pallas``
 (lightgbm_tpu/ops/hist_state_pallas.py).  The learner keeps one
 histogram slot per leaf; per split it reads the parent's slot,
 subtracts the freshly built smaller child's histogram, and writes both
 children back (the reference's histogram-subtraction trick,
-serial_tree_learner.cpp / FeatureHistogram::Subtract).  ``hist_rmw``
-dispatches on the device of its inputs: CPU tensors run
-``hist_rmw_plain``, CUDA tensors launch the hand-written kernel
-``csrc/hist_rmw.cu`` or raise.
+serial_tree_learner.cpp / FeatureHistogram::Subtract).
 
-State layout: (slots, 2, G, Bp) f32, each slot a leaf's (2, G, Bp)
+State layout: (slots, 2, G, Bp), each slot a leaf's (2, G, Bp)
 grad/hess planes as ops/histogram.py ``leaf_hist(..., planes=True)``
 writes them.  The TPU kernel's lane-flattened (8, WL) slot is a TPU
-tiling rule the card does not have.
+tiling rule the card does not have.  On the CPU the state is f32 and
+holds what the f32 plain versions compute, the JAX package's contract.
+On the card it is int64 and holds each leaf's exact fixed-point sums at
+the tree's scale (ops/histogram.py: k from the per-tree bound and the
+root's row count ``kcnt``): 2^k * max|v| * rows < 2^62 for every leaf,
+so no sum or difference overflows, and parent minus smaller child is
+exact -- the larger child's slot is bit-identical to a direct
+fixed-point histogram of its own rows.
 
-``hist_rmw(state, small, idx)`` with ``idx = (parent, wa, wb,
+``hist_rmw_plain(state, small, idx)`` with ``idx = (parent, wa, wb,
 small_is_left)`` (host ints) reads slot ``parent``, computes ``large =
-parent - small`` in f32, and writes left to slot ``wa``, then right to
-slot ``wb``, in place: ``wa == wb`` (a trash slot) ends holding the
-right child, as the TPU kernel's serialized copies leave it.  It
-returns both children as one (2, 2, G, Bp) tensor ``(plane, child, G,
-Bp)``: ``children[:, 0]`` is the left child's planes and
-``children[:, 1]`` the right's, and ``children[0]`` / ``children[1]``
-viewed as (2G, Bp) are the pair search's grad / hess inputs
-(ops/split_pair.py), the left child's rows first.
+parent - small`` in the state's dtype, and writes left to slot ``wa``,
+then right to slot ``wb``, in place: ``wa == wb`` (a trash slot) ends
+holding the right child, as the TPU kernel's serialized copies leave
+it.  ``parent < 0`` means no parent (the root): slot ``wa`` gets
+``small`` and both children are it.  It returns both children as one
+(2, 2, G, Bp) tensor ``(plane, child, G, Bp)``: ``children[:, 0]`` is
+the left child's planes and ``children[:, 1]`` the right's, and
+``children[0]`` / ``children[1]`` viewed as (2G, Bp) are the pair
+search's grad / hess inputs (ops/split_pair.py), the left child's rows
+first.
+
+The learner's entry is ``leaf_hist_rmw``: the smaller child's histogram
+and the state update in one call.  It dispatches on the device of its
+inputs: CPU tensors run ``leaf_hist_plain`` and then ``hist_rmw_plain``
+on the f32 state; CUDA tensors launch csrc/leaf_hist.cu's state kernel,
+whose last block of each group set subtracts its exact sums from the
+parent slot and writes both slots and both f32 children (no launch of
+its own for the update), or raise.  ``leaf_hist_rmw_fixed_plain`` is
+the card's arithmetic in plain PyTorch, bit for bit.  ``hist_rmw``
+alone runs on the CPU only: on the card the update exists only fused
+into the histogram launch.
 """
 
 from __future__ import annotations
 
-import ctypes
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
-from . import kernels
+from . import histogram, kernels
 from .split_mega import hist_geometry
 
-# launches of the CUDA kernel (the plain version is not counted)
+# launches of the CUDA kernel with the state epilogue (each is also a
+# leaf_hist launch, counted in ops/histogram.py; the plain versions are
+# not counted)
 launches = 0
 
 
 def new_state(slots: int, num_groups: int, num_bins: int,
               device) -> torch.Tensor:
-    """A zeroed (slots, 2, G, Bp) histogram state."""
+    """A zeroed (slots, 2, G, Bp) histogram state: f32 on the CPU, int64
+    on the card."""
     _, Bp = hist_geometry(num_bins)
-    return torch.zeros((slots, 2, num_groups, Bp), dtype=torch.float32,
+    dtype = torch.float32 if torch.device(device).type == "cpu" \
+        else torch.int64
+    return torch.zeros((slots, 2, num_groups, Bp), dtype=dtype,
                        device=device)
 
 
 def hist_rmw_plain(state, small, idx: Sequence[int]) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (same contract)."""
+    """Plain PyTorch version of the update, in the state's dtype (see
+    module doc)."""
     parent, wa, wb, sil = (int(v) for v in idx)
+    if parent < 0:
+        state[wa] = small
+        return torch.stack([small, small], dim=1)
     large = state[parent] - small
     left, right = (small, large) if sil else (large, small)
     children = torch.stack([left, right], dim=1)
@@ -61,35 +86,94 @@ def hist_rmw_plain(state, small, idx: Sequence[int]) -> torch.Tensor:
     return children
 
 
+def hist_rmw_fixed_plain(state, small, idx: Sequence[int],
+                         inv) -> torch.Tensor:
+    """The card's update in plain PyTorch: ``hist_rmw_plain`` on the int64
+    state and the smaller child's (2, G, Bp) int64 sums, then the
+    children (int64 -> double) * 2^-k -> f32, with ``inv`` the (2,) f64
+    factors 2^-k of the two planes."""
+    children = hist_rmw_plain(state, small, idx)
+    return (children.double() * inv[:, None, None, None]).float()
+
+
 def hist_rmw(state, small, idx: Sequence[int]) -> torch.Tensor:
-    """Update ``state`` in place; returns the (2, 2, G, Bp) children
-    (see module doc)."""
+    """Update a CPU ``state`` in place; returns the (2, 2, G, Bp)
+    children (see module doc).  On the card the update runs only inside
+    ``leaf_hist_rmw``."""
     if state.device.type == "cpu":
         return hist_rmw_plain(state, small, idx)
-    return hist_rmw_cuda(state, small, idx)
+    raise ValueError("hist_rmw: the card's histogram state is updated by "
+                     "leaf_hist_rmw (csrc/leaf_hist.cu's state epilogue), "
+                     "not by a launch of its own")
 
 
-def hist_rmw_cuda(state, small, idx: Sequence[int]) -> torch.Tensor:
+def leaf_hist_rmw_plain(part_bins, part_ghi, start: int, cnt: int, *,
+                        num_bins: int, num_groups: int, state,
+                        idx: Sequence[int], child=None) -> torch.Tensor:
+    """What the CPU runs: the f32 ``leaf_hist_plain`` of the rows, then
+    ``hist_rmw_plain`` on the f32 state."""
+    small = histogram.leaf_hist_plain(part_bins, part_ghi, start, cnt,
+                                      num_bins=num_bins,
+                                      num_groups=num_groups, child=child,
+                                      planes=True)
+    return hist_rmw_plain(state, small, idx)
+
+
+def leaf_hist_rmw_fixed_plain(part_bins, part_ghi, start: int, cnt: int, *,
+                              num_bins: int, num_groups: int, state,
+                              idx: Sequence[int], absmax, kcnt: int,
+                              child=None) -> torch.Tensor:
+    """The card's arithmetic in plain PyTorch, bit for bit:
+    ``leaf_hist_fixed_sums`` of the rows at the scale of ``absmax`` and
+    ``kcnt``, then ``hist_rmw_fixed_plain`` on the int64 state."""
+    small, inv = histogram.leaf_hist_fixed_sums(
+        part_bins, part_ghi, start, cnt, num_bins=num_bins,
+        num_groups=num_groups, child=child, absmax=absmax, kcnt=kcnt)
+    return hist_rmw_fixed_plain(state, small, idx, inv)
+
+
+def leaf_hist_rmw(part_bins, part_ghi, start: int, cnt: int, *,
+                  num_bins: int, num_groups: int, state, idx: Sequence[int],
+                  absmax, kcnt: int,
+                  child: Optional[Tuple[torch.Tensor, int]] = None
+                  ) -> torch.Tensor:
+    """The histogram of the rows ``[start, start + cnt)`` (or of the child
+    ``child=(nl, side)`` of their partition, as ops/histogram.py
+    ``leaf_hist``), folded into ``state`` by ``idx``; returns the
+    (2, 2, G, Bp) f32 children (see module doc).  ``absmax`` and
+    ``kcnt`` (the tree's bound and root row count) set the card's scale;
+    the CPU's f32 plain versions do not use them."""
+    kw = dict(num_bins=num_bins, num_groups=num_groups, state=state,
+              idx=idx, child=child)
+    if part_bins.device.type == "cpu":
+        return leaf_hist_rmw_plain(part_bins, part_ghi, start, cnt, **kw)
+    return leaf_hist_rmw_cuda(part_bins, part_ghi, start, cnt, absmax=absmax,
+                              kcnt=kcnt, **kw)
+
+
+def leaf_hist_rmw_cuda(part_bins, part_ghi, start, cnt, *, num_bins,
+                       num_groups, state, idx, absmax, kcnt,
+                       child=None) -> torch.Tensor:
     global launches
-    if state.dim() != 4 or state.shape[1] != 2:
-        raise ValueError(f"hist_rmw: state must be (slots, 2, G, Bp), got "
-                         f"{tuple(state.shape)}")
-    slots, _, G, Bp = state.shape
-    kernels.require_cuda(state, torch.float32, "state")
-    kernels.require_cuda(small, torch.float32, "small", (2, G, Bp))
+    G = num_groups
+    _, Bp = hist_geometry(num_bins)
+    if state.dim() != 4 or tuple(state.shape[1:]) != (2, G, Bp):
+        raise ValueError(f"leaf_hist_rmw: state must be (slots, 2, {G}, "
+                         f"{Bp}), got {tuple(state.shape)}")
+    kernels.require_cuda(state, torch.int64, "state")
+    slots = state.shape[0]
     parent, wa, wb, sil = (int(v) for v in idx)
-    if not (all(0 <= v < slots for v in (parent, wa, wb)) and sil in (0, 1)):
-        raise ValueError(f"hist_rmw: idx {tuple(idx)} outside {slots} "
+    if not (-1 <= parent < slots and 0 <= wa < slots and 0 <= wb < slots
+            and sil in (0, 1)):
+        raise ValueError(f"leaf_hist_rmw: idx {tuple(idx)} outside {slots} "
                          f"slots or small_is_left not 0/1")
+    if kcnt is None or absmax is None:
+        raise ValueError("leaf_hist_rmw: the card's state needs the tree's "
+                         "scale: absmax and kcnt")
     children = torch.empty((2, 2, G, Bp), dtype=torch.float32,
                            device=state.device)
-    fn = kernels.load("hist_rmw").hist_rmw_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
-    err = fn(kernels.ptr(state), slots, kernels.ptr(small), G, Bp, parent,
-             wa, wb, sil, kernels.ptr(children),
-             kernels.stream_ptr(state.device))
-    kernels.check(err, "hist_rmw_launch")
+    histogram.launch(part_bins, part_ghi, start, cnt, num_bins=num_bins,
+                     num_groups=G, child=child, absmax=absmax, kcnt=kcnt,
+                     out=children, state=state, idx=(parent, wa, wb, sil))
     launches += 1
     return children

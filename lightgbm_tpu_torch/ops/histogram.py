@@ -28,10 +28,14 @@ runs, sums in f64 and rounds to f32 once, so it is the correctly rounded
 sum, and the JAX parity tests keep their fixtures and bars.  The kernel
 sums exactly in 64-bit fixed point, as the split mega-kernel's histogram
 does (ops/split_mega.py): each grad (hess) becomes round(v * 2^k), k =
-``fixed_exponent`` of a bound on |grad| (|hess|) and the count of rows
-the call sums (a child's count is read on the device), and each bin's
-integer sum is converted once to f32.  ``leaf_hist_fixed_plain`` is that
-arithmetic in plain PyTorch, bit-identical to the kernel.  The bound is
+``fixed_exponent`` of a bound on |grad| (|hess|) and a row count, and
+each bin's integer sum is converted once to f32.  The count is
+``kcnt`` when given (at least the rows summed; the histogram state of
+ops/hist_state.py passes the tree's root count, so that every leaf of a
+tree sits at one scale), else the count of rows the call sums (a
+child's count is read on the device).  ``leaf_hist_fixed_plain`` is
+that arithmetic in plain PyTorch, bit-identical to the kernel, and
+``leaf_hist_fixed_sums`` its exact int64 sums.  The bound is
 ``absmax``, a (2,) f32 tensor of max|grad| and max|hess| on the
 buffers' device over at least the rows summed (the learner passes one
 per tree); without it the kernel's wrapper takes it over
@@ -113,20 +117,31 @@ def leaf_hist_plain(part_bins, part_ghi, start: int, cnt: int, *,
     return h if planes else as_gb2(h, num_bins)
 
 
-def leaf_hist_fixed_plain(part_bins, part_ghi, start: int, cnt: int, *,
-                          num_bins: int, num_groups: int, child=None,
-                          planes: bool = False, absmax=None):
-    """The kernel's arithmetic in plain PyTorch, bit for bit:
-    ``split_mega.fixed_rows`` of the rows summed (k from ``absmax`` and
-    their count), ``index_add_`` in int64, then (int64 -> double) * 2^-k
-    -> f32.  ``absmax`` as for the kernel (default: over
-    ``[start, start + cnt)``)."""
+def leaf_hist_fixed_sums(part_bins, part_ghi, start: int, cnt: int, *,
+                         num_bins: int, num_groups: int, child=None,
+                         absmax=None, kcnt: Optional[int] = None):
+    """The kernel's exact sums in plain PyTorch: ``split_mega.fixed_rows``
+    of the rows summed (k from ``absmax`` and ``kcnt``, default their
+    count) and ``index_add_`` in int64.  Returns the (2, G, Bp) int64
+    sums and the (2,) f64 factors 2^-k that convert them.  ``absmax`` as
+    for the kernel (default: over ``[start, start + cnt)``)."""
     _, Bp = hist_geometry(num_bins)
     if absmax is None:
         absmax = leaf_absmax(part_ghi, start, cnt)
     s, c = child_range(start, cnt, child)
-    vals, inv = fixed_rows(part_ghi, s, c, absmax)
-    acc = _planes(part_bins, vals, s, c, num_groups, Bp)
+    vals, inv = fixed_rows(part_ghi, s, c, absmax, kcnt)
+    return _planes(part_bins, vals, s, c, num_groups, Bp), inv
+
+
+def leaf_hist_fixed_plain(part_bins, part_ghi, start: int, cnt: int, *,
+                          num_bins: int, num_groups: int, child=None,
+                          planes: bool = False, absmax=None,
+                          kcnt: Optional[int] = None):
+    """The kernel's arithmetic in plain PyTorch, bit for bit:
+    ``leaf_hist_fixed_sums``, then (int64 -> double) * 2^-k -> f32."""
+    acc, inv = leaf_hist_fixed_sums(part_bins, part_ghi, start, cnt,
+                                    num_bins=num_bins, num_groups=num_groups,
+                                    child=child, absmax=absmax, kcnt=kcnt)
     h = (acc.double() * inv[:, None, None]).float()
     return h if planes else as_gb2(h, num_bins)
 
@@ -134,19 +149,36 @@ def leaf_hist_fixed_plain(part_bins, part_ghi, start: int, cnt: int, *,
 def leaf_hist(part_bins, part_ghi, start: int, cnt: int, *, num_bins: int,
               num_groups: int,
               child: Optional[Tuple[torch.Tensor, int]] = None,
-              planes: bool = False, absmax=None) -> torch.Tensor:
+              planes: bool = False, absmax=None,
+              kcnt: Optional[int] = None) -> torch.Tensor:
     """The leaf's histogram (see module doc; the CPU's plain version does
-    not use ``absmax``)."""
+    not use ``absmax`` or ``kcnt``)."""
     kw = dict(num_bins=num_bins, num_groups=num_groups, child=child,
               planes=planes)
     if part_bins.device.type == "cpu":
         return leaf_hist_plain(part_bins, part_ghi, start, cnt, **kw)
     return leaf_hist_cuda(part_bins, part_ghi, start, cnt, absmax=absmax,
-                          **kw)
+                          kcnt=kcnt, **kw)
 
 
 def leaf_hist_cuda(part_bins, part_ghi, start, cnt, *, num_bins, num_groups,
-                   child=None, planes=False, absmax=None) -> torch.Tensor:
+                   child=None, planes=False, absmax=None,
+                   kcnt=None) -> torch.Tensor:
+    _, Bp = hist_geometry(num_bins)
+    hist = torch.empty((2, num_groups, Bp), dtype=torch.float32,
+                       device=part_bins.device)
+    launch(part_bins, part_ghi, start, cnt, num_bins=num_bins,
+           num_groups=num_groups, child=child, absmax=absmax, kcnt=kcnt,
+           out=hist)
+    return hist if planes else as_gb2(hist, num_bins)
+
+
+def launch(part_bins, part_ghi, start, cnt, *, num_bins, num_groups, child,
+           absmax, kcnt, out, state=None, idx=(-1, 0, 0, 0)) -> None:
+    """Check the arguments and launch csrc/leaf_hist.cu into ``out``:
+    ``leaf_hist_fixed`` into (2, G, Bp) planes, or with ``state`` (the
+    int64 histogram state) ``leaf_hist_state`` into (2, 2, G, Bp)
+    children (ops/hist_state.py)."""
     global launches
     R, Np = part_bins.shape
     G = num_groups
@@ -155,6 +187,10 @@ def leaf_hist_cuda(part_bins, part_ghi, start, cnt, *, num_bins, num_groups,
     if not (0 < G <= R and Bp <= 256):
         raise ValueError(f"leaf_hist: bad geometry G={G} R={R} "
                          f"num_bins={num_bins}")
+    kcnt = 0 if kcnt is None else int(kcnt)
+    if kcnt and not cnt <= kcnt < (1 << 24):
+        raise ValueError(f"leaf_hist: scale count {kcnt} below the range's "
+                         f"{cnt} rows or over 2^24")
     nl, side = None, 0
     if child is not None:
         nl, side = child[0], int(child[1]) + 1
@@ -168,18 +204,19 @@ def leaf_hist_cuda(part_bins, part_ghi, start, cnt, *, num_bins, num_groups,
     ws = workspace(dev)
     acc = ws.buffer("leaf_acc", G * 2 * Bp, torch.int64, zero=True)
     done = ws.buffer("leaf_done", G, torch.int32, zero=True)
-    hist = torch.empty((2, G, Bp), dtype=torch.float32, device=dev)
+    slots = 0 if state is None else state.shape[0]
     fn = kernels.load("leaf_hist").leaf_hist_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 + [
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
     err = fn(kernels.ptr(part_bins), R, Np, kernels.ptr(part_ghi), start,
-             cnt, None if nl is None else kernels.ptr(nl), side,
+             cnt, None if nl is None else kernels.ptr(nl), side, kcnt,
              kernels.ptr(absmax), kernels.ptr(acc), kernels.ptr(done), G, Bp,
-             kernels.ptr(hist), kernels.stream_ptr(dev))
+             kernels.ptr(out), None if state is None else kernels.ptr(state),
+             slots, *(int(v) for v in idx), kernels.stream_ptr(dev))
     kernels.check(err, "leaf_hist_launch")
     launches += 1
-    return hist if planes else as_gb2(hist, num_bins)

@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -137,13 +138,15 @@ def leaf_absmax(part_ghi, start: int, cnt: int):
     return part_ghi[:2, start:start + cnt].abs().amax(dim=1)
 
 
-def fixed_rows(part_ghi, s: int, c: int, absmax):
+def fixed_rows(part_ghi, s: int, c: int, absmax, kcnt: Optional[int] = None):
     """The fixed-point form of the grad and hess of the rows [s, s + c)
     that both kernels' histograms sum: round(v * 2^k) in double to int64,
-    k = ``fixed_exponent`` of ``absmax`` (per plane) and c.  Returns the
-    two (c,) int64 rows and the (2,) f64 factors 2^-k that convert their
-    sums back."""
-    ks = [fixed_exponent(a, c) for a in absmax.tolist()]
+    k = ``fixed_exponent`` of ``absmax`` (per plane) and the count
+    ``kcnt`` that sets the scale (default c, the rows converted).
+    Returns the two (c,) int64 rows and the (2,) f64 factors 2^-k that
+    convert their sums back."""
+    kc = c if kcnt is None else kcnt
+    ks = [fixed_exponent(a, kc) for a in absmax.tolist()]
     vals = [torch.round(part_ghi[p, s:s + c].double()
                         * math.ldexp(1.0, ks[p])).long() for p in (0, 1)]
     inv = torch.tensor([math.ldexp(1.0, -k) for k in ks],

@@ -15,11 +15,15 @@ order); repeated launches are bit-identical.  The histogram is also held
 to the f64 sums within rtol 1e-4 + 1e-5 x each bin's absolute mass (the
 sum of |grad| or |hess| over the bin's rows), and to the plain
 version's f32 sums within rtol 1e-4 + 1e-4 x mass, the plain version's
-own rounding included.  The partition and hist_rmw kernels are
-bit-identical to their plain versions (words moved; one f32
-subtraction).  leaf_hist's fixed-point histogram is bit-identical to
-leaf_hist_fixed_plain and held to the f64 sums of leaf_hist_reference
-within rtol 1e-4 + 1e-5 x mass; repeated launches are bit-identical.
+own rounding included.  The partition kernel is bit-identical to its
+plain version (words moved).  leaf_hist's fixed-point histogram is
+bit-identical to leaf_hist_fixed_plain and held to the f64 sums of
+leaf_hist_reference within rtol 1e-4 + 1e-5 x mass; repeated launches
+are bit-identical.  Its state launch (leaf_hist_rmw: the histogram-state
+update folded into the histogram) is bit-identical to
+leaf_hist_rmw_fixed_plain, the int64 state and the f32 children (integer
+sums and differences are exact), and the larger child's slot to a
+direct fixed-point histogram of its own rows at the tree's scale.
 """
 
 import numpy as np
@@ -249,7 +253,8 @@ def test_split_mega_and_partition_risk_cases(card, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fn", ["split_mega", "partition", "leaf_hist"])
+@pytest.mark.parametrize("fn", ["split_mega", "partition", "leaf_hist",
+                                "leaf_hist_rmw"])
 def test_repeated_launches_bit_identical(card, fn):
     """20 launches on one input give identical buffers, left counts and
     histograms: a look-back that read a stale tile word, or a histogram
@@ -264,6 +269,17 @@ def test_repeated_launches_bit_identical(card, fn):
             nl, acc = sm.split_mega(b, g, sc, num_bins=255, num_groups=28)
         elif fn == "partition":
             nl, acc = tpart.partition_leaf(b, g, sc), torch.zeros(1)
+        elif fn == "leaf_hist_rmw":
+            state = hs.new_state(4, 28, 255, card)
+            kw = dict(num_bins=255, num_groups=28, state=state,
+                      absmax=g[:2].abs().amax(dim=1), kcnt=1 << 20)
+            root = hs.leaf_hist_rmw(b, g, 4096 + 3, 400_000, idx=(-1, 1, 1, 0),
+                                    **kw)
+            nl = tpart.partition_leaf(b, g, sc)
+            ch = hs.leaf_hist_rmw(b, g, 4096 + 3, 400_000, child=(nl, 1),
+                                  idx=(1, 1, 3, 0), **kw)
+            acc = torch.cat([root.reshape(-1), ch.reshape(-1),
+                             state.view(torch.float32).reshape(-1)])
         else:
             nl = tpart.partition_leaf(b, g, sc)
             acc = torch.cat([th.leaf_hist(b, g, 4096 + 3, 400_000,
@@ -332,17 +348,79 @@ def test_leaf_hist_kernel_risk_cases(card, case):
     _leaf_hist_check(card, pb, pg, start, cnt, sc)
 
 
+# (scalars case of _risk_buffers, smaller side, idx = (parent, wa, wb,
+# small_is_left)) of the fused histogram-state launch
+FUSED_CASES = {
+    "small_left": ("offset0", 0, (2, 2, 5, 1)),
+    "small_right": ("offset0", 1, (2, 2, 5, 0)),
+    "trash_wa_eq_wb": ("offset3", 0, (2, 7, 7, 1)),
+    "trash_small_right": ("offset3", 1, (2, 7, 7, 0)),
+    "zero_row_right_child": ("all_left", 1, (2, 2, 5, 0)),
+    "zero_row_left_child": ("all_right", 0, (2, 2, 5, 1)),
+    "regression_scale": ("regression_scale", 1, (4, 4, 1, 0)),
+    "multi_block": ("multi_block", 0, (1, 1, 6, 1)),
+}
+FUSED_CASES.update({f"offset{o}": (f"offset{o}", o % 2,
+                                   (2, 2, 5, 1 - o % 2))
+                    for o in range(1, 16)})
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("idx", [(2, 2, 4, 1), (2, 2, 4, 0), (0, 7, 7, 1)])
-def test_hist_rmw_kernel_bit_identical_to_plain(card, idx):
-    rng = np.random.RandomState(sum(idx))
-    state = torch.as_tensor(rng.randn(8, 2, 28, 256).astype(np.float32))
-    small = torch.as_tensor(rng.randn(2, 28, 256).astype(np.float32))
-    st = state.to(card)
-    got = hs.hist_rmw(st, small.to(card), idx)
-    want = hs.hist_rmw_plain(state, small, idx)
-    assert torch.equal(st.cpu().view(torch.int32), state.view(torch.int32))
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_leaf_hist_rmw_kernel_bit_identical_to_plain(card, case):
+    """The root launch (no parent) into slot ``parent``, the partition,
+    then the split launch of the smaller child: the int64 state and the
+    f32 children bit-identical to leaf_hist_rmw_fixed_plain; the larger
+    child's slot equal to the direct fixed-point sums of its own rows and
+    both children's planes to leaf_hist_fixed_plain of each child's rows,
+    at the tree's scale (the bound over all rows, kcnt above every
+    count)."""
+    G, B, kcnt = 28, 255, 1 << 20
+    risk, small_side, idx = FUSED_CASES[case]
+    if risk == "multi_block":        # a group set spans several blocks
+        pb, pg = _row_buffers(4)
+        sc = make_scalars(4096 + 5, 400_003, 6, 0, 0, 255, 0, 0, 131, 0)
+    else:
+        pb, pg, sc = _risk_buffers(risk, G)
+    start, cnt = tpart.scalars_start(sc), sc[tpart.S_CNT]
+    kw = dict(num_bins=B, num_groups=G, kcnt=kcnt)
+    b, g = pb.to(card), pg.to(card)
+    absmax = g[:2].abs().amax(dim=1)
+    hmax = absmax.cpu()
+    state = hs.new_state(8, G, B, card)
+    assert state.dtype == torch.int64
+    want_state = state.cpu()
+    root = (-1, idx[0], idx[0], 0)
+    got = hs.leaf_hist_rmw(b, g, start, cnt, state=state, idx=root,
+                           absmax=absmax, **kw)
+    want = hs.leaf_hist_rmw_fixed_plain(pb, pg, start, cnt, state=want_state,
+                                        idx=root, absmax=hmax, **kw)
+    assert torch.equal(state.cpu(), want_state)
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+    nl = tpart.partition_leaf(b, g, sc)
+    hb, hg, hnl = b.cpu(), g.cpu(), nl.cpu()
+    got = hs.leaf_hist_rmw(b, g, start, cnt, child=(nl, small_side),
+                           state=state, idx=idx, absmax=absmax, **kw)
+    want = hs.leaf_hist_rmw_fixed_plain(hb, hg, start, cnt,
+                                        child=(hnl, small_side),
+                                        state=want_state, idx=idx,
+                                        absmax=hmax, **kw)
+    got_state = state.cpu()
+    assert torch.equal(got_state, want_state)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    hkw = dict(num_bins=B, num_groups=G, absmax=hmax, kcnt=kcnt)
+    direct = [th.leaf_hist_fixed_sums(hb, hg, start, cnt, child=(hnl, s),
+                                      **hkw)[0] for s in (0, 1)]
+    _, wa, wb, _ = idx
+    if wa != wb:
+        assert torch.equal(got_state[wa], direct[0])
+    assert torch.equal(got_state[wb], direct[1])
+    for s in (0, 1):
+        plane = th.leaf_hist_fixed_plain(hb, hg, start, cnt, child=(hnl, s),
+                                         planes=True, **hkw)
+        assert torch.equal(got[:, s].cpu().view(torch.int32),
+                           plane.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -358,7 +436,18 @@ def test_new_wrappers_raise_on_bad_arguments(card):
         th.leaf_hist(pb, pg, 0, 100, num_bins=255, num_groups=28,
                      child=(torch.zeros(1, dtype=torch.int64, device=card),
                             0))
-    state = torch.zeros((4, 2, 28, 256), device=card)
-    with pytest.raises(ValueError):
-        hs.hist_rmw(state, torch.zeros((2, 28, 256), device=card),
-                    (0, 4, 1, 1))
+    # the card's state is updated only inside the fused launch
+    with pytest.raises(ValueError, match="leaf_hist_rmw"):
+        hs.hist_rmw(torch.zeros((4, 2, 28, 256), dtype=torch.int64,
+                                device=card),
+                    torch.zeros((2, 28, 256), dtype=torch.int64,
+                                device=card), (0, 0, 1, 1))
+    state = hs.new_state(4, 28, 255, card)
+    kw = dict(num_bins=255, num_groups=28, absmax=pg[:2, 0].abs() + 1)
+    for bad in (dict(state=state, idx=(0, 4, 1, 1), kcnt=8192),
+                dict(state=state, idx=(0, 0, 1, 2), kcnt=8192),
+                dict(state=state.float(), idx=(0, 0, 1, 1), kcnt=8192),
+                dict(state=state, idx=(0, 0, 1, 1), kcnt=None),
+                dict(state=state, idx=(0, 0, 1, 1), kcnt=50)):
+        with pytest.raises(ValueError):
+            hs.leaf_hist_rmw(pb, pg, 0, 100, **kw, **bad)

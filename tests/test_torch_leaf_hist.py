@@ -247,3 +247,66 @@ def test_leaf_hist_fixed_plain_zero_row_child_is_zero(side):
                                    num_bins=B, num_groups=G, planes=True)
     assert tuple(got.shape) == (2, G, 256) and not got.any()
     assert not _fixed(pb, pg, 3 * C, 0).any()
+
+
+# ---- the scale count kcnt (one scale per tree for the histogram state) --
+
+@pytest.mark.parametrize("trial", [0, 1, 2])
+def test_kcnt_equal_to_the_count_leaves_the_bits_unchanged(trial):
+    """kcnt == cnt on a whole range is the per-call scale the non-state
+    kernel uses: bit-identical with and without it; a larger kcnt (the
+    tree's) coarsens the grid only within its rounding bar."""
+    rng, pb, pg = _buffers(30 + trial)
+    s, c = int(rng.randint(C, 4 * C)), int(rng.randint(1, 3 * C))
+    want = _fixed(pb, pg, s, c, planes=True)
+    got = _fixed(pb, pg, s, c, planes=True, kcnt=c)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    wide = _fixed(pb, pg, s, c, kcnt=NP).numpy().astype(np.float64)
+    ref, _ = _oracle(pb, pg, s, c)
+    amax = np.abs(pg[:2, s:s + c]).max(axis=1)
+    from lightgbm_tpu_torch.ops.split_mega import fixed_exponent
+    bar = np.array([c * 2.0 ** -(fixed_exponent(float(a), NP) + 1)
+                    for a in amax])
+    assert (np.abs(wide - ref) <= np.abs(ref) * 2.0 ** -24 + bar).all()
+
+
+@pytest.mark.parametrize("side", [0, 1])
+def test_kcnt_sets_a_childs_scale(side):
+    """With kcnt, a child's sums sit at the scale of kcnt, not of its own
+    count: equal to the explicit range at that kcnt."""
+    _, pb, pg = _buffers(33)
+    tb, tg = torch.as_tensor(pb), torch.as_tensor(pg)
+    start, cnt = C + 7, 3 * C + 1
+    nl = partition_leaf(tb, tg, make_scalars(start, cnt, 3, 0, 0, B, 0, 0,
+                                             100, 0))
+    n = int(nl[0])
+    s, c = (start, n) if side == 0 else (start + n, cnt - n)
+    amax = tg[:2].abs().amax(dim=1)
+    kw = dict(num_bins=B, num_groups=G, absmax=amax, kcnt=NP)
+    got, inv = th.leaf_hist_fixed_sums(tb, tg, start, cnt, child=(nl, side),
+                                       **kw)
+    want, winv = th.leaf_hist_fixed_sums(tb, tg, s, c, **kw)
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    assert torch.equal(inv, winv)
+
+
+@pytest.mark.parametrize("amax", [1.0, 0.25, 1e4, 3.0e38, 1e-30, 1e-45],
+                         ids=["one", "quarter", "1e4", "f32_max", "tiny",
+                              "denormal"])
+def test_tree_scale_cannot_overflow_at_2_24_rows(amax):
+    """At the learner's limit (2^24 - 1 rows, each |v| at the bound), the
+    per-tree scale keeps a leaf's sum and any parent-minus-child
+    difference inside int64: rows * |round(v * 2^k)| < 2^62 (exact
+    integer arithmetic); a row's fixed-point value is what fixed_rows
+    gives."""
+    from fractions import Fraction
+    from lightgbm_tpu_torch.ops.split_mega import fixed_exponent, fixed_rows
+    rows = (1 << 24) - 1
+    a = float(np.float32(amax))
+    k = fixed_exponent(a, rows)
+    q = round(Fraction(a) * Fraction(2) ** k)
+    assert rows * q < 2 ** 62
+    assert 2 * rows * q < 2 ** 63              # |parent| + |child|
+    ghi = torch.full((2, 16), a, dtype=torch.float32)
+    (gv, _), inv = fixed_rows(ghi, 0, 16, torch.tensor([a, a]), rows)
+    assert int(gv[0]) == q and float(inv[0]) == 2.0 ** -k

@@ -288,12 +288,13 @@ def test_weights_and_init_score_match_jax():
 
 
 def test_subtraction_path_calls_each_kernel_once_per_split(monkeypatch):
-    """Per tree: partition and hist_rmw once per split, leaf_hist and
-    split_pair once per split plus once for the root, split_mega never;
-    one host sync per split plus one for the root."""
+    """Per tree: partition once per split, the fused histogram and state
+    update (leaf_hist_rmw) and split_pair once per split plus once for
+    the root, split_mega never; one host sync per split plus one for the
+    root."""
     from lightgbm_tpu_torch.models import learner as lm
-    calls = dict.fromkeys(["partition_leaf", "leaf_hist", "hist_rmw",
-                           "split_pair", "split_mega"], 0)
+    calls = dict.fromkeys(["partition_leaf", "leaf_hist_rmw", "split_pair",
+                           "split_mega"], 0)
     for name in calls:
         real = getattr(lm, name)
 
@@ -311,7 +312,7 @@ def test_subtraction_path_calls_each_kernel_once_per_split(monkeypatch):
                       lgt.Dataset(X, label=y), num_boost_round=2)
         splits = sum(t.num_leaves - 1 for t in b._gbdt.models)
         assert splits == 28
-        assert calls == {"partition_leaf": splits, "hist_rmw": splits,
-                         "leaf_hist": splits + 2, "split_pair": splits + 2,
-                         "split_mega": 0}
+        assert calls == {"partition_leaf": splits,
+                         "leaf_hist_rmw": splits + 2,
+                         "split_pair": splits + 2, "split_mega": 0}
         assert b._gbdt.learner.syncs == splits + 2

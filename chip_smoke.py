@@ -21,26 +21,47 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      lightgbm_tpu_torch on the card, on each of the learner's two split
      paths in turn -- the mega path (split_mega + split_pair) and the
      histogram-subtraction path (tpu_megakernel=off: partition +
-     leaf_hist with the state epilogue + split_pair) -- from one
-     constructed Dataset, with every kernel's launch count reset just
-     before each path and read just after (on the subtraction path every
-     split of the first tree is checked: the larger child's int64 slot
-     equals a direct fixed-point histogram of its rows); then, for each
-     path, predict 100k rows, save, reload and predict again, profile one
-     more iteration (each kernel's device time and launches beside its
-     per-iteration bound, from the profiled tree's split counts; every
-     device function of the path's kernels must show device time), time
-     the host side of each kernel wrapper's call, and train the port on
-     the card against the port on the CPU on
-     examples/binary_classification (and, on the subtraction path,
-     report how examples/regression's exactly-empty-bin ties fall);
+     leaf_hist with the state epilogue + split_pair), each step's
+     bookkeeping by tree_step, every tree one replay of a captured CUDA
+     graph -- from one constructed Dataset.  Per path: the eager oracle
+     (build_tree_eager, the host loop) grows the first tree and its
+     kernel calls' inputs are captured for phase 5 (on the subtraction
+     path every split's larger-child slot is checked against a direct
+     fixed-point histogram of its rows); every wrapper's launch count
+     is set to 0, the graph loop trains under torch.profiler, and the
+     counts are read: each wrapper ran twice (the run that sizes
+     everything before the capture, then the capture), and each device
+     function of the path's kernels launched, by the profiler's kernel
+     events, as often as the graph holds it times the trees, plus that
+     first run; the graph
+     loop's first tree bit-identical to the oracle's (leafmat, nodemat,
+     the row order of both row buffers); one host sync a tree, and an
+     iteration under torch.cuda.set_sync_debug_mode("error") makes no
+     implicit one.  Then predict 100k rows, save, reload and predict
+     again; profile one more iteration (each kernel's device time and
+     launches beside its per-iteration bound; every device function of
+     the path's kernels must show device time) for the busy share;
+     tree_step against tree_step_plain on the root, 12 steps and the
+     final commit of a real tree; the device time by graph replay of a
+     whole step of a stopped tree and of each split kernel on a 1024-row
+     leaf with its grid sized for the leaf and for the root's rows; and
+     the port on the card against the port on the CPU on
+     examples/binary_classification (and how examples/regression's
+     exactly-empty-bin ties fall on the subtraction path);
   5. each kernel against its plain version on inputs captured from the
-     first tree of its path, and its time at those shapes beside the
-     least time the card could take for the same work.
+     first tree of its path, through its host-int entry and through the
+     step entry the graph loop launches (a step block made beforehand,
+     the grid sized for the HIGGS rows), and its time at those shapes
+     (the step entry by graph replay) beside the least time the card
+     could take for the same work; the host microseconds of one wrapper
+     call of the eager oracle split into the wrapper's parts;
+  6. python -m lightgbm_tpu_torch.bench at BENCH_REPEATS=2
+     BENCH_ITERS=5, its JSON lines printed.
 The line before the last is a JSON object of per-kernel numbers; the
 last line is {"ok": true, "device": {...}}.
 """
 
+import gc
 import json
 import os
 import subprocess
@@ -333,6 +354,84 @@ def fused_cases(hs, th, tpart, make_scalars, pb, pg, B, G):
     return len(cases), err
 
 
+def bits_err(got, want):
+    """The largest difference of two tensors' bit views, as integers."""
+    if got.numel() == 0:
+        return 0.0
+    w = {1: torch.uint8, 4: torch.int32, 8: torch.int64}[got.element_size()]
+    return float((got.view(w).long() - want.view(w).long()).abs().max())
+
+
+def check_step_entries(tpart, sm, hs, cap, bound_rows, dev):
+    """The captured calls of the first trees again, each through the step
+    entry the graph loop launches: a step block made beforehand, grids and
+    scratch sized for ``bound_rows`` (the learner's bound, the root's
+    rows).  Against the plain and fixed-point twins bit for bit: the
+    partition (bins, payload words, left count), split_mega's histogram,
+    leaf_hist's int64 state and f32 children; the step block's error
+    word stays 0.  Returns the largest bit difference of each."""
+    err = {"split_mega": 0.0, "partition": 0.0, "leaf_hist": 0.0}
+
+    def moved(what, step, b, g, nl, b0, g0, enl):
+        check(int(step[tpart.SB_ERR]) == 0, f"{what}: error word set")
+        e = max(bits_err(b, b0), bits_err(g, g0), bits_err(nl, enl))
+        check(e == 0.0, f"{what}: rows or left count differ by {e}")
+        return e
+
+    for i, (cpb, cpg, sc, k) in enumerate(cap["mega"]):
+        what = f"split_mega_step captured {i} @ bound {bound_rows}"
+        G, B = k["num_groups"], k["num_bins"]
+        BH, _ = sm.hist_geometry(B)
+        b, g = cpb.clone(), cpg.clone()
+        step = tpart.step_block(sc, dev)
+        nl = torch.zeros(1, dtype=torch.int32, device=dev)
+        hist = torch.zeros((G, 4 * BH, 16), device=dev)
+        sm.split_mega_step(b, g, step, nl, hist, num_bins=B, num_groups=G,
+                           absmax=k["absmax"], bound=bound_rows)
+        b0, g0 = cpb.clone(), cpg.clone()
+        fixed = sm.hist_fixed_plain(b0, g0, sc, num_bins=B, num_groups=G,
+                                    absmax=k["absmax"])
+        enl = tpart.partition_leaf_plain(b0, g0, sc)
+        e = max(moved(what, step, b, g, nl, b0, g0, enl),
+                bits_err(hist, fixed))
+        check(e == 0.0, f"{what}: histogram differs from hist_fixed_plain")
+        err["split_mega"] = max(err["split_mega"], e)
+    for i, (cpb, cpg, sc) in enumerate(cap["partition"]):
+        what = f"partition_step captured {i} @ bound {bound_rows}"
+        b, g = cpb.clone(), cpg.clone()
+        step = tpart.step_block(sc, dev)
+        nl = torch.zeros(1, dtype=torch.int32, device=dev)
+        tpart.partition_step(b, g, step, nl, bound=bound_rows)
+        b0, g0 = cpb.clone(), cpg.clone()
+        enl = tpart.partition_leaf_plain(b0, g0, sc)
+        err["partition"] = max(err["partition"],
+                               moved(what, step, b, g, nl, b0, g0, enl))
+    for i, (cpb, cpg, start, cnt, k, cst) in enumerate(cap["lhr"]):
+        what = (f"leaf_hist_rmw_step captured {i} (idx {k['idx']}) @ bound "
+                f"{bound_rows}")
+        child = k["child"]
+        step = tpart.step_block(
+            tpart.make_scalars(start, cnt, 0, 0, 0, 0, 0, 0, 0, 0), dev,
+            k["idx"], 0 if child is None else child[1] + 1)
+        G, B = k["num_groups"], k["num_bins"]
+        _, Bp = sm.hist_geometry(B)
+        st, st0 = cst.clone(), cst.clone()
+        out = torch.zeros((2, 2, G, Bp), device=dev)
+        hs.leaf_hist_rmw_step(cpb, cpg, step,
+                              None if child is None else child[0],
+                              num_bins=B, num_groups=G, state=st,
+                              absmax=k["absmax"], kcnt=k["kcnt"], out=out,
+                              bound=bound_rows)
+        ch0 = hs.leaf_hist_rmw_fixed_plain(cpb, cpg, start, cnt, state=st0,
+                                           **k)
+        check(int(step[tpart.SB_ERR]) == 0, f"{what}: error word set")
+        e = max(bits_err(st, st0), bits_err(out, ch0))
+        check(e == 0.0, f"{what}: state or children differ from "
+                        f"leaf_hist_rmw_fixed_plain by {e}")
+        err["leaf_hist"] = max(err["leaf_hist"], e)
+    return err
+
+
 def near_ties(sp, args, kw):
     """Children whose best gain has a runner-up on another feature within
     1e-6 relative (the winner's feature masked out and searched again)."""
@@ -369,30 +468,73 @@ def check_pair(sp, args, kw, what):
 
 
 # device functions of each port kernel, per split path (the partition's
-# functions run inside split_mega on the mega path); every one but
-# OPTIONAL_FUNCS must show device time in the profiled iteration
+# functions run inside split_mega on the mega path); every one must show
+# device time in the profiled iteration
 KERNEL_FUNCS = {
     "mega": {"mega_hist": "split_mega", "part_tiles": "split_mega",
-             "part_copyback": "split_mega", "part_set_count": "split_mega",
-             "pair_search": "split_pair"},
+             "part_copyback": "split_mega", "pair_search": "split_pair",
+             "tree_step": "tree_step"},
     "subtraction": {"part_tiles": "partition", "part_copyback": "partition",
-                    "part_set_count": "partition",
                     "leaf_hist_state": "leaf_hist",
-                    "pair_search": "split_pair"},
+                    "pair_search": "split_pair", "tree_step": "tree_step"},
 }
-OPTIONAL_FUNCS = {"part_set_count"}     # runs only for a leaf of no rows
-# the device launches of a path's kernels for the root's calls (the
-# root's histogram or histogram-only split_mega, and its pair search)
-ROOT_LAUNCHES = 2
+
+
+# the device function whose launches are each port kernel's launches
+# (hist_rmw is leaf_hist's state epilogue: each state launch runs it)
+MAIN_FUNC = {"split_mega": "mega_hist", "partition": "part_tiles",
+             "leaf_hist": "leaf_hist_state", "hist_rmw": "leaf_hist_state",
+             "split_pair": "pair_search", "tree_step": "tree_step"}
+SPLITS = 254                    # a HIGGS tree's splits at num_leaves=255
+
+
+def per_tree(label):
+    """Each kernel's wrapper calls a tree in the graph (the root's
+    included): every step runs, split or not."""
+    n = SPLITS
+    if label == "mega":
+        return {"split_mega": n + 1, "split_pair": n + 1,
+                "tree_step": n + 2}
+    return {"partition": n, "leaf_hist": n + 1, "hist_rmw": n + 1,
+            "split_pair": n + 1, "tree_step": n + 2}
+
+
+def funcs_per_tree(label):
+    """Device launches a tree of each device function of the path: the
+    mega path's root call builds its histogram and moves no rows."""
+    c = per_tree(label)
+    if label == "mega":
+        return {"mega_hist": c["split_mega"],
+                "part_tiles": c["split_mega"] - 1,
+                "part_copyback": c["split_mega"] - 1,
+                "pair_search": c["split_pair"], "tree_step": c["tree_step"]}
+    return {"part_tiles": c["partition"], "part_copyback": c["partition"],
+            "leaf_hist_state": c["leaf_hist"],
+            "pair_search": c["split_pair"], "tree_step": c["tree_step"]}
+
+
+def func(key):
+    """The device function's name in a profiler key ("void f(Args)")."""
+    return key.split("(")[0].split()[-1]
+
+
+def device_rows(prof):
+    """(key, device ms, launches) of a profile's device-side events
+    (kernels, copies, sets; the CPU-side op events carry the same device
+    time again)."""
+    return [(e.key, getattr(e, "device_time_total", 0) / 1e3, e.count)
+            for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and getattr(e, "device_time_total", 0) > 0]
 
 
 def profile_iteration(bst, plain_s, label):
-    """One more boosting iteration under torch.profiler: device time by
-    device function, and the device's busy share of the profiled
-    iteration's wall time and of ``plain_s``, an iteration's wall time
-    without it.  Returns {port kernel: (device ms, device launches)} of
-    the iteration (KERNEL_FUNCS); fails when a device function of the
-    path's kernels shows no device time."""
+    """One more boosting iteration (a graph replay) under torch.profiler:
+    device time by device function, and the device's busy share of the
+    profiled iteration's wall time and of ``plain_s``, an iteration's
+    wall time without it.  Returns {port kernel: (device ms, device
+    launches)} of the iteration (KERNEL_FUNCS) and the busy ms; fails when
+    a device function of the path's kernels shows no device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -401,12 +543,7 @@ def profile_iteration(bst, plain_s, label):
         bst.update()
         torch.cuda.synchronize()
         wall = time.time() - t0
-    # device-side events only (kernels, copies, sets): the CPU-side op
-    # events carry the same device time again
-    rows = [(e.key, getattr(e, "device_time_total", 0) / 1e3, e.count)
-            for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")
-            and getattr(e, "device_time_total", 0) > 0]
+    rows = device_rows(prof)
     busy = sum(ms for _, ms, _ in rows)
     check(rows, f"profile {label}: the profiler saw no device events")
     print(f"profile {label}: iteration {wall * 1e3:.1f} ms wall, device "
@@ -417,25 +554,27 @@ def profile_iteration(bst, plain_s, label):
         print(f"  {ms:9.3f} ms  x{n:<6d} {key[:90]}")
     per, seen = {}, set()
     for key, ms, n in rows:
-        fn = key.split("(")[0].split()[-1]
+        fn = func(key)
         kernel = KERNEL_FUNCS[label].get(fn)
         if kernel:
             seen.add(fn)
             t, c = per.get(kernel, (0.0, 0))
             per[kernel] = (t + ms, c + n)
-    missing = set(KERNEL_FUNCS[label]) - OPTIONAL_FUNCS - seen
+    missing = set(KERNEL_FUNCS[label]) - seen
     check(not missing, f"profile {label}: no device time for {missing}")
-    return per
+    return per, busy
 
 
-def iteration_bounds(tree, label, G, R, Bp, N, pair_bytes):
+def iteration_bounds(tree, label, G, R, Bp, N, pair_bytes, step_bytes,
+                     steps):
     """Per-iteration bound (ms) of each port kernel on one path: the sum
     over the tree's splits of the kernel's bytes formula, each split's
     rows from the tree's internal counts (no bagging: the bag-aware count
-    is the row count), plus the root's calls.  On the subtraction path
-    hist_rmw is leaf_hist's state epilogue: its bytes (a parent slot
-    read, two int64 slots and two f32 children written a split; one slot
-    and two f32 copies at the root) are in leaf_hist's bound too."""
+    is the row count), plus the root's calls; tree_step's bytes at each
+    of its ``steps`` launches.  On the subtraction path hist_rmw is
+    leaf_hist's state epilogue: its bytes (a parent slot read, two int64
+    slots and two f32 children written a split; one slot and two f32
+    copies at the root) are in leaf_hist's bound too."""
     ns = tree.num_leaves - 1
     cnt = tree.internal_count[:ns].astype(np.float64)
 
@@ -446,7 +585,8 @@ def iteration_bounds(tree, label, G, R, Bp, N, pair_bytes):
                        child(tree.right_child[:ns])).astype(np.float64)
     hist4, hist2 = G * 4 * Bp * 4, 2 * G * Bp * 4
     move = float((2 * cnt * (R + 32)).sum())
-    nbytes = {"split_pair": (ns + 1) * pair_bytes}
+    nbytes = {"split_pair": (ns + 1) * pair_bytes,
+              "tree_step": steps * step_bytes}
     if label == "mega":
         nbytes["split_mega"] = N * (G + 8) + hist4 + move + ns * hist4
     else:
@@ -457,18 +597,15 @@ def iteration_bounds(tree, label, G, R, Bp, N, pair_bytes):
     return {k: v / PEAK_BYTES_S * 1e3 for k, v in nbytes.items()}
 
 
-def report_iteration(per, bounds, tree, label):
-    """Print each kernel's device ms per iteration beside its bound, and
-    its device launches per call (the root's calls included), and the
-    path's device launches a split."""
-    ns = tree.num_leaves - 1
-    calls = {"split_mega": ns + 1, "split_pair": ns + 1, "partition": ns,
-             "leaf_hist": ns + 1}
+def report_iteration(per, bounds, tree, label, calls):
+    """Print each kernel's device ms per iteration beside its bound and
+    its device launches per call (``calls``: each kernel's calls a tree in
+    the graph, the root's included), and the path's device launches a
+    tree."""
     out = {}
     launches = sum(n for _, n in per.values())
-    print(f"  {label}: {launches} device launches of the path's kernels for "
-          f"{ns} splits and the root: "
-          f"{(launches - ROOT_LAUNCHES) / ns:.3f} a split", flush=True)
+    print(f"  {label}: {launches} device launches of the path's kernels a "
+          f"tree ({tree.num_leaves - 1} splits)", flush=True)
     for k, b in bounds.items():
         if k == "hist_rmw":
             check(k not in per, f"{label}: hist_rmw has device launches of "
@@ -483,72 +620,117 @@ def report_iteration(per, bounds, tree, label):
                       f"iteration")
         out[k] = (ms, b)
         print(f"  {label} {k}: {ms:.3f} ms device time per iteration, "
-              f"bound {b:.3f} ms; {n} device launches for {calls[k]} calls "
+              f"bound {b:.4f} ms; {n} device launches for {calls[k]} calls "
               f"({n / calls[k]:.3f} a call)", flush=True)
     return out
 
 
-class HostTimer:
-    """While installed: the host seconds of each call of the named
-    learner_mod entries (kernel wrappers, which launch and do not sync)."""
-
-    def __init__(self, learner_mod, names):
-        self.mod = learner_mod
-        self.real = {n: getattr(learner_mod, n) for n in names}
-        self.secs = {n: [] for n in names}
-
-    def __enter__(self):
-        for name, fn in self.real.items():
-            def call(*a, _fn=fn, _name=name, **k):
-                t0 = time.perf_counter()
-                out = _fn(*a, **k)
-                self.secs[_name].append(time.perf_counter() - t0)
-                return out
-            setattr(self.mod, name, call)
-        return self
-
-    def __exit__(self, *exc):
-        for name, fn in self.real.items():
-            setattr(self.mod, name, fn)
-
-    def us(self):
-        return {n: (1e6 * sum(v) / len(v), len(v))
-                for n, v in self.secs.items() if v}
+def tree_args(lr):
+    return (lr.leafmat, lr.nodemat, lr.step, lr.nl, lr.pair_out, lr.fmeta,
+            lr.info, lr.sums)
 
 
-# the learner's kernel entries on each path
-HOST_ENTRIES = {"mega": ("split_mega", "split_pair"),
-                "subtraction": ("partition_leaf", "leaf_hist_rmw",
-                                "split_pair")}
+def check_tree_steps(ts, lr, pb, pg, steps):
+    """tree_step on the card against tree_step_plain on the CPU, bit for
+    bit, on the states of a real tree: the root, then ``steps`` steps of
+    the learner's own sequence on copies of its row buffers (each step's
+    inputs copied to the CPU before the kernel runs), then a final commit.
+    Returns the largest difference of the outputs' bit views (as
+    integers) and the plain version's median host ms a step."""
+    pb, pg = pb.clone(), pg.clone()
+    kw = dict(row0=lr.row0, N=lr.N, bag_cnt=lr.N)
+
+    plain_s, err = [], [0]
+
+    def one(mode, what):
+        host = [t.cpu() for t in tree_args(lr)]
+        ts.tree_step(mode, *tree_args(lr), **kw)
+        t0 = time.perf_counter()
+        ts.tree_step_plain(mode, *host, **kw)
+        plain_s.append(time.perf_counter() - t0)
+        for got, want in zip(tree_args(lr), host):
+            got = got.cpu()
+            if got.dtype == torch.float32:
+                got, want = got.view(torch.int32), want.view(torch.int32)
+            if got.numel():
+                err[0] = max(err[0], int((got.long() - want.long()).abs()
+                                         .max()))
+            check(torch.equal(got, want),
+                  f"tree_step {what}: kernel and tree_step_plain differ")
+
+    torch.amax(pg[:2].abs(), dim=1, out=lr._absmax)
+    lr._body(pb, pg, lr.root_step)
+    torch.stack([lr.children[0, 0, 0].sum(), lr.children[1, 0, 0].sum()],
+                out=lr.sums)
+    one(ts.MODE_ROOT, "root")
+    lr._pair()
+    for i in range(steps):
+        one(ts.MODE_STEP, f"step {i}")
+        lr._body(pb, pg, lr.step)
+        lr._pair()
+    one(ts.MODE_FINAL, "final")
+    return float(err[0]), 1e3 * float(np.median(plain_s))
 
 
-def host_costs(bst, learner_mod, label, plain_s):
-    """Profile one more iteration (profile_iteration) and run one more
-    without the profiler, timing the host side of each kernel wrapper's
-    call in both; prints the mean microseconds a call.  Returns the
-    profiled iteration's per-kernel device numbers and its tree."""
-    with HostTimer(learner_mod, HOST_ENTRIES[label]) as prof_t:
-        per = profile_iteration(bst, plain_s, label)
-    tree = bst._gbdt.models[-1]
-    with HostTimer(learner_mod, HOST_ENTRIES[label]) as plain_t:
-        bst.update()
-        torch.cuda.synchronize()
-    for what, t in (("profiled", prof_t), ("unprofiled", plain_t)):
-        print(f"host {label} ({what} iteration): microseconds of one Python "
-              f"call into each kernel wrapper, no sync, mean over the "
-              f"iteration's calls: " + ", ".join(
-                  f"{n} {us:.1f} (x{c})" for n, (us, c) in t.us().items()),
-              flush=True)
-    return per, tree
+def step_costs(lr, pb, pg, label, ts, tpart, hs, sm):
+    """Device ms by graph replay of what the fixed grids cost: a whole
+    step of a stopped tree (cnt == 0: tree_step, the split body and the
+    pair search), tree_step alone on it, and each split kernel on a
+    1024-row leaf with its grid sized for the leaf and for the root's
+    rows (the tree loop's bound)."""
+    lr._step(ts.MODE_ROOT, lr.N)         # a tree whose root has no split
+    lr.pair_out[:, 0] = float("-inf")
+    lr._step(ts.MODE_STEP, lr.N)
+    check(int(lr.step[tpart.SB_DONE]) == 1 and int(lr.step[tpart.SB_CNT])
+          == 0, "step_costs: the tree did not stop")
+    b, g = pb.clone(), pg.clone()
+    out = {"empty_step": graph_ms(lambda: (lr._step(ts.MODE_STEP, lr.N),
+                                           lr._body(b, g, lr.step),
+                                           lr._pair()), 50),
+           "tree_step_stopped": graph_ms(
+               lambda: lr._step(ts.MODE_STEP, lr.N), 200)}
+    sc = tpart.make_scalars(lr.row0 + 5, 1024, 5, 0, 0, 255, 0, 0, 120, 1)
+    step = tpart.step_block(sc, b.device, (1, 1, 2, 1), 1)
+    kw = dict(num_bins=lr.B, num_groups=lr.G, ws=lr.ws)
+    for bound in (1024, lr.N):
+        if label == "mega":
+            out[f"split_mega_1k@{bound}"] = graph_ms(
+                lambda: sm.split_mega_step(b, g, step, lr.nl, lr.hist4,
+                                           absmax=lr._absmax, bound=bound,
+                                           **kw), 100)
+        else:
+            out[f"partition_1k@{bound}"] = graph_ms(
+                lambda: tpart.partition_step(b, g, step, lr.nl, bound=bound,
+                                             ws=lr.ws), 100)
+            out[f"leaf_hist_state_1k@{bound}"] = graph_ms(
+                lambda: hs.leaf_hist_rmw_step(b, g, step, lr.nl,
+                                              state=lr.state,
+                                              absmax=lr._absmax, kcnt=lr.N,
+                                              out=lr.children, bound=bound,
+                                              **kw), 100)
+    print(f"fixed-grid costs {label} (ms a launch, graph replay): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in out.items()), flush=True)
+    return out
 
 
 def train_path(lgt, learner_mod, mods, ds, params, label, capture):
-    """Train ITERS iterations of one split path with every kernel's launch
-    count set to 0 just before and read just after.  ``capture`` maps a
-    name of learner_mod to a function that records a call's inputs and
-    may return a function that checks the call's result; it wraps that
-    name during the first iteration only."""
-    bst = lgt.Booster(params=params, train_set=ds)
+    """The eager oracle's first tree (``build_tree_eager``, whose host-int
+    kernel calls the ``capture`` wrappers of learner_mod record for phase
+    5), then ITERS iterations of the graph loop under torch.profiler,
+    with every wrapper's launch count set to 0 just before and read just
+    after.  The wrappers run twice a learner (the run that sizes
+    everything, then the capture); the replays launch without them, so
+    the run's device launches are counted from the profiler's kernel
+    events by device function: each function of the path must have
+    launched as often as the graph holds it, times the trees plus that
+    first run.  The graph loop's first tree must equal the oracle's bit
+    for bit (leafmat, nodemat and the row order of both row buffers).
+    Returns the booster, the iteration times (under the profiler), the
+    losses, the splits, the wrapper counts and the device launches by
+    function."""
+    from torch.profiler import ProfilerActivity, profile
+    ref = lgt.Booster(params=params, train_set=ds)
+    ref._gbdt.learner.build_tree = ref._gbdt.learner.build_tree_eager
     real = {name: getattr(learner_mod, name) for name in capture}
 
     def wrap(name):
@@ -560,25 +742,79 @@ def train_path(lgt, learner_mod, mods, ds, params, label, capture):
             return out
         return call
 
-    for m in mods.values():
-        m.launches = 0
     for name in capture:
         setattr(learner_mod, name, wrap(name))
+    ref.update()
+    for name, fn in real.items():
+        setattr(learner_mod, name, fn)
+    torch.cuda.synchronize()
+
+    bst = lgt.Booster(params=params, train_set=ds)
+    for m in mods.values():
+        m.launches = 0
     iter_s, losses, splits = [], [], 0
-    for it in range(ITERS):
-        t0 = time.time()
-        bst.update()
-        torch.cuda.synchronize()
-        iter_s.append(time.time() - t0)
-        splits += bst._gbdt.models[-1].num_leaves - 1
-        losses.append(bst.eval_train()[0][2])
-        if it == 0:
-            for name, fn in real.items():
-                setattr(learner_mod, name, fn)
-    launches = {k: m.launches for k, m in mods.items()}
-    say(f"train {label}: per-iteration s {[round(s, 3) for s in iter_s]}; "
-        f"splits {splits} over {ITERS} trees; launches {launches}; host "
-        f"syncs {bst._gbdt.learner.syncs}; binary_logloss {losses}")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for it in range(ITERS):
+            t0 = time.time()
+            bst.update()
+            torch.cuda.synchronize()
+            iter_s.append(time.time() - t0)
+            splits += bst._gbdt.models[-1].num_leaves - 1
+            losses.append(bst.eval_train()[0][2])
+            if it == 0:
+                la, lb = bst._gbdt.learner, ref._gbdt.learner
+                for t in ("leafmat", "nodemat"):
+                    check(torch.equal(getattr(la, t).view(torch.int32),
+                                      getattr(lb, t).view(torch.int32)),
+                          f"{label}: the graph loop's first tree's {t} "
+                          f"differs from the eager oracle's")
+                (pa, ga), (pr, gr) = bst._gbdt._phys, ref._gbdt._phys
+                check(torch.equal(pa, pr) and torch.equal(
+                    ga.view(torch.int32), gr.view(torch.int32)),
+                      f"{label}: the row order after the graph loop's "
+                      f"first tree differs from the eager oracle's")
+                del ref, pr, gr, lb
+    calls = {k: m.launches for k, m in mods.items()}
+    device = {}
+    for key, _, n in device_rows(prof):
+        fn = func(key)
+        if fn in KERNEL_FUNCS[label]:
+            device[fn] = device.get(fn, 0) + n
+    del prof
+    lr = bst._gbdt.learner
+    say(f"train {label}: per-iteration s under the profiler "
+        f"{[round(s, 3) for s in iter_s]}; splits {splits} over {ITERS} "
+        f"trees; wrapper calls {calls}; device launches {device}; host "
+        f"syncs {lr.syncs} ({lr.syncs / ITERS:.3f} a tree), graph replays "
+        f"{lr.replays}; binary_logloss {losses}; first tree bit-identical "
+        f"to the eager oracle's (leafmat, nodemat, row order)")
+    check(lr.syncs == ITERS and lr.replays == ITERS,
+          f"{label}: {lr.syncs} host syncs and {lr.replays} graph replays "
+          f"for {ITERS} trees (want one each a tree)")
+    # wrapper calls: the run that sizes everything and the capture
+    for k in mods:
+        want = 2 * per_tree(label).get(k, 0)
+        check(calls[k] == want, f"{label}: {k}: {calls[k]} wrapper calls, "
+                                f"expected {want}")
+    # device launches: each replay's, plus the run before the capture
+    for fn, n in funcs_per_tree(label).items():
+        want = (ITERS + 1) * n
+        check(device.get(fn, 0) == want,
+              f"{label}: {fn}: {device.get(fn, 0)} device launches in the "
+              f"run, expected {want}")
+    launches = {k: device[MAIN_FUNC[k]] for k in per_tree(label)}
+    # no host sync inside an iteration but the learner's one read of the
+    # tree: any implicit synchronisation raises in this mode
+    syncs = lr.syncs
+    torch.cuda.set_sync_debug_mode("error")
+    bst.update()
+    torch.cuda.set_sync_debug_mode(0)
+    check(lr.syncs == syncs + 1, f"{label}: an iteration made "
+                                 f"{lr.syncs - syncs} counted syncs")
+    say(f"{label}: one iteration under torch.cuda.set_sync_debug_mode"
+        f"('error'): no implicit host sync; syncs per tree 1")
     check(all(a > b for a, b in zip(losses, losses[1:])),
           f"{label}: training logloss does not fall: {losses}")
     return bst, iter_s, losses, splits, launches
@@ -660,6 +896,35 @@ def card_vs_cpu(lgt, d, extra, label):
         f"identical, max raw err {err:.2e}")
 
 
+def wrapper_host_us(sp, args, kw, n=200):
+    """Host microseconds a call of split_pair's wrapper, no sync, and of
+    the wrapper's own parts: its argument checks and the ctypes entry's
+    setup, the output's allocation, the launch arguments (pointers and
+    the stream lookup), and the ctypes launch alone."""
+    dev = args[0].device
+    out = torch.empty((2, sp.OUT_FIELDS), device=dev)
+    fn = sp.launcher()
+    cargs = sp.launch_args(*args, out, **kw)
+
+    def us(f):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            f()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return 1e6 * t / n
+
+    return {"whole wrapper": us(lambda: sp.split_pair(*args, **kw)),
+            "checks and ctypes setup": us(lambda: (sp.check_args(*args),
+                                                   sp.launcher())),
+            "allocation (torch.empty)": us(
+                lambda: torch.empty((2, sp.OUT_FIELDS), device=dev)),
+            "launch arguments": us(lambda: sp.launch_args(*args, out,
+                                                          **kw)),
+            "ctypes launch": us(lambda: fn(*cargs))}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -683,10 +948,11 @@ def main():
     from lightgbm_tpu_torch.ops import partition as tpart
     from lightgbm_tpu_torch.ops import split_mega as sm
     from lightgbm_tpu_torch.ops import split_pair as sp
+    from lightgbm_tpu_torch.ops import tree_step as ts
     from lightgbm_tpu_torch.ops.partition import (S_CNT, S_COL, decide_left,
                                                   make_scalars, scalars_start)
     mods = {"split_mega": sm, "split_pair": sp, "partition": tpart,
-            "leaf_hist": th, "hist_rmw": hs}
+            "leaf_hist": th, "hist_rmw": hs, "tree_step": ts}
 
     # ---- 2. build ----------------------------------------------------
     t0 = time.time()
@@ -824,7 +1090,8 @@ def main():
 
     def pair_capture(key):
         def fn(*a, **k):
-            keep(key, 3, lambda: (tuple(t.clone() for t in a), dict(k)))
+            keep(key, 3, lambda: (tuple(t.clone() for t in a),
+                                  {n: v for n, v in k.items() if n != "out"}))
         return fn
 
     def capture_partition(pb_, pg_, sc):
@@ -848,56 +1115,55 @@ def main():
             exact_calls.append(k["idx"])
         return after
 
-    # the mega path (the default)
-    bst, iter_s, losses_mega, splits, launches = train_path(
-        lgt, learner_mod, mods, ds, params, "mega",
-        {"split_mega": capture_mega, "split_pair": pair_capture("pair")})
-    for k in ("split_mega", "split_pair"):
-        check(launches[k] == splits + ITERS,
-              f"mega: {k}: {launches[k]} launches, expected one per split "
-              f"plus one per tree (root)")
-    for k in ("partition", "leaf_hist", "hist_rmw"):
-        check(launches[k] == 0, f"mega: {k} launched {launches[k]} times")
-    launches_by_path = {"mega": launches}
-    check_predict(lgt, bst, Xp, "mega")
-    per, tree = host_costs(bst, learner_mod, "mega",
-                           float(np.median(iter_s[1:])))
-    iter_by_path = {"mega": report_iteration(per, iteration_bounds(
-        tree, "mega", G, G, 256, ROWS, pair_bytes), tree, "mega")}
-    card_vs_cpu(lgt, d, {}, "mega")
-    del bst
-
-    # the histogram-subtraction path, from the same Dataset
-    bst, iter_s, losses_sub, splits, launches = train_path(
-        lgt, learner_mod, mods, ds, dict(params, tpu_megakernel="off"),
-        "subtraction",
-        {"partition_leaf": capture_partition, "leaf_hist_rmw": capture_lhr,
-         "split_pair": pair_capture("sub_pair")})
-    check(bst._gbdt.learner.subtract, "tpu_megakernel=off did not select "
-                                      "the subtraction path")
-    # every leaf_hist launch of the path is a state launch (hist_rmw)
-    for k, want in (("partition", splits), ("hist_rmw", splits + ITERS),
-                    ("leaf_hist", splits + ITERS),
-                    ("split_pair", splits + ITERS), ("split_mega", 0)):
-        check(launches[k] == want, f"subtraction: {k}: {launches[k]} "
-                                   f"launches, expected {want}")
-    say(f"subtraction tree 0: {len(exact_calls)} state launches (the root "
-        f"and {len(exact_calls) - 1} splits), every slot written equal to "
-        f"the direct fixed-point sums of its rows at the tree's scale "
-        f"(each larger child exact as parent minus smaller)")
-    launches_by_path["subtraction"] = launches
-    print(f"binary_logloss per iteration: mega {losses_mega}, subtraction "
-          f"{losses_sub} (the two paths sum in other orders, so their trees "
-          f"are only numerically equal)", flush=True)
-    check_predict(lgt, bst, Xp, "subtraction")
-    per, tree = host_costs(bst, learner_mod, "subtraction",
-                           float(np.median(iter_s[1:])))
-    iter_by_path["subtraction"] = report_iteration(per, iteration_bounds(
-        tree, "subtraction", G, G, 256, ROWS, pair_bytes), tree,
-        "subtraction")
-    card_vs_cpu(lgt, d, {"tpu_megakernel": "off"}, "subtraction")
+    step_bytes = (2 * 25 + 17 + 2 * G * 8 + 2 * 24 + 2 * 13 + 255) * 4
+    iter_by_path, launches_by_path, costs, steps_err = {}, {}, {}, 0.0
+    busy_by_path, losses_by = {}, {}
+    paths = (("mega", params,
+              {"split_mega": capture_mega, "split_pair": pair_capture("pair")}),
+             ("subtraction", dict(params, tpu_megakernel="off"),
+              {"partition_leaf": capture_partition,
+               "leaf_hist_rmw": capture_lhr,
+               "split_pair": pair_capture("sub_pair")}))
+    for label, p, capture in paths:
+        bst, iter_s, losses, splits, launches = train_path(
+            lgt, learner_mod, mods, ds, p, label, capture)
+        lr = bst._gbdt.learner
+        check(lr.subtract == (label == "subtraction"),
+              f"{label}: the learner runs the other split body")
+        check(splits == SPLITS * ITERS, f"{label}: {splits} splits")
+        calls = per_tree(label)
+        if label == "subtraction":
+            say(f"subtraction tree 0 (eager oracle): {len(exact_calls)} "
+                f"state launches (the root and {len(exact_calls) - 1} "
+                f"splits), every slot written equal to the direct "
+                f"fixed-point sums of its rows at the tree's scale (each "
+                f"larger child exact as parent minus smaller)")
+        launches_by_path[label] = launches
+        losses_by[label] = losses
+        check_predict(lgt, bst, Xp, label)
+        per, busy = profile_iteration(bst, float(np.median(iter_s[1:])),
+                                      label)
+        busy_by_path[label] = busy
+        tree = bst._gbdt.models[-1]
+        iter_by_path[label] = report_iteration(per, iteration_bounds(
+            tree, label, G, G, 256, ROWS, pair_bytes, step_bytes,
+            SPLITS + 2), tree, label, calls)
+        pb_, pg_ = bst._gbdt._phys
+        err, ts_plain_ms = check_tree_steps(ts, lr, pb_, pg_, 12)
+        steps_err = max(steps_err, err)
+        say(f"tree_step {label}: the kernel bit-identical to tree_step_plain "
+            f"on the root, 12 steps of a real tree and the final commit")
+        costs[label] = step_costs(lr, pb_, pg_, label, ts, tpart, hs, sm)
+        card_vs_cpu(lgt, d, {} if label == "mega"
+                    else {"tpu_megakernel": "off"}, label)
+        del bst, lr, pb_, pg_
+        torch.cuda.empty_cache()
+    print(f"binary_logloss per iteration: mega {losses_by['mega']}, "
+          f"subtraction {losses_by['subtraction']} (the two paths sum in "
+          f"other orders, so their trees are only numerically equal)",
+          flush=True)
     regression_ties(lgt)
-    del bst, X, y, ds
+    del X, y, ds
 
     # ---- 5. captured inputs and timings ------------------------------
     for key in cap:
@@ -938,7 +1204,10 @@ def main():
         rmw_err = max(rmw_err, check_fused(
             hs, th, cpb, cpg, start, cnt, k, cst.clone(),
             f"leaf_hist_rmw captured {i} (idx {k['idx']})"))
-    say("captured inputs: kernels agree with plain versions")
+    step_err = check_step_entries(tpart, sm, hs, cap, ROWS, dev)
+    say(f"captured inputs: kernels agree with plain versions, through the "
+        f"host-int entries and through the step entries at the graph "
+        f"loop's bound of {ROWS} rows (largest bit differences {step_err})")
 
     # split_mega at the first split of the first tree (the root's rows)
     cpb, cpg, sc, k = cap["mega"][0]
@@ -947,11 +1216,25 @@ def main():
     hist_bytes = Gk * 4 * 256 * 4
     mega_bound, mega_by = bound(2 * cnt * (R + 32) + hist_bytes, 2 * cnt * Gk)
     b, g = cpb.clone(), cpg.clone()
-    mega_ms = cuda_ms(lambda: sm.split_mega(b, g, sc, **k), 10)
-    # its histogram alone (the same call without the move), and so the
+    # as the graph loop launches it: the step entry on a step block made
+    # beforehand, sized for the root's rows, by graph replay; then its
+    # histogram alone (the same launch without the move), and so the
     # partition's share of the split
-    mega_hist_ms = cuda_ms(lambda: sm.split_mega(b, g, sc,
-                                                 **dict(k, move=False)), 10)
+    step = tpart.step_block(sc, dev)
+    nl = torch.zeros(1, dtype=torch.int32, device=dev)
+    h4 = torch.empty((Gk, 4 * sm.hist_geometry(k["num_bins"])[0], 16),
+                     device=dev)
+    sk = dict(num_bins=k["num_bins"], num_groups=Gk, absmax=k["absmax"],
+              bound=ROWS)
+    mega_ms = graph_ms(lambda: sm.split_mega_step(b, g, step, nl, h4, **sk),
+                       10)
+    mega_hist_ms = graph_ms(lambda: sm.split_mega_step(
+        b, g, step, nl, h4, move=False, **sk), 10)
+    # the host-int entry (a fresh step block copied from the host each
+    # call: that copy waits for the card), events around 10 calls
+    mega_host_ms = cuda_ms(lambda: sm.split_mega(b, g, sc, **k), 10)
+    mega_hist_host_ms = cuda_ms(lambda: sm.split_mega(
+        b, g, sc, **dict(k, move=False)), 10)
     b, g = cpb.clone(), cpg.clone()
     kp = dict(num_bins=k["num_bins"], num_groups=Gk)
     mega_plain_ms = cuda_ms(lambda: sm.split_mega_plain(b, g, sc, **kp), 3,
@@ -974,7 +1257,9 @@ def main():
     del seg, idx, vals, b, g
     say(f"split_mega @ {cnt} rows x {R} groups: {mega_ms:.3f} ms (its "
         f"histogram alone {mega_hist_ms:.3f} ms, so the partition "
-        f"{mega_ms - mega_hist_ms:.3f} ms), plain "
+        f"{mega_ms - mega_hist_ms:.3f} ms; step entry at bound {ROWS}, "
+        f"graph replay; the host-int entry {mega_host_ms:.3f} ms, its "
+        f"histogram alone {mega_hist_host_ms:.3f} ms), plain "
         f"{mega_plain_ms:.3f} ms, bound {mega_bound:.3f} ms ({mega_by}); "
         f"no single PyTorch call computes the split, library_ms null; "
         f"index_add_ of the histogram half alone {mega_lib_ms:.3f} ms")
@@ -985,13 +1270,18 @@ def main():
     cnt, R = sc[S_CNT], cpb.shape[0]
     part_bound, part_by = bound(2 * cnt * (R + 32), cnt)
     b, g = cpb.clone(), cpg.clone()
-    part_ms = cuda_ms(lambda: tpart.partition_leaf(b, g, sc), 10)
+    step = tpart.step_block(sc, dev)
+    part_ms = graph_ms(lambda: tpart.partition_step(b, g, step, nl,
+                                                    bound=ROWS), 10)
+    part_host_ms = cuda_ms(lambda: tpart.partition_leaf(b, g, sc), 10)
     b, g = cpb.clone(), cpg.clone()
     part_plain_ms = cuda_ms(lambda: tpart.partition_leaf_plain(b, g, sc), 3,
                             1)
     del b, g
     say(f"partition @ {cnt} rows x {R} groups + 8 payload rows: "
-        f"{part_ms:.3f} ms, plain {part_plain_ms:.3f} ms, bound "
+        f"{part_ms:.3f} ms (step entry at bound {ROWS}, graph replay; the "
+        f"host-int entry {part_host_ms:.3f} ms), plain "
+        f"{part_plain_ms:.3f} ms, bound "
         f"{part_bound:.3f} ms ({part_by}); no single PyTorch call "
         f"partitions in place, library_ms null")
     cap["partition"].clear()
@@ -1004,11 +1294,24 @@ def main():
     Gk = k["num_groups"]
     _, Bp = sm.hist_geometry(k["num_bins"])
     kp = dict(num_bins=k["num_bins"], num_groups=Gk, planes=True)
-    lh_ms = cuda_ms(lambda: th.leaf_hist(cpb, cpg, start, cnt,
-                                         absmax=k["absmax"], **kp), 10)
+    lh_host_ms = cuda_ms(lambda: th.leaf_hist(cpb, cpg, start, cnt,
+                                              absmax=k["absmax"], **kp), 10)
     st = cst.clone()
-    lh_state_ms = cuda_ms(lambda: hs.leaf_hist_rmw(cpb, cpg, start, cnt,
-                                                   state=st, **k), 10)
+    lh_state_host_ms = cuda_ms(lambda: hs.leaf_hist_rmw(
+        cpb, cpg, start, cnt, state=st, **k), 10)
+    # the step launches the graph loop makes, by graph replay
+    sc = make_scalars(start, cnt, 0, 0, 0, 0, 0, 0, 0, 0)
+    step = tpart.step_block(sc, dev)
+    step_state = tpart.step_block(sc, dev, k["idx"])
+    planes = torch.empty((2, Gk, Bp), device=dev)
+    children = torch.empty((2, 2, Gk, Bp), device=dev)
+    lk = dict(num_bins=k["num_bins"], num_groups=Gk, absmax=k["absmax"],
+              bound=ROWS)
+    lh_ms = graph_ms(lambda: th.launch(cpb, cpg, step, nl=None, out=planes,
+                                       kcnt=0, **lk), 10)
+    lh_state_ms = graph_ms(lambda: hs.leaf_hist_rmw_step(
+        cpb, cpg, step_state, None, state=st, kcnt=k["kcnt"], out=children,
+        **lk), 10)
     lh_bound, lh_by = bound(cnt * (Gk + 8) + 2 * Gk * Bp * 4, 2 * cnt * Gk)
     lh_plain_ms = cuda_ms(lambda: th.leaf_hist_plain(cpb, cpg, start, cnt,
                                                      **kp), 3, 1)
@@ -1029,12 +1332,23 @@ def main():
     # plain launch and its state launch on the smaller child, in turns by
     # graph replay; the epilogue's time is their difference
     cpb, cpg, start, cnt, k, cst = cap["lhr"][1]
-    ck = dict(kp, child=k["child"], absmax=k["absmax"], kcnt=k["kcnt"])
     st = cst.clone()
-    turns = [(graph_ms(lambda: th.leaf_hist(cpb, cpg, start, cnt, **ck),
+    # (a graph cannot hold the host-int entries' copy of a fresh step
+    # block, so both launches are fed step blocks made beforehand)
+    side = k["child"][1] + 1
+    sc = make_scalars(start, cnt, 0, 0, 0, 0, 0, 0, 0, 0)
+    step_plain = tpart.step_block(sc, dev, side=side)
+    step_state = tpart.step_block(sc, dev, k["idx"], side)
+    planes = torch.empty((2, Gk, Bp), device=dev)
+    children = torch.empty((2, 2, Gk, Bp), device=dev)
+    lk = dict(num_bins=k["num_bins"], num_groups=Gk, absmax=k["absmax"],
+              kcnt=k["kcnt"], bound=cnt)
+    turns = [(graph_ms(lambda: th.launch(cpb, cpg, step_plain,
+                                         nl=k["child"][0], out=planes, **lk),
                        100),
-              graph_ms(lambda: hs.leaf_hist_rmw(cpb, cpg, start, cnt,
-                                                state=st, **k), 100))
+              graph_ms(lambda: hs.leaf_hist_rmw_step(
+                  cpb, cpg, step_state, k["child"][0], state=st,
+                  out=children, **lk), 100))
              for _ in range(3)]
     child_ms = float(np.mean([t[0] for t in turns]))
     child_state_ms = float(np.mean([t[1] for t in turns]))
@@ -1051,7 +1365,9 @@ def main():
     sub32_ms = graph_ms(lambda: torch.sub(st32, small32), 200)
     rmw_bound, rmw_by = bound(2 * Gk * Bp * (8 + 16 + 8), 2 * Gk * Bp)
     say(f"leaf_hist @ root, {cnt} rows x {Gk} groups: {lh_ms:.3f} ms "
-        f"(the learner's state launch: {lh_state_ms:.3f} ms), plain "
+        f"(the learner's state launch: {lh_state_ms:.3f} ms; step entries "
+        f"at bound {ROWS}, graph replay; the host-int entries "
+        f"{lh_host_ms:.3f} / {lh_state_host_ms:.3f} ms), plain "
         f"{lh_plain_ms:.3f} ms (its fixed-point twin {lh_fixed_ms:.3f} ms), "
         f"bound {lh_bound:.3f} ms ({lh_by}), index_add_ {lh_lib_ms:.3f} ms; "
         f"at the first split's smaller child (grid for the parent's {cnt} "
@@ -1079,8 +1395,45 @@ def main():
         f"no single PyTorch call computes the pair search, library_ms "
         f"null")
 
+    # the host side of one wrapper call of the eager oracle, no sync:
+    # argument checks and setup, allocation, launch arguments and the
+    # ctypes launch alone, each over 200 back-to-back calls
+    host_us = wrapper_host_us(sp, pa, pk)
+    print("host us a call (split_pair at the root's shapes): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in host_us.items()), flush=True)
+
+    # tree_step: device ms a step from the profiled iterations, bound from
+    # the bytes it must move
+    ts_calls = per_tree("mega")["tree_step"]
+    ts_ms = iter_by_path["mega"]["tree_step"][0] / ts_calls
+    ts_bound, ts_by = bound(step_bytes, 0)
+    say(f"tree_step: {ts_ms:.5f} ms a step (profiled iteration, "
+        f"{ts_calls} launches a tree), plain {ts_plain_ms:.4f} ms on the "
+        f"host, bound {ts_bound:.7f} ms ({ts_by}); a whole step of a stopped "
+        f"tree {costs['mega']['empty_step']:.4f} ms (mega) / "
+        f"{costs['subtraction']['empty_step']:.4f} ms (subtraction)")
+
+    # ---- 6. lightgbm_tpu_torch.bench at a cut depth -----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, BENCH_REPEATS="2", BENCH_ITERS="5")
+    t0 = time.time()
+    r = subprocess.run([sys.executable, "-m", "lightgbm_tpu_torch.bench"],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=600)
+    check(r.returncode == 0, f"lightgbm_tpu_torch.bench failed:\n"
+                             f"{r.stderr[-3000:]}")
+    lines = [json.loads(x) for x in r.stdout.splitlines()
+             if x.startswith("{")]
+    check(len(lines) == 2, f"bench printed {len(lines)} JSON lines")
+    for line in lines:
+        print(f"bench: {json.dumps(line)}", flush=True)
+        check(line["syncs_per_tree"] == 1.0 and np.isfinite(
+            line["binary_logloss"]), f"bench {line['body']}: {line}")
+    say(f"bench (BENCH_REPEATS=2 BENCH_ITERS=5): {time.time() - t0:.1f} s")
+
     def total(name):
-        return sum(v[name] for v in launches_by_path.values())
+        return sum(v.get(name, 0) for v in launches_by_path.values())
 
     def row(name, source, replaces, err, ms, plain_ms, bnd, by, lib):
         # per iteration: the mega path's numbers for split_pair, which
@@ -1091,7 +1444,7 @@ def main():
                 "source": f"lightgbm_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": total(name),
                 "launches_by_path": {p: v[name] for p, v in
-                                     launches_by_path.items()},
+                                     launches_by_path.items() if name in v},
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd, "bound_by": by, "library_ms": lib,
                 "iter_ms": first[0], "iter_bound_ms": first[1],
@@ -1113,6 +1466,9 @@ def main():
         row("hist_rmw", "leaf_hist.cu",
             "lightgbm_tpu/ops/hist_state_pallas.py:48", rmw_err, rmw_ms,
             rmw_plain_ms, rmw_bound, rmw_by, sub_ms),
+        row("tree_step", "tree_step.cu",
+            "lightgbm_tpu/models/learner.py:2106", steps_err, ts_ms,
+            ts_plain_ms, ts_bound, ts_by, None),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -69,21 +69,23 @@ __device__ __forceinline__ int fixed_exponent(float amax, int cnt) {
 }
 
 // Add the rows [s0, s0 + c) of the groups [g_lo, g_lo + gn) into the
-// block's (gn, NP, Bp) words; sg, sh are 2^k of the two planes.
+// block's (gn, NP, Bp) words; sg, sh are 2^k of the two planes; the
+// block is row block rb of the nrb of its group set.
 // side(r0) gives the 16-bit mask of the rows r0 .. r0 + 15 that go to
 // planes 2 and 3 (NP == 4: the right child); it is called once a unit.
 template <int NP, class Side>
 __device__ __forceinline__ void hist_fixed_rows(
     const uint8_t* __restrict__ bins, long long Np,
     const float* __restrict__ ghi, long long s0, int c, int g_lo, int gn,
-    int Bp, double sg, double sh, unsigned* slo, unsigned* shi, Side side) {
+    int Bp, double sg, double sh, unsigned* slo, unsigned* shi, int rb,
+    int nrb, Side side) {
   const long long end = s0 + c;
   const long long a0 = s0 & ~15LL;
   const long long nu = (end - a0 + 15) >> 4;
   const float* grow = ghi;
   const float* hrow = ghi + Np;
-  for (long long u = (long long)blockIdx.x * HIST_THREADS + threadIdx.x;
-       u < nu; u += (long long)gridDim.x * HIST_THREADS) {
+  for (long long u = (long long)rb * HIST_THREADS + threadIdx.x; u < nu;
+       u += (long long)nrb * HIST_THREADS) {
     const long long r0 = a0 + (u << 4);
     const unsigned right = side(r0);
     long long gi[16], hi[16];
@@ -134,7 +136,7 @@ struct NoPre {
 };
 
 // After the block's adds (and a __syncthreads): combine the block's nent
-// words with the other blocks of its group set and convert once.  acc is
+// words with the other nrb - 1 blocks of its group set and convert once.  acc is
 // the set's int64 accumulator and done its counter, both zero before and
 // left zero after; ig, ih are 2^-k of the two planes.  Per entry i of the
 // block, pre(i) loads what the store needs beside the sum (leaf_hist's
@@ -143,12 +145,12 @@ struct NoPre {
 // value q and the f32 value f.
 template <class Pre, class Store>
 __device__ __forceinline__ void hist_fixed_finish(
-    const unsigned* slo, const unsigned* shi, int nent, int Bp,
+    const unsigned* slo, const unsigned* shi, int nent, int Bp, int nrb,
     unsigned long long* acc, unsigned* done, double ig, double ih, Pre pre,
     Store store) {
   __shared__ bool s_last;
   const int tid = threadIdx.x;
-  const bool alone = gridDim.x == 1;
+  const bool alone = nrb == 1;
   if (!alone) {
     for (int i = tid; i < nent; i += HIST_THREADS) {
       const unsigned long long v =
@@ -157,7 +159,7 @@ __device__ __forceinline__ void hist_fixed_finish(
     }
     __threadfence();
     __syncthreads();
-    if (tid == 0) s_last = atomicAdd(done, 1u) == gridDim.x - 1;
+    if (tid == 0) s_last = atomicAdd(done, 1u) == (unsigned)nrb - 1u;
     __syncthreads();
     if (!s_last) return;
     __threadfence();
@@ -188,15 +190,45 @@ __device__ __forceinline__ void hist_fixed_finish(
   if (!alone && tid == 0) *done = 0u;
 }
 
-// Grid of a fixed-point histogram launch over nu 16-row units of G
-// groups with NP planes of Bp bins: enough group sets to fill the SMs
-// when the leaf is small, as few as shared memory allows when it is
-// large.  gridDim.y runs over the ngb group sets of GB groups each.
-struct HistGrid {
-  int GB, ngb, nrb, smem;
+// How a fixed-point histogram over nu 16-row units of G groups is cut
+// into blocks: enough group sets to fill the SMs when the leaf is small,
+// as few as shared memory allows when it is large.  ngb group sets of GB
+// groups each, nrb row blocks a set.  The launch's grid and shared memory
+// are fixed by a bound on the rows (hist_grid on the host); each launch
+// cuts its own rows on the device (hist_split) within that grid, so a
+// captured launch serves a leaf of any size up to the bound.
+struct HistSplit {
+  int GB, ngb, nrb;
 };
 
-static cudaError_t hist_grid(int G, int NP, int Bp, long long nu,
+__host__ __device__ inline long long hf_max(long long a, long long b) {
+  return a > b ? a : b;
+}
+__host__ __device__ inline long long hf_min(long long a, long long b) {
+  return a < b ? a : b;
+}
+
+__host__ __device__ inline HistSplit hist_split(int G, int gbmax,
+                                                long long nu, int nblocks,
+                                                int nsm) {
+  const long long need = hf_max(1, (nu + HIST_THREADS - 1) / HIST_THREADS);
+  int ngb = (int)hf_max((G + gbmax - 1) / gbmax,
+                        hf_min(G, (nsm + need - 1) / need));
+  const int GB = (G + ngb - 1) / ngb;
+  ngb = (G + GB - 1) / GB;
+  const int nrb = (int)hf_max(1, hf_min(need, nblocks / ngb));
+  return HistSplit{GB, ngb, nrb};
+}
+
+// A launch's grid for at most nu_bound units: its blocks (the cut of the
+// bound, as many as the SMs hold at its shared memory), the shared memory
+// of a block (GB groups of NP planes of Bp bins, as the cut of the bound
+// needs) and the SM count the device cut uses.
+struct HistGrid {
+  int GB, nblocks, smem, nsm;
+};
+
+static cudaError_t hist_grid(int G, int NP, int Bp, long long nu_bound,
                              HistGrid* out) {
   static int nsm = 0, smem_block = 0, smem_sm = 0;
   if (!nsm) {
@@ -211,17 +243,14 @@ static cudaError_t hist_grid(int G, int NP, int Bp, long long nu,
   const int per_group = NP * Bp * 8;
   const int gbmax = std::min(G, (smem_block - 1024) / per_group);
   if (gbmax < 1) return cudaErrorInvalidValue;
-  const int need = (int)((nu + HIST_THREADS - 1) / HIST_THREADS);
-  int ngb = std::max((G + gbmax - 1) / gbmax,
-                     std::min(G, (nsm + need - 1) / need));
-  const int GB = (G + ngb - 1) / ngb;
-  ngb = (G + GB - 1) / GB;
-  const int smem = GB * per_group;
+  // the cut of the bound with every SM's worth of blocks
+  const HistSplit b = hist_split(G, gbmax, nu_bound, 1 << 30, nsm);
+  const int smem = b.GB * per_group;
   const int per_sm =
       std::max(1, std::min(2048 / HIST_THREADS, smem_sm / (smem + 1024)));
-  out->GB = GB;
-  out->ngb = ngb;
-  out->nrb = std::max(1, std::min(need, nsm * per_sm / ngb));
+  out->GB = b.GB;
+  out->nblocks = std::max(1, std::min(b.ngb * b.nrb, nsm * per_sm));
   out->smem = smem;
+  out->nsm = nsm;
   return cudaSuccess;
 }

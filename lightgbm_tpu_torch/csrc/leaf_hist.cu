@@ -13,14 +13,18 @@
 //
 // leaf_hist_fixed: the (2, G, Bp) f32 planes (grad plane, hess plane;
 // bin b at column b) of the rows [s, s + c) of the (R, Np) uint8 bin
-// rows, grad and hess read from payload rows 0 and 1.  The range comes
-// from the host, or -- for a child of the split just made, whose size is
-// known only on the device -- from the partition's left count nl: side 1
-// is the left child [start, start + nl), side 2 the right child
-// [start + nl, start + cnt).  The grid is sized for the parent's cnt
-// rows; the child's range and 16-row alignment are worked out on the
-// device.  The fixed-point scale comes from kcnt when it is given, else
-// from the count of the rows summed (a child's is read on the device).
+// rows, grad and hess read from payload rows 0 and 1.  The rows are the
+// step's range [start, start + cnt), or -- for a child of the split just
+// made, whose size is known only on the device -- one side of it at the
+// partition's left count nl: side 1 the left child [start, start + nl),
+// side 2 the right child [start + nl, start + cnt).  The range, the side
+// and the state slots come from the step block on the device
+// (csrc/step.cuh); the grid from a bound on a step's rows, cut into
+// group sets and row blocks on the device from the rows actually summed
+// (hist_split).  A step of no rows (cnt == 0) gives zeros and, in the
+// state launch, writes no slot.  The fixed-point scale comes from kcnt
+// when it is given, else from the count of the rows summed (a child's is
+// read on the device).
 // A child of no rows gives zeros.
 //
 // leaf_hist_state: the same histogram at the tree's scale (kcnt, the
@@ -62,53 +66,103 @@
 #include <stdint.h>
 
 #include "hist_fixed.cuh"
+#include "partition.cuh"
 
 struct LeafArgs {
   const uint8_t* bins;          // (R, Np)
   long long Np;
+  int R;
   const float* ghi;             // rows 0, 1: grad, hess
-  long long start;
-  int cnt;                      // the parent's rows (side != 0)
+  int* step;                    // the step block: range, side, slots
+  int bound;                    // rows a step may hold
   const int* nl;                // the partition's left count (side != 0)
-  int side;                     // 0 whole range, 1 left child, 2 right
   int kcnt;                     // > 0: the count that sets the scale
-  int G, GB, Bp;                // groups, groups per block, padded bins
+  int G, GBL, Bp, nsm;          // groups, launch's groups a block, bins, SMs
   const float* absmax;          // (2,): bounds of |grad|, |hess|
   unsigned long long* acc;      // (G, 2, Bp), zero before and after
   unsigned* done;               // one per group set, zero before and after
   float* out;                   // (2, G, Bp) planes; state: (2, 2, G, Bp)
   long long* state;             // (slots, 2, G, Bp) int64 (state launch)
-  int parent, wa, wb, sil;      // slots; parent < 0: no parent
+  int slots;
 };
+
+// What one launch sums, read from the step block by one thread.
+struct LeafRows {
+  long long s0;                 // first row summed
+  int c;                        // rows summed
+  int cnt;                      // rows of the step (0: write no slot)
+  int parent, wa, wb, sil;
+};
+
+template <bool STATE>
+__device__ LeafRows read_rows(const LeafArgs& a) {
+  const Leaf lf = read_leaf(a.step, a.R, a.Np, a.bound);
+  const int side = a.step[SB_SIDE];
+  int bits = lf.bad ? ERR_RANGE : 0;
+  LeafRows r{lf.start, lf.cnt, lf.cnt, -1, 0, 0, 0};
+  if (side < 0 || side > 2 || (side != 0 && a.nl == nullptr) ||
+      (a.kcnt > 0 && lf.cnt > a.kcnt))
+    bits |= ERR_RANGE;
+  if (STATE) {
+    r.parent = a.step[SB_PARENT];
+    r.wa = a.step[SB_WA];
+    r.wb = a.step[SB_WB];
+    r.sil = a.step[SB_SIL];
+    if (r.parent < -1 || r.parent >= a.slots || r.wa < 0 ||
+        r.wa >= a.slots || r.wb < 0 || r.wb >= a.slots ||
+        (r.sil != 0 && r.sil != 1))
+      bits |= ERR_STATE;
+  }
+  if (!bits && side != 0 && lf.cnt > 0) {
+    const int nl = *a.nl;
+    if (nl < 0 || nl > lf.cnt) {
+      bits |= ERR_RANGE;
+    } else if (side == 1) {
+      r.c = nl;
+    } else {
+      r.s0 += nl;
+      r.c = lf.cnt - nl;
+    }
+  }
+  if (bits) {
+    r.c = r.cnt = 0;
+    if (blockIdx.x == 0) step_error(a.step, bits);
+  }
+  return r;
+}
 
 template <bool STATE>
 __device__ __forceinline__ void leaf_hist_body(const LeafArgs& a) {
   extern __shared__ __align__(16) unsigned shist[];
+  __shared__ LeafRows s_rows;
   const int tid = threadIdx.x;
+  if (tid == 0) s_rows = read_rows<STATE>(a);
+  __syncthreads();
+  const LeafRows lr = s_rows;
+  const long long s0 = lr.s0;
+  const int c = lr.c;
+  const long long nu = c ? (s0 + c - (s0 & ~15LL) + 15) >> 4 : 0;
+  const HistSplit sp = hist_split(a.G, a.GBL, nu, gridDim.x, a.nsm);
+  if ((int)blockIdx.x >= sp.ngb * sp.nrb) return;
+  const int set = blockIdx.x / sp.nrb, rb = blockIdx.x % sp.nrb;
   const int Bp = a.Bp;
-  const int g_lo = blockIdx.y * a.GB;
-  const int gn = min(a.GB, a.G - g_lo);
-  unsigned* slo = shist;                  // low words, (gn, 2, Bp)
-  unsigned* shi = shist + a.GB * 2 * Bp;  // high words
-  for (int i = tid; i < 2 * a.GB * 2 * Bp; i += HIST_THREADS) shist[i] = 0u;
-  long long s0 = a.start;
-  int c = a.cnt;
-  if (a.side == 1) {
-    c = *a.nl;
-  } else if (a.side == 2) {
-    s0 += *a.nl;
-    c = a.cnt - *a.nl;
-  }
+  const int g_lo = set * sp.GB;
+  const int gn = min(sp.GB, a.G - g_lo);
+  unsigned* slo = shist;                   // low words, (gn, 2, Bp)
+  unsigned* shi = shist + sp.GB * 2 * Bp;  // high words
+  for (int i = tid; i < 2 * sp.GB * 2 * Bp; i += HIST_THREADS) shist[i] = 0u;
   const int kc = a.kcnt > 0 ? a.kcnt : c;
   const int kg = fixed_exponent(a.absmax[0], kc);
   const int kh = fixed_exponent(a.absmax[1], kc);
   const long long plane = (long long)a.G * Bp;
   const long long n = 2 * plane;                // one slot
-  const bool sub = STATE && a.parent >= 0;
+  // a step of no rows writes no slot
+  const bool live = STATE && lr.cnt > 0;
+  const bool sub = live && lr.parent >= 0;
   __syncthreads();
 
   hist_fixed_rows<2>(a.bins, a.Np, a.ghi, s0, c, g_lo, gn, Bp,
-                     ldexp(1.0, kg), ldexp(1.0, kh), slo, shi,
+                     ldexp(1.0, kg), ldexp(1.0, kh), slo, shi, rb, sp.nrb,
                      [](long long) { return 0u; });
   __syncthreads();
 
@@ -121,9 +175,9 @@ __device__ __forceinline__ void leaf_hist_body(const LeafArgs& a) {
   // no __restrict__ on the state: slot wa may be slot parent, so each
   // entry's parent word is loaded (pre) before any store of its round
   hist_fixed_finish(
-      slo, shi, gn * 2 * Bp, Bp, a.acc + (long long)g_lo * 2 * Bp,
-      a.done + blockIdx.y, ig, ih,
-      [&](int i) { return sub ? a.state[a.parent * n + entry(i)] : 0ll; },
+      slo, shi, gn * 2 * Bp, Bp, sp.nrb, a.acc + (long long)g_lo * 2 * Bp,
+      a.done + set, ig, ih,
+      [&](int i) { return sub ? a.state[lr.parent * n + entry(i)] : 0ll; },
       [&](int i, long long v, long long parent, float f) {
         const long long e = entry(i);
         if (!STATE) {
@@ -136,12 +190,12 @@ __device__ __forceinline__ void leaf_hist_body(const LeafArgs& a) {
         long long left = v, right = v;
         if (sub) {
           const long long large = parent - v;
-          left = a.sil ? v : large;
-          right = a.sil ? large : v;
-          a.state[a.wa * n + e] = left;
-          a.state[a.wb * n + e] = right;
-        } else {
-          a.state[a.wa * n + e] = v;
+          left = lr.sil ? v : large;
+          right = lr.sil ? large : v;
+          a.state[lr.wa * n + e] = left;
+          a.state[lr.wb * n + e] = right;
+        } else if (live) {
+          a.state[lr.wa * n + e] = v;
         }
         const double inv = p ? ih : ig;
         a.out[e + p * plane] = (float)((double)left * inv);
@@ -161,44 +215,34 @@ __global__ void __launch_bounds__(HIST_THREADS, 1)
 
 // state == nullptr: leaf_hist_fixed into out (2, G, Bp); otherwise
 // leaf_hist_state on the (slots, 2, G, Bp) state into out (2, 2, G, Bp),
-// which needs kcnt > 0.
+// which needs kcnt > 0.  The rows, side and slots come from the step
+// block; the grid from `bound`, the most rows a step may hold.
 extern "C" int leaf_hist_launch(const uint8_t* bins, int R, long long Np,
-                                const float* ghi, long long start, int cnt,
-                                const int* nl, int side, int kcnt,
-                                const float* absmax, unsigned long long* acc,
-                                unsigned* done, int G, int Bp, float* out,
-                                long long* state, int slots, int parent,
-                                int wa, int wb, int sil, void* stream) {
+                                const float* ghi, int* step, int bound,
+                                const int* nl, int kcnt, const float* absmax,
+                                unsigned long long* acc, unsigned* done,
+                                int G, int Bp, float* out, long long* state,
+                                int slots, void* stream) {
+  static int smem_fixed = 0, smem_state = 0;
   cudaStream_t s = (cudaStream_t)stream;
   const bool st = state != nullptr;
-  if (Bp < 16 || Bp > MAX_BP || Bp % 16 || G < 1 || G > R || cnt < 0 ||
-      start < 0 || start + cnt > Np || Np % 16 || side < 0 || side > 2 ||
-      (side != 0 && nl == nullptr) || kcnt < 0 || (kcnt > 0 && kcnt < cnt) ||
+  if (Bp < 16 || Bp > MAX_BP || Bp % 16 || G < 1 || G > R || bound < 0 ||
+      bound >= (1 << 24) || Np % 16 || kcnt < 0 || step == nullptr ||
+      (kcnt > 0 && kcnt < bound) || (st && (kcnt == 0 || slots < 1)) ||
       ((uintptr_t)bins | (uintptr_t)ghi) % 16)
     return (int)cudaErrorInvalidValue;
-  if (st && (kcnt == 0 || parent < -1 || parent >= slots || wa < 0 ||
-             wa >= slots || wb < 0 || wb >= slots || (sil != 0 && sil != 1)))
-    return (int)cudaErrorInvalidValue;
-  if (cnt == 0 && !st) {
-    cudaMemsetAsync(out, 0, sizeof(float) * 2 * (size_t)G * Bp, s);
-    return (int)cudaGetLastError();
-  }
   HistGrid g;
-  const long long nu =
-      std::max((start + cnt - (start & ~15LL) + 15) >> 4, 1LL);
-  cudaError_t e = hist_grid(G, 2, Bp, nu, &g);
+  cudaError_t e = hist_grid(G, 2, Bp, ((long long)bound + 30) >> 4, &g);
   if (e != cudaSuccess) return (int)e;
-  const void* fn = st ? (const void*)leaf_hist_state
-                      : (const void*)leaf_hist_fixed;
-  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           g.smem);
+  e = st ? smem_limit((const void*)leaf_hist_state, &smem_state, g.smem)
+         : smem_limit((const void*)leaf_hist_fixed, &smem_fixed, g.smem);
   if (e != cudaSuccess) return (int)e;
-  const LeafArgs a{bins,  Np,   ghi, start, cnt,   nl,    side,
-                   kcnt,  G,    g.GB, Bp,  absmax, acc, done,
-                   out,   state, parent, wa, wb,   sil};
+  const LeafArgs a{bins, Np,     R,   ghi,   step, bound, nl,
+                   kcnt, G,      g.GB, Bp,   g.nsm, absmax, acc,
+                   done, out,    state, slots};
   if (st)
-    leaf_hist_state<<<dim3(g.nrb, g.ngb), HIST_THREADS, g.smem, s>>>(a);
+    leaf_hist_state<<<g.nblocks, HIST_THREADS, g.smem, s>>>(a);
   else
-    leaf_hist_fixed<<<dim3(g.nrb, g.ngb), HIST_THREADS, g.smem, s>>>(a);
+    leaf_hist_fixed<<<g.nblocks, HIST_THREADS, g.smem, s>>>(a);
   return (int)cudaGetLastError();
 }

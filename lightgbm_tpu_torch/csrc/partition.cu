@@ -19,7 +19,10 @@
 // with 16-byte asynchronous copies, orders it in shared memory and finds
 // its place by a decoupled look-back, writing the lefts in place and the
 // rights to scratch, then a vectorised copy-back of the rights -- two
-// launches, (2 + 2 r / cnt) (R + 32) bytes per row for r rights.
+// launches, (2 + 2 r / cnt) (R + 32) bytes per row for r rights.  The
+// leaf comes from the step block on the device (csrc/step.cuh), and both
+// grids from `bound`, the most rows a step may hold, so a captured CUDA
+// graph replays the launch for whatever leaf the step block names.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -27,25 +30,13 @@
 #include "partition.cuh"
 
 extern "C" int partition_launch(uint8_t* bins, int R, long long Np,
-                                uint32_t* ghi, int* nl_out,
-                                unsigned long long* status, unsigned* ticket,
-                                unsigned epoch, int T, int ntiles,
+                                uint32_t* ghi, int* step, int bound,
+                                int* nl_out, unsigned long long* status,
+                                unsigned* ticket, unsigned* epoch, int T,
                                 uint8_t* sbins, uint32_t* sghi,
-                                long long scap, long long start, int cnt,
-                                int col, int bstart, int isb, int nb,
-                                int dbin, int mtype, int thr, int dl,
-                                void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (cnt == 0) {
-    if (R < 1 || col < 0 || col >= R || start < 0 || start > Np)
-      return (int)cudaErrorInvalidValue;
-    part_set_count<<<1, 1, 0, s>>>(nl_out, 0);
-    return (int)cudaGetLastError();
-  }
-  const PartArgs a{bins, ghi, Np, R, start, cnt,
-                   SplitDecision{col, bstart, isb, nb, dbin, mtype, thr, dl},
-                   T, ntiles, status, ticket, epoch, nl_out, sbins, sghi,
-                   scap};
+                                long long scap, void* stream) {
+  const PartArgs a{bins,   ghi,    Np,     R,     step,  bound, T,
+                   status, ticket, epoch, nl_out, sbins, sghi,  scap};
   if (!part_args_ok(a)) return (int)cudaErrorInvalidValue;
-  return (int)partition_phases(a, s);
+  return (int)partition_phases(a, (cudaStream_t)stream);
 }

@@ -37,21 +37,33 @@
 //                  block as contiguous runs, coalesced: a warp stores 32
 //                  consecutive payload words or 128 consecutive bin bytes
 //                  at a time, each thread looking its source rows up
-//                  once for all R + 8 rows.  The last ticket writes the
-//                  left count and resets the ticket counter.
+//                  once for all R + 8 rows.  The last tile writes the
+//                  left count.
 //   part_copyback  copies the rights from scratch to [start + nl,
 //                  start + cnt), 16 rows at a time (stream order keeps it
-//                  after part_tiles).
+//                  after part_tiles), and moves the epoch on.
 // Bytes moved per row: (2 + 2 r / cnt) (R + 32) for r rights, against
 // the contract's 2 (R + 32).  The tile status words carry a launch epoch,
-// so they need no reset between launches; with the self-resetting ticket
-// a partition is two launches.  A tile's block stages, orders and writes
-// one tile and exits: persistent double-buffered blocks (staging the
-// next tile while writing this one) were tried and were slower.
+// a device word that each copy-back moves on, so they need no reset
+// between launches and a captured CUDA graph replays correctly; with the
+// self-resetting ticket a partition is two launches.
+//
+// The leaf and the decision come from a step block on the device
+// (csrc/step.cuh), and both grids from `bound`, the most rows a step may
+// hold: the tile pass launches at most the blocks the card holds at once
+// and each block draws tile tickets until the leaf's tiles run out (a
+// block stages, orders and writes one tile at a time: persistent
+// double-buffered blocks, staging the next tile while writing this one,
+// were tried and were slower); the copy-back's threads stride over the
+// rights.  A step of no rows costs a ticket a block and moves nothing.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "step.cuh"
 
 #define GHI_ROWS 8
 #define PART_THREADS 256
@@ -103,23 +115,48 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
                :: "r"(s), "l"(gmem) : "memory");
 }
 
+// A leaf as the device reads it from a step block: the range and the
+// decision, cnt == 0 when the block says write nothing or lies outside
+// the bounds the launch was sized for (bad != 0).
+struct Leaf {
+  long long start;
+  int cnt;
+  SplitDecision d;
+  int bad;
+};
+
+// Read a step block's leaf and check it against the row buffers (R rows
+// of Np) and the launch's bound on the rows of a step.
+__device__ __forceinline__ Leaf read_leaf(const int* step, int R,
+                                          long long Np, int bound) {
+  Leaf l;
+  l.start = step[SB_START];
+  l.cnt = step[SB_CNT];
+  l.d = SplitDecision{step[SB_COL],  step[SB_BSTART], step[SB_ISB],
+                      step[SB_NB],   step[SB_DBIN],   step[SB_MTYPE],
+                      step[SB_THR],  step[SB_DL]};
+  l.bad = !(l.cnt >= 0 && l.cnt <= bound && l.start >= 0 &&
+            l.start + l.cnt <= Np &&
+            (l.cnt == 0 || (l.d.col >= 0 && l.d.col < R)));
+  if (l.bad) l.cnt = 0;
+  return l;
+}
+
 struct PartArgs {
   uint8_t* bins;       // (R, Np), Np a multiple of 16
   uint32_t* ghi;       // (8, Np) payload words
   long long Np;
   int R;
-  long long start;
-  int cnt;             // > 0
-  SplitDecision d;
+  int* step;           // the step block (range, decision, error word)
+  int bound;           // rows a step may hold
   int T;               // rows per tile
-  int ntiles;          // tiles covering [start & ~15, start + cnt)
-  unsigned long long* status;   // >= ntiles words
+  unsigned long long* status;   // >= tiles of `bound` rows words
   unsigned* ticket;    // 0 before the launch; 0 again after it
-  unsigned epoch;      // != 0, differs from the previous launch's
+  unsigned* epoch;     // != 0; part_copyback moves it on
   int* nl_out;
   uint8_t* sbins;      // (R, scap) scratch of the rights
   uint32_t* sghi;      // (8, scap)
-  long long scap;      // >= cnt + 16, a multiple of 16
+  long long scap;      // >= bound + 16, a multiple of 16
 };
 
 // Dynamic shared memory of part_tiles: the staged payload and bin rows,
@@ -185,11 +222,14 @@ __device__ void write_runs(const PartArgs& a, const uint8_t* sb,
   }
 }
 
-__global__ void __launch_bounds__(PART_THREADS) part_tiles(PartArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// One tile of the leaf: stage, order, publish, look back, write.  k is
+// the tile's ticket, ntiles the leaf's tile count.
+__device__ __forceinline__ void part_tile(const PartArgs& a, const Leaf& lf,
+                                          unsigned epoch, int k, int ntiles,
+                                          unsigned char* smem) {
   __shared__ unsigned lmask[MAX_TILE / 32], vmask[MAX_TILE / 32];
   __shared__ int loff[MAX_TILE / 32], roff[MAX_TILE / 32];
-  __shared__ int s_tile, s_nl, s_nr;
+  __shared__ int s_nl, s_nr;
   __shared__ long long s_excl;
   const int T = a.T;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -198,14 +238,11 @@ __global__ void __launch_bounds__(PART_THREADS) part_tiles(PartArgs a) {
   uint16_t* ordl = (uint16_t*)(sb + ((a.R * T + 15) & ~15));
   uint16_t* ordr = ordl + T;
 
-  if (tid == 0) s_tile = (int)atomicAdd(a.ticket, 1u);
-  __syncthreads();
-  const int k = s_tile;
-  const long long end = a.start + a.cnt;
-  const long long t0 = (a.start & ~15LL) + (long long)k * T;
+  const long long end = lf.start + lf.cnt;
+  const long long t0 = (lf.start & ~15LL) + (long long)k * T;
   // staged rows [t0, t0 + n16); the leaf's rows are [v0, v1) of the tile
   const int n16 = (int)min((long long)T, ((end + 15) & ~15LL) - t0);
-  const int v0 = (int)max(0LL, a.start - t0);
+  const int v0 = (int)max(0LL, lf.start - t0);
   const int v1 = (int)min((long long)T, end - t0);
 
   const int cb = n16 >> 4, cg = n16 >> 2;
@@ -223,7 +260,7 @@ __global__ void __launch_bounds__(PART_THREADS) part_tiles(PartArgs a) {
   for (int i0 = 0; i0 < T; i0 += blockDim.x) {
     const int i = i0 + tid;
     const bool v = i >= v0 && i < v1;
-    const bool l = v && decide_left(sb[a.d.col * T + i], a.d);
+    const bool l = v && decide_left(sb[lf.d.col * T + i], lf.d);
     const unsigned bl = __ballot_sync(0xffffffffu, l);
     const unsigned bv = __ballot_sync(0xffffffffu, v);
     if (lane == 0 && i < T) {
@@ -254,7 +291,7 @@ __global__ void __launch_bounds__(PART_THREADS) part_tiles(PartArgs a) {
     const int nl = __shfl_sync(0xffffffffu, il, 31);
     // the rows are on chip: publish this tile's own count
     if (lane == 0)
-      st_release(a.status + k, tile_word(a.epoch, k == 0 ? TILE_INC : TILE_AGG,
+      st_release(a.status + k, tile_word(epoch, k == 0 ? TILE_INC : TILE_AGG,
                                          (unsigned)nl));
     long long excl = 0;
     if (k > 0) {
@@ -266,17 +303,17 @@ __global__ void __launch_bounds__(PART_THREADS) part_tiles(PartArgs a) {
       while (true) {
         const int j = top - lane;
         const unsigned long long f =
-            j >= 0 ? ld_acquire(a.status + j)
-                   : tile_word(a.epoch, TILE_INC, 0);
+            j >= 0 ? ld_acquire(a.status + j) : tile_word(epoch, TILE_INC, 0);
         const unsigned st =
-            (unsigned)(f >> 32) == a.epoch ? (unsigned)(f >> 30) & 3u : 0u;
+            (unsigned)(f >> 32) == epoch ? (unsigned)(f >> 30) & 3u : 0u;
         const unsigned pm = __ballot_sync(0xffffffffu, st == TILE_INC);
         const unsigned xm = __ballot_sync(0xffffffffu, st == 0u);
         const int fp = pm ? __ffs(pm) - 1 : 31;
         const unsigned need = fp == 31 ? 0xffffffffu : ((2u << fp) - 1u);
         if (xm & need) {
-          // an earlier tile holds a ticket, so it runs and publishes; a
-          // wait of seconds means a broken launch: fail, do not hang
+          // an earlier tile's ticket is held by a running block, which
+          // publishes it; a wait of seconds means a broken launch: fail,
+          // do not hang
           if (++spins > (1u << 26)) __trap();
           __nanosleep(32);
           continue;
@@ -289,24 +326,21 @@ __global__ void __launch_bounds__(PART_THREADS) part_tiles(PartArgs a) {
       __syncwarp();
       if (lane == 0)
         st_release(a.status + k,
-                   tile_word(a.epoch, TILE_INC, (unsigned)(excl + nl)));
+                   tile_word(epoch, TILE_INC, (unsigned)(excl + nl)));
     }
     const int nr = __shfl_sync(0xffffffffu, ir, 31);
     if (lane == 0) {
       s_excl = excl;
       s_nl = nl;
       s_nr = nr;
-      if (k == a.ntiles - 1) {
-        a.nl_out[0] = (int)(excl + nl);
-        *a.ticket = 0u;
-      }
+      if (k == ntiles - 1) a.nl_out[0] = (int)(excl + nl);
     }
   }
   __syncthreads();
 
   const long long excl = s_excl;
-  const long long gl = a.start + excl;                    // first left
-  const long long gr = max(0LL, t0 - a.start) - excl;     // first right
+  const long long gl = lf.start + excl;                   // first left
+  const long long gr = max(0LL, t0 - lf.start) - excl;    // first right
   for (int i = tid; i < T; i += blockDim.x) {
     const int w = i >> 5;
     const unsigned bit = 1u << (i & 31), lt = bit - 1u;
@@ -322,19 +356,71 @@ __global__ void __launch_bounds__(PART_THREADS) part_tiles(PartArgs a) {
   write_runs(a, sb, sg, ordl, ordr, s_nl, s_nr, gl, gr);
 }
 
+// The tile pass.  The grid is fixed by the launch's bound (at most the
+// blocks the card holds at once); the first min(gridDim.x, ntiles)
+// blocks take tile tickets from the counter until each draws one past
+// the leaf's last tile, so a leaf of any size up to the bound is covered,
+// and the other blocks exit at once (a step of no rows touches no
+// ticket).  Every taking block draws exactly one ticket past the last
+// tile, so the block that draws the very last ticket (ntiles + takers -
+// 1) resets the counter for the next launch.
+__global__ void __launch_bounds__(PART_THREADS) part_tiles(PartArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ Leaf s_leaf;
+  __shared__ unsigned s_epoch;
+  __shared__ int s_tile;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    s_leaf = read_leaf(a.step, a.R, a.Np, a.bound);
+    if (s_leaf.bad && blockIdx.x == 0) step_error(a.step, ERR_RANGE);
+    s_epoch = *(volatile unsigned*)a.epoch;
+  }
+  __syncthreads();
+  const Leaf lf = s_leaf;
+  const int ntiles =
+      lf.cnt ? (int)((lf.start + lf.cnt - (lf.start & ~15LL) + a.T - 1) /
+                     a.T)
+             : 0;
+  if (lf.cnt == 0 && blockIdx.x == 0 && tid == 0) a.nl_out[0] = 0;
+  const int takers = min((int)gridDim.x, ntiles);
+  if ((int)blockIdx.x >= takers) return;
+  while (true) {
+    if (tid == 0) {
+      const int k = (int)atomicAdd(a.ticket, 1u);
+      if (k == ntiles + takers - 1) *a.ticket = 0u;
+      s_tile = k;
+    }
+    __syncthreads();
+    const int k = s_tile;
+    if (k >= ntiles) return;
+    part_tile(a, lf, s_epoch, k, ntiles, smem);
+    __syncthreads();
+  }
+}
+
 // Copy the r = cnt - nl rights from scratch to [start + nl, start + cnt):
-// one thread per (row, aligned 16-row chunk of the destination).  A
-// whole chunk of a bin row is five aligned 4-byte loads funnel-shifted
-// into one 16-byte store; of a payload row, four 16-byte stores.
-__global__ void __launch_bounds__(COPY_THREADS) part_copyback(
-    uint8_t* __restrict__ bins, uint32_t* __restrict__ ghi, long long Np,
-    int R, long long start, int cnt, const int* __restrict__ nl_ptr,
-    const uint8_t* __restrict__ sbins, const uint32_t* __restrict__ sghi,
-    long long scap) {
-  const int nl = *nl_ptr;
-  const int n = cnt - nl;
+// one thread per (row, aligned 16-row chunk of the destination), striding
+// over the chunks.  A whole chunk of a bin row is five aligned 4-byte
+// loads funnel-shifted into one 16-byte store; of a payload row, four
+// 16-byte stores.  One thread moves the epoch on for the next launch.
+__global__ void __launch_bounds__(COPY_THREADS) part_copyback(PartArgs a) {
+  uint8_t* __restrict__ bins = a.bins;
+  uint32_t* __restrict__ ghi = a.ghi;
+  const long long Np = a.Np;
+  const int R = a.R;
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
+    const unsigned e = *a.epoch + 1u;
+    *a.epoch = e ? e : 1u;
+  }
+  const Leaf lf = read_leaf(a.step, a.R, a.Np, a.bound);
+  if (lf.cnt == 0) return;
+  const int nl = *a.nl_out;
+  const int n = lf.cnt - nl;
   if (n <= 0) return;
-  const long long g0 = start + nl;
+  const uint8_t* __restrict__ sbins = a.sbins;
+  const uint32_t* __restrict__ sghi = a.sghi;
+  const long long scap = a.scap;
+  const long long g0 = lf.start + nl;
   const long long c0 = g0 >> 4;
   const long long nch = ((g0 + n - 1) >> 4) - c0 + 1;
   const int row = blockIdx.y;
@@ -375,35 +461,63 @@ __global__ void __launch_bounds__(COPY_THREADS) part_copyback(
   }
 }
 
-__global__ void part_set_count(int* nl_out, int v) { nl_out[0] = v; }
-
-// Check the arguments of a partition launch (cnt > 0).
+// Check the host-known bounds of a partition launch: the buffers, the
+// tile, and scratch for `bound` rows.  The step's own range is checked on
+// the device (read_leaf).
 static inline bool part_args_ok(const PartArgs& a) {
-  const long long a0 = a.start & ~15LL;
-  return a.R >= 1 && a.d.col >= 0 && a.d.col < a.R && a.cnt > 0 &&
-         a.start >= 0 && a.start + a.cnt <= a.Np && a.Np % 16 == 0 &&
-         a.T >= 32 && a.T <= MAX_TILE && a.T % 32 == 0 && a.epoch != 0 &&
-         (long long)a.ntiles * a.T >= a.start + a.cnt - a0 &&
-         (long long)(a.ntiles - 1) * a.T < a.start + a.cnt - a0 &&
-         a.scap >= (long long)a.cnt + 16 && a.scap % 16 == 0 &&
+  return a.R >= 1 && a.bound >= 0 && a.bound < (1 << 24) && a.Np % 16 == 0 &&
+         a.T >= 32 && a.T <= MAX_TILE && a.T % 32 == 0 &&
+         a.scap >= (long long)a.bound + 16 && a.scap % 16 == 0 &&
+         a.step != nullptr && a.epoch != nullptr &&
          ((uintptr_t)a.bins | (uintptr_t)a.ghi | (uintptr_t)a.sbins |
           (uintptr_t)a.sghi) % 16 == 0;
 }
 
-// Enqueue the partition of a (cnt > 0) on stream s: part_tiles, then
-// part_copyback.
+// Tiles of a leaf of `bound` rows at any start: the status words the
+// launch needs.
+static inline long long part_tiles_for(int bound, int T) {
+  return ((long long)bound + 15 + T - 1) / T;
+}
+
+// Raise a kernel's dynamic shared-memory limit once, to the most it is
+// ever launched with: no attribute call is made again for a smaller
+// launch (so a captured graph's launches make none).
+static inline cudaError_t smem_limit(const void* fn, int* done, int smem) {
+  if (smem <= *done) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) *done = smem;
+  return e;
+}
+
+// Enqueue the partition of the step's leaf on stream s: part_tiles, then
+// part_copyback, on grids fixed by the bound.
 static inline cudaError_t partition_phases(const PartArgs& a,
                                            cudaStream_t s) {
+  static int smem_set = 0, occ_smem = -1, occ = 0, nsm = 0;
   const int smem = part_smem_bytes(a.R, a.T);
-  cudaError_t e = cudaFuncSetAttribute(
-      part_tiles, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = smem_limit((const void*)part_tiles, &smem_set, smem);
   if (e != cudaSuccess) return e;
-  part_tiles<<<a.ntiles, PART_THREADS, smem, s>>>(a);
-  const long long nch = a.cnt / 16 + 2;
-  const long long need = (nch + COPY_THREADS - 1) / COPY_THREADS;
-  const int bx = (int)(need < 1024 ? need : 1024);
-  part_copyback<<<dim3(bx, a.R + GHI_ROWS), COPY_THREADS, 0, s>>>(
-      a.bins, a.ghi, a.Np, a.R, a.start, a.cnt, a.nl_out, a.sbins, a.sghi,
-      a.scap);
+  if (!nsm) {
+    int dev;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (occ_smem != smem) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, part_tiles,
+                                                      PART_THREADS, smem);
+    if (e != cudaSuccess) return e;
+    occ_smem = smem;
+  }
+  const long long tiles = std::max(part_tiles_for(a.bound, a.T), 1LL);
+  const int grid = (int)std::min(tiles, (long long)nsm * std::max(occ, 1));
+  part_tiles<<<grid, PART_THREADS, smem, s>>>(a);
+  // the copy-back's grid: chunks of `bound` rows, at most the threads the
+  // card holds at once over its R + 8 rows
+  const long long need = ((long long)a.bound / 16 + 2 + COPY_THREADS - 1) /
+                         COPY_THREADS;
+  const int cap = std::max(1, nsm * (2048 / COPY_THREADS) / (a.R + GHI_ROWS));
+  const int bx = (int)std::min(need, (long long)cap);
+  part_copyback<<<dim3(bx, a.R + GHI_ROWS), COPY_THREADS, 0, s>>>(a);
   return cudaGetLastError();
 }

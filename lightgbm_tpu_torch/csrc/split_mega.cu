@@ -31,6 +31,10 @@
 //   csrc/partition.cu.  Three launches per split (one for move == 0).
 // The histogram is not fused into the partition's tile pass: the staged
 // tile and 8 KB per group do not fit one SM's shared memory together.
+// The leaf and the decision come from the step block on the device
+// (csrc/step.cuh), the grids from a bound on a step's rows; the
+// histogram cuts its blocks into group sets and row blocks on the device
+// from the step's own count (hist_split).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,38 +45,49 @@
 struct HistArgs {
   const uint8_t* bins;          // (R, Np)
   long long Np;
+  int R;
   const float* ghi;             // rows 0, 1: grad, hess
-  long long start;
-  int cnt;                      // > 0
-  SplitDecision d;
-  int G, GB, Bp;                // groups, groups per block, padded bins
+  int* step;                    // the step block: range and decision
+  int bound;                    // rows a step may hold
+  int G, GBL, Bp, nsm;          // groups, launch's groups a block, bins, SMs
   const float* absmax;          // (2,): bounds of |grad|, |hess|
   unsigned long long* acc;      // (G, 4, Bp), zero before and after
   unsigned* done;               // one per group set, zero before and after
   float* hist;                  // (G, 4, Bp)
   int* nl_out;
-  int set_nl;                   // >= 0: written to nl_out
+  int move;                     // 0: write cnt to nl_out
 };
 
 __global__ void __launch_bounds__(HIST_THREADS, 1) mega_hist(HistArgs a) {
   extern __shared__ __align__(16) unsigned shist[];
+  __shared__ Leaf s_leaf;
   const int tid = threadIdx.x;
+  if (tid == 0) {
+    s_leaf = read_leaf(a.step, a.R, a.Np, a.bound);
+    if (s_leaf.bad && blockIdx.x == 0) step_error(a.step, ERR_RANGE);
+  }
+  __syncthreads();
+  const Leaf lf = s_leaf;
+  const long long nu =
+      lf.cnt ? (lf.start + lf.cnt - (lf.start & ~15LL) + 15) >> 4 : 0;
+  const HistSplit sp = hist_split(a.G, a.GBL, nu, gridDim.x, a.nsm);
+  if ((int)blockIdx.x >= sp.ngb * sp.nrb) return;
+  const int set = blockIdx.x / sp.nrb, rb = blockIdx.x % sp.nrb;
   const int Bp = a.Bp;
-  const int g_lo = blockIdx.y * a.GB;
-  const int gn = min(a.GB, a.G - g_lo);
-  unsigned* slo = shist;                  // low words, (gn, 4, Bp)
-  unsigned* shi = shist + a.GB * 4 * Bp;  // high words
-  for (int i = tid; i < 2 * a.GB * 4 * Bp; i += HIST_THREADS) shist[i] = 0u;
-  if (a.set_nl >= 0 && blockIdx.x == 0 && blockIdx.y == 0 && tid == 0)
-    a.nl_out[0] = a.set_nl;
-  const int kg = fixed_exponent(a.absmax[0], a.cnt);
-  const int kh = fixed_exponent(a.absmax[1], a.cnt);
+  const int g_lo = set * sp.GB;
+  const int gn = min(sp.GB, a.G - g_lo);
+  unsigned* slo = shist;                   // low words, (gn, 4, Bp)
+  unsigned* shi = shist + sp.GB * 4 * Bp;  // high words
+  for (int i = tid; i < 2 * sp.GB * 4 * Bp; i += HIST_THREADS) shist[i] = 0u;
+  if (!a.move && blockIdx.x == 0 && tid == 0) a.nl_out[0] = lf.cnt;
+  const int kg = fixed_exponent(a.absmax[0], lf.cnt);
+  const int kh = fixed_exponent(a.absmax[1], lf.cnt);
   __syncthreads();
 
-  const uint8_t* crow = a.bins + (long long)a.d.col * a.Np;
-  const SplitDecision d = a.d;
-  hist_fixed_rows<4>(a.bins, a.Np, a.ghi, a.start, a.cnt, g_lo, gn, Bp,
-                     ldexp(1.0, kg), ldexp(1.0, kh), slo, shi,
+  const uint8_t* crow = a.bins + (long long)lf.d.col * a.Np;
+  const SplitDecision d = lf.d;
+  hist_fixed_rows<4>(a.bins, a.Np, a.ghi, lf.start, lf.cnt, g_lo, gn, Bp,
+                     ldexp(1.0, kg), ldexp(1.0, kh), slo, shi, rb, sp.nrb,
                      [&](long long r0) {
                        const uint4 cv = *(const uint4*)(crow + r0);
                        const unsigned cw[4] = {cv.x, cv.y, cv.z, cv.w};
@@ -89,52 +104,39 @@ __global__ void __launch_bounds__(HIST_THREADS, 1) mega_hist(HistArgs a) {
 
   const long long base = (long long)g_lo * 4 * Bp;
   float* out = a.hist + base;
-  hist_fixed_finish(slo, shi, gn * 4 * Bp, Bp, a.acc + base,
-                    a.done + blockIdx.y, ldexp(1.0, -kg), ldexp(1.0, -kh),
-                    NoPre(),
+  hist_fixed_finish(slo, shi, gn * 4 * Bp, Bp, sp.nrb, a.acc + base,
+                    a.done + set, ldexp(1.0, -kg), ldexp(1.0, -kh), NoPre(),
                     [&](int i, long long, long long, float v) { out[i] = v; });
 }
 
-// Enqueue mega_hist (cnt > 0) on its grid (hist_grid).
-static cudaError_t launch_hist(HistArgs a, cudaStream_t s) {
-  HistGrid g;
-  const long long nu = (a.start + a.cnt - (a.start & ~15LL) + 15) >> 4;
-  cudaError_t e = hist_grid(a.G, 4, a.Bp, nu, &g);
-  if (e != cudaSuccess) return e;
-  a.GB = g.GB;
-  e = cudaFuncSetAttribute(mega_hist,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           g.smem);
-  if (e != cudaSuccess) return e;
-  mega_hist<<<dim3(g.nrb, g.ngb), HIST_THREADS, g.smem, s>>>(a);
-  return cudaGetLastError();
-}
-
+// The step's histogram, then (move) its partition.  Every grid comes
+// from `bound`, the most rows a step may hold; the step block names the
+// leaf.  A step of no rows writes a zero histogram and a left count of 0.
 extern "C" int split_mega_launch(
-    uint8_t* bins, int R, long long Np, uint32_t* ghi, int* nl_out,
-    unsigned long long* status, unsigned* ticket, unsigned epoch, int T,
-    int ntiles, uint8_t* sbins, uint32_t* sghi, long long scap,
-    long long start, int cnt, int col, int bstart, int isb, int nb, int dbin,
-    int mtype, int thr, int dl, const float* absmax,
-    unsigned long long* acc, unsigned* done, float* hist, int G, int Bp,
-    int move, void* stream) {
+    uint8_t* bins, int R, long long Np, uint32_t* ghi, int* step, int bound,
+    int* nl_out, unsigned long long* status, unsigned* ticket,
+    unsigned* epoch, int T, uint8_t* sbins, uint32_t* sghi, long long scap,
+    const float* absmax, unsigned long long* acc, unsigned* done,
+    float* hist, int G, int Bp, int move, void* stream) {
+  static int smem_set = 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (Bp < 16 || Bp > MAX_BP || Bp % 16 || G < 1 || G > R || col < 0 ||
-      col >= R || cnt < 0 || start < 0 || start + cnt > Np || Np % 16 ||
+  if (Bp < 16 || Bp > MAX_BP || Bp % 16 || G < 1 || G > R || bound < 0 ||
+      bound >= (1 << 24) || Np % 16 || step == nullptr ||
       ((uintptr_t)bins | (uintptr_t)ghi) % 16)
     return (int)cudaErrorInvalidValue;
-  if (cnt == 0) {
-    cudaMemsetAsync(hist, 0, sizeof(float) * 4 * (size_t)G * Bp, s);
-    part_set_count<<<1, 1, 0, s>>>(nl_out, 0);
-    return (int)cudaGetLastError();
-  }
-  const SplitDecision d{col, bstart, isb, nb, dbin, mtype, thr, dl};
-  const PartArgs p{bins, ghi, Np, R, start, cnt, d, T, ntiles, status,
-                   ticket, epoch, nl_out, sbins, sghi, scap};
+  const PartArgs p{bins,   ghi,    Np,     R,     step,  bound, T,
+                   status, ticket, epoch, nl_out, sbins, sghi,  scap};
   if (move && !part_args_ok(p)) return (int)cudaErrorInvalidValue;
-  const HistArgs h{bins, Np, (const float*)ghi, start, cnt, d, G, 0, Bp,
-                   absmax, acc, done, hist, nl_out, move ? -1 : cnt};
-  cudaError_t e = launch_hist(h, s);
+  HistGrid g;
+  cudaError_t e = hist_grid(G, 4, Bp, ((long long)bound + 30) >> 4, &g);
+  if (e != cudaSuccess) return (int)e;
+  e = smem_limit((const void*)mega_hist, &smem_set, g.smem);
+  if (e != cudaSuccess) return (int)e;
+  const HistArgs h{bins, Np,    R,      (const float*)ghi, step, bound, G,
+                   g.GB, Bp,    g.nsm,  absmax, acc,  done,  hist,
+                   nl_out, move};
+  mega_hist<<<g.nblocks, HIST_THREADS, g.smem, s>>>(h);
+  e = cudaGetLastError();
   if (e != cudaSuccess || !move) return (int)e;
   return (int)partition_phases(p, s);
 }

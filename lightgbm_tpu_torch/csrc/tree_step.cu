@@ -1,0 +1,342 @@
+// The tree loop's bookkeeping step on Hopper: what the learner's host loop
+// did between two splits, done on the device so that a captured CUDA
+// graph grows a whole tree with no host round trip.
+//
+// It has no TPU kernel to replace: in the JAX package these are XLA
+// operations inside the while-loop body of _build_tree_impl
+// (lightgbm_tpu/models/learner.py).  Its plain PyTorch version is
+// tree_step_plain in lightgbm_tpu_torch/ops/tree_step.py, and the two
+// agree bit for bit: the work is integer bookkeeping, comparisons and f32
+// copies, with the only conversions int -> f32 of counts below 2^24.
+//
+// Matrices (models/learner.py): leafmat (NLF, L + 1) and nodemat (NND,
+// nodes + 1) f32, row-major, int fields bitcast into f32; column L of
+// leafmat and column `nodes` of nodemat are spare.  The step block is
+// csrc/step.cuh's.  One launch of one block:
+//   mode 0 (root): reset both matrices as an empty tree, write the root
+//     search's (2F, 8) info block from the root histogram's sums, and mark
+//     the root's column as due;
+//   mode 1 (step): commit what is due, then elect the next split;
+//   mode 2 (final): commit what is due.
+// Commit: the root's column from the root search's row and sums; or the
+// two children of the split just made, from the partition's left count
+// and the pair search's (2, 13) rows, into the parent's column and column
+// `new`, as models/learner.py _leaf_column writes them.  Elect: the first
+// index of the largest LM_BGAIN over the L leaves (a NaN counts as the
+// largest, as numpy's and jax's argmax take it); the split is made when
+// s < nodes, the gain is > 0 (a NaN gain is not) and the tree has not
+// stopped.  Then it writes the internal node's column s and the parent's
+// child pointer, the children's info block, and the step block of the
+// split for the kernels: range, decision, histogram-state slots (parent,
+// wa = the leaf, wb = the new leaf, small_is_left = left count <= right
+// count by the bag-aware counts, ties left) and the side histogrammed.
+// A split not made sets cnt = 0 and stops the tree: every later step
+// writes no column, no slot and no row.
+//
+// What bounds it on this card: latency.  It moves two leafmat columns, a
+// nodemat column, the info block and the step block (a few KB) and reads
+// the L gains; one block of 256 threads does it in a few dependent steps.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "step.cuh"
+
+// leafmat rows (models/learner.py LM_*)
+#define LM_START 0
+#define LM_CNT 1
+#define LM_CNT_G 2
+#define LM_SUM_G 3
+#define LM_SUM_H 4
+#define LM_DEPTH 5
+#define LM_CMIN 6
+#define LM_CMAX 7
+#define LM_VALUE 8
+#define LM_PARENT 9
+#define LM_PSIDE 10
+#define LM_BGAIN 11
+#define LM_BFEAT 12
+#define LM_BTHR 13
+#define LM_BDL 14
+#define LM_BLCNT 15
+#define LM_BRCNT 16
+#define LM_BLSG 17
+#define LM_BLSH 18
+#define LM_BRSG 19
+#define LM_BRSH 20
+#define LM_BLOUT 21
+#define LM_BROUT 22
+#define LM_BISCAT 23
+#define LM_FORCED 24
+#define NLF 25
+#define SEG 13          // LM_BGAIN .. LM_BISCAT, the pair search's row
+
+// nodemat rows (models/learner.py ND_*)
+#define ND_FEATURE 0
+#define ND_FEATURE_ENUM 1
+#define ND_THRESHOLD 2
+#define ND_DL 3
+#define ND_GAIN 4
+#define ND_LEFT 5
+#define ND_RIGHT 6
+#define ND_IVALUE 7
+#define ND_IWEIGHT 8
+#define ND_ICOUNT 9
+#define ND_COL 10
+#define ND_BIN_START 11
+#define ND_IS_BUNDLED 12
+#define ND_NUM_BIN 13
+#define ND_DEFAULT_BIN 14
+#define ND_MISSING 15
+#define NND 17
+
+// fmeta rows: feature id, group row, bin_start, is_bundled, num_bin,
+// default_bin, missing_type; one column per feature
+#define FMETA_ROWS 7
+
+#define STEP_THREADS 256
+#define MODE_ROOT 0
+#define MODE_STEP 1
+#define MODE_FINAL 2
+
+struct TreeArgs {
+  float* lm;            // (NLF, L + 1)
+  float* nm;            // (NND, nodes + 1)
+  int* step;            // STEP_WORDS
+  const int* nl;        // (1,): the partition's left count
+  const float* pair;    // (2, SEG): the pair search's rows
+  const int* fmeta;     // (FMETA_ROWS, F)
+  float* info;          // (2F, 8): the next search's info block
+  const float* sums;    // (2,): the root histogram's grad and hess sums
+  int L, nodes, F, row0, N, bag_cnt, mode;
+};
+
+// One leafmat column (models/learner.py _leaf_column): the leaf's fields,
+// then the 13 fields of its best split as the search wrote them.
+__device__ __forceinline__ void leaf_column(
+    const TreeArgs& a, int leaf, int start, int cnt, int cnt_g, float sg,
+    float sh, int depth, float value, int parent, int side,
+    const float* seg) {
+  const int L1 = a.L + 1;
+  float* col = a.lm + leaf;
+  col[LM_START * L1] = __int_as_float(start);
+  col[LM_CNT * L1] = __int_as_float(cnt);
+  col[LM_CNT_G * L1] = __int_as_float(cnt_g);
+  col[LM_SUM_G * L1] = sg;
+  col[LM_SUM_H * L1] = sh;
+  col[LM_DEPTH * L1] = __int_as_float(depth);
+  col[LM_CMIN * L1] = -INFINITY;
+  col[LM_CMAX * L1] = INFINITY;
+  col[LM_VALUE * L1] = value;
+  col[LM_PARENT * L1] = __int_as_float(parent);
+  col[LM_PSIDE * L1] = __int_as_float(side);
+  for (int i = 0; i < SEG; ++i) col[(LM_BGAIN + i) * L1] = seg[i];
+  col[LM_FORCED * L1] = __int_as_float(-1);
+}
+
+// The argmax order: a NaN beats any number, the larger number wins, and
+// on a tie the smaller index.
+__device__ __forceinline__ bool before(float v, int i, float w, int j) {
+  const bool vn = isnan(v), wn = isnan(w);
+  if (vn != wn) return vn;
+  if (!vn && v != w) return v > w;
+  return i < j;
+}
+
+__global__ void __launch_bounds__(STEP_THREADS) tree_step(TreeArgs a) {
+  __shared__ float pcol[NLF];
+  __shared__ float s_val[STEP_THREADS];
+  __shared__ int s_idx[STEP_THREADS];
+  __shared__ int s_pend, s_valid, s_leaf, s_new, s_s, s_fe, s_depth;
+  const int tid = threadIdx.x;
+  const int L1 = a.L + 1, N1 = a.nodes + 1, F = a.F;
+  int* step = a.step;
+
+  if (a.mode == MODE_ROOT) {
+    for (int i = tid; i < NLF * L1; i += STEP_THREADS) {
+      const int f = i / L1;
+      float v = 0.0f;
+      if (f == LM_BGAIN || f == LM_CMIN) v = -INFINITY;
+      if (f == LM_CMAX) v = INFINITY;
+      if (f == LM_PARENT || f == LM_FORCED) v = __int_as_float(-1);
+      a.lm[i] = v;
+    }
+    for (int i = tid; i < NND * N1; i += STEP_THREADS) a.nm[i] = 0.0f;
+    const float in[8] = {a.sums[0], a.sums[1], (float)a.bag_cnt, 0.0f, 1.0f,
+                         0.0f, 0.0f, 0.0f};
+    for (int i = tid; i < 2 * F * 8; i += STEP_THREADS) a.info[i] = in[i & 7];
+    if (tid < STEP_WORDS) step[tid] = tid == SB_PEND ? 1 : 0;
+    return;
+  }
+
+  // ---- commit -----------------------------------------------------
+  if (tid == 0) {
+    s_pend = step[SB_PEND];
+    s_leaf = step[SB_LEAF];
+    s_new = step[SB_NEW];
+    s_s = step[SB_S];
+  }
+  __syncthreads();
+  const int pend = s_pend;
+  if (pend == 2 && tid < NLF) pcol[tid] = a.lm[tid * L1 + s_leaf];
+  __syncthreads();
+  if (pend == 1 && tid == 0) {
+    leaf_column(a, 0, a.row0, a.N, a.bag_cnt, a.sums[0], a.sums[1], 0, 0.0f,
+                -1, 0, a.pair);
+  } else if (pend == 2 && tid < 2) {
+    const int start = __float_as_int(pcol[LM_START]);
+    const int cnt = __float_as_int(pcol[LM_CNT]);
+    const int depth = __float_as_int(pcol[LM_DEPTH]) + 1;
+    const int nl = *a.nl;
+    const int node = s_s - 1;
+    if (tid == 0)
+      leaf_column(a, s_leaf, start, nl, __float_as_int(pcol[LM_BLCNT]),
+                  pcol[LM_BLSG], pcol[LM_BLSH], depth, pcol[LM_BLOUT], node,
+                  0, a.pair);
+    else
+      leaf_column(a, s_new, start + nl, cnt - nl,
+                  __float_as_int(pcol[LM_BRCNT]), pcol[LM_BRSG],
+                  pcol[LM_BRSH], depth, pcol[LM_BROUT], node, 1,
+                  a.pair + SEG);
+  }
+  __syncthreads();
+  if (a.mode == MODE_FINAL) {
+    if (tid == 0) step[SB_PEND] = 0;
+    return;
+  }
+
+  // ---- elect ------------------------------------------------------
+  float bv = NAN;
+  int bi = -1;
+  for (int j = tid; j < a.L; j += STEP_THREADS) {
+    const float v = a.lm[LM_BGAIN * L1 + j];
+    if (bi < 0 || before(v, j, bv, bi)) {
+      bv = v;
+      bi = j;
+    }
+  }
+  s_val[tid] = bv;
+  s_idx[tid] = bi;
+  __syncthreads();
+  for (int o = STEP_THREADS / 2; o > 0; o >>= 1) {
+    if (tid < o) {
+      const int j = s_idx[tid + o];
+      if (j >= 0 && (s_idx[tid] < 0 ||
+                     before(s_val[tid + o], j, s_val[tid], s_idx[tid]))) {
+        s_val[tid] = s_val[tid + o];
+        s_idx[tid] = j;
+      }
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    const int best = s_idx[0];
+    const float gain = s_val[0];
+    const int s = s_s;
+    bool valid = s < a.nodes && gain > 0.0f && !step[SB_DONE] && F > 0;
+    if (valid) {
+      for (int f = 0; f < NLF; ++f) pcol[f] = a.lm[f * L1 + best];
+      const int fe = __float_as_int(pcol[LM_BFEAT]);
+      const int p = __float_as_int(pcol[LM_PARENT]);
+      if (fe < 0 || fe >= F || p >= a.nodes) {
+        step_error(step, ERR_STEP);
+        valid = false;
+      }
+      s_fe = fe;
+    }
+    s_valid = valid;
+    s_leaf = best;
+    s_new = s + 1;
+    s_depth = valid ? __float_as_int(pcol[LM_DEPTH]) + 1 : 0;
+    if (!valid) {
+      step[SB_CNT] = 0;
+      step[SB_VALID] = 0;
+      step[SB_DONE] = 1;
+      step[SB_PEND] = 0;
+    }
+  }
+  __syncthreads();
+  if (!s_valid) return;
+  const int best = s_leaf, nw = s_new, s = s_s, fe = s_fe;
+  const int* fm = a.fmeta + fe;
+  const int lcg = __float_as_int(pcol[LM_BLCNT]);
+  const int rcg = __float_as_int(pcol[LM_BRCNT]);
+  const int thr = __float_as_int(pcol[LM_BTHR]);
+  const int dl = pcol[LM_BDL] > 0.5f;
+  if (tid < NND) {
+    float v = 0.0f;
+    switch (tid) {
+      case ND_FEATURE: v = __int_as_float(fm[0]); break;
+      case ND_FEATURE_ENUM: v = __int_as_float(fe); break;
+      case ND_THRESHOLD: v = __int_as_float(thr); break;
+      case ND_DL: v = (float)dl; break;
+      case ND_GAIN: v = pcol[LM_BGAIN]; break;
+      case ND_LEFT: v = __int_as_float(-(best + 1)); break;
+      case ND_RIGHT: v = __int_as_float(-(nw + 1)); break;
+      case ND_IVALUE: v = pcol[LM_VALUE]; break;
+      case ND_IWEIGHT: v = pcol[LM_SUM_H]; break;
+      case ND_ICOUNT: v = pcol[LM_CNT_G]; break;
+      case ND_COL: v = __int_as_float(fm[1 * F]); break;
+      case ND_BIN_START: v = __int_as_float(fm[2 * F]); break;
+      case ND_IS_BUNDLED: v = __int_as_float(fm[3 * F]); break;
+      case ND_NUM_BIN: v = __int_as_float(fm[4 * F]); break;
+      case ND_DEFAULT_BIN: v = __int_as_float(fm[5 * F]); break;
+      case ND_MISSING: v = __int_as_float(fm[6 * F]); break;
+      default: break;
+    }
+    a.nm[tid * N1 + s] = v;
+  }
+  for (int i = tid; i < 2 * F * 8; i += STEP_THREADS) {
+    const int c = i / (F * 8), k = i & 7;
+    float v = 0.0f;
+    if (k == 0) v = pcol[c ? LM_BRSG : LM_BLSG];
+    if (k == 1) v = pcol[c ? LM_BRSH : LM_BLSH];
+    if (k == 2) v = (float)(c ? rcg : lcg);
+    if (k == 3) v = (float)s_depth;
+    if (k == 4) v = 1.0f;
+    a.info[i] = v;
+  }
+  if (tid == 0) {
+    const int p = __float_as_int(pcol[LM_PARENT]);
+    if (p >= 0)
+      a.nm[(__float_as_int(pcol[LM_PSIDE]) == 0 ? ND_LEFT : ND_RIGHT) * N1 +
+           p] = __int_as_float(s);
+    const int sil = lcg <= rcg;
+    step[SB_START] = __float_as_int(pcol[LM_START]);
+    step[SB_CNT] = __float_as_int(pcol[LM_CNT]);
+    step[SB_COL] = fm[1 * F];
+    step[SB_BSTART] = fm[2 * F];
+    step[SB_ISB] = fm[3 * F];
+    step[SB_NB] = fm[4 * F];
+    step[SB_DBIN] = fm[5 * F];
+    step[SB_MTYPE] = fm[6 * F];
+    step[SB_THR] = thr;
+    step[SB_DL] = dl;
+    step[SB_PARENT] = best;
+    step[SB_WA] = best;
+    step[SB_WB] = nw;
+    step[SB_SIL] = sil;
+    step[SB_SIDE] = sil ? 1 : 2;
+    step[SB_VALID] = 1;
+    step[SB_S] = s + 1;
+    step[SB_LEAF] = best;
+    step[SB_NEW] = nw;
+    step[SB_PEND] = 2;
+  }
+}
+
+extern "C" int tree_step_launch(float* lm, float* nm, int* step,
+                                const int* nl, const float* pair,
+                                const int* fmeta, float* info,
+                                const float* sums, int L, int nodes, int F,
+                                int row0, int N, int bag_cnt, int mode,
+                                void* stream) {
+  if (L < 2 || nodes != L - 1 || F < 0 || mode < MODE_ROOT ||
+      mode > MODE_FINAL || lm == nullptr || nm == nullptr || step == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const TreeArgs a{lm,   nm,    step, nl, pair,    fmeta, info,
+                   sums, L,     nodes, F, row0,    N,     bag_cnt, mode};
+  tree_step<<<1, STEP_THREADS, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}

@@ -22,6 +22,7 @@ from ..config import Config
 from ..dataset import BinnedDataset
 from ..ops.predict import ThresholdIndex, predict_leaf_thridx
 from ..ops.split_mega import GHI_ROWS
+from ..ops.tree_step import LM_CNT, LM_START, LM_VALUE
 from ..utils import log
 from .learner import SerialTreeLearner
 from .metric import create_metrics
@@ -124,15 +125,7 @@ class GBDT:
         ghi[1] = h * vf
         rec = lr.build_tree(pb, ghi, N)
         num_nodes = int(rec["s"])
-        # add each leaf's shrunk value to its contiguous physical range
-        L = num_nodes + 1
-        starts = rec["leaf_start"][:L]
-        order = np.argsort(starts, kind="stable")
-        vals = torch.as_tensor(rec["leaf_value"][:L][order], device=self.device)
-        cnts = torch.as_tensor(rec["leaf_cnt"][:L][order].astype(np.int64),
-                               device=self.device)
-        delta = torch.repeat_interleave(vals * self.shrinkage_rate, cnts)
-        ghi[3, lr.row0:lr.row0 + N] += delta
+        self._add_leaf_values(ghi)
         tree = tree_from_device_record(rec, num_nodes,
                                        self.train_data.bin_mappers,
                                        shrinkage=self.shrinkage_rate)
@@ -148,6 +141,22 @@ class GBDT:
             log.warning("Stopped training because there are no more leaves "
                         "that meet the split requirements")
         return num_nodes == 0
+
+    def _add_leaf_values(self, ghi) -> None:
+        """Add each leaf's shrunk value to its contiguous physical row
+        range, from the tree the learner keeps on the device (no host
+        sync): the L leafmat columns in the order of their starts, each
+        value repeated over its count (columns of no leaf have count 0)."""
+        lr = self.learner
+        lm = lr.leafmat[:, :lr.L]
+        starts = lm[LM_START].view(torch.int32)
+        order = torch.argsort(starts, stable=True)
+        cnts = lm[LM_CNT].view(torch.int32)[order].long()
+        vals = lm[LM_VALUE][order]
+        N = self.num_data
+        delta = torch.repeat_interleave(vals * self.shrinkage_rate, cnts,
+                                        output_size=N)
+        ghi[3, lr.row0:lr.row0 + N] += delta
 
     def eval_train(self) -> List[Tuple[str, float, bool]]:
         sc = self.scores

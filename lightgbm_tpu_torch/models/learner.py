@@ -12,33 +12,53 @@ split, so each leaf is one contiguous row range.  The body is chosen at
 construction from ``tpu_megakernel``:
 
   * the mega path (``auto`` / ``pallas``, the default): per split,
-    ``ops/split_mega.py:split_mega`` partitions the chosen leaf and,
-    from the same decision, builds both children's histograms.  The
-    root's histogram is a ``split_mega`` call with an all-left decision
-    that moves no rows.
+    ``ops/split_mega.py`` partitions the chosen leaf and, from the same
+    decision, builds both children's histograms.  The root's histogram
+    is a ``split_mega`` call with an all-left decision that moves no
+    rows.
   * the histogram-subtraction path (``off``; JAX learner.py:2282-2344):
     the learner keeps one histogram slot per leaf
     (``ops/hist_state.py``; int64 fixed-point sums at one scale per
-    tree on the card).  ``ops/hist_state.py:leaf_hist_rmw`` builds the
-    root's histogram over all rows into slot 0.  Per split,
-    ``ops/partition.py:partition_leaf`` partitions the leaf, and
-    ``leaf_hist_rmw`` builds the smaller child's histogram only -- the
-    child with the smaller bag-aware count (``LM_BLCNT <= LM_BRCNT``,
-    ties left), its rows read on the device from the partition's left
-    count -- derives the larger child as parent minus smaller and
-    writes both slots, in one launch on the card.
+    tree on the card).  The root's histogram goes into slot 0.  Per
+    split, ``ops/partition.py`` partitions the leaf, and
+    ``ops/hist_state.py`` builds the smaller child's histogram only --
+    the child with the smaller bag-aware count (``LM_BLCNT <=
+    LM_BRCNT``, ties left), its rows read on the device from the
+    partition's left count -- derives the larger child as parent minus
+    smaller and writes both slots, in one launch on the card.
 
 Both then run ``ops/split_pair.py:split_pair``, which finds both
-children's best splits and returns their packed leafmat segments.
+children's best splits; the root's best split is a ``split_pair`` call
+on (root, root).
 
-The JAX learner runs the whole tree inside one jitted while-loop.  This
-port runs an eager Python loop over splits: the packed per-leaf and
-per-node matrices (``leafmat`` (NLF, L+1) and ``nodemat`` (NND, nodes+1),
-int fields bitcast into f32 with ``_i2f`` / ``_f2i``) live on the host,
-and each split costs one device-to-host copy of its 27 result words
-(the left count and the two 13-field rows) -- the host sync the
-learner counts in ``syncs``.  The root's best split is a
-``split_pair`` call on (root, root).
+The tree loop runs on the device, as the JAX learner's while-loop does.
+The packed per-leaf and per-node matrices (``leafmat`` (NLF, L+1) and
+``nodemat`` (NND, nodes+1), ops/tree_step.py) live on the learner's
+device, and so do the step block that names each step's leaf
+(ops/partition.py ``SB_*``), the left count, the children's histogram
+planes, the pair search's rows and info block, the root's sums and the
+per-tree bound of |grad| and |hess|, all allocated once.  Between two
+splits the bookkeeping kernel ``ops/tree_step.py`` commits the split
+just made into leafmat, elects the next leaf (the first argmax of
+``LM_BGAIN``; the tree stops at a gain that is not > 0) and writes the
+next step block and info block; the split kernels read their leaf from
+the step block, with grids sized for the root's rows.  After the tree
+stops, the remaining steps have ``cnt == 0`` and write nothing, as the
+JAX body's trash-slot iterations do.
+
+  * On the card, the first tree's sequence -- the root step, then
+    ``nodes`` x (tree_step, the split body, split_pair), then a final
+    commit -- runs once on copies of the row buffers to load and size
+    everything, is captured as one CUDA graph, and every tree replays
+    it.  The host then reads the finished tree once: leafmat, nodemat
+    and the step block (``s`` and the error word) in one copy, the one
+    host sync a tree that ``syncs`` counts.
+  * On the CPU there is no graph: the same steps run through the plain
+    versions in a Python loop that stops when the step block says done.
+
+``build_tree_eager`` keeps the loop this port ran before, with the
+bookkeeping on the host and one sync a split, as the oracle the tests
+hold the device loop to.
 """
 
 from __future__ import annotations
@@ -50,49 +70,24 @@ import torch
 
 from ..config import Config, DEFAULT_ROW_CHUNK, parse_row_chunk
 from ..dataset import BinnedDataset
-from ..ops.hist_state import leaf_hist_rmw, new_state
-from ..ops.partition import (S_CNT, make_scalars, partition_leaf,
-                             scalars_start)
-from ..ops.split_mega import split_mega, unpack_hist4
+from ..ops.hist_state import leaf_hist_rmw, leaf_hist_rmw_step, new_state
+from ..ops.partition import (S_CNT, SB_DONE, SB_ERR,
+                             SB_S, STEP_WORDS, Workspace, make_scalars,
+                             partition_leaf, partition_step, scalars_start,
+                             step_words)
+from ..ops.split_mega import (hist_geometry, split_mega, split_mega_step,
+                              unpack_hist4)
 from ..ops.split_pair import split_pair
-
-NEG_INF = float("-inf")
-
-(LM_START, LM_CNT, LM_CNT_G, LM_SUM_G, LM_SUM_H, LM_DEPTH, LM_CMIN, LM_CMAX,
- LM_VALUE, LM_PARENT, LM_PSIDE, LM_BGAIN, LM_BFEAT, LM_BTHR, LM_BDL,
- LM_BLCNT, LM_BRCNT, LM_BLSG, LM_BLSH, LM_BRSG, LM_BRSH, LM_BLOUT,
- LM_BROUT, LM_BISCAT, LM_FORCED) = range(25)
-NLF = 25
-
-(ND_FEATURE, ND_FEATURE_ENUM, ND_THRESHOLD, ND_DL, ND_GAIN, ND_LEFT,
- ND_RIGHT, ND_IVALUE, ND_IWEIGHT, ND_ICOUNT, ND_COL, ND_BIN_START,
- ND_IS_BUNDLED, ND_NUM_BIN, ND_DEFAULT_BIN, ND_MISSING, ND_IS_CAT) = range(17)
-NND = 17
-
-
-def _i2f(x) -> np.float32:
-    """int -> the f32 whose bits are that int32 (leafmat/nodemat fields)."""
-    return np.asarray(x, np.int32).view(np.float32)
-
-
-def _f2i(x):
-    """f32 field -> the int32 its bits hold."""
-    return np.asarray(x, np.float32).view(np.int32)
-
-
-def _leaf_column(start, cnt, cnt_g, sum_g, sum_h, depth, value, parent,
-                 side, seg13) -> np.ndarray:
-    """One leafmat column: the leaf's own fields, then the 13-field best
-    split segment [LM_BGAIN..LM_BISCAT] exactly as the search wrote it
-    (f32 copies keep the bitcast int fields bit for bit)."""
-    col = np.zeros(NLF, np.float32)
-    col[[LM_SUM_G, LM_SUM_H, LM_CMIN, LM_CMAX, LM_VALUE]] = [
-        sum_g, sum_h, NEG_INF, np.inf, value]
-    col.view(np.int32)[[LM_START, LM_CNT, LM_CNT_G, LM_DEPTH, LM_PARENT,
-                        LM_PSIDE, LM_FORCED]] = [
-        start, cnt, cnt_g, depth, parent, side, -1]
-    col[LM_BGAIN:LM_BISCAT + 1] = seg13
-    return col
+from ..ops.tree_step import (LM_BDL, LM_BFEAT, LM_BGAIN, LM_BLCNT, LM_BLOUT,
+                             LM_BLSG, LM_BLSH, LM_BRCNT, LM_BROUT, LM_BRSG,
+                             LM_BRSH, LM_BTHR, LM_CNT, LM_CNT_G, LM_DEPTH,
+                             LM_PARENT, LM_PSIDE, LM_START, LM_SUM_G,
+                             LM_SUM_H, LM_VALUE, ND_DL, ND_FEATURE,
+                             ND_FEATURE_ENUM, ND_GAIN, ND_ICOUNT, ND_IVALUE,
+                             ND_IWEIGHT, ND_LEFT, ND_MISSING, ND_RIGHT,
+                             ND_THRESHOLD, MODE_FINAL, MODE_ROOT, MODE_STEP,
+                             NEG_INF, NLF, NND, _f2i, empty_leafmat,
+                             info_block, leaf_column, node_column, tree_step)
 
 
 def _pow2ceil(x: int) -> int:
@@ -159,31 +154,179 @@ class SerialTreeLearner:
         self.subtract = str(config.tpu_megakernel).strip().lower() == "off"
         self.state = (new_state(self.L, self.G, self.B, self.device)
                       if self.subtract else None)
-        self._absmax = None
+        self._alloc()
+
+    def _alloc(self) -> None:
+        """Everything a tree's steps touch, allocated once on the device."""
+        L, F, G, dev = self.L, self.F, self.G, self.device
+        nodes = self.max_splits
+        BH, Bp = hist_geometry(self.B)
+        self.fmeta = torch.as_tensor(
+            self._fmeta if F else np.zeros((7, 0), np.int32), device=dev)
+        # leafmat, nodemat, the step block and the root's step block in one
+        # flat buffer: the host reads the finished tree in one copy
+        a = NLF * (L + 1)
+        b = a + NND * (nodes + 1)
+        self._tree_dev = torch.zeros(b + 2 * STEP_WORDS, dtype=torch.float32,
+                                     device=dev)
+        self.leafmat = self._tree_dev[:a].view(NLF, L + 1)
+        self.nodemat = self._tree_dev[a:b].view(NND, nodes + 1)
+        self.step = self._tree_dev[b:b + STEP_WORDS].view(torch.int32)
+        self.root_step = self._tree_dev[b + STEP_WORDS:].view(torch.int32)
+        # the root's range, an all-left decision (the mega path's
+        # histogram-only call) and, for the histogram state, slot 0
+        self.root_step.copy_(torch.tensor(step_words(make_scalars(
+            self.row0, self.N, 0, 0, 0, self.B, 0, 0, 255, 0)),
+            dtype=torch.int32))
+        self.nl = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.pair_out = torch.full((2, 13), NEG_INF, device=dev)
+        self.info = torch.zeros((2 * F, 8), device=dev)
+        self.sums = torch.zeros(2, device=dev)
+        self._absmax = torch.zeros(2, device=dev)
+        # the children's planes (plane, child, G, Bp): [0] and [1] viewed
+        # as (2G, Bp) are the pair search's grad and hess inputs
+        self.children = torch.zeros((2, 2, G, Bp), device=dev)
+        self.hist4 = (None if self.subtract else
+                      torch.zeros((G, 4 * BH, 16), device=dev))
+        self.ws = Workspace(dev) if dev.type == "cuda" else None
+        self._graph = None
+        self._graph_key = None
+        self._host = None
+        self.replays = 0
 
     # ------------------------------------------------------------------
-    def _search(self, hg, hh, info):
+    def _search(self, hg, hh, info, out=None):
         """Both children's best splits: (2, 13) f32 on the device."""
         return split_pair(
             hg, hh, self.fmeta_pair, info, l1=self.l1, l2=self.l2,
             max_delta_step=self.max_delta_step,
             min_gain_to_split=self.min_gain_to_split,
             min_data_in_leaf=self.min_data_in_leaf,
-            min_sum_hessian=self.min_sum_hessian, max_depth=self.max_depth)
+            min_sum_hessian=self.min_sum_hessian, max_depth=self.max_depth,
+            out=out)
 
+    # -- the device-resident loop ------------------------------------------
+    def _step(self, mode, bag_cnt) -> None:
+        tree_step(mode, self.leafmat, self.nodemat, self.step, self.nl,
+                  self.pair_out, self.fmeta, self.info, self.sums,
+                  row0=self.row0, N=self.N, bag_cnt=bag_cnt)
+
+    def _pair(self) -> None:
+        G = self.G
+        self._search(self.children[0].view(2 * G, -1),
+                     self.children[1].view(2 * G, -1), self.info,
+                     out=self.pair_out)
+
+    def _body(self, pb, pg, step) -> None:
+        """One split body on the leaf of ``step`` (the root's: its
+        histogram only), into the children's planes."""
+        G, B, N = self.G, self.B, self.N
+        kw = dict(num_bins=B, num_groups=G, bound=N, ws=self.ws)
+        root = step is self.root_step
+        if self.subtract:
+            if not root:
+                partition_step(pb, pg, step, self.nl, bound=N, ws=self.ws)
+            leaf_hist_rmw_step(pb, pg, step, None if root else self.nl,
+                               state=self.state, absmax=self._absmax,
+                               kcnt=N, out=self.children, **kw)
+            return
+        split_mega_step(pb, pg, step, self.nl, self.hist4, move=not root,
+                        absmax=self._absmax, **kw)
+        # (G, side, plane, Bp) -> (plane, child, G, Bp); the root's
+        # all-left histogram is both children
+        h4 = self.hist4.view(G, 2, 2, -1)
+        src = (h4[:, :1].expand(-1, 2, -1, -1) if root else h4)
+        self.children.copy_(src.permute(2, 1, 0, 3))
+
+    def _root(self, pb, pg, bag_cnt) -> None:
+        """The root: the tree's bound of |grad| and |hess|, the root's
+        histogram and sums, tree_step's reset, the root's search."""
+        torch.amax(pg[:2].abs(), dim=1, out=self._absmax)
+        self._body(pb, pg, self.root_step)
+        torch.stack([self.children[0, 0, 0].sum(),
+                     self.children[1, 0, 0].sum()], out=self.sums)
+        self._step(MODE_ROOT, bag_cnt)
+        if self.F:
+            self._pair()
+
+    def _sequence(self, pb, pg, bag_cnt) -> None:
+        """The whole tree as a fixed sequence of launches (the graph)."""
+        self._root(pb, pg, bag_cnt)
+        for _ in range(self.max_splits if self.F else 1):
+            self._step(MODE_STEP, bag_cnt)
+            if self.F:
+                self._body(pb, pg, self.step)
+                self._pair()
+        self._step(MODE_FINAL, bag_cnt)
+
+    def _loop(self, pb, pg, bag_cnt) -> None:
+        """The same steps in a Python loop that stops when the step block
+        says done (on the CPU, where reading it is no sync)."""
+        self._root(pb, pg, bag_cnt)
+        while True:
+            self._step(MODE_STEP, bag_cnt)
+            if int(self.step[SB_DONE]):
+                break
+            self._body(pb, pg, self.step)
+            self._pair()
+
+    def _replay(self, pb, pg, bag_cnt) -> None:
+        """Grow the tree by replaying the captured graph, capturing it
+        first when the buffers are new: one run of the sequence on copies
+        of the row buffers loads every kernel and sizes the workspace,
+        which is then frozen, and the capture holds its addresses."""
+        key = (pb.data_ptr(), pg.data_ptr(), int(bag_cnt))
+        if self._graph_key != key:
+            self._graph = None
+            self._sequence(pb.clone(), pg.clone(), bag_cnt)
+            self.ws.frozen = True
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                self._sequence(pb, pg, bag_cnt)
+            self._graph, self._graph_key = graph, key
+            self._host = torch.empty(self._tree_dev.shape,
+                                     dtype=torch.float32, pin_memory=True)
+            self._done = torch.cuda.Event()
+        self._graph.replay()
+        self.replays += 1
+
+    def build_tree(self, part_bins: torch.Tensor, part_ghi: torch.Tensor,
+                   bag_cnt: int) -> Dict[str, Any]:
+        """Grow one tree over the payload in ``part_ghi`` (rows 0/1 hold
+        this iteration's grad/hess), partitioning both buffers in place,
+        with the tree loop on the device (see module doc).  Returns the
+        host record of ``_unpack_state``; ``leafmat`` keeps the tree on
+        the device."""
+        if self.device.type == "cuda":
+            self._replay(part_bins, part_ghi, bag_cnt)
+            self._host.copy_(self._tree_dev, non_blocking=True)
+            self._done.record()
+            self._done.synchronize()
+            host = self._host.numpy().copy()
+        else:
+            self._loop(part_bins, part_ghi, bag_cnt)
+            host = self._tree_dev.numpy().copy()
+        self.syncs += 1
+        L, nodes = self.L, self.max_splits
+        a = NLF * (L + 1)
+        b = a + NND * (nodes + 1)
+        steps = host[b:].view(np.int32)
+        err = int(steps[SB_ERR]) | int(steps[STEP_WORDS + SB_ERR])
+        if err:
+            raise RuntimeError(
+                f"tree loop: a step block failed its device checks (error "
+                f"bits {err}: 1 range outside the bound, 2 histogram-state "
+                f"slot, 4 leaf or feature index)")
+        return self._unpack_state(host[:a].reshape(NLF, L + 1),
+                                  host[a:b].reshape(NND, nodes + 1),
+                                  int(steps[SB_S]))
+
+    # -- the oracle: the host loop -----------------------------------------
     def _info(self, halves):
         """(2F, 8) f32 info block on the device from two (sum_g, sum_h,
         cnt, depth)."""
-        F = self.F
-        info = np.zeros((2 * F, 8), np.float32)
-        for c, (sg, sh, cnt, depth) in enumerate(halves):
-            rows = slice(c * F, (c + 1) * F)
-            info[rows, 0] = sg
-            info[rows, 1] = sh
-            info[rows, 2] = np.float32(cnt)
-            info[rows, 3] = np.float32(depth)
-            info[rows, 4] = 1.0
-        return torch.as_tensor(info, device=self.device)
+        return torch.as_tensor(info_block(self.F, halves),
+                               device=self.device)
 
     def _root_hist(self, part_bins, part_ghi):
         """The root's (G, Bp) grad and hess histograms twice, as (2G, Bp):
@@ -227,24 +370,22 @@ class SerialTreeLearner:
         hl_g, hl_h, hr_g, hr_h = unpack_hist4(acc, B)
         return nl, torch.cat([hl_g, hr_g]), torch.cat([hl_h, hr_h])
 
-    def build_tree(self, part_bins: torch.Tensor, part_ghi: torch.Tensor,
-                   bag_cnt: int) -> Dict[str, Any]:
-        """Grow one tree over the payload in ``part_ghi`` (rows 0/1 hold
-        this iteration's grad/hess), partitioning both buffers in place.
-        Returns the host record of ``_unpack_state``."""
+    def build_tree_eager(self, part_bins: torch.Tensor,
+                         part_ghi: torch.Tensor,
+                         bag_cnt: int) -> Dict[str, Any]:
+        """The oracle of ``build_tree``: the same tree, grown by an eager
+        Python loop with the bookkeeping on the host, the kernels' host-int
+        entry points and one host sync a split (the port's loop before the
+        tree moved onto the device).  Leaves the tree in ``leafmat`` too."""
         L, F = self.L, self.F
         nodes = self.max_splits
-        lm = np.zeros((NLF, L + 1), np.float32)
-        lm[LM_BGAIN] = NEG_INF
-        lm[LM_CMIN] = NEG_INF
-        lm[LM_CMAX] = np.inf
-        lm.view(np.int32)[[LM_PARENT, LM_FORCED]] = -1
+        lm = empty_leafmat(L)
         nm = np.zeros((NND, nodes + 1), np.float32)
 
         # the card's fixed-point histograms (split_mega, leaf_hist_rmw)
         # are scaled by one bound of |grad| and |hess| per tree, kept on
         # the device (and the histogram state by the root's row count)
-        self._absmax = part_ghi[:2].abs().amax(dim=1)
+        torch.amax(part_ghi[:2].abs(), dim=1, out=self._absmax)
         # root: its histogram, then the best split from a pair search
         # over (root, root)
         hg, hh = self._root_hist(part_bins, part_ghi)
@@ -260,8 +401,8 @@ class SerialTreeLearner:
         host = torch.cat([sum_g.reshape(1), sum_h.reshape(1), tile]).cpu()
         self.syncs += 1
         host = host.numpy()
-        lm[:, 0] = _leaf_column(self.row0, self.N, bag_cnt, host[0], host[1],
-                                0, 0.0, -1, 0, host[2:15])
+        lm[:, 0] = leaf_column(self.row0, self.N, bag_cnt, host[0], host[1],
+                               0, 0.0, -1, 0, host[2:15])
 
         s = 0
         while s < nodes and F:
@@ -275,11 +416,10 @@ class SerialTreeLearner:
             f_enum = int(_f2i(pcol[LM_BFEAT]))
             thr = int(_f2i(pcol[LM_BTHR]))
             dl = bool(pcol[LM_BDL] > 0.5)
-            orig_feat, col, bstart, isb, nb, dbin, mtype = (
+            _, col, bstart, isb, nb, dbin, mtype = (
                 int(v) for v in self._fmeta[:, f_enum])
             start = int(_f2i(pcol[LM_START]))
             cnt = int(_f2i(pcol[LM_CNT]))
-            cnt_g = int(_f2i(pcol[LM_CNT_G]))
             left_cnt_g = int(_f2i(pcol[LM_BLCNT]))
             right_cnt_g = int(_f2i(pcol[LM_BRCNT]))
             nl, hg, hh = self._split(
@@ -293,16 +433,8 @@ class SerialTreeLearner:
             depth_child = int(_f2i(pcol[LM_DEPTH])) + 1
 
             # record the internal node; fix the parent's child pointer
-            ncol = np.zeros(NND, np.float32)
-            ncol[[ND_DL, ND_GAIN, ND_IVALUE, ND_IWEIGHT]] = [
-                float(dl), gain, pcol[LM_VALUE], pcol[LM_SUM_H]]
-            ncol.view(np.int32)[[
-                ND_FEATURE, ND_FEATURE_ENUM, ND_THRESHOLD, ND_LEFT, ND_RIGHT,
-                ND_ICOUNT, ND_COL, ND_BIN_START, ND_IS_BUNDLED, ND_NUM_BIN,
-                ND_DEFAULT_BIN, ND_MISSING]] = [
-                orig_feat, f_enum, thr, -(best_leaf + 1), -(new_leaf + 1),
-                cnt_g, col, bstart, isb, nb, dbin, mtype]
-            nm[:, s] = ncol
+            nm[:, s] = node_column(pcol, gain, self._fmeta[:, f_enum],
+                                   best_leaf, new_leaf)
             p = int(_f2i(pcol[LM_PARENT]))
             if p >= 0:
                 side = int(_f2i(pcol[LM_PSIDE]))
@@ -315,13 +447,15 @@ class SerialTreeLearner:
             self.syncs += 1
             host = host.numpy()
             left_cnt = int(_f2i(host[0]))
-            lm[:, best_leaf] = _leaf_column(
+            lm[:, best_leaf] = leaf_column(
                 start, left_cnt, left_cnt_g, lsg, lsh, depth_child, lout, s,
                 0, host[1:14])
-            lm[:, new_leaf] = _leaf_column(
+            lm[:, new_leaf] = leaf_column(
                 start + left_cnt, cnt - left_cnt, right_cnt_g, rsg, rsh,
                 depth_child, rout, s, 1, host[14:27])
             s += 1
+        self.leafmat.copy_(torch.as_tensor(lm))
+        self.nodemat.copy_(torch.as_tensor(nm))
         return self._unpack_state(lm, nm, s)
 
     def _unpack_state(self, lm, nm, s) -> Dict[str, Any]:

@@ -43,6 +43,12 @@ its own for the update), or raise.  ``leaf_hist_rmw_fixed_plain`` is
 the card's arithmetic in plain PyTorch, bit for bit.  ``hist_rmw``
 alone runs on the CPU only: on the card the update exists only fused
 into the histogram launch.
+
+``leaf_hist_rmw_step`` is the entry of the learner's tree loop: the rows,
+the child's side and the slots come from a step block on the device
+(ops/partition.py ``SB_*``), the children go to a preallocated buffer,
+and the grid is sized for ``bound`` rows.  A step of no rows writes no
+slot and gives zero children (so do the plain versions).
 """
 
 from __future__ import annotations
@@ -52,11 +58,13 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from . import histogram, kernels
+from .partition import S_CNT, scalars_start, step_fields
 from .split_mega import hist_geometry
 
 # launches of the CUDA kernel with the state epilogue (each is also a
-# leaf_hist launch, counted in ops/histogram.py; the plain versions are
-# not counted)
+# leaf_hist launch, counted in ops/histogram.py), a launch recorded into a
+# CUDA graph under capture included (a replay is not counted; nor are the
+# plain versions)
 launches = 0
 
 
@@ -107,11 +115,20 @@ def hist_rmw(state, small, idx: Sequence[int]) -> torch.Tensor:
                      "not by a launch of its own")
 
 
+def _no_children(num_groups, num_bins, state) -> torch.Tensor:
+    _, Bp = hist_geometry(num_bins)
+    return torch.zeros((2, 2, num_groups, Bp), dtype=torch.float32,
+                       device=state.device)
+
+
 def leaf_hist_rmw_plain(part_bins, part_ghi, start: int, cnt: int, *,
                         num_bins: int, num_groups: int, state,
                         idx: Sequence[int], child=None) -> torch.Tensor:
     """What the CPU runs: the f32 ``leaf_hist_plain`` of the rows, then
-    ``hist_rmw_plain`` on the f32 state."""
+    ``hist_rmw_plain`` on the f32 state.  A range of no rows (a step that
+    splits nothing) writes no slot and gives zero children."""
+    if cnt == 0:
+        return _no_children(num_groups, num_bins, state)
     small = histogram.leaf_hist_plain(part_bins, part_ghi, start, cnt,
                                       num_bins=num_bins,
                                       num_groups=num_groups, child=child,
@@ -125,7 +142,10 @@ def leaf_hist_rmw_fixed_plain(part_bins, part_ghi, start: int, cnt: int, *,
                               child=None) -> torch.Tensor:
     """The card's arithmetic in plain PyTorch, bit for bit:
     ``leaf_hist_fixed_sums`` of the rows at the scale of ``absmax`` and
-    ``kcnt``, then ``hist_rmw_fixed_plain`` on the int64 state."""
+    ``kcnt``, then ``hist_rmw_fixed_plain`` on the int64 state.  A range
+    of no rows writes no slot and gives zero children."""
+    if cnt == 0:
+        return _no_children(num_groups, num_bins, state)
     small, inv = histogram.leaf_hist_fixed_sums(
         part_bins, part_ghi, start, cnt, num_bins=num_bins,
         num_groups=num_groups, child=child, absmax=absmax, kcnt=kcnt)
@@ -154,13 +174,9 @@ def leaf_hist_rmw(part_bins, part_ghi, start: int, cnt: int, *,
 def leaf_hist_rmw_cuda(part_bins, part_ghi, start, cnt, *, num_bins,
                        num_groups, state, idx, absmax, kcnt,
                        child=None) -> torch.Tensor:
-    global launches
     G = num_groups
     _, Bp = hist_geometry(num_bins)
-    if state.dim() != 4 or tuple(state.shape[1:]) != (2, G, Bp):
-        raise ValueError(f"leaf_hist_rmw: state must be (slots, 2, {G}, "
-                         f"{Bp}), got {tuple(state.shape)}")
-    kernels.require_cuda(state, torch.int64, "state")
+    check_state(state, G, Bp)
     slots = state.shape[0]
     parent, wa, wb, sil = (int(v) for v in idx)
     if not (-1 <= parent < slots and 0 <= wa < slots and 0 <= wb < slots
@@ -172,8 +188,49 @@ def leaf_hist_rmw_cuda(part_bins, part_ghi, start, cnt, *, num_bins,
                          "scale: absmax and kcnt")
     children = torch.empty((2, 2, G, Bp), dtype=torch.float32,
                            device=state.device)
-    histogram.launch(part_bins, part_ghi, start, cnt, num_bins=num_bins,
-                     num_groups=G, child=child, absmax=absmax, kcnt=kcnt,
-                     out=children, state=state, idx=(parent, wa, wb, sil))
-    launches += 1
+    histogram.host_launch(part_bins, part_ghi, start, cnt, num_bins=num_bins,
+                          num_groups=G, child=child, absmax=absmax,
+                          kcnt=kcnt, out=children, state=state,
+                          idx=(parent, wa, wb, sil))
+    _count()
     return children
+
+
+def check_state(state, G: int, Bp: int) -> None:
+    if state.dim() != 4 or tuple(state.shape[1:]) != (2, G, Bp):
+        raise ValueError(f"leaf_hist_rmw: state must be (slots, 2, {G}, "
+                         f"{Bp}), got {tuple(state.shape)}")
+    kernels.require_cuda(state, torch.int64, "state")
+
+
+def _count() -> None:
+    global launches
+    launches += 1
+
+
+def leaf_hist_rmw_step(part_bins, part_ghi, step, nl, *, num_bins: int,
+                       num_groups: int, state, absmax, kcnt: int, out,
+                       bound: int, ws=None) -> None:
+    """``leaf_hist_rmw`` of the rows the step block ``step`` names (its
+    range, or the child SB_SIDE of the partition whose left count is
+    ``nl``), folded into ``state`` by its slots (SB_PARENT, SB_WA, SB_WB,
+    SB_SIL), the (2, 2, G, Bp) f32 children written to ``out``.  CPU
+    tensors run the plain versions (reading the step block is no sync
+    there); CUDA tensors launch the state kernel, its grid sized for
+    ``bound`` rows.  A step of no rows writes no slot."""
+    if part_bins.device.type == "cpu":
+        sc, idx, side = step_fields(step)
+        child = None if side == 0 else (nl, side - 1)
+        out.copy_(leaf_hist_rmw_plain(
+            part_bins, part_ghi, scalars_start(sc), sc[S_CNT],
+            num_bins=num_bins, num_groups=num_groups, state=state, idx=idx,
+            child=child))
+        return
+    G = num_groups
+    _, Bp = hist_geometry(num_bins)
+    check_state(state, G, Bp)
+    kernels.require_cuda(out, torch.float32, "children", (2, 2, G, Bp))
+    histogram.launch(part_bins, part_ghi, step, num_bins=num_bins,
+                     num_groups=G, nl=nl, absmax=absmax, kcnt=kcnt, out=out,
+                     bound=bound, state=state, ws=ws)
+    _count()

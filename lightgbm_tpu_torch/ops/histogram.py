@@ -43,6 +43,11 @@ per tree); without it the kernel's wrapper takes it over
 ``leaf_hist_fixed_plain``.  The CUDA kernel needs N_pad a multiple of
 16 and 16-byte aligned buffers.
 
+The kernel reads its rows from a step block on the device (ops/
+partition.py ``SB_*``: the range, and in SB_SIDE the child); ``launch``
+takes one, with the grid sized for ``bound`` rows, and the host-int
+entries fill one for a call.
+
 ``leaf_hist_reference`` returns the f64 sums with each bin's absolute
 mass, the yardstick any f32 rounding of the sums is held to:
 ``|h - ref| <= rtol * |ref| + atol * mass``.
@@ -56,10 +61,13 @@ from typing import Optional, Tuple
 import torch
 
 from . import kernels
-from .partition import check_rows, workspace
+from .partition import (check_rows, check_step, make_scalars, step_block,
+                        workspace)
 from .split_mega import fixed_rows, hist_geometry, leaf_absmax
 
-# launches of the CUDA kernel (the plain version is not counted)
+# launches of the CUDA kernel by this wrapper, a launch recorded into a
+# CUDA graph under capture included (a replay launches without the
+# wrapper and is not counted; nor is the plain version)
 launches = 0
 
 
@@ -167,26 +175,19 @@ def leaf_hist_cuda(part_bins, part_ghi, start, cnt, *, num_bins, num_groups,
     _, Bp = hist_geometry(num_bins)
     hist = torch.empty((2, num_groups, Bp), dtype=torch.float32,
                        device=part_bins.device)
-    launch(part_bins, part_ghi, start, cnt, num_bins=num_bins,
-           num_groups=num_groups, child=child, absmax=absmax, kcnt=kcnt,
-           out=hist)
+    host_launch(part_bins, part_ghi, start, cnt, num_bins=num_bins,
+                num_groups=num_groups, child=child, absmax=absmax, kcnt=kcnt,
+                out=hist)
     return hist if planes else as_gb2(hist, num_bins)
 
 
-def launch(part_bins, part_ghi, start, cnt, *, num_bins, num_groups, child,
-           absmax, kcnt, out, state=None, idx=(-1, 0, 0, 0)) -> None:
-    """Check the arguments and launch csrc/leaf_hist.cu into ``out``:
-    ``leaf_hist_fixed`` into (2, G, Bp) planes, or with ``state`` (the
-    int64 histogram state) ``leaf_hist_state`` into (2, 2, G, Bp)
-    children (ops/hist_state.py)."""
-    global launches
-    R, Np = part_bins.shape
-    G = num_groups
-    _, Bp = hist_geometry(num_bins)
+def host_launch(part_bins, part_ghi, start, cnt, *, num_bins, num_groups,
+                child, absmax, kcnt, out, state=None,
+                idx=(-1, 0, 0, 0)) -> None:
+    """One launch for host ints: check the range, fill a step block (the
+    range, the child's side and the state slots ``idx``) and ``launch``
+    with the grid sized for the range's rows."""
     check_rows(part_bins, part_ghi, start, cnt, 0, "leaf_hist")
-    if not (0 < G <= R and Bp <= 256):
-        raise ValueError(f"leaf_hist: bad geometry G={G} R={R} "
-                         f"num_bins={num_bins}")
     kcnt = 0 if kcnt is None else int(kcnt)
     if kcnt and not cnt <= kcnt < (1 << 24):
         raise ValueError(f"leaf_hist: scale count {kcnt} below the range's "
@@ -194,29 +195,57 @@ def launch(part_bins, part_ghi, start, cnt, *, num_bins, num_groups, child,
     nl, side = None, 0
     if child is not None:
         nl, side = child[0], int(child[1]) + 1
-        kernels.require_cuda(nl, torch.int32, "child left count", (1,))
         if side not in (1, 2):
             raise ValueError(f"leaf_hist: child side {child[1]} not 0 or 1")
-    dev = part_bins.device
     if absmax is None:
         absmax = leaf_absmax(part_ghi, start, cnt)
+    step = step_block(make_scalars(start, cnt, 0, 0, 0, 0, 0, 0, 0, 0),
+                      part_bins.device, idx, side)
+    launch(part_bins, part_ghi, step, num_bins=num_bins,
+           num_groups=num_groups, nl=nl, absmax=absmax, kcnt=kcnt, out=out,
+           bound=cnt, state=state)
+
+
+def launch(part_bins, part_ghi, step, *, num_bins, num_groups, nl, absmax,
+           kcnt, out, bound, state=None, ws=None) -> None:
+    """Check the host-known arguments and launch csrc/leaf_hist.cu into
+    ``out`` for the rows the step block ``step`` names (its range, or with
+    SB_SIDE 1 / 2 the left / right child of the partition whose left count
+    is ``nl``): ``leaf_hist_fixed`` into (2, G, Bp) planes, or with
+    ``state`` (the int64 histogram state, slots from the step block)
+    ``leaf_hist_state`` into (2, 2, G, Bp) children (ops/hist_state.py).
+    The grid is sized for ``bound`` rows; ``kcnt`` is 0 (the rows summed
+    set the scale) or at least ``bound``."""
+    global launches
+    R, Np = part_bins.shape
+    G = num_groups
+    _, Bp = hist_geometry(num_bins)
+    check_step(part_bins, part_ghi, step, nl, bound, "leaf_hist")
+    if not (0 < G <= R and Bp <= 256):
+        raise ValueError(f"leaf_hist: bad geometry G={G} R={R} "
+                         f"num_bins={num_bins}")
+    if kcnt and not bound <= kcnt < (1 << 24):
+        raise ValueError(f"leaf_hist: scale count {kcnt} below the bound "
+                         f"{bound} or over 2^24")
     kernels.require_cuda(absmax, torch.float32, "absmax", (2,))
-    ws = workspace(dev)
+    kernels.require_cuda(out, torch.float32, "out")
+    dev = part_bins.device
+    ws = ws or workspace(dev)
     acc = ws.buffer("leaf_acc", G * 2 * Bp, torch.int64, zero=True)
     done = ws.buffer("leaf_done", G, torch.int32, zero=True)
     slots = 0 if state is None else state.shape[0]
     fn = kernels.load("leaf_hist").leaf_hist_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p,
+                                              ctypes.c_int]
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p])
-    err = fn(kernels.ptr(part_bins), R, Np, kernels.ptr(part_ghi), start,
-             cnt, None if nl is None else kernels.ptr(nl), side, kcnt,
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    err = fn(kernels.ptr(part_bins), R, Np, kernels.ptr(part_ghi),
+             kernels.ptr(step), int(bound),
+             None if nl is None else kernels.ptr(nl), int(kcnt),
              kernels.ptr(absmax), kernels.ptr(acc), kernels.ptr(done), G, Bp,
              kernels.ptr(out), None if state is None else kernels.ptr(state),
-             slots, *(int(v) for v in idx), kernels.stream_ptr(dev))
+             slots, kernels.stream_ptr(dev))
     kernels.check(err, "leaf_hist_launch")
     launches += 1

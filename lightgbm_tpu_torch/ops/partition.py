@@ -20,6 +20,13 @@ holds row ids, rows 3.. the fused step's score and objective rows; the
 JAX kernel's ``ghi_live`` keeps only its first rows), in place, with
 the left count returned as a (1,) int32 tensor on the buffers' device
 and every row outside the range untouched.  ``cnt == 0`` moves nothing.
+
+The kernels take their leaf from a step block on the device (``SB_*``,
+``step_block``): ``partition_step`` is the entry that the learner's tree
+loop uses, with the grids and scratch sized for ``bound`` rows, the most
+a step may hold.  ``partition_leaf`` takes host ints, as before, and
+fills a step block for one call.  The plain version reads host scalars
+or a step block.
 """
 
 from __future__ import annotations
@@ -32,7 +39,9 @@ from . import kernels
 
 GHI_ROWS = 8
 
-# launches of the CUDA kernel (the plain version is not counted)
+# launches of the CUDA kernel by this wrapper, a launch recorded into a
+# CUDA graph under capture included (a replay launches without the
+# wrapper and is not counted; nor is the plain version)
 launches = 0
 
 # scalar layout (lightgbm_tpu/ops/partition_pallas.py S_*)
@@ -50,6 +59,20 @@ S_DL = 10       # default_left (0/1)
 N_SCALARS = 11
 
 
+# the step block (csrc/step.cuh SB_*): one small int32 tensor on the
+# buffers' device from which the kernels read their leaf, so that a
+# captured CUDA graph replays a tree while ops/tree_step.py writes each
+# step's block on the device.  A step with cnt == 0 writes no row, no
+# histogram-state slot and no tree column.
+(SB_START, SB_CNT, SB_COL, SB_BSTART, SB_ISB, SB_NB, SB_DBIN, SB_MTYPE,
+ SB_THR, SB_DL, SB_PARENT, SB_WA, SB_WB, SB_SIL, SB_SIDE, SB_VALID, SB_S,
+ SB_LEAF, SB_NEW, SB_PEND, SB_DONE, SB_ERR) = range(22)
+STEP_WORDS = 24
+# SB_ERR bits: a range or column outside the launch's bound, a state slot
+# outside the state, a leaf or feature out of range in tree_step
+ERR_RANGE, ERR_STATE, ERR_STEP = 1, 2, 4
+
+
 def make_scalars(start, cnt, col, bstart, isb, nb, dbin, mtype, thr, dl):
     """The scalar operand as a host list of ints."""
     start = int(start)
@@ -59,6 +82,38 @@ def make_scalars(start, cnt, col, bstart, isb, nb, dbin, mtype, thr, dl):
 
 def scalars_start(sc) -> int:
     return (sc[S_A0B] << 7) + sc[S_REM]
+
+
+def step_words(scalars, idx=(-1, 0, 0, 0), side=0) -> list:
+    """The STEP_WORDS ints of a step block for host ``scalars``, the
+    histogram-state slots ``idx = (parent, wa, wb, small_is_left)`` and
+    the side histogrammed (0 the range, 1 the left child, 2 the right)."""
+    w = [0] * STEP_WORDS
+    w[SB_START] = scalars_start(scalars)
+    w[SB_CNT:SB_DL + 1] = scalars[S_CNT:]
+    w[SB_PARENT:SB_SIL + 1] = [int(v) for v in idx]
+    w[SB_SIDE] = int(side)
+    w[SB_VALID] = int(scalars[S_CNT] > 0)
+    return w
+
+
+def step_block(scalars, device, idx=(-1, 0, 0, 0), side=0) -> torch.Tensor:
+    """A (STEP_WORDS,) int32 step block on ``device`` (see step_words)."""
+    return torch.tensor(step_words(scalars, idx, side), dtype=torch.int32,
+                        device=device)
+
+
+def step_fields(step):
+    """(scalars, idx, side) of a step block (on the CPU, reading it is no
+    sync)."""
+    w = step.tolist()
+    return (make_scalars(w[SB_START], *w[SB_CNT:SB_DL + 1]),
+            tuple(w[SB_PARENT:SB_SIL + 1]), w[SB_SIDE])
+
+
+def as_scalars(sc) -> list:
+    """Host scalars from host scalars or from a step block."""
+    return step_fields(sc)[0] if isinstance(sc, torch.Tensor) else sc
 
 
 def decide_left(colv: torch.Tensor, bstart: int, isb: int, nb: int,
@@ -81,6 +136,7 @@ def decide_left(colv: torch.Tensor, bstart: int, isb: int, nb: int,
 
 def leaf_decisions(part_bins, scalars):
     """(start, cnt, goes-left flags of the leaf's rows)."""
+    scalars = as_scalars(scalars)
     start, cnt = scalars_start(scalars), scalars[S_CNT]
     colv = part_bins[scalars[S_COL], start:start + cnt]
     return start, cnt, decide_left(colv, *scalars[S_COL + 1:])
@@ -104,73 +160,107 @@ def partition_leaf(part_bins, part_ghi, scalars) -> torch.Tensor:
     int32 left count on the buffers' device (see module doc)."""
     if part_bins.device.type == "cpu":
         return partition_leaf_plain(part_bins, part_ghi, scalars)
-    return partition_leaf_cuda(part_bins, part_ghi, scalars)
-
-
-def partition_leaf_cuda(part_bins, part_ghi, scalars) -> torch.Tensor:
-    global launches
-    R, Np = part_bins.shape
     start, cnt, col = scalars_start(scalars), scalars[S_CNT], scalars[S_COL]
     check_rows(part_bins, part_ghi, start, cnt, col, "partition_leaf")
     nl = torch.empty(1, dtype=torch.int32, device=part_bins.device)
-    fn = kernels.load("partition").partition_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = PART_ARGTYPES + [ctypes.c_void_p]
-    err = fn(*part_launch_args(part_bins, part_ghi, nl, scalars),
-             kernels.stream_ptr(part_bins.device))
-    kernels.check(err, "partition_launch")
-    launches += 1
+    partition_step(part_bins, part_ghi,
+                   step_block(scalars, part_bins.device), nl, bound=cnt)
     return nl
 
 
-def check_rows(part_bins, part_ghi, start, cnt, col, what) -> None:
-    """Wrapper-side checks of the row buffers and the leaf range shared by
-    the partition, the split mega-kernel and the leaf histogram: the
-    kernels read rows with 16-byte copies, so N_pad is a multiple of 16
-    and both buffers start 16-byte aligned."""
+def partition_step(part_bins, part_ghi, step, nl_out, *, bound: int,
+                   ws=None) -> None:
+    """Partition the leaf named by the step block ``step`` in place and
+    write its left count to ``nl_out``: the plain version for CPU
+    tensors, csrc/partition.cu for CUDA tensors.  ``bound`` is the most
+    rows a step may hold (the launch's grids and scratch); ``ws`` the
+    workspace (default: the device's)."""
+    if part_bins.device.type == "cpu":
+        nl_out.copy_(partition_leaf_plain(part_bins, part_ghi, step))
+        return
+    global launches
+    ws = ws or workspace(part_bins.device)
+    check_step(part_bins, part_ghi, step, nl_out, bound, "partition")
+    fn = kernels.load("partition").partition_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = PART_ARGTYPES + [ctypes.c_void_p]
+    err = fn(*part_launch_args(part_bins, part_ghi, step, nl_out, bound, ws),
+             kernels.stream_ptr(part_bins.device))
+    kernels.check(err, "partition_launch")
+    launches += 1
+
+
+def check_bufs(part_bins, part_ghi, what) -> None:
+    """Wrapper-side checks of the row buffers shared by the partition, the
+    split mega-kernel and the leaf histogram: the kernels read rows with
+    16-byte copies, so N_pad is a multiple of 16 and both buffers start
+    16-byte aligned."""
     R, Np = part_bins.shape
     kernels.require_cuda(part_bins, torch.uint8, "part_bins")
     kernels.require_cuda(part_ghi, torch.float32, "part_ghi", (GHI_ROWS, Np))
-    if not 0 <= col < R:
-        raise ValueError(f"{what}: column {col} outside [0, {R})")
-    if not (0 <= start and 0 <= cnt < (1 << 24) and start + cnt <= Np):
-        raise ValueError(f"{what}: range [{start}, {start + cnt}) outside "
-                         f"[0, {Np}) or over 2^24 rows")
     if Np % 16 or (part_bins.data_ptr() | part_ghi.data_ptr()) % 16:
         raise ValueError(f"{what}: N_pad {Np} is not a multiple of 16 or a "
                          f"buffer is not 16-byte aligned")
 
 
-# (bins, R, Np, ghi, nl_out, status, ticket, epoch, T, ntiles, sbins,
-#  sghi, scap, start, cnt, col, bstart, isb, nb, dbin, mtype, thr, dl):
-# the leading arguments of partition_launch and split_mega_launch
-PART_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                  ctypes.c_void_p, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
-                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                  ctypes.c_longlong] + [ctypes.c_int] * 9)
-
-
-def part_launch_args(part_bins, part_ghi, nl, scalars, move=True) -> list:
-    """The PART_ARGTYPES values of one launch; with ``move`` the tile
-    status words, ticket and right-side scratch come from the device's
-    workspace and the launch takes a fresh epoch."""
+def check_rows(part_bins, part_ghi, start, cnt, col, what) -> None:
+    """check_bufs, and the host-int call's range and column."""
     R, Np = part_bins.shape
-    start, cnt = scalars_start(scalars), scalars[S_CNT]
-    ws = workspace(part_bins.device)
+    check_bufs(part_bins, part_ghi, what)
+    if not 0 <= col < R:
+        raise ValueError(f"{what}: column {col} outside [0, {R})")
+    if not (0 <= start and 0 <= cnt < (1 << 24) and start + cnt <= Np):
+        raise ValueError(f"{what}: range [{start}, {start + cnt}) outside "
+                         f"[0, {Np}) or over 2^24 rows")
+
+
+def check_step(part_bins, part_ghi, step, nl, bound, what) -> None:
+    """The host-known bounds of a step launch: the buffers, the step block
+    and left count, and the bound on a step's rows.  The step's own range
+    is checked on the device, into its SB_ERR word."""
+    check_bufs(part_bins, part_ghi, what)
+    kernels.require_cuda(step, torch.int32, "step block", (STEP_WORDS,))
+    if nl is not None:
+        kernels.require_cuda(nl, torch.int32, "left count", (1,))
+    if not 0 <= bound <= min(part_bins.shape[1], (1 << 24) - 1):
+        raise ValueError(f"{what}: bound {bound} outside [0, "
+                         f"min(N_pad, 2^24))")
+
+
+# (bins, R, Np, ghi, step, bound, nl_out, status, ticket, epoch, T, sbins,
+#  sghi, scap): the leading arguments of partition_launch and
+#  split_mega_launch
+PART_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+                 + [ctypes.c_void_p] * 4
+                 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_longlong])
+
+
+def scratch_rows(bound: int) -> int:
+    """Columns of the right-side scratch for steps of up to bound rows."""
+    return -(-bound // 16) * 16 + 16
+
+
+def part_launch_args(part_bins, part_ghi, step, nl, bound, ws,
+                     move=True) -> list:
+    """The PART_ARGTYPES values of one launch; with ``move`` the tile
+    status words and the right-side scratch come from the workspace,
+    sized for ``bound`` rows."""
+    R, Np = part_bins.shape
     T = tile_rows(R)
-    ntiles = max(1, -(-(start + cnt - (start & ~15)) // T))
-    scap = -(-cnt // 16) * 16 + 16
-    if move and cnt > 0:
-        status, epoch = ws.status(ntiles)
+    scap = scratch_rows(bound)
+    if move:
+        status = ws.buffer("status", -(-(bound + 15) // T), torch.int64,
+                           zero=True)
         sbins = ws.buffer("sbins", R * scap, torch.uint8)
         sghi = ws.buffer("sghi", GHI_ROWS * scap, torch.int32)
     else:
-        status, epoch, sbins, sghi = ws.ticket, 1, ws.ticket, ws.ticket
+        status = sbins = sghi = ws.ticket
     return [kernels.ptr(part_bins), R, Np, kernels.ptr(part_ghi),
-            kernels.ptr(nl), kernels.ptr(status), kernels.ptr(ws.ticket),
-            epoch, T, ntiles, kernels.ptr(sbins), kernels.ptr(sghi), scap,
-            start, *scalars[S_CNT:]]
+            kernels.ptr(step), bound, kernels.ptr(nl), kernels.ptr(status),
+            kernels.ptr(ws.ticket), kernels.ptr(ws.epoch), T,
+            kernels.ptr(sbins), kernels.ptr(sghi), scap]
 
 
 PART_SMEM = 72 * 1024       # shared memory of one tile: three fit an SM
@@ -196,36 +286,32 @@ class Workspace:
     ticket counter and the histograms' accumulators and done counters
     (``acc`` / ``done`` of the mega-kernel, ``leaf_acc`` / ``leaf_done``
     of the leaf histogram) are zero between launches (each launch leaves
-    them so); the tile status words carry the launch's epoch, so a word
-    left by an earlier launch reads as not yet published.  Launches on
-    one device run in the order of its current stream, which the
-    workspace relies on."""
+    them so); the tile status words carry the partition's epoch, a device
+    word that each partition moves on, so a word left by an earlier
+    launch reads as not yet published.  Launches on one device run in
+    the order of its current stream, which the workspace relies on.  The
+    learner keeps a workspace of its own, sized once for the root's rows
+    and then frozen: a captured CUDA graph holds its addresses, so a
+    frozen workspace raises instead of growing."""
 
     def __init__(self, device):
         self.device = device
         self._bufs = {}
-        self._epoch = 0
+        self.frozen = False
         self.ticket = self.buffer("ticket", 4, torch.int32, zero=True)
+        self.epoch = self.buffer("epoch", 1, torch.int32, zero=True)
+        self.epoch.fill_(1)
 
     def buffer(self, name, numel, dtype, zero=False):
         buf = self._bufs.get(name)
         if buf is None or buf.numel() < numel:
+            if self.frozen:
+                raise RuntimeError(f"workspace buffer {name!r} would grow to "
+                                   f"{numel} after the workspace was frozen")
             make = torch.zeros if zero else torch.empty
             buf = make(max(numel, 1), dtype=dtype, device=self.device)
             self._bufs[name] = buf
         return buf
-
-    def status(self, ntiles):
-        """(status words, epoch) for a partition launch of ntiles tiles;
-        fresh zero words whenever they grow or the epoch would wrap."""
-        words = self._bufs.get("status")
-        if (words is None or words.numel() < ntiles
-                or self._epoch >= (1 << 32) - 1):
-            words = torch.zeros(ntiles, dtype=torch.int64, device=self.device)
-            self._bufs["status"] = words
-            self._epoch = 0
-        self._epoch += 1
-        return words, self._epoch
 
 
 _workspaces = {}

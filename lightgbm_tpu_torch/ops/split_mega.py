@@ -35,6 +35,12 @@ arithmetic in plain PyTorch, bit-identical to the kernel.  The bound is
 buffers' device over at least the leaf's rows (the learner passes one
 per tree); without it the kernel's wrapper takes it over the leaf.  The
 CUDA kernel needs N_pad a multiple of 16 and 16-byte aligned buffers.
+
+``split_mega_step`` is the entry of the learner's tree loop: the leaf
+comes from a step block on the device (ops/partition.py ``SB_*``), the
+outputs go to preallocated buffers, and the grids and scratch are sized
+for ``bound`` rows, so a captured CUDA graph serves every step.  A step
+of no rows moves nothing and writes a zero histogram.
 """
 
 from __future__ import annotations
@@ -46,13 +52,16 @@ from typing import Optional
 import torch
 
 from . import kernels
-from .partition import (GHI_ROWS, PART_ARGTYPES, S_CNT, S_COL, check_rows,
-                        leaf_decisions, part_launch_args,
-                        partition_leaf_plain, scalars_start, workspace)
+from .partition import (GHI_ROWS, PART_ARGTYPES, S_CNT, S_COL, as_scalars,
+                        check_rows, check_step, leaf_decisions,
+                        part_launch_args, partition_leaf_plain,
+                        scalars_start, step_block, workspace)
 
 FIXED_BITS = 62             # a bin's fixed-point sum stays below 2^62
 
-# launches of the CUDA kernel (the plain version is not counted)
+# launches of the CUDA kernel by this wrapper, a launch recorded into a
+# CUDA graph under capture included (a replay launches without the
+# wrapper and is not counted; nor is the plain version)
 launches = 0
 
 
@@ -102,10 +111,12 @@ def hist_reference(part_bins, part_ghi, scalars, *, num_bins: int,
 
 def split_mega_plain(part_bins, part_ghi, scalars, *, num_bins: int,
                      num_groups: int, move: bool = True):
-    """Plain PyTorch version of the kernel (same contract)."""
+    """Plain PyTorch version of the kernel (same contract; ``scalars``
+    host ints or a step block)."""
     G = num_groups
     BH, Bp = hist_geometry(num_bins)
     dev = part_bins.device
+    scalars = as_scalars(scalars)
     hist = torch.zeros(G * 4 * Bp, dtype=torch.float32, device=dev)
     start, cnt, gl = leaf_decisions(part_bins, scalars)
     if cnt == 0:
@@ -181,37 +192,55 @@ def split_mega(part_bins, part_ghi, scalars, *, num_bins: int,
     kw = dict(num_bins=num_bins, num_groups=num_groups, move=move)
     if part_bins.device.type == "cpu":
         return split_mega_plain(part_bins, part_ghi, scalars, **kw)
-    return split_mega_cuda(part_bins, part_ghi, scalars, absmax=absmax, **kw)
+    start, cnt, col = scalars_start(scalars), scalars[S_CNT], scalars[S_COL]
+    check_rows(part_bins, part_ghi, start, cnt, col, "split_mega")
+    dev = part_bins.device
+    if absmax is None:
+        absmax = leaf_absmax(part_ghi, start, cnt)
+    BH, _ = hist_geometry(num_bins)
+    nl = torch.empty(1, dtype=torch.int32, device=dev)
+    hist = torch.empty((num_groups, 4 * BH, 16), dtype=torch.float32,
+                       device=dev)
+    split_mega_step(part_bins, part_ghi, step_block(scalars, dev), nl, hist,
+                    absmax=absmax, bound=cnt, **kw)
+    return nl, hist
 
 
-def split_mega_cuda(part_bins, part_ghi, scalars, *, num_bins, num_groups,
-                    move=True, absmax=None):
+def split_mega_step(part_bins, part_ghi, step, nl_out, hist_out, *,
+                    num_bins: int, num_groups: int, move: bool = True,
+                    absmax=None, bound: int, ws=None) -> None:
+    """split_mega of the leaf named by the step block ``step``, into
+    ``nl_out`` (1,) and ``hist_out`` (G, 4 * BH, 16): the plain version
+    for CPU tensors, csrc/split_mega.cu for CUDA tensors, whose grids and
+    scratch are sized for ``bound`` rows (``absmax`` required there)."""
+    if part_bins.device.type == "cpu":
+        nl, hist = split_mega_plain(part_bins, part_ghi, step,
+                                    num_bins=num_bins, num_groups=num_groups,
+                                    move=move)
+        nl_out.copy_(nl)
+        hist_out.copy_(hist)
+        return
     global launches
     R, Np = part_bins.shape
     G = num_groups
     BH, Bp = hist_geometry(num_bins)
-    start, cnt, col = scalars_start(scalars), scalars[S_CNT], scalars[S_COL]
-    check_rows(part_bins, part_ghi, start, cnt, col, "split_mega")
+    check_step(part_bins, part_ghi, step, nl_out, bound, "split_mega")
     if not (0 < G <= R and Bp <= 256):
         raise ValueError(f"split_mega: bad geometry G={G} R={R} "
                          f"num_bins={num_bins}")
-    dev = part_bins.device
-    if absmax is None:
-        absmax = leaf_absmax(part_ghi, start, cnt)
     kernels.require_cuda(absmax, torch.float32, "absmax", (2,))
-    ws = workspace(dev)
+    kernels.require_cuda(hist_out, torch.float32, "hist", (G, 4 * BH, 16))
+    ws = ws or workspace(part_bins.device)
     acc = ws.buffer("acc", G * 4 * Bp, torch.int64, zero=True)
     done = ws.buffer("done", G, torch.int32, zero=True)
-    nl = torch.empty(1, dtype=torch.int32, device=dev)
-    hist = torch.empty((G, 4 * BH, 16), dtype=torch.float32, device=dev)
     fn = kernels.load("split_mega").split_mega_launch
     fn.restype = ctypes.c_int
     fn.argtypes = PART_ARGTYPES + [ctypes.c_void_p] * 4 + [
         ctypes.c_int] * 3 + [ctypes.c_void_p]
-    err = fn(*part_launch_args(part_bins, part_ghi, nl, scalars, move),
+    err = fn(*part_launch_args(part_bins, part_ghi, step, nl_out, bound, ws,
+                               move),
              kernels.ptr(absmax), kernels.ptr(acc), kernels.ptr(done),
-             kernels.ptr(hist), G, Bp, int(bool(move)),
-             kernels.stream_ptr(dev))
+             kernels.ptr(hist_out), G, Bp, int(bool(move)),
+             kernels.stream_ptr(part_bins.device))
     kernels.check(err, "split_mega_launch")
     launches += 1
-    return nl, hist

@@ -38,7 +38,9 @@ IN_SUM_G, IN_SUM_H, IN_NUM_DATA, IN_DEPTH, IN_MASK = 0, 1, 2, 3, 4
 OUT_FIELDS = 13
 _BIG_KEY = 1 << 30
 
-# launches of the CUDA kernel (the plain version is not counted)
+# launches of the CUDA kernel by this wrapper, a launch recorded into a
+# CUDA graph under capture included (a replay launches without the
+# wrapper and is not counted; nor is the plain version)
 launches = 0
 
 
@@ -151,22 +153,23 @@ def split_pair_plain(hist_g, hist_h, fmeta, info, *, l1: float, l2: float,
 def split_pair(hist_g, hist_h, fmeta, info, *, l1: float, l2: float,
                max_delta_step: float, min_gain_to_split: float,
                min_data_in_leaf: int, min_sum_hessian: float,
-               max_depth: int) -> torch.Tensor:
-    """(2, 13) f32 best-split rows for both children (see module doc).
-    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+               max_depth: int, out=None) -> torch.Tensor:
+    """(2, 13) f32 best-split rows for both children (see module doc),
+    written into ``out`` when it is given (the learner's preallocated
+    rows).  CPU tensors run the plain version; CUDA tensors launch the
+    kernel."""
     kw = dict(l1=l1, l2=l2, max_delta_step=max_delta_step,
               min_gain_to_split=min_gain_to_split,
               min_data_in_leaf=min_data_in_leaf,
               min_sum_hessian=min_sum_hessian, max_depth=max_depth)
     if hist_g.device.type == "cpu":
-        return split_pair_plain(hist_g, hist_h, fmeta, info, **kw)
-    return split_pair_cuda(hist_g, hist_h, fmeta, info, **kw)
+        rows = split_pair_plain(hist_g, hist_h, fmeta, info, **kw)
+        return rows if out is None else out.copy_(rows)
+    return split_pair_cuda(hist_g, hist_h, fmeta, info, out=out, **kw)
 
 
-def split_pair_cuda(hist_g, hist_h, fmeta, info, *, l1, l2, max_delta_step,
-                    min_gain_to_split, min_data_in_leaf, min_sum_hessian,
-                    max_depth) -> torch.Tensor:
-    global launches
+def check_args(hist_g, hist_h, fmeta, info) -> None:
+    """The wrapper's checks of its inputs on the card."""
     F2, BF = hist_g.shape
     if F2 % 2 or F2 == 0 or not 1 <= BF <= 256:
         raise ValueError(f"split_pair needs (2F, BF<=256) histograms, got "
@@ -175,16 +178,38 @@ def split_pair_cuda(hist_g, hist_h, fmeta, info, *, l1, l2, max_delta_step,
     kernels.require_cuda(hist_h, torch.float32, "hist_h", (F2, BF))
     kernels.require_cuda(fmeta, torch.int32, "fmeta", (F2, 8))
     kernels.require_cuda(info, torch.float32, "info", (F2, 8))
+
+
+def launcher():
+    """The built kernel's ctypes entry, its signature set."""
     fn = kernels.load("split_pair").split_pair_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
                    + [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_void_p])
-    dev = hist_g.device
-    out = torch.empty((2, OUT_FIELDS), dtype=torch.float32, device=dev)
-    err = fn(kernels.ptr(hist_g), kernels.ptr(hist_h), kernels.ptr(fmeta),
-             kernels.ptr(info), kernels.ptr(out), F2 // 2, BF, l1, l2,
-             max_delta_step, min_gain_to_split, float(min_data_in_leaf),
-             min_sum_hessian, int(max_depth), kernels.stream_ptr(dev))
+    return fn
+
+
+def launch_args(hist_g, hist_h, fmeta, info, out, *, l1, l2, max_delta_step,
+                min_gain_to_split, min_data_in_leaf, min_sum_hessian,
+                max_depth) -> list:
+    """The arguments of ``launcher()`` for one launch."""
+    F2, BF = hist_g.shape
+    return [kernels.ptr(hist_g), kernels.ptr(hist_h), kernels.ptr(fmeta),
+            kernels.ptr(info), kernels.ptr(out), F2 // 2, BF, l1, l2,
+            max_delta_step, min_gain_to_split, float(min_data_in_leaf),
+            min_sum_hessian, int(max_depth), kernels.stream_ptr(hist_g.device)]
+
+
+def split_pair_cuda(hist_g, hist_h, fmeta, info, *, out=None,
+                    **kw) -> torch.Tensor:
+    global launches
+    check_args(hist_g, hist_h, fmeta, info)
+    fn = launcher()
+    if out is None:
+        out = torch.empty((2, OUT_FIELDS), dtype=torch.float32,
+                          device=hist_g.device)
+    kernels.require_cuda(out, torch.float32, "out", (2, OUT_FIELDS))
+    err = fn(*launch_args(hist_g, hist_h, fmeta, info, out, **kw))
     kernels.check(err, "split_pair_launch")
     launches += 1
     return out

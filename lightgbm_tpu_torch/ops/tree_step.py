@@ -1,0 +1,264 @@
+"""The tree loop's bookkeeping step: what the learner did on the host
+between two splits, as one small launch on the device.
+
+No TPU kernel corresponds to it: in the JAX package these are XLA
+operations inside the while-loop body of ``_build_tree_impl``
+(lightgbm_tpu/models/learner.py).  The port runs them as the
+hand-written kernel ``csrc/tree_step.cu`` so that a captured CUDA graph
+grows a whole tree (models/learner.py).  ``tree_step`` dispatches on the
+device of its inputs: CPU tensors run ``tree_step_plain``, CUDA tensors
+launch the kernel or raise.  The two agree bit for bit: the step is
+integer bookkeeping, comparisons and f32 copies.
+
+The packed per-leaf and per-node matrices: ``leafmat`` (NLF, L + 1) and
+``nodemat`` (NND, nodes + 1) f32, int fields bitcast into f32
+(``_i2f`` / ``_f2i``); the step block is ops/partition.py's ``SB_*``.
+One call, by ``mode``:
+
+  * ``MODE_ROOT``: reset both matrices to an empty tree, write the root
+    search's (2F, 8) info block from the root histogram's sums ``sums``
+    (2,) and the bag-aware count, and mark the root's column as due;
+  * ``MODE_STEP``: commit what is due -- the root's column from the root
+    search's row, or the two children of the split just made from the
+    partition's left count ``nl`` and the pair search's (2, 13) rows
+    ``pair`` -- then elect the next split: the first index of the largest
+    ``LM_BGAIN`` over the L leaves (a NaN counts as the largest, as
+    ``np.argmax`` takes it), made when ``s < nodes``, the gain is > 0 (a
+    NaN gain is not) and the tree has not stopped.  It writes node column
+    ``s``, the parent's child pointer, the children's info block and the
+    step block of the split (range, decision from ``fmeta`` (7, F),
+    histogram-state slots, ``small_is_left`` by the bag-aware counts,
+    ties left, and the side to histogram); a split not made sets
+    ``cnt = 0`` and stops the tree, so every later step writes nothing;
+  * ``MODE_FINAL``: commit what is due.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import kernels
+from .partition import (ERR_STEP, SB_CNT, SB_COL, SB_DBIN, SB_DL, SB_DONE,
+                        SB_ERR, SB_LEAF, SB_MTYPE, SB_NB, SB_NEW, SB_PARENT,
+                        SB_PEND, SB_S, SB_SIDE, SB_SIL, SB_START, SB_THR,
+                        SB_VALID, SB_WA, SB_WB, SB_BSTART, SB_ISB,
+                        STEP_WORDS)
+
+NEG_INF = float("-inf")
+
+(LM_START, LM_CNT, LM_CNT_G, LM_SUM_G, LM_SUM_H, LM_DEPTH, LM_CMIN, LM_CMAX,
+ LM_VALUE, LM_PARENT, LM_PSIDE, LM_BGAIN, LM_BFEAT, LM_BTHR, LM_BDL,
+ LM_BLCNT, LM_BRCNT, LM_BLSG, LM_BLSH, LM_BRSG, LM_BRSH, LM_BLOUT,
+ LM_BROUT, LM_BISCAT, LM_FORCED) = range(25)
+NLF = 25
+
+(ND_FEATURE, ND_FEATURE_ENUM, ND_THRESHOLD, ND_DL, ND_GAIN, ND_LEFT,
+ ND_RIGHT, ND_IVALUE, ND_IWEIGHT, ND_ICOUNT, ND_COL, ND_BIN_START,
+ ND_IS_BUNDLED, ND_NUM_BIN, ND_DEFAULT_BIN, ND_MISSING, ND_IS_CAT) = range(17)
+NND = 17
+
+FMETA_ROWS = 7      # feature, group, bin_start, is_bundled, num_bin,
+#                     default_bin, missing_type
+MODE_ROOT, MODE_STEP, MODE_FINAL = 0, 1, 2
+
+# launches of the CUDA kernel by this wrapper, a launch recorded into a
+# CUDA graph under capture included (a replay launches without the
+# wrapper and is not counted; nor is the plain version)
+launches = 0
+
+
+def _i2f(x) -> np.float32:
+    """int -> the f32 whose bits are that int32 (leafmat/nodemat fields)."""
+    return np.asarray(x, np.int32).view(np.float32)
+
+
+def _f2i(x):
+    """f32 field -> the int32 its bits hold."""
+    return np.asarray(x, np.float32).view(np.int32)
+
+
+def leaf_column(start, cnt, cnt_g, sum_g, sum_h, depth, value, parent,
+                side, seg13) -> np.ndarray:
+    """One leafmat column: the leaf's own fields, then the 13-field best
+    split segment [LM_BGAIN..LM_BISCAT] exactly as the search wrote it
+    (f32 copies keep the bitcast int fields bit for bit)."""
+    col = np.zeros(NLF, np.float32)
+    col[[LM_SUM_G, LM_SUM_H, LM_CMIN, LM_CMAX, LM_VALUE]] = [
+        sum_g, sum_h, NEG_INF, np.inf, value]
+    col.view(np.int32)[[LM_START, LM_CNT, LM_CNT_G, LM_DEPTH, LM_PARENT,
+                        LM_PSIDE, LM_FORCED]] = [
+        start, cnt, cnt_g, depth, parent, side, -1]
+    col[LM_BGAIN:LM_BISCAT + 1] = seg13
+    return col
+
+
+def empty_leafmat(L: int) -> np.ndarray:
+    """The (NLF, L + 1) leafmat of a tree with no leaves yet."""
+    lm = np.zeros((NLF, L + 1), np.float32)
+    lm[LM_BGAIN] = NEG_INF
+    lm[LM_CMIN] = NEG_INF
+    lm[LM_CMAX] = np.inf
+    lm.view(np.int32)[[LM_PARENT, LM_FORCED]] = -1
+    return lm
+
+
+def node_column(pcol, gain, fmeta_col, best_leaf, new_leaf) -> np.ndarray:
+    """The internal node's nodemat column for splitting the leaf whose
+    leafmat column is ``pcol`` on its best split, ``fmeta_col`` the split
+    feature's (feature, group, bin_start, is_bundled, num_bin,
+    default_bin, missing_type)."""
+    f_enum = int(_f2i(pcol[LM_BFEAT]))
+    thr = int(_f2i(pcol[LM_BTHR]))
+    dl = bool(pcol[LM_BDL] > 0.5)
+    orig_feat, col, bstart, isb, nb, dbin, mtype = (int(v) for v in fmeta_col)
+    ncol = np.zeros(NND, np.float32)
+    ncol[[ND_DL, ND_GAIN, ND_IVALUE, ND_IWEIGHT]] = [
+        float(dl), gain, pcol[LM_VALUE], pcol[LM_SUM_H]]
+    ncol.view(np.int32)[[
+        ND_FEATURE, ND_FEATURE_ENUM, ND_THRESHOLD, ND_LEFT, ND_RIGHT,
+        ND_ICOUNT, ND_COL, ND_BIN_START, ND_IS_BUNDLED, ND_NUM_BIN,
+        ND_DEFAULT_BIN, ND_MISSING]] = [
+        orig_feat, f_enum, thr, -(best_leaf + 1), -(new_leaf + 1),
+        int(_f2i(pcol[LM_CNT_G])), col, bstart, isb, nb, dbin, mtype]
+    return ncol
+
+
+def info_block(F: int, halves) -> np.ndarray:
+    """(2F, 8) f32 info block of the pair search from two (sum_g, sum_h,
+    cnt, depth): each child's rows carry its sums, count, depth and a
+    feature mask of 1."""
+    info = np.zeros((2 * F, 8), np.float32)
+    for c, (sg, sh, cnt, depth) in enumerate(halves):
+        rows = slice(c * F, (c + 1) * F)
+        info[rows, 0] = sg
+        info[rows, 1] = sh
+        info[rows, 2] = np.float32(cnt)
+        info[rows, 3] = np.float32(depth)
+        info[rows, 4] = 1.0
+    return info
+
+
+def tree_step_plain(mode, lm, nm, step, nl, pair, fmeta, info, sums, *,
+                    row0: int, N: int, bag_cnt: int) -> None:
+    """Plain version of the kernel, in place on CPU tensors (see module
+    doc)."""
+    L, nodes, F = lm.shape[1] - 1, nm.shape[1] - 1, fmeta.shape[1]
+    lmf, nmf = lm.numpy(), nm.numpy()
+    nmi = nmf.view(np.int32)
+    w = step.numpy()
+    inf = info.numpy()
+    if mode == MODE_ROOT:
+        lmf[:] = empty_leafmat(L)
+        nmf[:] = 0.0
+        s = sums.numpy()
+        inf[:] = info_block(F, [(0, 0, bag_cnt, 0)] * 2)
+        inf[:, 0] = s[0]
+        inf[:, 1] = s[1]
+        w[:] = 0
+        w[SB_PEND] = 1
+        return
+    p = pair.numpy()
+    if w[SB_PEND] == 1:
+        s = sums.numpy()
+        lmf[:, 0] = leaf_column(row0, N, bag_cnt, s[0], s[1], 0, 0.0, -1, 0,
+                                p[0])
+    elif w[SB_PEND] == 2:
+        leaf, new, node = int(w[SB_LEAF]), int(w[SB_NEW]), int(w[SB_S]) - 1
+        pcol = lmf[:, leaf].copy()
+        pci = pcol.view(np.int32)
+        left = int(nl[0])
+        start, cnt = int(pci[LM_START]), int(pci[LM_CNT])
+        depth = int(pci[LM_DEPTH]) + 1
+        lmf[:, leaf] = leaf_column(start, left, pci[LM_BLCNT], pcol[LM_BLSG],
+                                   pcol[LM_BLSH], depth, pcol[LM_BLOUT],
+                                   node, 0, p[0])
+        lmf[:, new] = leaf_column(start + left, cnt - left, pci[LM_BRCNT],
+                                  pcol[LM_BRSG], pcol[LM_BRSH], depth,
+                                  pcol[LM_BROUT], node, 1, p[1])
+    if mode == MODE_FINAL:
+        w[SB_PEND] = 0
+        return
+
+    bgain = lmf[LM_BGAIN, :L]
+    best = int(np.argmax(bgain))
+    gain = bgain[best]
+    s = int(w[SB_S])
+    valid = s < nodes and gain > 0 and not w[SB_DONE] and F > 0
+    if valid:
+        pcol = lmf[:, best].copy()
+        pci = pcol.view(np.int32)
+        fe, parent = int(pci[LM_BFEAT]), int(pci[LM_PARENT])
+        if not 0 <= fe < F or parent >= nodes:
+            w[SB_ERR] |= ERR_STEP
+            valid = False
+    if not valid:
+        w[SB_CNT] = 0
+        w[SB_VALID] = 0
+        w[SB_DONE] = 1
+        w[SB_PEND] = 0
+        return
+    new = s + 1
+    fm = fmeta.numpy()[:, fe]
+    nmf[:, s] = node_column(pcol, gain, fm, best, new)
+    if parent >= 0:
+        nmi[ND_LEFT if int(pci[LM_PSIDE]) == 0 else ND_RIGHT, parent] = s
+    lcg, rcg = int(pci[LM_BLCNT]), int(pci[LM_BRCNT])
+    depth = int(pci[LM_DEPTH]) + 1
+    inf[:] = info_block(F, [(pcol[LM_BLSG], pcol[LM_BLSH], lcg, depth),
+                            (pcol[LM_BRSG], pcol[LM_BRSH], rcg, depth)])
+    sil = int(lcg <= rcg)
+    w[SB_START] = pci[LM_START]
+    w[SB_CNT] = pci[LM_CNT]
+    w[[SB_COL, SB_BSTART, SB_ISB, SB_NB, SB_DBIN, SB_MTYPE]] = fm[1:]
+    w[SB_THR] = pci[LM_BTHR]
+    w[SB_DL] = int(pcol[LM_BDL] > 0.5)
+    w[[SB_PARENT, SB_WA, SB_WB, SB_SIL]] = [best, best, new, sil]
+    w[SB_SIDE] = 1 if sil else 2
+    w[SB_VALID] = 1
+    w[SB_S] = new
+    w[SB_LEAF] = best
+    w[SB_NEW] = new
+    w[SB_PEND] = 2
+
+
+def tree_step(mode, lm, nm, step, nl, pair, fmeta, info, sums, *,
+              row0: int, N: int, bag_cnt: int) -> None:
+    """One bookkeeping step in place (see module doc)."""
+    kw = dict(row0=row0, N=N, bag_cnt=bag_cnt)
+    if lm.device.type == "cpu":
+        return tree_step_plain(mode, lm, nm, step, nl, pair, fmeta, info,
+                               sums, **kw)
+    return tree_step_cuda(mode, lm, nm, step, nl, pair, fmeta, info, sums,
+                          **kw)
+
+
+def tree_step_cuda(mode, lm, nm, step, nl, pair, fmeta, info, sums, *, row0,
+                   N, bag_cnt) -> None:
+    global launches
+    L, nodes, F = lm.shape[1] - 1, nm.shape[1] - 1, fmeta.shape[1]
+    if mode not in (MODE_ROOT, MODE_STEP, MODE_FINAL) or nodes != L - 1:
+        raise ValueError(f"tree_step: mode {mode}, {L} leaves and {nodes} "
+                         f"nodes")
+    for t, dtype, name, shape in (
+            (lm, torch.float32, "leafmat", (NLF, L + 1)),
+            (nm, torch.float32, "nodemat", (NND, nodes + 1)),
+            (step, torch.int32, "step block", (STEP_WORDS,)),
+            (nl, torch.int32, "left count", (1,)),
+            (pair, torch.float32, "pair rows", (2, 13)),
+            (fmeta, torch.int32, "fmeta", (FMETA_ROWS, F)),
+            (info, torch.float32, "info", (2 * F, 8)),
+            (sums, torch.float32, "sums", (2,))):
+        kernels.require_cuda(t, dtype, name, shape)
+    fn = kernels.load("tree_step").tree_step_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    err = fn(*(kernels.ptr(t) for t in (lm, nm, step, nl, pair, fmeta, info,
+                                        sums)),
+             L, nodes, F, int(row0), int(N), int(bag_cnt), int(mode),
+             kernels.stream_ptr(lm.device))
+    kernels.check(err, "tree_step_launch")
+    launches += 1

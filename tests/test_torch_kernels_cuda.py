@@ -36,6 +36,9 @@ from lightgbm_tpu_torch.ops import partition as tpart
 from lightgbm_tpu_torch.ops import split_mega as sm
 from lightgbm_tpu_torch.ops.partition import make_scalars
 from lightgbm_tpu_torch.ops import split_pair as sp
+from lightgbm_tpu_torch.ops import tree_step as ts
+
+import test_torch_tree_loop as _tl
 
 PARAMS = [
     dict(l1=0.0, l2=1e-3, max_delta_step=0.0, min_gain_to_split=0.0,
@@ -451,3 +454,162 @@ def test_new_wrappers_raise_on_bad_arguments(card):
                 dict(state=state, idx=(0, 0, 1, 1), kcnt=50)):
         with pytest.raises(ValueError):
             hs.leaf_hist_rmw(pb, pg, 0, 100, **kw, **bad)
+
+
+# ---- the step block and the device-resident tree loop -------------------
+
+STEP_BOUND = (1 << 19) - 8192   # a fixed bound well above every case's rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(["root", "final", "sil tie",
+                                         "s == nodes", "stopped"]
+                                        + list(_tl.GAIN_CASES)))
+def test_tree_step_kernel_bit_identical_to_plain(card, case):
+    """csrc/tree_step.cu against tree_step_plain on the CPU, bit for bit
+    on leafmat, nodemat, the step block and the info block."""
+    mode = {"root": ts.MODE_ROOT, "final": ts.MODE_FINAL}.get(case,
+                                                             ts.MODE_STEP)
+    if case == "sil tie":
+        c = _tl.tree_case(2, sil_tie=True)
+    elif case == "s == nodes":
+        c = _tl.tree_case(4, L=6, made=5)
+    elif case == "stopped":
+        c = _tl.tree_case(7, gains=_tl.GAIN_CASES["max gain 0 stops"])
+        ts.tree_step_plain(ts.MODE_STEP, *c, row0=_tl.ROW0, N=_tl.N,
+                           bag_cnt=_tl.BAG)
+    else:
+        c = _tl.tree_case(1, gains=_tl.GAIN_CASES.get(case))
+    dev = [t.to(card) for t in c]
+    kw = dict(row0=_tl.ROW0, N=_tl.N, bag_cnt=_tl.BAG)
+    ts.tree_step(mode, *dev, **kw)
+    ts.tree_step_plain(mode, *c, **kw)
+    for got, want in zip(dev, c):
+        assert torch.equal(_tl._bits(got.cpu()), _tl._bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["split_mega", "partition",
+                                    "leaf_hist_rmw"])
+@pytest.mark.parametrize("case", ["offset0", "offset7", "tile_plus_1",
+                                  "unaligned_tile_minus_1", "one_row",
+                                  "ends_at_n_pad", "all_left",
+                                  "regression_scale"])
+def test_step_block_launch_matches_host_int_launch(card, kernel, case):
+    """A kernel fed a step block, its grid and scratch sized for a fixed
+    bound (as the tree loop launches it), gives the bits of its host-int
+    launch, whose grid is sized for the call's own rows."""
+    G, B = 28, 255
+    pb, pg, sc = _risk_buffers(case, G)
+    start, cnt = tpart.scalars_start(sc), sc[tpart.S_CNT]
+    b, g = pb.to(card), pg.to(card)
+    absmax = g[:2].abs().amax(dim=1)
+    if kernel == "split_mega":
+        want = sm.split_mega(b, g, sc, num_bins=B, num_groups=G,
+                             absmax=absmax)
+    elif kernel == "partition":
+        want = (tpart.partition_leaf(b, g, sc),)
+    else:
+        state0 = hs.new_state(8, G, B, card)
+        root = hs.leaf_hist_rmw(b, g, start, cnt, num_bins=B, num_groups=G,
+                                state=state0, idx=(-1, 2, 2, 0),
+                                absmax=absmax, kcnt=1 << 20)
+        nl0 = tpart.partition_leaf(b, g, sc)
+        ch = hs.leaf_hist_rmw(b, g, start, cnt, num_bins=B, num_groups=G,
+                              state=state0, idx=(2, 2, 5, 1),
+                              child=(nl0, 0), absmax=absmax, kcnt=1 << 20)
+        want = (root, nl0, ch, state0)
+    b2, g2 = pb.to(card), pg.to(card)
+    nl = torch.zeros(1, dtype=torch.int32, device=card)
+    if kernel == "split_mega":
+        hist = torch.zeros((G, 64, 16), device=card)
+        sm.split_mega_step(b2, g2, tpart.step_block(sc, card), nl, hist,
+                           num_bins=B, num_groups=G, absmax=absmax,
+                           bound=STEP_BOUND)
+        got = (nl, hist)
+    elif kernel == "partition":
+        tpart.partition_step(b2, g2, tpart.step_block(sc, card), nl,
+                             bound=STEP_BOUND)
+        got = (nl,)
+    else:
+        state = hs.new_state(8, G, B, card)
+        kw = dict(num_bins=B, num_groups=G, state=state, absmax=absmax,
+                  kcnt=1 << 20, bound=STEP_BOUND)
+        root = torch.zeros((2, 2, G, 256), device=card)
+        hs.leaf_hist_rmw_step(
+            b2, g2, tpart.step_block(sc, card, (-1, 2, 2, 0), 0), None,
+            out=root, **kw)
+        tpart.partition_step(b2, g2, tpart.step_block(sc, card), nl,
+                             bound=STEP_BOUND)
+        ch = torch.zeros((2, 2, G, 256), device=card)
+        hs.leaf_hist_rmw_step(
+            b2, g2, tpart.step_block(sc, card, (2, 2, 5, 1), 1), nl,
+            out=ch, **kw)
+        got = (root, nl, ch, state)
+    assert torch.equal(b2, b)
+    assert torch.equal(g2.view(torch.int32), g.view(torch.int32))
+    for x, y in zip(got, want):
+        assert torch.equal(_tl._bits(x), _tl._bits(y))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["split_mega", "partition",
+                                    "leaf_hist_rmw"])
+@pytest.mark.parametrize("step_case", ["stopped", "outside the bound"])
+def test_step_of_no_rows_writes_nothing(card, kernel, step_case):
+    """A step with cnt == 0 (the tree has stopped) leaves the rows and
+    every state slot byte-identical and reports a left count of 0; a step
+    whose range lies outside the launch's bound does the same and sets
+    the step block's error word."""
+    G, B = 28, 255
+    pb, pg = _row_buffers(6)
+    if step_case == "stopped":
+        sc = make_scalars(4096 + 5, 0, 5, 0, 0, 255, 0, 0, 120, 1)
+    else:
+        sc = make_scalars(4096 + 5, 9000, 5, 0, 0, 255, 0, 0, 120, 1)
+    b, g = pb.to(card), pg.to(card)
+    step = tpart.step_block(sc, card, (2, 2, 5, 1), 0)
+    nl = torch.full((1,), 7, dtype=torch.int32, device=card)
+    state = hs.new_state(8, G, B, card)
+    state.random_(-1000, 1000)
+    state0 = state.clone()
+    absmax = g[:2].abs().amax(dim=1)
+    bound = 8000
+    if kernel == "split_mega":
+        hist = torch.zeros((G, 64, 16), device=card)
+        sm.split_mega_step(b, g, step, nl, hist, num_bins=B, num_groups=G,
+                           absmax=absmax, bound=bound)
+        assert not hist.any()
+    elif kernel == "partition":
+        tpart.partition_step(b, g, step, nl, bound=bound)
+    else:
+        out = torch.zeros((2, 2, G, 256), device=card)
+        hs.leaf_hist_rmw_step(b, g, step, None, num_bins=B, num_groups=G,
+                              state=state, absmax=absmax, kcnt=1 << 20,
+                              out=out, bound=bound)
+    assert torch.equal(b.cpu(), pb)
+    assert torch.equal(g.cpu().view(torch.int32), pg.view(torch.int32))
+    assert torch.equal(state, state0)
+    if kernel != "leaf_hist_rmw":
+        assert int(nl) == 0
+    err = int(step[tpart.SB_ERR])
+    assert err == (0 if step_case == "stopped" else tpart.ERR_RANGE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["mega", "subtraction"])
+@pytest.mark.parametrize("example", ["binary", "regression"])
+def test_graph_replay_trees_equal_eager_oracle(card, body, example):
+    """Three trees grown by replaying the captured graph equal the eager
+    oracle's on the card, bit for bit: leafmat, nodemat, the tree record
+    and the row order of both row buffers after each tree; one host read
+    a tree."""
+    rel, obj = _tl.EXAMPLES[example]
+    X, y = _tl._load(rel)
+    params = {"objective": obj, "num_leaves": 15, "verbosity": -1}
+    if body == "subtraction":
+        params["tpu_megakernel"] = "off"
+    for a, b in _tl.lockstep(X, y, params, "cuda"):
+        _tl.assert_same_tree(a, b)
+    learner = a._gbdt.learner
+    assert learner.syncs == 3 and learner.replays == 3

@@ -288,11 +288,14 @@ def test_weights_and_init_score_match_jax():
 
 
 def test_subtraction_path_calls_each_kernel_once_per_split(monkeypatch):
-    """Per tree: partition once per split, the fused histogram and state
-    update (leaf_hist_rmw) and split_pair once per split plus once for
-    the root, split_mega never; one host sync per split plus one for the
-    root."""
+    """The eager oracle (``build_tree_eager``), per tree: partition once
+    per split, the fused histogram and state update (leaf_hist_rmw) and
+    split_pair once per split plus once for the root, split_mega never;
+    one host sync per split plus one for the root.  The device loop's
+    counts are tests/test_torch_tree_loop.py's."""
     from lightgbm_tpu_torch.models import learner as lm
+    monkeypatch.setattr(lm.SerialTreeLearner, "build_tree",
+                        lm.SerialTreeLearner.build_tree_eager)
     calls = dict.fromkeys(["partition_leaf", "leaf_hist_rmw", "split_pair",
                            "split_mega"], 0)
     for name in calls:

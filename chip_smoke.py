@@ -48,15 +48,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the port on the card against the port on the CPU on
      examples/binary_classification (and how examples/regression's
      exactly-empty-bin ties fall on the subtraction path);
+  4b. the frontier (tpu_frontier_k=4, then the auto K) on the mega path
+     at the HIGGS shape: each tree bit-identical to the K=1 graph loop's
+     (leafmat, nodemat, both row buffers), and on
+     examples/binary_classification at 12 leaves, where the replay prunes
+     speculative splits, bit-identical to K=1 on the card; every
+     wrapper's count set to 0 before and read after, the device launches
+     by function from torch.profiler's kernel events equal to what the
+     graph's steps taken hold (the IF nodes of the steps a tree stopped
+     before launch nothing), one host sync a tree; the bookkeeping kernel
+     bit-identical to frontier_step_plain on every state of the first
+     tree, the key row and the undo (of a leaf partitioned on purpose)
+     equal to their plain versions and the undo to the rows before the
+     partition, split_pair over the 2K children equal to its plain
+     version; their times (the bookkeeping's by CUDA events, launched
+     alone on the states of the launches the graph takes in that tree,
+     queued back to back), a stopped
+     step's, and ms an iteration beside K=1's;
   5. each kernel against its plain version on inputs captured from the
      first tree of its path, through its host-int entry and through the
      step entry the graph loop launches (a step block made beforehand,
      the grid sized for the HIGGS rows), and its time at those shapes
      (the step entry by graph replay) beside the least time the card
-     could take for the same work; the host microseconds of one wrapper
-     call of the eager oracle split into the wrapper's parts;
+     could take for the same work;
   6. python -m lightgbm_tpu_torch.bench at BENCH_REPEATS=2
-     BENCH_ITERS=5, its JSON lines printed.
+     BENCH_ITERS=5 (the mega path at K 1, 2, 4, 8, then the subtraction
+     path), its JSON lines printed.
 The line before the last is a JSON object of per-kernel numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -140,6 +157,32 @@ def graph_ms(fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def queued_ms(calls, spin_cycles=200_000_000):
+    """(device ms summed over the calls, number of calls) for one-shot
+    launches that cannot be repeated on the same state.  The calls are
+    queued behind a device spin, each between two CUDA events, so the card
+    runs them back to back and the events see no host launch cost; the
+    spin doubles until the host has queued every call before it ends."""
+    for _ in range(4):
+        torch.cuda.synchronize()
+        spun = torch.cuda.Event()
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in calls]
+        torch.cuda._sleep(spin_cycles)
+        spun.record()
+        for (e0, e1), call in zip(ev, calls):
+            e0.record()
+            call()
+            e1.record()
+        drained = spun.query()
+        torch.cuda.synchronize()
+        if not drained:
+            return sum(e0.elapsed_time(e1) for e0, e1 in ev), len(calls)
+        spin_cycles *= 2
+    raise RuntimeError("queued_ms: the host could not queue the calls "
+                       "within the device spin")
 
 
 def bound(nbytes, ops):
@@ -695,7 +738,7 @@ def step_costs(lr, pb, pg, label, ts, tpart, hs, sm):
     for bound in (1024, lr.N):
         if label == "mega":
             out[f"split_mega_1k@{bound}"] = graph_ms(
-                lambda: sm.split_mega_step(b, g, step, lr.nl, lr.hist4,
+                lambda: sm.split_mega_step(b, g, step, lr.nl, lr.hist4[0],
                                            absmax=lr._absmax, bound=bound,
                                            **kw), 100)
         else:
@@ -896,33 +939,341 @@ def card_vs_cpu(lgt, d, extra, label):
         f"identical, max raw err {err:.2e}")
 
 
-def wrapper_host_us(sp, args, kw, n=200):
-    """Host microseconds a call of split_pair's wrapper, no sync, and of
-    the wrapper's own parts: its argument checks and the ctypes entry's
-    setup, the output's allocation, the launch arguments (pointers and
-    the stream lookup), and the ctypes launch alone."""
-    dev = args[0].device
-    out = torch.empty((2, sp.OUT_FIELDS), device=dev)
-    fn = sp.launcher()
-    cargs = sp.launch_args(*args, out, **kw)
+FR_K, FR_TREES = 4, 4          # the frontier phase: K, and trees a booster
 
-    def us(f):
+
+def fr_funcs(K, steps, pruned):
+    """Device launches of one frontier tree by device function: the root's
+    histogram, the K split bodies of each step taken (a record of no rows
+    launches too), the root's and each step's pair search, the
+    bookkeeping (reset, the root's selection, each step, the renumber),
+    the key row written and cleared, and the undo's two launches when the
+    tree pruned."""
+    return {"mega_hist": 1 + K * steps, "part_tiles": K * steps,
+            "part_copyback": K * steps, "pair_search": 1 + steps,
+            "frontier_step": steps + 3, "frontier_key": 2,
+            "undo_merge": int(pruned), "undo_copy": int(pruned)}
+
+
+def same_tree(lr_a, bufs_a, want, what):
+    la, na = lr_a.leafmat, lr_a.nodemat
+    pa, ga = bufs_a
+    lw, nw, pw, gw = want
+    check(torch.equal(la.view(torch.int32), lw.view(torch.int32))
+          and torch.equal(na.view(torch.int32), nw.view(torch.int32)),
+          f"{what}: leafmat or nodemat differs from K=1's")
+    check(torch.equal(pa, pw) and torch.equal(ga.view(torch.int32),
+                                              gw.view(torch.int32)),
+          f"{what}: the row order after the tree differs from K=1's")
+
+
+def k1_trees(lgt, ds, params, n):
+    """n trees of the K=1 graph loop on the Dataset ds: each tree's
+    leafmat, nodemat and row buffers, and the iteration times."""
+    ref = lgt.Booster(params=dict(params, tpu_frontier_k=1), train_set=ds)
+    want, times = [], []
+    for _ in range(n):
+        t0 = time.time()
+        ref.update()
         torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        lr = ref._gbdt.learner
+        pb, pg = ref._gbdt._phys
+        want.append((lr.leafmat.clone(), lr.nodemat.clone(), pb.clone(),
+                     pg.clone()))
+    return want, times
+
+
+def frontier_path(lgt, learner_mod, mods, fro, ds, params, d):
+    """Phase 4b: the frontier (tpu_frontier_k=FR_K) on the mega path at the
+    HIGGS shape, its trees bit-identical to the K=1 graph loop's after
+    every tree (leafmat, nodemat, both row buffers), then at the auto K;
+    and on examples/binary_classification at 12 leaves, where the replay
+    prunes, against K=1 on the card.  Every wrapper's count is set to 0
+    just before the HIGGS run and read just after the examples run, both
+    under torch.profiler, whose kernel events give each device function's
+    launches: per tree as fr_funcs says from the tree's steps and pruning,
+    plus the run before each graph's capture, which launches every step
+    and the undo.  The bookkeeping's states of that run are kept for the
+    kernel's comparison with its plain version."""
+    from torch.profiler import ProfilerActivity, profile
+    want, t1 = k1_trees(lgt, ds, params, FR_TREES)
+    states = []
+    real = learner_mod.frontier_step
+
+    def keep(mode, fr, **kw):
+        if not torch.cuda.is_current_stream_capturing():
+            states.append((mode, fr.to("cpu"), dict(kw, handles=(0, 0))))
+        return real(mode, fr, **kw)
+
+    X, y = d[:, 1:], d[:, 0]
+    small = {"objective": "binary", "num_leaves": 12, "verbosity": -1}
+    want_sm, _ = k1_trees(lgt, lgt.Dataset(X, label=y), small, 4)
+    bst = lgt.Booster(params=dict(params, tpu_frontier_k=FR_K), train_set=ds)
+    b_sm = lgt.Booster(dict(small, tpu_frontier_k=FR_K),
+                       lgt.Dataset(X, label=y))
+    for m in mods.values():
+        m.launches = 0
+    for k in fro.launches:
+        fro.launches[k] = 0
+    tk, trees, sm_trees = [], [], []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        learner_mod.frontier_step = keep
+        try:
+            for it in range(FR_TREES):
+                t0 = time.time()
+                bst.update()
+                torch.cuda.synchronize()
+                tk.append(time.time() - t0)
+                learner_mod.frontier_step = real
+                lr = bst._gbdt.learner
+                same_tree(lr, bst._gbdt._phys, want[it],
+                          f"frontier K={FR_K} tree {it}")
+                trees.append((lr.last_steps, lr.last_made
+                              - (bst._gbdt.models[-1].num_leaves - 1)))
+        finally:
+            learner_mod.frontier_step = real
+        for it in range(4):
+            b_sm.update()
+            lr_sm = b_sm._gbdt.learner
+            same_tree(lr_sm, b_sm._gbdt._phys, want_sm[it],
+                      f"frontier K={FR_K} examples tree {it}")
+            sm_trees.append((lr_sm.last_steps, lr_sm.last_made
+                             - (b_sm._gbdt.models[-1].num_leaves - 1)))
+        torch.cuda.synchronize()
+    calls = {k: m.launches for k, m in mods.items()}
+    calls.update(fro.launches)
+    device = {}
+    for key, ms, n in device_rows(prof):
+        fn = func(key)
+        if fn in fr_funcs(1, 0, 0):
+            t, c = device.get(fn, (0.0, 0))
+            device[fn] = (t + ms, c + n)
+    del prof
+    lr = bst._gbdt.learner
+    # the run before each capture launches every step of the sequence
+    # and the undo, with no IF nodes
+    runs = ([(lr.max_splits, 1)] + trees
+            + [(b_sm._gbdt.learner.max_splits, 1)] + sm_trees)
+    expect = {}
+    for steps, pruned in runs:
+        for fn, n in fr_funcs(FR_K, steps, pruned > 0).items():
+            expect[fn] = expect.get(fn, 0) + n
+    for fn, n in expect.items():
+        check(device.get(fn, (0, 0))[1] == n,
+              f"frontier: {fn}: {device.get(fn, (0, 0))[1]} device launches "
+              f"in the run, expected {n} (steps, pruned a tree: {runs})")
+    check(all(0 <= p <= FR_K - 1 for _, p in trees + sm_trees),
+          f"frontier: more than K-1 pruned splits: {trees + sm_trees}")
+    check(any(p > 0 for _, p in sm_trees),
+          f"frontier: the examples case did not prune: {sm_trees}")
+    check(lr.syncs == FR_TREES and lr.replays == FR_TREES,
+          f"frontier: {lr.syncs} host syncs, {lr.replays} replays for "
+          f"{FR_TREES} trees")
+    for name in ("split_mega", "split_pair", "frontier_step",
+                 "frontier_key", "frontier_undo"):
+        check(calls.get(name, 0) > 0, f"frontier: wrapper {name} launched "
+                                      f"no time")
+    check(calls.get("tree_step", 0) == 0, "frontier: tree_step launched")
+    syncs = lr.syncs
+    torch.cuda.set_sync_debug_mode("error")
+    bst.update()
+    torch.cuda.set_sync_debug_mode(0)
+    check(lr.syncs == syncs + 1, "frontier: an iteration made more than "
+                                 "one counted sync")
+    say(f"frontier K={FR_K}: {FR_TREES} HIGGS trees bit-identical to the "
+        f"K=1 graph loop's (leafmat, nodemat, both row buffers), (steps, "
+        f"pruned) a tree {trees}; examples/binary_classification at 12 "
+        f"leaves bit-identical to K=1 on the card with (steps, pruned) "
+        f"{sm_trees}; wrapper calls {calls}; device launches by function "
+        f"{ {k: v[1] for k, v in device.items()} } = fr_funcs over the "
+        f"trees and the runs before the captures (every step); one host "
+        f"sync a tree, "
+        f"none implicit under set_sync_debug_mode('error')")
+    # the auto K on the card
+    ba = lgt.Booster(params=params, train_set=ds)
+    ta = []
+    for it in range(FR_TREES):
+        t0 = time.time()
+        ba.update()
+        torch.cuda.synchronize()
+        ta.append(time.time() - t0)
+        same_tree(ba._gbdt.learner, ba._gbdt._phys, want[it],
+                  f"frontier auto tree {it}")
+    k_auto = ba._gbdt.learner.K
+    del ba
+    med = {n: 1e3 * float(np.median(t[1:])) for n, t in
+           (("K=1", t1), (f"K={FR_K}", tk), (f"auto (K={k_auto})", ta))}
+    say(f"frontier auto: K={k_auto} ({learner_mod.AUTO_FRONTIER_K} in "
+        f"models/learner.py), {FR_TREES} trees bit-identical to K=1's; ms "
+        f"an iteration (median of trees 1-{FR_TREES - 1}, wall) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in med.items()))
+    del want
+    return bst, states, calls, device, trees, med
+
+
+def check_frontier_kernels(fro, sp, tpart, lr, bst, states, steps):
+    """The frontier's kernels against their plain versions at the shapes of
+    the HIGGS run, and their times: the bookkeeping on every kept state
+    of a real tree (every buffer bit for bit), and its device time a
+    launch over the launches the graph takes on that tree (``steps``
+    steps run), timed by CUDA events on copies of their states queued back
+    to back (queued_ms); the key row written and
+    cleared; the undo of a pruned split made on purpose -- the last
+    tree's largest leaf partitioned on feature 0 at bin 127, then undone:
+    kernel and plain version equal each other and the rows before the
+    partition; split_pair over the step's 2K children.  Returns the JSON
+    rows' numbers, each kernel's max_abs_err the largest difference of the
+    bit views (as integers) of what it wrote and what its plain version
+    wrote."""
+    dev = lr.device
+    out = {}
+    # bookkeeping
+    plain_s, err = [], 0.0
+    for i, (mode, fr, kw) in enumerate(states):
+        want = fr.to("cpu")
         t0 = time.perf_counter()
-        for _ in range(n):
-            f()
-        t = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        return 1e6 * t / n
+        fro.frontier_step_plain(mode, want, **{n: v for n, v in kw.items()
+                                               if n != "handles"})
+        plain_s.append(time.perf_counter() - t0)
+        got = fr.to(dev)
+        fro.frontier_step(mode, got, **kw)
+        for name in fro.Frontier.TENSORS:
+            a, b = getattr(got, name).cpu(), getattr(want, name)
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            err = max(err, bits_err(a, b))
+            check(torch.equal(a, b), f"frontier_step state {i} (mode "
+                                     f"{mode}): {name} differs from the "
+                                     f"plain version")
+    # the launches the graph takes: the reset, the root's selection, each
+    # step while the tree runs (the step before it selected a batch), the
+    # renumber; the other states are the sizing run's steps after the stop
+    taken = [(fr.to(dev), mode, kw) for i, (mode, fr, kw) in enumerate(states)
+             if mode != fro.MODE_STEP or i == 1 or int(fr.fs[fro.FS_RUN])]
+    check(len(taken) == steps + 3, f"frontier_step: {len(taken)} states "
+                                   f"the graph launches, expected {steps + 3}")
+    ms_all, n_all = queued_ms([lambda fr=fr, mode=mode, kw=kw:
+                               fro.frontier_step(mode, fr, **kw)
+                               for fr, mode, kw in taken])
+    K, F, L = lr.K, lr.F, lr.L
+    n_items = L           # about 2 made + 1, made ~ L / 2 on average
+    step_bytes = 4 * (6 * n_items + 2 * K * 13 + 2 * K * 25 + K * (25 + 17)
+                      + K * 24 + 2 * K * F * 5)
+    out["frontier_step"] = dict(
+        err=err, ms=ms_all / n_all, plain_ms=1e3 * float(np.median(plain_s)),
+        bound=bound(step_bytes, 0), lib=None)
+    say(f"frontier_step: the kernel bit-identical to frontier_step_plain on "
+        f"all {len(states)} states of the first HIGGS tree's sizing run "
+        f"(reset, the root's selection, every step, those after the tree "
+        f"stopped, the renumber); "
+        f"{out['frontier_step']['ms']:.5f} ms a launch (device time over "
+        f"the {n_all} launches the graph takes, CUDA events, queued back to "
+        f"back), plain "
+        f"{out['frontier_step']['plain_ms']:.4f} ms on the host")
+    # the key row
+    pb, pg = (t.clone() for t in bst._gbdt._phys)
+    row0, N = lr.row0, lr.N
+    g2 = pg.clone()
+    err = 0.0
+    for clear in (False, True):
+        fro.frontier_key(pg, row0=row0, N=N, clear=clear)
+        fro.frontier_key_plain(g2, row0=row0, N=N, clear=clear)
+        err = max(err, bits_err(pg[fro.KEY_ROW], g2[fro.KEY_ROW]))
+        check(torch.equal(pg.view(torch.int32), g2.view(torch.int32)),
+              f"frontier_key (clear={clear}) differs from its plain version")
+    del g2
+    words = pg.view(torch.int32)[fro.KEY_ROW, row0:row0 + N]
+    out["frontier_key"] = dict(
+        err=err, ms=graph_ms(lambda: fro.frontier_key(pg, row0=row0, N=N),
+                             20),
+        plain_ms=cuda_ms(lambda: fro.frontier_key_plain(
+            pg, row0=row0, N=N, clear=False), 10),
+        bound=bound(4 * N, 0),
+        lib=graph_ms(lambda: torch.arange(N, dtype=torch.int32, device=dev,
+                                          out=words), 20))
+    # the undo of a pruned split made on purpose
+    lm = lr.leafmat[:, :L]
+    cnts = lm[1].view(torch.int32)
+    leaf = int(torch.argmax(cnts))
+    start, cnt = int(lm[0].view(torch.int32)[leaf]), int(cnts[leaf])
+    sc = tpart.make_scalars(start, cnt, 0, 0, 0, 255, 0, 0, 127, 0)
+    fro.frontier_key(pg, row0=row0, N=N)
+    before = (pb.clone(), pg.clone())
+    nl = int(tpart.partition_leaf(pb, pg, sc))
+    fr = lr.fr.to(dev)
+    off, _ = fr.lay["undo"]
+    fr.fs[fro.FS_NPRUNED] = 1
+    fr.fs[off:off + 3] = torch.tensor([start, cnt, nl], dtype=torch.int32)
+    moved = (pb.clone(), pg.clone())
+    b2, g2 = pb.clone(), pg.clone()
+    fro.frontier_undo(pb, pg, fr, bound=N, ws=lr.ws)
+    fro.frontier_undo_plain(b2, g2, fr)
+    err = max(bits_err(pb, b2), bits_err(pg, g2))
+    for (x, u), what in (((pb, b2), "plain version"),
+                         ((pb, before[0]), "rows before the partition")):
+        check(torch.equal(x, u), f"frontier_undo: bins differ from the "
+                                 f"{what}")
+    for u, what in ((g2, "plain version"), (before[1],
+                                            "rows before the partition")):
+        check(torch.equal(pg.view(torch.int32), u.view(torch.int32)),
+              f"frontier_undo: payload differs from the {what}")
 
-    return {"whole wrapper": us(lambda: sp.split_pair(*args, **kw)),
-            "checks and ctypes setup": us(lambda: (sp.check_args(*args),
-                                                   sp.launcher())),
-            "allocation (torch.empty)": us(
-                lambda: torch.empty((2, sp.OUT_FIELDS), device=dev)),
-            "launch arguments": us(lambda: sp.launch_args(*args, out,
-                                                          **kw)),
-            "ctypes launch": us(lambda: fn(*cargs))}
+    def timed(fn, reps=5):
+        ts = []
+        for _ in range(reps):
+            pb.copy_(moved[0])
+            pg.copy_(moved[1])
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize()
+            ts.append(e0.elapsed_time(e1))
+        return float(np.median(ts))
+
+    R = pb.shape[0]
+    out["frontier_undo"] = dict(
+        err=err, ms=timed(lambda: fro.frontier_undo(pb, pg, fr, bound=N,
+                                                    ws=lr.ws)),
+        plain_ms=timed(lambda: fro.frontier_undo_plain(pb, pg, fr), 3),
+        bound=bound(2 * cnt * (R + 32), 0), lib=None, rows=cnt)
+    del pb, pg, b2, g2, before, moved
+    say(f"frontier_key: kernel equal to its plain version (write, clear), "
+        f"{out['frontier_key']['ms']:.4f} ms for {N} rows, plain "
+        f"{out['frontier_key']['plain_ms']:.4f}, torch.arange "
+        f"{out['frontier_key']['lib']:.4f}; frontier_undo of a {cnt}-row "
+        f"leaf partitioned on purpose ({nl} left): kernel equal to its plain "
+        f"version and to the rows before the partition, "
+        f"{out['frontier_undo']['ms']:.4f} ms, plain "
+        f"{out['frontier_undo']['plain_ms']:.4f} ms")
+    # split_pair over the 2K children, on the learner's last step's planes
+    Bp = lr.children.shape[-1]
+    hg, hh = lr.children[0].reshape(-1, Bp), lr.children[1].reshape(-1, Bp)
+    kw = dict(l1=lr.l1, l2=lr.l2, max_delta_step=lr.max_delta_step,
+              min_gain_to_split=lr.min_gain_to_split,
+              min_data_in_leaf=lr.min_data_in_leaf,
+              min_sum_hessian=lr.min_sum_hessian, max_depth=lr.max_depth,
+              children=2 * K)
+    got = sp.split_pair(hg, hh, lr.fmeta_pair, lr.info, **kw)
+    want = sp.split_pair_plain(hg, hh, lr.fmeta_pair, lr.info, **kw)
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+          "split_pair over 2K children differs from its plain version")
+    pair_bytes = 2 * (2 * K * F) * Bp * 4 + 2 * (2 * K * F) * 8 * 4 + \
+        2 * K * 13 * 4
+    out["split_pair_2k"] = dict(
+        ms=graph_ms(lambda: sp.split_pair(hg, hh, lr.fmeta_pair, lr.info,
+                                          out=lr.pair_out, **kw), 200),
+        plain_ms=cuda_ms(lambda: sp.split_pair_plain(
+            hg, hh, lr.fmeta_pair, lr.info, **kw), 3, 1),
+        bound=bound(pair_bytes, 2 * K * F * Bp * 60))
+    say(f"split_pair over {2 * K} children: bit-identical to its plain "
+        f"version, {out['split_pair_2k']['ms']:.4f} ms a launch (graph "
+        f"replay), plain {out['split_pair_2k']['plain_ms']:.3f} ms")
+    return out
 
 
 def main():
@@ -1118,7 +1469,9 @@ def main():
     step_bytes = (2 * 25 + 17 + 2 * G * 8 + 2 * 24 + 2 * 13 + 255) * 4
     iter_by_path, launches_by_path, costs, steps_err = {}, {}, {}, 0.0
     busy_by_path, losses_by = {}, {}
-    paths = (("mega", params,
+    # the K=1 graph loop on the mega path (the frontier, K > 1, is phase
+    # 4b's)
+    paths = (("mega", dict(params, tpu_frontier_k=1),
               {"split_mega": capture_mega, "split_pair": pair_capture("pair")}),
              ("subtraction", dict(params, tpu_megakernel="off"),
               {"partition_leaf": capture_partition,
@@ -1154,10 +1507,34 @@ def main():
         say(f"tree_step {label}: the kernel bit-identical to tree_step_plain "
             f"on the root, 12 steps of a real tree and the final commit")
         costs[label] = step_costs(lr, pb_, pg_, label, ts, tpart, hs, sm)
-        card_vs_cpu(lgt, d, {} if label == "mega"
+        card_vs_cpu(lgt, d, {"tpu_frontier_k": 1} if label == "mega"
                     else {"tpu_megakernel": "off"}, label)
         del bst, lr, pb_, pg_
         torch.cuda.empty_cache()
+    # ---- 4b. the frontier (K > 1) on the mega path ------------------
+    from lightgbm_tpu_torch.ops import frontier as fro
+    fbst, states, fr_calls, fr_device, fr_trees, fr_med = frontier_path(
+        lgt, learner_mod, mods, fro, ds, params, d)
+    launches_by_path["frontier"] = {
+        "split_mega": fr_device["mega_hist"][1],
+        "split_pair": fr_device["pair_search"][1],
+        "frontier_step": fr_device["frontier_step"][1],
+        "frontier_key": fr_device["frontier_key"][1],
+        "frontier_undo": fr_device["undo_merge"][1]}
+    flr = fbst._gbdt.learner
+    fr_out = check_frontier_kernels(fro, sp, tpart, flr, fbst, states,
+                                    fr_trees[0][0])
+    # a frontier step whose IF node is not taken (64 such nodes, each
+    # holding one step, in a graph of their own)
+    pb_, pg_ = fbst._gbdt._phys
+    fr_stopped = fro.stopped_step_ms(
+        lambda: flr.fr_step(pb_, pg_, flr.N), flr.device)
+    del pb_, pg_
+    say(f"frontier: a stopped step (its IF node not taken) "
+        f"{fr_stopped:.5f} ms, against a stopped K=1 step "
+        f"{costs['mega']['empty_step']:.4f} ms (mega)")
+    del fbst, flr, states
+    torch.cuda.empty_cache()
     print(f"binary_logloss per iteration: mega {losses_by['mega']}, "
           f"subtraction {losses_by['subtraction']} (the two paths sum in "
           f"other orders, so their trees are only numerically equal)",
@@ -1395,13 +1772,6 @@ def main():
         f"no single PyTorch call computes the pair search, library_ms "
         f"null")
 
-    # the host side of one wrapper call of the eager oracle, no sync:
-    # argument checks and setup, allocation, launch arguments and the
-    # ctypes launch alone, each over 200 back-to-back calls
-    host_us = wrapper_host_us(sp, pa, pk)
-    print("host us a call (split_pair at the root's shapes): " + ", ".join(
-        f"{k} {v:.2f}" for k, v in host_us.items()), flush=True)
-
     # tree_step: device ms a step from the profiled iterations, bound from
     # the bytes it must move
     ts_calls = per_tree("mega")["tree_step"]
@@ -1425,7 +1795,9 @@ def main():
                              f"{r.stderr[-3000:]}")
     lines = [json.loads(x) for x in r.stdout.splitlines()
              if x.startswith("{")]
-    check(len(lines) == 2, f"bench printed {len(lines)} JSON lines")
+    check(len(lines) == 5, f"bench printed {len(lines)} JSON lines (the "
+                           f"mega path at K 1, 2, 4, 8 and the subtraction "
+                           f"path)")
     for line in lines:
         print(f"bench: {json.dumps(line)}", flush=True)
         check(line["syncs_per_tree"] == 1.0 and np.isfinite(
@@ -1450,14 +1822,33 @@ def main():
                 "iter_ms": first[0], "iter_bound_ms": first[1],
                 "iter_ms_by_path": {p: v[0] for p, v in it.items()}}
 
+    def fr_row(name, key, replaces, **extra):
+        # the frontier's kernels: no TPU kernel (XLA code in the JAX
+        # frontier's while body and tree-end undo)
+        o = fr_out[key]
+        return dict({"name": name, "route": "cuda",
+                     "source": "lightgbm_tpu_torch/csrc/frontier.cu",
+                     "replaces": replaces, "launches": total(name),
+                     "launches_by_path": {"frontier": total(name)},
+                     "max_abs_err": o["err"], "ms": o["ms"],
+                     "plain_ms": o["plain_ms"], "bound_ms": o["bound"][0],
+                     "bound_by": o["bound"][1], "library_ms": o["lib"]},
+                    **extra)
+
+    pair2k = fr_out["split_pair_2k"]
+    print(f"frontier ms an iteration (wall, median): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in fr_med.items()), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": [
         row("split_mega", "split_mega.cu",
             "lightgbm_tpu/ops/split_megakernel_pallas.py:202", mega_err,
             mega_ms, mega_plain_ms, mega_bound, mega_by, None),
-        row("split_pair", "split_pair.cu",
-            "lightgbm_tpu/ops/split_pallas.py:61", pair_err, pair_ms,
-            pair_plain_ms, pair_bound, pair_by, None),
+        dict(row("split_pair", "split_pair.cu",
+                 "lightgbm_tpu/ops/split_pallas.py:61", pair_err, pair_ms,
+                 pair_plain_ms, pair_bound, pair_by, None),
+             ms_2k_children=pair2k["ms"],
+             plain_ms_2k_children=pair2k["plain_ms"],
+             bound_ms_2k_children=pair2k["bound"][0]),
         row("partition", "partition.cu",
             "lightgbm_tpu/ops/partition_pallas.py:258", part_err, part_ms,
             part_plain_ms, part_bound, part_by, None),
@@ -1469,6 +1860,15 @@ def main():
         row("tree_step", "tree_step.cu",
             "lightgbm_tpu/models/learner.py:2106", steps_err, ts_ms,
             ts_plain_ms, ts_bound, ts_by, None),
+        fr_row("frontier_step", "frontier_step",
+               "lightgbm_tpu/models/learner.py:2688",
+               stopped_step_ms=fr_stopped,
+               steps_a_tree=[t[0] for t in fr_trees]),
+        fr_row("frontier_key", "frontier_key",
+               "lightgbm_tpu/models/learner.py:3177"),
+        fr_row("frontier_undo", "frontier_undo",
+               "lightgbm_tpu/models/learner.py:3177",
+               rows=fr_out["frontier_undo"]["rows"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

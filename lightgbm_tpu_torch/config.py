@@ -422,7 +422,9 @@ _PARAMS: List[_Param] = [
     # what it means here.  Values the port has no path for raise
     # NotImplementedError (_UNSUPPORTED).
     _p("tpu_hist_dtype", "float32", str),       # float32 | bfloat16_pair
-    # GPU: float32 only; the histograms sum f32 grad/hess.
+    # GPU: float32 and bfloat16_pair both run the same exact histograms:
+    # f32 grad/hess summed in 64-bit fixed point on the card (the TPU's
+    # bf16 hi/lo pair is a TPU matmul lever with no counterpart here).
     _p("tpu_hist_kernel", "xla", str),          # xla | pallas
     # GPU: xla and pallas both run the hand-written leaf-histogram
     # kernel csrc/leaf_hist.cu on the tpu_megakernel=off path (the mega
@@ -466,8 +468,12 @@ _PARAMS: List[_Param] = [
     # any backend (falls back to 1 with a warning when forced splits,
     # monotone constraints, CEGB, extra_trees, feature_fraction_bynode,
     # interaction constraints or a parallel tree learner are active)
-    # GPU: auto and 1 grow one leaf per step; other values are not
-    # supported yet.
+    # GPU: K > 1 grows up to K leaves a step on the mega path, trees
+    # bit-identical to K=1 (ops/frontier.py; each step one IF node of the
+    # tree's CUDA graph); auto is models/learner.py AUTO_FRONTIER_K on the
+    # card and 1 on the CPU; tpu_megakernel=off falls back to 1 with a
+    # warning, as the JAX package's Pallas pair search without the mega
+    # kernel does.
     _p("tpu_frontier_k", "auto", str),
     # radix-4 compaction network in the partition/mega kernels: half the
     # roll-network steps of the binary network (bit-identical layouts;
@@ -682,8 +688,6 @@ _UNSUPPORTED = [
     ("health", lambda c: str(c.health).lower() != "off"),
     ("linear_tree_mode", lambda c: bool(c.linear_tree)
      and c.linear_tree_mode != "refit"),
-    ("tpu_frontier_k", lambda c: str(c.tpu_frontier_k).strip().lower()
-     not in ("auto", "", "1")),
     ("tpu_megakernel", lambda c: str(c.tpu_megakernel).strip().lower()
      not in ("auto", "pallas", "", "off")),
     ("tpu_partition_kernel",
@@ -692,7 +696,8 @@ _UNSUPPORTED = [
      not in ("xla", "pallas")),
     ("tpu_hist_state", lambda c: str(c.tpu_hist_state).lower()
      not in ("auto", "xla")),
-    ("tpu_hist_dtype", lambda c: str(c.tpu_hist_dtype).lower() != "float32"),
+    ("tpu_hist_dtype", lambda c: str(c.tpu_hist_dtype).lower()
+     not in ("float32", "bfloat16_pair")),
     ("tpu_ab_double", lambda c: not _off(c.tpu_ab_double)),
     ("tpu_fused_iteration", lambda c: not bool(c.tpu_fused_iteration)),
     ("pred_early_stop", lambda c: bool(c.pred_early_stop)),

@@ -1,4 +1,5 @@
-// Best numerical split for two sibling leaves, on Hopper.
+// Best numerical split for two sibling leaves -- or for the C children of
+// a frontier step in one launch -- on Hopper.
 //
 // Replaces the TPU kernel best_split_pair_pallas
 // (lightgbm_tpu/ops/split_pallas.py).  Its plain PyTorch version is
@@ -15,7 +16,8 @@
 // latency-bound: its time is the longest chain of dependent steps one
 // warp runs.  The design is one launch with no global scratch, no host
 // round-trip and no serial loop over the bins:
-//   one thread-block cluster per child, of up to 8 blocks on 8 SMs; one
+//   one thread-block cluster per child (C of them, child c's rows at
+//   c * F), of up to 8 blocks on 8 SMs; one
 //   warp per work item, a (feature row, scan direction) pair -- the
 //   forward and the reverse scan share no data, so two warps take a row
 //   and each runs half the chain -- the warps striding over items when
@@ -321,20 +323,21 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
 
 extern "C" int split_pair_launch(const float* hg, const float* hh,
                                  const int* fmeta, const float* info,
-                                 float* out, int F, int BF, float l1,
+                                 float* out, int F, int C, int BF, float l1,
                                  float l2, float max_delta_step,
                                  float min_gain_to_split,
                                  float min_data_in_leaf,
                                  float min_sum_hessian, int max_depth,
                                  void* stream) {
-  if (BF < 1 || BF > MAX_BF || F < 1) return (int)cudaErrorInvalidValue;
+  if (BF < 1 || BF > MAX_BF || F < 1 || C < 1)
+    return (int)cudaErrorInvalidValue;
   const Params p{l1, l2, max_delta_step, min_gain_to_split, min_data_in_leaf,
                  min_sum_hessian, max_depth};
   const int ncl = 2 * F < MAX_CLUSTER ? 2 * F : MAX_CLUSTER;
   const int per = (2 * F + ncl - 1) / ncl;
   const int nw = per < MAX_WARPS ? per : MAX_WARPS;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(2 * ncl);
+  cfg.gridDim = dim3(C * ncl);
   cfg.blockDim = dim3(32 * nw);
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr;

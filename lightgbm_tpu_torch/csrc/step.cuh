@@ -35,6 +35,8 @@
 #define SB_PEND 19      // commit due: 0 none, 1 the root, 2 a split
 #define SB_DONE 20      // the tree has stopped
 #define SB_ERR 21       // error bits (ERR_*), 0 while all is well
+#define SB_MADE 22      // frontier: splits made, pruned ones included
+#define SB_STEPS 23     // frontier: steps run
 #define STEP_WORDS 24
 
 #define ERR_RANGE 1     // range or column outside the launch's bounds

@@ -42,58 +42,7 @@
 #include <stdint.h>
 
 #include "step.cuh"
-
-// leafmat rows (models/learner.py LM_*)
-#define LM_START 0
-#define LM_CNT 1
-#define LM_CNT_G 2
-#define LM_SUM_G 3
-#define LM_SUM_H 4
-#define LM_DEPTH 5
-#define LM_CMIN 6
-#define LM_CMAX 7
-#define LM_VALUE 8
-#define LM_PARENT 9
-#define LM_PSIDE 10
-#define LM_BGAIN 11
-#define LM_BFEAT 12
-#define LM_BTHR 13
-#define LM_BDL 14
-#define LM_BLCNT 15
-#define LM_BRCNT 16
-#define LM_BLSG 17
-#define LM_BLSH 18
-#define LM_BRSG 19
-#define LM_BRSH 20
-#define LM_BLOUT 21
-#define LM_BROUT 22
-#define LM_BISCAT 23
-#define LM_FORCED 24
-#define NLF 25
-#define SEG 13          // LM_BGAIN .. LM_BISCAT, the pair search's row
-
-// nodemat rows (models/learner.py ND_*)
-#define ND_FEATURE 0
-#define ND_FEATURE_ENUM 1
-#define ND_THRESHOLD 2
-#define ND_DL 3
-#define ND_GAIN 4
-#define ND_LEFT 5
-#define ND_RIGHT 6
-#define ND_IVALUE 7
-#define ND_IWEIGHT 8
-#define ND_ICOUNT 9
-#define ND_COL 10
-#define ND_BIN_START 11
-#define ND_IS_BUNDLED 12
-#define ND_NUM_BIN 13
-#define ND_DEFAULT_BIN 14
-#define ND_MISSING 15
-#define NND 17
-
-// fmeta rows: feature id, group row, bin_start, is_bundled, num_bin,
-// default_bin, missing_type; one column per feature
-#define FMETA_ROWS 7
+#include "tree_cols.cuh"
 
 #define STEP_THREADS 256
 #define MODE_ROOT 0
@@ -112,36 +61,12 @@ struct TreeArgs {
   int L, nodes, F, row0, N, bag_cnt, mode;
 };
 
-// One leafmat column (models/learner.py _leaf_column): the leaf's fields,
-// then the 13 fields of its best split as the search wrote them.
 __device__ __forceinline__ void leaf_column(
     const TreeArgs& a, int leaf, int start, int cnt, int cnt_g, float sg,
     float sh, int depth, float value, int parent, int side,
     const float* seg) {
-  const int L1 = a.L + 1;
-  float* col = a.lm + leaf;
-  col[LM_START * L1] = __int_as_float(start);
-  col[LM_CNT * L1] = __int_as_float(cnt);
-  col[LM_CNT_G * L1] = __int_as_float(cnt_g);
-  col[LM_SUM_G * L1] = sg;
-  col[LM_SUM_H * L1] = sh;
-  col[LM_DEPTH * L1] = __int_as_float(depth);
-  col[LM_CMIN * L1] = -INFINITY;
-  col[LM_CMAX * L1] = INFINITY;
-  col[LM_VALUE * L1] = value;
-  col[LM_PARENT * L1] = __int_as_float(parent);
-  col[LM_PSIDE * L1] = __int_as_float(side);
-  for (int i = 0; i < SEG; ++i) col[(LM_BGAIN + i) * L1] = seg[i];
-  col[LM_FORCED * L1] = __int_as_float(-1);
-}
-
-// The argmax order: a NaN beats any number, the larger number wins, and
-// on a tie the smaller index.
-__device__ __forceinline__ bool before(float v, int i, float w, int j) {
-  const bool vn = isnan(v), wn = isnan(w);
-  if (vn != wn) return vn;
-  if (!vn && v != w) return v > w;
-  return i < j;
+  write_leaf_column(a.lm + leaf, a.L + 1, start, cnt, cnt_g, sg, sh, depth,
+                    value, parent, side, seg);
 }
 
 __global__ void __launch_bounds__(STEP_THREADS) tree_step(TreeArgs a) {
@@ -155,12 +80,7 @@ __global__ void __launch_bounds__(STEP_THREADS) tree_step(TreeArgs a) {
 
   if (a.mode == MODE_ROOT) {
     for (int i = tid; i < NLF * L1; i += STEP_THREADS) {
-      const int f = i / L1;
-      float v = 0.0f;
-      if (f == LM_BGAIN || f == LM_CMIN) v = -INFINITY;
-      if (f == LM_CMAX) v = INFINITY;
-      if (f == LM_PARENT || f == LM_FORCED) v = __int_as_float(-1);
-      a.lm[i] = v;
+      a.lm[i] = empty_leaf_field(i / L1);
     }
     for (int i = tid; i < NND * N1; i += STEP_THREADS) a.nm[i] = 0.0f;
     const float in[8] = {a.sums[0], a.sums[1], (float)a.bag_cnt, 0.0f, 1.0f,

@@ -8,7 +8,9 @@ physical row order left by the previous tree, builds the tree, and adds
 each leaf's value to its contiguous row range -- no per-iteration
 scatter back to the original row order.  Payload rows: 0 grad, 1 hess,
 2 row-id bits (pad rows hold the sentinel N), 3 score, 4.. the
-objective's ``payload_fields``, zero-padded to 8.
+objective's ``payload_fields``, zero-padded to 8; row 7 carries the
+frontier's row keys during a tree (ops/frontier.py ``KEY_ROW``) and is
+zero between trees.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from ..config import Config
 from ..dataset import BinnedDataset
+from ..ops.frontier import KEY_ROW
 from ..ops.predict import ThresholdIndex, predict_leaf_thridx
 from ..ops.split_mega import GHI_ROWS
 from ..ops.tree_step import LM_CNT, LM_START, LM_VALUE
@@ -100,6 +103,10 @@ class GBDT:
         ghi[2] = rowid.to(torch.int32).view(torch.float32)
         ghi[3, C:C + N] = scores
         self._payload_names = [n for n, _ in self.objective.payload()]
+        if lr.K > 1 and 4 + len(self._payload_names) > KEY_ROW:
+            raise NotImplementedError(
+                f"tpu_frontier_k > 1 keeps payload row {KEY_ROW} for its "
+                f"row keys; objective {self.objective.name} fills it")
         for i, (_, arr) in enumerate(self.objective.payload()):
             ghi[4 + i, C:C + N] = arr
         self._phys = (lr.part0, ghi)

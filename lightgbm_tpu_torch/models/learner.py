@@ -1,9 +1,11 @@
-"""Leaf-wise tree learner of the port: the serial K=1 learner with two
-split bodies.
+"""Leaf-wise tree learner of the port: the serial learner with two split
+bodies, one leaf a step or, on the mega path, up to K (the frontier).
 
-Port of the K=1 path of lightgbm_tpu/models/learner.py
-(``SerialTreeLearner._build_tree_impl`` with the Pallas pair search,
-``tpu_frontier_k=1``) for all-numerical uint8 data without EFB bundles.
+Port of lightgbm_tpu/models/learner.py (``SerialTreeLearner``: the K=1
+path ``_build_tree_impl`` with the Pallas pair search, and the
+frontier-batched path ``_build_tree_frontier`` / ``_renumber_frontier``
+of ``tpu_frontier_k`` > 1) for all-numerical uint8 data without EFB
+bundles.
 
 Rows are physically partitioned by leaf, as in the JAX learner: the
 (G, N_pad) uint8 bin matrix and the (8, N_pad) f32 payload (grad, hess,
@@ -56,6 +58,21 @@ JAX body's trash-slot iterations do.
   * On the CPU there is no graph: the same steps run through the plain
     versions in a Python loop that stops when the step block says done.
 
+The frontier (``tpu_frontier_k`` = K > 1, the mega path only, as in the
+JAX package; ``frontier_k``): each step splits up to K leaves -- the K=1
+learner's next leaf and up to K-1 speculative ones -- through K split
+bodies, one per step record ``steps[k]``, and one pair search over their
+2K children; the bookkeeping kernel ``ops/frontier.py`` replays the K=1
+learner's order, renumbers the finished tree into K=1's leafmat and
+nodemat and lists the speculative splits past the budget, whose ranges
+the undo puts back in their tree-start row order.  The trees, and the
+row order left for the next tree, are K=1's bit for bit.  On the card
+each step after the root is one conditional IF node of the graph, which
+the step before it enables when it selected a batch; the steps group in
+blocks of about sqrt(L) with an IF node each, so a tree that stopped
+skips the rest of its block node by node and each later block at once.
+On the CPU the same steps run in a Python loop.
+
 ``build_tree_eager`` keeps the loop this port ran before, with the
 bookkeeping on the host and one sync a split, as the oracle the tests
 hold the device loop to.
@@ -63,6 +80,7 @@ hold the device loop to.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict
 
 import numpy as np
@@ -70,9 +88,15 @@ import torch
 
 from ..config import Config, DEFAULT_ROW_CHUNK, parse_row_chunk
 from ..dataset import BinnedDataset
+from ..ops.frontier import (FS_NPRUNED, FS_RUN, Frontier, IfNode,
+                            cond_handles, frontier_key, frontier_step,
+                            frontier_undo)
+from ..ops.frontier import MODE_FINAL as FR_FINAL
+from ..ops.frontier import MODE_ROOT as FR_ROOT
+from ..ops.frontier import MODE_STEP as FR_STEP
 from ..ops.hist_state import leaf_hist_rmw, leaf_hist_rmw_step, new_state
-from ..ops.partition import (S_CNT, SB_DONE, SB_ERR,
-                             SB_S, STEP_WORDS, Workspace, make_scalars,
+from ..ops.partition import (S_CNT, SB_DONE, SB_ERR, SB_MADE, SB_S,
+                             SB_STEPS, STEP_WORDS, Workspace, make_scalars,
                              partition_leaf, partition_step, scalars_start,
                              step_words)
 from ..ops.split_mega import (hist_geometry, split_mega, split_mega_step,
@@ -88,6 +112,38 @@ from ..ops.tree_step import (LM_BDL, LM_BFEAT, LM_BGAIN, LM_BLCNT, LM_BLOUT,
                              ND_THRESHOLD, MODE_FINAL, MODE_ROOT, MODE_STEP,
                              NEG_INF, NLF, NND, _f2i, empty_leafmat,
                              info_block, leaf_column, node_column, tree_step)
+from ..utils import log
+
+
+# tpu_frontier_k=auto on the card (PERF.md section 5, the K sweep of
+# lightgbm_tpu_torch/bench.py on the mega path)
+AUTO_FRONTIER_K = 4
+
+
+def frontier_k(config: Config, eligible: bool, L: int, device) -> int:
+    """K of ``tpu_frontier_k`` (JAX learner.py: the spec's parsing, its
+    errors and the fallback): ``auto`` is AUTO_FRONTIER_K on the card when
+    the learner is eligible and 1 elsewhere; an integer K > 1 on a learner
+    that is not eligible logs a warning and gives 1; the result is capped
+    at L - 1."""
+    spec = str(getattr(config, "tpu_frontier_k", "auto") or "auto")
+    spec = spec.strip().lower()
+    if spec in ("auto", ""):
+        k = AUTO_FRONTIER_K if (eligible and torch.device(device).type
+                                == "cuda") else 1
+    else:
+        if not spec.lstrip("+-").isdigit():
+            raise ValueError("tpu_frontier_k must be 'auto' or a positive "
+                             f"integer, got {spec!r}")
+        k = int(spec)
+        if k < 1:
+            raise ValueError("tpu_frontier_k must be >= 1")
+        if k > 1 and not eligible:
+            log.warning("tpu_frontier_k=%d needs the mega path "
+                        "(tpu_megakernel auto/pallas) and at least one "
+                        "feature; using 1", k)
+            k = 1
+    return max(1, min(k, L - 1))
 
 
 def _pow2ceil(x: int) -> int:
@@ -126,8 +182,7 @@ class SerialTreeLearner:
             half[:, 0] = meta["num_bin"]
             half[:, 1] = meta["missing_type"]
             half[:, 2] = meta["default_bin"]
-        self.fmeta_pair = torch.as_tensor(np.concatenate([half, half]),
-                                          device=self.device)
+        self._fmeta_half = half
 
         # row geometry (learner.py:387-405): [C front pad][N rows][>= 2C
         # tail pad]; the root range starts at row0 = C
@@ -154,41 +209,64 @@ class SerialTreeLearner:
         self.subtract = str(config.tpu_megakernel).strip().lower() == "off"
         self.state = (new_state(self.L, self.G, self.B, self.device)
                       if self.subtract else None)
+        # frontier-batched growth on the mega path (the JAX package's
+        # eligibility: the pair search without the mega kernel is not)
+        self.K = frontier_k(config, not self.subtract and self.F > 0,
+                            self.L, self.device)
+        self.last_steps = self.last_made = 0
         self._alloc()
 
     def _alloc(self) -> None:
         """Everything a tree's steps touch, allocated once on the device."""
-        L, F, G, dev = self.L, self.F, self.G, self.device
+        L, F, G, K, dev = self.L, self.F, self.G, self.K, self.device
         nodes = self.max_splits
         BH, Bp = hist_geometry(self.B)
         self.fmeta = torch.as_tensor(
             self._fmeta if F else np.zeros((7, 0), np.int32), device=dev)
-        # leafmat, nodemat, the step block and the root's step block in one
-        # flat buffer: the host reads the finished tree in one copy
+        # leafmat, nodemat, the K step records and the root's step block
+        # in one flat buffer: the host reads the finished tree in one copy
         a = NLF * (L + 1)
         b = a + NND * (nodes + 1)
-        self._tree_dev = torch.zeros(b + 2 * STEP_WORDS, dtype=torch.float32,
-                                     device=dev)
+        self._tree_dev = torch.zeros(b + (K + 1) * STEP_WORDS,
+                                     dtype=torch.float32, device=dev)
         self.leafmat = self._tree_dev[:a].view(NLF, L + 1)
         self.nodemat = self._tree_dev[a:b].view(NND, nodes + 1)
-        self.step = self._tree_dev[b:b + STEP_WORDS].view(torch.int32)
-        self.root_step = self._tree_dev[b + STEP_WORDS:].view(torch.int32)
+        self.steps = self._tree_dev[b:b + K * STEP_WORDS].view(
+            torch.int32).view(K, STEP_WORDS)
+        self.step = self.steps[0]
+        self.root_step = self._tree_dev[b + K * STEP_WORDS:].view(torch.int32)
         # the root's range, an all-left decision (the mega path's
         # histogram-only call) and, for the histogram state, slot 0
         self.root_step.copy_(torch.tensor(step_words(make_scalars(
             self.row0, self.N, 0, 0, 0, self.B, 0, 0, 255, 0)),
             dtype=torch.int32))
-        self.nl = torch.zeros(1, dtype=torch.int32, device=dev)
-        self.pair_out = torch.full((2, 13), NEG_INF, device=dev)
-        self.info = torch.zeros((2 * F, 8), device=dev)
+        # per step: K left counts; the pair search over the 2K children
+        # (the left children first), its feature metadata repeated
+        self.nl = torch.zeros(K, dtype=torch.int32, device=dev)
+        self.pair_out = torch.full((2 * K, 13), NEG_INF, device=dev)
+        self.info = torch.zeros((2 * K * F, 8), device=dev)
+        self.fmeta_pair = torch.as_tensor(
+            np.concatenate([self._fmeta_half] * (2 * K)), device=dev)
         self.sums = torch.zeros(2, device=dev)
         self._absmax = torch.zeros(2, device=dev)
         # the children's planes (plane, child, G, Bp): [0] and [1] viewed
-        # as (2G, Bp) are the pair search's grad and hess inputs
-        self.children = torch.zeros((2, 2, G, Bp), device=dev)
+        # as (2KG, Bp) are the pair search's grad and hess inputs
+        self.children = torch.zeros((2, 2 * K, G, Bp), device=dev)
+        # the mega kernel's (G, side, plane, Bp) histograms, one a leaf
         self.hist4 = (None if self.subtract else
-                      torch.zeros((G, 4 * BH, 16), device=dev))
+                      torch.zeros((K, G, 4 * BH, 16), device=dev))
         self.ws = Workspace(dev) if dev.type == "cuda" else None
+        self.fr = None
+        if K > 1:
+            self.fr = Frontier(L, K, self.leafmat, self.nodemat, self.steps,
+                               self.nl, self.pair_out, self.info, self.sums,
+                               self.fmeta)
+            # steps per conditional block: a stopped tree skips the rest of
+            # its block step by step and every later block at once
+            self.fr_block = max(1, int(np.ceil(np.sqrt(nodes))))
+            if dev.type == "cuda":
+                self._bodies = (torch.cuda.Stream(dev),
+                                torch.cuda.Stream(dev))
         self._graph = None
         self._graph_key = None
         self._host = None
@@ -196,14 +274,16 @@ class SerialTreeLearner:
 
     # ------------------------------------------------------------------
     def _search(self, hg, hh, info, out=None):
-        """Both children's best splits: (2, 13) f32 on the device."""
+        """The best splits of the children whose (cF, Bp) histograms are
+        hg / hh: (c, 13) f32 on the device."""
+        c = hg.shape[0] // max(self.F, 1)
         return split_pair(
-            hg, hh, self.fmeta_pair, info, l1=self.l1, l2=self.l2,
-            max_delta_step=self.max_delta_step,
+            hg, hh, self.fmeta_pair[:c * self.F], info, l1=self.l1,
+            l2=self.l2, max_delta_step=self.max_delta_step,
             min_gain_to_split=self.min_gain_to_split,
             min_data_in_leaf=self.min_data_in_leaf,
             min_sum_hessian=self.min_sum_hessian, max_depth=self.max_depth,
-            out=out)
+            out=out, children=c)
 
     # -- the device-resident loop ------------------------------------------
     def _step(self, mode, bag_cnt) -> None:
@@ -212,10 +292,14 @@ class SerialTreeLearner:
                   row0=self.row0, N=self.N, bag_cnt=bag_cnt)
 
     def _pair(self) -> None:
-        G = self.G
-        self._search(self.children[0].view(2 * G, -1),
-                     self.children[1].view(2 * G, -1), self.info,
+        Bp = self.children.shape[-1]
+        self._search(self.children[0].view(-1, Bp),
+                     self.children[1].view(-1, Bp), self.info,
                      out=self.pair_out)
+
+    def _mega_kw(self):
+        return dict(num_bins=self.B, num_groups=self.G, bound=self.N,
+                    ws=self.ws, absmax=self._absmax)
 
     def _body(self, pb, pg, step) -> None:
         """One split body on the leaf of ``step`` (the root's: its
@@ -230,11 +314,11 @@ class SerialTreeLearner:
                                state=self.state, absmax=self._absmax,
                                kcnt=N, out=self.children, **kw)
             return
-        split_mega_step(pb, pg, step, self.nl, self.hist4, move=not root,
+        split_mega_step(pb, pg, step, self.nl, self.hist4[0], move=not root,
                         absmax=self._absmax, **kw)
         # (G, side, plane, Bp) -> (plane, child, G, Bp); the root's
         # all-left histogram is both children
-        h4 = self.hist4.view(G, 2, 2, -1)
+        h4 = self.hist4[0].view(G, 2, 2, -1)
         src = (h4[:, :1].expand(-1, 2, -1, -1) if root else h4)
         self.children.copy_(src.permute(2, 1, 0, 3))
 
@@ -262,6 +346,8 @@ class SerialTreeLearner:
     def _loop(self, pb, pg, bag_cnt) -> None:
         """The same steps in a Python loop that stops when the step block
         says done (on the CPU, where reading it is no sync)."""
+        if self.K > 1:
+            return self._fr_loop(pb, pg, bag_cnt)
         self._root(pb, pg, bag_cnt)
         while True:
             self._step(MODE_STEP, bag_cnt)
@@ -270,19 +356,121 @@ class SerialTreeLearner:
             self._body(pb, pg, self.step)
             self._pair()
 
+    # -- the frontier (K > 1, the mega path) -------------------------------
+    def _fstep(self, mode, bag_cnt, handles=(0, 0)) -> None:
+        frontier_step(mode, self.fr, row0=self.row0, N=self.N,
+                      bag_cnt=bag_cnt, handles=handles)
+
+    def _fr_children(self) -> None:
+        """The K leaves' (G, side, plane, Bp) histograms into the
+        children's planes (plane, side, K, G, Bp): child k is leaf k's
+        left, child K + k its right."""
+        K, G = self.K, self.G
+        Bp = self.children.shape[-1]
+        self.children.view(2, 2, K, G, Bp).copy_(
+            self.hist4.view(K, G, 2, 2, Bp).permute(3, 2, 0, 1, 4))
+
+    def _fr_root(self, pb, pg, bag_cnt, handles=(0, 0)) -> None:
+        """The frontier's root: the tree's bound of |grad| and |hess|, the
+        rows' tree-start positions (payload row KEY_ROW), the root's
+        histogram (leaf 0 of the step) and sums, the reset, the root's
+        search (child 0) and the selection of the first step's batch."""
+        torch.amax(pg[:2].abs(), dim=1, out=self._absmax)
+        frontier_key(pg, row0=self.row0, N=self.N)
+        split_mega_step(pb, pg, self.root_step, self.nl[:1], self.hist4[0],
+                        move=False, **self._mega_kw())
+        self._fr_children()
+        torch.stack([self.children[0, 0, 0].sum(),
+                     self.children[1, 0, 0].sum()], out=self.sums)
+        self._fstep(FR_ROOT, bag_cnt)
+        self._pair()
+        self._fstep(FR_STEP, bag_cnt, handles)
+
+    def fr_step(self, pb, pg, bag_cnt, handles=(0, 0)) -> None:
+        """One frontier step: the split kernel on each of the K step
+        records (a record of no rows writes a zero histogram and moves
+        nothing), one pair search over the 2K children, the bookkeeping
+        that commits them and selects the next batch."""
+        kw = self._mega_kw()
+        for k in range(self.K):
+            split_mega_step(pb, pg, self.steps[k], self.nl[k:k + 1],
+                            self.hist4[k], **kw)
+        self._fr_children()
+        self._pair()
+        self._fstep(FR_STEP, bag_cnt, handles)
+
+    def _fr_undo(self, pb, pg) -> None:
+        frontier_undo(pb, pg, self.fr, bound=self.N, ws=self.ws)
+
+    def _fr_loop(self, pb, pg, bag_cnt) -> None:
+        """The frontier's steps in a Python loop that stops when the state
+        says no batch was selected, then the renumber and, when something
+        was pruned, the undo; the key row cleared (on the CPU, where
+        reading the state is no sync)."""
+        fs = self.fr.fs
+        self._fr_root(pb, pg, bag_cnt)
+        while int(fs[FS_RUN]):
+            self.fr_step(pb, pg, bag_cnt)
+        self._fstep(FR_FINAL, bag_cnt)
+        if int(fs[FS_NPRUNED]):
+            self._fr_undo(pb, pg)
+        frontier_key(pg, row0=self.row0, N=self.N, clear=True)
+
+    def _fr_sequence(self, pb, pg, bag_cnt) -> None:
+        """The frontier's tree as the captured graph: the root, then L - 1
+        steps, each in a conditional IF node that the step before it
+        enables when it selected a batch, grouped in blocks of
+        ``fr_block`` steps inside IF nodes of their own (a stopped tree
+        skips each later block as one node); the renumber; the undo in an
+        IF node that the renumber enables when something was pruned; the
+        key row cleared.  Outside a capture (the run that sizes
+        everything) the same launches run with no IF nodes: the steps
+        after the tree stops and an undo with nothing listed write
+        nothing."""
+        n, blk = self.max_splits, self.fr_block
+        nb = -(-n // blk)
+        capture = torch.cuda.is_current_stream_capturing()
+        if capture:
+            hs = cond_handles(n, self.device)
+            hb = cond_handles(nb, self.device)
+            hu = cond_handles(1, self.device)[0]
+        else:
+            hs, hb, hu = [0] * n, [0] * nb, 0
+
+        def enable(t):      # the handles the step before step t sets
+            if t >= n:
+                return (0, 0)
+            return (hs[t], hb[t // blk] if t % blk == 0 else 0)
+
+        def cond(handle, body):
+            return (IfNode(handle, body) if capture
+                    else contextlib.nullcontext())
+
+        self._fr_root(pb, pg, bag_cnt, enable(0))
+        for b in range(nb):
+            with cond(hb[b], self._bodies[0]):
+                for t in range(b * blk, min(n, (b + 1) * blk)):
+                    with cond(hs[t], self._bodies[1]):
+                        self.fr_step(pb, pg, bag_cnt, enable(t + 1))
+        self._fstep(FR_FINAL, bag_cnt, (hu, 0))
+        with cond(hu, self._bodies[0]):
+            self._fr_undo(pb, pg)
+        frontier_key(pg, row0=self.row0, N=self.N, clear=True)
+
     def _replay(self, pb, pg, bag_cnt) -> None:
         """Grow the tree by replaying the captured graph, capturing it
-        first when the buffers are new: one run of the sequence on copies
-        of the row buffers loads every kernel and sizes the workspace,
-        which is then frozen, and the capture holds its addresses."""
+        first when the buffers are new: one run of the steps on copies of
+        the row buffers loads every kernel and sizes the workspace, which
+        is then frozen, and the capture holds its addresses."""
         key = (pb.data_ptr(), pg.data_ptr(), int(bag_cnt))
         if self._graph_key != key:
             self._graph = None
-            self._sequence(pb.clone(), pg.clone(), bag_cnt)
+            sequence = self._fr_sequence if self.K > 1 else self._sequence
+            sequence(pb.clone(), pg.clone(), bag_cnt)
             self.ws.frozen = True
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
-                self._sequence(pb, pg, bag_cnt)
+                sequence(pb, pg, bag_cnt)
             self._graph, self._graph_key = graph, key
             self._host = torch.empty(self._tree_dev.shape,
                                      dtype=torch.float32, pin_memory=True)
@@ -307,19 +495,23 @@ class SerialTreeLearner:
             self._loop(part_bins, part_ghi, bag_cnt)
             host = self._tree_dev.numpy().copy()
         self.syncs += 1
-        L, nodes = self.L, self.max_splits
+        L, nodes, K = self.L, self.max_splits, self.K
         a = NLF * (L + 1)
         b = a + NND * (nodes + 1)
-        steps = host[b:].view(np.int32)
-        err = int(steps[SB_ERR]) | int(steps[STEP_WORDS + SB_ERR])
+        steps = host[b:].view(np.int32).reshape(K + 1, STEP_WORDS)
+        err = int(np.bitwise_or.reduce(steps[:, SB_ERR]))
         if err:
             raise RuntimeError(
                 f"tree loop: a step block failed its device checks (error "
                 f"bits {err}: 1 range outside the bound, 2 histogram-state "
-                f"slot, 4 leaf or feature index)")
+                f"slot, 4 leaf or feature index, 8 more pruned splits than "
+                f"K - 1)")
+        if K > 1:
+            self.last_made = int(steps[0, SB_MADE])
+            self.last_steps = int(steps[0, SB_STEPS])
         return self._unpack_state(host[:a].reshape(NLF, L + 1),
                                   host[a:b].reshape(NND, nodes + 1),
-                                  int(steps[SB_S]))
+                                  int(steps[0, SB_S]))
 
     # -- the oracle: the host loop -----------------------------------------
     def _info(self, halves):

@@ -28,7 +28,8 @@ from typing import Dict, Iterable, Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-KERNELS = ("split_pair", "split_mega", "partition", "leaf_hist", "tree_step")
+KERNELS = ("split_pair", "split_mega", "partition", "leaf_hist", "tree_step",
+           "frontier")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

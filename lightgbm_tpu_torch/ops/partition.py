@@ -67,6 +67,9 @@ N_SCALARS = 11
 (SB_START, SB_CNT, SB_COL, SB_BSTART, SB_ISB, SB_NB, SB_DBIN, SB_MTYPE,
  SB_THR, SB_DL, SB_PARENT, SB_WA, SB_WB, SB_SIL, SB_SIDE, SB_VALID, SB_S,
  SB_LEAF, SB_NEW, SB_PEND, SB_DONE, SB_ERR) = range(22)
+# the frontier's record 0 after its final step: splits made (pruned ones
+# included), steps run
+SB_MADE, SB_STEPS = 22, 23
 STEP_WORDS = 24
 # SB_ERR bits: a range or column outside the launch's bound, a state slot
 # outside the state, a leaf or feature out of range in tree_step

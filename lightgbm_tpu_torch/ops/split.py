@@ -190,3 +190,46 @@ def find_best_split_fast(feat_hist, ctx: SplitContext, sum_g, sum_h,
         left_count=lc.to(torch.int32), right_count=rc.to(torch.int32),
         left_output=leaf_output(lg, lh, *args),
         right_output=leaf_output(rg, rh, *args))
+
+
+# ---------------------------------------------------------------------------
+# Frontier-batched growth: the leaf elections of models/learner.py's
+# frontier (lightgbm_tpu/ops/split.py oracle_next_pick, frontier_topk)
+# ---------------------------------------------------------------------------
+K_MIN_SCORE = float("-inf")
+_BIG_SLOT = 1 << 30
+
+
+def oracle_next_pick(gains, oracle_slots, avail):
+    """The K=1 learner's next-leaf election over a frontier of items: the
+    largest gain, ties to the smallest oracle leaf slot.  A NaN among the
+    available gains makes the maximum NaN (no item ties it, so the item
+    is 0 and the caller's ``gain > 0`` stops the tree); with nothing
+    available the gain is -inf and the item 0.
+
+    Args: gains (I,) f32; oracle_slots (I,) int32; avail (I,) bool.
+    Returns (item, gain) as 0-d tensors."""
+    masked = torch.where(avail, gains, K_MIN_SCORE)
+    gmax = masked.max()
+    tie = avail & (masked == gmax)
+    slot = torch.where(tie, oracle_slots, _BIG_SLOT).min()
+    item = torch.argmax((tie & (oracle_slots == slot)).to(torch.int32))
+    return item.to(torch.int32), gmax
+
+
+def frontier_topk(scores, required, k: int):
+    """A frontier step's batch: the ``required`` item (the oracle's next
+    split) first, then the k-1 largest of the other scores, ties to the
+    smaller index (a NaN counts as the largest).  ``scores`` is -inf for
+    a non-candidate.  Returns (items (k,) int32, ok (k,) bool), ok
+    marking a finite score (the required item's is always ok)."""
+    required = torch.as_tensor(required, dtype=torch.int32)
+    if k == 1:
+        return required.reshape(1), torch.ones(1, dtype=torch.bool)
+    rest = scores.clone()
+    rest[int(required)] = K_MIN_SCORE
+    vals, idx = torch.sort(rest, descending=True, stable=True)
+    items = torch.cat([required.reshape(1), idx[:k - 1].to(torch.int32)])
+    ok = torch.cat([torch.ones(1, dtype=torch.bool),
+                    torch.isfinite(vals[:k - 1])])
+    return items, ok

@@ -1,4 +1,5 @@
-"""Kernel 1: best numerical split for two sibling leaves at once.
+"""Kernel 1: best numerical split for two sibling leaves at once, or for
+the 2K children of a frontier step in one launch.
 
 Counterpart of the TPU kernel ``best_split_pair_pallas``
 (lightgbm_tpu/ops/split_pallas.py), with the semantics of
@@ -7,13 +8,14 @@ split just made.  ``split_pair`` dispatches on the device of its
 inputs: CPU tensors run ``split_pair_plain`` (plain PyTorch), CUDA
 tensors launch the hand-written kernel ``csrc/split_pair.cu`` or raise.
 
-Inputs (the JAX kernel's layout, without its (8, 128) TPU tile):
-  hist_g / hist_h: (2F, BF) f32, the left child's F feature rows stacked
-    above the right child's;
-  fmeta: (2F, 8) int32, FM_* columns (per-feature metadata, repeated);
-  info: (2F, 8) f32, IN_* columns (the child's sums, count and depth
+Inputs (the JAX kernel's layout, without its (8, 128) TPU tile), for
+``children`` = C children (2: a pair, the left child first):
+  hist_g / hist_h: (C F, BF) f32, each child's F feature rows stacked
+    in child order;
+  fmeta: (C F, 8) int32, FM_* columns (per-feature metadata, repeated);
+  info: (C F, 8) f32, IN_* columns (the child's sums, count and depth
     broadcast over its rows; IN_MASK is the per-child feature mask).
-Output: (2, 13) f32, one row per child: the leafmat segment
+Output: (C, 13) f32, one row per child: the leafmat segment
 ``LM_BGAIN..LM_BISCAT`` of models/learner.py with the int fields
 (feature, threshold, left/right count) bitcast into f32 -- read them
 with ``.view(torch.int32)``, never with a value cast.
@@ -21,7 +23,10 @@ with ``.view(torch.int32)``, never with a value cast.
 The winner is the minimum preference key among the maximum-gain
 candidates (per feature the reverse scan's thresholds descending, then
 the forward scan's ascending; smaller feature first), the reference's
-scan-order tie-break.  Counts ride f32, exact below 2^24 rows.
+scan-order tie-break.  Counts ride f32, exact below 2^24 rows.  Each
+child's search reads only its own rows, so a child's row has the same
+bits whatever C is: the frontier runs one launch over its 2K children
+where the JAX frontier runs K pair searches.
 """
 
 from __future__ import annotations
@@ -47,11 +52,11 @@ launches = 0
 def split_pair_plain(hist_g, hist_h, fmeta, info, *, l1: float, l2: float,
                      max_delta_step: float, min_gain_to_split: float,
                      min_data_in_leaf: int, min_sum_hessian: float,
-                     max_depth: int) -> torch.Tensor:
+                     max_depth: int, children: int = 2) -> torch.Tensor:
     """Plain PyTorch version: the JAX kernel's arithmetic in f32, with
     the kernel's blocked f64 prefix sums (ops/split.py prefix_sum)."""
     F2, BF = hist_g.shape
-    F = F2 // 2
+    F = F2 // children
     dev = hist_g.device
     f32, i32 = torch.float32, torch.int32
     args = (l1, l2, max_delta_step)
@@ -113,7 +118,7 @@ def split_pair_plain(hist_g, hist_h, fmeta, info, *, l1: float, l2: float,
     snan = (~two_scan & nan_m)[:, 0]
 
     rows = []
-    for c in range(2):
+    for c in range(children):
         s = slice(c * F, (c + 1) * F)
         gmax = torch.maximum(gf[s].max(), gr[s].max())
         key_r = torch.where(gr[s] >= gmax, pref_r[s], _BIG_KEY)
@@ -153,27 +158,27 @@ def split_pair_plain(hist_g, hist_h, fmeta, info, *, l1: float, l2: float,
 def split_pair(hist_g, hist_h, fmeta, info, *, l1: float, l2: float,
                max_delta_step: float, min_gain_to_split: float,
                min_data_in_leaf: int, min_sum_hessian: float,
-               max_depth: int, out=None) -> torch.Tensor:
-    """(2, 13) f32 best-split rows for both children (see module doc),
-    written into ``out`` when it is given (the learner's preallocated
-    rows).  CPU tensors run the plain version; CUDA tensors launch the
-    kernel."""
+               max_depth: int, out=None, children: int = 2) -> torch.Tensor:
+    """(children, 13) f32 best-split rows (see module doc), written into
+    ``out`` when it is given (the learner's preallocated rows).  CPU
+    tensors run the plain version; CUDA tensors launch the kernel."""
     kw = dict(l1=l1, l2=l2, max_delta_step=max_delta_step,
               min_gain_to_split=min_gain_to_split,
               min_data_in_leaf=min_data_in_leaf,
-              min_sum_hessian=min_sum_hessian, max_depth=max_depth)
+              min_sum_hessian=min_sum_hessian, max_depth=max_depth,
+              children=children)
     if hist_g.device.type == "cpu":
         rows = split_pair_plain(hist_g, hist_h, fmeta, info, **kw)
         return rows if out is None else out.copy_(rows)
     return split_pair_cuda(hist_g, hist_h, fmeta, info, out=out, **kw)
 
 
-def check_args(hist_g, hist_h, fmeta, info) -> None:
+def check_args(hist_g, hist_h, fmeta, info, children=2) -> None:
     """The wrapper's checks of its inputs on the card."""
     F2, BF = hist_g.shape
-    if F2 % 2 or F2 == 0 or not 1 <= BF <= 256:
-        raise ValueError(f"split_pair needs (2F, BF<=256) histograms, got "
-                         f"{tuple(hist_g.shape)}")
+    if (children < 1 or F2 % children or F2 == 0 or not 1 <= BF <= 256):
+        raise ValueError(f"split_pair needs ({children}F, BF<=256) "
+                         f"histograms, got {tuple(hist_g.shape)}")
     kernels.require_cuda(hist_g, torch.float32, "hist_g")
     kernels.require_cuda(hist_h, torch.float32, "hist_h", (F2, BF))
     kernels.require_cuda(fmeta, torch.int32, "fmeta", (F2, 8))
@@ -184,18 +189,19 @@ def launcher():
     """The built kernel's ctypes entry, its signature set."""
     fn = kernels.load("split_pair").split_pair_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                    + [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_void_p])
     return fn
 
 
 def launch_args(hist_g, hist_h, fmeta, info, out, *, l1, l2, max_delta_step,
                 min_gain_to_split, min_data_in_leaf, min_sum_hessian,
-                max_depth) -> list:
+                max_depth, children=2) -> list:
     """The arguments of ``launcher()`` for one launch."""
     F2, BF = hist_g.shape
     return [kernels.ptr(hist_g), kernels.ptr(hist_h), kernels.ptr(fmeta),
-            kernels.ptr(info), kernels.ptr(out), F2 // 2, BF, l1, l2,
+            kernels.ptr(info), kernels.ptr(out), F2 // children, children,
+            BF, l1, l2,
             max_delta_step, min_gain_to_split, float(min_data_in_leaf),
             min_sum_hessian, int(max_depth), kernels.stream_ptr(hist_g.device)]
 
@@ -203,12 +209,13 @@ def launch_args(hist_g, hist_h, fmeta, info, out, *, l1, l2, max_delta_step,
 def split_pair_cuda(hist_g, hist_h, fmeta, info, *, out=None,
                     **kw) -> torch.Tensor:
     global launches
-    check_args(hist_g, hist_h, fmeta, info)
+    C = kw["children"]
+    check_args(hist_g, hist_h, fmeta, info, C)
     fn = launcher()
     if out is None:
-        out = torch.empty((2, OUT_FIELDS), dtype=torch.float32,
+        out = torch.empty((C, OUT_FIELDS), dtype=torch.float32,
                           device=hist_g.device)
-    kernels.require_cuda(out, torch.float32, "out", (2, OUT_FIELDS))
+    kernels.require_cuda(out, torch.float32, "out", (C, OUT_FIELDS))
     err = fn(*launch_args(hist_g, hist_h, fmeta, info, out, **kw))
     kernels.check(err, "split_pair_launch")
     launches += 1

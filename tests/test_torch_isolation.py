@@ -88,7 +88,8 @@ def test_cuda_request_without_card_raises(monkeypatch):
 @pytest.mark.parametrize("mod", ["ops/kernels.py", "ops/split_pair.py",
                                  "ops/split_mega.py", "ops/partition.py",
                                  "ops/histogram.py", "ops/hist_state.py",
-                                 "ops/tree_step.py", "models/learner.py"])
+                                 "ops/tree_step.py", "ops/frontier.py",
+                                 "models/learner.py"])
 def test_kernel_wrappers_have_no_fallback(mod):
     """No try/except in the build and launch paths: a kernel that does not
     build or launch raises to the caller."""

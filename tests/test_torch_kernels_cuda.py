@@ -23,13 +23,19 @@ are bit-identical.  Its state launch (leaf_hist_rmw: the histogram-state
 update folded into the histogram) is bit-identical to
 leaf_hist_rmw_fixed_plain, the int64 state and the f32 children (integer
 sums and differences are exact), and the larger child's slot to a
-direct fixed-point histogram of its own rows at the tree's scale.
+direct fixed-point histogram of its own rows at the tree's scale.  The
+frontier's bookkeeping kernel is bit-identical to frontier_step_plain on
+every state of real trees, its key and undo kernels to their plain
+versions, split_pair over 2K children to the pair launches that hold
+each child; trees grown by the frontier's graph (conditional IF nodes)
+equal the K=1 graph loop's bit for bit, row order included.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch.ops import hist_state as hs
 from lightgbm_tpu_torch.ops import histogram as th
 from lightgbm_tpu_torch.ops import partition as tpart
@@ -613,3 +619,154 @@ def test_graph_replay_trees_equal_eager_oracle(card, body, example):
         _tl.assert_same_tree(a, b)
     learner = a._gbdt.learner
     assert learner.syncs == 3 and learner.replays == 3
+
+
+# ---- the frontier (K > 1): bookkeeping, 2K-child search, graph trees ------
+
+def frontier_calls(X, y, params, rounds=2):
+    """Train on the CPU with the frontier and keep, before every
+    bookkeeping call, a CPU copy of its state and its mode; and before
+    every undo, the row buffers and the state."""
+    from lightgbm_tpu_torch.models import learner as lm
+    from lightgbm_tpu_torch.ops import frontier as fro
+    calls, undos = [], []
+    real_step, real_undo = lm.frontier_step, lm.frontier_undo
+
+    def step(mode, fr, **kw):
+        calls.append((mode, fr.to("cpu"), dict(kw, handles=(0, 0))))
+        return real_step(mode, fr, **kw)
+
+    def undo(pb, pg, fr, **kw):
+        undos.append((pb.clone(), pg.clone(), fr.to("cpu"),
+                      calls[-1][2]["row0"], kw["bound"]))
+        return real_undo(pb, pg, fr, **kw)
+
+    lm.frontier_step, lm.frontier_undo = step, undo
+    try:
+        lgt.train(dict(params, device_type="cpu"), lgt.Dataset(X, label=y),
+                  num_boost_round=rounds)
+    finally:
+        lm.frontier_step, lm.frontier_undo = real_step, real_undo
+    return fro, calls, undos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaves,k", [(15, 4), (12, 4), (8, 5), (31, 2)])
+def test_frontier_step_kernel_bit_identical_to_plain(card, leaves, k):
+    """The bookkeeping kernel against frontier_step_plain on every state
+    of two real trees (the root's reset, each step's commit, replay and
+    selection, the final renumber): every buffer bit for bit."""
+    X, y = _tl._load(_tl.EXAMPLES["binary"][0])
+    fro, calls, _ = frontier_calls(X, y, {
+        "objective": "binary", "num_leaves": leaves, "verbosity": -1,
+        "tpu_frontier_k": k})
+    assert len(calls) > 6
+    for i, (mode, fr, kw) in enumerate(calls):
+        want = fr.to("cpu")
+        fro.frontier_step_plain(mode, want, **{n: v for n, v in kw.items()
+                                               if n != "handles"})
+        got = fr.to(card)
+        fro.frontier_step(mode, got, **kw)
+        for name in fro.Frontier.TENSORS:
+            a, b = getattr(got, name).cpu(), getattr(want, name)
+            assert torch.equal(_tl._bits(a), _tl._bits(b)), (i, mode, name)
+
+
+@pytest.mark.cuda
+def test_frontier_key_and_undo_kernels_bit_identical_to_plain(card):
+    """The key row (positions, then zeros) and the undo of the pruned
+    ranges against their plain versions, on the states of real trees
+    where the replay pruned."""
+    X, y = _tl._load(_tl.EXAMPLES["binary"][0])
+    fro, _, undos = frontier_calls(X, y, {
+        "objective": "binary", "num_leaves": 12, "verbosity": -1,
+        "tpu_frontier_k": 4}, rounds=4)
+    assert undos, "no tree pruned"
+    for pb, pg, fr, row0, N in undos:
+        for clear in (False, True):
+            g, gc = pg.clone(), pg.to(card)
+            fro.frontier_key_plain(g, row0=row0, N=N, clear=clear)
+            fro.frontier_key(gc, row0=row0, N=N, clear=clear)
+            assert torch.equal(gc.cpu().view(torch.int32),
+                               g.view(torch.int32))
+        b, g = pb.clone(), pg.clone()
+        fro.frontier_undo_plain(b, g, fr)
+        bc, gc = pb.to(card), pg.to(card)
+        fro.frontier_undo(bc, gc, fr.to(card), bound=N)
+        assert torch.equal(bc.cpu(), b)
+        assert torch.equal(gc.cpu().view(torch.int32), g.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 4, 8])
+def test_split_pair_2k_children_equal_per_pair_launches(card, k):
+    """One launch over 2K children gives each child the bits of the pair
+    launch that holds it."""
+    F, BF = 28, 256
+    pairs = [_pair_case(100 + i, F, BF) for i in range(k)]
+    # children order of the frontier: the K left children, then the K
+    # right ones
+    hg = torch.cat([p[0][:F] for p in pairs] + [p[0][F:] for p in pairs])
+    hh = torch.cat([p[1][:F] for p in pairs] + [p[1][F:] for p in pairs])
+    fm = torch.cat([p[2][:F] for p in pairs] + [p[2][F:] for p in pairs])
+    info = torch.cat([p[3][:F] for p in pairs] + [p[3][F:] for p in pairs])
+    got = sp.split_pair(hg.to(card), hh.to(card), fm.to(card),
+                        info.to(card), children=2 * k, **PARAMS[0]).cpu()
+    for i, p in enumerate(pairs):
+        one = sp.split_pair(*(a.to(card) for a in p), **PARAMS[0]).cpu()
+        assert torch.equal(got[i].view(torch.int32), one[0].view(torch.int32))
+        assert torch.equal(got[k + i].view(torch.int32),
+                           one[1].view(torch.int32))
+    plain = sp.split_pair_plain(hg, hh, fm, info, children=2 * k,
+                                **PARAMS[0])
+    assert torch.equal(got.view(torch.int32), plain.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaves,k", [(15, 4), (12, 4), (31, 3)])
+@pytest.mark.parametrize("example", ["binary", "regression"])
+def test_frontier_graph_trees_equal_k1(card, example, leaves, k):
+    """Trees grown by the frontier's graph (conditional IF nodes) equal
+    the K=1 graph loop's on the card, bit for bit: leafmat, nodemat, the
+    tree record and the row order of both row buffers after each tree;
+    one host read a tree."""
+    rel, obj = _tl.EXAMPLES[example]
+    X, y = _tl._load(rel)
+    params = {"objective": obj, "num_leaves": leaves, "verbosity": -1}
+    a = lgt.Booster(dict(params, device_type="cuda", tpu_frontier_k=k),
+                    lgt.Dataset(X, label=y))
+    b = lgt.Booster(dict(params, device_type="cuda", tpu_frontier_k=1),
+                    lgt.Dataset(X, label=y))
+    made = []
+    for _ in range(4):
+        a.update()
+        b.update()
+        _tl.assert_same_tree(a, b)
+        made.append(a._gbdt.learner.last_made - a._gbdt.models[-1]
+                    .num_leaves + 1)
+    learner = a._gbdt.learner
+    assert learner.K == k and learner.syncs == 4 and learner.replays == 4
+    assert all(0 <= p <= k - 1 for p in made)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("min_gain", [5.0, 1e9])
+def test_frontier_graph_trees_that_stop_early_equal_k1(card, min_gain):
+    """Trees that stop early, down to stumps (no step's IF node taken),
+    grown by the frontier's graph equal the K=1 graph loop's on the card,
+    row order included."""
+    X, y = _tl._load(_tl.EXAMPLES["binary"][0])
+    params = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+              "min_gain_to_split": min_gain}
+    a = lgt.Booster(dict(params, device_type="cuda", tpu_frontier_k=3),
+                    lgt.Dataset(X, label=y))
+    b = lgt.Booster(dict(params, device_type="cuda", tpu_frontier_k=1),
+                    lgt.Dataset(X, label=y))
+    for _ in range(2):
+        a.update()
+        b.update()
+        _tl.assert_same_tree(a, b)
+    assert a._gbdt.learner.K == 3
+    if min_gain >= 1e9:
+        assert a._gbdt.learner.last_steps == 0
+

@@ -249,9 +249,9 @@ def test_dataset_from_jax_arrays_trains_the_same_trees(pair):
 
 @pytest.mark.parametrize("param,value", [
     ("bagging_fraction", 0.5), ("feature_fraction", 0.5),
-    ("objective", "multiclass"), ("tpu_frontier_k", 4),
+    ("objective", "multiclass"), ("tpu_ab_double", "hist"),
     ("linear_tree", True), ("tree_learner", "data"),
-    ("tpu_megakernel", "xla"), ("tpu_hist_dtype", "bfloat16_pair"),
+    ("tpu_megakernel", "xla"), ("tpu_hist_dtype", "float16"),
     ("tpu_hist_state", "flat")])
 def test_unsupported_param_raises_naming_it(param, value):
     X, y = _load(CASES["binary"][0])
@@ -319,3 +319,118 @@ def test_subtraction_path_calls_each_kernel_once_per_split(monkeypatch):
                          "leaf_hist_rmw": splits + 2,
                          "split_pair": splits + 2, "split_mega": 0}
         assert b._gbdt.learner.syncs == splits + 2
+
+
+# ---- exact ties between the packages (ROADMAP.md C) ------------------------
+#
+# Three settings reach splits whose competing candidates have equal gains
+# in exact arithmetic, where each package's f32 rounding decides: missing
+# values (the forward and the reverse scan make the same partition),
+# max_delta_step (every output clamps, so a split's exact gain is 0) and
+# max_depth with 63 leaves (first-tree gains that depend only on label
+# counts tie across features).  The comparison below walks both packages'
+# trees split by split, in the order they were made (an internal node's
+# index), on the training rows: each split must partition the same rows
+# the same way -- its feature, threshold and default_left may differ, the
+# gain being a function of the partition -- until the first split that
+# partitions differently, where the two splits' gains recounted in f64
+# from that tree's gradients must be equal (a missing split counts as a
+# gain of 0).  The trees before it must also have their leaf values
+# within the repo's bar.
+
+def _leaf_sets(tree):
+    """Leaves below each internal node and below its left child."""
+    ns = tree.num_leaves - 1
+    lc = np.asarray(tree.left_child[:ns])
+    rc = np.asarray(tree.right_child[:ns])
+
+    def below(c):
+        return {~c} if c < 0 else below(lc[c]) | below(rc[c])
+
+    return [(below(s), below(lc[s])) for s in range(ns)]
+
+
+def _leaf_gain64(g, h, l1, l2, mds):
+    s = np.sign(g) * max(abs(g) - l1, 0.0)
+    if mds > 0:
+        out = min(max(-s / (h + l2), -mds), mds)
+        return -(2.0 * s * out + (h + l2) * out * out)
+    return s * s / (h + l2)
+
+
+def _split_gain64(rows, left, g, h, reg):
+    if rows is None:
+        return 0.0
+    right = rows & ~left
+    parts = [(g[m].sum(), h[m].sum()) for m in (left, right, rows)]
+    gl, gr, gp = (_leaf_gain64(a, b, *reg) for a, b in parts)
+    return gl + gr - gp, abs(gl) + abs(gr) + abs(gp)
+
+
+def _compare_with_ties(X, y, objective, params, jb, tb):
+    """Returns (tree, split) of the first split that partitions the
+    training rows differently, after checking it is an exact tie; None
+    when every tree agrees."""
+    reg = (params.get("lambda_l1", 0.0), params.get("lambda_l2", 0.0),
+           params.get("max_delta_step", 0.0))
+    port_in_jax = lgb.Booster(model_str=tb.model_to_string())
+    leaves_j = np.asarray(jb.predict(X, pred_leaf=True))
+    leaves_t = np.asarray(port_in_jax.predict(X, pred_leaf=True))
+    score = np.full(len(y), tb._gbdt.init_scores[0], np.float64)
+    for t, (a, b) in enumerate(zip(jb._gbdt.models, tb._gbdt.models)):
+        if objective == "binary":
+            p = 1.0 / (1.0 + np.exp(-score))
+            g, h = p - y, p * (1.0 - p)
+        else:
+            g, h = score - y, np.ones_like(y)
+        sets = []
+        for tree, lv in ((a, leaves_j[:, t]), (b, leaves_t[:, t])):
+            sets.append([(np.isin(lv, list(u)), np.isin(lv, list(v)))
+                         for u, v in _leaf_sets(tree)])
+        for s in range(max(len(sets[0]), len(sets[1]))):
+            got = [x[s] if s < len(x) else (None, None) for x in sets]
+            (rj, lj), (rt, lt) = got
+            if (rj is not None and rt is not None
+                    and np.array_equal(rj, rt) and np.array_equal(lj, lt)):
+                continue
+            gj = _split_gain64(rj, lj, g, h, reg)
+            gt = _split_gain64(rt, lt, g, h, reg)
+            (vj, mj), (vt, mt) = (x if isinstance(x, tuple) else (x, 0.0)
+                                  for x in (gj, gt))
+            assert abs(vj - vt) <= 1e-9 * max(1.0, mj, mt), (
+                f"tree {t} split {s}: the packages split differently with "
+                f"f64 gains {vj!r} (JAX) and {vt!r} (port)")
+            return t, s
+        np.testing.assert_allclose(b.leaf_value, a.leaf_value, rtol=1e-4,
+                                   atol=1e-5)
+        score = score + np.asarray(b.leaf_value, np.float64)[leaves_t[:, t]]
+        if t == 0:
+            score = score - tb._gbdt.init_scores[0]
+    return None
+
+
+TIE_CASES = {
+    "missing_values": ("regression/regression.train", "regression",
+                       {"num_leaves": 31, "lambda_l2": 1.0}),
+    "max_delta_step": (CASES["binary"][0], "binary",
+                       {"num_leaves": 15, "max_delta_step": 0.3}),
+    "max_depth": (CASES["binary"][0], "binary",
+                  {"num_leaves": 63, "max_depth": 5}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TIE_CASES))
+def test_tie_settings_agree_up_to_exact_ties(case):
+    rel, objective, extra = TIE_CASES[case]
+    X, y = _load(rel)
+    if case == "missing_values":
+        X = X.copy()
+        X[np.random.RandomState(3).rand(*X.shape) < 0.1] = np.nan
+    params = dict(extra, objective=objective, verbosity=-1,
+                  min_data_in_leaf=20)
+    jb = lgb.train(dict(params, tpu_megakernel="xla", tpu_frontier_k=1),
+                   lgb.Dataset(X, label=y), num_boost_round=ROUNDS)
+    jb.num_trees()
+    tb = lgt.train(dict(params, device_type="cpu"), lgt.Dataset(X, label=y),
+                   num_boost_round=ROUNDS)
+    _compare_with_ties(X, y, objective, params, jb, tb)

@@ -56,7 +56,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      wrapper's count set to 0 before and read after, the device launches
      by function from torch.profiler's kernel events equal to what the
      graph's steps taken hold (the IF nodes of the steps a tree stopped
-     before launch nothing), one host sync a tree; the bookkeeping kernel
+     before launch nothing; this profiled run goes first, in a child
+     process, ``--frontier-window``: the profiler names a conditional
+     graph's kernels right only in a process's first window), one host
+     sync a tree; the bookkeeping kernel
      bit-identical to frontier_step_plain on every state of the first
      tree, the key row and the undo (of a leaf partitioned on purpose)
      equal to their plain versions and the undo to the rows before the
@@ -65,6 +68,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      alone on the states of the launches the graph takes in that tree,
      queued back to back), a stopped
      step's, and ms an iteration beside K=1's;
+  4c. the training API on the card at the HIGGS shape with the UCI
+     split's held-out rows (11M rows made, the last 500,000 a validation
+     set; binary_logloss, auc, binary_error): on each body (mega K=1,
+     mega auto, subtraction) 8 iterations of lgt.train without and with
+     the validation set (record_evaluation, early_stopping(50)), every
+     wrapper's count set to 0 before the validation run and read after
+     it, each kernel of the body launched; the validation scores against
+     a fresh raw prediction (atol 1e-5), every recorded metric against a
+     numpy float64 evaluation of the card's scores after that iteration
+     (rtol 1e-6 logloss, 1e-9 auc and error), one tree read a tree, the
+     trees bit-identical to the run without the validation set, and
+     s/iteration with and without it, the validation update's device ms a
+     tree (torch.profiler); early stopping on
+     examples/binary_classification loaded from its text files, the card
+     against the CPU (best iteration, trees, eval history rtol 1e-5); a
+     numpy binary objective on the HIGGS rows against the built-in one
+     (first tree, train scores from the physical order against predict);
+     3 trees saved and 3 more from the file with the validation set
+     (train and valid scores against predict, atol 1e-5);
   5. each kernel against its plain version on inputs captured from the
      first tree of its path, through its host-int entry and through the
      step entry the graph loop launches (a step block made beforehand,
@@ -78,6 +100,7 @@ The line before the last is a JSON object of per-kernel numbers; the
 last line is {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import gc
 import json
 import os
@@ -939,6 +962,305 @@ def card_vs_cpu(lgt, d, extra, label):
         f"identical, max raw err {err:.2e}")
 
 
+# phase 4c: the HIGGS shape with the UCI split's 500,000 held-out rows
+API_ROWS, API_VALID, API_ITERS = 11_000_000, 500_000, 8
+
+
+def np_sigmoid(score):
+    return 1.0 / (1.0 + np.exp(-np.asarray(score, np.float64)))
+
+
+def np_logloss(score, y):
+    p = np.clip(np_sigmoid(score), 1e-15, 1.0 - 1e-15)
+    return float(np.mean(-(y * np.log(p) + (1.0 - y) * np.log(1.0 - p))))
+
+
+def np_auc(score, y):
+    """Mann-Whitney AUC in float64, tied scores at their average rank."""
+    s = np.asarray(score, np.float64)
+    order = np.argsort(s, kind="stable")
+    ss = s[order]
+    starts = np.flatnonzero(np.r_[True, ss[1:] != ss[:-1]])
+    ends = np.r_[starts[1:], len(ss)]
+    ranks = np.empty(len(s))
+    ranks[order] = np.repeat((starts + ends + 1) / 2.0, ends - starts)
+    pos = np.asarray(y) > 0
+    n_pos, n_neg = int(pos.sum()), int((~pos).sum())
+    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2.0)
+                 / (n_pos * n_neg))
+
+
+def np_error(score, y):
+    return float(np.mean((np_sigmoid(score) > 0.5) != (np.asarray(y) > 0.5)))
+
+
+def iteration_timer(times, snaps=None):
+    """An after-iteration callback (first in order): the wall seconds of
+    each iteration after the first (update and evaluation, ended by a
+    device sync), and the validation scores after it in ``snaps``,
+    copied outside the timed span."""
+    last = []
+
+    def cb(env):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if last:
+            times.append(now - last[0])
+        if snaps is not None:
+            snaps.append(env.model._gbdt.valid_scores[0].cpu().numpy().copy())
+        last[:] = [time.perf_counter()]
+    cb.order = 0
+    return cb
+
+
+def keep_records(recs):
+    """A before-iteration callback that makes the booster keep each tree's
+    host record as the validation update gets it."""
+    def cb(env):
+        g = env.model._gbdt
+        if env.iteration == 0:
+            orig = g._add_valid_values
+
+            def kept(rec):
+                recs.append(rec)
+                orig(rec)
+            g._add_valid_values = kept
+    cb.before_iteration = True
+    return cb
+
+
+def same_trees(a, b, exact=True):
+    """Tree lists equal in structure (features, bins, children, counts);
+    leaf values bit for bit or within rtol 1e-4 / atol 1e-5."""
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        n = x.num_nodes()
+        if (x.num_leaves != y.num_leaves
+                or x.split_feature[:n].tolist() != y.split_feature[:n].tolist()
+                or x.threshold_bin[:n].tolist() != y.threshold_bin[:n].tolist()
+                or x.threshold[:n].tolist() != y.threshold[:n].tolist()
+                or x.left_child[:n].tolist() != y.left_child[:n].tolist()
+                or x.right_child[:n].tolist() != y.right_child[:n].tolist()
+                or x.leaf_count.tolist() != y.leaf_count.tolist()):
+            return False
+        if exact and not np.array_equal(x.leaf_value, y.leaf_value):
+            return False
+        if not np.allclose(x.leaf_value, y.leaf_value, rtol=1e-4, atol=1e-5):
+            return False
+    return True
+
+
+def api_path(lgt, mods, fro, card):
+    """Phase 4c: the training API on the card at the HIGGS shape, with the
+    last 500,000 of 11M rows held out as a validation set.  For each body
+    (mega K=1, mega auto, subtraction): 8 iterations through lgt.train
+    without, then with the validation set (record_evaluation,
+    early_stopping(50)), every wrapper's count set to 0 just before the
+    validation run and read just after; the valid scores against a fresh
+    raw prediction, every recorded metric against a numpy float64
+    evaluation of the card's valid scores after that iteration, one tree
+    read a tree, and the trees bit-identical to the run without the
+    validation set; the validation update's device ms a tree
+    (torch.profiler; CUDA events beside it).  Then early stopping on
+    examples/binary_classification (loaded from its text files) on the
+    card against the CPU; a numpy objective on the HIGGS rows against the
+    built-in one; and training continued from a saved model with the
+    validation set."""
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.time()
+    X, y = make_data(API_ROWS)
+    n_tr = API_ROWS - API_VALID
+    Xt, yt, Xv, yv = X[:n_tr], y[:n_tr], X[n_tr:], y[n_tr:]
+    metrics = ["binary_logloss", "auc", "binary_error"]
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+              "learning_rate": 0.1, "verbosity": -1, "metric": metrics}
+    ds = lgt.Dataset(Xt, label=yt)
+    ds.construct(params)
+    dv = ds.create_valid(Xv, label=yv)
+    dv.construct(params)
+    say(f"api: data {X.shape}, train {Xt.shape} and valid {Xv.shape} "
+        f"constructed in {time.time() - t0:.1f} s")
+    bodies = (("mega K=1", {"tpu_frontier_k": 1},
+               ("split_mega", "split_pair", "tree_step")),
+              ("mega auto", {"tpu_frontier_k": "auto"},
+               ("split_mega", "split_pair", "frontier_step", "frontier_key")),
+              ("subtraction", {"tpu_megakernel": "off"},
+               ("partition", "leaf_hist", "hist_rmw", "split_pair",
+                "tree_step")))
+    out = {}
+    for label, extra, path_kernels in bodies:
+        p = dict(params, **extra)
+        plain_t = []
+        b0 = lgt.train(p, ds, API_ITERS, callbacks=[iteration_timer(plain_t)])
+        for m in mods.values():
+            m.launches = 0
+        for k in fro.launches:
+            fro.launches[k] = 0
+        valid_t, ev, snaps, recs = [], {}, [], []
+        bv = lgt.train(p, ds, API_ITERS, valid_sets=[dv], callbacks=[
+            iteration_timer(valid_t, snaps), keep_records(recs),
+            lgt.record_evaluation(ev), lgt.early_stopping(50, verbose=False)])
+        counts = dict({k: m.launches for k, m in mods.items()},
+                      **fro.launches)
+        for k in path_kernels:
+            check(counts[k] > 0, f"api {label}: {k} launched no time in the "
+                                 f"run with the validation set: {counts}")
+        g0, gv = b0._gbdt, bv._gbdt
+        check(gv.learner.syncs == API_ITERS == g0.learner.syncs
+              and gv.learner.replays == API_ITERS,
+              f"api {label}: tree reads {gv.learner.syncs} with the valid "
+              f"set, {g0.learner.syncs} without, {gv.learner.replays} "
+              f"replays, for {API_ITERS} trees (want one a tree)")
+        check(same_trees(g0.models, gv.models),
+              f"api {label}: the validation set changed the trees")
+        vs = gv.valid_scores[0].cpu().numpy()
+        pv = bv.predict(Xv, raw_score=True, num_iteration=-1)
+        verr = float(np.abs(vs - pv).max())
+        check(vs.shape == (API_VALID,) and np.isfinite(vs).all()
+              and verr <= 1e-5, f"api {label}: valid scores vs predict "
+                                f"differ by {verr}")
+        rec = ev["valid_0"]
+        check(list(rec) == metrics and all(len(v) == API_ITERS
+                                           for v in rec.values())
+              and len(snaps) == API_ITERS, f"api {label}: recorded {rec}")
+        merr = {m: 0.0 for m in metrics}
+        for i, sc in enumerate(snaps):
+            for m, fn, tol in (("binary_logloss", np_logloss, 1e-6),
+                               ("auc", np_auc, 1e-9),
+                               ("binary_error", np_error, 1e-9)):
+                want = fn(sc, yv)
+                e = abs(rec[m][i] - want) / abs(want)
+                merr[m] = max(merr[m], e)
+                check(e <= tol, f"api {label}: {m} at iteration {i + 1}: "
+                                f"{rec[m][i]!r} vs numpy f64 {want!r}")
+        check(all(a > b for a, b in zip(rec["binary_logloss"],
+                                        rec["binary_logloss"][1:])),
+              f"api {label}: valid logloss does not fall: "
+              f"{rec['binary_logloss']}")
+        # the validation update of the last tree, again, on its own
+        last = recs[-1]
+        depth = learner_depth(last)
+        reps = 5
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                type(gv)._add_valid_values(gv, last)
+            torch.cuda.synchronize()
+        trav_ms = sum(ms for _, ms, _ in device_rows(prof)) / reps
+        check(trav_ms > 0, f"api {label}: the profiler saw no device time "
+                           f"in the validation update")
+        trav_ev_ms = cuda_ms(lambda: type(gv)._add_valid_values(gv, last), 5)
+        out[label] = {
+            "s_per_iter_no_valid": float(np.median(plain_t)),
+            "s_per_iter_valid": float(np.median(valid_t)),
+            "valid_update_device_ms_per_tree": trav_ms,
+            "valid_update_event_ms_per_tree": trav_ev_ms,
+            "last_tree_depth": depth, "valid_vs_predict_max_err": verr,
+            "metric_rel_err_vs_numpy": merr,
+            "best_iteration": bv.best_iteration,
+            "valid_logloss": rec["binary_logloss"][-1],
+            "valid_auc": rec["auc"][-1], "launches": counts}
+        say(f"api {label}: s/iteration without the valid set "
+            f"{[round(t, 4) for t in plain_t]}, with it "
+            f"{[round(t, 4) for t in valid_t]}; validation update "
+            f"{trav_ms:.3f} ms a tree (profiler; events {trav_ev_ms:.3f}) at "
+            f"depth {depth}; valid scores vs predict {verr:.2e}; metrics vs "
+            f"numpy f64 {merr}; one tree read a tree; trees equal without "
+            f"the valid set; wrapper counts {counts}")
+        del b0, bv, g0, gv, snaps, recs
+        torch.cuda.empty_cache()
+
+    # early stopping on examples/binary_classification: card and CPU
+    base = os.path.join(ROOT, "examples", "binary_classification")
+    pe = {"objective": "binary", "num_leaves": 15, "verbosity": -1,
+          "metric": "auc,binary_logloss", "early_stopping_round": 10}
+    es = {}
+    for where in ("cuda", "cpu"):
+        d = lgt.Dataset(os.path.join(base, "binary.train"))
+        v = lgt.Dataset(os.path.join(base, "binary.test"), reference=d)
+        ev = {}
+        b = lgt.train(dict(pe, device_type=where), d, 500, valid_sets=[v],
+                      callbacks=[lgt.record_evaluation(ev)])
+        es[where] = (b, ev)
+    (bg, eg), (bc, ec) = es["cuda"], es["cpu"]
+    check(bg.best_iteration == bc.best_iteration > 0
+          and bg.num_trees() == bc.num_trees() < 500,
+          f"api early stopping: best iteration card {bg.best_iteration} / "
+          f"CPU {bc.best_iteration}, trees {bg.num_trees()} / "
+          f"{bc.num_trees()}")
+    check(same_trees(bg._gbdt.models, bc._gbdt.models, exact=False),
+          "api early stopping: card and CPU trees differ")
+    herr = 0.0
+    for m in ("auc", "binary_logloss"):
+        a, c = np.asarray(eg["valid_0"][m]), np.asarray(ec["valid_0"][m])
+        herr = max(herr, float(np.max(np.abs(a - c) / np.abs(c))))
+    check(herr <= 1e-5, f"api early stopping: eval histories differ by "
+                        f"{herr} (rtol)")
+    say(f"api early stopping on examples/binary_classification (text "
+        f"files): best iteration {bg.best_iteration} of {bg.num_trees()} "
+        f"trees on the card and the CPU, trees equal, eval history rtol "
+        f"{herr:.2e}")
+
+    # a numpy objective on the card against the built-in one
+    calls = []
+
+    def fobj(score, dataset):
+        calls.append(len(score))
+        p_ = np_sigmoid(score)
+        yy = dataset.get_label()
+        return p_ - yy, p_ * (1.0 - p_)
+
+    quiet = dict(params, metric="None")
+    bf = lgt.train(dict(quiet, objective=fobj), ds, 3)
+    bb = lgt.train(dict(quiet, boost_from_average=False), ds, 3)
+    check(calls == [n_tr] * 3 and bf._gbdt.objective is None,
+          f"api fobj: calls {calls}")
+    check(same_trees(bf._gbdt.models[:1], bb._gbdt.models[:1], exact=False),
+          "api fobj: the first tree differs from the built-in objective's")
+    ferr = float(np.abs(bf._gbdt.scores.cpu().numpy()
+                        - bf.predict(Xt, raw_score=True)).max())
+    check(ferr <= 1e-5, f"api fobj: train scores vs predict differ by {ferr}")
+    say(f"api fobj: a numpy binary logloss on {n_tr} rows, 3 trees; the "
+        f"first tree equal to objective=binary's; train scores (from the "
+        f"physical order) vs predict {ferr:.2e}")
+    del bf, bb
+
+    # continued training from a saved model, with the validation set
+    b3 = lgt.train(quiet, ds, 3)
+    out_dir = os.path.join(ROOT, "build")
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        path = os.path.join(tmp, "model.txt")
+        b3.save_model(path)
+        bi = lgt.train(params, ds, 3, valid_sets=[dv], init_model=path)
+    check(bi.num_trees() == 6, f"api init_model: {bi.num_trees()} trees")
+    terr = float(np.abs(bi._gbdt.scores.cpu().numpy()
+                        - bi.predict(Xt, raw_score=True,
+                                     num_iteration=-1)).max())
+    ierr = float(np.abs(bi._gbdt.valid_scores[0].cpu().numpy()
+                        - bi.predict(Xv, raw_score=True,
+                                     num_iteration=-1)).max())
+    check(terr <= 1e-5 and ierr <= 1e-5,
+          f"api init_model: train scores vs predict {terr}, valid {ierr}")
+    say(f"api init_model: 3 trees saved, 3 more from the file with the "
+        f"validation set; train / valid scores vs predict of the 6 trees "
+        f"{terr:.2e} / {ierr:.2e}")
+    print(f"api (phase 4c, {card}): " + json.dumps(out), flush=True)
+    del b3, bi, ds, dv, X, y, Xt, Xv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def learner_depth(rec):
+    """The depth of the tree in a learner's host record."""
+    from lightgbm_tpu_torch.ops.predict import tree_depth
+    s = int(rec["s"])
+    return tree_depth(rec["node_left"][:s], rec["node_right"][:s])
+
+
 FR_K, FR_TREES = 4, 4          # the frontier phase: K, and trees a booster
 
 
@@ -984,13 +1306,14 @@ def k1_trees(lgt, ds, params, n):
     return want, times
 
 
-def frontier_path(lgt, learner_mod, mods, fro, ds, params, d):
+def frontier_path(lgt, learner_mod, mods, fro, ds, params, d, profiled):
     """Phase 4b: the frontier (tpu_frontier_k=FR_K) on the mega path at the
     HIGGS shape, its trees bit-identical to the K=1 graph loop's after
     every tree (leafmat, nodemat, both row buffers), then at the auto K;
     and on examples/binary_classification at 12 leaves, where the replay
     prunes, against K=1 on the card.  Every wrapper's count is set to 0
-    just before the HIGGS run and read just after the examples run, both
+    just before the HIGGS run and read just after the examples run.  When
+    ``profiled`` (``frontier_window``, a process of its own), both runs are
     under torch.profiler, whose kernel events give each device function's
     launches: per tree as fr_funcs says from the tree's steps and pruning,
     plus the run before each graph's capture, which launches every step
@@ -1018,8 +1341,10 @@ def frontier_path(lgt, learner_mod, mods, fro, ds, params, d):
         fro.launches[k] = 0
     tk, trees, sm_trees = [], [], []
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    window = (profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA])
+              if profiled else contextlib.nullcontext())
+    with window as prof:
         learner_mod.frontier_step = keep
         try:
             for it in range(FR_TREES):
@@ -1045,26 +1370,29 @@ def frontier_path(lgt, learner_mod, mods, fro, ds, params, d):
         torch.cuda.synchronize()
     calls = {k: m.launches for k, m in mods.items()}
     calls.update(fro.launches)
-    device = {}
-    for key, ms, n in device_rows(prof):
-        fn = func(key)
-        if fn in fr_funcs(1, 0, 0):
-            t, c = device.get(fn, (0.0, 0))
-            device[fn] = (t + ms, c + n)
-    del prof
     lr = bst._gbdt.learner
-    # the run before each capture launches every step of the sequence
-    # and the undo, with no IF nodes
-    runs = ([(lr.max_splits, 1)] + trees
-            + [(b_sm._gbdt.learner.max_splits, 1)] + sm_trees)
-    expect = {}
-    for steps, pruned in runs:
-        for fn, n in fr_funcs(FR_K, steps, pruned > 0).items():
-            expect[fn] = expect.get(fn, 0) + n
-    for fn, n in expect.items():
-        check(device.get(fn, (0, 0))[1] == n,
-              f"frontier: {fn}: {device.get(fn, (0, 0))[1]} device launches "
-              f"in the run, expected {n} (steps, pruned a tree: {runs})")
+    device = None
+    if profiled:
+        device = {}
+        for key, ms, n in device_rows(prof):
+            fn = func(key)
+            if fn in fr_funcs(1, 0, 0):
+                t, c = device.get(fn, (0.0, 0))
+                device[fn] = (t + ms, c + n)
+        del prof
+        # the run before each capture launches every step of the sequence
+        # and the undo, with no IF nodes
+        runs = ([(lr.max_splits, 1)] + trees
+                + [(b_sm._gbdt.learner.max_splits, 1)] + sm_trees)
+        expect = {}
+        for steps, pruned in runs:
+            for fn, n in fr_funcs(FR_K, steps, pruned > 0).items():
+                expect[fn] = expect.get(fn, 0) + n
+        for fn, n in expect.items():
+            check(device.get(fn, (0, 0))[1] == n,
+                  f"frontier: {fn}: {device.get(fn, (0, 0))[1]} device "
+                  f"launches in the run, expected {n} (steps, pruned a "
+                  f"tree: {runs})")
     check(all(0 <= p <= FR_K - 1 for _, p in trees + sm_trees),
           f"frontier: more than K-1 pruned splits: {trees + sm_trees}")
     check(any(p > 0 for _, p in sm_trees),
@@ -1087,11 +1415,13 @@ def frontier_path(lgt, learner_mod, mods, fro, ds, params, d):
         f"K=1 graph loop's (leafmat, nodemat, both row buffers), (steps, "
         f"pruned) a tree {trees}; examples/binary_classification at 12 "
         f"leaves bit-identical to K=1 on the card with (steps, pruned) "
-        f"{sm_trees}; wrapper calls {calls}; device launches by function "
-        f"{ {k: v[1] for k, v in device.items()} } = fr_funcs over the "
-        f"trees and the runs before the captures (every step); one host "
-        f"sync a tree, "
-        f"none implicit under set_sync_debug_mode('error')")
+        f"{sm_trees}; wrapper calls {calls}; "
+        + (f"device launches by function "
+           f"{ {k: v[1] for k, v in device.items()} } = fr_funcs over the "
+           f"trees and the runs before the captures (every step); "
+           if profiled else "")
+        + "one host sync a tree, none implicit under "
+        "set_sync_debug_mode('error')")
     # the auto K on the card
     ba = lgt.Booster(params=params, train_set=ds)
     ta = []
@@ -1513,8 +1843,9 @@ def main():
         torch.cuda.empty_cache()
     # ---- 4b. the frontier (K > 1) on the mega path ------------------
     from lightgbm_tpu_torch.ops import frontier as fro
-    fbst, states, fr_calls, fr_device, fr_trees, fr_med = frontier_path(
-        lgt, learner_mod, mods, fro, ds, params, d)
+    fr_device = frontier_window_launches()
+    fbst, states, fr_calls, _, fr_trees, fr_med = frontier_path(
+        lgt, learner_mod, mods, fro, ds, params, d, profiled=False)
     launches_by_path["frontier"] = {
         "split_mega": fr_device["mega_hist"][1],
         "split_pair": fr_device["pair_search"][1],
@@ -1541,6 +1872,11 @@ def main():
           flush=True)
     regression_ties(lgt)
     del X, y, ds
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 4c. the training API on the card -----------------------------
+    api_path(lgt, mods, fro, card)
 
     # ---- 5. captured inputs and timings ------------------------------
     for key in cap:
@@ -1875,5 +2211,53 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def frontier_window():
+    """``python3 chip_smoke.py --frontier-window``: phase 4b under
+    torch.profiler in a process of its own, which makes no profile before
+    it, its device launches by function checked as frontier_path says;
+    prints them as the last line, a JSON object.  The profiler names the
+    kernels of conditional graphs right in a process's first such window,
+    and not after earlier windows and graphs (PERF.md section 7)."""
+    sys.path.insert(0, ROOT)
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.models import learner as learner_mod
+    from lightgbm_tpu_torch.ops import (frontier, hist_state, histogram,
+                                        kernels, partition, split_mega,
+                                        split_pair, tree_step)
+    kernels.build_all()
+    mods = {"split_mega": split_mega, "split_pair": split_pair,
+            "partition": partition, "leaf_hist": histogram,
+            "hist_rmw": hist_state, "tree_step": tree_step}
+    X, y = make_data(ROWS)
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+              "learning_rate": 0.1, "verbosity": -1}
+    ds = lgt.Dataset(X, label=y)
+    ds.construct(params)
+    d = np.loadtxt(os.path.join(ROOT, "examples", "binary_classification",
+                                "binary.train"))
+    device = frontier_path(lgt, learner_mod, mods, frontier, ds, params, d,
+                           profiled=True)[3]
+    print(json.dumps(device), flush=True)
+
+
+def frontier_window_launches():
+    """Run ``frontier_window`` in a child process on the card; its device
+    launches by function: {function: [ms, launches]}."""
+    t0 = time.time()
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--frontier-window"], cwd=ROOT, capture_output=True,
+                       text=True, timeout=900)
+    for line in r.stdout.splitlines()[:-1]:
+        print(f"  (frontier window) {line}", flush=True)
+    check(r.returncode == 0, f"the frontier's profiled window failed:\n"
+                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    device = json.loads(r.stdout.splitlines()[-1])
+    say(f"frontier window (a process of its own): {time.time() - t0:.1f} s")
+    return device
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--frontier-window"]:
+        frontier_window()
+    else:
+        main()

@@ -1,8 +1,13 @@
 """Python API of the port: ``Dataset`` and ``Booster``.
 
-Port of the slice's surface of lightgbm_tpu/basic.py: a ``Dataset``
-over an all-numerical matrix, and a ``Booster`` that trains
-(``update``), predicts, and writes / reads the reference's model text
+Port of lightgbm_tpu/basic.py for all-numerical data: a ``Dataset`` over
+a matrix or a CSV / TSV / LibSVM file (utils/textio.py), with
+``create_valid`` for validation sets binned like the training set; a
+``Booster`` that trains (``update``, with a custom objective ``fobj`` or
+``boost(grad, hess)``), evaluates the training and validation sets
+(built-in metrics and ``feval``), continues from a model
+(``_continue_from``), predicts raw and converted scores and leaf
+indices, and writes / reads the reference's model text
 (``model_to_string``, ``save_model``, ``_load_model_string``) -- the same
 text the JAX package writes and reads.  Training and prediction run on
 ``Config.torch_device()``: the card unless ``device_type='cpu'``.
@@ -21,12 +26,14 @@ from .models.objective import create_objective
 from .models.tree import Tree
 from .utils import log
 from .utils.log import LightGBMError
+from .utils.textio import load_text_file
 
 
 def _to_matrix(data) -> np.ndarray:
     if isinstance(data, str):
         raise NotImplementedError(
-            "lightgbm_tpu_torch does not load data files yet; pass a matrix")
+            "lightgbm_tpu_torch reads a file path only as the data of a "
+            "Dataset it constructs; pass a matrix")
     if hasattr(data, "to_numpy"):
         data = data.to_numpy()
     mat = np.asarray(data)
@@ -70,6 +77,8 @@ class Dataset:
         params.update(self.params)
         cfg = Config(params)
         cfg.check_supported()
+        if isinstance(self.data, str):
+            self._load_file(cfg)
         names = None
         if isinstance(self.feature_name, list):
             names = list(self.feature_name)
@@ -83,6 +92,50 @@ class Dataset:
             init_score=self.init_score, feature_names=names, reference=ref)
         return self
 
+    def _load_file(self, cfg: Config) -> None:
+        """A text file as ``data`` (JAX basic.py Dataset.construct): its
+        matrix, and its label, weight and header names where the caller
+        gave none."""
+        loaded = load_text_file(
+            self.data, has_header=bool(cfg.header),
+            label_column=cfg.label_column, weight_column=cfg.weight_column,
+            group_column=cfg.group_column, ignore_column=cfg.ignore_column)
+        if loaded.group is not None:
+            raise NotImplementedError(
+                "lightgbm_tpu_torch does not support group (ranking) yet")
+        if self.label is None:
+            self.label = loaded.label
+        if self.weight is None:
+            self.weight = loaded.weight
+        self.data = loaded.X
+        if loaded.feature_names and not isinstance(self.feature_name, list):
+            self.feature_name = loaded.feature_names
+
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, params=None) -> "Dataset":
+        """A validation set binned with this dataset's mappers."""
+        return Dataset(data, label=label, reference=self, weight=weight,
+                       group=group, init_score=init_score,
+                       params=params or self.params)
+
+    def set_label(self, label) -> "Dataset":
+        self.label = label
+        if self._inner is not None and label is not None:
+            self._inner.metadata.set_label(label)
+        return self
+
+    def set_weight(self, weight) -> "Dataset":
+        self.weight = weight
+        if self._inner is not None:
+            self._inner.metadata.set_weight(weight)
+        return self
+
+    def set_init_score(self, init_score) -> "Dataset":
+        self.init_score = init_score
+        if self._inner is not None:
+            self._inner.metadata.set_init_score(init_score)
+        return self
+
     def num_data(self) -> int:
         return (self._inner.num_data if self._inner is not None
                 else _to_matrix(self.data).shape[0])
@@ -92,7 +145,12 @@ class Dataset:
                 else _to_matrix(self.data).shape[1])
 
     def get_label(self):
+        if self._inner is not None and self._inner.metadata.label is not None:
+            return np.asarray(self._inner.metadata.label)
         return None if self.label is None else np.asarray(self.label)
+
+    def get_weight(self):
+        return self.weight
 
 
 class Booster:
@@ -106,6 +164,14 @@ class Booster:
         self.config = Config(self.params)
         self.train_set = train_set
         self.best_iteration = -1
+        self.best_score: Dict[str, Dict[str, float]] = {}
+        self._valid_names: List[str] = []
+        self._valid_sets: List[Dataset] = []
+        # the train set's eval-row name; train() sets the valid_names
+        # entry when the train set is evaluated (callback.py
+        # _is_train_row)
+        self._train_data_name = "training"
+        self._init_booster: Optional["Booster"] = None
         self._gbdt: Optional[GBDT] = None
         if train_set is not None:
             self.config.check_supported()
@@ -122,12 +188,78 @@ class Booster:
             log.fatal("Booster requires train_set, model_file or model_str")
 
     # ------------------------------------------------------------------
+    def _continue_from(self, init_model) -> "Booster":
+        """Continued training: seed this fresh booster with the trees of
+        ``init_model`` (a Booster, a model file path or a model string)
+        and, as train scores, its raw prediction of the raw train rows
+        (JAX basic.py _continue_from)."""
+        if isinstance(init_model, Booster):
+            init_bst = init_model
+        elif isinstance(init_model, str) and "\n" in init_model:
+            init_bst = Booster(params=self._device_params(),
+                               model_str=init_model)
+        else:
+            init_bst = Booster(params=self._device_params(),
+                               model_file=init_model)
+        ig = init_bst._gbdt
+        if not ig.models:
+            return self
+        raw = self._raw_matrix(self.train_set)
+        if raw is None:
+            raise ValueError(
+                "continued training needs the raw train rows to score the "
+                "init model; the train Dataset no longer holds them")
+        self._gbdt.continue_from(ig.models, ig.predict_raw(raw))
+        self._init_booster = init_bst
+        return self
+
+    def _device_params(self) -> Dict[str, Any]:
+        return {k: v for k, v in self.params.items()
+                if Config.canonical_name(k) == "device_type"}
+
+    @staticmethod
+    def _raw_matrix(dataset: Optional[Dataset]):
+        if dataset is None or dataset.data is None or isinstance(
+                dataset.data, str):
+            return None
+        return _to_matrix(dataset.data)
+
+    def add_valid(self, data: Dataset, name: str) -> "Booster":
+        data.construct(self.params)
+        extra = None
+        if self._init_booster is not None:
+            raw = self._raw_matrix(data)
+            if raw is None:
+                raise ValueError("continued training needs the raw rows of "
+                                 "validation sets to score the init model")
+            extra = self._init_booster._gbdt.predict_raw(raw)
+        self._gbdt.add_valid_data(data._inner, extra_score=extra)
+        self._valid_names.append(name)
+        self._valid_sets.append(data)
+        return self
+
     def update(self, train_set: Optional[Dataset] = None, fobj=None) -> bool:
-        """One boosting iteration; True when no further split was possible."""
+        """One boosting iteration; True when no further split was possible.
+        ``fobj(scores, train_set) -> (grad, hess)`` sees the train scores
+        in original row order."""
         if fobj is not None:
-            raise NotImplementedError(
-                "lightgbm_tpu_torch does not support custom objectives yet")
+            grad, hess = fobj(self._gbdt.scores.cpu().numpy(), self.train_set)
+            return self.boost(grad, hess)
         return self._gbdt.train_one_iter()
+
+    def boost(self, grad, hess) -> bool:
+        """One iteration on the given gradients (original row order)."""
+        return self._gbdt.train_one_iter(grad, hess)
+
+    def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
+        """New params for the next iterations: the config and the
+        shrinkage rate (the learner keeps the params it was built with)."""
+        self.params.update(params)
+        self.config = Config(self.params)
+        if self._gbdt is not None:
+            self._gbdt.config = self.config
+            self._gbdt.shrinkage_rate = float(self.config.learning_rate)
+        return self
 
     @property
     def current_iteration(self) -> int:
@@ -136,6 +268,9 @@ class Booster:
     def num_trees(self) -> int:
         return self._gbdt.num_trees()
 
+    def num_model_per_iteration(self) -> int:
+        return self._gbdt.num_tree_per_iteration
+
     def num_feature(self) -> int:
         return self._gbdt.max_feature_idx + 1
 
@@ -143,19 +278,45 @@ class Booster:
         return list(self._gbdt.feature_names)
 
     def eval_train(self, feval=None):
+        out = [(self._train_data_name, name, val, is_max)
+               for name, val, is_max in self._gbdt.eval_train()]
         if feval is not None:
-            raise NotImplementedError(
-                "lightgbm_tpu_torch does not support feval yet")
-        return [("training", name, val, is_max)
-                for name, val, is_max in self._gbdt.eval_train()]
+            out += self._custom_eval(feval, self._train_data_name, train=True)
+        return out
+
+    def eval_valid(self, feval=None):
+        out = []
+        for vi, vname in enumerate(self._valid_names):
+            out += [(vname, name, val, is_max)
+                    for name, val, is_max in self._gbdt.eval_valid(vi)]
+            if feval is not None:
+                out += self._custom_eval(feval, vname, valid_index=vi)
+        return out
+
+    def _custom_eval(self, feval, dataset_name, train=False, valid_index=0):
+        """``feval(scores, dataset)`` -> (name, value, is_higher_better) or
+        a list of them, on raw scores in original row order."""
+        if train:
+            score, dataset = self._gbdt.scores, self.train_set
+        else:
+            score = self._gbdt.valid_scores[valid_index]
+            dataset = self._valid_sets[valid_index]
+        score = score.cpu().numpy().copy()
+        out = []
+        for f in (feval if isinstance(feval, list) else [feval]):
+            res = f(score, dataset)
+            for name, val, is_max in ([res] if isinstance(res, tuple)
+                                      else res):
+                out.append((dataset_name, name, val, is_max))
+        return out
 
     def predict(self, data, start_iteration: int = 0,
                 num_iteration: Optional[int] = None, raw_score: bool = False,
                 pred_leaf: bool = False, pred_contrib: bool = False,
                 **kwargs) -> np.ndarray:
-        if pred_leaf or pred_contrib:
+        if pred_contrib:
             raise NotImplementedError(
-                "lightgbm_tpu_torch predicts raw and converted scores only")
+                "lightgbm_tpu_torch does not support pred_contrib yet")
         if num_iteration is None or num_iteration == 0:
             num_iteration = (self.best_iteration if self.best_iteration > 0
                              else -1)
@@ -166,6 +327,9 @@ class Booster:
             raise LightGBMError(
                 f"The number of features in data ({mat.shape[1]}) is not "
                 f"the same as it was in training data ({self.num_feature()})")
+        if pred_leaf:
+            return self._gbdt.predict_leaf_index(mat, start_iteration,
+                                                 num_iteration)
         return self._gbdt.predict(mat, raw_score=raw_score,
                                   start_iteration=start_iteration,
                                   num_iteration=num_iteration)

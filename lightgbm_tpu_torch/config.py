@@ -646,7 +646,8 @@ def _off(v) -> bool:
 # value is unsupported).  Every entry raises NotImplementedError naming
 # the param; nothing silently takes another path.
 _UNSUPPORTED = [
-    ("objective", lambda c: c.objective not in ("binary", "regression")),
+    ("objective", lambda c: c.objective not in ("binary", "regression",
+                                                "none")),
     ("boosting", lambda c: c.boosting != "gbdt"),
     ("data_sample_strategy", lambda c: c.data_sample_strategy != "bagging"),
     ("bagging_fraction", lambda c: c.bagging_freq > 0 and (
@@ -680,7 +681,6 @@ _UNSUPPORTED = [
         int(v) > 256 for v in str(c.max_bin_by_feature).split(",") if v)),
     ("bin_construct_mode", lambda c: str(c.bin_construct_mode).lower()
      not in ("auto", "exact")),
-    ("early_stopping_round", lambda c: c.early_stopping_round > 0),
     ("nonfinite_policy", lambda c: str(c.nonfinite_policy).lower() != "none"),
     ("checkpoint_dir", lambda c: not _off(c.checkpoint_dir)),
     ("checkpoint_resume", lambda c: bool(c.checkpoint_resume)),

@@ -11,10 +11,21 @@ scatter back to the original row order.  Payload rows: 0 grad, 1 hess,
 objective's ``payload_fields``, zero-padded to 8; row 7 carries the
 frontier's row keys during a tree (ops/frontier.py ``KEY_ROW``) and is
 zero between trees.
+
+Host-side per-row data crosses into the physical order through the row
+ids of payload row 2 (``rows_to_phys``, the inverse of
+``scores_from_phys``): a custom objective's gradients
+(``train_one_iter(grad, hess)``) and a continued model's train scores
+(``continue_from``).  Validation sets keep their (N_valid, G) uint8 bin
+matrix and f32 scores on the booster's device; after each tree the
+scores gain the tree's f32 shrunk leaf values at the leaves of
+``ops/predict.py:predict_leaf_binned``, walked over the node arrays of
+the tree's one host read, outside the captured graph.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -23,7 +34,9 @@ import torch
 from ..config import Config
 from ..dataset import BinnedDataset
 from ..ops.frontier import KEY_ROW
-from ..ops.predict import ThresholdIndex, predict_leaf_thridx
+from ..ops.predict import (ThresholdIndex, pack_binned_nodes,
+                           predict_leaf_binned, predict_leaf_thridx,
+                           tree_depth)
 from ..ops.split_mega import GHI_ROWS
 from ..ops.tree_step import LM_CNT, LM_START, LM_VALUE
 from ..utils import log
@@ -45,6 +58,31 @@ def scores_from_phys(ghi: torch.Tensor, num_data: int) -> torch.Tensor:
     return out
 
 
+def rows_to_phys(ghi: torch.Tensor, values: torch.Tensor,
+                 num_data: int) -> torch.Tensor:
+    """``values`` (num_data,) in original row order, gathered into the
+    physical order of ``ghi``'s row ids (the inverse of
+    ``scores_from_phys``); pad rows get 0."""
+    rowid = ghi[2].view(torch.int32)
+    keep = rowid != num_data
+    src = torch.where(keep, rowid, 0).long()
+    return torch.where(keep, values[src], 0.0)
+
+
+def host_rows(values, num_data: int, device) -> torch.Tensor:
+    """(num_data,) f32 on ``device`` from host rows (or a tensor); the
+    copy to the card is pinned and asynchronous, so no sync."""
+    if isinstance(values, torch.Tensor):
+        t = values.to(device=device, dtype=torch.float32).reshape(-1)
+    else:
+        t = torch.from_numpy(np.array(values, dtype=np.float32).reshape(-1))
+        if torch.device(device).type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+    if t.numel() != num_data:
+        raise ValueError(f"expected {num_data} rows, got {t.numel()}")
+    return t
+
+
 class GBDT:
     """Gradient Boosting Decision Tree engine (reference: gbdt.cpp)."""
 
@@ -64,6 +102,10 @@ class GBDT:
         self.feature_names: List[str] = []
         self.label_idx = 0
         self.train_metrics = []
+        # (dataset, metrics, (N_valid, G) uint8 bins on the device)
+        self.valid_sets: List[Tuple[BinnedDataset, list, torch.Tensor]] = []
+        self.valid_scores: List[torch.Tensor] = []
+        self._continued = False        # set by continue_from
         self._phys: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._scores: Optional[torch.Tensor] = None
         if train_data is not None:
@@ -77,8 +119,10 @@ class GBDT:
         self.num_data = N = train_data.num_data
         self.max_feature_idx = train_data.num_total_features - 1
         self.feature_names = list(train_data.feature_names)
-        self.objective.init(train_data.metadata, dev)
-        self.train_metrics = create_metrics(cfg, self.objective.name)
+        obj = self.objective
+        if obj is not None:
+            obj.init(train_data.metadata, dev)
+        self.train_metrics = create_metrics(cfg, obj.name if obj else None)
         for m in self.train_metrics:
             m.init(train_data.metadata, dev)
         md = train_data.metadata
@@ -87,8 +131,8 @@ class GBDT:
                                      device=dev)
         else:
             scores = torch.zeros(N, dtype=torch.float32, device=dev)
-            if cfg.boost_from_average:
-                s = self.objective.boost_from_score(0)
+            if obj is not None and cfg.boost_from_average:
+                s = obj.boost_from_score(0)
                 if abs(s) > K_EPSILON:
                     self.init_scores[0] = s
                     scores = scores + s
@@ -102,12 +146,13 @@ class GBDT:
         rowid = torch.where((iota >= C) & (iota < C + N), iota - C, N)
         ghi[2] = rowid.to(torch.int32).view(torch.float32)
         ghi[3, C:C + N] = scores
-        self._payload_names = [n for n, _ in self.objective.payload()]
+        payload = obj.payload() if obj is not None else []
+        self._payload_names = [n for n, _ in payload]
         if lr.K > 1 and 4 + len(self._payload_names) > KEY_ROW:
             raise NotImplementedError(
                 f"tpu_frontier_k > 1 keeps payload row {KEY_ROW} for its "
-                f"row keys; objective {self.objective.name} fills it")
-        for i, (_, arr) in enumerate(self.objective.payload()):
+                f"row keys; objective {obj.name} fills it")
+        for i, (_, arr) in enumerate(payload):
             ghi[4 + i, C:C + N] = arr
         self._phys = (lr.part0, ghi)
         lr.part0 = None
@@ -119,20 +164,30 @@ class GBDT:
             return scores_from_phys(self._phys[1], self.num_data)
         return self._scores
 
-    def train_one_iter(self) -> bool:
+    def train_one_iter(self, grad=None, hess=None) -> bool:
         """One fused iteration; returns True when the tree is a stump
-        (no split met the requirements)."""
+        (no split met the requirements).  ``grad`` / ``hess`` (a custom
+        objective's, in original row order) replace the objective's."""
         pb, ghi = self._phys
         lr = self.learner
         N = self.num_data
-        vf = (ghi[2].view(torch.int32) != N).to(torch.float32)
-        payload = [ghi[4 + i] for i in range(len(self._payload_names))]
-        g, h = self.objective.gradients_from_payload(ghi[3], *payload)
-        ghi[0] = g * vf
-        ghi[1] = h * vf
+        if grad is None or hess is None:
+            if self.objective is None:
+                raise ValueError("objective=none needs gradients: pass fobj "
+                                 "to Booster.update or grad and hess")
+            vf = (ghi[2].view(torch.int32) != N).to(torch.float32)
+            payload = [ghi[4 + i] for i in range(len(self._payload_names))]
+            g, h = self.objective.gradients_from_payload(ghi[3], *payload)
+            ghi[0] = g * vf
+            ghi[1] = h * vf
+        else:
+            ghi[0] = rows_to_phys(ghi, host_rows(grad, N, self.device), N)
+            ghi[1] = rows_to_phys(ghi, host_rows(hess, N, self.device), N)
         rec = lr.build_tree(pb, ghi, N)
         num_nodes = int(rec["s"])
         self._add_leaf_values(ghi)
+        if self.valid_sets:
+            self._add_valid_values(rec)
         tree = tree_from_device_record(rec, num_nodes,
                                        self.train_data.bin_mappers,
                                        shrinkage=self.shrinkage_rate)
@@ -159,16 +214,91 @@ class GBDT:
         starts = lm[LM_START].view(torch.int32)
         order = torch.argsort(starts, stable=True)
         cnts = lm[LM_CNT].view(torch.int32)[order].long()
-        vals = lm[LM_VALUE][order]
         N = self.num_data
-        delta = torch.repeat_interleave(vals * self.shrinkage_rate, cnts,
+        delta = torch.repeat_interleave(self._leaf_deltas()[order], cnts,
                                         output_size=N)
         ghi[3, lr.row0:lr.row0 + N] += delta
+
+    def _leaf_deltas(self) -> torch.Tensor:
+        """The tree's f32 shrunk leaf values, on the device."""
+        lr = self.learner
+        return lr.leafmat[LM_VALUE, :lr.L] * self.shrinkage_rate
+
+    def _add_valid_values(self, rec) -> None:
+        """Each validation set's scores += the f32 shrunk value of the
+        leaf its rows reach (JAX boosting.py _materialize_pending), by a
+        traversal of the node arrays of the tree's host record; nothing
+        is read back."""
+        node = self.learner.node_arrays_for_predict(rec)
+        depth = tree_depth(node["left"], node["right"])
+        packed = (pack_binned_nodes(node, self.device)
+                  if node["num_nodes"] else None)
+        delta = self._leaf_deltas()
+        for vi, (_, _, binned) in enumerate(self.valid_sets):
+            leaf = predict_leaf_binned(binned, node, depth, packed)
+            self.valid_scores[vi] += delta[leaf]
+
+    def add_valid_data(self, valid_data: BinnedDataset,
+                       extra_score=None) -> None:
+        """A validation set binned by the training set's mappers; its
+        scores start at its init_score, else the booster's init score,
+        plus ``extra_score`` (a continued booster's init model)."""
+        dev = self.device
+        metrics = create_metrics(
+            self.config, self.objective.name if self.objective else None)
+        for m in metrics:
+            m.init(valid_data.metadata, dev)
+        n = valid_data.num_data
+        md = valid_data.metadata
+        if md.init_score is not None:
+            score = host_rows(md.init_score, n, dev)
+        else:
+            score = torch.zeros(n, dtype=torch.float32, device=dev)
+            if abs(self.init_scores[0]) > K_EPSILON:
+                score = score + self.init_scores[0]
+        if extra_score is not None:
+            score = score + host_rows(extra_score, n, dev)
+        elif self._continued:
+            raise ValueError("validation sets added to a continued booster "
+                             "need the init model's predictions "
+                             "(Booster.add_valid computes them)")
+        binned = torch.as_tensor(valid_data.binned, device=dev)
+        self.valid_sets.append((valid_data, metrics, binned))
+        self.valid_scores.append(score)
+
+    def continue_from(self, trees, train_pred) -> None:
+        """Continued training from a loaded model (JAX boosting.py
+        continue_from): ``trees`` head the model list, and the train
+        scores become the dataset's init_score plus ``train_pred`` (the
+        init model's raw prediction of the raw train rows, in original
+        row order), written into the physical score row."""
+        if self.models:
+            raise ValueError("continue_from requires a fresh booster")
+        self.models = [copy.deepcopy(t) for t in trees]
+        self.iter = len(self.models)
+        self._continued = True
+        # the loaded model's boost-from-average sits in its first tree
+        self.init_scores = [0.0]
+        md = self.train_data.metadata
+        base = (np.zeros(self.num_data, np.float32) if md.init_score is None
+                else np.asarray(md.init_score, np.float32))
+        scores = base + np.asarray(train_pred, np.float32).reshape(-1)
+        ghi = self._phys[1]
+        ghi[3] = rows_to_phys(ghi, host_rows(scores, self.num_data,
+                                             self.device), self.num_data)
 
     def eval_train(self) -> List[Tuple[str, float, bool]]:
         sc = self.scores
         return [(name, val, m.is_max_better) for m in self.train_metrics
                 for name, val in m.eval(sc, self.objective)]
+
+    def eval_valid(self, vi: int = 0) -> List[Tuple[str, float, bool]]:
+        if vi >= len(self.valid_sets):
+            return []
+        _, metrics, _ = self.valid_sets[vi]
+        return [(name, val, m.is_max_better) for m in metrics
+                for name, val in m.eval(self.valid_scores[vi],
+                                        self.objective)]
 
     def num_trees(self) -> int:
         return len(self.models)
@@ -178,25 +308,40 @@ class GBDT:
         return self.iter
 
     # ------------------------------------------------------------------
-    def predict_raw(self, data: np.ndarray, start_iteration: int = 0,
-                    num_iteration: int = -1) -> np.ndarray:
-        """Raw scores (f64 sums of the trees' leaf values) on the device,
-        every tree walked in threshold-index space."""
+    def _leaves(self, data: np.ndarray, start_iteration: int,
+                num_iteration: int):
+        """The trees of iterations [start, start + num) (all from start
+        when num <= 0) and each one's (n,) leaf index on the device, every
+        tree walked in threshold-index space."""
         data = np.asarray(data, dtype=np.float64)
         total = len(self.models)
         end = total if num_iteration <= 0 else min(
             total, start_iteration + num_iteration)
-        out = torch.zeros(data.shape[0], dtype=torch.float64,
-                          device=self.device)
-        trees = self.models[start_iteration:end]
+        trees = self.models[start_iteration:max(end, start_iteration)]
         tix = ThresholdIndex(trees)
         packed = tix.pack_values(data, self.device)
-        for tree in trees:
-            leaf = predict_leaf_thridx(packed, tix.nodes(tree))
+        return trees, [predict_leaf_thridx(packed, tix.nodes(t))
+                       for t in trees]
+
+    def predict_raw(self, data: np.ndarray, start_iteration: int = 0,
+                    num_iteration: int = -1) -> np.ndarray:
+        """Raw scores (f64 sums of the trees' leaf values) on the device."""
+        out = torch.zeros(np.shape(data)[0], dtype=torch.float64,
+                          device=self.device)
+        for tree, leaf in zip(*self._leaves(data, start_iteration,
+                                            num_iteration)):
             lv = torch.as_tensor(tree.leaf_value, dtype=torch.float64,
                                  device=self.device)
             out += lv[leaf]
         return out.cpu().numpy()
+
+    def predict_leaf_index(self, data: np.ndarray, start_iteration: int = 0,
+                           num_iteration: int = -1) -> np.ndarray:
+        """(n, trees) int32 leaf index per row and tree."""
+        _, leaves = self._leaves(data, start_iteration, num_iteration)
+        if not leaves:
+            return np.zeros((np.shape(data)[0], 0), np.int32)
+        return torch.stack(leaves, 1).to(torch.int32).cpu().numpy()
 
     def predict(self, data: np.ndarray, raw_score: bool = False,
                 **kw) -> np.ndarray:

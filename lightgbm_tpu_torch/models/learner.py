@@ -106,10 +106,12 @@ from ..ops.tree_step import (LM_BDL, LM_BFEAT, LM_BGAIN, LM_BLCNT, LM_BLOUT,
                              LM_BLSG, LM_BLSH, LM_BRCNT, LM_BROUT, LM_BRSG,
                              LM_BRSH, LM_BTHR, LM_CNT, LM_CNT_G, LM_DEPTH,
                              LM_PARENT, LM_PSIDE, LM_START, LM_SUM_G,
-                             LM_SUM_H, LM_VALUE, ND_DL, ND_FEATURE,
-                             ND_FEATURE_ENUM, ND_GAIN, ND_ICOUNT, ND_IVALUE,
-                             ND_IWEIGHT, ND_LEFT, ND_MISSING, ND_RIGHT,
-                             ND_THRESHOLD, MODE_FINAL, MODE_ROOT, MODE_STEP,
+                             LM_SUM_H, LM_VALUE, ND_BIN_START, ND_COL,
+                             ND_DEFAULT_BIN, ND_DL, ND_FEATURE,
+                             ND_FEATURE_ENUM, ND_GAIN, ND_ICOUNT,
+                             ND_IS_BUNDLED, ND_IVALUE, ND_IWEIGHT, ND_LEFT,
+                             ND_MISSING, ND_NUM_BIN, ND_RIGHT, ND_THRESHOLD,
+                             MODE_FINAL, MODE_ROOT, MODE_STEP,
                              NEG_INF, NLF, NND, _f2i, empty_leafmat,
                              info_block, leaf_column, node_column, tree_step)
 from ..utils import log
@@ -265,8 +267,14 @@ class SerialTreeLearner:
             # its block step by step and every later block at once
             self.fr_block = max(1, int(np.ceil(np.sqrt(nodes))))
             if dev.type == "cuda":
+                # the IF nodes' bodies and the capture on streams of the
+                # learner's own, taken together: PyTorch hands out pooled
+                # streams round-robin, so torch.cuda.graph's shared default
+                # capture stream comes back as a body stream once enough
+                # learners have taken theirs
                 self._bodies = (torch.cuda.Stream(dev),
                                 torch.cuda.Stream(dev))
+                self._capture = torch.cuda.Stream(dev)
         self._graph = None
         self._graph_key = None
         self._host = None
@@ -469,7 +477,8 @@ class SerialTreeLearner:
             sequence(pb.clone(), pg.clone(), bag_cnt)
             self.ws.frozen = True
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, stream=self._capture
+                                  if self.K > 1 else None):
                 sequence(pb, pg, bag_cnt)
             self._graph, self._graph_key = graph, key
             self._host = torch.empty(self._tree_dev.shape,
@@ -674,4 +683,26 @@ class SerialTreeLearner:
             "node_internal_weight": nm[ND_IWEIGHT],
             "node_internal_count": ni(ND_ICOUNT),
             "node_missing_type": ni(ND_MISSING),
+            "node_col": ni(ND_COL), "node_bin_start": ni(ND_BIN_START),
+            "node_is_bundled": ni(ND_IS_BUNDLED),
+            "node_num_bin": ni(ND_NUM_BIN),
+            "node_default_bin": ni(ND_DEFAULT_BIN),
         }
+
+    @staticmethod
+    def node_arrays_for_predict(rec: Dict[str, Any]) -> Dict[str, Any]:
+        """The bin-space node arrays of the tree in host record ``rec``
+        (JAX learner.py node_arrays_for_predict), cut to its ``s``
+        internal nodes, for ops/predict.py ``predict_leaf_binned``; the
+        frontier's record is already renumbered into K=1's."""
+        s = int(rec["s"])
+        return {"col": rec["node_col"][:s],
+                "bin_start": rec["node_bin_start"][:s],
+                "is_bundled": rec["node_is_bundled"][:s],
+                "num_bin": rec["node_num_bin"][:s],
+                "default_bin": rec["node_default_bin"][:s],
+                "missing_type": rec["node_missing_type"][:s],
+                "threshold": rec["node_threshold"][:s],
+                "default_left": rec["node_default_left"][:s],
+                "left": rec["node_left"][:s], "right": rec["node_right"][:s],
+                "num_nodes": s}

@@ -556,9 +556,11 @@ def stopped_step_ms(step, device, n: int = 64, reps: int = 10) -> float:
     whose handles no kernel sets, in one graph replayed ``reps`` times.
     Nothing in the bodies runs, so any buffers the step was sized for
     will do."""
-    body = torch.cuda.Stream(device)
+    # body and capture streams taken together, so that they differ (see
+    # models/learner.py: the pooled streams come round)
+    body, capture = torch.cuda.Stream(device), torch.cuda.Stream(device)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=capture):
         for h in cond_handles(n, device):
             with IfNode(h, body):
                 step()

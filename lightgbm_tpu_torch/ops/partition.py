@@ -119,22 +119,22 @@ def as_scalars(sc) -> list:
     return step_fields(sc)[0] if isinstance(sc, torch.Tensor) else sc
 
 
-def decide_left(colv: torch.Tensor, bstart: int, isb: int, nb: int,
-                dbin: int, mtype: int, thr: int, dl: int) -> torch.Tensor:
+def decide_left(colv: torch.Tensor, bstart, isb, nb, dbin, mtype, thr,
+                dl) -> torch.Tensor:
     """Per-row goes-left decision (bool) from raw group-column bins:
     bundled bin offset, missing none/zero/NaN, default bin, threshold
-    and default_left (reference: DenseBin::Split)."""
+    and default_left (reference: DenseBin::Split).  The split's fields
+    are host ints (one split for every row) or int tensors shaped like
+    ``colv`` (each row's own node: the traversal of ops/predict.py)."""
     colv = colv.to(torch.int32)
+    isb, mtype, dl = (torch.as_tensor(v, device=colv.device)
+                      for v in (isb, mtype, dl))
     fb_raw = colv - bstart
     in_rb = (fb_raw >= 1) & (fb_raw <= nb - 1)
-    fb = torch.where(in_rb, fb_raw, dbin) if isb == 1 else colv
-    if mtype == 1:
-        miss = fb == dbin
-    elif mtype == 2:
-        miss = fb == nb - 1
-    else:
-        miss = torch.zeros_like(fb, dtype=torch.bool)
-    return torch.where(miss, bool(dl), fb <= thr)
+    fb = torch.where(isb == 1, torch.where(in_rb, fb_raw, dbin), colv)
+    miss = torch.where(mtype == 1, fb == dbin,
+                       (mtype == 2) & (fb == nb - 1))
+    return torch.where(miss, dl != 0, fb <= thr)
 
 
 def leaf_decisions(part_bins, scalars):

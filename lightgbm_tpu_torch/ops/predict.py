@@ -13,14 +13,21 @@ values to per-feature threshold-index space with float64 searchsorted
 (v <= t_k iff #thresholds-below-v <= k), so the device compares
 integers with the exact f64 semantics of the reference's
 NumericalDecision (tree.h).
+
+``predict_leaf_binned`` walks a tree the learner just grew over a
+binned matrix (the validation sets' scores after each tree,
+models/boosting.py), by the bin-space decision of the partition
+(ops/partition.py ``decide_left``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+from .partition import decide_left
 
 K_ZERO_THRESHOLD = 1e-35
 
@@ -36,14 +43,18 @@ def tree_depth(left: np.ndarray, right: np.ndarray) -> int:
     return depth
 
 
-def _walk(n: int, node: Dict[str, np.ndarray], device, decide) -> torch.Tensor:
-    """Level loop: ``decide(nid)`` -> goes-left for the rows."""
+def _walk(n: int, node: Dict[str, np.ndarray], device, decide,
+          depth: Optional[int] = None) -> torch.Tensor:
+    """Level loop: ``decide(nid)`` -> goes-left for the rows; ``depth``
+    levels (from the host child arrays when not given)."""
     if len(node["left"]) == 0:
         return torch.zeros(n, dtype=torch.long, device=device)
-    left = torch.as_tensor(node["left"], dtype=torch.long, device=device)
-    right = torch.as_tensor(node["right"], dtype=torch.long, device=device)
+    if depth is None:
+        depth = tree_depth(np.asarray(node["left"]), np.asarray(node["right"]))
+    left = torch.as_tensor(node["left"], device=device).long()
+    right = torch.as_tensor(node["right"], device=device).long()
     cur = torch.zeros(n, dtype=torch.long, device=device)
-    for _ in range(tree_depth(node["left"], node["right"])):
+    for _ in range(depth):
         nid = cur.clamp(min=0)
         nxt = torch.where(decide(nid), left[nid], right[nid])
         cur = torch.where(cur >= 0, nxt, cur)
@@ -112,3 +123,60 @@ def predict_leaf_thridx(packed_vals: torch.Tensor,
                            b_eff <= t["kidx"][nid])
 
     return _walk(packed_vals.shape[1], node, dev, decide)
+
+
+# the per-node fields of a bin-space traversal, in the order of the
+# packed (10, nodes) matrix (lightgbm_tpu/ops/predict.py
+# predict_leaf_binned_t)
+BINNED_NODE_FIELDS = ("col", "bin_start", "is_bundled", "num_bin",
+                      "default_bin", "missing_type", "threshold",
+                      "default_left", "left", "right")
+
+
+def pack_binned_nodes(node: Dict[str, np.ndarray], device) -> torch.Tensor:
+    """The node fields as one (10, nodes) int32 matrix on ``device``: one
+    gather a level reads a row's node.  From the host, the copy to the
+    card is pinned and asynchronous (no sync)."""
+    mat = torch.from_numpy(np.stack([
+        np.asarray(node[k]).astype(np.int32) for k in BINNED_NODE_FIELDS]))
+    if torch.device(device).type == "cuda":
+        return mat.pin_memory().to(device, non_blocking=True)
+    return mat.to(device)
+
+
+def predict_leaf_binned(binned: torch.Tensor, node: Dict[str, np.ndarray],
+                        depth: Optional[int] = None,
+                        packed: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Leaf index (int64) of every row of an (n, G) bin matrix.
+
+    ``node`` holds the per-internal-node arrays of BINNED_NODE_FIELDS
+    (children >= 0 internal, < 0 ~leaf); ``depth`` is the tree's depth
+    (``tree_depth`` of the host child arrays when not given), so the
+    loop needs no sync; ``packed`` is ``pack_binned_nodes(node)`` when
+    the caller has it on the device already."""
+    n = binned.shape[0]
+    dev = binned.device
+    if len(node["left"]) == 0:
+        return torch.zeros(n, dtype=torch.long, device=dev)
+    if depth is None:
+        depth = tree_depth(np.asarray(node["left"]), np.asarray(node["right"]))
+    if packed is None:
+        packed = pack_binned_nodes(node, dev)
+    rows = torch.arange(n, device=dev)
+
+    def decide(nid):
+        (col, bstart, isb, nb, dbin, mtype, thr, dl,
+         _, _) = packed[:, nid]
+        return decide_left(binned[rows, col.long()], bstart, isb, nb, dbin,
+                           mtype, thr, dl)
+
+    return _walk(n, {"left": packed[8], "right": packed[9]}, dev, decide,
+                 depth)
+
+
+def predict_leaf_binned_t(binned_t: torch.Tensor,
+                          node: Dict[str, np.ndarray],
+                          depth: Optional[int] = None) -> torch.Tensor:
+    """``predict_leaf_binned`` over a transposed (G, n) bin matrix."""
+    return predict_leaf_binned(binned_t.T, node, depth)

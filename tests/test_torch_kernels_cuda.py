@@ -770,3 +770,23 @@ def test_frontier_graph_trees_that_stop_early_equal_k1(card, min_gain):
     if min_gain >= 1e9:
         assert a._gbdt.learner.last_steps == 0
 
+
+
+@pytest.mark.cuda
+def test_many_frontier_learners_in_one_process(card):
+    """More frontier learners than PyTorch's pool holds streams, each
+    capturing its graph in turn: no learner's IF-node body stream is the
+    stream its graph is captured on."""
+    rng = np.random.RandomState(11)
+    X = rng.normal(size=(3000, 5))
+    y = (X[:, 0] + 0.5 * rng.normal(size=3000) > 0).astype(float)
+    d = lgt.Dataset(X, label=y)
+    first = None
+    for _ in range(40):
+        b = lgt.train({"objective": "binary", "num_leaves": 7,
+                       "verbosity": -1, "tpu_frontier_k": 3}, d, 1)
+        assert b._gbdt.learner.K == 3 and b._gbdt.learner.replays == 1
+        raw = b.predict(X[:50], raw_score=True)
+        if first is None:
+            first = raw
+        np.testing.assert_array_equal(raw, first)

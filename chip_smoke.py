@@ -87,6 +87,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (first tree, train scores from the physical order against predict);
      3 trees saved and 3 more from the file with the validation set
      (train and valid scores against predict, atol 1e-5);
+  4d. (4d and 4e run after 4b, before 4c) row and feature sampling at
+     the HIGGS shape: bagging 0.8 / freq 1,
+     GOSS at its defaults and feature_fraction 0.8, beside the unsampled
+     run, on the mega path (auto: the frontier at K=4) and the subtraction
+     path, 4 iterations each: one graph capture per learner for every
+     draw (the bag count is a device word), one tree read a tree, each
+     tree's root counting the rows the sampling pass kept (the learner's
+     bag word, the payload's nonzero hessians), sample launched once an
+     iteration, logloss falling; sample.cu bit-identical to sample_plain
+     at full size in each mode (payload words and in-bag count); its ms a
+     launch beside the plain version's and a torch.rand of the same
+     length, and the GOSS threshold's (torch.topk);
+  4e. EFB bundles: 2,000,000 rows (cut from 10.5M for the host's dense
+     f32 matrix and binning) of HIGGS' 28 features and 8 categoricals of
+     32 levels one-hot encoded (F = 284): the groups (28 dense, 8 bundles
+     of 32 indicators), the bundled body (subtraction, K=1, feat_view
+     between the state update and the pair search) with its first tree
+     bit-identical to the eager oracle's, every wrapper's count set to 0
+     before 4 profiled iterations and read after, the device launches by
+     function, one capture, one tree read a tree, logloss falling; the
+     trees against enable_bundle=False on the subtraction path (equal, or
+     the first difference an exact tie in f64); feat_view and split_pair
+     at F = 284 bit-identical to their plain versions on 13 states of a
+     real tree, with their times; s/iteration and device ms;
   5. each kernel against its plain version on inputs captured from the
      first tree of its path, through its host-int entry and through the
      step entry the graph loop launches (a step block made beforehand,
@@ -543,6 +567,9 @@ KERNEL_FUNCS = {
     "subtraction": {"part_tiles": "partition", "part_copyback": "partition",
                     "leaf_hist_state": "leaf_hist",
                     "pair_search": "split_pair", "tree_step": "tree_step"},
+    "efb": {"part_tiles": "partition", "part_copyback": "partition",
+            "leaf_hist_state": "leaf_hist", "feat_view": "feat_view",
+            "pair_search": "split_pair", "tree_step": "tree_step"},
 }
 
 
@@ -693,7 +720,7 @@ def report_iteration(per, bounds, tree, label, calls):
 
 def tree_args(lr):
     return (lr.leafmat, lr.nodemat, lr.step, lr.nl, lr.pair_out, lr.fmeta,
-            lr.info, lr.sums)
+            lr.info, lr.sums, lr.bag, lr.fmask)
 
 
 def check_tree_steps(ts, lr, pb, pg, steps):
@@ -704,7 +731,7 @@ def check_tree_steps(ts, lr, pb, pg, steps):
     Returns the largest difference of the outputs' bit views (as
     integers) and the plain version's median host ms a step."""
     pb, pg = pb.clone(), pg.clone()
-    kw = dict(row0=lr.row0, N=lr.N, bag_cnt=lr.N)
+    kw = dict(row0=lr.row0, N=lr.N)
 
     plain_s, err = [], [0]
 
@@ -729,7 +756,7 @@ def check_tree_steps(ts, lr, pb, pg, steps):
     torch.stack([lr.children[0, 0, 0].sum(), lr.children[1, 0, 0].sum()],
                 out=lr.sums)
     one(ts.MODE_ROOT, "root")
-    lr._pair()
+    lr._pair(lr.root_step)
     for i in range(steps):
         one(ts.MODE_STEP, f"step {i}")
         lr._body(pb, pg, lr.step)
@@ -744,17 +771,17 @@ def step_costs(lr, pb, pg, label, ts, tpart, hs, sm):
     pair search), tree_step alone on it, and each split kernel on a
     1024-row leaf with its grid sized for the leaf and for the root's
     rows (the tree loop's bound)."""
-    lr._step(ts.MODE_ROOT, lr.N)         # a tree whose root has no split
+    lr._step(ts.MODE_ROOT)         # a tree whose root has no split
     lr.pair_out[:, 0] = float("-inf")
-    lr._step(ts.MODE_STEP, lr.N)
+    lr._step(ts.MODE_STEP)
     check(int(lr.step[tpart.SB_DONE]) == 1 and int(lr.step[tpart.SB_CNT])
           == 0, "step_costs: the tree did not stop")
     b, g = pb.clone(), pg.clone()
-    out = {"empty_step": graph_ms(lambda: (lr._step(ts.MODE_STEP, lr.N),
+    out = {"empty_step": graph_ms(lambda: (lr._step(ts.MODE_STEP),
                                            lr._body(b, g, lr.step),
                                            lr._pair()), 50),
            "tree_step_stopped": graph_ms(
-               lambda: lr._step(ts.MODE_STEP, lr.N), 200)}
+               lambda: lr._step(ts.MODE_STEP), 200)}
     sc = tpart.make_scalars(lr.row0 + 5, 1024, 5, 0, 0, 255, 0, 0, 120, 1)
     step = tpart.step_block(sc, b.device, (1, 1, 2, 1), 1)
     kw = dict(num_bins=lr.B, num_groups=lr.G, ws=lr.ws)
@@ -1606,6 +1633,408 @@ def check_frontier_kernels(fro, sp, tpart, lr, bst, states, steps):
     return out
 
 
+# ---- phase 4e: EFB bundles (one-hot data through the bundled body) -------
+EFB_ROWS, EFB_CATS, EFB_LEVELS, EFB_ITERS = 2_000_000, 8, 32, 4
+
+
+def make_efb_data(rows):
+    """HIGGS' 28 standard-normal features (bench.py's draws, seed 7) and 8
+    categorical columns of 32 levels, one-hot encoded (F = 284); the label
+    from the features' logit plus a per-level effect of each category."""
+    rng = np.random.RandomState(7)
+    X = rng.normal(size=(rows, FEATURES)).astype(np.float32)
+    w = rng.normal(size=FEATURES)
+    logit = X.dot(w) * 0.5
+    noise = rng.normal(size=rows)
+    crng = np.random.RandomState(8)
+    cats = crng.randint(0, EFB_LEVELS, size=(rows, EFB_CATS))
+    effect = crng.normal(size=(EFB_CATS, EFB_LEVELS))
+    logit = logit + effect[np.arange(EFB_CATS), cats].sum(axis=1)
+    out = np.zeros((rows, FEATURES + EFB_CATS * EFB_LEVELS), np.float32)
+    out[:, :FEATURES] = X
+    cols = FEATURES + np.arange(EFB_CATS) * EFB_LEVELS + cats
+    out[np.arange(rows)[:, None], cols] = 1.0
+    y = (logit + noise > 0).astype(np.float32)
+    return out, y
+
+
+def first_tie(a, b, X, y, scores_before, what):
+    """The first split where trees ``a`` and ``b`` partition the rows
+    differently, checked to be an exact tie: both choices' gains recounted
+    in f64 from the binary gradients of ``scores_before`` equal (1e-9 of
+    the split's |leaf gains|).  Returns the split's index or None."""
+    import lightgbm_tpu_torch as lgt
+    la = lgt.Booster(model_str=a).predict(X, pred_leaf=True)[:, -1]
+    lb = lgt.Booster(model_str=b).predict(X, pred_leaf=True)[:, -1]
+    ta = lgt.Booster(model_str=a)._gbdt.models[-1]
+    tb = lgt.Booster(model_str=b)._gbdt.models[-1]
+    p = 1.0 / (1.0 + np.exp(-scores_before))
+    g, h = p - y, p * (1.0 - p)
+
+    def sets(tree, lv):
+        ns = tree.num_leaves - 1
+        lc, rc = tree.left_child[:ns], tree.right_child[:ns]
+
+        def below(c):
+            return {~c} if c < 0 else below(lc[c]) | below(rc[c])
+        return [(np.isin(lv, list(below(s))), np.isin(lv, list(below(lc[s]))))
+                for s in range(ns)]
+
+    def gain(rows, left):
+        out = []
+        for m in (left, rows & ~left, rows):
+            sg, sh = g[m].sum(), h[m].sum()
+            out.append(sg * sg / sh if sh > 0 else 0.0)
+        return out[0] + out[1] - out[2], sum(abs(v) for v in out)
+
+    sa, sb = sets(ta, la), sets(tb, lb)
+    for s in range(min(len(sa), len(sb))):
+        if np.array_equal(sa[s][0], sb[s][0]) and np.array_equal(
+                sa[s][1], sb[s][1]):
+            continue
+        (va, ma), (vb, mb) = gain(*sa[s]), gain(*sb[s])
+        check(abs(va - vb) <= 1e-9 * max(1.0, ma, mb),
+              f"{what}: split {s} partitions differently with f64 gains "
+              f"{va!r} and {vb!r}")
+        return s
+    check(len(sa) == len(sb), f"{what}: {len(sa)} and {len(sb)} splits")
+    return None
+
+
+def check_efb_kernels(fv, sp, lr, pb, pg, steps):
+    """feat_view on the card against feat_view_fixed_plain on the CPU, and
+    split_pair over the view (2 x 284 feature rows) against
+    split_pair_plain on the CPU, bit for bit, on the states of a real
+    tree: the root and ``steps`` steps of the learner's own sequence on
+    copies of its row buffers.  Returns the largest bit-view differences
+    and the two kernels' ms (graph replay) beside their plain versions'
+    (CUDA events, on the card's tensors)."""
+    pb, pg = pb.clone(), pg.clone()
+    view = lr.view.to("cpu")
+    err = {"feat_view": 0.0, "split_pair": 0.0}
+
+    def compare(step):
+        lr._pair(step)
+        want = fv.feat_view_fixed_plain(lr.state.cpu(), step.cpu(),
+                                        lr._absmax.cpu(), lr.N, view)
+        got = lr.fchildren.cpu()
+        err["feat_view"] = max(err["feat_view"], bits_err(
+            got.view(torch.int32), want.view(torch.int32)))
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              "feat_view: kernel and feat_view_fixed_plain differ")
+        F, Bp = lr.F, got.shape[-1]
+        plain = sp.split_pair_plain(
+            got[0].reshape(2 * F, Bp), got[1].reshape(2 * F, Bp),
+            lr.fmeta_pair.cpu(), lr.info.cpu(), l1=lr.l1, l2=lr.l2,
+            max_delta_step=lr.max_delta_step,
+            min_gain_to_split=lr.min_gain_to_split,
+            min_data_in_leaf=lr.min_data_in_leaf,
+            min_sum_hessian=lr.min_sum_hessian, max_depth=lr.max_depth)
+        kern = lr.pair_out.cpu()
+        err["split_pair"] = max(err["split_pair"], bits_err(
+            kern.view(torch.int32), plain.view(torch.int32)))
+        check(torch.equal(kern.view(torch.int32), plain.view(torch.int32)),
+              f"split_pair at F = {F}: kernel and split_pair_plain differ")
+
+    from lightgbm_tpu_torch.ops import tree_step as ts
+    torch.amax(pg[:2].abs(), dim=1, out=lr._absmax)
+    lr._body(pb, pg, lr.root_step)
+    torch.stack([lr.children[0, 0, 0].sum(), lr.children[1, 0, 0].sum()],
+                out=lr.sums)
+    lr._step(ts.MODE_ROOT)
+    compare(lr.root_step)
+    for _ in range(steps):
+        lr._step(ts.MODE_STEP)
+        lr._body(pb, pg, lr.step)
+        compare(lr.step)
+    step = lr.step
+    kw = dict(kcnt=lr.N, view=lr.view, out=lr.fchildren)
+    F, Bp = lr.F, lr.fchildren.shape[-1]
+    ms = {"feat_view": graph_ms(lambda: fv.feat_view(
+              None, None, lr.state, step, lr._absmax, **kw), 200),
+          "split_pair": graph_ms(lambda: lr._search(
+              lr.fchildren[0].view(-1, Bp), lr.fchildren[1].view(-1, Bp),
+              lr.info, out=lr.pair_out), 200)}
+    ch = lr.fchildren
+    plain = {"feat_view": cuda_ms(lambda: fv.feat_view_fixed_plain(
+                 lr.state, step, lr._absmax, lr.N, lr.view), 5),
+             "split_pair": cuda_ms(lambda: sp.split_pair_plain(
+                 ch[0].reshape(2 * F, Bp), ch[1].reshape(2 * F, Bp),
+                 lr.fmeta_pair, lr.info, l1=lr.l1, l2=lr.l2,
+                 max_delta_step=lr.max_delta_step,
+                 min_gain_to_split=lr.min_gain_to_split,
+                 min_data_in_leaf=lr.min_data_in_leaf,
+                 min_sum_hessian=lr.min_sum_hessian,
+                 max_depth=lr.max_depth), 5)}
+    del pb, pg
+    return err, ms, plain
+
+
+def efb_path(lgt, learner_mod, mods):
+    """Phase 4e: EFB bundles at 2,000,000 rows (the host's dense f32
+    matrix and binning cut HIGGS' 10.5M), 28 + 256 one-hot columns:
+    default params bundle each categorical, the learner takes the
+    subtraction body at K=1 with feat_view between the state update and
+    the pair search.  The eager oracle's first tree bit-identical to the
+    graph's; every wrapper's count set to 0 before the graph run under
+    torch.profiler and read after it; one capture, one tree read a tree;
+    logloss falls; the trees against enable_bundle=False (equal, or the
+    first difference an exact tie in f64); feat_view and split_pair at
+    F = 284 bit-identical to their plain versions; s/iteration, device
+    ms, per-kernel ms."""
+    from lightgbm_tpu_torch.ops import feat_view as fv
+    from lightgbm_tpu_torch.ops import split_pair as sp
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.time()
+    X, y = make_efb_data(EFB_ROWS)
+    F = X.shape[1]
+    say(f"efb data: {X.shape} (rows cut from HIGGS' 10.5M for the host's "
+        f"dense f32 matrix and binning) in {time.time() - t0:.1f} s")
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+              "learning_rate": 0.1, "verbosity": -1}
+    t0 = time.time()
+    ds = lgt.Dataset(X, label=y)
+    ds.construct(params)
+    inner = ds._inner
+    groups = [(g.feature_indices, g.bin_offsets, g.num_total_bin)
+              for g in inner.groups]
+    dense = [([f], [0]) for f in range(FEATURES)]
+    bundles = {tuple(range(FEATURES + c * EFB_LEVELS,
+                           FEATURES + (c + 1) * EFB_LEVELS))
+               for c in range(EFB_CATS)}
+    check([(f, o) for f, o, _ in groups[:FEATURES]] == dense
+          and {tuple(f) for f, _, _ in groups[FEATURES:]} == bundles
+          and all(o == list(range(1, EFB_LEVELS + 1)) and n == EFB_LEVELS + 1
+                  for _, o, n in groups[FEATURES:]),
+          f"efb: groups {groups[FEATURES:FEATURES + 2]}... are not the 28 "
+          f"dense features and 8 bundles of 32 indicators")
+    say(f"efb dataset construct: {time.time() - t0:.1f} s; {len(groups)} "
+        f"groups: the 28 dense features alone, then each categorical's 32 "
+        f"indicators in one bundle (offsets 1..32, 33 bins)")
+    ref = lgt.Booster(params=params, train_set=ds)
+    ref._gbdt.learner.build_tree = ref._gbdt.learner.build_tree_eager
+    ref.update()
+    bst = lgt.Booster(params=params, train_set=ds)
+    lr = bst._gbdt.learner
+    check(lr.bundled and lr.subtract and lr.K == 1 and lr.F == F
+          and lr.G == FEATURES + EFB_CATS,
+          f"efb: learner bundled {lr.bundled} subtract {lr.subtract} K "
+          f"{lr.K} F {lr.F} G {lr.G}")
+    for m in mods.values():
+        m.launches = 0
+    iter_s, losses = [], []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for it in range(EFB_ITERS):
+            t0 = time.time()
+            bst.update()
+            torch.cuda.synchronize()
+            iter_s.append(time.time() - t0)
+            losses.append(bst.eval_train()[0][2])
+            if it == 0:
+                lb = ref._gbdt.learner
+                for t in ("leafmat", "nodemat"):
+                    check(torch.equal(getattr(lr, t).view(torch.int32),
+                                      getattr(lb, t).view(torch.int32)),
+                          f"efb: the graph's first tree's {t} differs from "
+                          f"the eager oracle's")
+                (pa, ga), (pr, gr) = bst._gbdt._phys, ref._gbdt._phys
+                check(torch.equal(pa, pr) and torch.equal(
+                    ga.view(torch.int32), gr.view(torch.int32)),
+                      "efb: the row order after the first tree differs "
+                      "from the eager oracle's")
+                del ref, lb, pr, gr
+    calls = {k: m.launches for k, m in mods.items()}
+    device = {}
+    for key, _, n in device_rows(prof):
+        fn = func(key)
+        if fn in KERNEL_FUNCS["efb"]:
+            device[fn] = device.get(fn, 0) + n
+    del prof
+    want = dict(per_tree("subtraction"), feat_view=SPLITS + 1)
+    for k in mods:
+        check(calls[k] == 2 * want.get(k, 0),
+              f"efb: {k}: {calls[k]} wrapper calls, expected "
+              f"{2 * want.get(k, 0)}")
+    fn_want = dict(funcs_per_tree("subtraction"), feat_view=SPLITS + 1)
+    for fn, n in fn_want.items():
+        check(device.get(fn, 0) == (EFB_ITERS + 1) * n,
+              f"efb: {fn}: {device.get(fn, 0)} device launches, expected "
+              f"{(EFB_ITERS + 1) * n}")
+    check(lr.syncs == lr.replays == EFB_ITERS and lr.captures == 1,
+          f"efb: {lr.syncs} tree reads, {lr.replays} replays, "
+          f"{lr.captures} captures for {EFB_ITERS} trees")
+    check(all(a > b for a, b in zip(losses, losses[1:])),
+          f"efb: training logloss does not fall: {losses}")
+    say(f"efb train: s/iteration {[round(s, 4) for s in iter_s]} (under "
+        f"the profiler); wrapper calls {calls}; device launches {device}; "
+        f"one capture, one tree read a tree; binary_logloss {losses}; "
+        f"first tree bit-identical to the eager oracle's")
+    med = float(np.median(iter_s[1:]))
+    per, busy = profile_iteration(bst, med, "efb")
+    for k, (ms, n) in sorted(per.items()):
+        print(f"  efb {k}: {ms:.3f} ms device time per iteration, {n} "
+              f"device launches", flush=True)
+    pb_, pg_ = bst._gbdt._phys
+    err, ms, plain = check_efb_kernels(fv, sp, lr, pb_, pg_, 12)
+    say(f"efb kernels: feat_view bit-identical to feat_view_fixed_plain and "
+        f"split_pair at F = {F} bit-identical to split_pair_plain on the "
+        f"root and 12 steps of a real tree; feat_view {ms['feat_view']:.4f} "
+        f"ms a launch (plain {plain['feat_view']:.3f}), split_pair "
+        f"{ms['split_pair']:.4f} ms (plain {plain['split_pair']:.3f})")
+    del pb_, pg_
+    Bp = lr.children.shape[-1]
+    # the same data without bundles, on the subtraction path
+    t0 = time.time()
+    ds2 = lgt.Dataset(X, label=y, params={"enable_bundle": False})
+    ds2.construct(params)
+    b2 = lgt.Booster(dict(params, tpu_megakernel="off",
+                          enable_bundle=False), ds2)
+    for _ in range(EFB_ITERS):
+        b2.update()
+    check(not b2._gbdt.learner.bundled and b2._gbdt.learner.G == F,
+          "efb: enable_bundle=False still bundled")
+    a_models, b_models = bst._gbdt.models, b2._gbdt.models
+    tie = None
+    for t in range(EFB_ITERS):
+        if same_trees(a_models[t:t + 1], b_models[t:t + 1]):
+            continue
+        sa = lgt.Booster(model_str=bst.model_to_string(num_iteration=t + 1))
+        before = (sa.predict(X, raw_score=True, num_iteration=t) if t
+                  else np.full(len(y), bst._gbdt.init_scores[0]))
+        s = first_tie(bst.model_to_string(num_iteration=t + 1),
+                      b2.model_to_string(num_iteration=t + 1), X, y,
+                      before.astype(np.float64), f"efb tree {t}")
+        tie = (t, s)
+        break
+    say(f"efb against enable_bundle=False (G = {F}, subtraction): "
+        + ("every tree equal, leaf values bit for bit" if tie is None else
+           f"equal up to tree {tie[0]} split {tie[1]}, an exact tie in f64")
+        + f"; unbundled construct and train {time.time() - t0:.1f} s")
+    out = {"iter_s": med, "device_ms": busy, "per": per, "err": err,
+           "ms": ms, "plain": plain, "launches": device,
+           "bytes": {"feat_view": 2 * 2 * (lr.G * 8 + F * 4) * Bp}}
+    del bst, b2, ds, ds2, X, y, lr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---- phase 4d: row and feature sampling at the HIGGS shape -------------
+SAMPLE_ITERS = 4
+SAMPLE_CONFIGS = {"none": {},
+                  "bagging": {"bagging_fraction": 0.8, "bagging_freq": 1},
+                  "goss": {"data_sample_strategy": "goss"},
+                  "feature_fraction": {"feature_fraction": 0.8}}
+
+
+def sampling_path(lgt, mods, ds, params):
+    """Phase 4d: bagging, GOSS and feature_fraction at the HIGGS shape on
+    the mega path (auto: the frontier at K=4) and the subtraction path,
+    beside the unsampled run.  sample.cu bit-identical to sample_plain at
+    full size in each mode (the payload words and the in-bag count); per
+    learner one graph capture for every draw and one tree read a tree; the
+    root of each tree counts the rows the card sampled; logloss falls;
+    s/iteration and sample's ms an iteration."""
+    from lightgbm_tpu_torch.ops import sample as smp
+    from lightgbm_tpu_torch.utils import random as jr
+    out = {"iter_s": {}, "launches": 0}
+    for body, extra in (("mega", {}), ("subtraction",
+                                       {"tpu_megakernel": "off"})):
+        for name, cfg in SAMPLE_CONFIGS.items():
+            bst = lgt.Booster(dict(params, **cfg, **extra), ds)
+            g = bst._gbdt
+            lr = g.learner
+            for m in mods.values():
+                m.launches = 0
+            times, losses = [], []
+            for _ in range(SAMPLE_ITERS):
+                t0 = time.time()
+                bst.update()
+                torch.cuda.synchronize()
+                times.append(time.time() - t0)
+                losses.append(bst.eval_train()[0][2])
+                bag = int(lr.bag[0])
+                root = int(g.models[-1].internal_count[0])
+                h = g._phys[1][1]
+                nz = int((h != 0).sum())
+                check(bag == root == nz,
+                      f"sampling {body} {name}: bag word {bag}, root count "
+                      f"{root}, sampled rows in the payload {nz}")
+                check((bag < lr.N) == (name in ("bagging", "goss")),
+                      f"sampling {body} {name}: {bag} of {lr.N} rows")
+            n_sample = mods["sample"].launches
+            check(n_sample == (SAMPLE_ITERS if name in ("bagging", "goss")
+                               else 0),
+                  f"sampling {body} {name}: sample launched {n_sample} "
+                  f"times in {SAMPLE_ITERS} iterations")
+            out["launches"] += n_sample
+            check(lr.captures == 1 and lr.replays == lr.syncs == SAMPLE_ITERS,
+                  f"sampling {body} {name}: {lr.captures} captures, "
+                  f"{lr.replays} replays, {lr.syncs} tree reads for "
+                  f"{SAMPLE_ITERS} trees")
+            check(all(a > b for a, b in zip(losses, losses[1:])),
+                  f"sampling {body} {name}: logloss does not fall: {losses}")
+            med = float(np.median(times[1:]))
+            out["iter_s"][f"{body} {name}"] = med
+            say(f"sampling {body} {name} (K={lr.K}): s/iteration "
+                f"{[round(s, 4) for s in times]} (median of 2-"
+                f"{SAMPLE_ITERS} {med:.4f}); last bag {bag} of {lr.N}; one "
+                f"capture, one tree read a tree; binary_logloss {losses}")
+            if body == "mega" and name == "goss":
+                ghi = g._phys[1]
+                top_k, other_k = g._goss_k
+                pre = ghi.clone()
+                out["goss_threshold_ms"] = cuda_ms(
+                    lambda: smp.goss_threshold(pre, lr.N, top_k), 5)
+            if body == "subtraction" and name == "none":
+                payload = g._phys[1].clone()
+                N = lr.N
+            del bst, g, lr
+            torch.cuda.empty_cache()
+    # the kernel against its plain version at full size, in each mode, on
+    # the payload of a real iteration
+    key = jr.fold_in(jr.PRNGKey(3), 7)
+    top_k, other_k = max(int(N * 0.2), 1), max(int(N * 0.1), 1)
+    thr, n_top = smp.goss_threshold(payload, N, top_k)
+    kw = dict(N=N, key=key, frac=0.8, pos_frac=0.5, neg_frac=0.9,
+              sign_row=4, thr=thr, n_top=n_top, other_k=other_k,
+              mult=(N - top_k) / other_k)
+    err, counts = 0.0, {}
+    for mode in (smp.MODE_BAG, smp.MODE_BALANCED, smp.MODE_GOSS):
+        a, b = payload.clone(), payload.clone()
+        ba = torch.zeros(1, dtype=torch.int32, device=a.device)
+        bb = torch.zeros(1, dtype=torch.int32, device=a.device)
+        smp.sample_cuda(a, ba, mode, **kw)
+        smp.sample_plain(b, bb, mode, **kw)
+        err = max(err, bits_err(a.view(torch.int32), b.view(torch.int32)))
+        check(torch.equal(a.view(torch.int32), b.view(torch.int32))
+              and int(ba[0]) == int(bb[0]),
+              f"sample mode {mode}: kernel and sample_plain differ (counts "
+              f"{int(ba[0])} and {int(bb[0])})")
+        counts[mode] = int(ba[0])
+    Np = payload.shape[1]
+    work = payload.clone()
+    bag = torch.zeros(1, dtype=torch.int32, device=work.device)
+    out.update(
+        err=err, counts=counts, Np=Np,
+        ms=cuda_ms(lambda: smp.sample_cuda(work, bag, smp.MODE_BAG, **kw),
+                   20),
+        plain_ms=cuda_ms(lambda: smp.sample_plain(work, bag, smp.MODE_BAG,
+                                                  **kw), 3),
+        lib_ms=cuda_ms(lambda: torch.rand(Np, device=work.device), 20),
+        nbytes=Np * 4 * 5)
+    say(f"sample: the kernel bit-identical to sample_plain at {Np} rows in "
+        f"each mode, in-bag counts {counts} equal; {out['ms']:.4f} ms a "
+        f"launch (bagging), plain {out['plain_ms']:.3f} ms, torch.rand of "
+        f"the same length {out['lib_ms']:.4f} ms; GOSS threshold "
+        f"(torch.topk) {out['goss_threshold_ms']:.3f} ms")
+    del payload, work, a, b
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -1630,10 +2059,13 @@ def main():
     from lightgbm_tpu_torch.ops import split_mega as sm
     from lightgbm_tpu_torch.ops import split_pair as sp
     from lightgbm_tpu_torch.ops import tree_step as ts
+    from lightgbm_tpu_torch.ops import feat_view as fv
+    from lightgbm_tpu_torch.ops import sample as smp
     from lightgbm_tpu_torch.ops.partition import (S_CNT, S_COL, decide_left,
                                                   make_scalars, scalars_start)
     mods = {"split_mega": sm, "split_pair": sp, "partition": tpart,
-            "leaf_hist": th, "hist_rmw": hs, "tree_step": ts}
+            "leaf_hist": th, "hist_rmw": hs, "tree_step": ts,
+            "feat_view": fv, "sample": smp}
 
     # ---- 2. build ----------------------------------------------------
     t0 = time.time()
@@ -1859,7 +2291,7 @@ def main():
     # holding one step, in a graph of their own)
     pb_, pg_ = fbst._gbdt._phys
     fr_stopped = fro.stopped_step_ms(
-        lambda: flr.fr_step(pb_, pg_, flr.N), flr.device)
+        lambda: flr.fr_step(pb_, pg_), flr.device)
     del pb_, pg_
     say(f"frontier: a stopped step (its IF node not taken) "
         f"{fr_stopped:.5f} ms, against a stopped K=1 step "
@@ -1871,9 +2303,13 @@ def main():
           f"other orders, so their trees are only numerically equal)",
           flush=True)
     regression_ties(lgt)
+    # ---- 4d. row and feature sampling at the HIGGS shape --------------
+    samp = sampling_path(lgt, mods, ds, params)
     del X, y, ds
     gc.collect()
     torch.cuda.empty_cache()
+    # ---- 4e. EFB bundles ------------------------------------------------
+    efb = efb_path(lgt, learner_mod, mods)
 
     # ---- 4c. the training API on the card -----------------------------
     api_path(lgt, mods, fro, card)
@@ -2174,6 +2610,9 @@ def main():
     pair2k = fr_out["split_pair_2k"]
     print(f"frontier ms an iteration (wall, median): "
           + ", ".join(f"{k} {v:.2f}" for k, v in fr_med.items()), flush=True)
+    print(f"efb (phase 4e, {card}): s/iteration {efb['iter_s']:.4f}, "
+          f"device ms an iteration {efb['device_ms']:.2f}; sampling (phase "
+          f"4d): s/iteration " + json.dumps(samp["iter_s"]), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": [
         row("split_mega", "split_mega.cu",
@@ -2205,6 +2644,32 @@ def main():
         fr_row("frontier_undo", "frontier_undo",
                "lightgbm_tpu/models/learner.py:3177",
                rows=fr_out["frontier_undo"]["rows"]),
+        # no TPU kernel: XLA code of the JAX package (the per-feature view
+        # of bundled data; the fused iteration's sampling)
+        dict({"name": "feat_view", "route": "cuda",
+              "source": "lightgbm_tpu_torch/csrc/feat_view.cu",
+              "replaces": "lightgbm_tpu/models/learner.py:1509",
+              "launches": efb["launches"]["feat_view"],
+              "max_abs_err": efb["err"]["feat_view"],
+              "ms": efb["ms"]["feat_view"],
+              "plain_ms": efb["plain"]["feat_view"],
+              "library_ms": None,
+              "iter_ms": efb["per"]["feat_view"][0]},
+             **dict(zip(("bound_ms", "bound_by"),
+                        bound(efb["bytes"]["feat_view"], 0)))),
+        dict({"name": "sample", "route": "cuda",
+              "source": "lightgbm_tpu_torch/csrc/sample.cu",
+              "replaces": "lightgbm_tpu/models/boosting.py:866",
+              "launches": samp["launches"], "max_abs_err": samp["err"],
+              "ms": samp["ms"], "plain_ms": samp["plain_ms"],
+              "library_ms": samp["lib_ms"],
+              "library_call": "torch.rand of the same length (a lower "
+                              "reference: it draws, it does not mask)",
+              "goss_threshold_ms": samp["goss_threshold_ms"],
+              "split_pair_f284_ms": efb["ms"]["split_pair"],
+              "split_pair_f284_plain_ms": efb["plain"]["split_pair"]},
+             **dict(zip(("bound_ms", "bound_by"),
+                        bound(samp["nbytes"], 0)))),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -151,7 +151,7 @@ def run_body(lgt, ds, params, label, card, block=None):
         out["steps_per_tree"] = float(np.mean(steps))
         out["made_per_tree"] = float(np.mean(made))
         out["stopped_step_ms"] = stopped_step_ms(
-            lambda: learner.fr_step(pb, pg, learner.N), learner.device)
+            lambda: learner.fr_step(pb, pg), learner.device)
     del bst
     torch.cuda.empty_cache()
     return out

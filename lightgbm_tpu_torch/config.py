@@ -649,11 +649,8 @@ _UNSUPPORTED = [
     ("objective", lambda c: c.objective not in ("binary", "regression",
                                                 "none")),
     ("boosting", lambda c: c.boosting != "gbdt"),
-    ("data_sample_strategy", lambda c: c.data_sample_strategy != "bagging"),
-    ("bagging_fraction", lambda c: c.bagging_freq > 0 and (
-        c.bagging_fraction < 1.0 or c.pos_bagging_fraction < 1.0
-        or c.neg_bagging_fraction < 1.0)),
-    ("feature_fraction", lambda c: c.feature_fraction < 1.0),
+    ("data_sample_strategy", lambda c: c.data_sample_strategy
+     not in ("bagging", "goss")),
     ("feature_fraction_bynode", lambda c: c.feature_fraction_bynode < 1.0),
     ("extra_trees", lambda c: bool(c.extra_trees)),
     ("linear_tree", lambda c: bool(c.linear_tree)),

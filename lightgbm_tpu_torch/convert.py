@@ -7,9 +7,9 @@ imports JAX: callers hand over plain text and numpy arrays.
 ``lightgbm_tpu`` (the port's own ``model_to_string`` writes the same
 format, so it loads back there too).  ``dataset_from_arrays`` builds a
 port ``BinnedDataset`` from the arrays of a JAX ``BinnedDataset``: its
-binned matrix, its bin mappers as ``BinMapper.to_dict()`` dicts, the
-feature order of its groups, and the label -- so both packages' learners
-can be fed identical bins.
+binned matrix, its bin mappers as ``BinMapper.to_dict()`` dicts, its
+groups (EFB bundles with their bin offsets) and the label -- so both
+packages' learners can be fed identical bins.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import numpy as np
 
 from .basic import Booster
 from .config import Config
-from .dataset import BinnedDataset, Metadata, groups_from_order
+from .dataset import BinnedDataset, Metadata, groups_from_spec
 from .ops.binning import BinMapper
 
 
@@ -33,11 +33,14 @@ def booster_from_model_string(text: str,
 
 
 def dataset_from_arrays(binned: np.ndarray, mappers: Sequence[dict],
-                        group_features: Sequence[int], label,
+                        groups: Sequence, label,
                         weight=None, feature_names: Optional[List[str]] = None,
                         params: Optional[Dict[str, Any]] = None
                         ) -> BinnedDataset:
-    """A port BinnedDataset over an already-binned (N, G) matrix."""
+    """A port BinnedDataset over an already-binned (N, G) matrix;
+    ``groups`` one entry a column, the JAX dataset's group as
+    ``(feature_indices, bin_offsets, num_total_bin)`` (a singleton is
+    ``([f], [0], num_bin)``; dataset.py ``groups_from_spec``)."""
     binned = np.ascontiguousarray(binned)
     if binned.dtype != np.uint8:
         raise NotImplementedError("lightgbm_tpu_torch trains uint8 bins only")
@@ -49,7 +52,7 @@ def dataset_from_arrays(binned: np.ndarray, mappers: Sequence[dict],
         f"Column_{i}" for i in range(ds.num_total_features)])
     ds.used_features = [f for f, bm in enumerate(ds.bin_mappers)
                         if not bm.is_trivial]
-    ds.groups = groups_from_order(ds.bin_mappers, group_features)
+    ds.groups = groups_from_spec(groups)
     if binned.shape[1] != len(ds.groups):
         raise ValueError(f"binned has {binned.shape[1]} columns for "
                          f"{len(ds.groups)} groups")

@@ -108,7 +108,9 @@ struct FrArgs {
   float* info;          // (2K F, 8) the next search's info rows
   const float* sums;    // (2,) the root histogram's sums
   const int* fmeta;     // (FMETA_ROWS, F)
-  int L, K, F, row0, N, bag_cnt, mode;
+  const int* bag;       // (1,) the root's bag-aware row count
+  const float* fmask;   // (F,) the tree's feature mask (0 / 1)
+  int L, K, F, row0, N, mode;
   // set to the step's outcome when nonzero (inside a captured graph):
   // the IF nodes of the next step and of the block that step opens
   // (MODE_STEP), or the undo's (MODE_FINAL)
@@ -345,10 +347,11 @@ __global__ void __launch_bounds__(FR_THREADS) frontier_step(FrArgs a) {
       a.lmw[i] = empty_leaf_field(i / SL);
     for (int i = tid; i < NND * (MS + 1); i += FR_THREADS) a.nmw[i] = 0.0f;
     for (int i = tid; i < NLF * (MS + 1); i += FR_THREADS) a.snap[i] = 0.0f;
-    const float in[5] = {a.sums[0], a.sums[1], (float)a.bag_cnt, 0.0f, 1.0f};
+    const float in[4] = {a.sums[0], a.sums[1], (float)*a.bag, 0.0f};
     for (int i = tid; i < 2 * K * F * 8; i += FR_THREADS) {
       const int c = i / (F * 8), col = i & 7;
-      a.info[i] = (c == 0 && col < 5) ? in[col] : 0.0f;
+      a.info[i] = c != 0 || col > 4 ? 0.0f
+                  : col == 4 ? a.fmask[(i >> 3) % F] : in[col];
     }
     for (int i = tid; i < K * STEP_WORDS; i += FR_THREADS) a.steps[i] = 0;
     return;
@@ -421,7 +424,7 @@ __global__ void __launch_bounds__(FR_THREADS) frontier_step(FrArgs a) {
   __syncthreads();
   const int pend = s_pend, ks = s_kstep, made0 = s_made;
   if (pend == PEND_ROOT && tid == 0) {
-    write_leaf_column(a.lmw, SL, a.row0, a.N, a.bag_cnt, a.sums[0],
+    write_leaf_column(a.lmw, SL, a.row0, a.N, *a.bag, a.sums[0],
                       a.sums[1], 0, 0.0f, -1, 0, a.pair);
     it_gain[0] = a.pair[0];
     fs[FS_DONE] = !(a.pair[0] > 0.0f);
@@ -579,7 +582,7 @@ __global__ void __launch_bounds__(FR_THREADS) frontier_step(FrArgs a) {
     const int f = r % F, c2 = r / F;          // c2 < 2 kstep
     const int k = c2 >> 1, right = c2 & 1;
     const float* pc = a.lmw + it.sel_slot[k];
-    float v = 1.0f;
+    float v = a.fmask[f];
     if (col == 0) v = pc[(right ? LM_BRSG : LM_BLSG) * SL];
     if (col == 1) v = pc[(right ? LM_BRSH : LM_BLSH) * SL];
     if (col == 2)
@@ -630,15 +633,16 @@ __global__ void __launch_bounds__(FR_THREADS) frontier_step(FrArgs a) {
 extern "C" int frontier_step_launch(
     int* fs, float* lmw, float* nmw, float* snap, float* lm, float* nm,
     int* steps, const int* nl, const float* pair, float* info,
-    const float* sums, const int* fmeta, int L, int K, int F, int row0,
-    int N, int bag_cnt, int mode, unsigned long long handle,
+    const float* sums, const int* fmeta, const int* bag, const float* fmask,
+    int L, int K, int F, int row0, int N, int mode, unsigned long long handle,
     unsigned long long handle2, void* stream) {
   if (L < 2 || K < 1 || K > L - 1 || F < 1 || mode < MODE_ROOT ||
-      mode > MODE_FINAL || fs == nullptr)
+      mode > MODE_FINAL || fs == nullptr || bag == nullptr ||
+      fmask == nullptr)
     return (int)cudaErrorInvalidValue;
-  const FrArgs a{fs,   lmw,  nmw,  snap, lm,   nm,   steps, nl,
-                 pair, info, sums, fmeta, L,   K,    F,     row0,
-                 N,    bag_cnt, mode, (cudaGraphConditionalHandle)handle,
+  const FrArgs a{fs,   lmw,  nmw,  snap,  lm,  nm,    steps, nl,
+                 pair, info, sums, fmeta, bag, fmask, L,     K,
+                 F,    row0, N,    mode,  (cudaGraphConditionalHandle)handle,
                  (cudaGraphConditionalHandle)handle2};
   const int NI = 2 * ((L - 1) + (K - 1)) + 2;
   const size_t smem = sizeof(int) * (5 * NI + 2 * K) + NI;

@@ -14,8 +14,10 @@
 // leafmat and column `nodes` of nodemat are spare.  The step block is
 // csrc/step.cuh's.  One launch of one block:
 //   mode 0 (root): reset both matrices as an empty tree, write the root
-//     search's (2F, 8) info block from the root histogram's sums, and mark
-//     the root's column as due;
+//     search's (2F, 8) info block from the root histogram's sums, the
+//     bag-aware count (a device word: the sampling pass writes it, so a
+//     captured graph serves every draw) and the (F,) feature mask, and
+//     mark the root's column as due;
 //   mode 1 (step): commit what is due, then elect the next split;
 //   mode 2 (final): commit what is due.
 // Commit: the root's column from the root search's row and sums; or the
@@ -26,8 +28,9 @@
 // largest, as numpy's and jax's argmax take it); the split is made when
 // s < nodes, the gain is > 0 (a NaN gain is not) and the tree has not
 // stopped.  Then it writes the internal node's column s and the parent's
-// child pointer, the children's info block, and the step block of the
-// split for the kernels: range, decision, histogram-state slots (parent,
+// child pointer, the children's info block (feature mask from the mask
+// vector), and the step block of the split for the kernels: range,
+// decision, histogram-state slots (parent,
 // wa = the leaf, wb = the new leaf, small_is_left = left count <= right
 // count by the bag-aware counts, ties left) and the side histogrammed.
 // A split not made sets cnt = 0 and stops the tree: every later step
@@ -58,7 +61,9 @@ struct TreeArgs {
   const int* fmeta;     // (FMETA_ROWS, F)
   float* info;          // (2F, 8): the next search's info block
   const float* sums;    // (2,): the root histogram's grad and hess sums
-  int L, nodes, F, row0, N, bag_cnt, mode;
+  const int* bag;       // (1,): the root's bag-aware row count
+  const float* fmask;   // (F,): the tree's feature mask (0 / 1)
+  int L, nodes, F, row0, N, mode;
 };
 
 __device__ __forceinline__ void leaf_column(
@@ -83,9 +88,10 @@ __global__ void __launch_bounds__(STEP_THREADS) tree_step(TreeArgs a) {
       a.lm[i] = empty_leaf_field(i / L1);
     }
     for (int i = tid; i < NND * N1; i += STEP_THREADS) a.nm[i] = 0.0f;
-    const float in[8] = {a.sums[0], a.sums[1], (float)a.bag_cnt, 0.0f, 1.0f,
+    const float in[8] = {a.sums[0], a.sums[1], (float)*a.bag, 0.0f, 0.0f,
                          0.0f, 0.0f, 0.0f};
-    for (int i = tid; i < 2 * F * 8; i += STEP_THREADS) a.info[i] = in[i & 7];
+    for (int i = tid; i < 2 * F * 8; i += STEP_THREADS)
+      a.info[i] = (i & 7) == 4 ? a.fmask[(i >> 3) % F] : in[i & 7];
     if (tid < STEP_WORDS) step[tid] = tid == SB_PEND ? 1 : 0;
     return;
   }
@@ -102,7 +108,7 @@ __global__ void __launch_bounds__(STEP_THREADS) tree_step(TreeArgs a) {
   if (pend == 2 && tid < NLF) pcol[tid] = a.lm[tid * L1 + s_leaf];
   __syncthreads();
   if (pend == 1 && tid == 0) {
-    leaf_column(a, 0, a.row0, a.N, a.bag_cnt, a.sums[0], a.sums[1], 0, 0.0f,
+    leaf_column(a, 0, a.row0, a.N, *a.bag, a.sums[0], a.sums[1], 0, 0.0f,
                 -1, 0, a.pair);
   } else if (pend == 2 && tid < 2) {
     const int start = __float_as_int(pcol[LM_START]);
@@ -214,7 +220,7 @@ __global__ void __launch_bounds__(STEP_THREADS) tree_step(TreeArgs a) {
     if (k == 1) v = pcol[c ? LM_BRSH : LM_BLSH];
     if (k == 2) v = (float)(c ? rcg : lcg);
     if (k == 3) v = (float)s_depth;
-    if (k == 4) v = 1.0f;
+    if (k == 4) v = a.fmask[(i >> 3) % F];
     a.info[i] = v;
   }
   if (tid == 0) {
@@ -249,14 +255,15 @@ __global__ void __launch_bounds__(STEP_THREADS) tree_step(TreeArgs a) {
 extern "C" int tree_step_launch(float* lm, float* nm, int* step,
                                 const int* nl, const float* pair,
                                 const int* fmeta, float* info,
-                                const float* sums, int L, int nodes, int F,
-                                int row0, int N, int bag_cnt, int mode,
-                                void* stream) {
+                                const float* sums, const int* bag,
+                                const float* fmask, int L, int nodes, int F,
+                                int row0, int N, int mode, void* stream) {
   if (L < 2 || nodes != L - 1 || F < 0 || mode < MODE_ROOT ||
-      mode > MODE_FINAL || lm == nullptr || nm == nullptr || step == nullptr)
+      mode > MODE_FINAL || lm == nullptr || nm == nullptr ||
+      step == nullptr || bag == nullptr)
     return (int)cudaErrorInvalidValue;
-  const TreeArgs a{lm,   nm,    step, nl, pair,    fmeta, info,
-                   sums, L,     nodes, F, row0,    N,     bag_cnt, mode};
+  const TreeArgs a{lm,  nm,    step, nl, pair, fmeta, info, sums,
+                   bag, fmask, L,    nodes, F, row0, N,   mode};
   tree_step<<<1, STEP_THREADS, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -4,9 +4,10 @@ Port of the host construction path of lightgbm_tpu/dataset.py (the
 ``construct_device=off`` oracle of ops/construct.py): bin finding from a
 row sample, EFB candidate grouping, and the packed (num_data, num_groups)
 uint8 matrix.  Bins and group order are bit-identical to the JAX
-package.  This slice trains all-numerical data without EFB bundles:
-a dataset whose features would bundle raises NotImplementedError, so the
-learner's per-feature histogram view is the plain per-group slice.
+package.  Features that are mutually exclusive in the sample share one
+column (an EFB bundle); the learner then reads its per-feature
+histograms through ops/feat_view.py, which rebuilds each bundled
+feature's default bin from the leaf's totals.
 """
 
 from __future__ import annotations
@@ -52,9 +53,14 @@ class Metadata:
                            np.asarray(init_score, np.float64).reshape(-1))
 
 
+# a group's bins stay within one uint8 column (JAX dataset.py
+# _bundle_greedy's max_group_bins)
+MAX_GROUP_BINS = 256
+
+
 class FeatureGroupInfo:
-    """One packed bin column (reference: feature_group.h FeatureGroup).
-    In this slice every group holds exactly one feature."""
+    """One packed bin column (reference: feature_group.h FeatureGroup):
+    one feature, or an EFB bundle of several with their bin offsets."""
 
     def __init__(self, feature_indices: List[int], num_total_bin: int,
                  bin_offsets: List[int]):
@@ -101,10 +107,12 @@ class BinnedDataset:
             ds.used_features = reference.used_features
             ds.groups = reference.groups
             ds.feature_names = reference.feature_names
+            ds.binned = ds.bin_matrix(data)
         else:
             ds._construct_mappers(data)
-            ds._build_groups(data)
-        ds.binned = ds.bin_matrix(data)
+            cols = ds._used_columns(data)
+            ds._build_groups(cols)
+            ds.binned = ds._pack_groups(cols, ds.num_data)
         return ds
 
     def _construct_mappers(self, data: np.ndarray) -> None:
@@ -145,10 +153,24 @@ class BinnedDataset:
             log.warning("There are no meaningful features which satisfy "
                         "the provided configuration.")
 
-    def _build_groups(self, data: np.ndarray) -> None:
-        """EFB grouping (reference: dataset.cpp FindGroups): dense
-        features first, then the sparse candidates in the greedy
-        coloring's order.  Any multi-feature bundle raises."""
+    def _used_columns(self, data: np.ndarray) -> Dict[int, np.ndarray]:
+        """Each used feature's uint8 bins over all rows."""
+        if any(self.bin_mappers[f].num_bin > MAX_GROUP_BINS
+               for f in self.used_features):
+            raise NotImplementedError(
+                "lightgbm_tpu_torch trains uint8 bins only (max_bin <= 256)")
+        return {f: self.bin_mappers[f].values_to_bins(data[:, f]).astype(
+            np.uint8) for f in self.used_features}
+
+    def _build_groups(self, cols: Dict[int, np.ndarray]) -> None:
+        """EFB grouping (JAX dataset.py ``_build_groups`` /
+        ``_bundle_sparse``; reference: dataset.cpp FindGroups).  A feature
+        whose most frequent and default bins are both 0 is a candidate;
+        the others are dense and come first, one group each.  The
+        candidates bundle by the greedy coloring of ``_bundle_greedy``
+        over their non-default rows in a sample of at most 50,000 rows,
+        drawn with the JAX package's rng consumption: one ``choice`` for
+        the sample, then the probe draws."""
         self.groups = []
         sparse, dense = [], []
         for f in self.used_features:
@@ -167,8 +189,19 @@ class BinnedDataset:
         rng = np.random.RandomState(self.config.data_random_seed)
         sample = (rng.choice(n, size=50000, replace=False) if n > 50000
                   else np.arange(n))
-        nz = {f: self.bin_mappers[f].values_to_bins(data[sample, f])
-              != self.bin_mappers[f].most_freq_bin for f in sparse}
+        nz = {f: cols[f][sample] != self.bin_mappers[f].most_freq_bin
+              for f in sparse}
+        self._bundle_greedy(sparse, nz, rng)
+
+    def _bundle_greedy(self, sparse: List[int], nz: Dict[int, np.ndarray],
+                       rng) -> None:
+        """The greedy coloring (JAX dataset.py ``_bundle_greedy``): in
+        the order of falling non-default counts, a feature joins the first
+        bundle it has no common non-default row with (max_conflict_rate
+        0) and whose bins stay within 256; with more than 100 bundles it
+        probes 100 drawn at random.  A bundle's column: bin 0 is every
+        feature at its default, feature i takes ``[offset_i, offset_i +
+        num_bin_i - 1)``."""
         counts = {f: int(nz[f].sum()) for f in sparse}
         order = sorted(sparse, key=lambda f: -counts[f])
         bundles: List[List[int]] = []
@@ -181,41 +214,82 @@ class BinnedDataset:
                      else rng.choice(len(bundles), size=max_search,
                                      replace=False))
             for bi in probe:
-                if nbins[bi] + nb_add > 256:
+                if nbins[bi] + nb_add > MAX_GROUP_BINS:
                     continue
                 if int((masks[bi] & nz[f]).sum()) == 0:
-                    raise NotImplementedError(
-                        "lightgbm_tpu_torch does not support EFB bundles "
-                        f"yet (features {bundles[bi]} and {f} would "
-                        "bundle); pass enable_bundle=False")
-            bundles.append([f])
-            masks.append(nz[f].copy())
-            nbins.append(1 + nb_add)
-        for (f,) in bundles:
-            self.groups.append(FeatureGroupInfo(
-                [f], self.bin_mappers[f].num_bin, [0]))
+                    bundles[bi].append(f)
+                    masks[bi] |= nz[f]
+                    nbins[bi] += nb_add
+                    break
+            else:
+                bundles.append([f])
+                masks.append(nz[f].copy())
+                nbins.append(1 + nb_add)
+        for bundle in bundles:
+            bundle.sort()
+            if len(bundle) == 1:
+                f = bundle[0]
+                self.groups.append(FeatureGroupInfo(
+                    [f], self.bin_mappers[f].num_bin, [0]))
+                continue
+            offsets, cur = [], 1
+            for f in bundle:
+                offsets.append(cur)
+                bm = self.bin_mappers[f]
+                cur += bm.num_bin - (1 if bm.most_freq_bin == 0 else 0)
+            self.groups.append(FeatureGroupInfo(bundle, cur, offsets))
 
     def bin_matrix(self, data) -> np.ndarray:
         """Bin raw rows with this dataset's mappers into the packed
-        (n, num_groups) uint8 layout."""
-        data = np.asarray(data)
-        if self.max_group_bins > 256:
+        (n, num_groups) uint8 layout (validation sets get the training
+        set's groups)."""
+        return self._pack_groups(self._used_columns(np.asarray(data)),
+                                 np.shape(data)[0])
+
+    def _pack_groups(self, cols: Dict[int, np.ndarray], n: int
+                     ) -> np.ndarray:
+        """Per-feature bin columns packed into the (n, num_groups) uint8
+        matrix (JAX dataset.py ``_pack_groups``): in a bundle, a feature's
+        bins other than its most frequent shift by its offset (minus 1
+        when that bin is 0), and a row where two features conflict takes
+        the later feature's bin."""
+        if self.max_group_bins > MAX_GROUP_BINS:
             raise NotImplementedError(
                 "lightgbm_tpu_torch trains uint8 bins only (max_bin <= 256)")
-        out = np.zeros((data.shape[0], len(self.groups)), dtype=np.uint8)
+        out = np.zeros((n, len(self.groups)), dtype=np.uint8)
         for g, grp in enumerate(self.groups):
-            f = grp.feature_indices[0]
-            out[:, g] = self.bin_mappers[f].values_to_bins(data[:, f])
+            if len(grp.feature_indices) == 1:
+                out[:, g] = cols[grp.feature_indices[0]]
+                continue
+            acc = np.zeros(n, dtype=np.int32)
+            for f, offset in zip(grp.feature_indices, grp.bin_offsets):
+                bm = self.bin_mappers[f]
+                c = np.asarray(cols[f], dtype=np.int32)
+                shifted = c + offset - (1 if bm.most_freq_bin == 0 else 0)
+                acc = np.where(c != bm.most_freq_bin, shifted, acc)
+            out[:, g] = acc
         return out
 
     # -- views used by the tree learner ---------------------------------
     def feature_meta_arrays(self) -> Dict[str, np.ndarray]:
-        """Per used-feature metadata, enumerated in group order."""
-        feats = [grp.feature_indices[0] for grp in self.groups]
+        """Per used-feature metadata, enumerated in (group, sub-feature)
+        order (JAX dataset.py ``feature_meta_arrays``): a bundled
+        feature's bin b other than its default lives at column bin
+        ``bin_start + b`` of its group."""
+        feats, group, bin_start = [], [], []
+        for g, grp in enumerate(self.groups):
+            for f, offset in zip(grp.feature_indices, grp.bin_offsets):
+                bm = self.bin_mappers[f]
+                feats.append(f)
+                group.append(g)
+                bin_start.append(0 if len(grp.feature_indices) == 1 else
+                                 offset - (1 if bm.most_freq_bin == 0
+                                           else 0))
         bms = [self.bin_mappers[f] for f in feats]
         return {
             "feature": np.asarray(feats, dtype=np.int32),
-            "group": np.arange(len(feats), dtype=np.int32),
+            "group": np.asarray(group, dtype=np.int32),
+            "bin_start": np.asarray(bin_start, dtype=np.int32),
             "num_bin": np.asarray([b.num_bin for b in bms], np.int32),
             "missing_type": np.asarray([b.missing_type for b in bms],
                                        np.int32),
@@ -232,9 +306,10 @@ class BinnedDataset:
         return max((g.num_total_bin for g in self.groups), default=2)
 
 
-def groups_from_order(bin_mappers: Sequence[BinMapper],
-                      group_features: Sequence[int]
-                      ) -> List[FeatureGroupInfo]:
-    """Singleton groups in a given feature order (used by convert.py)."""
-    return [FeatureGroupInfo([int(f)], bin_mappers[int(f)].num_bin, [0])
-            for f in group_features]
+def groups_from_spec(groups: Sequence) -> List[FeatureGroupInfo]:
+    """Groups from ``(features, bin_offsets, num_total_bin)`` triples, as
+    the JAX package's ``FeatureGroupInfo`` holds them (used by
+    convert.py)."""
+    return [FeatureGroupInfo([int(f) for f in feats], int(total),
+                             [int(o) for o in offsets])
+            for feats, offsets, total in groups]

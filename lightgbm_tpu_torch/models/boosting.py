@@ -37,9 +37,12 @@ from ..ops.frontier import KEY_ROW
 from ..ops.predict import (ThresholdIndex, pack_binned_nodes,
                            predict_leaf_binned, predict_leaf_thridx,
                            tree_depth)
+from ..ops.sample import (MODE_BAG, MODE_BALANCED, MODE_GOSS, goss_threshold,
+                          sample)
 from ..ops.split_mega import GHI_ROWS
 from ..ops.tree_step import LM_CNT, LM_START, LM_VALUE
 from ..utils import log
+from ..utils import random as jrandom
 from .learner import SerialTreeLearner
 from .metric import create_metrics
 from .objective import ObjectiveFunction
@@ -156,6 +159,48 @@ class GBDT:
             ghi[4 + i, C:C + N] = arr
         self._phys = (lr.part0, ghi)
         lr.part0 = None
+        self._setup_sampling(train_data)
+
+    def _setup_sampling(self, train_data: BinnedDataset) -> None:
+        """Row and feature sampling as the JAX package sets it up
+        (boosting.py ``GBDT.__init__`` and ``_setup_fused_phys``): GOSS,
+        bagging, balanced bagging by the label sign, and the host rngs of
+        the eager draws and of the feature mask.  The fused draw's
+        fractions, period and GOSS counts are frozen here, as JAX freezes
+        them when it compiles its fused step; a later ``reset_parameter``
+        reaches only the eager draws and the feature mask, there as in
+        JAX."""
+        cfg = self.config
+        self.bag_rng = jrandom.PRNGKey(cfg.bagging_seed)
+        self.feat_rng = jrandom.PRNGKey(cfg.feature_fraction_seed)
+        self._bag_key = jrandom.PRNGKey(cfg.bagging_seed)
+        self.goss = cfg.data_sample_strategy == "goss"
+        self.balanced_bagging = (
+            cfg.bagging_freq > 0
+            and (cfg.pos_bagging_fraction < 1.0
+                 or cfg.neg_bagging_fraction < 1.0)
+            and train_data.metadata.label is not None)
+        self.need_bagging = (not self.goss and cfg.bagging_freq > 0
+                             and (cfg.bagging_fraction < 1.0
+                                  or self.balanced_bagging))
+        self._cached_bag = None
+        self._sign_row = None
+        if self.need_bagging and self.balanced_bagging:
+            names = self._payload_names
+            for n in ("label", "signed_label_weight"):
+                if n in names:
+                    self._sign_row = 4 + names.index(n)
+                    break
+        N = self.num_data
+        self._goss_k = (max(int(N * cfg.top_rate), 1),
+                        max(int(N * cfg.other_rate), 1))
+        self._bag_freq = max(int(cfg.bagging_freq), 1)
+        self._bag_frac = float(cfg.bagging_fraction)
+        self._pos_frac = float(cfg.pos_bagging_fraction)
+        self._neg_frac = float(cfg.neg_bagging_fraction)
+        # the mask last written into the learner's device mask (all ones
+        # at build); rewritten only when this iteration's differs
+        self._fmask_set = np.ones(self.learner.F, dtype=bool)
 
     # -- train scores in original row order ------------------------------
     @property
@@ -180,10 +225,17 @@ class GBDT:
             g, h = self.objective.gradients_from_payload(ghi[3], *payload)
             ghi[0] = g * vf
             ghi[1] = h * vf
+            self._sample_fused(ghi)
         else:
-            ghi[0] = rows_to_phys(ghi, host_rows(grad, N, self.device), N)
-            ghi[1] = rows_to_phys(ghi, host_rows(hess, N, self.device), N)
-        rec = lr.build_tree(pb, ghi, N)
+            g, h = self._sample_eager(host_rows(grad, N, self.device),
+                                      host_rows(hess, N, self.device))
+            ghi[0] = rows_to_phys(ghi, g, N)
+            ghi[1] = rows_to_phys(ghi, h, N)
+        mask = self._feature_mask()
+        if not np.array_equal(mask, self._fmask_set):
+            lr.set_feature_mask(mask)
+            self._fmask_set = mask
+        rec = lr.build_tree(pb, ghi)
         num_nodes = int(rec["s"])
         self._add_leaf_values(ghi)
         if self.valid_sets:
@@ -203,6 +255,103 @@ class GBDT:
             log.warning("Stopped training because there are no more leaves "
                         "that meet the split requirements")
         return num_nodes == 0
+
+    # -- sampling ----------------------------------------------------------
+    def _sample_fused(self, ghi) -> None:
+        """The JAX fused iteration's in-program sampling (boosting.py
+        ``_setup_fused_phys``, seed = iter + 1) as one pass of
+        ops/sample.py over the payload; the count goes to the learner's
+        device word ``bag``, N without sampling."""
+        lr, N = self.learner, self.num_data
+        seed = self.iter + 1
+        if self.goss:
+            top_k, other_k = self._goss_k
+            thr, n_top = goss_threshold(ghi, N, top_k)
+            sample(ghi, lr.bag, MODE_GOSS, N=N,
+                   key=jrandom.fold_in(self._bag_key, seed), thr=thr,
+                   n_top=n_top, other_k=other_k,
+                   mult=(N - top_k) / other_k)
+        elif self.need_bagging:
+            period = (seed - 1) // self._bag_freq
+            key = jrandom.fold_in(self._bag_key, period)
+            if self.balanced_bagging:
+                if self._sign_row is None:
+                    raise NotImplementedError(
+                        "balanced bagging needs the objective's label row "
+                        "in the payload")
+                sample(ghi, lr.bag, MODE_BALANCED, N=N, key=key,
+                       pos_frac=self._pos_frac, neg_frac=self._neg_frac,
+                       sign_row=self._sign_row)
+            else:
+                sample(ghi, lr.bag, MODE_BAG, N=N, key=key,
+                       frac=self._bag_frac)
+        else:
+            lr.bag.fill_(N)
+
+    def _sample_eager(self, grad, hess):
+        """Sampling of a custom objective's gradients (original row order),
+        as the JAX package's eager iteration draws it (boosting.py
+        ``_bagging_mask``, ``_goss_sample``): the bag redrawn every
+        ``bagging_freq`` iterations from ``bag_rng`` -- an exact count by a
+        permutation, or balanced by the label -- and GOSS from a fresh
+        split of ``bag_rng`` each iteration.  Writes the count into the
+        learner's ``bag`` word; returns the masked or scaled (grad, hess)."""
+        lr, cfg, N = self.learner, self.config, self.num_data
+        dev = grad.device
+        if self.goss:
+            top_k = max(int(N * cfg.top_rate), 1)
+            other_k = max(int(N * cfg.other_rate), 1)
+            imp = (grad * hess).abs()
+            thr = torch.topk(imp, top_k, sorted=False).values.min()
+            top = imp >= thr
+            self.bag_rng, sub = jrandom.split(self.bag_rng)
+            rest = torch.clamp_min(N - top.sum(), 1).to(torch.float32)
+            prob = torch.tensor(np.float32(other_k), device=dev) / rest
+            u = jrandom.torch_uniform_at(sub, torch.arange(N, device=dev))
+            keep = ~top & (u < prob)
+            mult = torch.tensor(np.float32((N - top_k) / other_k),
+                                device=dev)
+            scale = torch.where(top, 1.0, torch.where(keep, mult, 0.0))
+            lr.bag.copy_((top | keep).sum().to(torch.int32).reshape(1))
+            return grad * scale, hess * scale
+        if not self.need_bagging:
+            lr.bag.fill_(N)
+            return grad, hess
+        if self.iter % cfg.bagging_freq == 0 or self._cached_bag is None:
+            self.bag_rng, sub = jrandom.split(self.bag_rng)
+            if self.balanced_bagging:
+                label = torch.as_tensor(self.train_data.metadata.label,
+                                        device=dev)
+                u = jrandom.torch_uniform_at(sub, torch.arange(N,
+                                                               device=dev))
+                mask = torch.where(label > 0,
+                                   u < np.float32(cfg.pos_bagging_fraction),
+                                   u < np.float32(cfg.neg_bagging_fraction))
+                cnt = torch.clamp_min(mask.sum(), 1).to(torch.int32)
+            else:
+                k = max(int(N * cfg.bagging_fraction), 1)
+                mask = torch.zeros(N, dtype=torch.bool, device=dev)
+                mask[jrandom.torch_permutation(sub, N, dev)[:k]] = True
+                cnt = torch.tensor(k, dtype=torch.int32, device=dev)
+            self._cached_bag = (mask, cnt.reshape(1))
+        mask, cnt = self._cached_bag
+        lr.bag.copy_(cnt)
+        return torch.where(mask, grad, 0.0), torch.where(mask, hess, 0.0)
+
+    def _feature_mask(self) -> np.ndarray:
+        """This iteration's (F,) feature mask (JAX boosting.py
+        ``_feature_mask``): with ``feature_fraction`` < 1, a fresh split of
+        ``feat_rng`` and the first ``max(int(F * fraction), 1)`` of its
+        permutation of the used features; all ones otherwise."""
+        frac = float(self.config.feature_fraction)
+        F = self.learner.F
+        if frac >= 1.0 or F <= 1:
+            return np.ones(F, dtype=bool)
+        k = max(int(F * frac), 1)
+        self.feat_rng, sub = jrandom.split(self.feat_rng)
+        mask = np.zeros(F, dtype=bool)
+        mask[jrandom.permutation(sub, F)[:k]] = True
+        return mask
 
     def _add_leaf_values(self, ghi) -> None:
         """Add each leaf's shrunk value to its contiguous physical row

@@ -4,8 +4,23 @@ bodies, one leaf a step or, on the mega path, up to K (the frontier).
 Port of lightgbm_tpu/models/learner.py (``SerialTreeLearner``: the K=1
 path ``_build_tree_impl`` with the Pallas pair search, and the
 frontier-batched path ``_build_tree_frontier`` / ``_renumber_frontier``
-of ``tpu_frontier_k`` > 1) for all-numerical uint8 data without EFB
-bundles.
+of ``tpu_frontier_k`` > 1) for all-numerical uint8 data.
+
+With EFB bundles (dataset.py) the histograms are per group and the pair
+search reads one row a feature: as in the JAX package, which then runs
+neither its mega kernel nor its Pallas pair search, bundled data takes
+the histogram-subtraction body at K=1 whatever ``tpu_megakernel`` and
+``tpu_frontier_k`` say, and ``ops/feat_view.py`` turns each split's
+children into their per-feature view (a bundled feature's default bin
+rebuilt from the leaf's total) between the state update and the pair
+search.
+
+Row and feature sampling reach the tree through two device buffers the
+bookkeeping kernels read at the root and at every child: ``bag``, the
+root's bag-aware row count (the sampling pass of ops/sample.py writes
+it; N without sampling), and ``fmask``, the tree's (F,) feature mask
+(``set_feature_mask``), written into the pair search's IN_MASK column.
+Neither is a launch argument, so one captured graph serves every draw.
 
 Rows are physically partitioned by leaf, as in the JAX learner: the
 (G, N_pad) uint8 bin matrix and the (8, N_pad) f32 payload (grad, hess,
@@ -94,6 +109,7 @@ from ..ops.frontier import (FS_NPRUNED, FS_RUN, Frontier, IfNode,
 from ..ops.frontier import MODE_FINAL as FR_FINAL
 from ..ops.frontier import MODE_ROOT as FR_ROOT
 from ..ops.frontier import MODE_STEP as FR_STEP
+from ..ops.feat_view import View, feat_view
 from ..ops.hist_state import leaf_hist_rmw, leaf_hist_rmw_step, new_state
 from ..ops.partition import (S_CNT, SB_DONE, SB_ERR, SB_MADE, SB_S,
                              SB_STEPS, STEP_WORDS, Workspace, make_scalars,
@@ -142,8 +158,8 @@ def frontier_k(config: Config, eligible: bool, L: int, device) -> int:
             raise ValueError("tpu_frontier_k must be >= 1")
         if k > 1 and not eligible:
             log.warning("tpu_frontier_k=%d needs the mega path "
-                        "(tpu_megakernel auto/pallas) and at least one "
-                        "feature; using 1", k)
+                        "(tpu_megakernel auto/pallas, no EFB bundles) and "
+                        "at least one feature; using 1", k)
             k = 1
     return max(1, min(k, L - 1))
 
@@ -175,10 +191,17 @@ class SerialTreeLearner:
         # per-feature metadata as columns: feature id, group row,
         # bin_start, is_bundled, num_bin, default_bin, missing_type
         F = self.F
+        is_bundled = np.zeros(F, np.int32)
+        for g, grp in enumerate(dataset.groups):
+            if len(grp.feature_indices) > 1:
+                is_bundled[meta["group"] == g] = 1
         self._fmeta = np.stack([
-            meta["feature"], meta["group"], np.zeros(F, np.int32),
-            np.zeros(F, np.int32), meta["num_bin"], meta["default_bin"],
+            meta["feature"], meta["group"], meta["bin_start"], is_bundled,
+            meta["num_bin"], meta["default_bin"],
             meta["missing_type"]]).astype(np.int32) if F else None
+        # EFB bundles: the pair search reads the per-feature view
+        # (ops/feat_view.py) of the group histograms (JAX _plain_view)
+        self.bundled = bool(is_bundled.any())
         half = np.zeros((F, 8), np.int32)
         if F:
             half[:, 0] = meta["num_bin"]
@@ -207,8 +230,15 @@ class SerialTreeLearner:
         self.min_sum_hessian = float(config.min_sum_hessian_in_leaf)
         self.max_depth = int(config.max_depth)
         self.syncs = 0          # device-to-host round trips, all trees
-        # the histogram-subtraction body keeps one histogram slot per leaf
-        self.subtract = str(config.tpu_megakernel).strip().lower() == "off"
+        # the histogram-subtraction body keeps one histogram slot per leaf;
+        # EFB bundles take it whatever tpu_megakernel says, as the JAX
+        # package's mega kernel needs the plain per-feature view
+        mega = str(config.tpu_megakernel).strip().lower()
+        self.subtract = mega == "off" or self.bundled
+        if self.bundled and mega == "pallas":
+            log.warning("tpu_megakernel=pallas needs the plain "
+                        "all-numerical path without EFB bundles; using the "
+                        "histogram-subtraction path")
         self.state = (new_state(self.L, self.G, self.B, self.device)
                       if self.subtract else None)
         # frontier-batched growth on the mega path (the JAX package's
@@ -245,6 +275,11 @@ class SerialTreeLearner:
         # per step: K left counts; the pair search over the 2K children
         # (the left children first), its feature metadata repeated
         self.nl = torch.zeros(K, dtype=torch.int32, device=dev)
+        # the root's bag-aware row count and the tree's feature mask, read
+        # on the device by the bookkeeping kernels: the sampling pass and
+        # set_feature_mask refill them, so one graph serves every draw
+        self.bag = torch.full((1,), self.N, dtype=torch.int32, device=dev)
+        self.fmask = torch.ones(F, dtype=torch.float32, device=dev)
         self.pair_out = torch.full((2 * K, 13), NEG_INF, device=dev)
         self.info = torch.zeros((2 * K * F, 8), device=dev)
         self.fmeta_pair = torch.as_tensor(
@@ -257,12 +292,19 @@ class SerialTreeLearner:
         # the mega kernel's (G, side, plane, Bp) histograms, one a leaf
         self.hist4 = (None if self.subtract else
                       torch.zeros((K, G, 4 * BH, 16), device=dev))
+        # with bundles, the children's per-feature view (plane, child, F,
+        # Bp): the pair search's inputs
+        self.view = self.fchildren = None
+        if self.bundled:
+            m = self._fmeta
+            self.view = View(m[1], m[2], m[3], m[4], G, Bp, dev)
+            self.fchildren = torch.zeros((2, 2, F, Bp), device=dev)
         self.ws = Workspace(dev) if dev.type == "cuda" else None
         self.fr = None
         if K > 1:
             self.fr = Frontier(L, K, self.leafmat, self.nodemat, self.steps,
                                self.nl, self.pair_out, self.info, self.sums,
-                               self.fmeta)
+                               self.fmeta, self.bag, self.fmask)
             # steps per conditional block: a stopped tree skips the rest of
             # its block step by step and every later block at once
             self.fr_block = max(1, int(np.ceil(np.sqrt(nodes))))
@@ -279,6 +321,7 @@ class SerialTreeLearner:
         self._graph_key = None
         self._host = None
         self.replays = 0
+        self.captures = 0       # graphs captured (a new row buffer each)
 
     # ------------------------------------------------------------------
     def _search(self, hg, hh, info, out=None):
@@ -293,16 +336,35 @@ class SerialTreeLearner:
             min_sum_hessian=self.min_sum_hessian, max_depth=self.max_depth,
             out=out, children=c)
 
-    # -- the device-resident loop ------------------------------------------
-    def _step(self, mode, bag_cnt) -> None:
-        tree_step(mode, self.leafmat, self.nodemat, self.step, self.nl,
-                  self.pair_out, self.fmeta, self.info, self.sums,
-                  row0=self.row0, N=self.N, bag_cnt=bag_cnt)
+    def set_feature_mask(self, mask) -> None:
+        """The next trees' (F,) feature mask (bool or 0/1, in the used
+        features' order) into the device mask the bookkeeping kernels
+        write into the pair search's IN_MASK column; the copy to the card
+        is pinned and asynchronous."""
+        m = torch.from_numpy(np.asarray(mask, dtype=np.float32).reshape(-1))
+        if self.device.type == "cuda":
+            m = m.pin_memory()
+        self.fmask.copy_(m, non_blocking=True)
 
-    def _pair(self) -> None:
-        Bp = self.children.shape[-1]
-        self._search(self.children[0].view(-1, Bp),
-                     self.children[1].view(-1, Bp), self.info,
+    # -- the device-resident loop ------------------------------------------
+    def _step(self, mode) -> None:
+        tree_step(mode, self.leafmat, self.nodemat, self.step, self.nl,
+                  self.pair_out, self.fmeta, self.info, self.sums, self.bag,
+                  self.fmask, row0=self.row0, N=self.N)
+
+    def _pair(self, step=None) -> None:
+        """The pair search over the children's planes; with bundles, over
+        their per-feature view, formed first from the state slots of
+        ``step`` (default: the K=1 step block) -- after the bookkeeping
+        wrote the children's info rows, whose sums the CPU's view reads."""
+        ch = self.children
+        if self.bundled:
+            feat_view(ch, self.info, self.state,
+                      self.step if step is None else step, self._absmax,
+                      kcnt=self.N, view=self.view, out=self.fchildren)
+            ch = self.fchildren
+        Bp = ch.shape[-1]
+        self._search(ch[0].view(-1, Bp), ch[1].view(-1, Bp), self.info,
                      out=self.pair_out)
 
     def _mega_kw(self):
@@ -330,44 +392,44 @@ class SerialTreeLearner:
         src = (h4[:, :1].expand(-1, 2, -1, -1) if root else h4)
         self.children.copy_(src.permute(2, 1, 0, 3))
 
-    def _root(self, pb, pg, bag_cnt) -> None:
+    def _root(self, pb, pg) -> None:
         """The root: the tree's bound of |grad| and |hess|, the root's
         histogram and sums, tree_step's reset, the root's search."""
         torch.amax(pg[:2].abs(), dim=1, out=self._absmax)
         self._body(pb, pg, self.root_step)
         torch.stack([self.children[0, 0, 0].sum(),
                      self.children[1, 0, 0].sum()], out=self.sums)
-        self._step(MODE_ROOT, bag_cnt)
+        self._step(MODE_ROOT)
         if self.F:
-            self._pair()
+            self._pair(self.root_step)
 
-    def _sequence(self, pb, pg, bag_cnt) -> None:
+    def _sequence(self, pb, pg) -> None:
         """The whole tree as a fixed sequence of launches (the graph)."""
-        self._root(pb, pg, bag_cnt)
+        self._root(pb, pg)
         for _ in range(self.max_splits if self.F else 1):
-            self._step(MODE_STEP, bag_cnt)
+            self._step(MODE_STEP)
             if self.F:
                 self._body(pb, pg, self.step)
                 self._pair()
-        self._step(MODE_FINAL, bag_cnt)
+        self._step(MODE_FINAL)
 
-    def _loop(self, pb, pg, bag_cnt) -> None:
+    def _loop(self, pb, pg) -> None:
         """The same steps in a Python loop that stops when the step block
         says done (on the CPU, where reading it is no sync)."""
         if self.K > 1:
-            return self._fr_loop(pb, pg, bag_cnt)
-        self._root(pb, pg, bag_cnt)
+            return self._fr_loop(pb, pg)
+        self._root(pb, pg)
         while True:
-            self._step(MODE_STEP, bag_cnt)
+            self._step(MODE_STEP)
             if int(self.step[SB_DONE]):
                 break
             self._body(pb, pg, self.step)
             self._pair()
 
     # -- the frontier (K > 1, the mega path) -------------------------------
-    def _fstep(self, mode, bag_cnt, handles=(0, 0)) -> None:
+    def _fstep(self, mode, handles=(0, 0)) -> None:
         frontier_step(mode, self.fr, row0=self.row0, N=self.N,
-                      bag_cnt=bag_cnt, handles=handles)
+                      handles=handles)
 
     def _fr_children(self) -> None:
         """The K leaves' (G, side, plane, Bp) histograms into the
@@ -378,7 +440,7 @@ class SerialTreeLearner:
         self.children.view(2, 2, K, G, Bp).copy_(
             self.hist4.view(K, G, 2, 2, Bp).permute(3, 2, 0, 1, 4))
 
-    def _fr_root(self, pb, pg, bag_cnt, handles=(0, 0)) -> None:
+    def _fr_root(self, pb, pg, handles=(0, 0)) -> None:
         """The frontier's root: the tree's bound of |grad| and |hess|, the
         rows' tree-start positions (payload row KEY_ROW), the root's
         histogram (leaf 0 of the step) and sums, the reset, the root's
@@ -390,11 +452,11 @@ class SerialTreeLearner:
         self._fr_children()
         torch.stack([self.children[0, 0, 0].sum(),
                      self.children[1, 0, 0].sum()], out=self.sums)
-        self._fstep(FR_ROOT, bag_cnt)
+        self._fstep(FR_ROOT)
         self._pair()
-        self._fstep(FR_STEP, bag_cnt, handles)
+        self._fstep(FR_STEP, handles)
 
-    def fr_step(self, pb, pg, bag_cnt, handles=(0, 0)) -> None:
+    def fr_step(self, pb, pg, handles=(0, 0)) -> None:
         """One frontier step: the split kernel on each of the K step
         records (a record of no rows writes a zero histogram and moves
         nothing), one pair search over the 2K children, the bookkeeping
@@ -405,26 +467,26 @@ class SerialTreeLearner:
                             self.hist4[k], **kw)
         self._fr_children()
         self._pair()
-        self._fstep(FR_STEP, bag_cnt, handles)
+        self._fstep(FR_STEP, handles)
 
     def _fr_undo(self, pb, pg) -> None:
         frontier_undo(pb, pg, self.fr, bound=self.N, ws=self.ws)
 
-    def _fr_loop(self, pb, pg, bag_cnt) -> None:
+    def _fr_loop(self, pb, pg) -> None:
         """The frontier's steps in a Python loop that stops when the state
         says no batch was selected, then the renumber and, when something
         was pruned, the undo; the key row cleared (on the CPU, where
         reading the state is no sync)."""
         fs = self.fr.fs
-        self._fr_root(pb, pg, bag_cnt)
+        self._fr_root(pb, pg)
         while int(fs[FS_RUN]):
-            self.fr_step(pb, pg, bag_cnt)
-        self._fstep(FR_FINAL, bag_cnt)
+            self.fr_step(pb, pg)
+        self._fstep(FR_FINAL)
         if int(fs[FS_NPRUNED]):
             self._fr_undo(pb, pg)
         frontier_key(pg, row0=self.row0, N=self.N, clear=True)
 
-    def _fr_sequence(self, pb, pg, bag_cnt) -> None:
+    def _fr_sequence(self, pb, pg) -> None:
         """The frontier's tree as the captured graph: the root, then L - 1
         steps, each in a conditional IF node that the step before it
         enables when it selected a batch, grouped in blocks of
@@ -454,54 +516,56 @@ class SerialTreeLearner:
             return (IfNode(handle, body) if capture
                     else contextlib.nullcontext())
 
-        self._fr_root(pb, pg, bag_cnt, enable(0))
+        self._fr_root(pb, pg, enable(0))
         for b in range(nb):
             with cond(hb[b], self._bodies[0]):
                 for t in range(b * blk, min(n, (b + 1) * blk)):
                     with cond(hs[t], self._bodies[1]):
-                        self.fr_step(pb, pg, bag_cnt, enable(t + 1))
-        self._fstep(FR_FINAL, bag_cnt, (hu, 0))
+                        self.fr_step(pb, pg, enable(t + 1))
+        self._fstep(FR_FINAL, (hu, 0))
         with cond(hu, self._bodies[0]):
             self._fr_undo(pb, pg)
         frontier_key(pg, row0=self.row0, N=self.N, clear=True)
 
-    def _replay(self, pb, pg, bag_cnt) -> None:
+    def _replay(self, pb, pg) -> None:
         """Grow the tree by replaying the captured graph, capturing it
         first when the buffers are new: one run of the steps on copies of
         the row buffers loads every kernel and sizes the workspace, which
         is then frozen, and the capture holds its addresses."""
-        key = (pb.data_ptr(), pg.data_ptr(), int(bag_cnt))
+        key = (pb.data_ptr(), pg.data_ptr())
         if self._graph_key != key:
             self._graph = None
             sequence = self._fr_sequence if self.K > 1 else self._sequence
-            sequence(pb.clone(), pg.clone(), bag_cnt)
+            sequence(pb.clone(), pg.clone())
             self.ws.frozen = True
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, stream=self._capture
                                   if self.K > 1 else None):
-                sequence(pb, pg, bag_cnt)
+                sequence(pb, pg)
             self._graph, self._graph_key = graph, key
+            self.captures += 1
             self._host = torch.empty(self._tree_dev.shape,
                                      dtype=torch.float32, pin_memory=True)
             self._done = torch.cuda.Event()
         self._graph.replay()
         self.replays += 1
 
-    def build_tree(self, part_bins: torch.Tensor, part_ghi: torch.Tensor,
-                   bag_cnt: int) -> Dict[str, Any]:
+    def build_tree(self, part_bins: torch.Tensor,
+                   part_ghi: torch.Tensor) -> Dict[str, Any]:
         """Grow one tree over the payload in ``part_ghi`` (rows 0/1 hold
         this iteration's grad/hess), partitioning both buffers in place,
-        with the tree loop on the device (see module doc).  Returns the
-        host record of ``_unpack_state``; ``leafmat`` keeps the tree on
-        the device."""
+        with the tree loop on the device (see module doc).  The bag-aware
+        row count is the device word ``bag`` (the sampling pass writes
+        it).  Returns the host record of ``_unpack_state``; ``leafmat``
+        keeps the tree on the device."""
         if self.device.type == "cuda":
-            self._replay(part_bins, part_ghi, bag_cnt)
+            self._replay(part_bins, part_ghi)
             self._host.copy_(self._tree_dev, non_blocking=True)
             self._done.record()
             self._done.synchronize()
             host = self._host.numpy().copy()
         else:
-            self._loop(part_bins, part_ghi, bag_cnt)
+            self._loop(part_bins, part_ghi)
             host = self._tree_dev.numpy().copy()
         self.syncs += 1
         L, nodes, K = self.L, self.max_splits, self.K
@@ -525,9 +589,26 @@ class SerialTreeLearner:
     # -- the oracle: the host loop -----------------------------------------
     def _info(self, halves):
         """(2F, 8) f32 info block on the device from two (sum_g, sum_h,
-        cnt, depth)."""
-        return torch.as_tensor(info_block(self.F, halves),
-                               device=self.device)
+        cnt, depth) and the feature mask."""
+        return torch.as_tensor(
+            info_block(self.F, halves, self.fmask.cpu().numpy()),
+            device=self.device)
+
+    def _eager_search(self, hg, hh, info, idx, cnt):
+        """The pair search over two children's (2G, Bp) histograms, read
+        through the feature view when the data has bundles (``idx`` the
+        state slots of the split, ``cnt`` its rows)."""
+        if self.bundled:
+            G, F = self.G, self.F
+            ch = torch.stack([hg.view(2, G, -1), hh.view(2, G, -1)])
+            step = torch.tensor(step_words(make_scalars(
+                0, cnt, 0, 0, 0, 0, 0, 0, 0, 0), idx), dtype=torch.int32,
+                device=self.device)
+            fv = torch.empty_like(self.fchildren)
+            feat_view(ch, info, self.state, step, self._absmax, kcnt=self.N,
+                      view=self.view, out=fv)
+            hg, hh = fv[0].reshape(2 * F, -1), fv[1].reshape(2 * F, -1)
+        return self._search(hg, hh, info)
 
     def _root_hist(self, part_bins, part_ghi):
         """The root's (G, Bp) grad and hess histograms twice, as (2G, Bp):
@@ -572,13 +653,14 @@ class SerialTreeLearner:
         return nl, torch.cat([hl_g, hr_g]), torch.cat([hl_h, hr_h])
 
     def build_tree_eager(self, part_bins: torch.Tensor,
-                         part_ghi: torch.Tensor,
-                         bag_cnt: int) -> Dict[str, Any]:
+                         part_ghi: torch.Tensor) -> Dict[str, Any]:
         """The oracle of ``build_tree``: the same tree, grown by an eager
         Python loop with the bookkeeping on the host, the kernels' host-int
         entry points and one host sync a split (the port's loop before the
-        tree moved onto the device).  Leaves the tree in ``leafmat`` too."""
+        tree moved onto the device), with the bag count read from the
+        device word ``bag``.  Leaves the tree in ``leafmat`` too."""
         L, F = self.L, self.F
+        bag_cnt = int(self.bag[0])
         nodes = self.max_splits
         lm = empty_leafmat(L)
         nm = np.zeros((NND, nodes + 1), np.float32)
@@ -596,7 +678,7 @@ class SerialTreeLearner:
             info = self._info([(0, 0, bag_cnt, 0)] * 2)
             info[:, 0] = sum_g
             info[:, 1] = sum_h
-            tile = self._search(hg, hh, info)[0]
+            tile = self._eager_search(hg, hh, info, (-1, 0, 0, 0), self.N)[0]
         else:
             tile = torch.full((13,), NEG_INF, device=self.device)
         host = torch.cat([sum_g.reshape(1), sum_h.reshape(1), tile]).cpu()
@@ -641,9 +723,11 @@ class SerialTreeLearner:
                 side = int(_f2i(pcol[LM_PSIDE]))
                 nm.view(np.int32)[ND_LEFT if side == 0 else ND_RIGHT, p] = s
 
-            tile = self._search(
+            tile = self._eager_search(
                 hg, hh, self._info([(lsg, lsh, left_cnt_g, depth_child),
-                                    (rsg, rsh, right_cnt_g, depth_child)]))
+                                    (rsg, rsh, right_cnt_g, depth_child)]),
+                (best_leaf, best_leaf, new_leaf,
+                 int(left_cnt_g <= right_cnt_g)), cnt)
             host = torch.cat([nl.view(torch.float32), tile.reshape(-1)]).cpu()
             self.syncs += 1
             host = host.numpy()

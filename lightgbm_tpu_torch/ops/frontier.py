@@ -29,7 +29,8 @@ parent's slot, the right child of split j takes slot j + 1); items
 
   * ``MODE_ROOT``: reset the state to a tree of one leaf, write the root
     search's info rows (child 0 of the pair search) from the root
-    histogram's sums, and mark the root as due;
+    histogram's sums, the bag-aware count ``bag`` and the feature mask
+    ``fmask`` (both device buffers), and mark the root as due;
   * ``MODE_STEP``: commit what is due -- the root's column from pair row
     0, or each split of the step just run: its two children's leaf
     columns from its left count ``nl[k]`` and pair rows ``k`` and
@@ -37,7 +38,8 @@ parent's slot, the right child of split j takes slot j + 1); items
     next step's batch: per leaf k a step record ``steps[k]`` (the single
     leaf step block the split kernels read, ops/partition.py ``SB_*``;
     ``cnt == 0`` for a lane not used), a snapshot of the leaf's column,
-    its node column and the info rows of its two children.  It sets
+    its node column and the info rows of its two children (feature mask
+    ``fmask``).  It sets
     ``FS_RUN`` (and, inside a captured graph, the conditional handle of
     the next step) when a batch was selected;
   * ``MODE_FINAL``: renumber into the K=1 learner's numbering -- the
@@ -124,10 +126,12 @@ class Frontier:
     ``leafmat`` / ``nodemat``, the K step records ``steps`` (K,
     STEP_WORDS), the left counts ``nl`` (K,), the pair search's rows
     ``pair`` (2K, 13) and info block ``info`` (2KF, 8), the root sums
-    ``sums`` (2,) and the feature metadata ``fmeta`` (7, F)."""
+    ``sums`` (2,), the feature metadata ``fmeta`` (7, F), the bag-aware
+    root count ``bag`` (1,) int32 and the tree's feature mask ``fmask``
+    (F,) f32."""
 
     def __init__(self, L, K, leafmat, nodemat, steps, nl, pair, info, sums,
-                 fmeta):
+                 fmeta, bag, fmask):
         dev = leafmat.device
         self.L, self.K, self.F = L, K, fmeta.shape[1]
         self.MS, SL, _ = sizes(L, K)
@@ -140,10 +144,10 @@ class Frontier:
                                 device=dev)
         self.leafmat, self.nodemat, self.steps = leafmat, nodemat, steps
         self.nl, self.pair, self.info, self.sums = nl, pair, info, sums
-        self.fmeta = fmeta
+        self.fmeta, self.bag, self.fmask = fmeta, bag, fmask
 
     TENSORS = ("fs", "lmw", "nmw", "snap", "leafmat", "nodemat", "steps",
-               "nl", "pair", "info", "sums", "fmeta")
+               "nl", "pair", "info", "sums", "fmeta", "bag", "fmask")
 
     def to(self, device) -> "Frontier":
         """A copy of every buffer on ``device`` (the kernel's comparison
@@ -162,11 +166,11 @@ class Frontier:
         return self.fs.cpu().numpy()[off:off + n]
 
 
-def frontier_step_plain(mode, fr: Frontier, *, row0: int, N: int,
-                        bag_cnt: int) -> None:
+def frontier_step_plain(mode, fr: Frontier, *, row0: int, N: int) -> None:
     """Plain version of the bookkeeping kernel, in place on CPU buffers
     (see module doc)."""
     L, K, F, MS = fr.L, fr.K, fr.F, fr.MS
+    bag_cnt, fmask = int(fr.bag[0]), fr.fmask.numpy()
     _, SL, NI = sizes(L, K)
     IT = NI - 1
     fs = fr.fs.numpy()
@@ -196,7 +200,8 @@ def frontier_step_plain(mode, fr: Frontier, *, row0: int, N: int,
         slot_item[0] = 0
         s = fr.sums.numpy()
         info[:] = 0.0
-        info[0, :, :5] = [s[0], s[1], np.float32(bag_cnt), 0.0, 1.0]
+        info[0, :, :4] = [s[0], s[1], np.float32(bag_cnt), 0.0]
+        info[0, :, 4] = fmask
         w[:] = 0
         fs[FS_PEND] = PEND_ROOT
         return
@@ -274,10 +279,11 @@ def frontier_step_plain(mode, fr: Frontier, *, row0: int, N: int,
         nmw[:, j] = node_column(pc, pc[LM_BGAIN], fm, slot, j + 1)
         lcg, rcg = int(pci[LM_BLCNT]), int(pci[LM_BRCNT])
         depth = int(pci[LM_DEPTH]) + 1
-        info[k, :, :5] = [pc[LM_BLSG], pc[LM_BLSH], np.float32(lcg),
-                          np.float32(depth), 1.0]
-        info[K + k, :, :5] = [pc[LM_BRSG], pc[LM_BRSH], np.float32(rcg),
-                              np.float32(depth), 1.0]
+        info[k, :, :4] = [pc[LM_BLSG], pc[LM_BLSH], np.float32(lcg),
+                          np.float32(depth)]
+        info[K + k, :, :4] = [pc[LM_BRSG], pc[LM_BRSH], np.float32(rcg),
+                              np.float32(depth)]
+        info[[k, K + k], :, 4] = fmask
         sil = int(lcg <= rcg)
         r = w[k]
         r[SB_START] = pci[LM_START]
@@ -385,13 +391,13 @@ def _renumber_plain(fr, fs, lmw, nmw, snap, w, undo) -> None:
     w[0, SB_ERR] |= fs[FS_ERR]
 
 
-def frontier_step(mode, fr: Frontier, *, row0: int, N: int, bag_cnt: int,
+def frontier_step(mode, fr: Frontier, *, row0: int, N: int,
                   handles=(0, 0)) -> None:
     """One bookkeeping step in place (see module doc).  ``handles``: up to
     two conditional handles that the kernel sets to ``FS_RUN``
     (MODE_STEP) or to ``FS_NPRUNED > 0`` (MODE_FINAL), those nonzero --
     inside a captured graph."""
-    kw = dict(row0=row0, N=N, bag_cnt=bag_cnt)
+    kw = dict(row0=row0, N=N)
     if fr.fs.device.type == "cpu":
         return frontier_step_plain(mode, fr, **kw)
     if mode not in (MODE_ROOT, MODE_STEP, MODE_FINAL):
@@ -410,15 +416,17 @@ def frontier_step(mode, fr: Frontier, *, row0: int, N: int, bag_cnt: int,
             ("pair", torch.float32, (2 * K, 13)),
             ("info", torch.float32, (2 * K * F, 8)),
             ("sums", torch.float32, (2,)),
-            ("fmeta", torch.int32, (FMETA_ROWS, F))):
+            ("fmeta", torch.int32, (FMETA_ROWS, F)),
+            ("bag", torch.int32, (1,)),
+            ("fmask", torch.float32, (F,))):
         kernels.require_cuda(getattr(fr, name), dtype, name, shape)
     fn = kernels.load("frontier").frontier_step_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [
         ctypes.c_ulonglong] * 2 + [ctypes.c_void_p]
     h1, h2 = handles
     err = fn(*(kernels.ptr(getattr(fr, n)) for n in Frontier.TENSORS),
-             L, K, F, int(row0), int(N), int(bag_cnt), int(mode),
+             L, K, F, int(row0), int(N), int(mode),
              ctypes.c_ulonglong(h1), ctypes.c_ulonglong(h2),
              kernels.stream_ptr(fr.fs.device))
     kernels.check(err, "frontier_step_launch")

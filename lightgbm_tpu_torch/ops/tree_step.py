@@ -17,7 +17,8 @@ One call, by ``mode``:
 
   * ``MODE_ROOT``: reset both matrices to an empty tree, write the root
     search's (2F, 8) info block from the root histogram's sums ``sums``
-    (2,) and the bag-aware count, and mark the root's column as due;
+    (2,), the bag-aware count ``bag`` (1,) int32 and the feature mask
+    ``fmask`` (F,) f32, and mark the root's column as due;
   * ``MODE_STEP``: commit what is due -- the root's column from the root
     search's row, or the two children of the split just made from the
     partition's left count ``nl`` and the pair search's (2, 13) rows
@@ -25,7 +26,8 @@ One call, by ``mode``:
     ``LM_BGAIN`` over the L leaves (a NaN counts as the largest, as
     ``np.argmax`` takes it), made when ``s < nodes``, the gain is > 0 (a
     NaN gain is not) and the tree has not stopped.  It writes node column
-    ``s``, the parent's child pointer, the children's info block and the
+    ``s``, the parent's child pointer, the children's info block (their
+    sums, counts and depth, and ``fmask`` as the feature mask) and the
     step block of the split (range, decision from ``fmeta`` (7, F),
     histogram-state slots, ``small_is_left`` by the bag-aware counts,
     ties left, and the side to histogram); a split not made sets
@@ -126,10 +128,10 @@ def node_column(pcol, gain, fmeta_col, best_leaf, new_leaf) -> np.ndarray:
     return ncol
 
 
-def info_block(F: int, halves) -> np.ndarray:
+def info_block(F: int, halves, fmask=None) -> np.ndarray:
     """(2F, 8) f32 info block of the pair search from two (sum_g, sum_h,
-    cnt, depth): each child's rows carry its sums, count, depth and a
-    feature mask of 1."""
+    cnt, depth): each child's rows carry its sums, count, depth and the
+    feature mask ``fmask`` (F,) (default all 1)."""
     info = np.zeros((2 * F, 8), np.float32)
     for c, (sg, sh, cnt, depth) in enumerate(halves):
         rows = slice(c * F, (c + 1) * F)
@@ -137,15 +139,16 @@ def info_block(F: int, halves) -> np.ndarray:
         info[rows, 1] = sh
         info[rows, 2] = np.float32(cnt)
         info[rows, 3] = np.float32(depth)
-        info[rows, 4] = 1.0
+        info[rows, 4] = 1.0 if fmask is None else fmask
     return info
 
 
-def tree_step_plain(mode, lm, nm, step, nl, pair, fmeta, info, sums, *,
-                    row0: int, N: int, bag_cnt: int) -> None:
+def tree_step_plain(mode, lm, nm, step, nl, pair, fmeta, info, sums, bag,
+                    fmask, *, row0: int, N: int) -> None:
     """Plain version of the kernel, in place on CPU tensors (see module
     doc)."""
     L, nodes, F = lm.shape[1] - 1, nm.shape[1] - 1, fmeta.shape[1]
+    bag_cnt, fm_np = int(bag[0]), fmask.numpy()
     lmf, nmf = lm.numpy(), nm.numpy()
     nmi = nmf.view(np.int32)
     w = step.numpy()
@@ -154,7 +157,7 @@ def tree_step_plain(mode, lm, nm, step, nl, pair, fmeta, info, sums, *,
         lmf[:] = empty_leafmat(L)
         nmf[:] = 0.0
         s = sums.numpy()
-        inf[:] = info_block(F, [(0, 0, bag_cnt, 0)] * 2)
+        inf[:] = info_block(F, [(0, 0, bag_cnt, 0)] * 2, fm_np)
         inf[:, 0] = s[0]
         inf[:, 1] = s[1]
         w[:] = 0
@@ -208,7 +211,8 @@ def tree_step_plain(mode, lm, nm, step, nl, pair, fmeta, info, sums, *,
     lcg, rcg = int(pci[LM_BLCNT]), int(pci[LM_BRCNT])
     depth = int(pci[LM_DEPTH]) + 1
     inf[:] = info_block(F, [(pcol[LM_BLSG], pcol[LM_BLSH], lcg, depth),
-                            (pcol[LM_BRSG], pcol[LM_BRSH], rcg, depth)])
+                            (pcol[LM_BRSG], pcol[LM_BRSH], rcg, depth)],
+                        fm_np)
     sil = int(lcg <= rcg)
     w[SB_START] = pci[LM_START]
     w[SB_CNT] = pci[LM_CNT]
@@ -224,19 +228,17 @@ def tree_step_plain(mode, lm, nm, step, nl, pair, fmeta, info, sums, *,
     w[SB_PEND] = 2
 
 
-def tree_step(mode, lm, nm, step, nl, pair, fmeta, info, sums, *,
-              row0: int, N: int, bag_cnt: int) -> None:
+def tree_step(mode, lm, nm, step, nl, pair, fmeta, info, sums, bag, fmask,
+              *, row0: int, N: int) -> None:
     """One bookkeeping step in place (see module doc)."""
-    kw = dict(row0=row0, N=N, bag_cnt=bag_cnt)
+    args = (mode, lm, nm, step, nl, pair, fmeta, info, sums, bag, fmask)
     if lm.device.type == "cpu":
-        return tree_step_plain(mode, lm, nm, step, nl, pair, fmeta, info,
-                               sums, **kw)
-    return tree_step_cuda(mode, lm, nm, step, nl, pair, fmeta, info, sums,
-                          **kw)
+        return tree_step_plain(*args, row0=row0, N=N)
+    return tree_step_cuda(*args, row0=row0, N=N)
 
 
-def tree_step_cuda(mode, lm, nm, step, nl, pair, fmeta, info, sums, *, row0,
-                   N, bag_cnt) -> None:
+def tree_step_cuda(mode, lm, nm, step, nl, pair, fmeta, info, sums, bag,
+                   fmask, *, row0, N) -> None:
     global launches
     L, nodes, F = lm.shape[1] - 1, nm.shape[1] - 1, fmeta.shape[1]
     if mode not in (MODE_ROOT, MODE_STEP, MODE_FINAL) or nodes != L - 1:
@@ -250,15 +252,17 @@ def tree_step_cuda(mode, lm, nm, step, nl, pair, fmeta, info, sums, *, row0,
             (pair, torch.float32, "pair rows", (2, 13)),
             (fmeta, torch.int32, "fmeta", (FMETA_ROWS, F)),
             (info, torch.float32, "info", (2 * F, 8)),
-            (sums, torch.float32, "sums", (2,))):
+            (sums, torch.float32, "sums", (2,)),
+            (bag, torch.int32, "bag count", (1,)),
+            (fmask, torch.float32, "feature mask", (F,))):
         kernels.require_cuda(t, dtype, name, shape)
     fn = kernels.load("tree_step").tree_step_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     err = fn(*(kernels.ptr(t) for t in (lm, nm, step, nl, pair, fmeta, info,
-                                        sums)),
-             L, nodes, F, int(row0), int(N), int(bag_cnt), int(mode),
+                                        sums, bag, fmask)),
+             L, nodes, F, int(row0), int(N), int(mode),
              kernels.stream_ptr(lm.device))
     kernels.check(err, "tree_step_launch")
     launches += 1

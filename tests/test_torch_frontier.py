@@ -201,7 +201,8 @@ def test_frontier_prune_engages_and_stays_bitidentical():
                 m, torch.as_tensor(g0)[ids], torch.zeros(()))
             pg[1, lr.row0:lr.row0 + lr.N] = torch.where(
                 m, torch.full((), 0.25), torch.zeros(()))
-            rec = lr.build_tree(pb, pg, int(mask.sum()))
+            lr.bag.fill_(int(mask.sum()))
+            rec = lr.build_tree(pb, pg)
             out[k] = (rec, lr.leafmat.clone(), lr.nodemat.clone(),
                       pb.clone(), pg.clone(), lr.last_made)
         (a, la, na, pa, ga, _), (b, lb, nb, pbk, gbk, made) = out[1], out[K]

@@ -89,7 +89,8 @@ def test_cuda_request_without_card_raises(monkeypatch):
                                  "ops/split_mega.py", "ops/partition.py",
                                  "ops/histogram.py", "ops/hist_state.py",
                                  "ops/tree_step.py", "ops/frontier.py",
-                                 "models/learner.py"])
+                                 "ops/feat_view.py", "ops/sample.py",
+                                 "models/learner.py", "models/boosting.py"])
 def test_kernel_wrappers_have_no_fallback(mod):
     """No try/except in the build and launch paths: a kernel that does not
     build or launch raises to the caller."""

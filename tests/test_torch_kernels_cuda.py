@@ -28,7 +28,11 @@ frontier's bookkeeping kernel is bit-identical to frontier_step_plain on
 every state of real trees, its key and undo kernels to their plain
 versions, split_pair over 2K children to the pair launches that hold
 each child; trees grown by the frontier's graph (conditional IF nodes)
-equal the K=1 graph loop's bit for bit, row order included.
+equal the K=1 graph loop's bit for bit, row order included.  The
+sampling pass and the EFB feature view are bit-identical to
+sample_plain and feat_view_fixed_plain (integer draws and sums, the same
+f32 operations), and trees grown on bundled, bagged data through the
+graph equal the eager oracle's, one capture for every draw.
 """
 
 import numpy as np
@@ -36,13 +40,16 @@ import pytest
 import torch
 
 import lightgbm_tpu_torch as lgt
+from lightgbm_tpu_torch.ops import feat_view as fv
 from lightgbm_tpu_torch.ops import hist_state as hs
 from lightgbm_tpu_torch.ops import histogram as th
 from lightgbm_tpu_torch.ops import partition as tpart
 from lightgbm_tpu_torch.ops import split_mega as sm
 from lightgbm_tpu_torch.ops.partition import make_scalars
+from lightgbm_tpu_torch.ops import sample as smp
 from lightgbm_tpu_torch.ops import split_pair as sp
 from lightgbm_tpu_torch.ops import tree_step as ts
+from lightgbm_tpu_torch.utils import random as jr
 
 import test_torch_tree_loop as _tl
 
@@ -83,7 +90,8 @@ def _pair_case(seed, F=28, BF=255):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(28, 255), (28, 256), (7, 31), (3, 16),
-                                   (45, 64), (70, 255)])
+                                   (45, 64), (70, 255), (284, 48),
+                                   (284, 255)])
 @pytest.mark.parametrize("pi", range(len(PARAMS)))
 def test_split_pair_kernel_bit_identical_to_plain(card, shape, pi):
     """Kernel, plain version on the card and plain version on the CPU
@@ -482,12 +490,11 @@ def test_tree_step_kernel_bit_identical_to_plain(card, case):
         c = _tl.tree_case(4, L=6, made=5)
     elif case == "stopped":
         c = _tl.tree_case(7, gains=_tl.GAIN_CASES["max gain 0 stops"])
-        ts.tree_step_plain(ts.MODE_STEP, *c, row0=_tl.ROW0, N=_tl.N,
-                           bag_cnt=_tl.BAG)
+        ts.tree_step_plain(ts.MODE_STEP, *c, row0=_tl.ROW0, N=_tl.N)
     else:
         c = _tl.tree_case(1, gains=_tl.GAIN_CASES.get(case))
     dev = [t.to(card) for t in c]
-    kw = dict(row0=_tl.ROW0, N=_tl.N, bag_cnt=_tl.BAG)
+    kw = dict(row0=_tl.ROW0, N=_tl.N)
     ts.tree_step(mode, *dev, **kw)
     ts.tree_step_plain(mode, *c, **kw)
     for got, want in zip(dev, c):
@@ -790,3 +797,145 @@ def test_many_frontier_learners_in_one_process(card):
         if first is None:
             first = raw
         np.testing.assert_array_equal(raw, first)
+
+
+# ---- EFB bundles and sampling ----------------------------------------------
+
+def _sample_payload(seed, N=300000, C=4096):
+    """A payload as the fused iteration lays it out (pad rows carry the
+    row id N and zero gradients), the label sign in row 4."""
+    rng = np.random.RandomState(seed)
+    Np = C + ((N + C - 1) // C + 2) * C
+    ghi = np.zeros((8, Np), np.float32)
+    rid = np.full(Np, N, np.int32)
+    rid[C:C + N] = rng.permutation(N)
+    real = rid != N
+    g = rng.randn(Np).astype(np.float32)
+    g[rng.rand(Np) < 0.05] = 0.25
+    ghi[0] = np.where(real, g, 0)
+    ghi[1] = np.where(real, rng.rand(Np) + 0.05, 0)
+    ghi[2] = rid.view(np.float32)
+    ghi[4] = np.where(rng.rand(Np) < 0.3, 1.0, -1.0) * real
+    return torch.as_tensor(ghi), N
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bag", "balanced", "goss"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sample_kernel_bit_identical_to_plain(card, mode, seed):
+    """csrc/sample.cu against sample_plain: the payload words and the
+    in-bag count."""
+    ghi, N = _sample_payload(seed)
+    key = jr.fold_in(jr.PRNGKey(3), seed + 5)
+    m = {"bag": smp.MODE_BAG, "balanced": smp.MODE_BALANCED,
+         "goss": smp.MODE_GOSS}[mode]
+    kw = dict(N=N, key=key, frac=0.7, pos_frac=0.5, neg_frac=0.9,
+              sign_row=4, other_k=N // 10, mult=(N - N // 5) / (N // 10))
+    out = {}
+    for dev in ("cpu", card):
+        t = ghi.clone().to(dev)
+        bag = torch.zeros(1, dtype=torch.int32, device=dev)
+        if m == smp.MODE_GOSS:
+            kw["thr"], kw["n_top"] = smp.goss_threshold(t, N, N // 5)
+        smp.sample(t, bag, m, **kw)
+        out[str(dev)] = (t.cpu(), int(bag[0]))
+    (a, ca), (b, cb) = out.values()
+    assert ca == cb and 0 < ca < N
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _view_case(seed, G=36, Bp=48, slots=5):
+    """28 features alone in their groups and 8 bundles of 32 two-bin
+    indicators (the smoke's EFB shape, cut in rows), an int64 state."""
+    rng = np.random.RandomState(seed)
+    group, bstart, isb, nb = [], [], [], []
+    for g in range(28):
+        group.append(g)
+        bstart.append(0)
+        isb.append(0)
+        nb.append(int(rng.randint(20, Bp + 1)))
+    for g in range(28, G):
+        for i in range(32):
+            group.append(g)
+            bstart.append(i)
+            isb.append(1)
+            nb.append(2)
+    view = fv.View(np.array(group), np.array(bstart), np.array(isb),
+                   np.array(nb), G, Bp, "cpu")
+    state = torch.as_tensor(rng.randint(-2 ** 50, 2 ** 50,
+                                        size=(slots, 2, G, Bp)))
+    return view, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["split", "root", "stopped", "seed1"])
+def test_feat_view_kernel_bit_identical_to_plain(card, case):
+    view, state = _view_case(1 if case == "seed1" else 0)
+    step = torch.zeros(tpart.STEP_WORDS, dtype=torch.int32)
+    step[tpart.SB_CNT] = 0 if case == "stopped" else 1000
+    step[tpart.SB_WA], step[tpart.SB_WB] = (0, 0) if case == "root" else (
+        3, 1)
+    absmax = torch.tensor([0.8, 0.24])
+    want = fv.feat_view_fixed_plain(state, step, absmax, 1 << 20, view)
+    vd = view.to(card)
+    out = torch.zeros((2, 2, view.F, view.Bp), device=card)
+    fv.feat_view(None, None, state.to(card), step.to(card), absmax.to(card),
+                 kcnt=1 << 20, view=vd, out=out)
+    assert torch.equal(out.cpu().view(torch.int32), want.view(torch.int32))
+    assert (case == "stopped") == (not want.any())
+
+
+def _onehot(n=20000, seed=5):
+    rng = np.random.RandomState(seed)
+    dense = rng.normal(size=(n, 4))
+    cats = [rng.randint(0, k, size=n) for k in (5, 8, 3)]
+    X = np.hstack([dense] + [np.eye(k)[c] for k, c in zip((5, 8, 3), cats)])
+    y = (dense[:, 0] + (cats[0] == 2) - (cats[1] > 4)
+         + 0.3 * rng.normal(size=n) > 0).astype(float)
+    return X, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampling", ["none", "bagging", "goss"])
+def test_bundled_graph_trees_equal_eager_oracle(card, sampling):
+    """On bundled data, with and without sampling: trees grown by the
+    graph (feat_view between the state update and the pair search) equal
+    the eager oracle's on the card, bit for bit; one capture serves every
+    draw, one host read a tree."""
+    X, y = _onehot()
+    params = {"objective": "binary", "num_leaves": 15, "verbosity": -1,
+              "feature_fraction": 0.8}
+    if sampling == "bagging":
+        params.update(bagging_fraction=0.7, bagging_freq=1)
+    elif sampling == "goss":
+        params.update(data_sample_strategy="goss")
+    for a, b in _tl.lockstep(X, y, params, "cuda", trees=5):
+        _tl.assert_same_tree(a, b)
+    lr = a._gbdt.learner
+    assert lr.bundled and lr.subtract
+    assert lr.syncs == 5 and lr.replays == 5 and lr.captures == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", ["1", "4"])
+def test_one_graph_capture_across_bagged_iterations(card, k):
+    """Bagging redraws the bag every iteration: the count is a device
+    word, so the tree graph is captured once and replayed for every
+    draw; the card's trees and counts equal the CPU's."""
+    X, y = _tl._load(_tl.EXAMPLES["binary"][0])
+    params = {"objective": "binary", "num_leaves": 15, "verbosity": -1,
+              "bagging_fraction": 0.6, "bagging_freq": 1,
+              "feature_fraction": 0.7, "tpu_frontier_k": k}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        b = lgt.train(dict(params, device_type=dev), lgt.Dataset(X, label=y),
+                      6)
+        out[dev] = b
+    lr = out["cuda"]._gbdt.learner
+    assert lr.captures == 1 and lr.replays == 6 and lr.syncs == 6
+    assert lr.K == int(k)
+    for a, b in zip(out["cpu"]._gbdt.models, out["cuda"]._gbdt.models):
+        assert a.internal_count[0] == b.internal_count[0] < len(y)
+        assert np.array_equal(a.split_feature, b.split_feature)
+        assert np.array_equal(a.threshold_bin, b.threshold_bin)
+

@@ -192,7 +192,8 @@ def test_categorical_bin_mapper_raises(pair):
     with pytest.raises(NotImplementedError, match="categorical"):
         convert.dataset_from_arrays(
             np.asarray(jd.host_binned()), mappers,
-            [g.feature_indices[0] for g in jd.groups], y)
+            [(g.feature_indices, g.bin_offsets, g.num_total_bin)
+             for g in jd.groups], y)
 
 
 def test_training_metric_falls(pair):
@@ -233,8 +234,8 @@ def test_dataset_from_jax_arrays_trains_the_same_trees(pair):
     jd = jb._gbdt.train_data
     ds = convert.dataset_from_arrays(
         np.asarray(jd.host_binned()), [bm.to_dict() for bm in jd.bin_mappers],
-        [g.feature_indices[0] for g in jd.groups], y,
-        params=dict(params, device_type="cpu"))
+        [(g.feature_indices, g.bin_offsets, g.num_total_bin)
+         for g in jd.groups], y, params=dict(params, device_type="cpu"))
     from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.models.boosting import GBDT
     from lightgbm_tpu_torch.models.objective import create_objective
@@ -248,7 +249,7 @@ def test_dataset_from_jax_arrays_trains_the_same_trees(pair):
 
 
 @pytest.mark.parametrize("param,value", [
-    ("bagging_fraction", 0.5), ("feature_fraction", 0.5),
+    ("feature_fraction_bynode", 0.5), ("extra_trees", True),
     ("objective", "multiclass"), ("tpu_ab_double", "hist"),
     ("linear_tree", True), ("tree_learner", "data"),
     ("tpu_megakernel", "xla"), ("tpu_hist_dtype", "float16"),
@@ -367,10 +368,38 @@ def _split_gain64(rows, left, g, h, reg):
     return gl + gr - gp, abs(gl) + abs(gr) + abs(gp)
 
 
-def _compare_with_ties(X, y, objective, params, jb, tb):
+def _first_tie(a, b, lvj, lvt, g, h, reg, t=0, rtol=1e-9):
+    """The first split of tree ``a`` (JAX) and ``b`` (port) that
+    partitions the rows differently, after checking that its two choices
+    have equal f64 gains from the rows' ``g`` and ``h`` (to ``rtol`` of
+    the larger sum of the split's three |leaf gains|); None when every
+    split partitions the same rows.  ``lvj`` / ``lvt``: each row's leaf."""
+    sets = []
+    for tree, lv in ((a, lvj), (b, lvt)):
+        sets.append([(np.isin(lv, list(u)), np.isin(lv, list(v)))
+                     for u, v in _leaf_sets(tree)])
+    for s in range(max(len(sets[0]), len(sets[1]))):
+        got = [x[s] if s < len(x) else (None, None) for x in sets]
+        (rj, lj), (rt, lt) = got
+        if (rj is not None and rt is not None
+                and np.array_equal(rj, rt) and np.array_equal(lj, lt)):
+            continue
+        gj = _split_gain64(rj, lj, g, h, reg)
+        gt = _split_gain64(rt, lt, g, h, reg)
+        (vj, mj), (vt, mt) = (x if isinstance(x, tuple) else (x, 0.0)
+                              for x in (gj, gt))
+        assert abs(vj - vt) <= rtol * max(1.0, mj, mt), (
+            f"tree {t} split {s}: the packages split differently with "
+            f"f64 gains {vj!r} (JAX) and {vt!r} (port)")
+        return s
+    return None
+
+
+def _compare_with_ties(X, y, objective, params, jb, tb, row_scale=None):
     """Returns (tree, split) of the first split that partitions the
     training rows differently, after checking it is an exact tie; None
-    when every tree agrees."""
+    when every tree agrees.  ``row_scale(t)``, when given, is tree t's
+    (N,) factor on every row's gradient and hessian (a sampling mask)."""
     reg = (params.get("lambda_l1", 0.0), params.get("lambda_l2", 0.0),
            params.get("max_delta_step", 0.0))
     port_in_jax = lgb.Booster(model_str=tb.model_to_string())
@@ -383,23 +412,10 @@ def _compare_with_ties(X, y, objective, params, jb, tb):
             g, h = p - y, p * (1.0 - p)
         else:
             g, h = score - y, np.ones_like(y)
-        sets = []
-        for tree, lv in ((a, leaves_j[:, t]), (b, leaves_t[:, t])):
-            sets.append([(np.isin(lv, list(u)), np.isin(lv, list(v)))
-                         for u, v in _leaf_sets(tree)])
-        for s in range(max(len(sets[0]), len(sets[1]))):
-            got = [x[s] if s < len(x) else (None, None) for x in sets]
-            (rj, lj), (rt, lt) = got
-            if (rj is not None and rt is not None
-                    and np.array_equal(rj, rt) and np.array_equal(lj, lt)):
-                continue
-            gj = _split_gain64(rj, lj, g, h, reg)
-            gt = _split_gain64(rt, lt, g, h, reg)
-            (vj, mj), (vt, mt) = (x if isinstance(x, tuple) else (x, 0.0)
-                                  for x in (gj, gt))
-            assert abs(vj - vt) <= 1e-9 * max(1.0, mj, mt), (
-                f"tree {t} split {s}: the packages split differently with "
-                f"f64 gains {vj!r} (JAX) and {vt!r} (port)")
+        if row_scale is not None:
+            g, h = g * row_scale(t), h * row_scale(t)
+        s = _first_tie(a, b, leaves_j[:, t], leaves_t[:, t], g, h, reg, t)
+        if s is not None:
             return t, s
         np.testing.assert_allclose(b.leaf_value, a.leaf_value, rtol=1e-4,
                                    atol=1e-5)

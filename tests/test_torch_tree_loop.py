@@ -94,11 +94,14 @@ def tree_case(seed, L=9, F=5, made=4, gains=None, sil_tie=False):
     nl = np.array([rng.randint(0, cnt + 1)], np.int32)
     info = rng.randn(2 * F, 8).astype(np.float32)
     sums = rng.randn(2).astype(np.float32)
+    bag = np.array([BAG], np.int32)
+    fmask = (rng.rand(F) < 0.7).astype(np.float32)
     return [torch.as_tensor(a) for a in (lmat, nmat, step, nl, pair, fmeta,
-                                         info, sums)]
+                                         info, sums, bag, fmask)]
 
 
-def reference_step(mode, lmat, nmat, step, nl, pair, fmeta, info, sums):
+def reference_step(mode, lmat, nmat, step, nl, pair, fmeta, info, sums, bag,
+                   fmask):
     """The eager loop's bookkeeping (build_tree_eager), on numpy copies:
     the root's column from the root search, or the split's two children
     from the left count and the pair search's rows; then the argmax, the
@@ -108,7 +111,7 @@ def reference_step(mode, lmat, nmat, step, nl, pair, fmeta, info, sums):
     lmat, nmat, info = lmat.copy(), nmat.copy(), info.copy()
     s = int(step[SB_S])
     if step[SB_PEND] == 1:
-        lmat[:, 0] = ts.leaf_column(ROW0, N, BAG, sums[0], sums[1], 0, 0.0,
+        lmat[:, 0] = ts.leaf_column(ROW0, N, bag[0], sums[0], sums[1], 0, 0.0,
                                     -1, 0, pair[0])
     elif step[SB_PEND] == 2:
         best, new = int(step[SB_LEAF]), int(step[SB_NEW])
@@ -140,7 +143,7 @@ def reference_step(mode, lmat, nmat, step, nl, pair, fmeta, info, sums):
     lcg, rcg = _i(pcol[LM_BLCNT]), _i(pcol[LM_BRCNT])
     dc = _i(pcol[LM_DEPTH]) + 1
     info = ts.info_block(F, [(pcol[LM_BLSG], pcol[LM_BLSH], lcg, dc),
-                             (pcol[LM_BRSG], pcol[LM_BRSH], rcg, dc)])
+                             (pcol[LM_BRSG], pcol[LM_BRSH], rcg, dc)], fmask)
     _, col, bstart, isb, nb, dbin, mtype = (int(v) for v in fmeta[:, fe])
     sc = tpart.make_scalars(_i(pcol[LM_START]), _i(pcol[LM_CNT]), col,
                             bstart, isb, nb, dbin, mtype, _i(pcol[LM_BTHR]),
@@ -163,16 +166,13 @@ GAIN_CASES = {
 
 
 def _run_both(case, mode):
-    lmat, nmat, step, nl, pair, fmeta, info, sums = case
-    want = reference_step(mode, lmat.numpy(), nmat.numpy(), step.numpy(),
-                          nl.numpy(), pair.numpy(), fmeta.numpy(),
-                          info.numpy(), sums.numpy())
-    ts.tree_step_plain(mode, *case, row0=ROW0, N=N, bag_cnt=BAG)
+    want = reference_step(mode, *(t.numpy() for t in case))
+    ts.tree_step_plain(mode, *case, row0=ROW0, N=N)
     return want
 
 
 def _check(case, want, final=False):
-    lmat, nmat, step, _, _, _, info, _ = case
+    lmat, nmat, step, _, _, _, info, _, _, _ = case
     wl, wn, wi, nxt = want
     assert np.array_equal(lmat.numpy().view(np.int32), wl.view(np.int32))
     assert np.array_equal(nmat.numpy().view(np.int32), wn.view(np.int32))
@@ -223,12 +223,13 @@ def test_tree_step_plain_root_then_first_election():
     """MODE_ROOT resets the matrices and writes the root search's info
     block; the next step commits the root's column and elects it."""
     c = tree_case(6)
-    ts.tree_step_plain(ts.MODE_ROOT, *c, row0=ROW0, N=N, bag_cnt=BAG)
-    lmat, nmat, step, _, pair, _, info, sums = c
+    ts.tree_step_plain(ts.MODE_ROOT, *c, row0=ROW0, N=N)
+    lmat, nmat, step, _, pair, _, info, sums, _, fmask = c
     assert np.array_equal(lmat.numpy().view(np.int32),
                           ts.empty_leafmat(lmat.shape[1] - 1).view(np.int32))
     assert not nmat.any() and step[SB_PEND] == 1
-    want = ts.info_block(info.shape[0] // 2, [(0, 0, BAG, 0)] * 2)
+    want = ts.info_block(info.shape[0] // 2, [(0, 0, BAG, 0)] * 2,
+                         fmask.numpy())
     want[:, :2] = sums.numpy()
     assert np.array_equal(info.numpy(), want)
     _check(c, _run_both(c, ts.MODE_STEP))
@@ -240,11 +241,11 @@ def test_tree_step_plain_stopped_tree_writes_nothing():
     """After a stop every step leaves the matrices and the info block as
     they are."""
     c = tree_case(7, gains=GAIN_CASES["max gain 0 stops"])
-    ts.tree_step_plain(ts.MODE_STEP, *c, row0=ROW0, N=N, bag_cnt=BAG)
+    ts.tree_step_plain(ts.MODE_STEP, *c, row0=ROW0, N=N)
     assert c[2][SB_DONE] == 1
     before = [t.clone() for t in c]
     for mode in (ts.MODE_STEP, ts.MODE_STEP, ts.MODE_FINAL):
-        ts.tree_step_plain(mode, *c, row0=ROW0, N=N, bag_cnt=BAG)
+        ts.tree_step_plain(mode, *c, row0=ROW0, N=N)
         for a, b in zip(c, before):
             assert torch.equal(_bits(a), _bits(b))
 

@@ -87,7 +87,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (first tree, train scores from the physical order against predict);
      3 trees saved and 3 more from the file with the validation set
      (train and valid scores against predict, atol 1e-5);
-  4d. (4d and 4e run after 4b, before 4c) row and feature sampling at
+  4d. (4d, 4e and 4f run after 4b, before 4c) row and feature sampling at
      the HIGGS shape: bagging 0.8 / freq 1,
      GOSS at its defaults and feature_fraction 0.8, beside the unsampled
      run, on the mega path (auto: the frontier at K=4) and the subtraction
@@ -111,6 +111,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the first difference an exact tie in f64); feat_view and split_pair
      at F = 284 bit-identical to their plain versions on 13 states of a
      real tree, with their times; s/iteration and device ms;
+  4f. categorical features: 4e's 2,000,000 rows with the 8 categoricals
+     as integer columns (``categorical_feature``) and two more of 3 and
+     200 levels (F = 38): the learner on the subtraction body at K=1 with
+     split_cat after the pair search; the first tree bit-identical to the
+     eager oracle's (category sets and row order included), with
+     one-vs-rest and sorted-arm categorical nodes, and equal to the CPU
+     plain loop's (or its first difference an exact tie in f64); every
+     wrapper's count set to 0 before 4 profiled iterations and read after,
+     the device launches by function, one capture, one tree read a tree,
+     logloss falling; split_cat bit-identical to split_cat_plain on every
+     launch of a tree and the partition of categorical steps to
+     partition_leaf_plain; 100,000 rows with NaN, negative, unseen and
+     non-integer categories predicted as the host Tree.predict, again
+     after a save and reload; split_cat's ms a launch; s/iteration beside
+     4e's one-hot run;
   5. each kernel against its plain version on inputs captured from the
      first tree of its path, through its host-int entry and through the
      step entry the graph loop launches (a step block made beforehand,
@@ -122,6 +137,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      path), its JSON lines printed.
 The line before the last is a JSON object of per-kernel numbers; the
 last line is {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --digest
+
+trains the HIGGS shape 2 iterations on each body and prints a sha256 of
+the trees and row buffers a body, to compare two checkouts on one card.
 """
 
 import contextlib
@@ -570,6 +590,9 @@ KERNEL_FUNCS = {
     "efb": {"part_tiles": "partition", "part_copyback": "partition",
             "leaf_hist_state": "leaf_hist", "feat_view": "feat_view",
             "pair_search": "split_pair", "tree_step": "tree_step"},
+    "cat": {"part_tiles": "partition", "part_copyback": "partition",
+            "leaf_hist_state": "leaf_hist", "cat_search": "split_cat",
+            "pair_search": "split_pair", "tree_step": "tree_step"},
 }
 
 
@@ -720,7 +743,8 @@ def report_iteration(per, bounds, tree, label, calls):
 
 def tree_args(lr):
     return (lr.leafmat, lr.nodemat, lr.step, lr.nl, lr.pair_out, lr.fmeta,
-            lr.info, lr.sums, lr.bag, lr.fmask)
+            lr.info, lr.sums, lr.bag, lr.fmask, lr.leafcat, lr.nodecat,
+            lr.paircat)
 
 
 def check_tree_steps(ts, lr, pb, pg, steps):
@@ -1921,6 +1945,392 @@ def efb_path(lgt, learner_mod, mods):
     return out
 
 
+# ---- phase 4f: categorical features (categorical_feature) ---------------
+CAT_ITERS, CAT_SMALL, CAT_WIDE = 4, 3, 200
+CAT_PART_CHECKS = 8             # categorical splits whose partition is held
+
+
+def make_cat_data(rows):
+    """Phase 4e's rows (make_efb_data's draws) with its 8 categoricals of
+    32 levels as integer columns instead of one-hot, and two more from a
+    RandomState of their own, so that 4e's draws do not move: one of 3
+    levels (the one-vs-rest arm; its per-level effects three times the
+    others') and one of 200 levels (the sorted arm past
+    max_cat_threshold = 32), each with a per-level effect; F = 38."""
+    rng = np.random.RandomState(7)
+    X = rng.normal(size=(rows, FEATURES)).astype(np.float32)
+    w = rng.normal(size=FEATURES)
+    logit = X.dot(w) * 0.5
+    noise = rng.normal(size=rows)
+    crng = np.random.RandomState(8)
+    cats = crng.randint(0, EFB_LEVELS, size=(rows, EFB_CATS))
+    effect = crng.normal(size=(EFB_CATS, EFB_LEVELS))
+    logit = logit + effect[np.arange(EFB_CATS), cats].sum(axis=1)
+    xrng = np.random.RandomState(9)
+    # the effects first, so that they do not move with the row count
+    small_eff = 3.0 * xrng.normal(size=CAT_SMALL)
+    wide_eff = xrng.normal(size=CAT_WIDE)
+    small = xrng.randint(0, CAT_SMALL, size=rows)
+    wide = xrng.randint(0, CAT_WIDE, size=rows)
+    logit = logit + small_eff[small] + wide_eff[wide]
+    out = np.empty((rows, FEATURES + EFB_CATS + 2), np.float32)
+    out[:, :FEATURES] = X
+    out[:, FEATURES:FEATURES + EFB_CATS] = cats
+    out[:, -2] = small
+    out[:, -1] = wide
+    y = (logit + noise > 0).astype(np.float32)
+    return out, y
+
+
+def cat_arms(tree, mappers, onehot_max):
+    """(one-vs-rest, sorted) categorical node counts of a tree."""
+    n = tree.num_nodes()
+    feats = tree.split_feature[:n][tree.is_categorical_node()]
+    nb = np.asarray([mappers[int(f)].num_bin for f in feats])
+    return int((nb <= onehot_max).sum()), int((nb > onehot_max).sum())
+
+
+def tie_gain(tree, s, rows, left, g, h, mappers, cat_l2):
+    """A split's f64 gain from binary gradients, its children with the
+    arm's l2 (cat_l2 on the sorted categorical arm), and the sum of the
+    |leaf gains| it is held against."""
+    l2c = 0.0
+    if s < tree.num_leaves - 1 and int(tree.decision_type[s]) & 1 and \
+            mappers[int(tree.split_feature[s])].num_bin > 4:
+        l2c = cat_l2
+    out = []
+    for m, l2 in ((left, l2c), (rows & ~left, l2c), (rows, 0.0)):
+        sg, sh = g[m].sum(), h[m].sum()
+        out.append(sg * sg / (sh + l2) if sh + l2 > 0 else 0.0)
+    return out[0] + out[1] - out[2], sum(abs(v) for v in out)
+
+
+def first_cat_tie(ta, tb, X, y, score, mappers, what):
+    """The first split where trees ``ta`` and ``tb`` (host Trees of one
+    iteration, grown from the scores ``score``) partition the rows
+    differently, checked to be an exact tie in f64 (1e-9 of the split's
+    |leaf gains|); None when they partition every row alike."""
+    la, lb = ta.predict_leaf(X), tb.predict_leaf(X)
+    p = 1.0 / (1.0 + np.exp(-score))
+    g, h = p - y, p * (1.0 - p)
+
+    def sets(tree, lv):
+        ns = tree.num_leaves - 1
+        lc, rc = tree.left_child[:ns], tree.right_child[:ns]
+
+        def below(c):
+            return {~c} if c < 0 else below(lc[c]) | below(rc[c])
+        return [(np.isin(lv, list(below(s))), np.isin(lv, list(below(lc[s]))))
+                for s in range(ns)]
+
+    sa, sb = sets(ta, la), sets(tb, lb)
+    for s in range(min(len(sa), len(sb))):
+        if np.array_equal(sa[s][0], sb[s][0]) and np.array_equal(
+                sa[s][1], sb[s][1]):
+            continue
+        va, ma = tie_gain(ta, s, *sa[s], g, h, mappers, 10.0)
+        vb, mb = tie_gain(tb, s, *sb[s], g, h, mappers, 10.0)
+        check(abs(va - vb) <= 1e-9 * max(1.0, ma, mb),
+              f"{what}: split {s} partitions differently with f64 gains "
+              f"{va!r} and {vb!r}")
+        return s
+    check(len(sa) == len(sb), f"{what}: {len(sa)} and {len(sb)} splits")
+    return None
+
+
+def check_cat_kernels(scat, sp, tpart, lr, pb, pg):
+    """On every launch of one tree, as the learner's own sequence runs
+    on copies of its row buffers: split_pair then split_cat on the card
+    against split_pair_plain then split_cat_plain on the CPU, bit for bit
+    (rows and sets); the partition of the first CAT_PART_CHECKS
+    categorical steps against partition_leaf_plain on the CPU (bins,
+    payload words, left count).  Returns the largest bit differences,
+    the launches compared, the arms the partitions took and the last
+    state's inputs (for the timing)."""
+    from lightgbm_tpu_torch.ops import tree_step as ts
+    pb, pg = pb.clone(), pg.clone()
+    err = {"split_cat": 0.0, "partition": 0.0}
+    kw = dict(l1=lr.l1, l2=lr.l2, max_delta_step=lr.max_delta_step,
+              min_gain_to_split=lr.min_gain_to_split,
+              min_data_in_leaf=lr.min_data_in_leaf,
+              min_sum_hessian=lr.min_sum_hessian, max_depth=lr.max_depth)
+    F, Bp = lr.F, lr.children.shape[-1]
+    fm, cats = lr.fmeta_pair, lr.cat_feats
+    fm_c, cats_c = fm.cpu(), cats.cpu()
+    n = {"split_cat": 0, "partition": 0}
+    state = {}
+
+    def search():
+        ch = lr.children
+        hg, hh = ch[0].view(-1, Bp), ch[1].view(-1, Bp)
+        rows = sp.split_pair(hg, hh, fm, lr.info, **kw)
+        pre = rows.to("cpu", copy=True)
+        sets = torch.zeros((2, 8), dtype=torch.int32, device=lr.device)
+        scat.split_cat(hg, hh, fm, lr.info, cats, rows, sets,
+                       work=lr.cat_work, **kw, **lr.cat_kw)
+        want, wset = pre.clone(), torch.zeros((2, 8), dtype=torch.int32)
+        scat.split_cat_plain(hg.cpu(), hh.cpu(), fm_c, lr.info.cpu(), cats_c,
+                             want, wset, **kw, **lr.cat_kw)
+        got = rows.cpu()
+        err["split_cat"] = max(err["split_cat"], bits_err(
+            got.view(torch.int32), want.view(torch.int32)),
+            bits_err(sets.cpu(), wset))
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32))
+              and torch.equal(sets.cpu(), wset),
+              f"split_cat: kernel and split_cat_plain differ at launch "
+              f"{n['split_cat']}")
+        lr.pair_out.copy_(rows)
+        lr.paircat.copy_(sets)
+        n["split_cat"] += 1
+        state.update(hg=hg.clone(), hh=hh.clone(), info=lr.info.clone(),
+                     pre=pre.to(lr.device))
+
+    torch.amax(pg[:2].abs(), dim=1, out=lr._absmax)
+    lr._body(pb, pg, lr.root_step)
+    torch.stack([lr.children[0, 0, 0].sum(), lr.children[1, 0, 0].sum()],
+                out=lr.sums)
+    lr._step(ts.MODE_ROOT)
+    search()
+    arms = []
+    while True:
+        lr._step(ts.MODE_STEP)
+        w = lr.step.cpu()
+        if int(w[tpart.SB_DONE]):
+            break
+        held = int(w[tpart.SB_ISCAT]) and n["partition"] < CAT_PART_CHECKS
+        if held:
+            b0, g0 = pb.to("cpu", copy=True), pg.to("cpu", copy=True)
+        lr._body(pb, pg, lr.step)
+        if held:
+            nl = tpart.partition_leaf_plain(b0, g0, w)
+            gb, gg = pb.cpu(), pg.cpu()
+            err["partition"] = max(err["partition"], bits_err(gb, b0),
+                                   bits_err(gg.view(torch.int32),
+                                            g0.view(torch.int32)))
+            check(int(lr.nl[0]) == int(nl) and torch.equal(gb, b0)
+                  and torch.equal(gg.view(torch.int32),
+                                  g0.view(torch.int32)),
+                  f"partition: a categorical step (leaf "
+                  f"{int(w[tpart.SB_LEAF])}) "
+                  f"differs from partition_leaf_plain")
+            arms.append(int(w[tpart.SB_NB]))
+            n["partition"] += 1
+            del b0, g0, gb, gg
+        search()
+    lr._step(ts.MODE_FINAL)
+    del pb, pg
+    return err, n, arms, state
+
+
+def cat_path(lgt, mods, efb):
+    """Phase 4f: categorical features on phase 4e's 2,000,000 rows, the
+    8 categoricals as integer columns with ``categorical_feature`` plus a
+    3-level and a 200-level one (F = 38): the learner takes the
+    subtraction body at K=1 with split_cat after the pair search.  The
+    first tree on the card bit-identical to the eager oracle's and equal
+    to the CPU plain loop's (or its first difference an exact tie in
+    f64), with categorical nodes on both arms; every wrapper's count set
+    to 0 before 4 profiled iterations and read after, the device launches
+    by function, one capture, one tree read a tree, logloss falling;
+    split_cat bit-identical to split_cat_plain on every launch of a tree
+    and the partition of categorical steps to partition_leaf_plain;
+    100,000 rows with NaN, negative, unseen and non-integer categories
+    predicted as the host Tree.predict, and again after a save and
+    reload; s/iteration beside phase 4e's one-hot run."""
+    from lightgbm_tpu_torch.ops import split_cat as scat
+    from lightgbm_tpu_torch.ops import partition as tpart
+    from lightgbm_tpu_torch.ops import split_pair as sp
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.time()
+    X, y = make_cat_data(EFB_ROWS)
+    F = X.shape[1]
+    cat_cols = list(range(FEATURES, F))
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+              "learning_rate": 0.1, "verbosity": -1}
+    ds = lgt.Dataset(X, label=y, categorical_feature=cat_cols)
+    ds.construct(params)
+    mappers = ds._inner.bin_mappers
+    nbins = [mappers[f].num_bin for f in cat_cols]
+    check(nbins[:-1] == [EFB_LEVELS + 1] * EFB_CATS + [CAT_SMALL + 1]
+          and nbins[-1] > EFB_LEVELS + 1,
+          f"cat: categorical num_bin {nbins}")
+    say(f"cat data and construct: {X.shape}, categorical columns "
+        f"{cat_cols[0]}..{cat_cols[-1]} of {nbins[0]}, {nbins[-2]} and "
+        f"{nbins[-1]} bins, {ds._inner.num_groups} groups, "
+        f"{time.time() - t0:.1f} s")
+    ref = lgt.Booster(params=params, train_set=ds)
+    ref._gbdt.learner.build_tree = ref._gbdt.learner.build_tree_eager
+    ref.update()
+    bst = lgt.Booster(params=params, train_set=ds)
+    lr = bst._gbdt.learner
+    check(lr.has_cat and lr.subtract and lr.K == 1 and not lr.bundled
+          and lr.F == F and len(lr.cat_feats) == len(cat_cols),
+          f"cat: learner has_cat {lr.has_cat} subtract {lr.subtract} K "
+          f"{lr.K} bundled {lr.bundled} F {lr.F}")
+    for m in mods.values():
+        m.launches = 0
+    iter_s, losses = [], []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for it in range(CAT_ITERS):
+            t0 = time.time()
+            bst.update()
+            torch.cuda.synchronize()
+            iter_s.append(time.time() - t0)
+            losses.append(bst.eval_train()[0][2])
+            if it == 0:
+                lb = ref._gbdt.learner
+                for t in ("leafmat", "nodemat", "nodecat", "leafcat"):
+                    check(torch.equal(getattr(lr, t).view(torch.int32),
+                                      getattr(lb, t).view(torch.int32)),
+                          f"cat: the graph's first tree's {t} differs from "
+                          f"the eager oracle's")
+                (pa, ga), (pr, gr) = bst._gbdt._phys, ref._gbdt._phys
+                check(torch.equal(pa, pr) and torch.equal(
+                    ga.view(torch.int32), gr.view(torch.int32)),
+                      "cat: the row order after the first tree differs "
+                      "from the eager oracle's")
+                del ref, lb, pr, gr
+    calls = {k: m.launches for k, m in mods.items()}
+    device = {}
+    for key, _, n in device_rows(prof):
+        fn = func(key)
+        if fn in KERNEL_FUNCS["cat"]:
+            device[fn] = device.get(fn, 0) + n
+    del prof
+    want = dict(per_tree("subtraction"), split_cat=SPLITS + 1)
+    for k in mods:
+        check(calls[k] == 2 * want.get(k, 0),
+              f"cat: {k}: {calls[k]} wrapper calls, expected "
+              f"{2 * want.get(k, 0)}")
+    fn_want = dict(funcs_per_tree("subtraction"), cat_search=SPLITS + 1)
+    for fn, n in fn_want.items():
+        check(device.get(fn, 0) == (CAT_ITERS + 1) * n,
+              f"cat: {fn}: {device.get(fn, 0)} device launches, expected "
+              f"{(CAT_ITERS + 1) * n}")
+    check(lr.syncs == lr.replays == CAT_ITERS and lr.captures == 1,
+          f"cat: {lr.syncs} tree reads, {lr.replays} replays, "
+          f"{lr.captures} captures for {CAT_ITERS} trees")
+    check(all(a > b for a, b in zip(losses, losses[1:])),
+          f"cat: training logloss does not fall: {losses}")
+    first = bst._gbdt.models[0]
+    arms = cat_arms(first, mappers, 4)
+    check(arms[0] > 0 and arms[1] > 0, f"cat: the first tree's categorical "
+                                       f"nodes by arm (one-vs-rest, sorted) "
+                                       f"{arms}")
+    med = float(np.median(iter_s[1:]))
+    say(f"cat train: s/iteration {[round(s, 4) for s in iter_s]} (under "
+        f"the profiler; median of iterations 2-4 {med:.4f} against phase "
+        f"4e's one-hot {efb['iter_s']:.4f} on the same rows); wrapper "
+        f"calls {calls}; device launches {device}; one capture, one tree "
+        f"read a tree; binary_logloss {losses}; first tree bit-identical "
+        f"to the eager oracle's (leafmat, nodemat, category sets, row "
+        f"order), {arms[0]} one-vs-rest and {arms[1]} sorted categorical "
+        f"nodes of {first.num_leaves - 1}")
+    per, busy = profile_iteration(bst, med, "cat")
+    for k, (ms, n) in sorted(per.items()):
+        print(f"  cat {k}: {ms:.3f} ms device time per iteration, {n} "
+              f"device launches", flush=True)
+    # the first tree on the CPU, by the plain versions
+    t0 = time.time()
+    cpu = lgt.Booster(params=dict(params, device_type="cpu"), train_set=ds)
+    cpu.update()
+    tc = cpu._gbdt.models[0]
+    tie = None
+    if not (same_trees([first], [tc], exact=False)
+            and first.cat_threshold == tc.cat_threshold):
+        tie = first_cat_tie(first, tc, X.astype(np.float64), y,
+                            np.full(len(y), bst._gbdt.init_scores[0]),
+                            mappers, "cat card vs CPU tree 0")
+    say(f"cat first tree against the CPU plain loop: "
+        + ("equal (structure, leaf values within rtol 1e-4 / atol 1e-5)"
+           if tie is None else f"equal up to split {tie}, an exact tie in "
+                               f"f64")
+        + f"; the CPU tree's nodes by arm {cat_arms(tc, mappers, 4)}; "
+          f"{time.time() - t0:.1f} s")
+    del cpu
+    pb_, pg_ = bst._gbdt._phys
+    err, nk, part_nb, st = check_cat_kernels(scat, sp, tpart, lr, pb_, pg_)
+    say(f"cat kernels: split_cat bit-identical to split_cat_plain on all "
+        f"{nk['split_cat']} launches of a tree (rows and sets), the "
+        f"partition of {nk['partition']} categorical steps (num_bin "
+        f"{part_nb}) bit-identical to partition_leaf_plain")
+    del pb_, pg_
+    # ms a launch on the last state: CUDA events around a replayed graph
+    # of 200 launches (the device time, as the tree's graph launches it)
+    # and around 200 launches from Python; the plain version beside it
+    kw = dict(l1=lr.l1, l2=lr.l2, max_delta_step=lr.max_delta_step,
+              min_gain_to_split=lr.min_gain_to_split,
+              min_data_in_leaf=lr.min_data_in_leaf,
+              min_sum_hessian=lr.min_sum_hessian, max_depth=lr.max_depth)
+    rows, sets = st["pre"].clone(), torch.zeros((2, 8), dtype=torch.int32,
+                                                device=lr.device)
+    args = (st["hg"], st["hh"], lr.fmeta_pair, st["info"], lr.cat_feats)
+
+    def launch():
+        scat.split_cat(*args, rows, sets, work=lr.cat_work, **kw,
+                       **lr.cat_kw)
+    ms = graph_ms(launch, 200)
+    py_ms = cuda_ms(launch, 200)
+    plain_ms = cuda_ms(lambda: scat.split_cat_plain(
+        *args, rows, sets, **kw, **lr.cat_kw), 5)
+    # the bytes the search must move: each child's grad and hess bins of
+    # the categorical features up to their own num_bin (not the padded
+    # width), their metadata and info rows, the feature list, the pair
+    # rows read and written and the sets written
+    NC, Bp = len(lr.cat_feats), st["hg"].shape[1]
+    nbs = lr.fmeta_pair[lr.cat_feats.long(), sp.FM_NUM_BIN].cpu().numpy()
+    nbs = nbs.astype(np.float64)
+    nbytes = (2 * 2 * nbs.sum() * 4
+              + 2 * NC * (lr.fmeta_pair.shape[1] + st["info"].shape[1]) * 4
+              + NC * 4 + 2 * 2 * 13 * 4 + 2 * 8 * 4)
+    # a sort's compares, the scans and the gains of each child's bins
+    ops = 2 * float((nbs * (np.ceil(np.log2(np.maximum(nbs, 2))) + 60))
+                    .sum())
+    cat_bound = bound(nbytes, ops)
+    say(f"split_cat @ 2 children x {NC} categorical features of "
+        f"{int(nbs.sum())} bins in all ({Bp} padded): "
+        f"{ms:.4f} ms a launch (CUDA events, graph replay of 200; "
+        f"{py_ms:.4f} ms a launch from Python), plain {plain_ms:.3f} ms, "
+        f"bound {cat_bound[0]:.6f} ms ({cat_bound[1]}); no single PyTorch "
+        f"call computes it, library_ms null")
+    # raw prediction of edge categories against the host Tree.predict
+    Xp = X[:100_000].astype(np.float64)
+    rng = np.random.RandomState(10)
+    for c in cat_cols:
+        r = rng.rand(len(Xp))
+        Xp[r < 0.03, c] = np.nan
+        Xp[(r >= 0.03) & (r < 0.06), c] = -1.0 - rng.randint(0, 5)
+        Xp[(r >= 0.06) & (r < 0.09), c] = CAT_WIDE + rng.randint(0, 50)
+        Xp[(r >= 0.09) & (r < 0.12), c] += 0.7
+    t0 = time.time()
+    raw = bst.predict(Xp, raw_score=True)
+    host = sum(t.predict(Xp) for t in bst._gbdt.models)
+    check(np.array_equal(raw, host), f"cat predict: the card and the host "
+                                     f"Tree.predict differ by "
+                                     f"{np.abs(raw - host).max()!r}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cat.txt")
+        bst.save_model(path)
+        again = lgt.Booster(model_file=path).predict(Xp, raw_score=True)
+    check(np.array_equal(raw, again), "cat predict: the reloaded model "
+                                      "predicts other raw scores")
+    say(f"cat predict: 100,000 rows with NaN, negative, unseen (>= "
+        f"{CAT_WIDE}) and non-integer categories equal to the host "
+        f"Tree.predict bit for bit, and after save and reload; "
+        f"{time.time() - t0:.1f} s")
+    out = {"iter_s": med, "iter_all": iter_s, "device_ms": busy, "per": per,
+           "err": err["split_cat"], "part_err": err["partition"], "ms": ms,
+           "py_ms": py_ms, "plain_ms": plain_ms, "bound": cat_bound,
+           "iter_bound": cat_bound[0] * (SPLITS + 1),
+           "launches": device.get("cat_search", 0), "arms": arms}
+    del bst, ds, X, y, lr, st, args, rows, sets, launch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---- phase 4d: row and feature sampling at the HIGGS shape -------------
 SAMPLE_ITERS = 4
 SAMPLE_CONFIGS = {"none": {},
@@ -2061,11 +2471,12 @@ def main():
     from lightgbm_tpu_torch.ops import tree_step as ts
     from lightgbm_tpu_torch.ops import feat_view as fv
     from lightgbm_tpu_torch.ops import sample as smp
+    from lightgbm_tpu_torch.ops import split_cat as scat
     from lightgbm_tpu_torch.ops.partition import (S_CNT, S_COL, decide_left,
                                                   make_scalars, scalars_start)
     mods = {"split_mega": sm, "split_pair": sp, "partition": tpart,
             "leaf_hist": th, "hist_rmw": hs, "tree_step": ts,
-            "feat_view": fv, "sample": smp}
+            "feat_view": fv, "sample": smp, "split_cat": scat}
 
     # ---- 2. build ----------------------------------------------------
     t0 = time.time()
@@ -2228,7 +2639,12 @@ def main():
             exact_calls.append(k["idx"])
         return after
 
-    step_bytes = (2 * 25 + 17 + 2 * G * 8 + 2 * 24 + 2 * 13 + 255) * 4
+    # two leafmat columns, a nodemat column, the info block, the step
+    # block read and written, the pair rows, the sets (two children's
+    # read and written, the elected leaf's copied to its node) and the
+    # L gains
+    step_bytes = (2 * 25 + 17 + 2 * G * 8 + 2 * tpart.STEP_WORDS + 2 * 13
+                  + 6 * tpart.CAT_WORDS + 255) * 4
     iter_by_path, launches_by_path, costs, steps_err = {}, {}, {}, 0.0
     busy_by_path, losses_by = {}, {}
     # the K=1 graph loop on the mega path (the frontier, K > 1, is phase
@@ -2310,6 +2726,8 @@ def main():
     torch.cuda.empty_cache()
     # ---- 4e. EFB bundles ------------------------------------------------
     efb = efb_path(lgt, learner_mod, mods)
+    # ---- 4f. categorical features ---------------------------------------
+    cat = cat_path(lgt, mods, efb)
 
     # ---- 4c. the training API on the card -----------------------------
     api_path(lgt, mods, fro, card)
@@ -2613,6 +3031,11 @@ def main():
     print(f"efb (phase 4e, {card}): s/iteration {efb['iter_s']:.4f}, "
           f"device ms an iteration {efb['device_ms']:.2f}; sampling (phase "
           f"4d): s/iteration " + json.dumps(samp["iter_s"]), flush=True)
+    print(f"categorical (phase 4f, {card}): s/iteration {cat['iter_s']:.4f} "
+          f"against one-hot (4e) {efb['iter_s']:.4f} on the same rows, both "
+          f"under the profiler; device ms an iteration {cat['device_ms']:.2f} "
+          f"against {efb['device_ms']:.2f}; split_cat "
+          f"{cat['per']['split_cat'][0]:.3f} ms an iteration", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": [
         row("split_mega", "split_mega.cu",
@@ -2670,6 +3093,17 @@ def main():
               "split_pair_f284_plain_ms": efb["plain"]["split_pair"]},
              **dict(zip(("bound_ms", "bound_by"),
                         bound(samp["nbytes"], 0)))),
+        # no TPU kernel: the categorical search is XLA code of the JAX
+        # package's general search
+        {"name": "split_cat", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/split_cat.cu",
+         "replaces": "lightgbm_tpu/ops/split.py:121",
+         "launches": cat["launches"], "max_abs_err": cat["err"],
+         "ms": cat["ms"], "plain_ms": cat["plain_ms"],
+         "bound_ms": cat["bound"][0], "bound_by": cat["bound"][1],
+         "library_ms": None, "iter_ms": cat["per"]["split_cat"][0],
+         "iter_bound_ms": cat["iter_bound"], "ms_from_python": cat["py_ms"],
+         "partition_cat_max_abs_err": cat["part_err"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2721,8 +3155,43 @@ def frontier_window_launches():
     return device
 
 
+def digest():
+    """``python3 chip_smoke.py --digest``: the HIGGS shape trained 2
+    iterations on each body (mega K=1, mega at the auto K, subtraction)
+    from one constructed Dataset; after each tree a sha256 of leafmat,
+    nodemat and both row buffers, one line a body.  It uses only the
+    training API and those three learner buffers, so a copy of this file
+    run from another checkout of the port digests that checkout's trees:
+    equal lines mean bit-identical trees, search rows (leafmat holds
+    them) and row order."""
+    import hashlib
+    check(torch.cuda.is_available(), "--digest needs a card")
+    sys.path.insert(0, ROOT)
+    import lightgbm_tpu_torch as lgt
+    X, y = make_data(ROWS)
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+              "learning_rate": 0.1, "verbosity": -1}
+    ds = lgt.Dataset(X, label=y)
+    ds.construct(params)
+    for label, extra in (("mega K=1", {"tpu_frontier_k": 1}),
+                         ("mega auto", {}),
+                         ("subtraction", {"tpu_megakernel": "off"})):
+        bst = lgt.Booster(params=dict(params, **extra), train_set=ds)
+        lr, h = bst._gbdt.learner, hashlib.sha256()
+        for _ in range(2):
+            bst.update()
+            pb, pg = bst._gbdt._phys
+            for t in (lr.leafmat, lr.nodemat, pb, pg):
+                h.update(t.contiguous().view(torch.uint8).cpu().numpy())
+        print(f"digest {label}: {h.hexdigest()}", flush=True)
+        del bst, lr
+        torch.cuda.empty_cache()
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--frontier-window"]:
         frontier_window()
+    elif sys.argv[1:] == ["--digest"]:
+        digest()
     else:
         main()

@@ -1,7 +1,8 @@
 """Python API of the port: ``Dataset`` and ``Booster``.
 
-Port of lightgbm_tpu/basic.py for all-numerical data: a ``Dataset`` over
-a matrix or a CSV / TSV / LibSVM file (utils/textio.py), with
+Port of lightgbm_tpu/basic.py: a ``Dataset`` over a matrix or a CSV /
+TSV / LibSVM file (utils/textio.py), its categorical columns named by
+``categorical_feature`` (ints, names or the config string), with
 ``create_valid`` for validation sets binned like the training set; a
 ``Booster`` that trains (``update``, with a custom objective ``fobj`` or
 ``boost(grad, hess)``), evaluates the training and validation sets
@@ -43,6 +44,22 @@ def _to_matrix(data) -> np.ndarray:
     return mat
 
 
+def _resolve_categoricals(categorical_feature, names, cfg) -> List[int]:
+    """The categorical_feature spec (ints, names, or the config string)
+    as column indices (JAX basic.py ``_resolve_categoricals``)."""
+    cats: List[int] = []
+    if isinstance(categorical_feature, (list, tuple)):
+        for c in categorical_feature:
+            if isinstance(c, str) and names and c in names:
+                cats.append(names.index(c))
+            elif isinstance(c, int):
+                cats.append(c)
+    elif cfg.categorical_feature:
+        cats = [int(x) for x in str(cfg.categorical_feature).split(",")
+                if x.strip().lstrip("-").isdigit()]
+    return cats
+
+
 class Dataset:
     """Training data wrapper (reference: basic.py Dataset); binning runs
     lazily at ``construct`` so params from ``train()`` still apply."""
@@ -56,16 +73,13 @@ class Dataset:
         if group is not None:
             raise NotImplementedError(
                 "lightgbm_tpu_torch does not support group (ranking) yet")
-        if isinstance(categorical_feature, (list, tuple)) and \
-                categorical_feature:
-            raise NotImplementedError(
-                "lightgbm_tpu_torch does not support categorical_feature yet")
         self.data = data
         self.label = label
         self.reference = reference
         self.weight = weight
         self.init_score = init_score
         self.feature_name = feature_name
+        self.categorical_feature = categorical_feature
         self.params = dict(params) if params else {}
         self._inner: Optional[BinnedDataset] = None
 
@@ -89,7 +103,10 @@ class Dataset:
             ref = self.reference.construct(extra_params)._inner
         self._inner = BinnedDataset.from_matrix(
             _to_matrix(self.data), cfg, label=self.label, weight=self.weight,
-            init_score=self.init_score, feature_names=names, reference=ref)
+            init_score=self.init_score, feature_names=names,
+            categorical_features=_resolve_categoricals(
+                self.categorical_feature, names, cfg),
+            reference=ref)
         return self
 
     def _load_file(self, cfg: Config) -> None:

@@ -672,7 +672,6 @@ _UNSUPPORTED = [
     ("use_quantized_grad", lambda c: bool(c.use_quantized_grad)),
     ("tree_learner", lambda c: c.tree_learner != "serial"),
     ("num_class", lambda c: c.num_class != 1),
-    ("categorical_feature", lambda c: not _off(c.categorical_feature)),
     ("max_bin", lambda c: c.max_bin > 256),
     ("max_bin_by_feature", lambda c: not _off(c.max_bin_by_feature) and any(
         int(v) > 256 for v in str(c.max_bin_by_feature).split(",") if v)),

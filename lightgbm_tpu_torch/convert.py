@@ -9,7 +9,10 @@ format, so it loads back there too).  ``dataset_from_arrays`` builds a
 port ``BinnedDataset`` from the arrays of a JAX ``BinnedDataset``: its
 binned matrix, its bin mappers as ``BinMapper.to_dict()`` dicts, its
 groups (EFB bundles with their bin offsets) and the label -- so both
-packages' learners can be fed identical bins.
+packages' learners can be fed identical bins.  A mapper's ``bin_type``
+says whether its feature is categorical (the dataset's
+``feature_meta_arrays()["is_categorical"]`` follows from it), so JAX's
+categorical mappers and their bins come across as they are.
 """
 
 from __future__ import annotations

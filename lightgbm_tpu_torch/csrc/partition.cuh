@@ -4,7 +4,12 @@
 // decide_left has the same arithmetic as decide_left in
 // lightgbm_tpu_torch/ops/partition.py and _decide_left in
 // lightgbm_tpu/ops/partition_pallas.py: bundled bin offset, missing
-// none/zero/NaN, default bin, threshold, default_left.
+// none/zero/NaN, default bin, threshold, default_left; a categorical
+// split (iscat) sends a row left when its decoded bin is in the set, as
+// _goes_left in lightgbm_tpu/models/learner.py does.  The split
+// mega-kernel never gets a categorical step (the learner takes the
+// histogram-subtraction body on categorical data): its histogram decides
+// by decide_left_num and flags a categorical step as an error.
 //
 // partition_phases enqueues the stable two-way partition of the leaf
 // range [start, start + cnt) of the (R, Np) uint8 bin rows and the eight
@@ -70,17 +75,35 @@
 #define COPY_THREADS 256
 #define MAX_TILE 1024
 
+// cat points at the step block's set words in device memory, read only
+// on a categorical step: an array here would be indexed at run time and
+// put the whole decision in local memory on every path
 struct SplitDecision {
-  int col, bstart, isb, nb, dbin, mtype, thr, dl;
+  int col, bstart, isb, nb, dbin, mtype, thr, dl, iscat;
+  const int* cat;
 };
 
-__device__ __forceinline__ int decide_left(int colv, const SplitDecision& d) {
+// The numerical decision alone (the split mega-kernel's histogram: it
+// never gets a categorical step, and flags one as an error).
+__device__ __forceinline__ int decide_left_num(int colv,
+                                               const SplitDecision& d) {
   const int fb_raw = colv - d.bstart;
   const bool in_rb = fb_raw >= 1 && fb_raw <= d.nb - 1;
   const int fb = d.isb == 1 ? (in_rb ? fb_raw : d.dbin) : colv;
   const bool miss = d.mtype == 1 ? fb == d.dbin
                                  : (d.mtype == 2 ? fb == d.nb - 1 : false);
   return miss ? (d.dl != 0) : (fb <= d.thr);
+}
+
+__device__ __forceinline__ int decide_left(int colv, const SplitDecision& d) {
+  if (d.iscat) {
+    const int fb_raw = colv - d.bstart;
+    const bool in_rb = fb_raw >= 1 && fb_raw <= d.nb - 1;
+    const int fb = d.isb == 1 ? (in_rb ? fb_raw : d.dbin) : colv;
+    return fb >= 0 && fb < 32 * CAT_WORDS &&
+           (((unsigned)__ldg(d.cat + (fb >> 5)) >> (fb & 31)) & 1u);
+  }
+  return decide_left_num(colv, d);
 }
 
 // A tile's status word: [epoch:32][state:2][left count:30].  A word of
@@ -132,9 +155,16 @@ __device__ __forceinline__ Leaf read_leaf(const int* step, int R,
   Leaf l;
   l.start = step[SB_START];
   l.cnt = step[SB_CNT];
-  l.d = SplitDecision{step[SB_COL],  step[SB_BSTART], step[SB_ISB],
-                      step[SB_NB],   step[SB_DBIN],   step[SB_MTYPE],
-                      step[SB_THR],  step[SB_DL]};
+  l.d.col = step[SB_COL];
+  l.d.bstart = step[SB_BSTART];
+  l.d.isb = step[SB_ISB];
+  l.d.nb = step[SB_NB];
+  l.d.dbin = step[SB_DBIN];
+  l.d.mtype = step[SB_MTYPE];
+  l.d.thr = step[SB_THR];
+  l.d.dl = step[SB_DL];
+  l.d.iscat = step[SB_ISCAT];
+  l.d.cat = step + SB_CAT;
   l.bad = !(l.cnt >= 0 && l.cnt <= bound && l.start >= 0 &&
             l.start + l.cnt <= Np &&
             (l.cnt == 0 || (l.d.col >= 0 && l.d.col < R)));

@@ -65,6 +65,8 @@ __global__ void __launch_bounds__(HIST_THREADS, 1) mega_hist(HistArgs a) {
   if (tid == 0) {
     s_leaf = read_leaf(a.step, a.R, a.Np, a.bound);
     if (s_leaf.bad && blockIdx.x == 0) step_error(a.step, ERR_RANGE);
+    // categorical data takes the subtraction body (models/learner.py)
+    if (s_leaf.d.iscat && blockIdx.x == 0) step_error(a.step, ERR_STEP);
   }
   __syncthreads();
   const Leaf lf = s_leaf;
@@ -94,7 +96,7 @@ __global__ void __launch_bounds__(HIST_THREADS, 1) mega_hist(HistArgs a) {
                        unsigned right = 0u;
 #pragma unroll
                        for (int t = 0; t < 16; ++t)
-                         right |= (unsigned)!decide_left(
+                         right |= (unsigned)!decide_left_num(
                                       (cw[t >> 2] >> (8 * (t & 3))) & 0xff,
                                       d)
                                   << t;

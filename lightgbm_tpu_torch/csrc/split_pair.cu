@@ -53,6 +53,7 @@ namespace cg = cooperative_groups;
 #define FM_NUM_BIN 0
 #define FM_MISSING 1
 #define FM_DEFAULT 2
+#define FM_IS_CAT 3             // categorical: not scanned here
 #define IN_SUM_G 0
 #define IN_SUM_H 1
 #define IN_NUM_DATA 2
@@ -176,7 +177,8 @@ __device__ __forceinline__ Cand scan_best(const float* __restrict__ hg,
   const float sum_h_tot = info[r * 8 + IN_SUM_H] + 2e-15f;
   const float num_data = info[r * 8 + IN_NUM_DATA];
   const float depth = info[r * 8 + IN_DEPTH];
-  const bool fmask = info[r * 8 + IN_MASK] > 0.0f;
+  const bool fmask =
+      info[r * 8 + IN_MASK] > 0.0f && fmeta[r * 8 + FM_IS_CAT] == 0;
   const float cnt_factor = num_data / sum_h_tot;
   const bool zero_m = mtype == 1, nan_m = mtype == 2;
   const bool two_scan = (nb > 2) && (mtype != 0);

@@ -37,7 +37,10 @@
 #define SB_ERR 21       // error bits (ERR_*), 0 while all is well
 #define SB_MADE 22      // frontier: splits made, pruned ones included
 #define SB_STEPS 23     // frontier: steps run
-#define STEP_WORDS 24
+#define SB_ISCAT 24     // categorical split: left iff the bin is in the set
+#define SB_CAT 25       // the set, 8 words (bit b & 31 of word b >> 5)
+#define CAT_WORDS 8
+#define STEP_WORDS 33
 
 #define ERR_RANGE 1     // range or column outside the launch's bounds
 #define ERR_STATE 2     // histogram-state slot outside the state

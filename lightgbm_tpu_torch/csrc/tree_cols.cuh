@@ -51,6 +51,7 @@
 #define ND_NUM_BIN 13
 #define ND_DEFAULT_BIN 14
 #define ND_MISSING 15
+#define ND_IS_CAT 16
 #define NND 17
 
 // fmeta rows: feature id, group row, bin_start, is_bundled, num_bin,

@@ -36,6 +36,15 @@
 // A split not made sets cnt = 0 and stops the tree: every later step
 // writes no column, no slot and no row.
 //
+// The category sets ride beside the matrices as bitsets of bins:
+// leafcat (L + 1, 8), nodecat (nodes + 1, 8) and paircat (2, 8) int32.
+// The root's reset zeroes leafcat and nodecat, a commit copies each
+// child's set from paircat (csrc/split_cat.cu) into its leaf's row, and an
+// election copies the leaf's set into the node's row, writes ND_IS_CAT
+// from LM_BISCAT and puts the flag and the set into the step block
+// (SB_ISCAT, SB_CAT) for the partition.  On numerical data split_pair
+// writes LM_BISCAT = 0 and paircat stays zero, so all of these are 0.
+//
 // What bounds it on this card: latency.  It moves two leafmat columns, a
 // nodemat column, the info block and the step block (a few KB) and reads
 // the L gains; one block of 256 threads does it in a few dependent steps.
@@ -48,6 +57,7 @@
 #include "tree_cols.cuh"
 
 #define STEP_THREADS 256
+#define CAT_WARP 32     // the first thread of the warp that moves the sets
 #define MODE_ROOT 0
 #define MODE_STEP 1
 #define MODE_FINAL 2
@@ -63,6 +73,9 @@ struct TreeArgs {
   const float* sums;    // (2,): the root histogram's grad and hess sums
   const int* bag;       // (1,): the root's bag-aware row count
   const float* fmask;   // (F,): the tree's feature mask (0 / 1)
+  int* leafcat;         // (L + 1, CAT_WORDS)
+  int* nodecat;         // (nodes + 1, CAT_WORDS)
+  const int* paircat;   // (2, CAT_WORDS)
   int L, nodes, F, row0, N, mode;
 };
 
@@ -78,6 +91,7 @@ __global__ void __launch_bounds__(STEP_THREADS) tree_step(TreeArgs a) {
   __shared__ float pcol[NLF];
   __shared__ float s_val[STEP_THREADS];
   __shared__ int s_idx[STEP_THREADS];
+  __shared__ int s_cat[CAT_WORDS];
   __shared__ int s_pend, s_valid, s_leaf, s_new, s_s, s_fe, s_depth;
   const int tid = threadIdx.x;
   const int L1 = a.L + 1, N1 = a.nodes + 1, F = a.F;
@@ -93,6 +107,10 @@ __global__ void __launch_bounds__(STEP_THREADS) tree_step(TreeArgs a) {
     for (int i = tid; i < 2 * F * 8; i += STEP_THREADS)
       a.info[i] = (i & 7) == 4 ? a.fmask[(i >> 3) % F] : in[i & 7];
     if (tid < STEP_WORDS) step[tid] = tid == SB_PEND ? 1 : 0;
+    for (int i = tid; i < L1 * CAT_WORDS; i += STEP_THREADS)
+      a.leafcat[i] = 0;
+    for (int i = tid; i < N1 * CAT_WORDS; i += STEP_THREADS)
+      a.nodecat[i] = 0;
     return;
   }
 
@@ -126,6 +144,15 @@ __global__ void __launch_bounds__(STEP_THREADS) tree_step(TreeArgs a) {
                   pcol[LM_BRSH], depth, pcol[LM_BROUT], node, 1,
                   a.pair + SEG);
   }
+  // the sets by the second warp, beside the first's leaf columns
+  if (tid >= CAT_WARP && tid < CAT_WARP + 2 * CAT_WORDS) {
+    const int c = (tid - CAT_WARP) / CAT_WORDS, j = tid % CAT_WORDS;
+    if (pend == 1 && c == 0)
+      a.leafcat[j] = a.paircat[j];
+    else if (pend == 2)
+      a.leafcat[(c ? s_new : s_leaf) * CAT_WORDS + j] =
+          a.paircat[c * CAT_WORDS + j];
+  }
   __syncthreads();
   if (a.mode == MODE_FINAL) {
     if (tid == 0) step[SB_PEND] = 0;
@@ -156,6 +183,10 @@ __global__ void __launch_bounds__(STEP_THREADS) tree_step(TreeArgs a) {
     }
     __syncthreads();
   }
+  // the leaf's set is read by the second warp while thread 0 reads its
+  // column (the commit's writes are visible after the barriers above)
+  if (tid >= CAT_WARP && tid < CAT_WARP + CAT_WORDS)
+    s_cat[tid - CAT_WARP] = a.leafcat[s_idx[0] * CAT_WORDS + tid - CAT_WARP];
   if (tid == 0) {
     const int best = s_idx[0];
     const float gain = s_val[0];
@@ -209,9 +240,16 @@ __global__ void __launch_bounds__(STEP_THREADS) tree_step(TreeArgs a) {
       case ND_NUM_BIN: v = __int_as_float(fm[4 * F]); break;
       case ND_DEFAULT_BIN: v = __int_as_float(fm[5 * F]); break;
       case ND_MISSING: v = __int_as_float(fm[6 * F]); break;
+      case ND_IS_CAT: v = (float)(pcol[LM_BISCAT] > 0.5f); break;
       default: break;
     }
     a.nm[tid * N1 + s] = v;
+  }
+  if (tid < CAT_WORDS) {
+    const int word = s_cat[tid];
+    a.nodecat[s * CAT_WORDS + tid] = word;
+    step[SB_CAT + tid] = word;
+    if (tid == 0) step[SB_ISCAT] = pcol[LM_BISCAT] > 0.5f;
   }
   for (int i = tid; i < 2 * F * 8; i += STEP_THREADS) {
     const int c = i / (F * 8), k = i & 7;
@@ -256,14 +294,19 @@ extern "C" int tree_step_launch(float* lm, float* nm, int* step,
                                 const int* nl, const float* pair,
                                 const int* fmeta, float* info,
                                 const float* sums, const int* bag,
-                                const float* fmask, int L, int nodes, int F,
-                                int row0, int N, int mode, void* stream) {
+                                const float* fmask, int* leafcat,
+                                int* nodecat, const int* paircat, int L,
+                                int nodes, int F, int row0, int N, int mode,
+                                void* stream) {
   if (L < 2 || nodes != L - 1 || F < 0 || mode < MODE_ROOT ||
       mode > MODE_FINAL || lm == nullptr || nm == nullptr ||
-      step == nullptr || bag == nullptr)
+      step == nullptr || bag == nullptr || leafcat == nullptr ||
+      nodecat == nullptr || paircat == nullptr)
     return (int)cudaErrorInvalidValue;
-  const TreeArgs a{lm,  nm,    step, nl, pair, fmeta, info, sums,
-                   bag, fmask, L,    nodes, F, row0, N,   mode};
+  const TreeArgs a{lm,      nm,      step,    nl,    pair, fmeta,
+                   info,    sums,    bag,     fmask, leafcat,
+                   nodecat, paircat, L,       nodes, F,    row0,
+                   N,       mode};
   tree_step<<<1, STEP_THREADS, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

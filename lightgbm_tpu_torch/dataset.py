@@ -7,7 +7,9 @@ uint8 matrix.  Bins and group order are bit-identical to the JAX
 package.  Features that are mutually exclusive in the sample share one
 column (an EFB bundle); the learner then reads its per-feature
 histograms through ops/feat_view.py, which rebuilds each bundled
-feature's default bin from the leaf's totals.
+feature's default bin from the leaf's totals.  Categorical features
+(``categorical_features``, column indices) get the JAX package's
+most-frequent-first mappers and bundle by the same rule as the rest.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from .config import Config
-from .ops.binning import BinMapper
+from .ops.binning import BIN_CATEGORICAL, BIN_NUMERICAL, BinMapper
 from .utils import log
 
 
@@ -88,6 +90,7 @@ class BinnedDataset:
     def from_matrix(data, config: Config, label=None, weight=None,
                     init_score=None,
                     feature_names: Optional[List[str]] = None,
+                    categorical_features: Optional[Sequence[int]] = None,
                     reference: Optional["BinnedDataset"] = None
                     ) -> "BinnedDataset":
         data = np.asarray(data)
@@ -109,16 +112,18 @@ class BinnedDataset:
             ds.feature_names = reference.feature_names
             ds.binned = ds.bin_matrix(data)
         else:
-            ds._construct_mappers(data)
+            ds._construct_mappers(data, categorical_features or [])
             cols = ds._used_columns(data)
             ds._build_groups(cols)
             ds.binned = ds._pack_groups(cols, ds.num_data)
         return ds
 
-    def _construct_mappers(self, data: np.ndarray) -> None:
+    def _construct_mappers(self, data: np.ndarray,
+                           categorical_features: Sequence[int]) -> None:
         """Bin boundaries from a row sample (reference:
         DatasetLoader::ConstructBinMappersFromTextData; the JAX
-        package's per-feature host loop)."""
+        package's per-feature host loop); the columns in
+        ``categorical_features`` get categorical mappers."""
         cfg = self.config
         n = self.num_data
         sample_cnt = min(n, cfg.bin_construct_sample_cnt)
@@ -133,6 +138,7 @@ class BinnedDataset:
             max_bin_by_feature = [int(x) for x in
                                   str(cfg.max_bin_by_feature).split(",")]
         filter_cnt = int(cfg.min_data_in_leaf * sample_cnt / max(n, 1))
+        cat_set = set(int(c) for c in categorical_features)
         self.bin_mappers = []
         for f in range(self.num_total_features):
             col = np.asarray(data[sample_idx, f], dtype=np.float64)
@@ -144,6 +150,8 @@ class BinnedDataset:
                         min_data_in_bin=cfg.min_data_in_bin,
                         min_split_data=filter_cnt,
                         pre_filter=cfg.feature_pre_filter,
+                        bin_type=(BIN_CATEGORICAL if f in cat_set
+                                  else BIN_NUMERICAL),
                         use_missing=cfg.use_missing,
                         zero_as_missing=cfg.zero_as_missing)
             self.bin_mappers.append(bm)
@@ -295,6 +303,8 @@ class BinnedDataset:
                                        np.int32),
             "default_bin": np.asarray([b.default_bin for b in bms],
                                       np.int32),
+            "is_categorical": np.asarray(
+                [int(b.bin_type == BIN_CATEGORICAL) for b in bms], np.int32),
         }
 
     @property

@@ -469,7 +469,9 @@ class GBDT:
         trees = self.models[start_iteration:max(end, start_iteration)]
         tix = ThresholdIndex(trees)
         packed = tix.pack_values(data, self.device)
-        return trees, [predict_leaf_thridx(packed, tix.nodes(t))
+        cats = (tix.pack_categories(data, self.device)
+                if tix.cat_features else None)
+        return trees, [predict_leaf_thridx(packed, tix.nodes(t), cats)
                        for t in trees]
 
     def predict_raw(self, data: np.ndarray, start_iteration: int = 0,

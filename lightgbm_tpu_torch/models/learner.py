@@ -4,7 +4,7 @@ bodies, one leaf a step or, on the mega path, up to K (the frontier).
 Port of lightgbm_tpu/models/learner.py (``SerialTreeLearner``: the K=1
 path ``_build_tree_impl`` with the Pallas pair search, and the
 frontier-batched path ``_build_tree_frontier`` / ``_renumber_frontier``
-of ``tpu_frontier_k`` > 1) for all-numerical uint8 data.
+of ``tpu_frontier_k`` > 1) for uint8 data.
 
 With EFB bundles (dataset.py) the histograms are per group and the pair
 search reads one row a feature: as in the JAX package, which then runs
@@ -14,6 +14,17 @@ the histogram-subtraction body at K=1 whatever ``tpu_megakernel`` and
 children into their per-feature view (a bundled feature's default bin
 rebuilt from the leaf's total) between the state update and the pair
 search.
+
+Categorical features (JAX ``find_best_split_categorical``) take the
+same body as bundles, the histogram-subtraction path at K=1, as the JAX
+package's general search does.  Their rows carry FM_IS_CAT in the pair
+search's metadata, so ``split_pair`` scans only the numerical features,
+and ``ops/split_cat.py`` then searches the categorical ones and merges
+its best into each child's row by JAX's argmax rule, writing the child's
+category set (8 words of bins) beside it.  The bookkeeping carries the
+sets: ``leafcat`` (L+1, 8) per leaf, ``nodecat`` (nodes+1, 8) per node,
+and the elected split's set in the step block, where the partition reads
+it (ops/partition.py ``decide_left``).
 
 Row and feature sampling reach the tree through two device buffers the
 bookkeeping kernels read at the root and at every child: ``bag``, the
@@ -111,21 +122,24 @@ from ..ops.frontier import MODE_ROOT as FR_ROOT
 from ..ops.frontier import MODE_STEP as FR_STEP
 from ..ops.feat_view import View, feat_view
 from ..ops.hist_state import leaf_hist_rmw, leaf_hist_rmw_step, new_state
-from ..ops.partition import (S_CNT, SB_DONE, SB_ERR, SB_MADE, SB_S,
-                             SB_STEPS, STEP_WORDS, Workspace, make_scalars,
-                             partition_leaf, partition_step, scalars_start,
-                             step_words)
+from ..ops.partition import (CAT_WORDS, S_CNT, SB_DONE, SB_ERR, SB_MADE,
+                             SB_S, SB_STEPS, STEP_WORDS, Workspace,
+                             make_scalars, partition_leaf, partition_step,
+                             scalars_start, step_words)
+from ..ops.split_cat import cat_params, new_work, split_cat
 from ..ops.split_mega import (hist_geometry, split_mega, split_mega_step,
                               unpack_hist4)
 from ..ops.split_pair import split_pair
-from ..ops.tree_step import (LM_BDL, LM_BFEAT, LM_BGAIN, LM_BLCNT, LM_BLOUT,
-                             LM_BLSG, LM_BLSH, LM_BRCNT, LM_BROUT, LM_BRSG,
-                             LM_BRSH, LM_BTHR, LM_CNT, LM_CNT_G, LM_DEPTH,
+from ..ops.tree_step import (LM_BDL, LM_BFEAT, LM_BGAIN, LM_BISCAT,
+                             LM_BLCNT, LM_BLOUT, LM_BLSG, LM_BLSH, LM_BRCNT,
+                             LM_BROUT, LM_BRSG, LM_BRSH, LM_BTHR, LM_CNT,
+                             LM_CNT_G, LM_DEPTH,
                              LM_PARENT, LM_PSIDE, LM_START, LM_SUM_G,
                              LM_SUM_H, LM_VALUE, ND_BIN_START, ND_COL,
                              ND_DEFAULT_BIN, ND_DL, ND_FEATURE,
                              ND_FEATURE_ENUM, ND_GAIN, ND_ICOUNT,
-                             ND_IS_BUNDLED, ND_IVALUE, ND_IWEIGHT, ND_LEFT,
+                             ND_IS_BUNDLED, ND_IS_CAT, ND_IVALUE,
+                             ND_IWEIGHT, ND_LEFT,
                              ND_MISSING, ND_NUM_BIN, ND_RIGHT, ND_THRESHOLD,
                              MODE_FINAL, MODE_ROOT, MODE_STEP,
                              NEG_INF, NLF, NND, _f2i, empty_leafmat,
@@ -158,8 +172,9 @@ def frontier_k(config: Config, eligible: bool, L: int, device) -> int:
             raise ValueError("tpu_frontier_k must be >= 1")
         if k > 1 and not eligible:
             log.warning("tpu_frontier_k=%d needs the mega path "
-                        "(tpu_megakernel auto/pallas, no EFB bundles) and "
-                        "at least one feature; using 1", k)
+                        "(tpu_megakernel auto/pallas, no EFB bundles, no "
+                        "categorical features) and at least one feature; "
+                        "using 1", k)
             k = 1
     return max(1, min(k, L - 1))
 
@@ -202,11 +217,17 @@ class SerialTreeLearner:
         # EFB bundles: the pair search reads the per-feature view
         # (ops/feat_view.py) of the group histograms (JAX _plain_view)
         self.bundled = bool(is_bundled.any())
+        # categorical features: FM_IS_CAT keeps them out of the numerical
+        # scans; ops/split_cat.py searches them (JAX find_best_split)
+        self.is_cat = meta["is_categorical"].astype(np.int32)
+        self.has_cat = bool(self.is_cat.any())
+        self.cat_kw = cat_params(config)
         half = np.zeros((F, 8), np.int32)
         if F:
             half[:, 0] = meta["num_bin"]
             half[:, 1] = meta["missing_type"]
             half[:, 2] = meta["default_bin"]
+            half[:, 3] = self.is_cat
         self._fmeta_half = half
 
         # row geometry (learner.py:387-405): [C front pad][N rows][>= 2C
@@ -231,13 +252,15 @@ class SerialTreeLearner:
         self.max_depth = int(config.max_depth)
         self.syncs = 0          # device-to-host round trips, all trees
         # the histogram-subtraction body keeps one histogram slot per leaf;
-        # EFB bundles take it whatever tpu_megakernel says, as the JAX
-        # package's mega kernel needs the plain per-feature view
+        # EFB bundles and categorical features take it whatever
+        # tpu_megakernel says, as the JAX package's mega kernel needs the
+        # plain all-numerical per-feature view
         mega = str(config.tpu_megakernel).strip().lower()
-        self.subtract = mega == "off" or self.bundled
-        if self.bundled and mega == "pallas":
+        self.subtract = mega == "off" or self.bundled or self.has_cat
+        if (self.bundled or self.has_cat) and mega == "pallas":
             log.warning("tpu_megakernel=pallas needs the plain "
-                        "all-numerical path without EFB bundles; using the "
+                        "all-numerical path without EFB bundles or "
+                        "categorical features; using the "
                         "histogram-subtraction path")
         self.state = (new_state(self.L, self.G, self.B, self.device)
                       if self.subtract else None)
@@ -255,18 +278,30 @@ class SerialTreeLearner:
         BH, Bp = hist_geometry(self.B)
         self.fmeta = torch.as_tensor(
             self._fmeta if F else np.zeros((7, 0), np.int32), device=dev)
-        # leafmat, nodemat, the K step records and the root's step block
-        # in one flat buffer: the host reads the finished tree in one copy
-        a = NLF * (L + 1)
-        b = a + NND * (nodes + 1)
-        self._tree_dev = torch.zeros(b + (K + 1) * STEP_WORDS,
+        # leafmat, nodemat, the nodes' and leaves' category sets, the K
+        # step records and the root's step block in one flat buffer: the
+        # host reads the finished tree in one copy
+        a, b, c, d = self._layout()
+        self._tree_dev = torch.zeros(d + (K + 1) * STEP_WORDS,
                                      dtype=torch.float32, device=dev)
         self.leafmat = self._tree_dev[:a].view(NLF, L + 1)
         self.nodemat = self._tree_dev[a:b].view(NND, nodes + 1)
-        self.steps = self._tree_dev[b:b + K * STEP_WORDS].view(
+        self.nodecat = self._tree_dev[b:c].view(torch.int32).view(
+            nodes + 1, CAT_WORDS)
+        self.leafcat = self._tree_dev[c:d].view(torch.int32).view(
+            L + 1, CAT_WORDS)
+        self.steps = self._tree_dev[d:d + K * STEP_WORDS].view(
             torch.int32).view(K, STEP_WORDS)
         self.step = self.steps[0]
-        self.root_step = self._tree_dev[b + K * STEP_WORDS:].view(torch.int32)
+        self.root_step = self._tree_dev[d + K * STEP_WORDS:].view(torch.int32)
+        # the children's category sets (ops/split_cat.py), the categorical
+        # features' indices and the search kernel's scratch
+        self.paircat = torch.zeros((2, CAT_WORDS), dtype=torch.int32,
+                                   device=dev)
+        self.cat_feats = torch.as_tensor(
+            np.nonzero(self.is_cat)[0].astype(np.int32), device=dev)
+        self.cat_work = (new_work(2, int(self.is_cat.sum()), dev)
+                         if self.has_cat else None)
         # the root's range, an all-left decision (the mega path's
         # histogram-only call) and, for the histogram state, slot 0
         self.root_step.copy_(torch.tensor(step_words(make_scalars(
@@ -323,18 +358,34 @@ class SerialTreeLearner:
         self.replays = 0
         self.captures = 0       # graphs captured (a new row buffer each)
 
+    def _layout(self):
+        """Ends of leafmat, nodemat, nodecat and leafcat in the flat
+        tree buffer (f32 words)."""
+        a = NLF * (self.L + 1)
+        b = a + NND * self.L
+        c = b + CAT_WORDS * self.L
+        return a, b, c, c + CAT_WORDS * (self.L + 1)
+
     # ------------------------------------------------------------------
-    def _search(self, hg, hh, info, out=None):
+    def _search(self, hg, hh, info, out=None, cat_out=None):
         """The best splits of the children whose (cF, Bp) histograms are
-        hg / hh: (c, 13) f32 on the device."""
+        hg / hh: (c, 13) f32 on the device; with categorical features the
+        categorical search merges into them and writes the children's
+        sets to ``cat_out`` (c, 8) (the learner's ``paircat`` when not
+        given)."""
         c = hg.shape[0] // max(self.F, 1)
-        return split_pair(
-            hg, hh, self.fmeta_pair[:c * self.F], info, l1=self.l1,
-            l2=self.l2, max_delta_step=self.max_delta_step,
-            min_gain_to_split=self.min_gain_to_split,
-            min_data_in_leaf=self.min_data_in_leaf,
-            min_sum_hessian=self.min_sum_hessian, max_depth=self.max_depth,
-            out=out, children=c)
+        kw = dict(l1=self.l1, l2=self.l2, max_delta_step=self.max_delta_step,
+                  min_gain_to_split=self.min_gain_to_split,
+                  min_data_in_leaf=self.min_data_in_leaf,
+                  min_sum_hessian=self.min_sum_hessian,
+                  max_depth=self.max_depth)
+        fm = self.fmeta_pair[:c * self.F]
+        rows = split_pair(hg, hh, fm, info, out=out, children=c, **kw)
+        if self.has_cat:
+            split_cat(hg, hh, fm, info, self.cat_feats, rows,
+                      self.paircat if cat_out is None else cat_out,
+                      children=c, work=self.cat_work, **kw, **self.cat_kw)
+        return rows
 
     def set_feature_mask(self, mask) -> None:
         """The next trees' (F,) feature mask (bool or 0/1, in the used
@@ -350,7 +401,8 @@ class SerialTreeLearner:
     def _step(self, mode) -> None:
         tree_step(mode, self.leafmat, self.nodemat, self.step, self.nl,
                   self.pair_out, self.fmeta, self.info, self.sums, self.bag,
-                  self.fmask, row0=self.row0, N=self.N)
+                  self.fmask, self.leafcat, self.nodecat, self.paircat,
+                  row0=self.row0, N=self.N)
 
     def _pair(self, step=None) -> None:
         """The pair search over the children's planes; with bundles, over
@@ -569,9 +621,8 @@ class SerialTreeLearner:
             host = self._tree_dev.numpy().copy()
         self.syncs += 1
         L, nodes, K = self.L, self.max_splits, self.K
-        a = NLF * (L + 1)
-        b = a + NND * (nodes + 1)
-        steps = host[b:].view(np.int32).reshape(K + 1, STEP_WORDS)
+        a, b, c, d = self._layout()
+        steps = host[d:].view(np.int32).reshape(K + 1, STEP_WORDS)
         err = int(np.bitwise_or.reduce(steps[:, SB_ERR]))
         if err:
             raise RuntimeError(
@@ -584,7 +635,9 @@ class SerialTreeLearner:
             self.last_steps = int(steps[0, SB_STEPS])
         return self._unpack_state(host[:a].reshape(NLF, L + 1),
                                   host[a:b].reshape(NND, nodes + 1),
-                                  int(steps[0, SB_S]))
+                                  int(steps[0, SB_S]),
+                                  host[b:c].view(np.int32).reshape(
+                                      nodes + 1, CAT_WORDS))
 
     # -- the oracle: the host loop -----------------------------------------
     def _info(self, halves):
@@ -608,7 +661,9 @@ class SerialTreeLearner:
             feat_view(ch, info, self.state, step, self._absmax, kcnt=self.N,
                       view=self.view, out=fv)
             hg, hh = fv[0].reshape(2 * F, -1), fv[1].reshape(2 * F, -1)
-        return self._search(hg, hh, info)
+        cats = torch.zeros((2, CAT_WORDS), dtype=torch.int32,
+                           device=self.device)
+        return self._search(hg, hh, info, cat_out=cats), cats
 
     def _root_hist(self, part_bins, part_ghi):
         """The root's (G, Bp) grad and hess histograms twice, as (2G, Bp):
@@ -664,6 +719,8 @@ class SerialTreeLearner:
         nodes = self.max_splits
         lm = empty_leafmat(L)
         nm = np.zeros((NND, nodes + 1), np.float32)
+        lc = np.zeros((L + 1, CAT_WORDS), np.int32)
+        nc = np.zeros((nodes + 1, CAT_WORDS), np.int32)
 
         # the card's fixed-point histograms (split_mega, leaf_hist_rmw)
         # are scaled by one bound of |grad| and |hess| per tree, kept on
@@ -678,14 +735,20 @@ class SerialTreeLearner:
             info = self._info([(0, 0, bag_cnt, 0)] * 2)
             info[:, 0] = sum_g
             info[:, 1] = sum_h
-            tile = self._eager_search(hg, hh, info, (-1, 0, 0, 0), self.N)[0]
+            tile, cats = self._eager_search(hg, hh, info, (-1, 0, 0, 0),
+                                            self.N)
+            tile, cats = tile[0], cats[0]
         else:
             tile = torch.full((13,), NEG_INF, device=self.device)
-        host = torch.cat([sum_g.reshape(1), sum_h.reshape(1), tile]).cpu()
+            cats = torch.zeros(CAT_WORDS, dtype=torch.int32,
+                               device=self.device)
+        host = torch.cat([sum_g.reshape(1), sum_h.reshape(1), tile,
+                          cats.view(torch.float32)]).cpu()
         self.syncs += 1
         host = host.numpy()
         lm[:, 0] = leaf_column(self.row0, self.N, bag_cnt, host[0], host[1],
                                0, 0.0, -1, 0, host[2:15])
+        lc[0] = host[15:].view(np.int32)
 
         s = 0
         while s < nodes and F:
@@ -705,10 +768,11 @@ class SerialTreeLearner:
             cnt = int(_f2i(pcol[LM_CNT]))
             left_cnt_g = int(_f2i(pcol[LM_BLCNT]))
             right_cnt_g = int(_f2i(pcol[LM_BRCNT]))
+            iscat = int(pcol[LM_BISCAT] > 0.5)
             nl, hg, hh = self._split(
                 part_bins, part_ghi,
                 make_scalars(start, cnt, col, bstart, isb, nb, dbin, mtype,
-                             thr, dl),
+                             thr, dl, iscat, lc[best_leaf]),
                 best_leaf, new_leaf, left_cnt_g <= right_cnt_g)
             lsg, lsh = pcol[LM_BLSG], pcol[LM_BLSH]
             rsg, rsh = pcol[LM_BRSG], pcol[LM_BRSH]
@@ -718,19 +782,24 @@ class SerialTreeLearner:
             # record the internal node; fix the parent's child pointer
             nm[:, s] = node_column(pcol, gain, self._fmeta[:, f_enum],
                                    best_leaf, new_leaf)
+            nm[ND_IS_CAT, s] = iscat
+            nc[s] = lc[best_leaf]
             p = int(_f2i(pcol[LM_PARENT]))
             if p >= 0:
                 side = int(_f2i(pcol[LM_PSIDE]))
                 nm.view(np.int32)[ND_LEFT if side == 0 else ND_RIGHT, p] = s
 
-            tile = self._eager_search(
+            tile, cats = self._eager_search(
                 hg, hh, self._info([(lsg, lsh, left_cnt_g, depth_child),
                                     (rsg, rsh, right_cnt_g, depth_child)]),
                 (best_leaf, best_leaf, new_leaf,
                  int(left_cnt_g <= right_cnt_g)), cnt)
-            host = torch.cat([nl.view(torch.float32), tile.reshape(-1)]).cpu()
+            host = torch.cat([nl.view(torch.float32), tile.reshape(-1),
+                              cats.view(torch.float32).reshape(-1)]).cpu()
             self.syncs += 1
             host = host.numpy()
+            lc[[best_leaf, new_leaf]] = host[27:].view(np.int32).reshape(
+                2, CAT_WORDS)
             left_cnt = int(_f2i(host[0]))
             lm[:, best_leaf] = leaf_column(
                 start, left_cnt, left_cnt_g, lsg, lsh, depth_child, lout, s,
@@ -741,11 +810,13 @@ class SerialTreeLearner:
             s += 1
         self.leafmat.copy_(torch.as_tensor(lm))
         self.nodemat.copy_(torch.as_tensor(nm))
-        return self._unpack_state(lm, nm, s)
+        self.leafcat.copy_(torch.as_tensor(lc))
+        self.nodecat.copy_(torch.as_tensor(nc))
+        return self._unpack_state(lm, nm, s, nc)
 
-    def _unpack_state(self, lm, nm, s) -> Dict[str, Any]:
+    def _unpack_state(self, lm, nm, s, nc) -> Dict[str, Any]:
         """The packed matrices as the per-field host record
-        (learner.py:_unpack_state)."""
+        (learner.py:_unpack_state); ``nc`` the nodes' category sets."""
         L, nodes = self.L, self.max_splits
         lm = lm[:, :L]
         nm = nm[:, :nodes]
@@ -771,6 +842,8 @@ class SerialTreeLearner:
             "node_is_bundled": ni(ND_IS_BUNDLED),
             "node_num_bin": ni(ND_NUM_BIN),
             "node_default_bin": ni(ND_DEFAULT_BIN),
+            "node_is_cat": nm[ND_IS_CAT] > 0.5,
+            "node_cat_set": np.asarray(nc[:nodes], np.int32),
         }
 
     @staticmethod
@@ -789,4 +862,6 @@ class SerialTreeLearner:
                 "threshold": rec["node_threshold"][:s],
                 "default_left": rec["node_default_left"][:s],
                 "left": rec["node_left"][:s], "right": rec["node_right"][:s],
+                "is_cat": rec["node_is_cat"][:s],
+                "cat_set": rec["node_cat_set"][:s],
                 "num_nodes": s}

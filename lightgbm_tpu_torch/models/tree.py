@@ -1,10 +1,12 @@
 """Host-side tree model: structure and text serde.
 
-A copy of the numerical, constant-leaf part of lightgbm_tpu/models/tree.py
-(the port imports nothing of the JAX package), so both packages write and
-parse the same model text.  Categorical and linear trees are not part of
-the port's slice: parsing one raises NotImplementedError.  Prediction runs
-on the device (ops/predict.py).
+A copy of the constant-leaf part of lightgbm_tpu/models/tree.py (the port
+imports nothing of the JAX package), numerical and categorical splits, so
+both packages write and parse the same model text.  Linear trees are not
+part of the port: parsing one raises NotImplementedError.  Prediction runs
+on the device (ops/predict.py); ``predict_leaf`` is the host traversal
+(the reference's NumericalDecision / CategoricalDecision), kept as the
+oracle of the device walk.
 
 Counterpart of the reference Tree (include/LightGBM/tree.h:25-729,
 src/io/tree.cpp): training happens on the device (models/learner.py);
@@ -16,12 +18,18 @@ reference's text format (src/io/tree.cpp Tree::ToString:340-408).
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 
+K_ZERO_THRESHOLD = 1e-35
+
 # decision_type bit layout (reference: include/LightGBM/tree.h:19-20,260-278)
+K_CATEGORICAL_MASK = 1
 K_DEFAULT_LEFT_MASK = 2
+
+MISSING_ZERO = 1
+MISSING_NAN = 2
 
 
 class Tree:
@@ -44,16 +52,98 @@ class Tree:
         self.leaf_weight: np.ndarray = np.zeros(num_leaves, dtype=np.float64)
         self.leaf_count: np.ndarray = np.zeros(num_leaves, dtype=np.int64)
         self.shrinkage: float = 1.0
+        # categorical nodes: threshold is an index into cat_boundaries;
+        # cat_threshold holds each node's bitset of category values
+        self.num_cat: int = 0
+        self.cat_boundaries: List[int] = [0]
+        self.cat_threshold: List[int] = []
 
     # -- decision bits --------------------------------------------------
     @staticmethod
-    def pack_decision_type(default_left: bool, missing_type: int) -> int:
-        """Numerical decision bits: default_left, missing type."""
+    def pack_decision_type(categorical: bool, default_left: bool,
+                           missing_type: int) -> int:
+        """Decision bits: categorical, default_left, missing type."""
         d = 0
+        if categorical:
+            d |= K_CATEGORICAL_MASK
         if default_left:
             d |= K_DEFAULT_LEFT_MASK
         d |= (missing_type & 3) << 2
         return d
+
+    def is_categorical_node(self) -> np.ndarray:
+        """(nodes,) bool: the categorical internal nodes."""
+        n = self.num_nodes()
+        return (self.decision_type[:n] & K_CATEGORICAL_MASK) != 0
+
+    # -- prediction on raw feature values (the host oracle) --------------
+    def predict_leaf(self, data: np.ndarray) -> np.ndarray:
+        """Leaf index per row (reference: tree.h NumericalDecision:335,
+        CategoricalDecision:400)."""
+        n = data.shape[0]
+        if self.num_leaves <= 1:
+            return np.zeros(n, dtype=np.int32)
+        node = np.zeros(n, dtype=np.int32)
+        active = np.ones(n, dtype=bool)
+        result = np.zeros(n, dtype=np.int32)
+        for _ in range(self.num_leaves * 2):
+            if not active.any():
+                break
+            nid = node[active]
+            fval = data[active, self.split_feature[nid]].astype(np.float64)
+            dtp = self.decision_type[nid]
+            is_cat = (dtp & K_CATEGORICAL_MASK) != 0
+            dleft = (dtp & K_DEFAULT_LEFT_MASK) != 0
+            mtype = (dtp.astype(np.int32) >> 2) & 3
+            nan_mask = np.isnan(fval)
+            fv = np.where(nan_mask & (mtype != MISSING_NAN), 0.0, fval)
+            is_missing = (((mtype == MISSING_ZERO)
+                           & (np.abs(fv) <= K_ZERO_THRESHOLD))
+                          | ((mtype == MISSING_NAN) & nan_mask))
+            goes_left = np.where(is_missing, dleft,
+                                 fv <= self.threshold[nid])
+            if is_cat.any():
+                goes_left = np.where(
+                    is_cat, self.categorical_decision(nid, fval), goes_left)
+            nxt = np.where(goes_left, self.left_child[nid],
+                           self.right_child[nid])
+            leaf_hit = nxt < 0
+            act_idx = np.nonzero(active)[0]
+            result[act_idx[leaf_hit]] = ~nxt[leaf_hit]
+            node[act_idx] = np.where(leaf_hit, node[act_idx], nxt)
+            still = np.zeros(n, dtype=bool)
+            still[act_idx[~leaf_hit]] = True
+            active = still
+        return result
+
+    def predict(self, data: np.ndarray) -> np.ndarray:
+        """Raw output per row on the host (f64 leaf values)."""
+        if self.num_leaves <= 1:
+            return np.full(data.shape[0], self.leaf_value[0]
+                           if len(self.leaf_value) else 0.0)
+        return self.leaf_value[self.predict_leaf(data)]
+
+    def categorical_decision(self, nid, fval) -> np.ndarray:
+        """Bitset membership of raw values at categorical nodes ``nid``
+        (reference: tree.h CategoricalDecision): the value is truncated
+        toward zero; NaN, a negative or a value past int32 or past the
+        node's bitset goes right."""
+        nid = np.asarray(nid)
+        is_cat = (self.decision_type[nid] & K_CATEGORICAL_MASK) != 0
+        tv = np.trunc(fval)
+        ok = is_cat & np.isfinite(fval) & (tv >= 0) & (tv < 2.0 ** 31)
+        iv = np.where(ok, tv, 0).astype(np.int64)
+        cat_idx = np.where(is_cat, self.threshold[nid], 0).astype(np.int64)
+        bounds = np.asarray(self.cat_boundaries, dtype=np.int64)
+        words = (np.asarray(self.cat_threshold, dtype=np.uint32)
+                 if self.cat_threshold else np.zeros(1, dtype=np.uint32))
+        lo = bounds[np.minimum(cat_idx, len(bounds) - 1)]
+        hi = bounds[np.minimum(cat_idx + 1, len(bounds) - 1)]
+        word = iv // 32
+        in_set = word < (hi - lo)
+        widx = np.minimum(lo + word, len(words) - 1)
+        bit = (words[widx] >> (iv % 32).astype(np.uint32)) & 1
+        return ok & in_set & (bit != 0)
 
     # -- serialization ---------------------------------------------------
     def to_string(self, tree_index: int) -> str:
@@ -63,7 +153,7 @@ class Tree:
 
         lines = [f"Tree={tree_index}",
                  f"num_leaves={self.num_leaves}",
-                 "num_cat=0"]
+                 f"num_cat={self.num_cat}"]
         if self.num_leaves > 1:
             lines.append("split_feature=" + join(self.split_feature, "{:d}"))
             lines.append("split_gain=" + join(self.split_gain))
@@ -79,6 +169,11 @@ class Tree:
             lines.append("internal_value=" + join(self.internal_value))
             lines.append("internal_weight=" + join(self.internal_weight))
             lines.append("internal_count=" + join(self.internal_count, "{:d}"))
+            if self.num_cat > 0:
+                lines.append("cat_boundaries=" + join(self.cat_boundaries,
+                                                      "{:d}"))
+                lines.append("cat_threshold=" + join(self.cat_threshold,
+                                                     "{:d}"))
         else:
             lines.append("leaf_value=" + repr(float(
                 self.leaf_value[0] if len(self.leaf_value) else 0.0)))
@@ -97,13 +192,13 @@ class Tree:
                 k, v = line.split("=", 1)
                 kv[k] = v
 
-        for key in ("num_cat", "is_linear"):
-            if int(kv.get(key, 0)) != 0:
-                raise NotImplementedError(
-                    f"lightgbm_tpu_torch loads numerical constant-leaf trees "
-                    f"only ({key}={kv[key]})")
+        if int(kv.get("is_linear", 0)) != 0:
+            raise NotImplementedError(
+                f"lightgbm_tpu_torch loads constant-leaf trees only "
+                f"(is_linear={kv['is_linear']})")
         num_leaves = int(kv.get("num_leaves", 1))
         t = cls(num_leaves)
+        t.num_cat = int(kv.get("num_cat", 0))
 
         def parse(key, dtype, n):
             if key not in kv or not kv[key].strip():
@@ -124,6 +219,11 @@ class Tree:
             t.internal_value = parse("internal_value", np.float64, n)
             t.internal_weight = parse("internal_weight", np.float64, n)
             t.internal_count = parse("internal_count", np.int64, n)
+            if t.num_cat > 0:
+                t.cat_boundaries = [int(x) for x in
+                                    kv["cat_boundaries"].split()]
+                t.cat_threshold = [int(x) for x in
+                                   kv["cat_threshold"].split()]
         else:
             t.leaf_value = np.asarray([float(kv.get("leaf_value", 0.0))])
         t.shrinkage = float(kv.get("shrinkage", 1.0))
@@ -139,13 +239,48 @@ class Tree:
         return max(self.num_leaves - 1, 0)
 
 
+def _cat_bitsets(t: Tree, nodes, sets, bin_mappers) -> np.ndarray:
+    """The categorical ``nodes``' sets of bins (``sets``, 8 int32 words a
+    node) as bitsets of category values appended to ``t.cat_threshold``
+    / ``t.cat_boundaries`` in node order (a node's words up to its
+    largest category); returns each node's index into them."""
+    feats = t.split_feature[nodes]
+    tables = {}
+    for f in np.unique(feats):
+        b2c = np.asarray(bin_mappers[int(f)].bin_2_categorical, np.int64)
+        tab = np.full(32 * sets.shape[1], -1, np.int64)
+        tab[:min(len(b2c), len(tab))] = b2c[:len(tab)]
+        tables[int(f)] = tab
+    words = sets[nodes].astype(np.int64) & 0xFFFFFFFF
+    member = ((words[:, :, None] >> np.arange(32)) & 1).reshape(
+        len(nodes), -1) != 0
+    vals = np.where(member, np.stack([tables[int(f)] for f in feats]), -1)
+    top = vals.max(axis=1)
+    nw = np.where(top >= 0, top // 32 + 1, 1)
+    start = np.concatenate([[0], np.cumsum(nw)])
+    row, col = np.nonzero(vals >= 0)
+    cats = vals[row, col]
+    out = np.bincount(start[row] + cats // 32,
+                      weights=(np.int64(1) << (cats % 32)).astype(np.float64),
+                      minlength=int(start[-1]))
+    base = len(t.cat_threshold)
+    t.cat_threshold.extend(out.astype(np.int64).tolist())
+    t.cat_boundaries.extend((base + start[1:]).tolist())
+    t.num_cat += len(nodes)
+    return np.arange(t.num_cat - len(nodes), t.num_cat, dtype=np.float64)
+
+
 def tree_from_device_record(record: Dict[str, np.ndarray], num_nodes: int,
                             bin_mappers, shrinkage: float = 1.0) -> Tree:
     """Convert the device learner's state record into a host Tree.
 
     Maps bin thresholds back to real-valued thresholds via the feature's
     BinMapper upper bounds (reference: BinMapper::BinToValue used by
-    Tree::RealThreshold).
+    Tree::RealThreshold); a categorical node's threshold is an index into
+    ``cat_boundaries``, its set a bitset of category values in
+    ``cat_threshold`` (reference: Tree::SplitCategorical; JAX
+    models/tree.py).  ``node_cat_set`` holds each node's set as 8 words
+    of bins.
     """
     num_leaves = num_nodes + 1
     t = Tree(num_leaves)
@@ -163,12 +298,20 @@ def tree_from_device_record(record: Dict[str, np.ndarray], num_nodes: int,
     t.internal_count = np.asarray(record["node_internal_count"][nslice], dtype=np.int64)
     default_left = np.asarray(record["node_default_left"][nslice])
     missing = np.asarray(record["node_missing_type"][nslice], dtype=np.int32)
+    node_is_cat = np.asarray(
+        record.get("node_is_cat", np.zeros(num_nodes, bool))[nslice])
     t.decision_type = np.asarray(
-        [Tree.pack_decision_type(bool(dl), int(mt))
-         for dl, mt in zip(default_left, missing)], dtype=np.int8)
-    # real-valued thresholds from bin upper bounds
+        [Tree.pack_decision_type(bool(ic), bool(dl) and not ic, int(mt))
+         for ic, dl, mt in zip(node_is_cat, default_left, missing)],
+        dtype=np.int8)
+    # real-valued thresholds from bin upper bounds; categorical nodes
+    # index their bitset of category values
     thresholds = np.zeros(num_nodes, dtype=np.float64)
-    for i in range(num_nodes):
+    cat_nodes = np.nonzero(node_is_cat)[0]
+    if len(cat_nodes):
+        thresholds[cat_nodes] = _cat_bitsets(
+            t, cat_nodes, np.asarray(record["node_cat_set"]), bin_mappers)
+    for i in np.nonzero(~node_is_cat)[0]:
         bm = bin_mappers[int(t.split_feature[i])]
         b = int(t.threshold_bin[i])
         ub = bm.bin_upper_bound

@@ -6,8 +6,8 @@ nothing of the JAX package; the bins it produces are bit-identical.
 Re-implementation of the reference BinMapper
 (src/io/bin.cpp:78-505, include/LightGBM/bin.h:84-259): density-aware greedy
 equal-count binning from sampled values, zero-as-a-bin handling, missing-value
-handling (None/Zero/NaN).  The port's slice bins numerical features only:
-the categorical mapping and forced bin bounds are not carried over.
+handling (None/Zero/NaN), and most-frequent-first categorical bins.
+Forced bin bounds are not carried over.
 
 Binning runs once on the host at Dataset construction; the result is a packed
 integer bin matrix that lives in device memory for the whole training run.
@@ -16,9 +16,11 @@ integer bin matrix that lives in device memory for the whole training run.
 from __future__ import annotations
 
 import math
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
+
+from ..utils import log
 
 # reference: include/LightGBM/meta.h:50-56
 K_ZERO_THRESHOLD = 1e-35
@@ -30,6 +32,7 @@ MISSING_ZERO = 1
 MISSING_NAN = 2
 
 BIN_NUMERICAL = 0
+BIN_CATEGORICAL = 1
 
 
 def _next_after_up(a: float) -> float:
@@ -160,6 +163,7 @@ class BinMapper:
         self.bin_type: int = BIN_NUMERICAL
         self.bin_upper_bound: List[float] = []
         self.bin_2_categorical: List[int] = []
+        self.categorical_2_bin: Dict[int, int] = {}
         self.min_val: float = 0.0
         self.max_val: float = 0.0
         self.default_bin: int = 0
@@ -168,7 +172,8 @@ class BinMapper:
     # ------------------------------------------------------------------
     def find_bin(self, values: np.ndarray, total_sample_cnt: int, max_bin: int,
                  min_data_in_bin: int = 3, min_split_data: int = 0,
-                 pre_filter: bool = False, use_missing: bool = True,
+                 pre_filter: bool = False, bin_type: int = BIN_NUMERICAL,
+                 use_missing: bool = True,
                  zero_as_missing: bool = False) -> None:
         """Construct the bin mapping from sampled values (reference: bin.cpp:311).
 
@@ -190,6 +195,7 @@ class BinMapper:
             else:
                 self.missing_type = MISSING_NAN
 
+        self.bin_type = bin_type
         self.default_bin = 0
         zero_cnt = int(total_sample_cnt - non_na_cnt - na_cnt)
         # distinct values, with zero placed at its sorted position
@@ -220,33 +226,81 @@ class BinMapper:
 
         self.min_val = distinct_values[0] if distinct_values else 0.0
         self.max_val = distinct_values[-1] if distinct_values else 0.0
+        cnt_in_bin: List[int] = []
         num_distinct = len(distinct_values)
 
-        def bounds(mb, total):
-            return find_bin_with_zero_as_one_bin(
-                distinct_values, counts, mb, total, min_data_in_bin)
+        if bin_type == BIN_NUMERICAL:
+            def bounds(mb, total):
+                return find_bin_with_zero_as_one_bin(
+                    distinct_values, counts, mb, total, min_data_in_bin)
 
-        if self.missing_type == MISSING_ZERO:
-            self.bin_upper_bound = bounds(max_bin, total_sample_cnt)
-            if len(self.bin_upper_bound) == 2:
-                self.missing_type = MISSING_NONE
-        elif self.missing_type == MISSING_NONE:
-            self.bin_upper_bound = bounds(max_bin, total_sample_cnt)
-        else:  # NaN: last bin reserved for NaN
-            self.bin_upper_bound = bounds(max_bin - 1,
-                                          total_sample_cnt - na_cnt)
-            self.bin_upper_bound.append(math.nan)
-        self.num_bin = len(self.bin_upper_bound)
-        cnt_in_bin = [0] * self.num_bin
-        i_bin = 0
-        for i in range(num_distinct):
-            while (i_bin < self.num_bin - 1 and
-                   distinct_values[i] > self.bin_upper_bound[i_bin]):
-                i_bin += 1
-            cnt_in_bin[i_bin] += counts[i]
-        if self.missing_type == MISSING_NAN:
-            cnt_in_bin[self.num_bin - 1] = na_cnt
-        assert self.num_bin <= max_bin
+            if self.missing_type == MISSING_ZERO:
+                self.bin_upper_bound = bounds(max_bin, total_sample_cnt)
+                if len(self.bin_upper_bound) == 2:
+                    self.missing_type = MISSING_NONE
+            elif self.missing_type == MISSING_NONE:
+                self.bin_upper_bound = bounds(max_bin, total_sample_cnt)
+            else:  # NaN: last bin reserved for NaN
+                self.bin_upper_bound = bounds(max_bin - 1,
+                                              total_sample_cnt - na_cnt)
+                self.bin_upper_bound.append(math.nan)
+            self.num_bin = len(self.bin_upper_bound)
+            cnt_in_bin = [0] * self.num_bin
+            i_bin = 0
+            for i in range(num_distinct):
+                while (i_bin < self.num_bin - 1 and
+                       distinct_values[i] > self.bin_upper_bound[i_bin]):
+                    i_bin += 1
+                cnt_in_bin[i_bin] += counts[i]
+            if self.missing_type == MISSING_NAN:
+                cnt_in_bin[self.num_bin - 1] = na_cnt
+            assert self.num_bin <= max_bin
+        else:
+            # categorical: most-frequent-first bins, bin 0 = NaN/other
+            distinct_int: List[int] = []
+            counts_int: List[int] = []
+            for v, c in zip(distinct_values, counts):
+                iv = int(v)
+                if iv < 0:
+                    na_cnt += c
+                    log.warning("Met negative value in categorical features, "
+                                "will convert it to NaN")
+                elif distinct_int and iv == distinct_int[-1]:
+                    counts_int[-1] += c
+                else:
+                    distinct_int.append(iv)
+                    counts_int.append(c)
+            rest_cnt = total_sample_cnt - na_cnt
+            self.num_bin = 1
+            if rest_cnt > 0 and distinct_int:
+                # sort by count descending (stable, like SortForPair)
+                order2 = sorted(range(len(counts_int)),
+                                key=lambda i: -counts_int[i])
+                counts_int = [counts_int[i] for i in order2]
+                distinct_int = [distinct_int[i] for i in order2]
+                cut_cnt = int(round((total_sample_cnt - na_cnt) * 0.99))
+                distinct_cnt = len(distinct_int) + (1 if na_cnt > 0 else 0)
+                eff_max_bin = min(distinct_cnt, max_bin)
+                self.bin_2_categorical = [-1]
+                self.categorical_2_bin = {-1: 0}
+                cnt_in_bin = [0]
+                used_cnt = 0
+                cur = 0
+                while cur < len(distinct_int) and (used_cnt < cut_cnt or
+                                                   self.num_bin < eff_max_bin):
+                    if counts_int[cur] < min_data_in_bin and cur > 1:
+                        break
+                    self.bin_2_categorical.append(distinct_int[cur])
+                    self.categorical_2_bin[distinct_int[cur]] = self.num_bin
+                    used_cnt += counts_int[cur]
+                    cnt_in_bin.append(counts_int[cur])
+                    self.num_bin += 1
+                    cur += 1
+                if cur == len(distinct_int) and na_cnt == 0:
+                    self.missing_type = MISSING_NONE
+                else:
+                    self.missing_type = MISSING_NAN
+                cnt_in_bin[0] = int(total_sample_cnt - used_cnt)
 
         self.is_trivial = self.num_bin <= 1
         if not self.is_trivial and pre_filter and min_split_data > 0:
@@ -264,17 +318,29 @@ class BinMapper:
 
     def _need_filter(self, cnt_in_bin: List[int], total_cnt: int,
                      filter_cnt: int) -> bool:
-        """reference: bin.cpp NeedFilter:36 (numerical arm)."""
-        sum_left = 0
-        for i in range(len(cnt_in_bin) - 1):
-            sum_left += cnt_in_bin[i]
-            if sum_left >= filter_cnt and total_cnt - sum_left >= filter_cnt:
-                return False
-        return True
+        """reference: bin.cpp NeedFilter:36."""
+        if self.bin_type == BIN_NUMERICAL:
+            sum_left = 0
+            for i in range(len(cnt_in_bin) - 1):
+                sum_left += cnt_in_bin[i]
+                if sum_left >= filter_cnt and total_cnt - sum_left >= filter_cnt:
+                    return False
+            return True
+        if len(cnt_in_bin) <= 2:
+            for i in range(len(cnt_in_bin) - 1):
+                sum_left = cnt_in_bin[i]
+                if sum_left >= filter_cnt and total_cnt - sum_left >= filter_cnt:
+                    return False
+            return True
+        return False
 
     # ------------------------------------------------------------------
     def value_to_bin(self, value: float) -> int:
         """Map one raw value to its bin (reference: bin.h ValueToBin:188)."""
+        if self.bin_type == BIN_CATEGORICAL:
+            if value is None or (isinstance(value, float) and math.isnan(value)):
+                return 0
+            return self.categorical_2_bin.get(int(value), 0)
         if value is None or math.isnan(value):
             if self.missing_type == MISSING_NAN:
                 return self.num_bin - 1
@@ -292,9 +358,28 @@ class BinMapper:
                 lo = mid + 1
         return lo
 
-    def values_to_bins(self, values: np.ndarray) -> np.ndarray:
-        """Vectorized ValueToBin over a column."""
+    def values_to_bins(self, values: np.ndarray,
+                       oov_sentinel: bool = False) -> np.ndarray:
+        """Vectorized ValueToBin over a column.
+
+        oov_sentinel: categorical mappers only -- map out-of-vocabulary
+        categories (and NaN) to the out-of-range bin ``num_bin`` instead
+        of bin 0, a bin no category set holds, so a bin-space traversal
+        sends them right as the reference's raw-value CategoricalDecision
+        (tree.h) does.  Training and validation binning keep bin 0."""
         values = np.asarray(values, dtype=np.float64)
+        if self.bin_type == BIN_CATEGORICAL:
+            miss = np.int32(self.num_bin) if oov_sentinel else np.int32(0)
+            if not self.categorical_2_bin:
+                return np.full(values.shape, miss, dtype=np.int32)
+            cats = np.array(list(self.categorical_2_bin.keys()), dtype=np.int64)
+            bins = np.array(list(self.categorical_2_bin.values()), dtype=np.int32)
+            iv = np.where(np.isnan(values), -1, values).astype(np.int64)
+            sorter = np.argsort(cats)
+            pos = np.searchsorted(cats[sorter], iv)
+            pos = np.clip(pos, 0, len(cats) - 1)
+            hit = cats[sorter[pos]] == iv
+            return np.where(hit, bins[sorter[pos]], miss).astype(np.int32)
         nan_mask = np.isnan(values)
         vals = np.where(nan_mask, 0.0, values)
         bounds = np.asarray(self.bin_upper_bound, dtype=np.float64)
@@ -314,10 +399,19 @@ class BinMapper:
             out = np.where(nan_mask, zero_bin, out)
         return out
 
+    def bin_to_value(self, bin_idx: int) -> float:
+        """Representative threshold value for a bin (used for model export)."""
+        if self.bin_type == BIN_CATEGORICAL:
+            return float(self.bin_2_categorical[bin_idx])
+        return self.bin_upper_bound[bin_idx]
+
     def feature_info(self) -> str:
         """`feature_infos` entry for the model file (reference: gbdt_model_text)."""
         if self.is_trivial:
             return "none"
+        if self.bin_type == BIN_CATEGORICAL:
+            cats = sorted(c for c in self.bin_2_categorical if c >= 0)
+            return ":".join(str(c) for c in cats)
         return f"[{self.min_val:g}:{self.max_val:g}]"
 
     def to_dict(self) -> dict:
@@ -337,10 +431,6 @@ class BinMapper:
 
     @classmethod
     def from_dict(cls, d: dict) -> "BinMapper":
-        if d["bin_type"] != BIN_NUMERICAL:
-            raise NotImplementedError(
-                "lightgbm_tpu_torch does not support categorical bin mappers "
-                "yet")
         bm = cls()
         bm.num_bin = d["num_bin"]
         bm.missing_type = d["missing_type"]
@@ -349,6 +439,7 @@ class BinMapper:
         bm.bin_type = d["bin_type"]
         bm.bin_upper_bound = list(d["bin_upper_bound"])
         bm.bin_2_categorical = list(d["bin_2_categorical"])
+        bm.categorical_2_bin = {c: i for i, c in enumerate(bm.bin_2_categorical)}
         bm.min_val = d["min_val"]
         bm.max_val = d["max_val"]
         bm.default_bin = d["default_bin"]

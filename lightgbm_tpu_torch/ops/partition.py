@@ -4,8 +4,9 @@ mega-kernel.
 Counterpart of the TPU kernel ``partition_leaf_pallas``
 (lightgbm_tpu/ops/partition_pallas.py), without its TPU mechanism
 (packed payload, roll-network compaction, aligned window DMAs): the
-scalar layout (``S_*``, ``make_scalars``), the numerical split decision
-``decide_left`` and the partition itself.  The same decision is the
+scalar layout (``S_*``, ``make_scalars``), the split decision
+``decide_left`` (numerical, or a categorical node's set membership, JAX
+learner.py ``_goes_left``) and the partition itself.  The same decision is the
 ``__device__`` function ``decide_left`` in ``csrc/partition.cuh``; the
 two must agree for the partition to be bit-identical.
 ``partition_leaf`` dispatches on the device of its inputs: CPU tensors
@@ -56,7 +57,10 @@ S_DBIN = 7      # feature default bin
 S_MTYPE = 8     # missing type (0 none / 1 zero / 2 nan)
 S_THR = 9       # split threshold (bin)
 S_DL = 10       # default_left (0/1)
-N_SCALARS = 11
+S_ISCAT = 11    # categorical split (0/1): left iff the bin is in the set
+S_CAT = 12      # the set: 8 words of bins (bit b & 31 of word b >> 5)
+CAT_WORDS = 8
+N_SCALARS = 20
 
 
 # the step block (csrc/step.cuh SB_*): one small int32 tensor on the
@@ -70,17 +74,22 @@ N_SCALARS = 11
 # the frontier's record 0 after its final step: splits made (pruned ones
 # included), steps run
 SB_MADE, SB_STEPS = 22, 23
-STEP_WORDS = 24
+# a categorical split: the flag and its set's 8 words
+SB_ISCAT, SB_CAT = 24, 25
+STEP_WORDS = 33
 # SB_ERR bits: a range or column outside the launch's bound, a state slot
 # outside the state, a leaf or feature out of range in tree_step
 ERR_RANGE, ERR_STATE, ERR_STEP = 1, 2, 4
 
 
-def make_scalars(start, cnt, col, bstart, isb, nb, dbin, mtype, thr, dl):
-    """The scalar operand as a host list of ints."""
+def make_scalars(start, cnt, col, bstart, isb, nb, dbin, mtype, thr, dl,
+                 iscat=0, cat=(0,) * CAT_WORDS):
+    """The scalar operand as a host list of ints; a categorical split
+    (``iscat``) sends a row left when its bin is in the bitset ``cat``."""
     start = int(start)
     return [start >> 7, start & 127, int(cnt), int(col), int(bstart),
-            int(isb), int(nb), int(dbin), int(mtype), int(thr), int(dl)]
+            int(isb), int(nb), int(dbin), int(mtype), int(thr), int(dl),
+            int(iscat)] + [int(v) for v in cat]
 
 
 def scalars_start(sc) -> int:
@@ -93,7 +102,9 @@ def step_words(scalars, idx=(-1, 0, 0, 0), side=0) -> list:
     the side histogrammed (0 the range, 1 the left child, 2 the right)."""
     w = [0] * STEP_WORDS
     w[SB_START] = scalars_start(scalars)
-    w[SB_CNT:SB_DL + 1] = scalars[S_CNT:]
+    w[SB_CNT:SB_DL + 1] = scalars[S_CNT:S_DL + 1]
+    w[SB_ISCAT] = scalars[S_ISCAT]
+    w[SB_CAT:SB_CAT + CAT_WORDS] = scalars[S_CAT:S_CAT + CAT_WORDS]
     w[SB_PARENT:SB_SIL + 1] = [int(v) for v in idx]
     w[SB_SIDE] = int(side)
     w[SB_VALID] = int(scalars[S_CNT] > 0)
@@ -110,7 +121,8 @@ def step_fields(step):
     """(scalars, idx, side) of a step block (on the CPU, reading it is no
     sync)."""
     w = step.tolist()
-    return (make_scalars(w[SB_START], *w[SB_CNT:SB_DL + 1]),
+    return (make_scalars(w[SB_START], *w[SB_CNT:SB_DL + 1], w[SB_ISCAT],
+                         w[SB_CAT:SB_CAT + CAT_WORDS]),
             tuple(w[SB_PARENT:SB_SIL + 1]), w[SB_SIDE])
 
 
@@ -120,12 +132,14 @@ def as_scalars(sc) -> list:
 
 
 def decide_left(colv: torch.Tensor, bstart, isb, nb, dbin, mtype, thr,
-                dl) -> torch.Tensor:
+                dl, iscat=0, *cat) -> torch.Tensor:
     """Per-row goes-left decision (bool) from raw group-column bins:
     bundled bin offset, missing none/zero/NaN, default bin, threshold
-    and default_left (reference: DenseBin::Split).  The split's fields
-    are host ints (one split for every row) or int tensors shaped like
-    ``colv`` (each row's own node: the traversal of ops/predict.py)."""
+    and default_left (reference: DenseBin::Split), or for a categorical
+    split (``iscat``) whether the decoded bin is in the 8-word bitset
+    ``cat`` (reference: DenseBin::Split's categorical arm).  The split's
+    fields are host ints (one split for every row) or int tensors shaped
+    like ``colv`` (each row's own node: the traversal of ops/predict.py)."""
     colv = colv.to(torch.int32)
     isb, mtype, dl = (torch.as_tensor(v, device=colv.device)
                       for v in (isb, mtype, dl))
@@ -134,7 +148,18 @@ def decide_left(colv: torch.Tensor, bstart, isb, nb, dbin, mtype, thr,
     fb = torch.where(isb == 1, torch.where(in_rb, fb_raw, dbin), colv)
     miss = torch.where(mtype == 1, fb == dbin,
                        (mtype == 2) & (fb == nb - 1))
-    return torch.where(miss, dl != 0, fb <= thr)
+    num_left = torch.where(miss, dl != 0, fb <= thr)
+    if isinstance(iscat, int) and not iscat:
+        return num_left
+    words = torch.stack([torch.as_tensor(v, dtype=torch.int32,
+                                         device=colv.device).expand_as(colv)
+                         for v in cat])
+    ok = (fb >= 0) & (fb < 32 * CAT_WORDS)
+    w = torch.gather(words, 0, (torch.clamp(fb, 0, 32 * CAT_WORDS - 1)
+                                >> 5)[None].long())[0]
+    cat_left = ok & (((w >> (fb & 31)) & 1) != 0)
+    return torch.where(torch.as_tensor(iscat, device=colv.device) != 0,
+                       cat_left, num_left)
 
 
 def leaf_decisions(part_bins, scalars):

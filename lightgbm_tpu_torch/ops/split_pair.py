@@ -12,7 +12,9 @@ Inputs (the JAX kernel's layout, without its (8, 128) TPU tile), for
 ``children`` = C children (2: a pair, the left child first):
   hist_g / hist_h: (C F, BF) f32, each child's F feature rows stacked
     in child order;
-  fmeta: (C F, 8) int32, FM_* columns (per-feature metadata, repeated);
+  fmeta: (C F, 8) int32, FM_* columns (per-feature metadata, repeated;
+    a row whose FM_IS_CAT is set is a categorical feature, which the
+    numerical scans skip: ops/split_cat.py searches it);
   info: (C F, 8) f32, IN_* columns (the child's sums, count and depth
     broadcast over its rows; IN_MASK is the per-child feature mask).
 Output: (C, 13) f32, one row per child: the leafmat segment
@@ -38,7 +40,7 @@ import torch
 from . import kernels
 from .split import K_EPSILON, leaf_gain, leaf_output, prefix_sum
 
-FM_NUM_BIN, FM_MISSING, FM_DEFAULT = 0, 1, 2
+FM_NUM_BIN, FM_MISSING, FM_DEFAULT, FM_IS_CAT = 0, 1, 2, 3
 IN_SUM_G, IN_SUM_H, IN_NUM_DATA, IN_DEPTH, IN_MASK = 0, 1, 2, 3, 4
 OUT_FIELDS = 13
 _BIG_KEY = 1 << 30
@@ -67,7 +69,8 @@ def split_pair_plain(hist_g, hist_h, fmeta, info, *, l1: float, l2: float,
     sum_h_tot = info[:, IN_SUM_H:IN_SUM_H + 1] + 2 * K_EPSILON
     num_data = info[:, IN_NUM_DATA:IN_NUM_DATA + 1]
     depth = info[:, IN_DEPTH:IN_DEPTH + 1]
-    fmask = info[:, IN_MASK:IN_MASK + 1] > 0
+    fmask = ((info[:, IN_MASK:IN_MASK + 1] > 0)
+             & (fmeta[:, FM_IS_CAT:FM_IS_CAT + 1] == 0))
     cnt_factor = num_data / sum_h_tot
 
     bins = torch.arange(BF, device=dev, dtype=i32)[None, :]

@@ -33,6 +33,17 @@ One call, by ``mode``:
     ties left, and the side to histogram); a split not made sets
     ``cnt = 0`` and stops the tree, so every later step writes nothing;
   * ``MODE_FINAL``: commit what is due.
+
+Every call also takes the category sets as bitsets of bins
+(JAX learner.py ``best_cat_set`` / ``node_cat_set``): ``leafcat``
+(L + 1, 8), ``nodecat`` (nodes + 1, 8) and ``paircat`` (2, 8) int32.  The
+root's reset zeroes the first two; a commit copies each child's set from
+``paircat`` (ops/split_cat.py) into its leaf's row beside its leafmat
+column; an election copies the leaf's set into the node's row, writes
+``ND_IS_CAT`` from ``LM_BISCAT`` and puts the flag and the set into the
+step block (``SB_ISCAT``, ``SB_CAT``) for the partition's decision.  On
+numerical data the pair search writes ``LM_BISCAT`` = 0 and ``paircat``
+stays zero, so all of these are zeros.
 """
 
 from __future__ import annotations
@@ -43,11 +54,11 @@ import numpy as np
 import torch
 
 from . import kernels
-from .partition import (ERR_STEP, SB_CNT, SB_COL, SB_DBIN, SB_DL, SB_DONE,
-                        SB_ERR, SB_LEAF, SB_MTYPE, SB_NB, SB_NEW, SB_PARENT,
-                        SB_PEND, SB_S, SB_SIDE, SB_SIL, SB_START, SB_THR,
-                        SB_VALID, SB_WA, SB_WB, SB_BSTART, SB_ISB,
-                        STEP_WORDS)
+from .partition import (CAT_WORDS, ERR_STEP, SB_CAT, SB_CNT, SB_COL,
+                        SB_DBIN, SB_DL, SB_DONE, SB_ERR, SB_ISCAT, SB_LEAF,
+                        SB_MTYPE, SB_NB, SB_NEW, SB_PARENT, SB_PEND, SB_S,
+                        SB_SIDE, SB_SIL, SB_START, SB_THR, SB_VALID, SB_WA,
+                        SB_WB, SB_BSTART, SB_ISB, STEP_WORDS)
 
 NEG_INF = float("-inf")
 
@@ -144,10 +155,12 @@ def info_block(F: int, halves, fmask=None) -> np.ndarray:
 
 
 def tree_step_plain(mode, lm, nm, step, nl, pair, fmeta, info, sums, bag,
-                    fmask, *, row0: int, N: int) -> None:
+                    fmask, leafcat, nodecat, paircat, *, row0: int,
+                    N: int) -> None:
     """Plain version of the kernel, in place on CPU tensors (see module
     doc)."""
     L, nodes, F = lm.shape[1] - 1, nm.shape[1] - 1, fmeta.shape[1]
+    lc, nc, pc = leafcat.numpy(), nodecat.numpy(), paircat.numpy()
     bag_cnt, fm_np = int(bag[0]), fmask.numpy()
     lmf, nmf = lm.numpy(), nm.numpy()
     nmi = nmf.view(np.int32)
@@ -162,12 +175,15 @@ def tree_step_plain(mode, lm, nm, step, nl, pair, fmeta, info, sums, bag,
         inf[:, 1] = s[1]
         w[:] = 0
         w[SB_PEND] = 1
+        lc[:] = 0
+        nc[:] = 0
         return
     p = pair.numpy()
     if w[SB_PEND] == 1:
         s = sums.numpy()
         lmf[:, 0] = leaf_column(row0, N, bag_cnt, s[0], s[1], 0, 0.0, -1, 0,
                                 p[0])
+        lc[0] = pc[0]
     elif w[SB_PEND] == 2:
         leaf, new, node = int(w[SB_LEAF]), int(w[SB_NEW]), int(w[SB_S]) - 1
         pcol = lmf[:, leaf].copy()
@@ -181,6 +197,8 @@ def tree_step_plain(mode, lm, nm, step, nl, pair, fmeta, info, sums, bag,
         lmf[:, new] = leaf_column(start + left, cnt - left, pci[LM_BRCNT],
                                   pcol[LM_BRSG], pcol[LM_BRSH], depth,
                                   pcol[LM_BROUT], node, 1, p[1])
+        lc[leaf] = pc[0]
+        lc[new] = pc[1]
     if mode == MODE_FINAL:
         w[SB_PEND] = 0
         return
@@ -206,6 +224,11 @@ def tree_step_plain(mode, lm, nm, step, nl, pair, fmeta, info, sums, bag,
     new = s + 1
     fm = fmeta.numpy()[:, fe]
     nmf[:, s] = node_column(pcol, gain, fm, best, new)
+    iscat = int(pcol[LM_BISCAT] > 0.5)
+    nmf[ND_IS_CAT, s] = iscat
+    nc[s] = lc[best]
+    w[SB_ISCAT] = iscat
+    w[SB_CAT:SB_CAT + CAT_WORDS] = lc[best]
     if parent >= 0:
         nmi[ND_LEFT if int(pci[LM_PSIDE]) == 0 else ND_RIGHT, parent] = s
     lcg, rcg = int(pci[LM_BLCNT]), int(pci[LM_BRCNT])
@@ -229,16 +252,17 @@ def tree_step_plain(mode, lm, nm, step, nl, pair, fmeta, info, sums, bag,
 
 
 def tree_step(mode, lm, nm, step, nl, pair, fmeta, info, sums, bag, fmask,
-              *, row0: int, N: int) -> None:
+              leafcat, nodecat, paircat, *, row0: int, N: int) -> None:
     """One bookkeeping step in place (see module doc)."""
-    args = (mode, lm, nm, step, nl, pair, fmeta, info, sums, bag, fmask)
+    args = (mode, lm, nm, step, nl, pair, fmeta, info, sums, bag, fmask,
+            leafcat, nodecat, paircat)
     if lm.device.type == "cpu":
         return tree_step_plain(*args, row0=row0, N=N)
     return tree_step_cuda(*args, row0=row0, N=N)
 
 
 def tree_step_cuda(mode, lm, nm, step, nl, pair, fmeta, info, sums, bag,
-                   fmask, *, row0, N) -> None:
+                   fmask, leafcat, nodecat, paircat, *, row0, N) -> None:
     global launches
     L, nodes, F = lm.shape[1] - 1, nm.shape[1] - 1, fmeta.shape[1]
     if mode not in (MODE_ROOT, MODE_STEP, MODE_FINAL) or nodes != L - 1:
@@ -254,14 +278,18 @@ def tree_step_cuda(mode, lm, nm, step, nl, pair, fmeta, info, sums, bag,
             (info, torch.float32, "info", (2 * F, 8)),
             (sums, torch.float32, "sums", (2,)),
             (bag, torch.int32, "bag count", (1,)),
-            (fmask, torch.float32, "feature mask", (F,))):
+            (fmask, torch.float32, "feature mask", (F,)),
+            (leafcat, torch.int32, "leafcat", (L + 1, CAT_WORDS)),
+            (nodecat, torch.int32, "nodecat", (nodes + 1, CAT_WORDS)),
+            (paircat, torch.int32, "paircat", (2, CAT_WORDS))):
         kernels.require_cuda(t, dtype, name, shape)
     fn = kernels.load("tree_step").tree_step_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     err = fn(*(kernels.ptr(t) for t in (lm, nm, step, nl, pair, fmeta, info,
-                                        sums, bag, fmask)),
+                                        sums, bag, fmask, leafcat, nodecat,
+                                        paircat)),
              L, nodes, F, int(row0), int(N), int(mode),
              kernels.stream_ptr(lm.device))
     kernels.check(err, "tree_step_launch")

@@ -90,7 +90,10 @@ def test_cuda_request_without_card_raises(monkeypatch):
                                  "ops/histogram.py", "ops/hist_state.py",
                                  "ops/tree_step.py", "ops/frontier.py",
                                  "ops/feat_view.py", "ops/sample.py",
-                                 "models/learner.py", "models/boosting.py"])
+                                 "ops/split_cat.py", "ops/predict.py",
+                                 "ops/binning.py", "dataset.py", "basic.py",
+                                 "models/tree.py", "models/learner.py",
+                                 "models/boosting.py"])
 def test_kernel_wrappers_have_no_fallback(mod):
     """No try/except in the build and launch paths: a kernel that does not
     build or launch raises to the caller."""

@@ -939,3 +939,162 @@ def test_one_graph_capture_across_bagged_iterations(card, k):
         assert np.array_equal(a.split_feature, b.split_feature)
         assert np.array_equal(a.threshold_bin, b.threshold_bin)
 
+
+
+# ---- categorical features: split_cat, the set decision, graph trees -------
+
+from lightgbm_tpu_torch.ops import split_cat as scat  # noqa: E402
+
+CAT_PARAMS = [
+    dict(max_cat_threshold=32, cat_l2=10.0, cat_smooth=10.0,
+         max_cat_to_onehot=4, min_data_per_group=100),
+    dict(max_cat_threshold=4, cat_l2=1.0, cat_smooth=1.0,
+         max_cat_to_onehot=8, min_data_per_group=5),
+]
+
+
+def cat_case(seed, F=10, BF=255, ncat=4, C=2):
+    """The pair search's inputs for C children with ``ncat`` categorical
+    features among F (FM_IS_CAT set), counts from the hessians, and the
+    numerical pair rows split_pair writes for them."""
+    rng = np.random.RandomState(seed)
+    hg, hh, fm, info = _pair_case(seed, F, BF)
+    cats = np.sort(rng.choice(F, ncat, replace=False)).astype(np.int32)
+    half = fm[:F].numpy().copy()
+    half[cats, 0] = rng.choice([3, 5, 9, 40, BF], ncat)
+    half[cats, 1] = 2
+    half[cats, 3] = 1
+    fm = torch.as_tensor(np.concatenate([half] * C))
+    hg, hh = hg.repeat(C // 2, 1), hh.repeat(C // 2, 1)
+    info = info.repeat(C // 2, 1)
+    info[:, 2] = torch.floor(info[:, 1] * 40)
+    return hg, hh, fm, info, torch.as_tensor(cats)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(10, 255), (10, 256), (6, 16), (38, 201)])
+@pytest.mark.parametrize("ci", range(len(CAT_PARAMS)))
+@pytest.mark.parametrize("pi", range(len(PARAMS)))
+def test_split_cat_kernel_bit_identical_to_plain(card, shape, ci, pi):
+    """csrc/split_cat.cu against split_cat_plain on the card and on the
+    CPU, bit for bit on the merged (2, 13) rows and the (2, 8) sets, over
+    both arms, the feature mask and max_depth; a second launch on the
+    same scratch (the ticket left at 0) gives the same bits."""
+    F, BF = shape
+    hg, hh, fm, info, cats = cat_case(F + BF + ci, F, BF, min(4, F))
+    kw = dict(PARAMS[pi], **CAT_PARAMS[ci])
+    pair = sp.split_pair_plain(hg, hh, fm, info, **PARAMS[pi])
+    want, wset = pair.clone(), torch.zeros((2, 8), dtype=torch.int32)
+    scat.split_cat(hg, hh, fm, info, cats, want, wset, **kw)
+    dev = [t.to(card) for t in (hg, hh, fm, info, cats)]
+    work = scat.new_work(2, len(cats), card)
+    for _ in range(2):
+        got = pair.to(card)
+        gset = torch.full((2, 8), 7, dtype=torch.int32, device=card)
+        scat.split_cat(*dev, got, gset, work=work, **kw)
+        assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+        assert torch.equal(gset.cpu(), wset)
+    plain = pair.to(card)
+    pset = torch.zeros((2, 8), dtype=torch.int32, device=card)
+    scat.split_cat_plain(*dev, plain, pset, **kw)
+    assert torch.equal(plain.cpu().view(torch.int32), want.view(torch.int32))
+    assert torch.equal(pset.cpu(), wset)
+    assert int(work[-1]) == 0
+
+
+CAT_PART_CASES = {
+    "plain": (4096 + 77, 300_001, 5, 0, 0, 255, 0, 2, 0, 0),
+    "bundled": (123, 33_333, 2, 10, 1, 60, 0, 2, 0, 0),
+    "cnt0": (5000, 0, 3, 0, 0, 255, 0, 2, 0, 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CAT_PART_CASES))
+def test_partition_categorical_bit_identical_to_plain(card, case):
+    """A categorical step (left iff the decoded bin is in the set)
+    through the partition kernel, bit for bit against the plain
+    version: bins, payload words and the left count."""
+    rng = np.random.RandomState(11)
+    words = [int(v) for v in rng.randint(-2 ** 31, 2 ** 31, 8)]
+    words[0] &= ~1          # bin 0 never joins a set
+    sc = make_scalars(*CAT_PART_CASES[case], 1, words)
+    pb, pg = _row_buffers(5)
+    b, g = pb.to(card), pg.to(card)
+    nl = tpart.partition_leaf(b, g, sc)
+    b0, g0 = pb.clone(), pg.clone()
+    enl = tpart.partition_leaf_plain(b0, g0, sc)
+    assert int(nl) == int(enl)
+    assert torch.equal(b.cpu(), b0)
+    assert torch.equal(g.cpu().view(torch.int32), g0.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["root", "step", "final"])
+def test_tree_step_kernel_with_category_sets(card, case):
+    """tree_step with the category sets: leafcat / nodecat / paircat, the
+    step block's SB_ISCAT / SB_CAT and ND_IS_CAT, bit for bit against
+    tree_step_plain."""
+    mode = {"root": ts.MODE_ROOT, "final": ts.MODE_FINAL}.get(case,
+                                                             ts.MODE_STEP)
+    c = _tl.tree_case(3)
+    # the elected leaf categorical or not, whichever it is in this case
+    L = c[0].shape[1] - 1
+    c[0][ts.LM_BISCAT, :L] = torch.arange(L) % 2
+    dev = [t.to(card) for t in c]
+    kw = dict(row0=_tl.ROW0, N=_tl.N)
+    ts.tree_step(mode, *dev, **kw)
+    ts.tree_step_plain(mode, *c, **kw)
+    for got, want in zip(dev, c):
+        assert torch.equal(_tl._bits(got.cpu()), _tl._bits(want))
+
+
+def _cat_rows(n=6000, seed=0):
+    """Numerical columns, a 30-level categorical with NaN, negative and
+    rare values, a 3-level one (one-vs-rest), a mostly-NaN one (default
+    and most frequent bin 0) and a mostly-zero numerical column on the
+    other rows, which the two bundle with (EFB)."""
+    rng = np.random.RandomState(seed)
+    c30 = rng.randint(0, 30, n).astype(float)
+    c30[rng.rand(n) < 0.05] = np.nan
+    c30[rng.rand(n) < 0.02] = -2
+    c30[:7] = 97                                    # rare
+    c3 = rng.randint(0, 3, n).astype(float)
+    r = rng.rand(n)
+    sparse = np.where(r < 0.08, rng.randint(1, 6, n), np.nan)
+    znum = np.where((r >= 0.08) & (r < 0.14), rng.rand(n) + 0.1, 0.0)
+    x = rng.randn(n, 3)
+    y = (np.isin(c30, [1, 4, 9, 16, 25]) * 1.5 + (c3 == 2) * 0.8
+         + (sparse == 3) * 1.0 + znum + x[:, 0] + 0.3 * rng.randn(n))
+    X = np.column_stack([x[:, 0], c30, x[:, 1], c3, sparse, x[:, 2], znum])
+    return X, (y > np.median(y)).astype(float)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bundle", [False, True])
+def test_categorical_graph_trees_equal_eager_oracle(card, bundle):
+    """On categorical data (the subtraction body, split_cat after the
+    pair search, the sets through tree_step into the partition): trees
+    grown by the graph equal the eager oracle's on the card, bit for bit,
+    the category sets included; one capture, one host read a tree; the
+    card's trees equal the CPU's."""
+    X, y = _cat_rows()
+    params = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+              "categorical_feature": "1,3,4", "min_data_per_group": 20,
+              "cat_smooth": 5, "enable_bundle": bundle}
+    for a, b in _tl.lockstep(X, y, params, "cuda", trees=4):
+        _tl.assert_same_tree(a, b)
+        la, lb = a._gbdt.learner, b._gbdt.learner
+        assert torch.equal(la.nodecat, lb.nodecat)
+        ta, tb = a._gbdt.models[-1], b._gbdt.models[-1]
+        assert ta.cat_threshold == tb.cat_threshold
+    lr = a._gbdt.learner
+    assert lr.has_cat and lr.subtract and lr.K == 1 and lr.bundled == bundle
+    assert lr.captures == 1 and lr.syncs == 4
+    assert sum(t.num_cat for t in a._gbdt.models) > 0
+    cpu = lgt.train(dict(params, device_type="cpu"), lgt.Dataset(X, label=y),
+                    4)
+    for ta, tb in zip(a._gbdt.models, cpu._gbdt.models):
+        assert np.array_equal(ta.split_feature, tb.split_feature)
+        assert ta.cat_threshold == tb.cat_threshold
+        assert np.array_equal(ta.leaf_count, tb.leaf_count)

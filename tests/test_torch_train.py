@@ -178,22 +178,73 @@ def _check_model_text(pair, tmp_path):
 
 @pytest.mark.parametrize("key", ["num_cat", "is_linear"])
 def test_loading_categorical_or_linear_trees_raises(pair, key):
-    """The port's slice has numerical constant-leaf trees only: model text
-    with a categorical or linear tree raises instead of losing them."""
+    """Linear trees are not part of the port: model text with one raises
+    instead of losing it.  A JAX-written model with categorical trees
+    loads and predicts what JAX predicts, NaN and unseen categories
+    included."""
+    if key == "num_cat":
+        X, y = _cat_data()
+        jb = lgb.train({"objective": "regression", "num_leaves": 15,
+                        "verbosity": -1, "tpu_frontier_k": 1},
+                       lgb.Dataset(X, label=y, categorical_feature=[0]),
+                       num_boost_round=3)
+        tl = lgt.Booster(params={"device_type": "cpu"},
+                         model_str=jb.model_to_string())
+        assert sum(t.num_cat for t in tl._gbdt.models) > 0
+        X[:5, 0], X[5:10, 0] = np.nan, 99.0
+        np.testing.assert_allclose(tl.predict(X, raw_score=True),
+                                   jb.predict(X, raw_score=True), rtol=0,
+                                   atol=1e-9)
+        return
     text = pair[4].model_to_string().replace(f"{key}=0", f"{key}=1", 1)
     with pytest.raises(NotImplementedError, match=key):
         lgt.Booster(params={"device_type": "cpu"}, model_str=text)
 
 
+def _cat_data(n=2000, seed=0):
+    """A 12-level categorical column beside a numerical one."""
+    rng = np.random.RandomState(seed)
+    cat = rng.randint(0, 12, n).astype(float)
+    x1 = rng.normal(size=n)
+    y = np.isin(cat, (2, 5, 7, 11)) * 2.0 + 0.3 * x1 + 0.1 * rng.normal(
+        size=n)
+    return np.column_stack([cat, x1]), y
+
+
 def test_categorical_bin_mapper_raises(pair):
-    _, y, _, jb, _ = pair
+    """convert.dataset_from_arrays carries the JAX package's categorical
+    bin mappers across bit for bit, and the port grows JAX's trees on
+    them."""
+    X, y = _cat_data()
+    params = {"objective": "regression", "num_leaves": 15, "verbosity": -1}
+    jb = lgb.train(dict(params, tpu_frontier_k=1),
+                   lgb.Dataset(X, label=y, categorical_feature=[0]),
+                   num_boost_round=ROUNDS)
+    jb.num_trees()
     jd = jb._gbdt.train_data
-    mappers = [dict(bm.to_dict(), bin_type=1) for bm in jd.bin_mappers]
-    with pytest.raises(NotImplementedError, match="categorical"):
-        convert.dataset_from_arrays(
-            np.asarray(jd.host_binned()), mappers,
-            [(g.feature_indices, g.bin_offsets, g.num_total_bin)
-             for g in jd.groups], y)
+    ds = convert.dataset_from_arrays(
+        np.asarray(jd.host_binned()), [bm.to_dict() for bm in jd.bin_mappers],
+        [(g.feature_indices, g.bin_offsets, g.num_total_bin)
+         for g in jd.groups], y, params=dict(params, device_type="cpu"))
+    assert [bm.to_dict() for bm in ds.bin_mappers] == \
+        [bm.to_dict() for bm in jd.bin_mappers]
+    assert [bm.categorical_2_bin for bm in ds.bin_mappers] == \
+        [bm.categorical_2_bin for bm in jd.bin_mappers]
+    np.testing.assert_array_equal(ds.feature_meta_arrays()["is_categorical"],
+                                  jd.feature_meta_arrays()["is_categorical"])
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.models.boosting import GBDT
+    from lightgbm_tpu_torch.models.objective import create_objective
+    cfg = Config(dict(params, device_type="cpu"))
+    g = GBDT(cfg, ds, create_objective(cfg), "cpu")
+    for _ in range(ROUNDS):
+        g.train_one_iter()
+    assert sum(t.num_cat for t in g.models) > 0
+    for a, b in zip(jb._gbdt.models, g.models):
+        assert _structure(a) == _structure(b)
+        assert a.cat_threshold == b.cat_threshold
+        np.testing.assert_allclose(b.leaf_value, a.leaf_value, rtol=1e-4,
+                                   atol=1e-5)
 
 
 def test_training_metric_falls(pair):

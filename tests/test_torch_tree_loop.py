@@ -23,17 +23,14 @@ import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch.models import learner as lm
 from lightgbm_tpu_torch.ops import partition as tpart
 from lightgbm_tpu_torch.ops import tree_step as ts
-from lightgbm_tpu_torch.ops.partition import (SB_CNT, SB_DONE, SB_LEAF,
-                                              SB_NEW, SB_PEND, SB_S,
+from lightgbm_tpu_torch.ops.partition import (CAT_WORDS, SB_CNT, SB_DONE,
+                                              SB_LEAF, SB_NEW, SB_PEND, SB_S,
                                               STEP_WORDS)
-from lightgbm_tpu_torch.ops.tree_step import (LM_BDL, LM_BFEAT, LM_BGAIN,
-                                              LM_BLCNT, LM_BLOUT, LM_BLSG,
-                                              LM_BLSH, LM_BRCNT, LM_BROUT,
-                                              LM_BRSG, LM_BRSH, LM_BTHR,
-                                              LM_CNT, LM_CNT_G, LM_DEPTH,
-                                              LM_PARENT, LM_PSIDE, LM_START,
-                                              LM_SUM_H, LM_VALUE, ND_LEFT,
-                                              ND_RIGHT, NND, _f2i, _i2f)
+from lightgbm_tpu_torch.ops.tree_step import (
+    LM_BDL, LM_BFEAT, LM_BGAIN, LM_BISCAT, LM_BLCNT, LM_BLOUT, LM_BLSG,
+    LM_BLSH, LM_BRCNT, LM_BROUT, LM_BRSG, LM_BRSH, LM_BTHR, LM_CNT, LM_CNT_G,
+    LM_DEPTH, LM_PARENT, LM_PSIDE, LM_START, LM_SUM_H, LM_VALUE, ND_IS_CAT,
+    ND_LEFT, ND_RIGHT, NND, _f2i, _i2f)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROW0, N, BAG = 256, 5000, 5000
@@ -96,23 +93,31 @@ def tree_case(seed, L=9, F=5, made=4, gains=None, sil_tie=False):
     sums = rng.randn(2).astype(np.float32)
     bag = np.array([BAG], np.int32)
     fmask = (rng.rand(F) < 0.7).astype(np.float32)
+    # the category sets of the leaves, the nodes and the pending children
+    # (random words: LM_BISCAT above is random too, so some leaves are
+    # categorical)
+    cats = [rng.randint(-2 ** 31, 2 ** 31, (r, CAT_WORDS)).astype(np.int32)
+            for r in (L + 1, nodes + 1, 2)]
     return [torch.as_tensor(a) for a in (lmat, nmat, step, nl, pair, fmeta,
-                                         info, sums, bag, fmask)]
+                                         info, sums, bag, fmask, *cats)]
 
 
 def reference_step(mode, lmat, nmat, step, nl, pair, fmeta, info, sums, bag,
-                   fmask):
+                   fmask, leafcat, nodecat, paircat):
     """The eager loop's bookkeeping (build_tree_eager), on numpy copies:
     the root's column from the root search, or the split's two children
-    from the left count and the pair search's rows; then the argmax, the
-    stop rule, the node column, the parent's pointer and the info block.
-    Returns the arrays and the next split's (scalars, idx) or None."""
+    from the left count and the pair search's rows (and their sets); then
+    the argmax, the stop rule, the node column and set, the parent's
+    pointer and the info block.  Returns the arrays and the next split's
+    (scalars, idx) or None."""
     L, nodes, F = lmat.shape[1] - 1, nmat.shape[1] - 1, fmeta.shape[1]
     lmat, nmat, info = lmat.copy(), nmat.copy(), info.copy()
+    lc, nc = leafcat.copy(), nodecat.copy()
     s = int(step[SB_S])
     if step[SB_PEND] == 1:
         lmat[:, 0] = ts.leaf_column(ROW0, N, bag[0], sums[0], sums[1], 0, 0.0,
                                     -1, 0, pair[0])
+        lc[0] = paircat[0]
     elif step[SB_PEND] == 2:
         best, new = int(step[SB_LEAF]), int(step[SB_NEW])
         pcol = lmat[:, best].copy()
@@ -126,16 +131,20 @@ def reference_step(mode, lmat, nmat, step, nl, pair, fmeta, info, sums, bag,
                                       _i(pcol[LM_BRCNT]), pcol[LM_BRSG],
                                       pcol[LM_BRSH], dc, pcol[LM_BROUT],
                                       s - 1, 1, pair[1])
+        lc[best], lc[new] = paircat[0], paircat[1]
     if mode == ts.MODE_FINAL or s >= nodes or step[SB_DONE]:
-        return lmat, nmat, info, None
+        return lmat, nmat, info, lc, nc, None
     bgain = lmat[LM_BGAIN, :L]
     best = int(np.argmax(bgain))
     gain = bgain[best]
     if not gain > 0:
-        return lmat, nmat, info, None
+        return lmat, nmat, info, lc, nc, None
     pcol = lmat[:, best].copy()
     fe = _i(pcol[LM_BFEAT])
     nmat[:, s] = ts.node_column(pcol, gain, fmeta[:, fe], best, s + 1)
+    iscat = int(pcol[LM_BISCAT] > 0.5)
+    nmat[ND_IS_CAT, s] = iscat
+    nc[s] = lc[best]
     p = _i(pcol[LM_PARENT])
     if p >= 0:
         nmat.view(np.int32)[ND_LEFT if _i(pcol[LM_PSIDE]) == 0
@@ -147,8 +156,9 @@ def reference_step(mode, lmat, nmat, step, nl, pair, fmeta, info, sums, bag,
     _, col, bstart, isb, nb, dbin, mtype = (int(v) for v in fmeta[:, fe])
     sc = tpart.make_scalars(_i(pcol[LM_START]), _i(pcol[LM_CNT]), col,
                             bstart, isb, nb, dbin, mtype, _i(pcol[LM_BTHR]),
-                            bool(pcol[LM_BDL] > 0.5))
-    return lmat, nmat, info, (sc, (best, best, s + 1, int(lcg <= rcg)))
+                            bool(pcol[LM_BDL] > 0.5), iscat, lc[best])
+    return lmat, nmat, info, lc, nc, (sc, (best, best, s + 1,
+                                          int(lcg <= rcg)))
 
 
 NAN, NEG = float("nan"), float("-inf")
@@ -172,11 +182,13 @@ def _run_both(case, mode):
 
 
 def _check(case, want, final=False):
-    lmat, nmat, step, _, _, _, info, _, _, _ = case
-    wl, wn, wi, nxt = want
+    lmat, nmat, step, _, _, _, info, _, _, _, lc, nc, _ = case
+    wl, wn, wi, wlc, wnc, nxt = want
     assert np.array_equal(lmat.numpy().view(np.int32), wl.view(np.int32))
     assert np.array_equal(nmat.numpy().view(np.int32), wn.view(np.int32))
     assert np.array_equal(info.numpy().view(np.int32), wi.view(np.int32))
+    assert np.array_equal(lc.numpy(), wlc)
+    assert np.array_equal(nc.numpy(), wnc)
     w = step.numpy()
     if final:
         assert w[SB_PEND] == 0
@@ -201,7 +213,7 @@ def test_tree_step_plain_child_count_tie_is_small_left(seed):
     c = tree_case(seed, sil_tie=True)
     want = _run_both(c, ts.MODE_STEP)
     _check(c, want)
-    assert want[3][1][3] == 1
+    assert want[-1][1][3] == 1
 
 
 def test_tree_step_plain_stops_at_s_equal_nodes():
@@ -224,10 +236,11 @@ def test_tree_step_plain_root_then_first_election():
     block; the next step commits the root's column and elects it."""
     c = tree_case(6)
     ts.tree_step_plain(ts.MODE_ROOT, *c, row0=ROW0, N=N)
-    lmat, nmat, step, _, pair, _, info, sums, _, fmask = c
+    lmat, nmat, step, _, pair, _, info, sums, _, fmask, lc, nc, _ = c
     assert np.array_equal(lmat.numpy().view(np.int32),
                           ts.empty_leafmat(lmat.shape[1] - 1).view(np.int32))
     assert not nmat.any() and step[SB_PEND] == 1
+    assert not lc.any() and not nc.any()
     want = ts.info_block(info.shape[0] // 2, [(0, 0, BAG, 0)] * 2,
                          fmask.numpy())
     want[:, :2] = sums.numpy()

@@ -126,6 +126,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      non-integer categories predicted as the host Tree.predict, again
      after a save and reload; split_cat's ms a launch; s/iteration beside
      4e's one-hot run;
+  4g. (after 4d) the other objectives on the HIGGS rows and bins, two
+     new labels (a fixed linear combination of the features plus seeded
+     noise, and its quintiles): quantile (alpha 0.9, leaves renewed) 4
+     iterations and multiclass (5 classes) 3 on each body,
+     multiclassova 2 on the mega path, binary beside them: the metric
+     falling every iteration, every wrapper's count set to 0 before a
+     run and the body's kernels launched, one capture and one tree read
+     a tree, save / reload / predict bit-identical ((100k, 5) for 5
+     classes), the card's renewal bit-identical to its run on the host on
+     the same inputs, the first iteration's trees against the CPU plain
+     loop's on a 200,000-row cut (the same partitions, or a first
+     difference within the CPU's f32 resolution; quantile's renewed
+     values equal, the card's class-tree values -G / H of their rows in
+     f64); s/iteration and device ms an iteration beside binary's, the
+     renewal's device ms a tree, the class gather / scatter's and the
+     5-class gradients' ms;
   5. each kernel against its plain version on inputs captured from the
      first tree of its path, through its host-int entry and through the
      step entry the graph loop launches (a step block made beforehand,
@@ -2445,6 +2461,312 @@ def sampling_path(lgt, mods, ds, params):
     return out
 
 
+# ---- phase 4g: the other objectives and multiclass at the HIGGS shape ----
+OBJ_CUT = 200_000               # rows of the card-vs-CPU first iteration
+OBJ_RUNS = (("quantile", {"objective": "quantile", "alpha": 0.9,
+                          "metric": "quantile"}, 4, ("mega", "subtraction")),
+            ("multiclass", {"objective": "multiclass", "num_class": 5,
+                            "metric": "multi_logloss"}, 3,
+             ("mega", "subtraction")),
+            ("multiclassova", {"objective": "multiclassova", "num_class": 5,
+                               "metric": "multi_logloss"}, 2, ("mega",)))
+BODIES = {"mega": {}, "subtraction": {"tpu_megakernel": "off"}}
+BODY_KERNELS = {"mega": ("split_mega", "split_pair"),
+                "subtraction": ("partition", "leaf_hist", "hist_rmw",
+                                "split_pair", "tree_step")}
+
+
+def objective_labels(X):
+    """A continuous label (a fixed linear combination of the features
+    plus seeded noise) and a 5-class one, its quintiles."""
+    rng = np.random.RandomState(11)
+    w = rng.normal(size=X.shape[1]).astype(np.float32)
+    yc = X.dot(w) + rng.normal(size=len(X)).astype(np.float32)
+    cuts = np.quantile(yc, [0.2, 0.4, 0.6, 0.8])
+    return yc.astype(np.float32), np.searchsorted(
+        cuts, yc, side="right").astype(np.float32)
+
+
+def relabeled(lgt, ds, X, label, rows=None):
+    """``ds`` (constructed) with another label, cut to its first ``rows``
+    rows when given: the same bins and mappers, no second binning."""
+    import copy as copy_mod
+    from lightgbm_tpu_torch.dataset import Metadata
+    inner = copy_mod.copy(ds._inner)
+    if rows is not None:
+        inner.binned, inner.num_data = inner.binned[:rows], rows
+        X, label = X[:rows], label[:rows]
+    inner.metadata = Metadata(inner.num_data)
+    inner.metadata.set_label(label)
+    out = lgt.Dataset(X, label=label)
+    out._inner = inner
+    return out
+
+
+def first_grads(name, params, y, init):
+    """(K, N) f64 gradients of the first iteration at the init scores."""
+    K = len(init)
+    if name == "quantile":
+        a = params["alpha"]
+        return (np.where(init[0] - y >= 0, 1.0 - a, -a)[None],
+                np.ones((1, len(y))))
+    Y = (np.arange(K)[:, None] == y[None]).astype(np.float64)
+    if name == "multiclass":
+        e = np.exp(np.asarray(init) - max(init))
+        p = (e / e.sum())[:, None] * np.ones(len(y))
+        return p - Y, K / (K - 1.0) * p * (1.0 - p)
+    p = 1.0 / (1.0 + np.exp(-np.asarray(init)))[:, None] * np.ones(len(y))
+    return p - Y, p * (1.0 - p)
+
+
+def tree_tie(ta, tb, X, g, h, what):
+    """The first split where host trees ``ta`` (the card's) and ``tb``
+    (the CPU's) partition the rows of ``X`` differently, checked to be a
+    tie at the CPU's f32 resolution: both choices' f64 gains from ``g`` /
+    ``h`` differ by less than the sum of their error bounds.  The card's
+    histograms are exact integers; the CPU sums f32 values, whose sum of
+    n terms is off by at most n 2^-24 times the sum of their magnitudes,
+    so a gain G^2 / H is off by at most 2 |G| / H eG + G^2 / H^2 eH (eG,
+    eH those bounds of G and H) -- gains closer than that the CPU cannot
+    part.  None when every split agrees, else (split, gain difference,
+    bound)."""
+    def sets(tree):
+        lv = tree.predict_leaf(X)
+        ns = tree.num_leaves - 1
+        lc, rc = tree.left_child[:ns], tree.right_child[:ns]
+
+        def below(c):
+            return {~c} if c < 0 else below(lc[c]) | below(rc[c])
+        return [(np.isin(lv, list(below(s))), np.isin(lv, list(below(lc[s]))))
+                for s in range(ns)]
+
+    def gain(rows, left):
+        total = err = 0.0
+        for sign, m in ((1, left), (1, rows & ~left), (-1, rows)):
+            n, sg, sh = int(m.sum()), g[m].sum(), h[m].sum()
+            if sh <= 0:
+                continue
+            eg, eh = (n * 2.0 ** -24 * np.abs(v[m]).sum() for v in (g, h))
+            total += sign * sg * sg / sh
+            err += 2 * abs(sg) / sh * eg + sg * sg / (sh * sh) * eh
+        return total, err
+
+    sa, sb = sets(ta), sets(tb)
+    for s in range(max(len(sa), len(sb))):
+        if s < min(len(sa), len(sb)) and np.array_equal(
+                sa[s][0], sb[s][0]) and np.array_equal(sa[s][1], sb[s][1]):
+            continue
+        (va, ea), (vb, eb) = (gain(*x[s]) if s < len(x) else (0.0, 0.0)
+                              for x in (sa, sb))
+        check(abs(va - vb) <= ea + eb,
+              f"{what}: split {s} partitions differently with f64 gains "
+              f"{va!r} and {vb!r}, further apart than the CPU's f32 sums' "
+              f"bound {ea + eb:.3g}")
+        return s, float(abs(va - vb)), float(ea + eb)
+    return None
+
+
+def objectives_path(lgt, mods, ds, X, params):
+    """Phase 4g: quantile (alpha 0.9, leaves renewed), multiclass (5
+    classes, the quintiles of a continuous label) and multiclassova on
+    the HIGGS rows and bins of ``ds``, beside binary on each body.  Per
+    run: the metric falls every iteration, one capture and one tree read
+    a tree, the body's kernels launched (counts set to 0 before the run),
+    save / reload / predict bit-identical ((100k, 5) for K classes), the
+    card's renewed leaf values bit-identical to the plain renewal of the
+    same inputs copied to the host, the first iteration's trees equal to
+    the CPU plain loop's on a 200,000-row cut (or their first difference
+    a tie at the CPU's f32 resolution, ``tree_tie``), with quantile's
+    renewed values equal and the card's class-tree leaf values -G / H of
+    their rows in f64 (rtol 1e-5); s/
+    iteration and device ms an iteration (torch.profiler), the renewal's
+    device ms a tree and the per-class gather and scatter's."""
+    from lightgbm_tpu_torch.models import boosting as bmod
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.time()
+    yc, yk = objective_labels(X)
+    labels = {"quantile": yc, "multiclass": yk, "multiclassova": yk}
+    renew = {"ms": [], "checked": 0}
+    real = bmod.renew_leaves
+    check_next = [False]
+
+    def renew_checked(*args):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real(*args)
+        e1.record()
+        if check_next[0]:
+            host = real(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                          for a in args))
+            check(torch.equal(out.cpu().view(torch.int32),
+                              host.view(torch.int32)),
+                  "quantile: the card's renewed leaf values differ from the "
+                  "plain renewal of the same inputs on the host")
+            renew["checked"] += 1
+            check_next[0] = False
+        torch.cuda.synchronize()
+        renew["ms"].append(e0.elapsed_time(e1))
+        return out
+    bmod.renew_leaves = renew_checked
+
+    def timed(bst, iters, losses=None):
+        times = []
+        for _ in range(iters):
+            t0 = time.time()
+            bst.update()
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+            if losses is not None:
+                losses.append(bst.eval_train()[0][2])
+        return times
+
+    def device_ms(bst):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            bst.update()
+            torch.cuda.synchronize()
+        return sum(ms for _, ms, _ in device_rows(prof))
+
+    out = {"binary": {}, "runs": {}}
+    for body in ("mega", "subtraction"):
+        b = lgt.Booster(dict(params, **BODIES[body]), ds)
+        times = timed(b, 4)
+        out["binary"][body] = (float(np.median(times[1:])), device_ms(b))
+        del b
+        torch.cuda.empty_cache()
+    Xp = X[:100_000].astype(np.float64)
+    cut = X[:OBJ_CUT]
+    for name, extra, iters, bodies in OBJ_RUNS:
+        y = labels[name]
+        d_name = relabeled(lgt, ds, X, y)
+        d_cut = relabeled(lgt, ds, X, y, OBJ_CUT)
+        for body in bodies:
+            p = dict(params, **extra, **BODIES[body])
+            bst = lgt.Booster(p, d_name)
+            g, lr = bst._gbdt, bst._gbdt.learner
+            K = g.num_tree_per_iteration
+            for m in mods.values():
+                m.launches = 0
+            check_next[0] = name == "quantile"
+            losses = []
+            times = timed(bst, iters, losses)
+            calls = {k: m.launches for k, m in mods.items()}
+            check(all(calls[k] > 0 for k in BODY_KERNELS[body]),
+                  f"{name} {body}: a kernel of the body was not launched: "
+                  f"{calls}")
+            check(lr.captures == 1 and lr.syncs == lr.replays == iters * K,
+                  f"{name} {body}: {lr.captures} captures, {lr.replays} "
+                  f"replays, {lr.syncs} tree reads for {iters * K} trees")
+            check(all(a > b_ for a, b_ in zip(losses, losses[1:])),
+                  f"{name} {body}: the training metric does not fall: "
+                  f"{losses}")
+            med = float(np.median(times[1:]))
+            dev = device_ms(bst)
+            raw = bst.predict(Xp, raw_score=True)
+            check(raw.shape == ((len(Xp), K) if K > 1 else (len(Xp),))
+                  and np.isfinite(raw).all(),
+                  f"{name} {body}: raw predictions of shape {raw.shape}")
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "m.txt")
+                bst.save_model(path)
+                again = lgt.Booster(model_file=path)
+                check(np.array_equal(again.predict(Xp, raw_score=True), raw)
+                      and np.array_equal(again.predict(Xp),
+                                         bst.predict(Xp)),
+                      f"{name} {body}: the reloaded model predicts other "
+                      f"scores")
+            run = {"iter_s": med, "iter_all": times, "device_ms": dev,
+                   "losses": losses, "trees": [t.num_leaves for t in
+                                               g.models[:K]]}
+            if K > 1:
+                # one class tree's gather of grad and hess into the
+                # payload and scatter of its leaf values into its scores
+                pb_, ghi = g._phys
+                C, N = lr.row0, g.num_data
+                gk = g._class_scores[0].clone()
+                scores = g._class_scores.clone()
+                rowid = ghi[2, C:C + N].view(torch.int32).long()
+                delta = g._row_deltas()
+                run["gather_ms"] = cuda_ms(lambda: (
+                    bmod.rows_to_phys(ghi, gk, N),
+                    bmod.rows_to_phys(ghi, gk, N)), 10)
+
+                def scatter():
+                    scores[0, rowid] += delta
+                run["scatter_ms"] = cuda_ms(scatter, 10)
+                run["grad_ms"] = cuda_ms(
+                    lambda: g.objective.class_gradients(scores), 10)
+                del pb_, ghi, gk, scores, rowid, delta
+            # the first iteration on the card and on the CPU, on the cut
+            cut_p = dict(p, verbosity=-1)
+            firsts = []
+            for dev_kw in ({}, {"device_type": "cpu"}):
+                cb = lgt.Booster(dict(cut_p, **dev_kw), d_cut)
+                cb.update()
+                firsts.append(cb._gbdt)
+            gc_, gcpu = firsts
+            ties = []
+            init = gc_.init_scores
+            gg, hh = first_grads(name, extra, y[:OBJ_CUT].astype(np.float64),
+                                 init)
+            cut64 = cut.astype(np.float64)
+            for k in range(K):
+                ta, tb = gc_.models[k], gcpu.models[k]
+                s = tree_tie(ta, tb, cut64, gg[k], hh[k],
+                             f"{name} {body} card vs CPU class tree {k}")
+                if s is not None:
+                    ties.append((k,) + s)
+                    continue
+                if name == "quantile":
+                    # renewed: percentiles of the same residuals
+                    check(np.array_equal(ta.leaf_value, tb.leaf_value),
+                          f"{name} {body}: card and CPU renewed leaf values "
+                          f"differ")
+                    continue
+                # the card's exact sums against f64 ones of the leaves'
+                # rows (the CPU's f32 subtraction chain is not held here)
+                leaf = ta.predict_leaf(cut64)
+                G = np.bincount(leaf, gg[k], ta.num_leaves)
+                H = np.bincount(leaf, hh[k], ta.num_leaves)
+                want = init[k] - params["learning_rate"] * G / H
+                check(np.allclose(ta.leaf_value, want, rtol=1e-5, atol=1e-6),
+                      f"{name} {body}: the card's class tree {k} leaf values "
+                      f"differ from -G / H of their rows by "
+                      f"{np.abs(ta.leaf_value - want).max()!r}")
+            run["card_vs_cpu_ties"] = ties
+            del firsts, gc_, gcpu
+            out["runs"][f"{name} {body}"] = run
+            bin_s, bin_dev = out["binary"][body]
+            say(f"objective {name} {body} (K={lr.K}): s/iteration "
+                f"{[round(t, 4) for t in times]} (median of 2-{iters} "
+                f"{med:.4f}, binary {bin_s:.4f}); device ms an iteration "
+                f"{dev:.2f} (binary {bin_dev:.2f}); {iters * K} trees, one "
+                f"capture, one tree read a tree; metric {losses}; the "
+                f"first iteration's trees partition the rows as the CPU's "
+                f"on {OBJ_CUT} rows" + (f" up to ties at the CPU's f32 resolution "
+                           f"(class tree, split, gain difference, bound) "
+                           f"{ties}" if ties else "")
+                + ("; gather {:.4f} ms (grad and hess), scatter {:.4f} ms, "
+                   "gradients {:.3f} ms an iteration".format(
+                       run["gather_ms"], run["scatter_ms"], run["grad_ms"])
+                   if K > 1 else ""))
+            del bst, g, lr
+            torch.cuda.empty_cache()
+        del d_name, d_cut
+    bmod.renew_leaves = real
+    check(renew["checked"] == 2, f"quantile: {renew['checked']} renewal "
+                                 f"checks")
+    out["renew_ms"] = float(np.median(renew["ms"]))
+    out["renew_all"] = renew["ms"]
+    say(f"objectives (phase 4g): the renewal {out['renew_ms']:.3f} ms a "
+        f"tree at {ROWS} rows (median of {len(renew['ms'])}; bit-identical "
+        f"to the plain renewal on the host on the first tree of each "
+        f"body); {time.time() - t_phase:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -2721,6 +3043,8 @@ def main():
     regression_ties(lgt)
     # ---- 4d. row and feature sampling at the HIGGS shape --------------
     samp = sampling_path(lgt, mods, ds, params)
+    # ---- 4g. the other objectives and multiclass ------------------------
+    objs = objectives_path(lgt, mods, ds, X, params)
     del X, y, ds
     gc.collect()
     torch.cuda.empty_cache()
@@ -3036,6 +3360,10 @@ def main():
           f"under the profiler; device ms an iteration {cat['device_ms']:.2f} "
           f"against {efb['device_ms']:.2f}; split_cat "
           f"{cat['per']['split_cat'][0]:.3f} ms an iteration", flush=True)
+    print(f"objectives (phase 4g, {card}): " + json.dumps(
+        {"binary": objs["binary"], "renew_ms": objs["renew_ms"],
+         "runs": {k: {n: v for n, v in r.items() if n != "iter_all"}
+                  for k, r in objs["runs"].items()}}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": [
         row("split_mega", "split_mega.cu",

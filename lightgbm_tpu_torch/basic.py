@@ -258,9 +258,11 @@ class Booster:
     def update(self, train_set: Optional[Dataset] = None, fobj=None) -> bool:
         """One boosting iteration; True when no further split was possible.
         ``fobj(scores, train_set) -> (grad, hess)`` sees the train scores
-        in original row order."""
+        in original row order, (N, K) for K classes, and returns (N, K)
+        or N * K class-major values."""
         if fobj is not None:
-            grad, hess = fobj(self._gbdt.scores.cpu().numpy(), self.train_set)
+            grad, hess = fobj(self._gbdt.scores.cpu().numpy().copy(),
+                              self.train_set)
             return self.boost(grad, hess)
         return self._gbdt.train_one_iter()
 
@@ -312,11 +314,12 @@ class Booster:
 
     def _custom_eval(self, feval, dataset_name, train=False, valid_index=0):
         """``feval(scores, dataset)`` -> (name, value, is_higher_better) or
-        a list of them, on raw scores in original row order."""
+        a list of them, on raw scores in original row order, (N, K) for K
+        classes."""
         if train:
             score, dataset = self._gbdt.scores, self.train_set
         else:
-            score = self._gbdt.valid_scores[valid_index]
+            score = self._gbdt.valid_score(valid_index)
             dataset = self._valid_sets[valid_index]
         score = score.cpu().numpy().copy()
         out = []
@@ -377,11 +380,13 @@ class Booster:
         infos = ([bm.feature_info() for bm in g.train_data.bin_mappers]
                  if g.train_data is not None else [])
         lines.append("feature_infos=" + " ".join(infos))
+        # iterations of K class trees, class-major
+        K = g.num_tree_per_iteration
         total = len(g.models)
         end = total if num_iteration < 0 else min(
-            total, start_iteration + num_iteration)
-        tree_strs = [g.models[i].to_string(i - start_iteration)
-                     for i in range(start_iteration, end)]
+            total, (start_iteration + num_iteration) * K)
+        tree_strs = [g.models[i].to_string(i - start_iteration * K)
+                     for i in range(start_iteration * K, end)]
         lines.append("tree_sizes=" + " ".join(str(len(s) + 1)
                                               for s in tree_strs))
         lines.append("")
@@ -434,20 +439,26 @@ class Booster:
         saved["objective"] = header.get(
             "objective", saved.get("objective", "regression")).split(" ")[0]
         saved["num_class"] = int(header.get("num_class", 1))
-        if int(header.get("num_tree_per_iteration", 1)) != 1 or \
-                "average_output" in header:
+        if "average_output" in header:
             raise NotImplementedError(
-                "lightgbm_tpu_torch loads single-output GBDT models only")
+                "lightgbm_tpu_torch loads GBDT models only, not random "
+                "forests (average_output)")
         device = self.config.torch_device()
         saved.update({k: v for k, v in self.params.items()
                       if Config.canonical_name(k) == "device_type"})
         self.config = Config(saved)
         g = GBDT(self.config, None, create_objective(self.config), device)
+        K = int(header.get("num_tree_per_iteration", 1))
+        if K != g.num_tree_per_iteration:
+            raise LightGBMError(
+                f"num_tree_per_iteration={K} does not fit objective="
+                f"{header.get('objective')!r} and num_class="
+                f"{saved['num_class']}")
         g.label_idx = int(header.get("label_index", 0))
         g.max_feature_idx = int(header.get("max_feature_idx", 0))
         g.feature_names = header.get("feature_names", "").split()
         for blk in text.split("Tree=")[1:]:
             g.models.append(Tree.from_string(
                 "Tree=" + blk.split("end of trees")[0]))
-        g.iter = len(g.models)
+        g.iter = len(g.models) // K
         self._gbdt = g

@@ -641,13 +641,27 @@ def _off(v) -> bool:
         "", "none", "off", "0", "false")
 
 
+_PORTED_OBJECTIVES = (
+    "regression", "regression_l1", "huber", "fair", "poisson", "quantile",
+    "mape", "gamma", "tweedie", "binary", "multiclass", "multiclassova",
+    "cross_entropy", "cross_entropy_lambda", "none")
+MULTICLASS_OBJECTIVES = ("multiclass", "multiclassova")
+# the objectives whose leaves are renewed after the tree
+RENEW_OBJECTIVES = ("regression_l1", "quantile", "mape")
+
+
 # Params whose non-default values select a path this port does not have
 # yet: (param, predicate on the resolved Config that is True when the
-# value is unsupported).  Every entry raises NotImplementedError naming
-# the param; nothing silently takes another path.
+# value is unsupported[, what it is refused with]).  Every entry raises
+# NotImplementedError naming the param; nothing silently takes another
+# path.
 _UNSUPPORTED = [
-    ("objective", lambda c: c.objective not in ("binary", "regression",
-                                                "none")),
+    ("objective", lambda c: c.objective not in _PORTED_OBJECTIVES),
+    # GOSS keeps rows by |grad * hess| of the tree's own draw, which the
+    # renewal after the tree cannot recover from the payload (the JAX
+    # package renews through its eager iteration there)
+    ("data_sample_strategy", lambda c: c.data_sample_strategy == "goss"
+     and c.objective in RENEW_OBJECTIVES, "objective"),
     ("boosting", lambda c: c.boosting != "gbdt"),
     ("data_sample_strategy", lambda c: c.data_sample_strategy
      not in ("bagging", "goss")),
@@ -671,7 +685,13 @@ _UNSUPPORTED = [
              str(c.feature_contri).replace(" ", "").split(",") if v)),
     ("use_quantized_grad", lambda c: bool(c.use_quantized_grad)),
     ("tree_learner", lambda c: c.tree_learner != "serial"),
-    ("num_class", lambda c: c.num_class != 1),
+    # reference: config.cpp CheckParamConflict -- one class but for the
+    # multiclass objectives, which need two or more (a custom objective,
+    # ``none``, takes any)
+    ("num_class", lambda c: (c.num_class < 2) if c.objective
+     in MULTICLASS_OBJECTIVES else (c.num_class != 1
+                                    and c.objective != "none"),
+     "objective"),
     ("max_bin", lambda c: c.max_bin > 256),
     ("max_bin_by_feature", lambda c: not _off(c.max_bin_by_feature) and any(
         int(v) > 256 for v in str(c.max_bin_by_feature).split(",") if v)),
@@ -820,11 +840,13 @@ class Config:
     def check_supported(self) -> None:
         """Raise NotImplementedError naming the first param whose value
         selects a path this port does not have."""
-        for name, bad in _UNSUPPORTED:
+        for name, bad, *also in _UNSUPPORTED:
             if bad(self):
+                what = "".join(f" with {a}={getattr(self, a)!r}"
+                               for a in also)
                 raise NotImplementedError(
                     f"lightgbm_tpu_torch does not support "
-                    f"{name}={getattr(self, name)!r} yet")
+                    f"{name}={getattr(self, name)!r}{what} yet")
 
     def torch_device(self):
         """The ``torch.device`` this config trains and predicts on:

@@ -12,6 +12,20 @@ objective's ``payload_fields``, zero-padded to 8; row 7 carries the
 frontier's row keys during a tree (ops/frontier.py ``KEY_ROW``) and is
 zero between trees.
 
+The L1-family objectives renew each leaf's value after the tree
+(models/renew.py), on the device before the tree's one host read, so the
+model text, the train scores and the validation scores carry the renewed
+values.
+
+Multiclass (``num_class`` = K > 1) grows K trees an iteration.  The
+class scores stay out of the payload: a (K, N) f32 buffer in original
+row order holds them, all K classes' gradients come from it once an
+iteration, each class tree gathers its class's grad and hess into
+payload rows 0 and 1 through the row ids of row 2, and its shrunk leaf
+values go back into its score row through the same ids -- so any K runs
+through the same captured tree loop, the frontier included.  One feature
+mask and one bag serve the K trees of an iteration.
+
 Host-side per-row data crosses into the physical order through the row
 ids of payload row 2 (``rows_to_phys``, the inverse of
 ``scores_from_phys``): a custom objective's gradients
@@ -46,6 +60,7 @@ from ..utils import random as jrandom
 from .learner import SerialTreeLearner
 from .metric import create_metrics
 from .objective import ObjectiveFunction
+from .renew import renew_leaves
 from .tree import Tree, tree_from_device_record
 
 K_EPSILON = 1e-15
@@ -74,7 +89,8 @@ def rows_to_phys(ghi: torch.Tensor, values: torch.Tensor,
 
 def host_rows(values, num_data: int, device) -> torch.Tensor:
     """(num_data,) f32 on ``device`` from host rows (or a tensor); the
-    copy to the card is pinned and asynchronous, so no sync."""
+    copy to the card is pinned and asynchronous, so no sync.
+    ``num_data`` counts every value: N * K for K classes."""
     if isinstance(values, torch.Tensor):
         t = values.to(device=device, dtype=torch.float32).reshape(-1)
     else:
@@ -98,19 +114,23 @@ class GBDT:
         self.models: List[Tree] = []
         self.iter = 0
         self.shrinkage_rate = float(config.learning_rate)
-        self.num_tree_per_iteration = 1
-        self.num_class = 1
-        self.init_scores = [0.0]
+        self.num_class = max(int(config.num_class), 1)
+        self.num_tree_per_iteration = K = (
+            objective.num_model_per_iteration if objective is not None
+            else self.num_class)
+        self.init_scores = [0.0] * K
         self.max_feature_idx = 0
         self.feature_names: List[str] = []
         self.label_idx = 0
         self.train_metrics = []
         # (dataset, metrics, (N_valid, G) uint8 bins on the device)
         self.valid_sets: List[Tuple[BinnedDataset, list, torch.Tensor]] = []
+        # (N_valid,) scores, (K, N_valid) for K classes
         self.valid_scores: List[torch.Tensor] = []
         self._continued = False        # set by continue_from
         self._phys: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-        self._scores: Optional[torch.Tensor] = None
+        # K > 1: the (K, N) class scores in original row order
+        self._class_scores: Optional[torch.Tensor] = None
         if train_data is not None:
             self._setup_training(train_data)
 
@@ -128,18 +148,23 @@ class GBDT:
         self.train_metrics = create_metrics(cfg, obj.name if obj else None)
         for m in self.train_metrics:
             m.init(train_data.metadata, dev)
+        K = self.num_tree_per_iteration
         md = train_data.metadata
         if md.init_score is not None:
-            scores = torch.as_tensor(md.init_score, dtype=torch.float32,
-                                     device=dev)
+            # K classes: N * K values, class-major as the JAX package
+            # reads them
+            scores = host_rows(md.init_score, N * K, dev).reshape(K, N)
         else:
-            scores = torch.zeros(N, dtype=torch.float32, device=dev)
+            scores = torch.zeros((K, N), dtype=torch.float32, device=dev)
             if obj is not None and cfg.boost_from_average:
-                s = obj.boost_from_score(0)
-                if abs(s) > K_EPSILON:
-                    self.init_scores[0] = s
-                    scores = scores + s
-                    log.info("Start training from score %f", s)
+                for k in range(K):
+                    s = obj.boost_from_score(k)
+                    if abs(s) > K_EPSILON:
+                        self.init_scores[k] = s
+                        scores[k] = scores[k] + s
+                        log.info("Start training from score %f", s)
+        if K > 1:
+            self._class_scores = scores
         # the physical carrier adopts the learner's master bin buffer: the
         # partition permutes it in place, iteration after iteration
         lr = self.learner
@@ -148,7 +173,8 @@ class GBDT:
         iota = torch.arange(Npad, device=dev, dtype=torch.int32)
         rowid = torch.where((iota >= C) & (iota < C + N), iota - C, N)
         ghi[2] = rowid.to(torch.int32).view(torch.float32)
-        ghi[3, C:C + N] = scores
+        if K == 1:
+            ghi[3, C:C + N] = scores[0]
         payload = obj.payload() if obj is not None else []
         self._payload_names = [n for n, _ in payload]
         if lr.K > 1 and 4 + len(self._payload_names) > KEY_ROW:
@@ -160,6 +186,15 @@ class GBDT:
         self._phys = (lr.part0, ghi)
         lr.part0 = None
         self._setup_sampling(train_data)
+        # (GOSS with a renewing objective is refused by the config)
+        self._renew_alpha = obj.renew_leaf_alpha if obj is not None else None
+        # K classes bag as the JAX package's fused multiclass program
+        # draws (boosting.py _setup_fused_multiclass: one uniform draw by
+        # row id, as the binary one); GOSS, balanced bagging and custom
+        # objectives as its eager iteration draws, which they take there
+        self._class_fused_draw = (K > 1 and obj is not None
+                                  and not self.goss
+                                  and not self.balanced_bagging)
 
     def _setup_sampling(self, train_data: BinnedDataset) -> None:
         """Row and feature sampling as the JAX package sets it up
@@ -205,14 +240,18 @@ class GBDT:
     # -- train scores in original row order ------------------------------
     @property
     def scores(self) -> torch.Tensor:
-        if self._phys is not None:
-            return scores_from_phys(self._phys[1], self.num_data)
-        return self._scores
+        """(N,) train scores, (N, K) for K classes (a view)."""
+        if self._class_scores is not None:
+            return self._class_scores.T
+        return scores_from_phys(self._phys[1], self.num_data)
 
     def train_one_iter(self, grad=None, hess=None) -> bool:
         """One fused iteration; returns True when the tree is a stump
         (no split met the requirements).  ``grad`` / ``hess`` (a custom
-        objective's, in original row order) replace the objective's."""
+        objective's, in original row order; for K classes (N, K), or N *
+        K values class-major) replace the objective's."""
+        if self.num_tree_per_iteration > 1:
+            return self._train_classes(grad, hess)
         pb, ghi = self._phys
         lr = self.learner
         N = self.num_data
@@ -235,26 +274,123 @@ class GBDT:
         if not np.array_equal(mask, self._fmask_set):
             lr.set_feature_mask(mask)
             self._fmask_set = mask
-        rec = lr.build_tree(pb, ghi)
+        renew = (self._renew_alpha is not None and grad is None
+                 and hess is None)
+        rec = lr.build_tree(pb, ghi, (lambda: self._renew(ghi)) if renew
+                            else None)
         num_nodes = int(rec["s"])
         self._add_leaf_values(ghi)
         if self.valid_sets:
             self._add_valid_values(rec)
-        tree = tree_from_device_record(rec, num_nodes,
-                                       self.train_data.bin_mappers,
-                                       shrinkage=self.shrinkage_rate)
-        if not self.models and abs(self.init_scores[0]) > K_EPSILON:
-            if num_nodes > 0:
-                tree.leaf_value = tree.leaf_value + self.init_scores[0]
-                tree.internal_value = tree.internal_value + self.init_scores[0]
-            else:
-                tree.leaf_value = np.asarray([self.init_scores[0]])
-        self.models.append(tree)
+        self._append_tree(rec, num_nodes, 0)
         self.iter += 1
         if num_nodes == 0:
             log.warning("Stopped training because there are no more leaves "
                         "that meet the split requirements")
         return num_nodes == 0
+
+    def _append_tree(self, rec, num_nodes: int, k: int) -> None:
+        """The host tree of record ``rec`` into the model list, the
+        class's boost-from-average folded into its first tree."""
+        tree = tree_from_device_record(rec, num_nodes,
+                                       self.train_data.bin_mappers,
+                                       shrinkage=self.shrinkage_rate)
+        init = self.init_scores[k]
+        if len(self.models) < self.num_tree_per_iteration and \
+                abs(init) > K_EPSILON:
+            if num_nodes > 0:
+                tree.leaf_value = tree.leaf_value + init
+                tree.internal_value = tree.internal_value + init
+            else:
+                tree.leaf_value = np.asarray([init])
+        self.models.append(tree)
+
+    def _train_classes(self, grad, hess) -> bool:
+        """One iteration of K class trees: all K classes' gradients from
+        the (K, N) scores before it (or the custom objective's), one bag
+        and one feature mask for the K trees, each class's grad and hess
+        gathered into payload rows 0 and 1, and its shrunk leaf values
+        scattered back into its score row (JAX boosting.py
+        ``_setup_fused_multiclass`` and the eager iteration's class
+        loop)."""
+        pb, ghi = self._phys
+        lr, N, K = self.learner, self.num_data, self.num_tree_per_iteration
+        fused_draw = self._class_fused_draw and grad is None
+        if grad is None or hess is None:
+            if self.objective is None:
+                raise ValueError("objective=none needs gradients: pass fobj "
+                                 "to Booster.update or grad and hess")
+            g, h = self.objective.class_gradients(self._class_scores)
+        else:
+            g, h = (self._class_rows(v) for v in (grad, hess))
+        if not fused_draw:
+            g, h = self._sample_eager(g, h)
+        mask = self._feature_mask()
+        if not np.array_equal(mask, self._fmask_set):
+            lr.set_feature_mask(mask)
+            self._fmask_set = mask
+        stop = True
+        C = lr.row0
+        for k in range(K):
+            ghi[0] = rows_to_phys(ghi, g[k], N)
+            ghi[1] = rows_to_phys(ghi, h[k], N)
+            if fused_draw:
+                self._sample_fused(ghi)
+            rec = lr.build_tree(pb, ghi)
+            num_nodes = int(rec["s"])
+            stop = stop and num_nodes == 0
+            rowid = ghi[2, C:C + N].view(torch.int32).long()
+            self._class_scores[k, rowid] += self._row_deltas()
+            if self.valid_sets:
+                self._add_valid_values(rec, k)
+            self._append_tree(rec, num_nodes, k)
+        self.iter += 1
+        if stop:
+            log.warning("Stopped training because there are no more leaves "
+                        "that meet the split requirements")
+        return stop
+
+    def _class_rows(self, values) -> torch.Tensor:
+        """A custom objective's (N, K) values, or N * K class-major, as
+        (K, N) on the device."""
+        N, K = self.num_data, self.num_tree_per_iteration
+        if np.ndim(values) == 2:
+            values = (values.T.contiguous() if isinstance(values, torch.Tensor)
+                      else np.asarray(values, np.float32).T.copy())
+        return host_rows(values, N * K, self.device).reshape(K, N)
+
+    def _renew(self, ghi) -> None:
+        """Renew the tree's leaf values in leafmat on the device, before
+        its host read (see models/renew.py): the percentile of label -
+        score over each leaf's in-bag rows, the payload's rows after the
+        partition."""
+        lr, N = self.learner, self.num_data
+        C = lr.row0
+        names = self._payload_names
+        label = ghi[4 + names.index("label"), C:C + N]
+        weight = (ghi[4 + names.index("weight"), C:C + N]
+                  if "weight" in names else None)
+        w = self.objective.renew_weights_from_payload(label, weight)
+        lm = lr.leafmat[:, :lr.L]
+        lm[LM_VALUE] = renew_leaves(
+            lm[LM_START].view(torch.int32) - C, lm[LM_CNT].view(torch.int32),
+            lm[LM_VALUE], label - ghi[3, C:C + N],
+            self._in_bag(ghi[:, C:C + N]), w, self._renew_alpha)
+
+    def _in_bag(self, ghi) -> torch.Tensor:
+        """(N,) bool: the rows of the iteration's bag, by the fused draw
+        at each row's id (``_sample_fused``)."""
+        N = self.num_data
+        if not self.need_bagging:
+            return torch.ones(ghi.shape[1], dtype=torch.bool,
+                              device=ghi.device)
+        key = jrandom.fold_in(self._bag_key, self.iter // self._bag_freq)
+        u = jrandom.torch_uniform_at(key, ghi[2].view(torch.int32).long())
+        if self.balanced_bagging:
+            return torch.where(ghi[self._sign_row] > 0,
+                               u < np.float32(self._pos_frac),
+                               u < np.float32(self._neg_frac))
+        return u < np.float32(self._bag_frac)
 
     # -- sampling ----------------------------------------------------------
     def _sample_fused(self, ghi) -> None:
@@ -302,6 +438,8 @@ class GBDT:
             top_k = max(int(N * cfg.top_rate), 1)
             other_k = max(int(N * cfg.other_rate), 1)
             imp = (grad * hess).abs()
+            if imp.dim() == 2:      # K classes: the sum over the classes
+                imp = imp.sum(0)
             thr = torch.topk(imp, top_k, sorted=False).values.min()
             top = imp >= thr
             self.bag_rng, sub = jrandom.split(self.bag_rng)
@@ -355,29 +493,33 @@ class GBDT:
 
     def _add_leaf_values(self, ghi) -> None:
         """Add each leaf's shrunk value to its contiguous physical row
-        range, from the tree the learner keeps on the device (no host
-        sync): the L leafmat columns in the order of their starts, each
-        value repeated over its count (columns of no leaf have count 0)."""
+        range (the score row)."""
+        lr = self.learner
+        ghi[3, lr.row0:lr.row0 + self.num_data] += self._row_deltas()
+
+    def _row_deltas(self) -> torch.Tensor:
+        """(N,) the shrunk value of each physical row's leaf, from the
+        tree the learner keeps on the device (no host sync): the L leafmat
+        columns in the order of their starts, each value repeated over its
+        count (columns of no leaf have count 0)."""
         lr = self.learner
         lm = lr.leafmat[:, :lr.L]
         starts = lm[LM_START].view(torch.int32)
         order = torch.argsort(starts, stable=True)
         cnts = lm[LM_CNT].view(torch.int32)[order].long()
-        N = self.num_data
-        delta = torch.repeat_interleave(self._leaf_deltas()[order], cnts,
-                                        output_size=N)
-        ghi[3, lr.row0:lr.row0 + N] += delta
+        return torch.repeat_interleave(self._leaf_deltas()[order], cnts,
+                                       output_size=self.num_data)
 
     def _leaf_deltas(self) -> torch.Tensor:
         """The tree's f32 shrunk leaf values, on the device."""
         lr = self.learner
         return lr.leafmat[LM_VALUE, :lr.L] * self.shrinkage_rate
 
-    def _add_valid_values(self, rec) -> None:
-        """Each validation set's scores += the f32 shrunk value of the
-        leaf its rows reach (JAX boosting.py _materialize_pending), by a
-        traversal of the node arrays of the tree's host record; nothing
-        is read back."""
+    def _add_valid_values(self, rec, k: int = 0) -> None:
+        """Each validation set's scores (class ``k``'s row for K classes)
+        += the f32 shrunk value of the leaf its rows reach (JAX
+        boosting.py _materialize_pending), by a traversal of the node
+        arrays of the tree's host record; nothing is read back."""
         node = self.learner.node_arrays_for_predict(rec)
         depth = tree_depth(node["left"], node["right"])
         packed = (pack_binned_nodes(node, self.device)
@@ -385,7 +527,10 @@ class GBDT:
         delta = self._leaf_deltas()
         for vi, (_, _, binned) in enumerate(self.valid_sets):
             leaf = predict_leaf_binned(binned, node, depth, packed)
-            self.valid_scores[vi] += delta[leaf]
+            if self.num_tree_per_iteration > 1:
+                self.valid_scores[vi][k] += delta[leaf]
+            else:
+                self.valid_scores[vi] += delta[leaf]
 
     def add_valid_data(self, valid_data: BinnedDataset,
                        extra_score=None) -> None:
@@ -397,23 +542,26 @@ class GBDT:
             self.config, self.objective.name if self.objective else None)
         for m in metrics:
             m.init(valid_data.metadata, dev)
-        n = valid_data.num_data
+        n, K = valid_data.num_data, self.num_tree_per_iteration
         md = valid_data.metadata
         if md.init_score is not None:
-            score = host_rows(md.init_score, n, dev)
+            score = host_rows(md.init_score, n * K, dev).reshape(K, n)
         else:
-            score = torch.zeros(n, dtype=torch.float32, device=dev)
-            if abs(self.init_scores[0]) > K_EPSILON:
-                score = score + self.init_scores[0]
+            score = torch.zeros((K, n), dtype=torch.float32, device=dev)
+            for k in range(K):
+                if abs(self.init_scores[k]) > K_EPSILON:
+                    score[k] = score[k] + self.init_scores[k]
         if extra_score is not None:
-            score = score + host_rows(extra_score, n, dev)
+            # the init model's raw prediction, (n,) or (n, K)
+            extra = np.asarray(extra_score, np.float32).reshape(n, K).T
+            score = score + host_rows(extra.copy(), n * K, dev).reshape(K, n)
         elif self._continued:
             raise ValueError("validation sets added to a continued booster "
                              "need the init model's predictions "
                              "(Booster.add_valid computes them)")
         binned = torch.as_tensor(valid_data.binned, device=dev)
         self.valid_sets.append((valid_data, metrics, binned))
-        self.valid_scores.append(score)
+        self.valid_scores.append(score[0] if K == 1 else score)
 
     def continue_from(self, trees, train_pred) -> None:
         """Continued training from a loaded model (JAX boosting.py
@@ -423,31 +571,40 @@ class GBDT:
         row order), written into the physical score row."""
         if self.models:
             raise ValueError("continue_from requires a fresh booster")
+        N, K = self.num_data, self.num_tree_per_iteration
         self.models = [copy.deepcopy(t) for t in trees]
-        self.iter = len(self.models)
+        self.iter = len(self.models) // K
         self._continued = True
-        # the loaded model's boost-from-average sits in its first tree
-        self.init_scores = [0.0]
+        # the loaded model's boost-from-average sits in its first trees
+        self.init_scores = [0.0] * K
         md = self.train_data.metadata
-        base = (np.zeros(self.num_data, np.float32) if md.init_score is None
-                else np.asarray(md.init_score, np.float32))
-        scores = base + np.asarray(train_pred, np.float32).reshape(-1)
+        base = (np.zeros((K, N), np.float32) if md.init_score is None
+                else np.asarray(md.init_score, np.float32).reshape(K, N))
+        pred = np.asarray(train_pred, np.float32).reshape(N, K).T
+        scores = host_rows(base + pred, N * K, self.device).reshape(K, N)
+        if K > 1:
+            self._class_scores = scores
+            return
         ghi = self._phys[1]
-        ghi[3] = rows_to_phys(ghi, host_rows(scores, self.num_data,
-                                             self.device), self.num_data)
+        ghi[3] = rows_to_phys(ghi, scores[0], N)
 
     def eval_train(self) -> List[Tuple[str, float, bool]]:
         sc = self.scores
         return [(name, val, m.is_max_better) for m in self.train_metrics
                 for name, val in m.eval(sc, self.objective)]
 
+    def valid_score(self, vi: int) -> torch.Tensor:
+        """Validation set ``vi``'s (n,) scores, (n, K) for K classes."""
+        sc = self.valid_scores[vi]
+        return sc.T if self.num_tree_per_iteration > 1 else sc
+
     def eval_valid(self, vi: int = 0) -> List[Tuple[str, float, bool]]:
         if vi >= len(self.valid_sets):
             return []
         _, metrics, _ = self.valid_sets[vi]
+        sc = self.valid_score(vi)
         return [(name, val, m.is_max_better) for m in metrics
-                for name, val in m.eval(self.valid_scores[vi],
-                                        self.objective)]
+                for name, val in m.eval(sc, self.objective)]
 
     def num_trees(self) -> int:
         return len(self.models)
@@ -460,13 +617,16 @@ class GBDT:
     def _leaves(self, data: np.ndarray, start_iteration: int,
                 num_iteration: int):
         """The trees of iterations [start, start + num) (all from start
-        when num <= 0) and each one's (n,) leaf index on the device, every
-        tree walked in threshold-index space."""
+        when num <= 0), K a class-major iteration, and each one's (n,)
+        leaf index on the device, every tree walked in threshold-index
+        space."""
         data = np.asarray(data, dtype=np.float64)
-        total = len(self.models)
+        K = self.num_tree_per_iteration
+        total = len(self.models) // K
         end = total if num_iteration <= 0 else min(
             total, start_iteration + num_iteration)
-        trees = self.models[start_iteration:max(end, start_iteration)]
+        trees = self.models[start_iteration * K:max(end, start_iteration)
+                            * K]
         tix = ThresholdIndex(trees)
         packed = tix.pack_values(data, self.device)
         cats = (tix.pack_categories(data, self.device)
@@ -476,15 +636,18 @@ class GBDT:
 
     def predict_raw(self, data: np.ndarray, start_iteration: int = 0,
                     num_iteration: int = -1) -> np.ndarray:
-        """Raw scores (f64 sums of the trees' leaf values) on the device."""
-        out = torch.zeros(np.shape(data)[0], dtype=torch.float64,
+        """Raw scores (f64 sums of the trees' leaf values) on the device:
+        (n,), or (n, K) for K classes."""
+        K = self.num_tree_per_iteration
+        out = torch.zeros((np.shape(data)[0], K), dtype=torch.float64,
                           device=self.device)
-        for tree, leaf in zip(*self._leaves(data, start_iteration,
-                                            num_iteration)):
+        trees, leaves = self._leaves(data, start_iteration, num_iteration)
+        for i, (tree, leaf) in enumerate(zip(trees, leaves)):
             lv = torch.as_tensor(tree.leaf_value, dtype=torch.float64,
                                  device=self.device)
-            out += lv[leaf]
-        return out.cpu().numpy()
+            out[:, i % K] += lv[leaf]
+        out = out.cpu().numpy()
+        return out[:, 0] if K == 1 else out
 
     def predict_leaf_index(self, data: np.ndarray, start_iteration: int = 0,
                            num_iteration: int = -1) -> np.ndarray:

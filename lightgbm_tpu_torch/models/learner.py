@@ -107,7 +107,7 @@ hold the device loop to.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -602,22 +602,29 @@ class SerialTreeLearner:
         self._graph.replay()
         self.replays += 1
 
-    def build_tree(self, part_bins: torch.Tensor,
-                   part_ghi: torch.Tensor) -> Dict[str, Any]:
+    def build_tree(self, part_bins: torch.Tensor, part_ghi: torch.Tensor,
+                   before_read: Optional[Callable[[], None]] = None
+                   ) -> Dict[str, Any]:
         """Grow one tree over the payload in ``part_ghi`` (rows 0/1 hold
         this iteration's grad/hess), partitioning both buffers in place,
         with the tree loop on the device (see module doc).  The bag-aware
         row count is the device word ``bag`` (the sampling pass writes
-        it).  Returns the host record of ``_unpack_state``; ``leafmat``
-        keeps the tree on the device."""
+        it).  ``before_read`` runs device work on the finished tree (the
+        leaf renewal rewrites leafmat's values) before its host read.
+        Returns the host record of ``_unpack_state``; ``leafmat`` keeps
+        the tree on the device."""
         if self.device.type == "cuda":
             self._replay(part_bins, part_ghi)
+            if before_read is not None:
+                before_read()
             self._host.copy_(self._tree_dev, non_blocking=True)
             self._done.record()
             self._done.synchronize()
             host = self._host.numpy().copy()
         else:
             self._loop(part_bins, part_ghi)
+            if before_read is not None:
+                before_read()
             host = self._tree_dev.numpy().copy()
         self.syncs += 1
         L, nodes, K = self.L, self.max_splits, self.K
@@ -708,12 +715,15 @@ class SerialTreeLearner:
         return nl, torch.cat([hl_g, hr_g]), torch.cat([hl_h, hr_h])
 
     def build_tree_eager(self, part_bins: torch.Tensor,
-                         part_ghi: torch.Tensor) -> Dict[str, Any]:
+                         part_ghi: torch.Tensor,
+                         before_read: Optional[Callable[[], None]] = None
+                         ) -> Dict[str, Any]:
         """The oracle of ``build_tree``: the same tree, grown by an eager
         Python loop with the bookkeeping on the host, the kernels' host-int
         entry points and one host sync a split (the port's loop before the
         tree moved onto the device), with the bag count read from the
-        device word ``bag``.  Leaves the tree in ``leafmat`` too."""
+        device word ``bag``.  Leaves the tree in ``leafmat`` too, where
+        ``before_read`` then works on it."""
         L, F = self.L, self.F
         bag_cnt = int(self.bag[0])
         nodes = self.max_splits
@@ -812,6 +822,9 @@ class SerialTreeLearner:
         self.nodemat.copy_(torch.as_tensor(nm))
         self.leafcat.copy_(torch.as_tensor(lc))
         self.nodecat.copy_(torch.as_tensor(nc))
+        if before_read is not None:
+            before_read()
+            lm = self.leafmat.cpu().numpy()
         return self._unpack_state(lm, nm, s, nc)
 
     def _unpack_state(self, lm, nm, s, nc) -> Dict[str, Any]:

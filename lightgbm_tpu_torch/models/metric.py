@@ -1,11 +1,13 @@
-"""Evaluation metrics of the binary and L2 objectives: binary_logloss,
-binary_error, auc, average_precision, l2, rmse, l1.
+"""Evaluation metrics: the regression, binary, cross-entropy and
+multiclass metrics of the JAX package, by its names.
 
 Port of lightgbm_tpu/models/metric.py.  Pointwise losses are f32
 PyTorch on the scores' device; AUC and average precision sort the
 scores and sum in float64 on the scores' device too (the tie-aware
 sorted cumulative sums of the reference's AUCMetric::Eval and
-AveragePrecisionMetric::Eval).  Each metric reads one float back.
+AveragePrecisionMetric::Eval).  Each metric reads one float back, but
+``auc_mu``, which the JAX package too computes on the host in numpy
+float64.  Multiclass metrics take (N, K) scores.
 """
 
 from __future__ import annotations
@@ -13,10 +15,12 @@ from __future__ import annotations
 import math
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import Config
 from ..dataset import Metadata
+from ..utils import log
 
 K_EPSILON = 1e-15
 
@@ -42,6 +46,8 @@ class Metric:
 
 
 class _PointwiseMetric(Metric):
+    """The (weighted) mean of an f32 loss a row, summed in float64."""
+
     def point_loss(self, pred, label):
         raise NotImplementedError
 
@@ -51,11 +57,13 @@ class _PointwiseMetric(Metric):
     def eval(self, score, objective):
         pred = objective.convert_output(score) if objective else score
         loss = self.point_loss(pred, self.label)
+        f64 = torch.float64
         if self.weight is not None:
-            v = float(torch.sum(loss * self.weight)) / max(
-                float(torch.sum(self.weight)), K_EPSILON)
+            v = float(torch.sum(loss * self.weight, dtype=f64)
+                      / torch.clamp_min(torch.sum(self.weight, dtype=f64),
+                                        K_EPSILON))
         else:
-            v = float(torch.sum(loss)) / max(loss.numel(), 1)
+            v = float(torch.sum(loss, dtype=f64)) / max(loss.numel(), 1)
         return [(self.name, self.transform(v))]
 
 
@@ -78,6 +86,82 @@ class L1Metric(_PointwiseMetric):
 
     def point_loss(self, pred, label):
         return torch.abs(pred - label)
+
+
+class QuantileMetric(_PointwiseMetric):
+    name = "quantile"
+
+    def point_loss(self, pred, label):
+        alpha = float(self.config.alpha)
+        delta = label - pred
+        return torch.where(delta >= 0, alpha * delta, (alpha - 1.0) * delta)
+
+
+class HuberMetric(_PointwiseMetric):
+    name = "huber"
+
+    def point_loss(self, pred, label):
+        alpha = float(self.config.alpha)
+        diff = pred - label
+        return torch.where(torch.abs(diff) <= alpha, 0.5 * diff * diff,
+                           alpha * (torch.abs(diff) - 0.5 * alpha))
+
+
+class FairMetric(_PointwiseMetric):
+    name = "fair"
+
+    def point_loss(self, pred, label):
+        c = float(self.config.fair_c)
+        x = torch.abs(pred - label)
+        return c * x - c * c * torch.log1p(x / c)
+
+
+class PoissonMetric(_PointwiseMetric):
+    name = "poisson"
+
+    def point_loss(self, pred, label):
+        return pred - label * torch.log(torch.clamp_min(pred, 1e-10))
+
+
+class MAPEMetric(_PointwiseMetric):
+    name = "mape"
+
+    def point_loss(self, pred, label):
+        return torch.abs((label - pred) / torch.clamp_min(torch.abs(label),
+                                                          1.0))
+
+
+class GammaMetric(_PointwiseMetric):
+    name = "gamma"
+
+    def point_loss(self, pred, label):
+        # psi = 1, so lgamma(1 / psi) = 0 (JAX metric.py GammaMetric)
+        theta = -1.0 / torch.clamp_min(pred, 1e-10)
+        b = -torch.log(-theta)
+        c = torch.log(label) - torch.log(label)
+        return -((label * theta - b) + c)
+
+
+class GammaDevianceMetric(_PointwiseMetric):
+    name = "gamma_deviance"
+
+    def point_loss(self, pred, label):
+        tmp = label / torch.clamp_min(pred, 1e-9)
+        return tmp - torch.log(tmp) - 1.0
+
+    def transform(self, value):
+        return value * 2.0
+
+
+class TweedieMetric(_PointwiseMetric):
+    name = "tweedie"
+
+    def point_loss(self, pred, label):
+        rho = float(self.config.tweedie_variance_power)
+        lp = torch.log(torch.clamp_min(pred, 1e-10))
+        a = label * torch.exp((1.0 - rho) * lp) / (1.0 - rho)
+        b = torch.exp((2.0 - rho) * lp) / (2.0 - rho)
+        return -a + b
 
 
 class BinaryLoglossMetric(_PointwiseMetric):
@@ -161,12 +245,158 @@ class AveragePrecisionMetric(AUCMetric):
                                                        self.weight))]
 
 
-_METRICS = {"l2": L2Metric, "rmse": RMSEMetric, "l1": L1Metric,
-            "binary_logloss": BinaryLoglossMetric,
-            "binary_error": BinaryErrorMetric, "auc": AUCMetric,
-            "average_precision": AveragePrecisionMetric}
-_DEFAULT_METRIC_FOR_OBJECTIVE = {"regression": "l2",
-                                 "binary": "binary_logloss"}
+class CrossEntropyMetric(BinaryLoglossMetric):
+    name = "xentropy"
+
+
+class CrossEntropyLambdaMetric(_PointwiseMetric):
+    """The log loss of z = 1 - exp(-log1p(exp(raw))) on raw scores."""
+    name = "xentlambda"
+
+    def eval(self, score, objective):
+        return super().eval(score, None)
+
+    def point_loss(self, score, label):
+        z = 1.0 - torch.exp(-torch.log1p(torch.exp(score)))
+        return -(label * torch.log(torch.clamp_min(z, K_EPSILON))
+                 + (1.0 - label) * torch.log(torch.clamp_min(1.0 - z,
+                                                             K_EPSILON)))
+
+
+class KLDivMetric(_PointwiseMetric):
+    name = "kullback_leibler"
+
+    def point_loss(self, pred, label):
+        p = torch.clamp(pred, K_EPSILON, 1.0 - K_EPSILON)
+        y = torch.clamp(label, 0.0, 1.0)
+        ce = -(y * torch.log(p) + (1.0 - y) * torch.log(1.0 - p))
+        ent = torch.where((y > 0) & (y < 1),
+                          -(y * torch.log(y) + (1.0 - y) * torch.log(1.0 - y)),
+                          0.0)
+        return ce - ent
+
+
+class _MulticlassMetric(_PointwiseMetric):
+    """A pointwise loss of each row's (K,) scores and its class."""
+
+    def init(self, metadata: Metadata, device) -> None:
+        super().init(metadata, device)
+        self.label_int = self.label.to(torch.int64)
+
+
+class MultiLoglossMetric(_MulticlassMetric):
+    name = "multi_logloss"
+
+    def point_loss(self, pred, label):
+        p_true = torch.gather(pred, 1, self.label_int[:, None])[:, 0]
+        return -torch.log(torch.clamp_min(p_true, K_EPSILON))
+
+
+class MultiErrorMetric(_MulticlassMetric):
+    """Error when the true class' raw score is not within the top k."""
+    name = "multi_error"
+
+    def eval(self, score, objective):
+        return super().eval(score, None)
+
+    def point_loss(self, score, label):
+        true = torch.gather(score, 1, self.label_int[:, None])
+        num_better = torch.sum(score > true, dim=1)
+        return (num_better >= int(self.config.multi_error_top_k)).to(
+            torch.float32)
+
+
+class AucMuMetric(Metric):
+    """AUC-mu (reference: multiclass_metric.hpp AucMuMetric, Kleiman &
+    Page 2019), on the host in numpy float64 as the JAX package computes
+    it: the mean over class pairs (i, j) of the AUC of the rows' raw
+    scores projected on the difference of the weight rows i and j
+    (``auc_mu_weights``, K*K row-major with a zero diagonal; else 1 off
+    the diagonal), ties counted half."""
+    name = "auc_mu"
+    is_max_better = True
+
+    def init(self, metadata: Metadata, device) -> None:
+        super().init(metadata, device)
+        K = self.K = int(self.config.num_class)
+        spec = str(self.config.auc_mu_weights or "").strip()
+        if spec:
+            vals = [float(v) for v in spec.replace(" ", "").split(",") if v]
+            if len(vals) != K * K:
+                log.fatal("auc_mu_weights must have %d elements, found %d",
+                          K * K, len(vals))
+            W = np.asarray(vals, dtype=np.float64).reshape(K, K)
+            np.fill_diagonal(W, 0.0)
+        else:
+            W = 1.0 - np.eye(K)
+        self.W = W
+        self.label_np = np.asarray(metadata.label).astype(np.int64)
+        self.weight_np = (None if metadata.weight is None
+                          else np.asarray(metadata.weight, np.float32))
+
+    def eval(self, score, objective):
+        score = score.cpu().numpy().astype(np.float64)
+        return [(self.name, float(auc_mu(score, self.label_np,
+                                         self.weight_np, self.W)))]
+
+
+def auc_mu(score: np.ndarray, lbl: np.ndarray, w: Optional[np.ndarray],
+           W: np.ndarray) -> float:
+    """AUC-mu of (N, K) float64 raw scores (JAX metric.py AucMuMetric)."""
+    K = W.shape[0]
+    total = 0.0
+    for i in range(K):
+        ii = np.nonzero(lbl == i)[0]
+        if len(ii) == 0:
+            continue
+        for j in range(i + 1, K):
+            jj = np.nonzero(lbl == j)[0]
+            if len(jj) == 0:
+                continue
+            v = W[i] - W[j]
+            idx = np.concatenate([ii, jj])
+            dist = (v[i] - v[j]) * (score[idx] @ v)
+            is_i = lbl[idx] == i
+            wi = w[idx] if w is not None else np.ones(len(idx))
+            order = np.lexsort((~is_i, dist))   # ties: class j first
+            d_s, i_s, w_s = dist[order], is_i[order], wi[order]
+            wj = np.where(~i_s, w_s, 0.0)
+            cum_j = np.concatenate([[0.0], np.cumsum(wj)])[:-1]
+            # each run of tied distances counts its class-j weight half
+            grp = np.concatenate([[True], np.abs(np.diff(d_s)) > 1e-15])
+            gid = np.cumsum(grp) - 1
+            grp_j = np.zeros(gid[-1] + 1)
+            np.add.at(grp_j, gid, wj)
+            start_cum = cum_j[np.nonzero(grp)[0]]
+            s_ij = np.sum(np.where(
+                i_s, w_s * (start_cum[gid] + 0.5 * grp_j[gid]), 0.0))
+            den_i = np.sum(wi[:len(ii)]) if w is not None else len(ii)
+            den_j = np.sum(w[jj]) if w is not None else len(jj)
+            total += (s_ij / den_i) / den_j
+    return (2.0 * total / K) / (K - 1)
+
+
+_METRICS = {
+    "l2": L2Metric, "mse": L2Metric, "rmse": RMSEMetric, "l1": L1Metric,
+    "mae": L1Metric, "quantile": QuantileMetric, "huber": HuberMetric,
+    "fair": FairMetric, "poisson": PoissonMetric, "mape": MAPEMetric,
+    "gamma": GammaMetric, "gamma_deviance": GammaDevianceMetric,
+    "tweedie": TweedieMetric,
+    "binary_logloss": BinaryLoglossMetric, "binary_error": BinaryErrorMetric,
+    "auc": AUCMetric, "average_precision": AveragePrecisionMetric,
+    "multi_logloss": MultiLoglossMetric, "multi_error": MultiErrorMetric,
+    "auc_mu": AucMuMetric,
+    "xentropy": CrossEntropyMetric, "xentlambda": CrossEntropyLambdaMetric,
+    "kullback_leibler": KLDivMetric,
+}
+_DEFAULT_METRIC_FOR_OBJECTIVE = {
+    "regression": "l2", "regression_l1": "l1", "huber": "huber",
+    "fair": "fair", "poisson": "poisson", "quantile": "quantile",
+    "mape": "mape", "gamma": "gamma", "tweedie": "tweedie",
+    "binary": "binary_logloss",
+    "multiclass": "multi_logloss", "multiclassova": "multi_logloss",
+    "cross_entropy": "xentropy", "cross_entropy_lambda": "xentlambda",
+}
 
 
 def create_metrics(config: Config, for_objective: Optional[str] = None):

@@ -142,3 +142,42 @@ def test_categorical_trees_match_jax(case):
         np.testing.assert_allclose(tb.predict(X, raw_score=True),
                                    jb.predict(X, raw_score=True), rtol=0,
                                    atol=1e-5)
+
+
+def equal_ratio_data(seed=2, n=3000):
+    """4 normal features and categoricals of 60 and 7 levels (columns 4
+    and 5) with a seeded effect a level, and a binary label."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, 6)
+    X[:, 4] = rng.randint(0, 60, n)
+    X[:, 5] = rng.randint(0, 7, n)
+    eff60, eff7 = rng.randn(60), rng.randn(7)
+    z = (X[:, 0] + 0.5 * X[:, 1] + eff60[X[:, 4].astype(int)]
+         + 0.5 * eff7[X[:, 5].astype(int)])
+    return X, (z + rng.randn(n) > 0).astype(float)
+
+
+# ROADMAP section C.2: at cat_smooth 1, levels of the 60-level feature
+# with equal row counts and labels have equal sort keys G / (H +
+# cat_smooth) in exact arithmetic, and each package's f32 residues order
+# them; the sets differ at a split of equal f64 gain.  At cat_smooth 10
+# (the default) the same data meet no tie.
+@pytest.mark.parametrize("cat_smooth,tie", [(1.0, (0, 10)), (10.0, None)])
+def test_equal_ratio_categories_tie_only_at_small_cat_smooth(cat_smooth,
+                                                             tie):
+    X, y = equal_ratio_data()
+    params = {"objective": "binary", "num_leaves": 15, "verbosity": -1,
+              "min_data_in_leaf": 20, "cat_smooth": cat_smooth}
+    jb = lgb.train(dict(params, tpu_frontier_k=1),
+                   lgb.Dataset(X, label=y, categorical_feature=[4, 5]),
+                   num_boost_round=4)
+    jb.num_trees()
+    tb = lgt.train(dict(params, device_type="cpu"),
+                   lgt.Dataset(X, label=y, categorical_feature=[4, 5]),
+                   num_boost_round=4)
+    mappers = tb._gbdt.train_data.bin_mappers
+    assert _compare(X, y, "binary", params, jb, tb, mappers, None) == tie
+    if tie is None:
+        np.testing.assert_allclose(tb.predict(X, raw_score=True),
+                                   jb.predict(X, raw_score=True), rtol=0,
+                                   atol=1e-5)

@@ -1098,3 +1098,111 @@ def test_categorical_graph_trees_equal_eager_oracle(card, bundle):
         assert np.array_equal(ta.split_feature, tb.split_feature)
         assert ta.cat_threshold == tb.cat_threshold
         assert np.array_equal(ta.leaf_count, tb.leaf_count)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weighted", [False, True])
+def test_renewal_on_the_card_equals_its_cpu_run(card, weighted):
+    """The L1-family leaf renewal (models/renew.py: one int64 sort, then
+    a gather or two a leaf) on the card equals its run on the CPU on the
+    same inputs, bit for bit: unweighted it is f32 arithmetic on equal
+    sorted values; weighted, the float64 sums of f32 weights are exact
+    in any order here."""
+    from lightgbm_tpu_torch.models.renew import renew_leaves
+    rng = np.random.RandomState(9)
+    N, L = 300_000, 255
+    cnts = rng.multinomial(N - 2 * L, np.ones(L) / L) + 2
+    cnts[rng.choice(L, 5, replace=False)] = 0
+    cnts[0] += N - cnts.sum()
+    perm = rng.permutation(L)
+    starts = np.zeros(L, np.int64)
+    starts[perm] = np.concatenate([[0], np.cumsum(cnts[perm])[:-1]])
+    resid = np.round(rng.randn(N) * 3, 2).astype(np.float32)
+    sel = rng.rand(N) < 0.8
+    w = rng.uniform(0.1, 2.5, N).astype(np.float32) if weighted else None
+    old = rng.randn(L).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (starts.astype(np.int32),
+                                          cnts.astype(np.int32), old,
+                                          resid, sel)]
+    wt = torch.from_numpy(w) if weighted else None
+    for alpha in (0.5, 0.9):
+        host = renew_leaves(*args, wt, alpha)
+        got = renew_leaves(*(a.to(card) for a in args),
+                           wt.to(card) if weighted else None, alpha)
+        assert torch.equal(got.cpu().view(torch.int32),
+                           host.view(torch.int32))
+
+
+def _objective_rows(objective, n=4000, seed=3):
+    """Rows, label, init_score and weight: 5 classes from the argmax of
+    noisy features with a seeded init_score (the first iteration then
+    meets no exact tie), or a continuous label with row weights for
+    quantile (its two-valued gradients tie often without them)."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, 8)
+    if objective == "quantile":
+        y = X[:, 0] * 2 + X[:, 1] + rng.randn(n)
+        return X, y, None, rng.uniform(0.5, 1.5, n)
+    y = np.argmax(X[:, :5] + 0.5 * rng.randn(n, 5), 1).astype(float)
+    return X, y, rng.randn(5 * n) * 0.5, None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["mega", "subtraction"])
+@pytest.mark.parametrize("objective", ["multiclass", "multiclassova",
+                                       "quantile"])
+def test_other_objectives_on_the_card(card, body, objective):
+    """5-class boosters (the class scores in original row order, each
+    class tree one graph replay) and a quantile booster (leaves renewed
+    before the tree's host read) on the card: the graph's trees, class
+    scores and row buffers equal the eager oracle's bit for bit, one
+    capture and one tree read a tree; on the mega body the card's trees
+    equal the CPU's (structure, leaf values rtol 1e-4 / atol 1e-5, raw
+    predictions atol 1e-5).  The subtraction body is held to the oracle
+    only: the CPU's f32 state subtracts its way to small leaves, the
+    card's int64 state is exact."""
+    X, y, init, w = _objective_rows(objective)
+    params = {"objective": objective, "num_leaves": 31, "verbosity": -1,
+              "min_data_in_leaf": 20, "min_gain_to_split": 0.01,
+              "device_type": "cuda"}
+    if objective != "quantile":
+        params["num_class"] = 5
+    if body == "subtraction":
+        params["tpu_megakernel"] = "off"
+
+    def booster(**kw):
+        return lgt.Booster(dict(params, **kw), lgt.Dataset(
+            X, label=y, init_score=init, weight=w))
+    a, b = booster(), booster()
+    b._gbdt.learner.build_tree = b._gbdt.learner.build_tree_eager
+    for _ in range(3):
+        a.update()
+        b.update()
+        ga, gb = a._gbdt, b._gbdt
+        for ta, tb in zip(ga.models, gb.models):
+            for f in ("split_feature", "threshold_bin", "left_child",
+                      "leaf_value", "leaf_count", "internal_value"):
+                assert np.array_equal(getattr(ta, f), getattr(tb, f)), f
+        assert torch.equal(ga.scores.contiguous().view(torch.int32),
+                           gb.scores.contiguous().view(torch.int32))
+        for x, z in zip(ga._phys, gb._phys):
+            assert torch.equal(x.view(torch.int32), z.view(torch.int32))
+    K = ga.num_tree_per_iteration
+    lr = ga.learner
+    assert lr.captures == 1 and lr.syncs == lr.replays == 3 * K
+    if body == "subtraction":
+        return
+    cpu = booster(device_type="cpu")
+    for _ in range(3):
+        cpu.update()
+    for ta, tb in zip(ga.models, cpu._gbdt.models):
+        n = ta.num_nodes()
+        assert ta.num_leaves == tb.num_leaves
+        assert np.array_equal(ta.split_feature[:n], tb.split_feature[:n])
+        assert np.array_equal(ta.threshold_bin[:n], tb.threshold_bin[:n])
+        assert np.array_equal(ta.leaf_count, tb.leaf_count)
+        np.testing.assert_allclose(ta.leaf_value, tb.leaf_value, rtol=1e-4,
+                                   atol=1e-5)
+    np.testing.assert_allclose(a.predict(X, raw_score=True),
+                               cpu.predict(X, raw_score=True), rtol=0,
+                               atol=1e-5)

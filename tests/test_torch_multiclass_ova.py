@@ -1,0 +1,13 @@
+"""``multiclassova`` (one binary logloss a class), with and without
+feature_fraction, the port against the JAX package as
+test_torch_multiclass.py sets out (its tie rule, tolerances and seeded
+init_score)."""
+
+import pytest
+
+from test_torch_multiclass import FILES, check_case
+
+
+@pytest.mark.parametrize("case", FILES["ova"])
+def test_ova_trains_as_jax(case):
+    check_case(case)

@@ -301,15 +301,17 @@ def test_dataset_from_jax_arrays_trains_the_same_trees(pair):
 
 @pytest.mark.parametrize("param,value", [
     ("feature_fraction_bynode", 0.5), ("extra_trees", True),
-    ("objective", "multiclass"), ("tpu_ab_double", "hist"),
+    ("objective", "multiclass"), ("objective", "lambdarank"),
+    ("tpu_ab_double", "hist"),
     ("linear_tree", True), ("tree_learner", "data"),
     ("tpu_megakernel", "xla"), ("tpu_hist_dtype", "float16"),
     ("tpu_hist_state", "flat")])
 def test_unsupported_param_raises_naming_it(param, value):
+    """``multiclass`` with one class is refused, naming the objective
+    (multiclass itself trains: test_torch_multiclass.py)."""
     X, y = _load(CASES["binary"][0])
     params = {"objective": "binary", "device_type": "cpu", param: value,
-              "bagging_freq": 1, "num_class": 3 if value == "multiclass"
-              else 1}
+              "bagging_freq": 1, "num_class": 1}
     with pytest.raises(NotImplementedError, match=param):
         lgt.train(params, lgt.Dataset(X, label=y), num_boost_round=1)
 

@@ -63,19 +63,47 @@ def one(rows: int) -> int:
     return int(ndiff > 0 or not same_tree)
 
 
+def plain(import_port: bool) -> int:
+    """One torch.exp after a warm thread pool; 1 when a value is off."""
+    import numpy as np
+    import torch
+    if import_port:
+        sys.path.insert(0, ROOT)
+        import lightgbm_tpu_torch  # noqa: F401
+    rng = np.random.RandomState(0)
+    a = torch.from_numpy(rng.randn(4 << 20).astype(np.float32))
+    b = (a * 2.0 + 1.0).abs()
+    x = torch.from_numpy((rng.randn(45056) * 4).astype(np.float32))
+    got = torch.exp(x).numpy().view(np.int32).astype(np.int64)
+    want = np.exp(x.numpy().astype(np.float64)).astype(np.float32)
+    ulps = np.abs(got - want.view(np.int32).astype(np.int64))
+    bad = np.nonzero(ulps > 2)[0]
+    where = f", rows {bad[0]}..{bad[-1]}" if len(bad) else ""
+    print(f"max ulps {int(ulps.max())}, {len(bad)} values off{where} "
+          f"(checksum {float(b.sum()):.1f})")
+    return int(len(bad) > 0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--procs", type=int, default=20)
     ap.add_argument("--rows", type=int, default=30000)
     ap.add_argument("--one", action="store_true",
                     help="run one check in this process")
+    ap.add_argument("--plain-torch", action="store_true",
+                    help="check torch.exp alone, without the port")
+    ap.add_argument("--import-port", action="store_true",
+                    help="with --plain-torch: import the port first")
     a = ap.parse_args()
     if a.one:
-        return one(a.rows)
+        return plain(a.import_port) if a.plain_torch else one(a.rows)
+    mode = (["--plain-torch"] + (["--import-port"] if a.import_port
+                                 else [])) if a.plain_torch else []
     bad = 0
     for i in range(a.procs):
         r = subprocess.run([sys.executable, __file__, "--one", "--rows",
-                            str(a.rows)], capture_output=True, text=True)
+                            str(a.rows)] + mode, capture_output=True,
+                           text=True)
         last = (r.stdout.strip().splitlines() or [r.stderr.strip()])[-1]
         print(f"process {i}: {last}", flush=True)
         bad += r.returncode != 0

@@ -142,22 +142,43 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      f64); s/iteration and device ms an iteration beside binary's, the
      renewal's device ms a tree, the class gather / scatter's and the
      5-class gradients' ms;
+  4h. (after 4f) wide bins, uint16 bin matrices: the HIGGS shape at
+     max_bin 1023 (a 588 MB uint16 matrix) on the subtraction body at K=1
+     beside the same run at max_bin 255, 4 iterations and a profiled one
+     each, every wrapper's count set to 0 before a run and read after it,
+     each kernel's ms an iteration beside its bound (the bin bytes
+     doubled), logloss falling; 4e's rows with 4f's categoricals, a
+     categorical of 1,000 levels (the uint16 matrix comes from that
+     column) and 4 one-hot columns that bundle: split_cat past 256 bins
+     with sets of more than 8 words and feat_view at Bp > 256 on the
+     main path, the first tree equal to the eager oracle's, on a
+     200,000-row cut the card's first tree equal to the CPU's (or its
+     first difference an exact tie in f64), save / reload / predict bit
+     for bit; on the root and 8 steps of a real tree of each, every
+     uint16 and wide kernel (the partition, the state launch, split_pair
+     at BF = 1024, split_cat, feat_view, tree_step at W = 32 and 31 set
+     words) bit-identical to its plain version, and its ms a launch; the
+     wide histogram arm (max_bin 16383, one group's planes past a block's
+     shared memory) on 500,000 rows x 4 against its plain version and
+     through a short training;
   5. each kernel against its plain version on inputs captured from the
      first tree of its path, through its host-int entry and through the
      step entry the graph loop launches (a step block made beforehand,
      the grid sized for the HIGGS rows), and its time at those shapes
      (the step entry by graph replay) beside the least time the card
      could take for the same work;
-  6. python -m lightgbm_tpu_torch.bench at BENCH_REPEATS=2
-     BENCH_ITERS=5 (the mega path at K 1, 2, 4, 8, then the subtraction
-     path), its JSON lines printed.
+  6. python -m lightgbm_tpu_torch.bench at BENCH_ROWS=2000000
+     BENCH_REPEATS=2 BENCH_ITERS=5 (the mega path at K 1, 2, 4, 8, then
+     the subtraction path), its JSON lines printed.
 The line before the last is a JSON object of per-kernel numbers; the
 last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --digest
 
 trains the HIGGS shape 2 iterations on each body and prints a sha256 of
-the trees and row buffers a body, to compare two checkouts on one card.
+the trees and row buffers a body, to compare two checkouts on one card;
+``python3 chip_smoke.py --wide`` runs phase 4h alone, ``--efb`` phase 4e
+alone.
 """
 
 import contextlib
@@ -484,7 +505,8 @@ def bits_err(got, want):
     """The largest difference of two tensors' bit views, as integers."""
     if got.numel() == 0:
         return 0.0
-    w = {1: torch.uint8, 4: torch.int32, 8: torch.int64}[got.element_size()]
+    w = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+         8: torch.int64}[got.element_size()]
     return float((got.view(w).long() - want.view(w).long()).abs().max())
 
 
@@ -609,6 +631,17 @@ KERNEL_FUNCS = {
     "cat": {"part_tiles": "partition", "part_copyback": "partition",
             "leaf_hist_state": "leaf_hist", "cat_search": "split_cat",
             "pair_search": "split_pair", "tree_step": "tree_step"},
+    # phase 4h's uint16 bodies: the subtraction body, and on the wide
+    # categorical data the wide arms of the categorical search and the
+    # EFB view beside it
+    "u16": {"part_tiles": "partition", "part_copyback": "partition",
+            "leaf_hist_state": "leaf_hist", "pair_search": "split_pair",
+            "tree_step": "tree_step"},
+    "u16cat": {"part_tiles": "partition", "part_copyback": "partition",
+               "leaf_hist_state": "leaf_hist",
+               "cat_search_wide": "split_cat",
+               "feat_view_wide": "feat_view",
+               "pair_search": "split_pair", "tree_step": "tree_step"},
 }
 
 
@@ -646,8 +679,11 @@ def funcs_per_tree(label):
 
 
 def func(key):
-    """The device function's name in a profiler key ("void f(Args)")."""
-    return key.split("(")[0].split()[-1]
+    """The device function's name in a profiler key ("void f(Args)", or
+    a template's "void f<T, ...>(Args)": its name without the
+    arguments)."""
+    head = key.split("(")[0]
+    return head.split("<")[0].split()[-1]
 
 
 def device_rows(prof):
@@ -698,12 +734,13 @@ def profile_iteration(bst, plain_s, label):
 
 
 def iteration_bounds(tree, label, G, R, Bp, N, pair_bytes, step_bytes,
-                     steps):
+                     steps, bsize=1):
     """Per-iteration bound (ms) of each port kernel on one path: the sum
     over the tree's splits of the kernel's bytes formula, each split's
     rows from the tree's internal counts (no bagging: the bag-aware count
     is the row count), plus the root's calls; tree_step's bytes at each
-    of its ``steps`` launches.  On the subtraction path hist_rmw is
+    of its ``steps`` launches; a bin is ``bsize`` bytes (2 for uint16
+    data).  On the subtraction path hist_rmw is
     leaf_hist's state epilogue: its bytes (a parent slot read, two int64
     slots and two f32 children written a split; one slot and two f32
     copies at the root) are in leaf_hist's bound too."""
@@ -716,7 +753,7 @@ def iteration_bounds(tree, label, G, R, Bp, N, pair_bytes, step_bytes,
     small = np.minimum(child(tree.left_child[:ns]),
                        child(tree.right_child[:ns])).astype(np.float64)
     hist4, hist2 = G * 4 * Bp * 4, 2 * G * Bp * 4
-    move = float((2 * cnt * (R + 32)).sum())
+    move = float((2 * cnt * (R * bsize + 32)).sum())
     nbytes = {"split_pair": (ns + 1) * pair_bytes,
               "tree_step": steps * step_bytes}
     if label == "mega":
@@ -724,7 +761,8 @@ def iteration_bounds(tree, label, G, R, Bp, N, pair_bytes, step_bytes,
     else:
         nbytes["partition"] = move
         nbytes["hist_rmw"] = (ns * 8 + 4) * hist2
-        nbytes["leaf_hist"] = (N * (G + 8) + float((small * (G + 8)).sum())
+        row = G * bsize + 8
+        nbytes["leaf_hist"] = (N * row + float((small * row).sum())
                                + nbytes["hist_rmw"])
     return {k: v / PEAK_BYTES_S * 1e3 for k, v in nbytes.items()}
 
@@ -2081,10 +2119,10 @@ def check_cat_kernels(scat, sp, tpart, lr, pb, pg):
         hg, hh = ch[0].view(-1, Bp), ch[1].view(-1, Bp)
         rows = sp.split_pair(hg, hh, fm, lr.info, **kw)
         pre = rows.to("cpu", copy=True)
-        sets = torch.zeros((2, 8), dtype=torch.int32, device=lr.device)
+        sets = torch.zeros((2, lr.W), dtype=torch.int32, device=lr.device)
         scat.split_cat(hg, hh, fm, lr.info, cats, rows, sets,
                        work=lr.cat_work, **kw, **lr.cat_kw)
-        want, wset = pre.clone(), torch.zeros((2, 8), dtype=torch.int32)
+        want, wset = pre.clone(), torch.zeros((2, lr.W), dtype=torch.int32)
         scat.split_cat_plain(hg.cpu(), hh.cpu(), fm_c, lr.info.cpu(), cats_c,
                              want, wset, **kw, **lr.cat_kw)
         got = rows.cpu()
@@ -2280,7 +2318,7 @@ def cat_path(lgt, mods, efb):
               min_gain_to_split=lr.min_gain_to_split,
               min_data_in_leaf=lr.min_data_in_leaf,
               min_sum_hessian=lr.min_sum_hessian, max_depth=lr.max_depth)
-    rows, sets = st["pre"].clone(), torch.zeros((2, 8), dtype=torch.int32,
+    rows, sets = st["pre"].clone(), torch.zeros((2, lr.W), dtype=torch.int32,
                                                 device=lr.device)
     args = (st["hg"], st["hh"], lr.fmeta_pair, st["info"], lr.cat_feats)
 
@@ -2767,6 +2805,591 @@ def objectives_path(lgt, mods, ds, X, params):
     return out
 
 
+# ---- phase 4h: wide bins (uint16 bin matrices) --------------------------
+WIDE_MAX_BIN = 1023             # the HIGGS shape at max_bin 1023
+WIDE_LEVELS = 1000              # the high-cardinality categorical
+WIDE_ONEHOT = 4                 # one-hot columns that bundle (EFB)
+WIDE_STEPS = 8                  # steps of a tree held kernel by kernel
+ARM_ROWS, ARM_FEATURES, ARM_MAX_BIN = 500_000, 4, 16383
+
+
+def make_wide_cat_data(rows):
+    """Phase 4f's rows (make_cat_data's draws) with a categorical of
+    WIDE_LEVELS levels and WIDE_ONEHOT one-hot columns (EFB bundles them:
+    the uint16 matrix then holds bundles) from a RandomState of their
+    own, each with a per-level effect on the label."""
+    X, y = make_cat_data(rows)
+    rng = np.random.RandomState(12)
+    wide_eff = rng.normal(size=WIDE_LEVELS)
+    hot_eff = rng.normal(size=WIDE_ONEHOT + 1)
+    wide = rng.randint(0, WIDE_LEVELS, size=rows)
+    hot = rng.randint(0, WIDE_ONEHOT + 1, size=rows)
+    noise = rng.normal(size=rows)
+    logit = (wide_eff[wide] + hot_eff[hot]) * 1.5 + noise
+    out = np.zeros((rows, X.shape[1] + 1 + WIDE_ONEHOT), np.float32)
+    out[:, :X.shape[1]] = X
+    out[:, X.shape[1]] = wide
+    on = hot > 0
+    out[np.nonzero(on)[0], X.shape[1] + hot[on]] = 1.0
+    y = ((2 * y - 1) + logit > 0).astype(np.float32)
+    return out, y
+
+
+def bins_equal(a, b):
+    """Bit equality of two bin (or word) tensors of any dtype."""
+    w = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+         8: torch.int64}[a.element_size()]
+    return torch.equal(a.view(w), b.view(w))
+
+
+def check_wide_steps(lr, pb, pg, steps, what):
+    """The root and ``steps`` steps of one tree, as the learner's own
+    sequence runs on copies of its row buffers, kernel by kernel, each
+    against its plain version on the same inputs on the card, bit for
+    bit: the uint16 partition (bins, payload words, left count; the set
+    decision on a categorical step), leaf_hist's state launch (the int64
+    state and the f32 children), with bundles feat_view, split_pair at the
+    learner's width and, with categorical features, split_cat (rows and
+    sets).  Returns the largest bit differences, the launches compared
+    and the last step's inputs (for the timings)."""
+    from lightgbm_tpu_torch.ops import feat_view as fv
+    from lightgbm_tpu_torch.ops import hist_state as hs
+    from lightgbm_tpu_torch.ops import partition as tpart
+    from lightgbm_tpu_torch.ops import split_cat as scat
+    from lightgbm_tpu_torch.ops import split_pair as sp
+    from lightgbm_tpu_torch.ops import tree_step as ts
+    pb, pg = pb.clone(), pg.clone()
+    G, B, N, F, W = lr.G, lr.B, lr.N, lr.F, lr.W
+    kw = dict(l1=lr.l1, l2=lr.l2, max_delta_step=lr.max_delta_step,
+              min_gain_to_split=lr.min_gain_to_split,
+              min_data_in_leaf=lr.min_data_in_leaf,
+              min_sum_hessian=lr.min_sum_hessian, max_depth=lr.max_depth)
+    fm = lr.fmeta_pair[:2 * F]
+    err = {k: 0.0 for k in ("partition", "leaf_hist", "feat_view",
+                            "split_pair", "split_cat")}
+    n = {k: 0 for k in err}
+    last = {}
+
+    def held(name, got, want, msg):
+        err[name] = max(err[name], bits_err(got, want))
+        check(bins_equal(got, want), f"{what}: {name} {msg}")
+        n[name] += 1
+
+    def body(step, root):
+        w = step.cpu()
+        sc, idx, side = tpart.step_fields(w)
+        start, cnt = tpart.scalars_start(sc), sc[tpart.S_CNT]
+        if not root:
+            b0, g0 = pb.clone(), pg.clone()
+            tpart.partition_step(pb, pg, step, lr.nl, bound=N, ws=lr.ws)
+            nl0 = tpart.partition_leaf_plain(b0, g0, w)
+            held("partition", pb, b0, "bins differ from the plain version")
+            check(bins_equal(pg, g0) and int(lr.nl[0]) == int(nl0),
+                  f"{what}: partition payload or left count differs")
+            last["part"] = (b0, g0, w.to(lr.device))
+        st0 = lr.state.clone()
+        hs.leaf_hist_rmw_step(pb, pg, step, None if root else lr.nl,
+                              state=lr.state, absmax=lr._absmax, kcnt=N,
+                              out=lr.children, num_bins=B, num_groups=G,
+                              bound=N, ws=lr.ws)
+        child = None if side == 0 else (lr.nl.clone(), side - 1)
+        nlv = 0 if root else int(lr.nl[0])
+        last["lhr_rows"] = {0: (start, cnt), 1: (start, nlv),
+                            2: (start + nlv, cnt - nlv)}[side]
+        want = hs.leaf_hist_rmw_fixed_plain(
+            pb, pg, start, cnt, num_bins=B, num_groups=G, state=st0,
+            idx=idx, absmax=lr._absmax, kcnt=N, child=child)
+        held("leaf_hist", lr.state, st0, "state differs")
+        held("leaf_hist", lr.children, want, "children differ")
+        last["lhr"] = (pb.clone(), pg.clone(), step.clone(),
+                       lr.nl.clone(), st0)
+
+    def pair(step):
+        ch = lr.children
+        if lr.bundled:
+            fv.feat_view(ch, lr.info, lr.state, step, lr._absmax, kcnt=N,
+                         view=lr.view, out=lr.fchildren)
+            want = fv.feat_view_fixed_plain(lr.state, step, lr._absmax, N,
+                                            lr.view)
+            held("feat_view", lr.fchildren, want, "view differs")
+            ch = lr.fchildren
+            last["view"] = (lr.state.clone(), step.clone())
+        Bp = ch.shape[-1]
+        hg, hh = ch[0].reshape(-1, Bp), ch[1].reshape(-1, Bp)
+        rows = sp.split_pair(hg, hh, fm, lr.info, out=lr.pair_out, **kw)
+        want = sp.split_pair_plain(hg, hh, fm, lr.info, **kw)
+        held("split_pair", rows, want, "rows differ")
+        last["pair"] = (hg.clone(), hh.clone(), lr.info.clone())
+        if lr.has_cat:
+            pre = rows.clone()
+            scat.split_cat(hg, hh, fm, lr.info, lr.cat_feats, rows,
+                           lr.paircat, work=lr.cat_work, **kw, **lr.cat_kw)
+            wset = torch.zeros_like(lr.paircat)
+            scat.split_cat_plain(hg, hh, fm, lr.info, lr.cat_feats, pre,
+                                 wset, **kw, **lr.cat_kw)
+            held("split_cat", rows, pre, "rows differ")
+            held("split_cat", lr.paircat, wset, "sets differ")
+            last["cat"] = (hg.clone(), hh.clone(), lr.info.clone(),
+                           rows.clone())
+
+    torch.amax(pg[:2].abs(), dim=1, out=lr._absmax)
+    body(lr.root_step, True)
+    torch.stack([lr.children[0, 0, 0].sum(), lr.children[1, 0, 0].sum()],
+                out=lr.sums)
+    lr._step(ts.MODE_ROOT)
+    pair(lr.root_step)
+    cat_steps = 0
+    for _ in range(steps):
+        lr._step(ts.MODE_STEP)
+        if int(lr.step[tpart.SB_DONE]):
+            break
+        cat_steps += int(lr.step[tpart.SB_ISCAT])
+        body(lr.step, False)
+        pair(lr.step)
+    del pb, pg
+    return err, n, cat_steps, last
+
+
+def wide_kernel_times(lr, last, kw):
+    """(ms, plain ms) a launch of each uint16 / wide kernel on the last
+    held step's inputs (graph replay, as the tree's graph launches them;
+    the plain version by CUDA events, on the card's tensors); leaf_hist's
+    also the library yardstick, one index_add_ of the rows' histogram
+    (its indices prepared outside the timing), and the rows summed."""
+    from lightgbm_tpu_torch.ops import feat_view as fv
+    from lightgbm_tpu_torch.ops import hist_state as hs
+    from lightgbm_tpu_torch.ops import partition as tpart
+    from lightgbm_tpu_torch.ops import split_cat as scat
+    from lightgbm_tpu_torch.ops import split_pair as sp
+    G, B, N, F = lr.G, lr.B, lr.N, lr.F
+    fm = lr.fmeta_pair[:2 * F]
+    out = {}
+    if "part" in last:
+        b0, g0, w = last["part"]
+        b, g = b0.clone(), g0.clone()
+        nl = torch.zeros(1, dtype=torch.int32, device=lr.device)
+        out["partition"] = (
+            graph_ms(lambda: tpart.partition_step(b, g, w, nl, bound=N,
+                                                  ws=lr.ws), 10),
+            cuda_ms(lambda: tpart.partition_leaf_plain(b0, g0, w), 2, 1))
+    pb, pg, step, nl, st0 = last["lhr"]
+    st, st1 = st0.clone(), st0.clone()
+    sc, idx, side = tpart.step_fields(step.cpu())
+    start, cnt = tpart.scalars_start(sc), sc[tpart.S_CNT]
+    ch = torch.empty_like(lr.children)
+    s0, c = last["lhr_rows"]
+    Bp = lr.children.shape[-1]
+    seg = tpart.bin_values(pb[:G, s0:s0 + c]).long()
+    lidx = (seg + (torch.arange(G, device=lr.device) * Bp)[:, None]
+            ).reshape(-1)
+    lidx = torch.cat([lidx, lidx + G * Bp])
+    vals = torch.cat([pg[0, s0:s0 + c].expand(G, -1).reshape(-1),
+                      pg[1, s0:s0 + c].expand(G, -1).reshape(-1)])
+    hist = torch.zeros(2 * G * Bp, device=lr.device)
+    lib = cuda_ms(lambda: hist.index_add_(0, lidx, vals), 5)
+    del seg, lidx, vals, hist
+    out["leaf_hist"] = (
+        graph_ms(lambda: hs.leaf_hist_rmw_step(
+            pb, pg, step, nl, state=st, absmax=lr._absmax, kcnt=N, out=ch,
+            num_bins=B, num_groups=G, bound=N, ws=lr.ws), 10),
+        cuda_ms(lambda: hs.leaf_hist_rmw_fixed_plain(
+            pb, pg, start, cnt, num_bins=B, num_groups=G, state=st1,
+            idx=idx, absmax=lr._absmax, kcnt=N,
+            child=None if side == 0 else (nl, side - 1)), 2, 1), lib, c)
+    if "view" in last:
+        state, vstep = last["view"]
+        fch = torch.empty_like(lr.fchildren)
+        out["feat_view"] = (
+            graph_ms(lambda: fv.feat_view(None, None, state, vstep,
+                                          lr._absmax, kcnt=N, view=lr.view,
+                                          out=fch), 200),
+            cuda_ms(lambda: fv.feat_view_fixed_plain(state, vstep,
+                                                     lr._absmax, N, lr.view),
+                    5))
+    hg, hh, info = last["pair"]
+    rows = torch.empty_like(lr.pair_out)
+    out["split_pair"] = (
+        graph_ms(lambda: sp.split_pair(hg, hh, fm, info, out=rows, **kw),
+                 200),
+        cuda_ms(lambda: sp.split_pair_plain(hg, hh, fm, info, **kw), 5))
+    if "cat" in last:
+        chg, chh, cinfo, pre = last["cat"]
+        crow, cset = pre.clone(), torch.empty_like(lr.paircat)
+        out["split_cat"] = (
+            graph_ms(lambda: scat.split_cat(
+                chg, chh, fm, cinfo, lr.cat_feats, crow, cset,
+                work=lr.cat_work, **kw, **lr.cat_kw), 200),
+            cuda_ms(lambda: scat.split_cat_plain(
+                chg, chh, fm, cinfo, lr.cat_feats, pre.clone(),
+                torch.empty_like(lr.paircat), **kw, **lr.cat_kw), 3, 1))
+    return out
+
+
+def timed_run(lgt, mods, ds, params, label, iters):
+    """``iters`` iterations of the graph loop with every wrapper's count
+    set to 0 just before and read just after (the run that sizes
+    everything and the capture: each wrapper twice a tree's calls), then
+    one profiled iteration.  Returns the booster, the s/iteration, the
+    losses, the wrapper counts, {kernel: (device ms, launches)} of the
+    profiled iteration and its device busy ms."""
+    bst = lgt.Booster(params=params, train_set=ds)
+    for m in mods.values():
+        m.launches = 0
+    iter_s, losses = [], []
+    torch.cuda.synchronize()
+    for _ in range(iters):
+        t0 = time.time()
+        bst.update()
+        torch.cuda.synchronize()
+        iter_s.append(time.time() - t0)
+        losses.append(bst.eval_train()[0][2])
+    calls = {k: m.launches for k, m in mods.items()}
+    lr = bst._gbdt.learner
+    check(lr.syncs == lr.replays == iters and lr.captures == 1,
+          f"{label}: {lr.syncs} tree reads, {lr.replays} replays, "
+          f"{lr.captures} captures for {iters} trees")
+    check(all(a > b for a, b in zip(losses, losses[1:])),
+          f"{label}: training logloss does not fall: {losses}")
+    med = float(np.median(iter_s[1:]))
+    per, busy = profile_iteration(bst, med, "u16cat" if lr.has_cat
+                                  else "u16")
+    return bst, med, iter_s, losses, calls, per, busy
+
+
+def wide_arm(th, hs, dev):
+    """The wide histogram arm (one group's planes past a block's shared
+    memory) on ARM_ROWS x ARM_FEATURES at max_bin ARM_MAX_BIN: leaf_hist
+    and its state launch against their plain versions, bit for bit, and
+    their times; then a short training at that max_bin, whose tree loop
+    runs the arm, every wrapper's count set to 0 before and read after."""
+    rng = np.random.RandomState(13)
+    n_pad = ARM_ROWS + 4096
+    B = ARM_MAX_BIN
+    pb = torch.as_tensor(rng.randint(0, B, (ARM_FEATURES, n_pad)).astype(
+        np.uint16), device=dev)
+    pg = torch.as_tensor(rng.randn(8, n_pad).astype(np.float32), device=dev)
+    pg[1] = pg[1].abs()
+    start, cnt = 1024 + 5, ARM_ROWS
+    kw = dict(num_bins=B, num_groups=ARM_FEATURES)
+    absmax = pg[:2].abs().amax(dim=1)
+    got = th.leaf_hist(pb, pg, start, cnt, absmax=absmax, **kw)
+    want = th.leaf_hist_fixed_plain(pb, pg, start, cnt, absmax=absmax, **kw)
+    err = bits_err(got.view(torch.int32), want.view(torch.int32))
+    check(err == 0, f"wide arm: leaf_hist differs from its plain version "
+                    f"by {err}")
+    state = hs.new_state(2, ARM_FEATURES, B, dev)
+    st0 = state.clone()
+    got = hs.leaf_hist_rmw(pb, pg, start, cnt, state=state,
+                           idx=(-1, 1, 1, 0), absmax=absmax,
+                           kcnt=1 << 20, **kw)
+    want = hs.leaf_hist_rmw_fixed_plain(pb, pg, start, cnt, state=st0,
+                                        idx=(-1, 1, 1, 0), absmax=absmax,
+                                        kcnt=1 << 20, **kw)
+    err = max(err, bits_err(got.view(torch.int32), want.view(torch.int32)),
+              bits_err(state, st0))
+    check(err == 0, "wide arm: the state launch differs from its plain "
+                    "version")
+    _, Bp = th.hist_geometry(B)
+    planes = torch.empty((2, ARM_FEATURES, Bp), device=dev)
+    from lightgbm_tpu_torch.ops import partition as tpart
+    step = tpart.step_block(tpart.make_scalars(start, cnt, 0, 0, 0, 0, 0, 0,
+                                               0, 0), dev)
+    ms = graph_ms(lambda: th.launch(pb, pg, step, nl=None, out=planes,
+                                    kcnt=0, absmax=absmax, bound=cnt,
+                                    **kw), 10)
+    plain_ms = cuda_ms(lambda: th.leaf_hist_fixed_plain(
+        pb, pg, start, cnt, absmax=absmax, **kw), 2, 1)
+    seg = pb[:, start:start + cnt].view(torch.int16).long() & 0xFFFF
+    idx = (seg + (torch.arange(ARM_FEATURES, device=dev) * Bp)[:, None]
+           ).reshape(-1)
+    idx = torch.cat([idx, idx + ARM_FEATURES * Bp])
+    vals = torch.cat([pg[0, start:start + cnt].expand(ARM_FEATURES, -1)
+                      .reshape(-1),
+                      pg[1, start:start + cnt].expand(ARM_FEATURES, -1)
+                      .reshape(-1)])
+    hist = torch.zeros(2 * ARM_FEATURES * Bp, device=dev)
+    lib_ms = cuda_ms(lambda: hist.index_add_(0, idx, vals), 5)
+    nbytes = cnt * (ARM_FEATURES * 2 + 8) + 2 * ARM_FEATURES * Bp * 4
+    del seg, idx, vals, hist, pb, pg, state, st0
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "lib_ms": lib_ms,
+            "bound": bound(nbytes, 2 * cnt * ARM_FEATURES), "Bp": Bp}
+
+
+def wide_path(lgt, mods, ds255, X, y, params):
+    """Phase 4h: wide bins.  (1) The HIGGS shape at max_bin 1023: the
+    learner on the subtraction body at K=1 with a uint16 matrix, 4
+    iterations and a profiled one beside the same run at max_bin 255 (one
+    process, the subtraction body both), every wrapper's count set to 0
+    before a run and read after it, each uint16 kernel's ms an iteration
+    beside its bound (bytes over 3.35 TB/s, the bin bytes doubled) and
+    launches, logloss falling; the uint16 partition, the state launch and
+    split_pair at BF = 1024 against their plain versions on a real tree.
+    (2) Phase 4f's 2,000,000 rows plus a categorical of 1,000 levels
+    (the uint16 matrix comes from that column) and 4 one-hot columns that
+    bundle: split_cat at more than 256 bins with sets of more than 8
+    words, feat_view at Bp > 256; the first tree bit-identical to the
+    eager oracle's, and on a 200,000-row cut the card's first tree equal
+    to the CPU's (or its first difference an exact tie in f64); save,
+    reload and predict bit for bit; every kernel of that body against its
+    plain version on a real tree.  (3) The wide histogram arm past a
+    block's shared memory (max_bin 16383) against its plain version and
+    through a short training."""
+    from lightgbm_tpu_torch.ops import hist_state as hs
+    from lightgbm_tpu_torch.ops import histogram as th
+    from lightgbm_tpu_torch.ops import partition as tpart
+    from lightgbm_tpu_torch.ops import tree_step as ts
+    out = {"runs": {}}
+    sub = dict(params, tpu_megakernel="off")
+    # (1) max_bin 1023 against 255 on the subtraction body
+    t0 = time.time()
+    ds = lgt.Dataset(X, label=y)
+    ds.construct(dict(params, max_bin=WIDE_MAX_BIN))
+    inner = ds._inner
+    check(inner.binned.dtype == np.uint16 and inner.max_group_bins > 256,
+          f"wide: max_bin {WIDE_MAX_BIN} gave {inner.binned.dtype} bins of "
+          f"{inner.max_group_bins}")
+    say(f"wide data: construct at max_bin {WIDE_MAX_BIN} "
+        f"{time.time() - t0:.1f} s, a {inner.binned.dtype.name} matrix "
+        f"of {inner.binned.nbytes / 1e6:.0f} MB, groups of up to "
+        f"{inner.max_group_bins} bins")
+    for mb, dsx, p in ((255, ds255, sub),
+                       (WIDE_MAX_BIN, ds, dict(params,
+                                               max_bin=WIDE_MAX_BIN))):
+        bst, med, iter_s, losses, calls, per, busy = timed_run(
+            lgt, mods, dsx, p, f"wide max_bin {mb}", ITERS)
+        lr = bst._gbdt.learner
+        check(lr.subtract and lr.K == 1 and lr.bin_dtype ==
+              (np.uint8 if mb == 255 else np.uint16),
+              f"wide max_bin {mb}: subtract {lr.subtract} K {lr.K} "
+              f"{lr.bin_dtype}")
+        for k in mods:
+            want = 2 * per_tree("subtraction").get(k, 0)
+            check(calls[k] == want, f"wide max_bin {mb}: {k}: {calls[k]} "
+                                    f"wrapper calls, expected {want}")
+        tree = bst._gbdt.models[-1]
+        Bp = lr.children.shape[-1]
+        bsize = np.dtype(lr.bin_dtype).itemsize
+        pair_bytes = 2 * (2 * lr.G) * Bp * 4 + 2 * (2 * lr.G) * 8 * 4 + 104
+        step_bytes = (2 * 25 + 17 + 2 * lr.G * 8 + 2 * (25 + lr.W) + 2 * 13
+                      + 6 * lr.W + 255) * 4
+        bnd = iteration_bounds(tree, "subtraction", lr.G, lr.G, Bp, lr.N,
+                               pair_bytes, step_bytes, SPLITS + 2, bsize)
+        it = report_iteration(per, bnd, tree, f"wide max_bin {mb}",
+                              per_tree("subtraction"))
+        out["runs"][mb] = {"iter_s": med, "iter_all": iter_s,
+                           "device_ms": busy, "losses": losses, "Bp": Bp,
+                           "calls": calls,
+                           "iter": {k: list(v) for k, v in it.items()},
+                           "launches": {k: n for k, (_, n) in per.items()}}
+        say(f"wide max_bin {mb} (subtraction body, {lr.bin_dtype.__name__}"
+            f" bins, Bp {Bp}): s/iteration {med:.4f} (iterations "
+            f"{[round(s, 4) for s in iter_s]}), device {busy:.2f} ms an "
+            f"iteration; binary_logloss {losses}")
+        if mb == WIDE_MAX_BIN:
+            pb_, pg_ = bst._gbdt._phys
+            err, n, _, last = check_wide_steps(lr, pb_, pg_, WIDE_STEPS,
+                                               "wide max_bin 1023")
+            kw = dict(l1=lr.l1, l2=lr.l2, max_delta_step=lr.max_delta_step,
+                      min_gain_to_split=lr.min_gain_to_split,
+                      min_data_in_leaf=lr.min_data_in_leaf,
+                      min_sum_hessian=lr.min_sum_hessian,
+                      max_depth=lr.max_depth)
+            times = wide_kernel_times(lr, last, kw)
+            # tree_step at W words: the kernel against tree_step_plain;
+            # its ms a step from the profiled iteration
+            err["tree_step"], ts_plain = check_tree_steps(ts, lr, pb_, pg_,
+                                                          WIDE_STEPS)
+            times["tree_step"] = (per["tree_step"][0] / per["tree_step"][1],
+                                  ts_plain)
+            out["higgs"] = {"err": err, "n": n, "times": times, "Bp": Bp,
+                            "W": lr.W, "cnt": {}}
+            # the bytes of each timed launch: the partition's and the
+            # state launch's leaf, the pair search's planes
+            w = last["part"][2].cpu()
+            pc = int(w[tpart.SB_CNT])
+            out["higgs"]["bytes"] = {
+                "partition": 2 * pc * (lr.G * 2 + 32),
+                "leaf_hist": None, "split_pair": pair_bytes}
+            out["higgs"]["part_rows"] = pc
+            say(f"wide max_bin 1023 kernels on the root and "
+                f"{n['split_pair'] - 1} steps of a real tree: partition "
+                f"(uint16), the state launch and split_pair at BF = {Bp} "
+                f"bit-identical to their plain versions {n}, tree_step at "
+                f"W = {lr.W} to tree_step_plain on the root, {WIDE_STEPS} "
+                f"steps and the final commit; ms a launch (kernel, plain) "
+                f"{times}")
+            del pb_, pg_, last
+        del bst, lr
+        torch.cuda.empty_cache()
+    del ds, inner
+    gc.collect()
+    r255, r1023 = out["runs"][255], out["runs"][WIDE_MAX_BIN]
+    say(f"wide: max_bin {WIDE_MAX_BIN} against 255 on the subtraction "
+        f"body: s/iteration {r1023['iter_s']:.4f} / {r255['iter_s']:.4f} "
+        f"({r1023['iter_s'] / r255['iter_s']:.2f}x), device ms "
+        f"{r1023['device_ms']:.2f} / {r255['device_ms']:.2f}")
+
+    # (2) the high-cardinality categorical
+    t0 = time.time()
+    Xc, yc = make_wide_cat_data(EFB_ROWS)
+    F = Xc.shape[1]
+    cat_cols = list(range(FEATURES, FEATURES + EFB_CATS + 3))
+    cparams = {"objective": "binary", "num_leaves": 255,
+               "learning_rate": 0.1, "verbosity": -1}
+    cds = lgt.Dataset(Xc, label=yc, categorical_feature=cat_cols)
+    cds.construct(cparams)
+    ci = cds._inner
+    wide_nb = ci.bin_mappers[FEATURES + EFB_CATS + 2].num_bin
+    check(ci.binned.dtype == np.uint16 and wide_nb > 256,
+          f"wide cat: {ci.binned.dtype} bins, the wide column's num_bin "
+          f"{wide_nb}")
+    say(f"wide cat data and construct: {Xc.shape}, the {WIDE_LEVELS}-level "
+        f"column in {wide_nb} bins, {ci.num_groups} groups (bundles: "
+        f"{sum(len(g.feature_indices) > 1 for g in ci.groups)}), "
+        f"{time.time() - t0:.1f} s")
+    ref = lgt.Booster(params=cparams, train_set=cds)
+    ref._gbdt.learner.build_tree = ref._gbdt.learner.build_tree_eager
+    ref.update()
+    bst, med, iter_s, losses, calls, per, busy = timed_run(
+        lgt, mods, cds, cparams, "wide cat", CAT_ITERS)
+    lr = bst._gbdt.learner
+    check(lr.has_cat and lr.bundled and lr.subtract and lr.K == 1
+          and lr.W > 8 and lr.bin_dtype == np.uint16,
+          f"wide cat: learner has_cat {lr.has_cat} bundled {lr.bundled} K "
+          f"{lr.K} W {lr.W} {lr.bin_dtype}")
+    first = bst._gbdt.models[0]
+    check(first.num_cat > 0 and max(
+        (len(t.cat_threshold) for t in bst._gbdt.models), default=0) > 0,
+          "wide cat: no categorical split")
+    lb = ref._gbdt.learner
+    (pa, ga), (pr, gr) = bst._gbdt._phys, ref._gbdt._phys
+    # the eager oracle grew one tree: held to the graph's first by the
+    # host record (the graph's learner has grown CAT_ITERS + 1 since)
+    tr = ref._gbdt.models[0]
+    check(same_trees([first], [tr]) and first.cat_threshold ==
+          tr.cat_threshold, "wide cat: the graph's first tree differs from "
+                            "the eager oracle's")
+    del ref, lb, pr, gr, pa, ga
+    want = dict(per_tree("subtraction"), split_cat=SPLITS + 1,
+                feat_view=SPLITS + 1)
+    for k in mods:
+        check(calls[k] == 2 * want.get(k, 0),
+              f"wide cat: {k}: {calls[k]} wrapper calls, expected "
+              f"{2 * want.get(k, 0)}")
+    say(f"wide cat train: s/iteration {med:.4f} "
+        f"({[round(s, 4) for s in iter_s]}), device {busy:.2f} ms an "
+        f"iteration; wrapper calls {calls}; binary_logloss {losses}; first "
+        f"tree equal to the eager oracle's; {first.num_cat} categorical "
+        f"nodes in the first tree, sets of {lr.W} words of bins")
+    pb_, pg_ = bst._gbdt._phys
+    cerr, cn, cat_steps, clast = check_wide_steps(lr, pb_, pg_, WIDE_STEPS,
+                                                  "wide cat")
+    kw = dict(l1=lr.l1, l2=lr.l2, max_delta_step=lr.max_delta_step,
+              min_gain_to_split=lr.min_gain_to_split,
+              min_data_in_leaf=lr.min_data_in_leaf,
+              min_sum_hessian=lr.min_sum_hessian, max_depth=lr.max_depth)
+    ctimes = wide_kernel_times(lr, clast, kw)
+    cerr["tree_step"], cts_plain = check_tree_steps(ts, lr, pb_, pg_,
+                                                    WIDE_STEPS)
+    ctimes["tree_step"] = (per["tree_step"][0] / per["tree_step"][1],
+                           cts_plain)
+    del pb_, pg_, clast
+    say(f"wide cat kernels on the root and {cn['split_pair'] - 1} steps "
+        f"({cat_steps} categorical): bit-identical to their plain "
+        f"versions {cn}, tree_step at W = {lr.W} to tree_step_plain on the "
+        f"root, {WIDE_STEPS} steps and the final commit; ms a launch "
+        f"(kernel, plain) {ctimes}")
+    # save, reload, predict
+    Xp = Xc[:100_000]
+    raw = bst.predict(Xp, raw_score=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "wide.txt")
+        bst.save_model(path)
+        again = lgt.Booster(model_file=path).predict(Xp, raw_score=True)
+    check(np.array_equal(raw, again), "wide cat: the reloaded model "
+                                      "predicts other raw scores")
+    host = sum(t.predict(Xp) for t in bst._gbdt.models)
+    check(np.array_equal(raw, host), "wide cat: predict differs from the "
+                                     "host Tree.predict")
+    # card against CPU on a 200,000-row cut of the same bins
+    t0 = time.time()
+    cut = relabeled(lgt, cds, Xc, yc, rows=OBJ_CUT)
+    card = lgt.Booster(params=cparams, train_set=cut)
+    card.update()
+    cpu = lgt.Booster(params=dict(cparams, device_type="cpu"),
+                      train_set=cut)
+    cpu.update()
+    ta, tc = card._gbdt.models[0], cpu._gbdt.models[0]
+    tie = None
+    if not (same_trees([ta], [tc], exact=False)
+            and ta.cat_threshold == tc.cat_threshold):
+        tie = first_cat_tie(ta, tc, Xc[:OBJ_CUT].astype(np.float64),
+                            yc[:OBJ_CUT],
+                            np.full(OBJ_CUT, card._gbdt.init_scores[0]),
+                            ci.bin_mappers, "wide cat card vs CPU tree 0")
+    say(f"wide cat predict: 100,000 rows, save / reload bit for bit; the "
+        f"first tree on a {OBJ_CUT}-row cut against the CPU plain loop: "
+        + ("equal" if tie is None else f"equal up to split {tie}, an exact "
+                                       f"tie in f64")
+        + f"; {time.time() - t0:.1f} s")
+    nbs = lr.fmeta_pair[lr.cat_feats.long(), 0].cpu().numpy().astype(
+        np.float64)
+    NC = len(nbs)
+    out["cat"] = {"iter_s": med, "device_ms": busy, "per": per,
+                  "calls": calls,
+                  "err": cerr, "n": cn, "times": ctimes, "W": lr.W,
+                  "Bp": lr.children.shape[-1], "tie": tie,
+                  "cat_steps": cat_steps,
+                  "cat_bytes": (2 * 2 * nbs.sum() * 4 + 2 * NC * 64 + NC * 4
+                                + 2 * 2 * 13 * 4 + 2 * lr.W * 4),
+                  "cat_ops": 2 * float((nbs * (np.ceil(np.log2(nbs)) + 60))
+                                       .sum()),
+                  "step_bytes": (2 * 25 + 17 + 2 * lr.G * 8 + 2 * (25 + lr.W)
+                                 + 2 * 13 + 6 * lr.W + 255) * 4,
+                  "view_bytes": 2 * 2 * lr.G * lr.children.shape[-1] * 8
+                  + 2 * 2 * lr.F * lr.children.shape[-1] * 4}
+    del bst, lr, cds, ci, card, cpu, cut, Xc, yc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (3) the wide histogram arm
+    arm = wide_arm(th, hs, torch.device("cuda", 0))
+    rng = np.random.RandomState(14)
+    Xa = rng.normal(size=(ARM_ROWS, ARM_FEATURES)).astype(np.float32)
+    ya = (Xa[:, 0] + 0.5 * Xa[:, 1] + rng.normal(size=ARM_ROWS) > 0).astype(
+        np.float32)
+    aparams = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+               "max_bin": ARM_MAX_BIN, "min_data_in_bin": 1}
+    ads = lgt.Dataset(Xa, label=ya)
+    ads.construct(aparams)
+    check(ads._inner.max_group_bins > 14_500, f"wide arm: groups of "
+          f"{ads._inner.max_group_bins} bins")
+    bst = lgt.Booster(params=aparams, train_set=ads)
+    for m in mods.values():
+        m.launches = 0
+    losses = []
+    for _ in range(2):
+        bst.update()
+        losses.append(bst.eval_train()[0][2])
+    arm["launches"] = mods["leaf_hist"].launches
+    check(arm["launches"] == 2 * 31 and losses[1] < losses[0],
+          f"wide arm training: {arm['launches']} leaf_hist wrapper calls, "
+          f"losses {losses}")
+    say(f"wide arm (max_bin {ARM_MAX_BIN}: Bp {arm['Bp']}, one group's "
+        f"planes {2 * arm['Bp'] * 8} B past a block's shared memory): "
+        f"leaf_hist and its state launch bit-identical to their plain "
+        f"versions on {ARM_ROWS} x {ARM_FEATURES}; {arm['ms']:.3f} ms a "
+        f"launch, plain {arm['plain_ms']:.3f} ms, index_add_ "
+        f"{arm['lib_ms']:.3f} ms, bound {arm['bound'][0]:.4f} ms "
+        f"({arm['bound'][1]}); a training of 2 trees at that max_bin "
+        f"through it, logloss {losses}")
+    out["arm"] = arm
+    del bst, ads, Xa, ya
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -3045,13 +3668,20 @@ def main():
     samp = sampling_path(lgt, mods, ds, params)
     # ---- 4g. the other objectives and multiclass ------------------------
     objs = objectives_path(lgt, mods, ds, X, params)
-    del X, y, ds
     gc.collect()
     torch.cuda.empty_cache()
     # ---- 4e. EFB bundles ------------------------------------------------
     efb = efb_path(lgt, learner_mod, mods)
     # ---- 4f. categorical features ---------------------------------------
     cat = cat_path(lgt, mods, efb)
+    # ---- 4h. wide bins (uint16 bin matrices): after 4e and 4f, whose
+    # checks count device launches by the profiler's kernel names, which
+    # hold only for a process's first few profiled graphs (PERF.md
+    # section 7); 4h's own checks count wrapper calls
+    wide = wide_path(lgt, mods, ds, X, y, params)
+    del X, y, ds
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---- 4c. the training API on the card -----------------------------
     api_path(lgt, mods, fro, card)
@@ -3300,7 +3930,8 @@ def main():
     # ---- 6. lightgbm_tpu_torch.bench at a cut depth -----------------
     gc.collect()
     torch.cuda.empty_cache()
-    env = dict(os.environ, BENCH_REPEATS="2", BENCH_ITERS="5")
+    env = dict(os.environ, BENCH_ROWS="2000000", BENCH_REPEATS="2",
+               BENCH_ITERS="5")
     t0 = time.time()
     r = subprocess.run([sys.executable, "-m", "lightgbm_tpu_torch.bench"],
                        cwd=ROOT, env=env, capture_output=True, text=True,
@@ -3316,7 +3947,8 @@ def main():
         print(f"bench: {json.dumps(line)}", flush=True)
         check(line["syncs_per_tree"] == 1.0 and np.isfinite(
             line["binary_logloss"]), f"bench {line['body']}: {line}")
-    say(f"bench (BENCH_REPEATS=2 BENCH_ITERS=5): {time.time() - t0:.1f} s")
+    say(f"bench (BENCH_ROWS=2000000 BENCH_REPEATS=2 BENCH_ITERS=5): "
+        f"{time.time() - t0:.1f} s")
 
     def total(name):
         return sum(v.get(name, 0) for v in launches_by_path.values())
@@ -3364,6 +3996,86 @@ def main():
         {"binary": objs["binary"], "renew_ms": objs["renew_ms"],
          "runs": {k: {n: v for n, v in r.items() if n != "iter_all"}
                   for k, r in objs["runs"].items()}}), flush=True)
+    hw, cw, arm = wide["higgs"], wide["cat"], wide["arm"]
+    r255, r1023 = wide["runs"][255], wide["runs"][WIDE_MAX_BIN]
+    print(f"wide (phase 4h, {card}): " + json.dumps(
+        {"max_bin_255": {k: r255[k] for k in ("iter_s", "device_ms")},
+         "max_bin_1023": {k: r1023[k] for k in ("iter_s", "device_ms",
+                                                "iter", "launches")},
+         "cat": {k: cw[k] for k in ("iter_s", "device_ms", "W", "Bp",
+                                    "tie", "cat_steps")}}), flush=True)
+    Gw, Bw = FEATURES, hw["Bp"]
+
+    def wide_row(name, source, replaces, src, kernel, err_key, nbytes, ops,
+                 lib=None, **extra):
+        # a uint16 / wide arm: its ms a launch and its plain version's on
+        # phase 4h's real inputs; launches: its wrapper's count over 4h's
+        # run (the 1023 run, or the categorical run), the counts set to 0
+        # just before; its ms and device launches an iteration
+        t = src["times"][kernel]
+        run = r1023 if src is hw else cw
+        per = run["iter"] if src is hw else {
+            k: list(v) for k, v in cw["per"].items()}
+        dev = (run["launches"] if src is hw else
+               {k: v[1] for k, v in cw["per"].items()}).get(kernel, 0)
+        bnd, by = bound(nbytes, ops)
+        return dict({"name": name, "route": "cuda",
+                     "source": f"lightgbm_tpu_torch/csrc/{source}",
+                     "replaces": replaces,
+                     "launches": run["calls"][kernel],
+                     "max_abs_err": src["err"][err_key], "ms": t[0],
+                     "plain_ms": t[1], "bound_ms": bnd, "bound_by": by,
+                     "library_ms": lib,
+                     "iter_ms": per.get(kernel, [None])[0],
+                     "device_launches_per_iter": dev}, **extra)
+
+    part_rows, lh_rows = hw["part_rows"], hw["times"]["leaf_hist"][3]
+    pair_f2 = 2 * Gw
+    wide_rows = [
+        wide_row("partition_u16", "partition.cu",
+                 "lightgbm_tpu/ops/partition_pallas.py:258", hw,
+                 "partition", "partition",
+                 2 * part_rows * (Gw * 2 + 32), part_rows,
+                 rows=part_rows),
+        wide_row("leaf_hist_u16", "leaf_hist.cu",
+                 "lightgbm_tpu/ops/histogram.py:204", hw, "leaf_hist",
+                 "leaf_hist",
+                 lh_rows * (Gw * 2 + 8) + 2 * Gw * Bw * (8 + 16 + 8),
+                 2 * lh_rows * Gw, hw["times"]["leaf_hist"][2],
+                 rows=lh_rows, note="the state launch (hist_rmw's "
+                                    "epilogue included)"),
+        wide_row("split_pair_wide", "split_pair.cu",
+                 "lightgbm_tpu/ops/split_pallas.py:61", hw, "split_pair",
+                 "split_pair",
+                 2 * pair_f2 * Bw * 4 + 2 * pair_f2 * 8 * 4 + 2 * 13 * 4,
+                 pair_f2 * Bw * 60, BF=Bw),
+        wide_row("split_cat_wide", "split_cat.cu",
+                 "lightgbm_tpu/ops/split.py:121", cw, "split_cat",
+                 "split_cat", cw["cat_bytes"], cw["cat_ops"], BF=cw["Bp"],
+                 set_words=cw["W"]),
+        wide_row("feat_view_wide", "feat_view.cu",
+                 "lightgbm_tpu/models/learner.py:1509", cw, "feat_view",
+                 "feat_view", cw["view_bytes"], 0, Bp=cw["Bp"]),
+        # held on both wide learners (W = 31 here, 32 at max_bin 1023);
+        # timed on the categorical run
+        wide_row("tree_step_wide", "tree_step.cu",
+                 "lightgbm_tpu/models/learner.py:2106", cw, "tree_step",
+                 "tree_step", cw["step_bytes"], 0, set_words=cw["W"],
+                 max_abs_err_max_bin_1023=hw["err"]["tree_step"],
+                 ms_max_bin_1023=hw["times"]["tree_step"][0],
+                 plain_ms_max_bin_1023=hw["times"]["tree_step"][1],
+                 set_words_max_bin_1023=hw["W"]),
+        {"name": "leaf_hist_wide_arm", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/leaf_hist.cu",
+         "replaces": "lightgbm_tpu/ops/histogram.py:204",
+         "launches": arm["launches"], "max_abs_err": arm["err"],
+         "ms": arm["ms"], "plain_ms": arm["plain_ms"],
+         "bound_ms": arm["bound"][0], "bound_by": arm["bound"][1],
+         "library_ms": arm["lib_ms"], "Bp": arm["Bp"],
+         "rows": ARM_ROWS, "groups": ARM_FEATURES,
+         "launches_note": "wrapper calls of phase 4h's training at max_bin "
+                          f"{ARM_MAX_BIN} (the sizing run and the capture)"},
+    ]
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": [
         row("split_mega", "split_mega.cu",
@@ -3432,7 +4144,7 @@ def main():
          "library_ms": None, "iter_ms": cat["per"]["split_cat"][0],
          "iter_bound_ms": cat["iter_bound"], "ms_from_python": cat["py_ms"],
          "partition_cat_max_abs_err": cat["part_err"]},
-    ]}), flush=True)
+    ] + wide_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -3516,10 +4228,62 @@ def digest():
         torch.cuda.empty_cache()
 
 
+def standalone(flag):
+    """The port imported, its kernels built and its wrapper modules by
+    name, for a phase run alone."""
+    check(torch.cuda.is_available(), f"{flag} needs a card")
+    sys.path.insert(0, ROOT)
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import (feat_view, hist_state, histogram,
+                                        kernels, partition, sample,
+                                        split_cat, split_mega, split_pair,
+                                        tree_step)
+    kernels.build_all()
+    return lgt, {"split_mega": split_mega, "split_pair": split_pair,
+                 "partition": partition, "leaf_hist": histogram,
+                 "hist_rmw": hist_state, "tree_step": tree_step,
+                 "feat_view": feat_view, "sample": sample,
+                 "split_cat": split_cat}
+
+
+def efb_only():
+    """``python3 chip_smoke.py --efb``: phase 4e alone, its checks and
+    numbers printed; the last line feat_view's and split_pair's ms a
+    launch, each kernel's device ms an iteration and the iteration's
+    device ms, a JSON object."""
+    lgt, mods = standalone("--efb")
+    from lightgbm_tpu_torch.models import learner as learner_mod
+    efb = efb_path(lgt, learner_mod, mods)
+    print(json.dumps({k: efb[k] for k in ("ms", "plain", "per", "iter_s",
+                                          "device_ms")}), flush=True)
+
+
+def wide_only():
+    """``python3 chip_smoke.py --wide``: phase 4h alone (the HIGGS shape
+    made and constructed at max_bin 255 for the run beside max_bin 1023),
+    its checks and numbers printed; the last line its JSON summary."""
+    lgt, mods = standalone("--wide")
+    X, y = make_data(ROWS)
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+              "learning_rate": 0.1, "verbosity": -1}
+    ds = lgt.Dataset(X, label=y)
+    ds.construct(params)
+    wide = wide_path(lgt, mods, ds, X, y, params)
+    print(json.dumps({"runs": wide["runs"], "higgs_err": wide["higgs"]["err"],
+                      "higgs_times": wide["higgs"]["times"],
+                      "cat_err": wide["cat"]["err"],
+                      "cat_times": wide["cat"]["times"],
+                      "arm": wide["arm"]}, default=str), flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--frontier-window"]:
         frontier_window()
     elif sys.argv[1:] == ["--digest"]:
         digest()
+    elif sys.argv[1:] == ["--wide"]:
+        wide_only()
+    elif sys.argv[1:] == ["--efb"]:
+        efb_only()
     else:
         main()

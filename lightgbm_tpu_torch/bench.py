@@ -119,7 +119,8 @@ def run_body(lgt, ds, params, label, card, block=None):
     busy = sum(ms for _, ms, _ in rows)
     kernels, launches = {}, {}
     for key, ms, n in rows:
-        fn = key.split("(")[0].split()[-1][:60]
+        # the function's name, without a template's arguments
+        fn = key.split("(")[0].split("<")[0].split()[-1][:60]
         kernels[fn] = kernels.get(fn, 0.0) + ms / ITERS
         launches[fn] = launches.get(fn, 0) + n
     top = sorted(kernels, key=lambda fn: -kernels[fn])[:12]

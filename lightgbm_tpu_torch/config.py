@@ -692,9 +692,6 @@ _UNSUPPORTED = [
      in MULTICLASS_OBJECTIVES else (c.num_class != 1
                                     and c.objective != "none"),
      "objective"),
-    ("max_bin", lambda c: c.max_bin > 256),
-    ("max_bin_by_feature", lambda c: not _off(c.max_bin_by_feature) and any(
-        int(v) > 256 for v in str(c.max_bin_by_feature).split(",") if v)),
     ("bin_construct_mode", lambda c: str(c.bin_construct_mode).lower()
      not in ("auto", "exact")),
     ("nonfinite_policy", lambda c: str(c.nonfinite_policy).lower() != "none"),

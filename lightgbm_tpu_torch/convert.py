@@ -9,7 +9,9 @@ format, so it loads back there too).  ``dataset_from_arrays`` builds a
 port ``BinnedDataset`` from the arrays of a JAX ``BinnedDataset``: its
 binned matrix, its bin mappers as ``BinMapper.to_dict()`` dicts, its
 groups (EFB bundles with their bin offsets) and the label -- so both
-packages' learners can be fed identical bins.  A mapper's ``bin_type``
+packages' learners can be fed identical bins.  The matrix is uint8, or
+uint16 when a group has more than 256 bins, as the JAX package stores
+it.  A mapper's ``bin_type``
 says whether its feature is categorical (the dataset's
 ``feature_meta_arrays()["is_categorical"]`` follows from it), so JAX's
 categorical mappers and their bins come across as they are.
@@ -45,8 +47,6 @@ def dataset_from_arrays(binned: np.ndarray, mappers: Sequence[dict],
     ``(feature_indices, bin_offsets, num_total_bin)`` (a singleton is
     ``([f], [0], num_bin)``; dataset.py ``groups_from_spec``)."""
     binned = np.ascontiguousarray(binned)
-    if binned.dtype != np.uint8:
-        raise NotImplementedError("lightgbm_tpu_torch trains uint8 bins only")
     ds = BinnedDataset(Config(params or {}))
     ds.num_data = binned.shape[0]
     ds.bin_mappers = [BinMapper.from_dict(m) for m in mappers]
@@ -59,6 +59,10 @@ def dataset_from_arrays(binned: np.ndarray, mappers: Sequence[dict],
     if binned.shape[1] != len(ds.groups):
         raise ValueError(f"binned has {binned.shape[1]} columns for "
                          f"{len(ds.groups)} groups")
+    if binned.dtype != ds.bin_dtype:
+        raise ValueError(f"binned is {binned.dtype}; groups of up to "
+                         f"{ds.max_group_bins} bins are "
+                         f"{ds.bin_dtype.__name__}")
     ds.binned = binned
     ds.metadata = Metadata(ds.num_data)
     ds.metadata.set_label(label)

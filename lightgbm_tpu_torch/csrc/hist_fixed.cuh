@@ -14,19 +14,23 @@
 // leaf_hist_fixed_plain).
 //
 // Layout: a block holds the histograms of as many groups as its shared
-// memory takes, NP planes of Bp bins a group (even planes grad, odd
-// planes hess), low and high words in two arrays so that consecutive
-// bins sit in consecutive banks.  Each lane takes 16 consecutive rows,
-// reads their grad and hess once for all the block's groups, and each
-// group's bins as one 16-byte load.  Small leaves spread over more blocks
-// with fewer groups each (hist_grid).  Blocks of one group set combine
-// with 64-bit global atomics; the last block of the set (a done counter)
-// converts once, (int64 -> double) * 2^-k -> f32, and leaves the
-// accumulator and counter at zero for the next launch.  A block alone in
-// its set converts straight from shared memory.  The conversion hands the
-// caller each exact int64 sum beside its f32 value (leaf_hist's state
-// epilogue keeps the integers), loads for several entries in flight at
-// once.
+// memory takes, NP planes of Bp bins a group (even planes grad, odd planes
+// hess), low and high words in two arrays so that consecutive bins sit in
+// consecutive banks.  Each lane takes 16 consecutive rows, reads their grad
+// and hess once for all the block's groups, and each group's bins as one
+// 16-byte load (uint8 bins) or two (uint16: the bin type is a template
+// parameter).  The wide arm (GLOBAL): when one group's planes do not fit a
+// block's shared memory (past ~14,500 bins at NP = 2), the adds go straight
+// to the group set's int64 accumulator in device memory by 64-bit global
+// atomics, exact in any order as well, and the last block converts from
+// there.  Small leaves spread over more blocks with fewer groups each
+// (hist_grid).  Blocks of one group set combine with 64-bit global atomics;
+// the last block of the set (a done counter) converts once, (int64 ->
+// double) * 2^-k -> f32, and leaves the accumulator and counter at zero for
+// the next launch.  A block alone in its set converts straight from shared
+// memory.  The conversion hands the caller each exact int64 sum beside its
+// f32 value (leaf_hist's state epilogue keeps the integers), loads for
+// several entries in flight at once.
 //
 // The callers need Np a multiple of 16 and 16-byte aligned bins and
 // payload (rows are read as aligned 16-row units).
@@ -39,7 +43,7 @@
 #include <algorithm>
 
 #define HIST_THREADS 512
-#define MAX_BP 256
+#define MAX_BP 65536    // uint16 bins
 #define FIXED_BITS 62
 
 // Add a 64-bit integer to a shared-memory accumulator held as a low and
@@ -73,12 +77,17 @@ __device__ __forceinline__ int fixed_exponent(float amax, int cnt) {
 // block is row block rb of the nrb of its group set.
 // side(r0) gives the 16-bit mask of the rows r0 .. r0 + 15 that go to
 // planes 2 and 3 (NP == 4: the right child); it is called once a unit.
-template <int NP, class Side>
+// GLOBAL (the wide arm): the adds go to the group set's (gn, NP, Bp)
+// int64 accumulator gacc in device memory instead (slo, shi unused).
+template <int NP, bool GLOBAL = false, class BinT, class Side>
 __device__ __forceinline__ void hist_fixed_rows(
-    const uint8_t* __restrict__ bins, long long Np,
+    const BinT* __restrict__ bins, long long Np,
     const float* __restrict__ ghi, long long s0, int c, int g_lo, int gn,
     int Bp, double sg, double sh, unsigned* slo, unsigned* shi, int rb,
-    int nrb, Side side) {
+    int nrb, Side side, unsigned long long* gacc = nullptr) {
+  constexpr int NV = (int)sizeof(BinT);   // 16-byte loads a unit
+  constexpr int BITS = 8 * NV;
+  constexpr unsigned MASK = (1u << BITS) - 1u;
   const long long end = s0 + c;
   const long long a0 = s0 & ~15LL;
   const long long nu = (end - a0 + 15) >> 4;
@@ -106,17 +115,31 @@ __device__ __forceinline__ void hist_fixed_rows(
       }
     }
     for (int gl = 0; gl < gn; ++gl) {
-      const uint4 bv =
-          *(const uint4*)(bins + (long long)(g_lo + gl) * Np + r0);
-      const unsigned bw[4] = {bv.x, bv.y, bv.z, bv.w};
+      const uint4* bp =
+          (const uint4*)(bins + (long long)(g_lo + gl) * Np + r0);
+      unsigned bw[4 * NV];
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        const uint4 bv = bp[k];
+        bw[4 * k] = bv.x;
+        bw[4 * k + 1] = bv.y;
+        bw[4 * k + 2] = bv.z;
+        bw[4 * k + 3] = bv.w;
+      }
       const int hb = gl * NP * Bp;
 #pragma unroll
       for (int t = 0; t < 16; ++t) {
-        const int bin = (bw[t >> 2] >> ((t & 3) * 8)) & 0xff;
+        const int bin =
+            (int)((bw[t / (4 / NV)] >> ((t % (4 / NV)) * BITS)) & MASK);
         if (((live >> t) & 1u) && bin < Bp) {
           const int e = hb + ((right >> t) & 1u) * 2 * Bp + bin;
-          shared_add_i64(slo + e, shi + e, gi[t]);
-          shared_add_i64(slo + e + Bp, shi + e + Bp, hi[t]);
+          if (GLOBAL) {
+            atomicAdd(gacc + e, (unsigned long long)gi[t]);
+            atomicAdd(gacc + e + Bp, (unsigned long long)hi[t]);
+          } else {
+            shared_add_i64(slo + e, shi + e, gi[t]);
+            shared_add_i64(slo + e + Bp, shi + e + Bp, hi[t]);
+          }
         }
       }
     }
@@ -138,24 +161,28 @@ struct NoPre {
 // After the block's adds (and a __syncthreads): combine the block's nent
 // words with the other nrb - 1 blocks of its group set and convert once.  acc is
 // the set's int64 accumulator and done its counter, both zero before and
-// left zero after; ig, ih are 2^-k of the two planes.  Per entry i of the
+// left zero after; ig, ih are 2^-k of the two planes.  GLOBAL (the wide
+// arm): the adds are in acc already, and the last block converts from
+// there even when it is alone.  Per entry i of the
 // block, pre(i) loads what the store needs beside the sum (leaf_hist's
 // state epilogue: the parent slot's entry), before any store of its
 // round; store(i, v, q, f) takes the entry's exact int64 sum v, pre's
 // value q and the f32 value f.
-template <class Pre, class Store>
+template <bool GLOBAL = false, class Pre, class Store>
 __device__ __forceinline__ void hist_fixed_finish(
     const unsigned* slo, const unsigned* shi, int nent, int Bp, int nrb,
     unsigned long long* acc, unsigned* done, double ig, double ih, Pre pre,
     Store store) {
   __shared__ bool s_last;
   const int tid = threadIdx.x;
-  const bool alone = nrb == 1;
+  const bool alone = !GLOBAL && nrb == 1;
   if (!alone) {
-    for (int i = tid; i < nent; i += HIST_THREADS) {
-      const unsigned long long v =
-          ((unsigned long long)shi[i] << 32) | slo[i];
-      if (v) atomicAdd(acc + i, v);
+    if (!GLOBAL) {
+      for (int i = tid; i < nent; i += HIST_THREADS) {
+        const unsigned long long v =
+            ((unsigned long long)shi[i] << 32) | slo[i];
+        if (v) atomicAdd(acc + i, v);
+      }
     }
     __threadfence();
     __syncthreads();
@@ -228,8 +255,8 @@ struct HistGrid {
   int GB, nblocks, smem, nsm;
 };
 
-static cudaError_t hist_grid(int G, int NP, int Bp, long long nu_bound,
-                             HistGrid* out) {
+// The card's SM count and shared memory a block (opt-in) and an SM.
+static void hist_attrs(int* nsm_out, int* smem_block_out, int* smem_sm_out) {
   static int nsm = 0, smem_block = 0, smem_sm = 0;
   if (!nsm) {
     int dev;
@@ -240,8 +267,29 @@ static cudaError_t hist_grid(int G, int NP, int Bp, long long nu_bound,
     cudaDeviceGetAttribute(&smem_sm,
                            cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
   }
-  const int per_group = NP * Bp * 8;
-  const int gbmax = std::min(G, (smem_block - 1024) / per_group);
+  *nsm_out = nsm;
+  *smem_block_out = smem_block;
+  *smem_sm_out = smem_sm;
+}
+
+// Whether one group's NP planes of Bp bins are past a block's shared
+// memory: the histogram then takes the wide arm (GLOBAL).
+static inline bool hist_wide(int NP, int Bp) {
+  int nsm, smem_block, smem_sm;
+  hist_attrs(&nsm, &smem_block, &smem_sm);
+  return (long long)NP * Bp * 8 > smem_block - 1024;
+}
+
+// wide: the wide arm's grid, no shared histogram and every group in one
+// set when the leaf is large (a group set then shares its rows' grad and
+// hess loads).
+static cudaError_t hist_grid(int G, int NP, int Bp, long long nu_bound,
+                             HistGrid* out, bool wide = false) {
+  int nsm, smem_block, smem_sm;
+  hist_attrs(&nsm, &smem_block, &smem_sm);
+  const int per_group = wide ? 0 : NP * Bp * 8;
+  const int gbmax =
+      wide ? G : std::min(G, (smem_block - 1024) / per_group);
   if (gbmax < 1) return cudaErrorInvalidValue;
   // the cut of the bound with every SM's worth of blocks
   const HistSplit b = hist_split(G, gbmax, nu_bound, 1 << 30, nsm);

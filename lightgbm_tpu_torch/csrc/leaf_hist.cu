@@ -11,21 +11,21 @@
 // hist_rmw_plain (the CPU's) and leaf_hist_rmw_fixed_plain (bit for bit)
 // in lightgbm_tpu_torch/ops/hist_state.py.
 //
-// leaf_hist_fixed: the (2, G, Bp) f32 planes (grad plane, hess plane;
-// bin b at column b) of the rows [s, s + c) of the (R, Np) uint8 bin
-// rows, grad and hess read from payload rows 0 and 1.  The rows are the
-// step's range [start, start + cnt), or -- for a child of the split just
-// made, whose size is known only on the device -- one side of it at the
-// partition's left count nl: side 1 the left child [start, start + nl),
+// leaf_hist_fixed: the (2, G, Bp) f32 planes (grad plane, hess plane; bin b
+// at column b) of the rows [s, s + c) of the (R, Np) bin rows (uint8, or
+// uint16 when a group has more than 256 bins: the kernels are templates on
+// the bin type), grad and hess read from payload rows 0 and 1.  The rows
+// are the step's range [start, start + cnt), or -- for a child of the split
+// just made, whose size is known only on the device -- one side of it at
+// the partition's left count nl: side 1 the left child [start, start + nl),
 // side 2 the right child [start + nl, start + cnt).  The range, the side
 // and the state slots come from the step block on the device
-// (csrc/step.cuh); the grid from a bound on a step's rows, cut into
-// group sets and row blocks on the device from the rows actually summed
-// (hist_split).  A step of no rows (cnt == 0) gives zeros and, in the
-// state launch, writes no slot.  The fixed-point scale comes from kcnt
-// when it is given, else from the count of the rows summed (a child's is
-// read on the device).
-// A child of no rows gives zeros.
+// (csrc/step.cuh); the grid from a bound on a step's rows, cut into group
+// sets and row blocks on the device from the rows actually summed
+// (hist_split).  A step of no rows (cnt == 0) gives zeros and, in the state
+// launch, writes no slot.  The fixed-point scale comes from kcnt when it is
+// given, else from the count of the rows summed (a child's is read on the
+// device).  A child of no rows gives zeros.
 //
 // leaf_hist_state: the same histogram at the tree's scale (kcnt, the
 // root's row count, and a per-tree bound), then the state epilogue.  The
@@ -61,6 +61,16 @@
 // (hist_fixed_finish) but not spread over SMs.  The TPU kernel's (8, WL)
 // lane-flattened state is a TPU tiling rule and is not carried over.  One
 // launch per call.
+//
+// Wide bins: a group of Bp bins takes 16 Bp bytes of shared memory (two
+// planes of int64), so up to ~14,500 bins a group the shared arm above
+// serves any width, with fewer groups a block (28 HIGGS groups at
+// Bp = 1024 take two group sets).  Past that one group does not fit a
+// block, and the wide arm (hist_wide) adds each row straight into the
+// group set's int64 accumulator in device memory with 64-bit global
+// atomics -- exact in any order, so its result is the shared arm's bit
+// for bit -- and the set's last block converts and runs the same
+// epilogue.  No width is refused.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,8 +78,9 @@
 #include "hist_fixed.cuh"
 #include "partition.cuh"
 
+template <class BinT>
 struct LeafArgs {
-  const uint8_t* bins;          // (R, Np)
+  const BinT* bins;             // (R, Np)
   long long Np;
   int R;
   const float* ghi;             // rows 0, 1: grad, hess
@@ -94,8 +105,8 @@ struct LeafRows {
   int parent, wa, wb, sil;
 };
 
-template <bool STATE>
-__device__ LeafRows read_rows(const LeafArgs& a) {
+template <bool STATE, class BinT>
+__device__ LeafRows read_rows(const LeafArgs<BinT>& a) {
   const Leaf lf = read_leaf(a.step, a.R, a.Np, a.bound);
   const int side = a.step[SB_SIDE];
   int bits = lf.bad ? ERR_RANGE : 0;
@@ -131,8 +142,9 @@ __device__ LeafRows read_rows(const LeafArgs& a) {
   return r;
 }
 
-template <bool STATE>
-__device__ __forceinline__ void leaf_hist_body(const LeafArgs& a) {
+// WIDE: the wide arm (no shared histogram; global atomics into acc).
+template <bool STATE, bool WIDE, class BinT>
+__device__ __forceinline__ void leaf_hist_body(const LeafArgs<BinT>& a) {
   extern __shared__ __align__(16) unsigned shist[];
   __shared__ LeafRows s_rows;
   const int tid = threadIdx.x;
@@ -150,7 +162,10 @@ __device__ __forceinline__ void leaf_hist_body(const LeafArgs& a) {
   const int gn = min(sp.GB, a.G - g_lo);
   unsigned* slo = shist;                   // low words, (gn, 2, Bp)
   unsigned* shi = shist + sp.GB * 2 * Bp;  // high words
-  for (int i = tid; i < 2 * sp.GB * 2 * Bp; i += HIST_THREADS) shist[i] = 0u;
+  if (!WIDE)
+    for (int i = tid; i < 2 * sp.GB * 2 * Bp; i += HIST_THREADS)
+      shist[i] = 0u;
+  unsigned long long* acc = a.acc + (long long)g_lo * 2 * Bp;
   const int kc = a.kcnt > 0 ? a.kcnt : c;
   const int kg = fixed_exponent(a.absmax[0], kc);
   const int kh = fixed_exponent(a.absmax[1], kc);
@@ -161,9 +176,9 @@ __device__ __forceinline__ void leaf_hist_body(const LeafArgs& a) {
   const bool sub = live && lr.parent >= 0;
   __syncthreads();
 
-  hist_fixed_rows<2>(a.bins, a.Np, a.ghi, s0, c, g_lo, gn, Bp,
-                     ldexp(1.0, kg), ldexp(1.0, kh), slo, shi, rb, sp.nrb,
-                     [](long long) { return 0u; });
+  hist_fixed_rows<2, WIDE>(a.bins, a.Np, a.ghi, s0, c, g_lo, gn, Bp,
+                           ldexp(1.0, kg), ldexp(1.0, kh), slo, shi, rb,
+                           sp.nrb, [](long long) { return 0u; }, acc);
   __syncthreads();
 
   // block entry i = (gl, plane, bin) -> slot entry (plane, g_lo + gl, bin)
@@ -174,9 +189,8 @@ __device__ __forceinline__ void leaf_hist_body(const LeafArgs& a) {
   };
   // no __restrict__ on the state: slot wa may be slot parent, so each
   // entry's parent word is loaded (pre) before any store of its round
-  hist_fixed_finish(
-      slo, shi, gn * 2 * Bp, Bp, sp.nrb, a.acc + (long long)g_lo * 2 * Bp,
-      a.done + set, ig, ih,
+  hist_fixed_finish<WIDE>(
+      slo, shi, gn * 2 * Bp, Bp, sp.nrb, acc, a.done + set, ig, ih,
       [&](int i) { return sub ? a.state[lr.parent * n + entry(i)] : 0ll; },
       [&](int i, long long v, long long parent, float f) {
         const long long e = entry(i);
@@ -203,27 +217,61 @@ __device__ __forceinline__ void leaf_hist_body(const LeafArgs& a) {
       });
 }
 
+template <class BinT, bool WIDE>
 __global__ void __launch_bounds__(HIST_THREADS, 1)
-    leaf_hist_fixed(LeafArgs a) {
-  leaf_hist_body<false>(a);
+    leaf_hist_fixed(LeafArgs<BinT> a) {
+  leaf_hist_body<false, WIDE>(a);
 }
 
+template <class BinT, bool WIDE>
 __global__ void __launch_bounds__(HIST_THREADS, 1)
-    leaf_hist_state(LeafArgs a) {
-  leaf_hist_body<true>(a);
+    leaf_hist_state(LeafArgs<BinT> a) {
+  leaf_hist_body<true, WIDE>(a);
+}
+
+// One instantiation's launch: its grid (the wide arm's when a group's
+// planes do not fit a block), its shared-memory limit raised once.
+template <class BinT, bool WIDE>
+static cudaError_t launch_as(const LeafArgs<BinT>& a0, long long nu_bound,
+                             cudaStream_t s) {
+  static int smem_fixed = 0, smem_state = 0;
+  const bool st = a0.state != nullptr;
+  HistGrid g;
+  cudaError_t e = hist_grid(a0.G, 2, a0.Bp, nu_bound, &g, WIDE);
+  if (e != cudaSuccess) return e;
+  e = st ? smem_limit((const void*)leaf_hist_state<BinT, WIDE>, &smem_state,
+                      g.smem)
+         : smem_limit((const void*)leaf_hist_fixed<BinT, WIDE>, &smem_fixed,
+                      g.smem);
+  if (e != cudaSuccess) return e;
+  LeafArgs<BinT> a = a0;
+  a.GBL = g.GB;
+  a.nsm = g.nsm;
+  if (st)
+    leaf_hist_state<BinT, WIDE><<<g.nblocks, HIST_THREADS, g.smem, s>>>(a);
+  else
+    leaf_hist_fixed<BinT, WIDE><<<g.nblocks, HIST_THREADS, g.smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <class BinT>
+static cudaError_t launch_bins(const LeafArgs<BinT>& a, long long nu_bound,
+                               cudaStream_t s) {
+  return hist_wide(2, a.Bp) ? launch_as<BinT, true>(a, nu_bound, s)
+                            : launch_as<BinT, false>(a, nu_bound, s);
 }
 
 // state == nullptr: leaf_hist_fixed into out (2, G, Bp); otherwise
 // leaf_hist_state on the (slots, 2, G, Bp) state into out (2, 2, G, Bp),
 // which needs kcnt > 0.  The rows, side and slots come from the step
 // block; the grid from `bound`, the most rows a step may hold.
-extern "C" int leaf_hist_launch(const uint8_t* bins, int R, long long Np,
+// bin_bytes is 1 for uint8 bins, 2 for uint16.
+extern "C" int leaf_hist_launch(const void* bins, int R, long long Np,
                                 const float* ghi, int* step, int bound,
                                 const int* nl, int kcnt, const float* absmax,
                                 unsigned long long* acc, unsigned* done,
                                 int G, int Bp, float* out, long long* state,
-                                int slots, void* stream) {
-  static int smem_fixed = 0, smem_state = 0;
+                                int slots, int bin_bytes, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const bool st = state != nullptr;
   if (Bp < 16 || Bp > MAX_BP || Bp % 16 || G < 1 || G > R || bound < 0 ||
@@ -231,18 +279,20 @@ extern "C" int leaf_hist_launch(const uint8_t* bins, int R, long long Np,
       (kcnt > 0 && kcnt < bound) || (st && (kcnt == 0 || slots < 1)) ||
       ((uintptr_t)bins | (uintptr_t)ghi) % 16)
     return (int)cudaErrorInvalidValue;
-  HistGrid g;
-  cudaError_t e = hist_grid(G, 2, Bp, ((long long)bound + 30) >> 4, &g);
-  if (e != cudaSuccess) return (int)e;
-  e = st ? smem_limit((const void*)leaf_hist_state, &smem_state, g.smem)
-         : smem_limit((const void*)leaf_hist_fixed, &smem_fixed, g.smem);
-  if (e != cudaSuccess) return (int)e;
-  const LeafArgs a{bins, Np,     R,   ghi,   step, bound, nl,
-                   kcnt, G,      g.GB, Bp,   g.nsm, absmax, acc,
-                   done, out,    state, slots};
-  if (st)
-    leaf_hist_state<<<g.nblocks, HIST_THREADS, g.smem, s>>>(a);
-  else
-    leaf_hist_fixed<<<g.nblocks, HIST_THREADS, g.smem, s>>>(a);
-  return (int)cudaGetLastError();
+  const long long nu_bound = ((long long)bound + 30) >> 4;
+  if (bin_bytes == 1) {
+    const LeafArgs<uint8_t> a{(const uint8_t*)bins, Np,    R,     ghi,
+                              step, bound, nl,    kcnt,  G,     0,
+                              Bp,   0,     absmax, acc,  done,  out,
+                              state, slots};
+    return (int)launch_bins(a, nu_bound, s);
+  }
+  if (bin_bytes == 2) {
+    const LeafArgs<uint16_t> a{(const uint16_t*)bins, Np,    R,     ghi,
+                               step, bound, nl,    kcnt,  G,     0,
+                               Bp,   0,     absmax, acc,  done,  out,
+                               state, slots};
+    return (int)launch_bins(a, nu_bound, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

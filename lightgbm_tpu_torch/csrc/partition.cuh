@@ -12,7 +12,11 @@
 // by decide_left_num and flags a categorical step as an error.
 //
 // partition_phases enqueues the stable two-way partition of the leaf
-// range [start, start + cnt) of the (R, Np) uint8 bin rows and the eight
+// range [start, start + cnt) of the (R, Np) bin rows -- uint8, or uint16
+// once a group has more than 256 bins (BinT: every phase below is a
+// template on the bin type; a bin row of a tile is T * sizeof(BinT)
+// bytes, staged and written as whole 16-byte copies and 4-byte words
+// either way) -- and the eight
 // (8, Np) 32-bit payload rows (moved as raw words), lefts first, each
 // side in its original order, and writes the left count to nl_out on the
 // device.  It replaces the partition of the TPU kernels
@@ -20,8 +24,8 @@
 // split_megakernel_pallas, which carried a write frontier across a grid
 // that ran in order.
 //
-// What bounds it on this card: bytes.  The contract moves each row of
-// the leaf once, (R + 32) bytes read and written.  Two launches:
+// What bounds it on this card: bytes.  The contract moves each row of the
+// leaf once, (R * sizeof(BinT) + 32) bytes read and written.  Two launches:
 //   part_tiles     one pass over tiles of T rows (T a multiple of 32,
 //                  chosen by the wrapper so that three tiles fit an SM).
 //                  The tile grid is aligned to absolute rows at a
@@ -77,7 +81,7 @@
 
 // cat points at the step block's set words in device memory, read only
 // on a categorical step: an array here would be indexed at run time and
-// put the whole decision in local memory on every path
+// put the whole decision in local memory on every path.
 struct SplitDecision {
   int col, bstart, isb, nb, dbin, mtype, thr, dl, iscat;
   const int* cat;
@@ -95,12 +99,15 @@ __device__ __forceinline__ int decide_left_num(int colv,
   return miss ? (d.dl != 0) : (fb <= d.thr);
 }
 
-__device__ __forceinline__ int decide_left(int colv, const SplitDecision& d) {
+// ncat: the set's word count (the step block's length less SB_CAT), a
+// launch argument, so the decision keeps no register for it.
+__device__ __forceinline__ int decide_left(int colv, const SplitDecision& d,
+                                           int ncat) {
   if (d.iscat) {
     const int fb_raw = colv - d.bstart;
     const bool in_rb = fb_raw >= 1 && fb_raw <= d.nb - 1;
     const int fb = d.isb == 1 ? (in_rb ? fb_raw : d.dbin) : colv;
-    return fb >= 0 && fb < 32 * CAT_WORDS &&
+    return fb >= 0 && fb < 32 * ncat &&
            (((unsigned)__ldg(d.cat + (fb >> 5)) >> (fb & 31)) & 1u);
   }
   return decide_left_num(colv, d);
@@ -172,8 +179,9 @@ __device__ __forceinline__ Leaf read_leaf(const int* step, int R,
   return l;
 }
 
+template <class BinT>
 struct PartArgs {
-  uint8_t* bins;       // (R, Np), Np a multiple of 16
+  BinT* bins;          // (R, Np), Np a multiple of 16
   uint32_t* ghi;       // (8, Np) payload words
   long long Np;
   int R;
@@ -184,15 +192,17 @@ struct PartArgs {
   unsigned* ticket;    // 0 before the launch; 0 again after it
   unsigned* epoch;     // != 0; part_copyback moves it on
   int* nl_out;
-  uint8_t* sbins;      // (R, scap) scratch of the rights
+  BinT* sbins;         // (R, scap) scratch of the rights
   uint32_t* sghi;      // (8, scap)
   long long scap;      // >= bound + 16, a multiple of 16
+  int ncat;            // words of the step block's set
 };
 
-// Dynamic shared memory of part_tiles: the staged payload and bin rows,
-// then the two index runs (lefts, rights) of T u16 each.
-__host__ __device__ inline int part_smem_bytes(int R, int T) {
-  return 32 * T + ((R * T + 15) & ~15) + 4 * T;
+// Dynamic shared memory of part_tiles: the staged payload and bin rows
+// (bsize bytes a bin), then the two index runs (lefts, rights) of T u16
+// each.
+__host__ __device__ inline int part_smem_bytes(int R, int T, int bsize = 1) {
+  return 32 * T + ((R * T * bsize + 15) & ~15) + 4 * T;
 }
 
 // Write the tile's nl staged lefts, in the order ordl[0 .. nl), to the
@@ -203,9 +213,10 @@ __host__ __device__ inline int part_smem_bytes(int R, int T) {
 // looks up its source rows once and moves them for every row, so
 // consecutive threads gather from different banks and every warp store
 // is one contiguous run: 32 payload words or 128 bin bytes.  A run's
-// partial end words are stored as bytes: their other bytes belong to a
-// neighbouring tile's run.
-__device__ void write_runs(const PartArgs& a, const uint8_t* sb,
+// partial end words are stored bin by bin: their other bins belong to a
+// neighbouring tile's run.  A word holds PER = 4 / sizeof(BinT) bins.
+template <class BinT>
+__device__ void write_runs(const PartArgs<BinT>& a, const BinT* sb,
                            const uint32_t* sg, const uint16_t* ordl,
                            const uint16_t* ordr, int nl, int nr,
                            long long gl, long long gr) {
@@ -218,35 +229,40 @@ __device__ void write_runs(const PartArgs& a, const uint8_t* sb,
 #pragma unroll
     for (int q = 0; q < GHI_ROWS; ++q) dst[q * stride] = sg[q * T + src];
   }
-  const int phl = (int)(gl & 3), phr = (int)(gr & 3);
-  const int nwl = nl ? (phl + nl + 3) >> 2 : 0;
-  const int nwr = nr ? (phr + nr + 3) >> 2 : 0;
+  constexpr int PER = 4 / (int)sizeof(BinT);
+  constexpr int LOG_PER = sizeof(BinT) == 1 ? 2 : 1;
+  constexpr int BITS = 8 * (int)sizeof(BinT);
+  const int phl = (int)(gl & (PER - 1)), phr = (int)(gr & (PER - 1));
+  const int nwl = nl ? (phl + nl + PER - 1) >> LOG_PER : 0;
+  const int nwr = nr ? (phr + nr + PER - 1) >> LOG_PER : 0;
   for (int w = threadIdx.x; w < nwl + nwr; w += blockDim.x) {
     const bool left = w < nwl;
     const int n = left ? nl : nr;
-    const int j0 = 4 * (left ? w : w - nwl) - (left ? phl : phr);
+    const int j0 = PER * (left ? w : w - nwl) - (left ? phl : phr);
     const uint16_t* ord = left ? ordl : ordr;
-    uint8_t* dst = left ? a.bins + (gl - phl) + 4 * w
-                        : a.sbins + (gr - phr) + 4 * (w - nwl);
+    BinT* dst = left ? a.bins + (gl - phl) + PER * w
+                     : a.sbins + (gr - phr) + PER * (w - nwl);
     const long long stride = left ? a.Np : a.scap;
-    int src[4];
+    int src[PER];
     unsigned live = 0u;
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
+    for (int b = 0; b < PER; ++b) {
       const bool in = j0 + b >= 0 && j0 + b < n;
       src[b] = in ? ord[j0 + b] : 0;
       live |= (unsigned)in << b;
     }
-    if (live == 15u) {
+    if (live == (1u << PER) - 1u) {
       for (int r = 0; r < a.R; ++r) {
-        const uint8_t* s = sb + r * T;
-        *(uint32_t*)(dst + r * stride) =
-            (uint32_t)s[src[0]] | ((uint32_t)s[src[1]] << 8) |
-            ((uint32_t)s[src[2]] << 16) | ((uint32_t)s[src[3]] << 24);
+        const BinT* s = sb + r * T;
+        uint32_t word = 0u;
+#pragma unroll
+        for (int b = 0; b < PER; ++b)
+          word |= (uint32_t)s[src[b]] << (BITS * b);
+        *(uint32_t*)(dst + r * stride) = word;
       }
     } else {
       for (int r = 0; r < a.R; ++r)
-        for (int b = 0; b < 4; ++b)
+        for (int b = 0; b < PER; ++b)
           if ((live >> b) & 1u) dst[r * stride + b] = sb[r * T + src[b]];
     }
   }
@@ -254,7 +270,9 @@ __device__ void write_runs(const PartArgs& a, const uint8_t* sb,
 
 // One tile of the leaf: stage, order, publish, look back, write.  k is
 // the tile's ticket, ntiles the leaf's tile count.
-__device__ __forceinline__ void part_tile(const PartArgs& a, const Leaf& lf,
+template <class BinT>
+__device__ __forceinline__ void part_tile(const PartArgs<BinT>& a,
+                                          const Leaf& lf,
                                           unsigned epoch, int k, int ntiles,
                                           unsigned char* smem) {
   __shared__ unsigned lmask[MAX_TILE / 32], vmask[MAX_TILE / 32];
@@ -264,8 +282,10 @@ __device__ __forceinline__ void part_tile(const PartArgs& a, const Leaf& lf,
   const int T = a.T;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   uint32_t* sg = (uint32_t*)smem;
-  uint8_t* sb = smem + 32 * T;
-  uint16_t* ordl = (uint16_t*)(sb + ((a.R * T + 15) & ~15));
+  BinT* sb = (BinT*)(smem + 32 * T);
+  uint16_t* ordl =
+      (uint16_t*)((unsigned char*)sb +
+                  ((a.R * T * (int)sizeof(BinT) + 15) & ~15));
   uint16_t* ordr = ordl + T;
 
   const long long end = lf.start + lf.cnt;
@@ -275,9 +295,11 @@ __device__ __forceinline__ void part_tile(const PartArgs& a, const Leaf& lf,
   const int v0 = (int)max(0LL, lf.start - t0);
   const int v1 = (int)min((long long)T, end - t0);
 
-  const int cb = n16 >> 4, cg = n16 >> 2;
+  // 16-byte copies: 16 / sizeof(BinT) bins each
+  constexpr int LOG_BPC = sizeof(BinT) == 1 ? 4 : 3;
+  const int cb = n16 >> LOG_BPC, cg = n16 >> 2;
   for (int c = tid; c < a.R * cb; c += blockDim.x) {
-    const int r = c / cb, o = (c - r * cb) << 4;
+    const int r = c / cb, o = (c - r * cb) << LOG_BPC;
     cp_async16(sb + r * T + o, a.bins + r * a.Np + t0 + o);
   }
   for (int c = tid; c < GHI_ROWS * cg; c += blockDim.x) {
@@ -290,7 +312,7 @@ __device__ __forceinline__ void part_tile(const PartArgs& a, const Leaf& lf,
   for (int i0 = 0; i0 < T; i0 += blockDim.x) {
     const int i = i0 + tid;
     const bool v = i >= v0 && i < v1;
-    const bool l = v && decide_left(sb[lf.d.col * T + i], lf.d);
+    const bool l = v && decide_left(sb[lf.d.col * T + i], lf.d, a.ncat);
     const unsigned bl = __ballot_sync(0xffffffffu, l);
     const unsigned bv = __ballot_sync(0xffffffffu, v);
     if (lane == 0 && i < T) {
@@ -394,7 +416,9 @@ __device__ __forceinline__ void part_tile(const PartArgs& a, const Leaf& lf,
 // ticket).  Every taking block draws exactly one ticket past the last
 // tile, so the block that draws the very last ticket (ntiles + takers -
 // 1) resets the counter for the next launch.
-__global__ void __launch_bounds__(PART_THREADS) part_tiles(PartArgs a) {
+template <class BinT>
+__global__ void __launch_bounds__(PART_THREADS)
+    part_tiles(PartArgs<BinT> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Leaf s_leaf;
   __shared__ unsigned s_epoch;
@@ -430,11 +454,14 @@ __global__ void __launch_bounds__(PART_THREADS) part_tiles(PartArgs a) {
 
 // Copy the r = cnt - nl rights from scratch to [start + nl, start + cnt):
 // one thread per (row, aligned 16-row chunk of the destination), striding
-// over the chunks.  A whole chunk of a bin row is five aligned 4-byte
-// loads funnel-shifted into one 16-byte store; of a payload row, four
-// 16-byte stores.  One thread moves the epoch on for the next launch.
-__global__ void __launch_bounds__(COPY_THREADS) part_copyback(PartArgs a) {
-  uint8_t* __restrict__ bins = a.bins;
+// over the chunks.  A whole chunk of a uint8 bin row is five aligned
+// 4-byte loads funnel-shifted into one 16-byte store (uint16: nine loads
+// into two stores); of a payload row, four 16-byte stores.  One thread
+// moves the epoch on for the next launch.
+template <class BinT>
+__global__ void __launch_bounds__(COPY_THREADS)
+    part_copyback(PartArgs<BinT> a) {
+  BinT* __restrict__ bins = a.bins;
   uint32_t* __restrict__ ghi = a.ghi;
   const long long Np = a.Np;
   const int R = a.R;
@@ -447,7 +474,7 @@ __global__ void __launch_bounds__(COPY_THREADS) part_copyback(PartArgs a) {
   const int nl = *a.nl_out;
   const int n = lf.cnt - nl;
   if (n <= 0) return;
-  const uint8_t* __restrict__ sbins = a.sbins;
+  const BinT* __restrict__ sbins = a.sbins;
   const uint32_t* __restrict__ sghi = a.sghi;
   const long long scap = a.scap;
   const long long g0 = lf.start + nl;
@@ -460,16 +487,26 @@ __global__ void __launch_bounds__(COPY_THREADS) part_copyback(PartArgs a) {
     const long long j0 = p0 - g0;
     const bool full = j0 >= 0 && j0 + 16 <= n;
     if (row < R) {
-      const uint8_t* s = sbins + row * scap;
-      uint8_t* dst = bins + row * Np + p0;
+      const BinT* s = sbins + row * scap;
+      BinT* dst = bins + row * Np + p0;
       if (full) {
-        const uint32_t* sw = (const uint32_t*)s + (j0 >> 2);
-        const int sh = (int)(j0 & 3) * 8;
-        const uint32_t w0 = sw[0], w1 = sw[1], w2 = sw[2], w3 = sw[3];
-        const uint32_t w4 = sh ? sw[4] : 0u;
-        *(uint4*)dst = make_uint4(
-            __funnelshift_r(w0, w1, sh), __funnelshift_r(w1, w2, sh),
-            __funnelshift_r(w2, w3, sh), __funnelshift_r(w3, w4, sh));
+        // the chunk's 16 bins are NW words of the scratch row from
+        // byte j0 * sizeof(BinT) on: NW + 1 aligned loads, shifted
+        constexpr int NW = 4 * (int)sizeof(BinT);
+        const long long jb = j0 * (long long)sizeof(BinT);
+        const uint32_t* sw = (const uint32_t*)s + (jb >> 2);
+        const int sh = (int)(jb & 3) * 8;
+        uint32_t wv[NW + 1];
+#pragma unroll
+        for (int k = 0; k < NW; ++k) wv[k] = sw[k];
+        wv[NW] = sh ? sw[NW] : 0u;
+#pragma unroll
+        for (int k = 0; k < NW / 4; ++k)
+          ((uint4*)dst)[k] = make_uint4(
+              __funnelshift_r(wv[4 * k], wv[4 * k + 1], sh),
+              __funnelshift_r(wv[4 * k + 1], wv[4 * k + 2], sh),
+              __funnelshift_r(wv[4 * k + 2], wv[4 * k + 3], sh),
+              __funnelshift_r(wv[4 * k + 3], wv[4 * k + 4], sh));
       } else {
         for (int b = 0; b < 16; ++b)
           if (j0 + b >= 0 && j0 + b < n) dst[b] = s[j0 + b];
@@ -494,11 +531,12 @@ __global__ void __launch_bounds__(COPY_THREADS) part_copyback(PartArgs a) {
 // Check the host-known bounds of a partition launch: the buffers, the
 // tile, and scratch for `bound` rows.  The step's own range is checked on
 // the device (read_leaf).
-static inline bool part_args_ok(const PartArgs& a) {
+template <class BinT>
+static inline bool part_args_ok(const PartArgs<BinT>& a) {
   return a.R >= 1 && a.bound >= 0 && a.bound < (1 << 24) && a.Np % 16 == 0 &&
          a.T >= 32 && a.T <= MAX_TILE && a.T % 32 == 0 &&
          a.scap >= (long long)a.bound + 16 && a.scap % 16 == 0 &&
-         a.step != nullptr && a.epoch != nullptr &&
+         a.step != nullptr && a.epoch != nullptr && a.ncat >= CAT_WORDS &&
          ((uintptr_t)a.bins | (uintptr_t)a.ghi | (uintptr_t)a.sbins |
           (uintptr_t)a.sghi) % 16 == 0;
 }
@@ -521,12 +559,15 @@ static inline cudaError_t smem_limit(const void* fn, int* done, int smem) {
 }
 
 // Enqueue the partition of the step's leaf on stream s: part_tiles, then
-// part_copyback, on grids fixed by the bound.
-static inline cudaError_t partition_phases(const PartArgs& a,
+// part_copyback, on grids fixed by the bound.  One set of statics an
+// instantiation.
+template <class BinT>
+static inline cudaError_t partition_phases(const PartArgs<BinT>& a,
                                            cudaStream_t s) {
   static int smem_set = 0, occ_smem = -1, occ = 0, nsm = 0;
-  const int smem = part_smem_bytes(a.R, a.T);
-  cudaError_t e = smem_limit((const void*)part_tiles, &smem_set, smem);
+  const int smem = part_smem_bytes(a.R, a.T, (int)sizeof(BinT));
+  cudaError_t e =
+      smem_limit((const void*)part_tiles<BinT>, &smem_set, smem);
   if (e != cudaSuccess) return e;
   if (!nsm) {
     int dev;
@@ -534,20 +575,20 @@ static inline cudaError_t partition_phases(const PartArgs& a,
     cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
   }
   if (occ_smem != smem) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, part_tiles,
-                                                      PART_THREADS, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ, part_tiles<BinT>, PART_THREADS, smem);
     if (e != cudaSuccess) return e;
     occ_smem = smem;
   }
   const long long tiles = std::max(part_tiles_for(a.bound, a.T), 1LL);
   const int grid = (int)std::min(tiles, (long long)nsm * std::max(occ, 1));
-  part_tiles<<<grid, PART_THREADS, smem, s>>>(a);
+  part_tiles<BinT><<<grid, PART_THREADS, smem, s>>>(a);
   // the copy-back's grid: chunks of `bound` rows, at most the threads the
   // card holds at once over its R + 8 rows
   const long long need = ((long long)a.bound / 16 + 2 + COPY_THREADS - 1) /
                          COPY_THREADS;
   const int cap = std::max(1, nsm * (2048 / COPY_THREADS) / (a.R + GHI_ROWS));
   const int bx = (int)std::min(need, (long long)cap);
-  part_copyback<<<dim3(bx, a.R + GHI_ROWS), COPY_THREADS, 0, s>>>(a);
+  part_copyback<BinT><<<dim3(bx, a.R + GHI_ROWS), COPY_THREADS, 0, s>>>(a);
   return cudaGetLastError();
 }

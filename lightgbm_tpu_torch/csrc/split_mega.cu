@@ -42,6 +42,10 @@
 #include "hist_fixed.cuh"
 #include "partition.cuh"
 
+// uint8 bins only, as the JAX package's mega kernel (B <= 256): wider
+// data takes the histogram-subtraction body
+#define MEGA_MAX_BP 256
+
 struct HistArgs {
   const uint8_t* bins;          // (R, Np)
   long long Np;
@@ -122,12 +126,13 @@ extern "C" int split_mega_launch(
     float* hist, int G, int Bp, int move, void* stream) {
   static int smem_set = 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (Bp < 16 || Bp > MAX_BP || Bp % 16 || G < 1 || G > R || bound < 0 ||
-      bound >= (1 << 24) || Np % 16 || step == nullptr ||
+  if (Bp < 16 || Bp > MEGA_MAX_BP || Bp % 16 || G < 1 || G > R ||
+      bound < 0 || bound >= (1 << 24) || Np % 16 || step == nullptr ||
       ((uintptr_t)bins | (uintptr_t)ghi) % 16)
     return (int)cudaErrorInvalidValue;
-  const PartArgs p{bins,   ghi,    Np,     R,     step,  bound, T,
-                   status, ticket, epoch, nl_out, sbins, sghi,  scap};
+  const PartArgs<uint8_t> p{bins,   ghi,    Np,     R,      step,
+                            bound,  T,      status, ticket, epoch,
+                            nl_out, sbins,  sghi,   scap,   CAT_WORDS};
   if (move && !part_args_ok(p)) return (int)cudaErrorInvalidValue;
   HistGrid g;
   cudaError_t e = hist_grid(G, 4, Bp, ((long long)bound + 30) >> 4, &g);

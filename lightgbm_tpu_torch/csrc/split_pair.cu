@@ -22,7 +22,9 @@
 //   forward and the reverse scan share no data, so two warps take a row
 //   and each runs half the chain -- the warps striding over items when
 //   2F exceeds 64.  A lane holds 8 consecutive bins (BF <= 256, bins
-//   past BF zero).  Each masked prefix sum (grad, hess and count of the
+//   past BF zero; wider rows, uint16 data, take scan_best_wide: a lane
+//   walks ceil(BF / 32) bins from device memory twice, with the same
+//   association).  Each masked prefix sum (grad, hess and count of the
 //   direction) is a local f64 scan over the lane's 8 bins, an exclusive
 //   5-step shuffle scan of the 32 lane totals in f64, and a per-bin add
 //   of the lane's offset rounded to f32.  Every lane then scores its
@@ -41,7 +43,7 @@
 
 namespace cg = cooperative_groups;
 
-#define MAX_BF 256
+#define MAX_BF 256                  // the register arm; wider: scan_best_wide
 #define LANE_BINS 8                 // MAX_BF / 32
 #define MAX_WARPS 8                 // warps a block
 #define MAX_CLUSTER 8               // blocks a child (portable cluster)
@@ -148,6 +150,99 @@ __device__ __forceinline__ float row_at(const float (&v)[LANE_BINS], int b) {
   return __shfl_sync(FULL, x, b / LANE_BINS);
 }
 
+// The wide arm's pieces (scan_best_wide): one scan direction of one
+// feature row, its metadata and thresholds.  They repeat scan_best's
+// arithmetic operation for operation (the 8-bin arm keeps its own code,
+// whose registers the struct would spill); both agree with
+// split_pair_plain bit for bit.
+struct ScanRow {
+  int nb, dflt, bmax, key0, BF;
+  float sum_g, sum_h_tot, num_data, cnt_factor, mgs, mdl;
+  bool zero_m, two_scan, fmask, depth_ok, reverse;
+};
+
+__device__ __forceinline__ ScanRow scan_row(const int* __restrict__ fmeta,
+                                            const float* __restrict__ info,
+                                            int r, int f, bool reverse,
+                                            int BF, const Params& p) {
+  ScanRow m;
+  m.nb = fmeta[r * 8 + FM_NUM_BIN];
+  const int mtype = fmeta[r * 8 + FM_MISSING];
+  m.dflt = fmeta[r * 8 + FM_DEFAULT];
+  m.sum_g = info[r * 8 + IN_SUM_G];
+  m.sum_h_tot = info[r * 8 + IN_SUM_H] + 2e-15f;
+  m.num_data = info[r * 8 + IN_NUM_DATA];
+  const float depth = info[r * 8 + IN_DEPTH];
+  m.fmask = info[r * 8 + IN_MASK] > 0.0f && fmeta[r * 8 + FM_IS_CAT] == 0;
+  m.cnt_factor = m.num_data / m.sum_h_tot;
+  m.zero_m = mtype == 1;
+  const bool nan_m = mtype == 2;
+  m.two_scan = (m.nb > 2) && (mtype != 0);
+  m.bmax = m.nb - 1 - ((nan_m && m.two_scan) ? 1 : 0);
+  m.mgs = leaf_gain(m.sum_g, m.sum_h_tot, p) + p.min_gain_to_split;
+  m.mdl = p.min_data_in_leaf;
+  m.depth_ok = p.max_depth <= 0 || depth < (float)p.max_depth;
+  m.key0 = f * (2 * BF);
+  m.BF = BF;
+  m.reverse = reverse;
+  return m;
+}
+
+// Bin t's grad and hess (g, h) masked for the direction's scan, and its
+// count n.
+__device__ __forceinline__ void mask_bin(const ScanRow& m, int t, float& g,
+                                         float& h, float& n) {
+  const bool in_range = t < m.BF && t < m.nb;
+  const bool at_dflt = t == m.dflt;
+  const bool on = m.reverse ? in_range &&
+                                  !(m.two_scan && m.zero_m && at_dflt) &&
+                                  t <= m.bmax
+                            : in_range && !(m.zero_m && at_dflt);
+  n = on ? floorf(h * m.cnt_factor + 0.5f) : 0.0f;
+  g = on ? g : 0.0f;
+  h = on ? h : 0.0f;
+}
+
+// The candidate of threshold t < BF from the scanned sums at t (sg, sh,
+// sn) and, for the reverse scan, the row's totals (tg, th, tn): the
+// forward scan (missing values go right; left sums are the prefix sums;
+// keys ascend with the threshold after the reverse scan's) or the
+// reverse scan (missing values go left; right sums are the row's total
+// minus the prefix sums; keys descend with the threshold).
+__device__ __forceinline__ Cand bin_cand(const ScanRow& m, const Params& p,
+                                         int t, float sg, float sh, float sn,
+                                         float tg, float th, float tn) {
+  float lg, lh, lc, rg, rh, rc;
+  bool allowed;
+  int key;
+  if (m.reverse) {
+    rg = tg - sg;
+    rh = (th - sh) + K_EPS;
+    rc = tn - sn;
+    lg = m.sum_g - rg;
+    lh = m.sum_h_tot - rh;
+    lc = m.num_data - rc;
+    allowed = t < m.nb && t <= m.bmax - 1 &&
+              !(m.two_scan && m.zero_m && t == m.dflt - 1);
+    key = m.key0 + m.BF - 1 - t;
+  } else {
+    lg = sg;
+    lh = sh + K_EPS;
+    lc = sn;
+    rg = m.sum_g - lg;
+    rh = m.sum_h_tot - lh;
+    rc = m.num_data - lc;
+    allowed = m.two_scan && t < m.nb && t <= m.nb - 2 &&
+              !(m.zero_m && t == m.dflt);
+    key = m.key0 + m.BF + t;
+  }
+  const float gain = leaf_gain(lg, lh, p) + leaf_gain(rg, rh, p);
+  const bool ok = lc >= m.mdl && rc >= m.mdl && lh >= p.min_sum_hessian &&
+                  rh >= p.min_sum_hessian;
+  const bool valid = allowed && ok && gain > m.mgs && m.fmask && m.depth_ok;
+  return Cand{valid ? gain : -INFINITY, lg, lh, lc, key};
+}
+
 // The best candidate of one scan direction of row r (child c, feature
 // f), in every lane: the forward scan (missing values go right; left
 // sums are the prefix sums; keys ascend with the threshold after the
@@ -248,6 +343,76 @@ __device__ __forceinline__ Cand scan_best(const float* __restrict__ hg,
   return warp_best(best);
 }
 
+// The exclusive f64 offsets of the 32 lanes' totals, in every lane
+// (row_scan's shuffle scan).
+__device__ __forceinline__ double lane_offset(double tot, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const double u = __shfl_up_sync(FULL, tot, d);
+    if (lane >= d) tot = tot + u;
+  }
+  double off = __shfl_up_sync(FULL, tot, 1);
+  return lane == 0 ? 0.0 : off;
+}
+
+// scan_best at BF > 256 (the wide arm, uint16 data): a lane takes
+// per = ceil(BF / 32) consecutive bins (ops/split.py prefix_sum's
+// blocks, bins past BF zero) and walks them twice from the row in
+// device memory: once for its f64 totals (and, in the lane holding bin
+// BF - 1, the running sums there: the reverse scan's row totals), then,
+// after the lane scan, for the running sums beside its offset and each
+// bin's candidate.  Every sum is associated as in the 8-bin arm, so the
+// two agree with prefix_sum bit for bit at their widths.
+__device__ __forceinline__ Cand scan_best_wide(
+    const float* __restrict__ hg, const float* __restrict__ hh,
+    const int* __restrict__ fmeta, const float* __restrict__ info, int r,
+    int f, bool reverse, int BF, const Params& p, int lane) {
+  const ScanRow m = scan_row(fmeta, info, r, f, reverse, BF, p);
+  const int per = (BF + 31) / 32;
+  const int t0 = lane * per;
+  const float* rg = hg + (long long)r * BF;
+  const float* rh = hh + (long long)r * BF;
+  double tg = 0.0, th = 0.0, tn = 0.0, eg = 0.0, eh = 0.0, en = 0.0;
+  for (int j = 0; j < per; ++j) {
+    const int t = t0 + j;
+    float g = t < BF ? rg[t] : 0.0f, h = t < BF ? rh[t] : 0.0f, n;
+    mask_bin(m, t, g, h, n);
+    tg = j ? tg + (double)g : (double)g;
+    th = j ? th + (double)h : (double)h;
+    tn = j ? tn + (double)n : (double)n;
+    if (t == BF - 1) {
+      eg = tg;
+      eh = th;
+      en = tn;
+    }
+  }
+  const double og = lane_offset(tg, lane), oh = lane_offset(th, lane),
+               on = lane_offset(tn, lane);
+  // the row's totals: the scanned sums at bin BF - 1
+  const int last = (BF - 1) / per;
+  float ag = 0.0f, ah = 0.0f, an = 0.0f;
+  if (reverse) {
+    ag = __shfl_sync(FULL, (float)(og + eg), last);
+    ah = __shfl_sync(FULL, (float)(oh + eh), last);
+    an = __shfl_sync(FULL, (float)(on + en), last);
+  }
+  Cand best{-INFINITY, 0.0f, 0.0f, 0.0f, BIG_KEY};
+  double lg = 0.0, lh = 0.0, ln = 0.0;
+  for (int j = 0; j < per; ++j) {
+    const int t = t0 + j;
+    float g = t < BF ? rg[t] : 0.0f, h = t < BF ? rh[t] : 0.0f, n;
+    mask_bin(m, t, g, h, n);
+    lg = j ? lg + (double)g : (double)g;
+    lh = j ? lh + (double)h : (double)h;
+    ln = j ? ln + (double)n : (double)n;
+    if (t >= BF) continue;
+    const Cand c = bin_cand(m, p, t, (float)(og + lg), (float)(oh + lh),
+                            (float)(on + ln), ag, ah, an);
+    if (better(c, best)) best = c;
+  }
+  return warp_best(best);
+}
+
 // Write child c's 13 leafmat fields from its best candidate b.
 __device__ void write_best(const Cand& b, const int* __restrict__ fmeta,
                            const float* __restrict__ info, int c, int F,
@@ -285,6 +450,7 @@ __device__ void write_best(const Cand& b, const int* __restrict__ fmeta,
   o[12] = 0.0f;
 }
 
+template <bool WIDE>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
     pair_search(const float* __restrict__ hg, const float* __restrict__ hh,
                 const int* __restrict__ fmeta,
@@ -304,8 +470,11 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
   // work items: (feature row, scan direction), 2F a child
   for (int u = w * ncl + rank; u < 2 * F; u += nw * ncl) {
     const int f = u >> 1;
-    const Cand rb = scan_best(hg, hh, fmeta, info, c * F + f, f, u & 1, BF,
-                              p, lane);
+    const Cand rb =
+        WIDE ? scan_best_wide(hg, hh, fmeta, info, c * F + f, f, u & 1, BF,
+                              p, lane)
+             : scan_best(hg, hh, fmeta, info, c * F + f, f, u & 1, BF, p,
+                         lane);
     if (better(rb, best)) best = rb;
   }
   if (lane == 0) s_best[w] = best;
@@ -331,8 +500,7 @@ extern "C" int split_pair_launch(const float* hg, const float* hh,
                                  float min_data_in_leaf,
                                  float min_sum_hessian, int max_depth,
                                  void* stream) {
-  if (BF < 1 || BF > MAX_BF || F < 1 || C < 1)
-    return (int)cudaErrorInvalidValue;
+  if (BF < 1 || F < 1 || C < 1) return (int)cudaErrorInvalidValue;
   const Params p{l1, l2, max_delta_step, min_gain_to_split, min_data_in_leaf,
                  min_sum_hessian, max_depth};
   const int ncl = 2 * F < MAX_CLUSTER ? 2 * F : MAX_CLUSTER;
@@ -349,6 +517,9 @@ extern "C" int split_pair_launch(const float* hg, const float* hh,
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, pair_search, hg, hh, fmeta, info, F,
-                                 BF, p, out);
+  if (BF > MAX_BF)
+    return (int)cudaLaunchKernelEx(&cfg, pair_search<true>, hg, hh, fmeta,
+                                   info, F, BF, p, out);
+  return (int)cudaLaunchKernelEx(&cfg, pair_search<false>, hg, hh, fmeta,
+                                 info, F, BF, p, out);
 }

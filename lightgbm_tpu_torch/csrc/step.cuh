@@ -38,7 +38,10 @@
 #define SB_MADE 22      // frontier: splits made, pruned ones included
 #define SB_STEPS 23     // frontier: steps run
 #define SB_ISCAT 24     // categorical split: left iff the bin is in the set
-#define SB_CAT 25       // the set, 8 words (bit b & 31 of word b >> 5)
+#define SB_CAT 25       // the set, W words (bit b & 31 of word b >> 5)
+// W: 8 words (256 bins, every uint8 dataset), or ceil(B / 32) on uint16
+// data; a step block is SB_CAT + W words, STEP_WORDS at the least (the
+// frontier's step records, uint8 only, are STEP_WORDS apart)
 #define CAT_WORDS 8
 #define STEP_WORDS 33
 

@@ -37,7 +37,10 @@
 // writes no column, no slot and no row.
 //
 // The category sets ride beside the matrices as bitsets of bins:
-// leafcat (L + 1, 8), nodecat (nodes + 1, 8) and paircat (2, 8) int32.
+// leafcat (L + 1, W), nodecat (nodes + 1, W) and paircat (2, W) int32,
+// W words a set (8 up to 256 bins, ceil(B / 32) on uint16 data; one
+// width a learner, fixed at the graph's capture), and the step block is
+// SB_CAT + W words.
 // The root's reset zeroes leafcat and nodecat, a commit copies each
 // child's set from paircat (csrc/split_cat.cu) into its leaf's row, and an
 // election copies the leaf's set into the node's row, writes ND_IS_CAT
@@ -65,7 +68,7 @@
 struct TreeArgs {
   float* lm;            // (NLF, L + 1)
   float* nm;            // (NND, nodes + 1)
-  int* step;            // STEP_WORDS
+  int* step;            // SB_CAT + W
   const int* nl;        // (1,): the partition's left count
   const float* pair;    // (2, SEG): the pair search's rows
   const int* fmeta;     // (FMETA_ROWS, F)
@@ -73,10 +76,10 @@ struct TreeArgs {
   const float* sums;    // (2,): the root histogram's grad and hess sums
   const int* bag;       // (1,): the root's bag-aware row count
   const float* fmask;   // (F,): the tree's feature mask (0 / 1)
-  int* leafcat;         // (L + 1, CAT_WORDS)
-  int* nodecat;         // (nodes + 1, CAT_WORDS)
-  const int* paircat;   // (2, CAT_WORDS)
-  int L, nodes, F, row0, N, mode;
+  int* leafcat;         // (L + 1, W)
+  int* nodecat;         // (nodes + 1, W)
+  const int* paircat;   // (2, W)
+  int L, nodes, F, row0, N, mode, W;
 };
 
 __device__ __forceinline__ void leaf_column(
@@ -87,14 +90,19 @@ __device__ __forceinline__ void leaf_column(
                     value, parent, side, seg);
 }
 
+// WC: the sets' words when known at compile time (CAT_WORDS, every
+// uint8 dataset: the loops over the words fold into single guarded
+// moves), 0 for a.W words (uint16 data).
+template <int WC>
 __global__ void __launch_bounds__(STEP_THREADS) tree_step(TreeArgs a) {
   __shared__ float pcol[NLF];
   __shared__ float s_val[STEP_THREADS];
   __shared__ int s_idx[STEP_THREADS];
-  __shared__ int s_cat[CAT_WORDS];
+  extern __shared__ int s_cat[];     // W words (dynamic)
   __shared__ int s_pend, s_valid, s_leaf, s_new, s_s, s_fe, s_depth;
   const int tid = threadIdx.x;
   const int L1 = a.L + 1, N1 = a.nodes + 1, F = a.F;
+  const int W = WC ? WC : a.W;
   int* step = a.step;
 
   if (a.mode == MODE_ROOT) {
@@ -106,11 +114,10 @@ __global__ void __launch_bounds__(STEP_THREADS) tree_step(TreeArgs a) {
                          0.0f, 0.0f, 0.0f};
     for (int i = tid; i < 2 * F * 8; i += STEP_THREADS)
       a.info[i] = (i & 7) == 4 ? a.fmask[(i >> 3) % F] : in[i & 7];
-    if (tid < STEP_WORDS) step[tid] = tid == SB_PEND ? 1 : 0;
-    for (int i = tid; i < L1 * CAT_WORDS; i += STEP_THREADS)
-      a.leafcat[i] = 0;
-    for (int i = tid; i < N1 * CAT_WORDS; i += STEP_THREADS)
-      a.nodecat[i] = 0;
+    for (int i = tid; i < SB_CAT + W; i += STEP_THREADS)
+      step[i] = i == SB_PEND ? 1 : 0;
+    for (int i = tid; i < L1 * W; i += STEP_THREADS) a.leafcat[i] = 0;
+    for (int i = tid; i < N1 * W; i += STEP_THREADS) a.nodecat[i] = 0;
     return;
   }
 
@@ -145,13 +152,14 @@ __global__ void __launch_bounds__(STEP_THREADS) tree_step(TreeArgs a) {
                   a.pair + SEG);
   }
   // the sets by the second warp, beside the first's leaf columns
-  if (tid >= CAT_WARP && tid < CAT_WARP + 2 * CAT_WORDS) {
-    const int c = (tid - CAT_WARP) / CAT_WORDS, j = tid % CAT_WORDS;
-    if (pend == 1 && c == 0)
-      a.leafcat[j] = a.paircat[j];
-    else if (pend == 2)
-      a.leafcat[(c ? s_new : s_leaf) * CAT_WORDS + j] =
-          a.paircat[c * CAT_WORDS + j];
+  if (tid >= CAT_WARP && tid < CAT_WARP + 32) {
+    for (int i = tid - CAT_WARP; i < 2 * W; i += 32) {
+      const int c = i >= W, j = i - c * W;
+      if (pend == 1 && c == 0)
+        a.leafcat[j] = a.paircat[j];
+      else if (pend == 2)
+        a.leafcat[(c ? s_new : s_leaf) * W + j] = a.paircat[i];
+    }
   }
   __syncthreads();
   if (a.mode == MODE_FINAL) {
@@ -185,8 +193,9 @@ __global__ void __launch_bounds__(STEP_THREADS) tree_step(TreeArgs a) {
   }
   // the leaf's set is read by the second warp while thread 0 reads its
   // column (the commit's writes are visible after the barriers above)
-  if (tid >= CAT_WARP && tid < CAT_WARP + CAT_WORDS)
-    s_cat[tid - CAT_WARP] = a.leafcat[s_idx[0] * CAT_WORDS + tid - CAT_WARP];
+  if (tid >= CAT_WARP && tid < CAT_WARP + 32)
+    for (int j = tid - CAT_WARP; j < W; j += 32)
+      s_cat[j] = a.leafcat[s_idx[0] * W + j];
   if (tid == 0) {
     const int best = s_idx[0];
     const float gain = s_val[0];
@@ -245,12 +254,12 @@ __global__ void __launch_bounds__(STEP_THREADS) tree_step(TreeArgs a) {
     }
     a.nm[tid * N1 + s] = v;
   }
-  if (tid < CAT_WORDS) {
-    const int word = s_cat[tid];
-    a.nodecat[s * CAT_WORDS + tid] = word;
-    step[SB_CAT + tid] = word;
-    if (tid == 0) step[SB_ISCAT] = pcol[LM_BISCAT] > 0.5f;
+  for (int j = tid; j < W; j += STEP_THREADS) {
+    const int word = s_cat[j];
+    a.nodecat[s * W + j] = word;
+    step[SB_CAT + j] = word;
   }
+  if (tid == 0) step[SB_ISCAT] = pcol[LM_BISCAT] > 0.5f;
   for (int i = tid; i < 2 * F * 8; i += STEP_THREADS) {
     const int c = i / (F * 8), k = i & 7;
     float v = 0.0f;
@@ -297,16 +306,21 @@ extern "C" int tree_step_launch(float* lm, float* nm, int* step,
                                 const float* fmask, int* leafcat,
                                 int* nodecat, const int* paircat, int L,
                                 int nodes, int F, int row0, int N, int mode,
-                                void* stream) {
-  if (L < 2 || nodes != L - 1 || F < 0 || mode < MODE_ROOT ||
-      mode > MODE_FINAL || lm == nullptr || nm == nullptr ||
-      step == nullptr || bag == nullptr || leafcat == nullptr ||
-      nodecat == nullptr || paircat == nullptr)
+                                int W, void* stream) {
+  if (L < 2 || nodes != L - 1 || F < 0 || W < CAT_WORDS ||
+      W * sizeof(int) > 48 * 1024 || mode < MODE_ROOT || mode > MODE_FINAL ||
+      lm == nullptr || nm == nullptr || step == nullptr || bag == nullptr ||
+      leafcat == nullptr || nodecat == nullptr || paircat == nullptr)
     return (int)cudaErrorInvalidValue;
   const TreeArgs a{lm,      nm,      step,    nl,    pair, fmeta,
                    info,    sums,    bag,     fmask, leafcat,
                    nodecat, paircat, L,       nodes, F,    row0,
-                   N,       mode};
-  tree_step<<<1, STEP_THREADS, 0, (cudaStream_t)stream>>>(a);
+                   N,       mode,    W};
+  if (W == CAT_WORDS)
+    tree_step<CAT_WORDS>
+        <<<1, STEP_THREADS, W * sizeof(int), (cudaStream_t)stream>>>(a);
+  else
+    tree_step<0><<<1, STEP_THREADS, W * sizeof(int), (cudaStream_t)stream>>>(
+        a);
   return (int)cudaGetLastError();
 }

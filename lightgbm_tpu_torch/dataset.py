@@ -3,9 +3,12 @@
 Port of the host construction path of lightgbm_tpu/dataset.py (the
 ``construct_device=off`` oracle of ops/construct.py): bin finding from a
 row sample, EFB candidate grouping, and the packed (num_data, num_groups)
-uint8 matrix.  Bins and group order are bit-identical to the JAX
-package.  Features that are mutually exclusive in the sample share one
-column (an EFB bundle); the learner then reads its per-feature
+matrix: uint8 while every group has at most 256 bins, else uint16 for
+the whole matrix (JAX ``_bin_dtype``: ``max_bin`` or
+``max_bin_by_feature`` past 255, or a categorical of more than 256
+levels).  Bins and group order are bit-identical to the JAX package.
+Features that are mutually exclusive in the sample share one column (an
+EFB bundle); the learner then reads its per-feature
 histograms through ops/feat_view.py, which rebuilds each bundled
 feature's default bin from the leaf's totals.  Categorical features
 (``categorical_features``, column indices) get the JAX package's
@@ -55,8 +58,9 @@ class Metadata:
                            np.asarray(init_score, np.float64).reshape(-1))
 
 
-# a group's bins stay within one uint8 column (JAX dataset.py
-# _bundle_greedy's max_group_bins)
+# an EFB bundle's bins stay within one uint8 column (JAX dataset.py
+# _bundle_greedy's max_group_bins); a feature of more bins stands alone
+# in its group, and the matrix is then uint16
 MAX_GROUP_BINS = 256
 
 
@@ -82,7 +86,8 @@ class BinnedDataset:
         self.bin_mappers: List[BinMapper] = []
         self.used_features: List[int] = []
         self.groups: List[FeatureGroupInfo] = []
-        self.binned: Optional[np.ndarray] = None     # (num_data, G) uint8
+        # (num_data, G), uint8 or uint16 (``bin_dtype``)
+        self.binned: Optional[np.ndarray] = None
         self.metadata: Optional[Metadata] = None
 
     # -- construction ---------------------------------------------------
@@ -162,13 +167,14 @@ class BinnedDataset:
                         "the provided configuration.")
 
     def _used_columns(self, data: np.ndarray) -> Dict[int, np.ndarray]:
-        """Each used feature's uint8 bins over all rows."""
-        if any(self.bin_mappers[f].num_bin > MAX_GROUP_BINS
-               for f in self.used_features):
-            raise NotImplementedError(
-                "lightgbm_tpu_torch trains uint8 bins only (max_bin <= 256)")
-        return {f: self.bin_mappers[f].values_to_bins(data[:, f]).astype(
-            np.uint8) for f in self.used_features}
+        """Each used feature's bins over all rows: uint8, or uint16 for a
+        feature of more than 256 bins."""
+        out = {}
+        for f in self.used_features:
+            bm = self.bin_mappers[f]
+            dtype = np.uint8 if bm.num_bin <= MAX_GROUP_BINS else np.uint16
+            out[f] = bm.values_to_bins(data[:, f]).astype(dtype)
+        return out
 
     def _build_groups(self, cols: Dict[int, np.ndarray]) -> None:
         """EFB grouping (JAX dataset.py ``_build_groups`` /
@@ -249,22 +255,19 @@ class BinnedDataset:
 
     def bin_matrix(self, data) -> np.ndarray:
         """Bin raw rows with this dataset's mappers into the packed
-        (n, num_groups) uint8 layout (validation sets get the training
-        set's groups)."""
+        (n, num_groups) layout of ``bin_dtype`` (validation sets get the
+        training set's groups)."""
         return self._pack_groups(self._used_columns(np.asarray(data)),
                                  np.shape(data)[0])
 
     def _pack_groups(self, cols: Dict[int, np.ndarray], n: int
                      ) -> np.ndarray:
-        """Per-feature bin columns packed into the (n, num_groups) uint8
-        matrix (JAX dataset.py ``_pack_groups``): in a bundle, a feature's
-        bins other than its most frequent shift by its offset (minus 1
-        when that bin is 0), and a row where two features conflict takes
-        the later feature's bin."""
-        if self.max_group_bins > MAX_GROUP_BINS:
-            raise NotImplementedError(
-                "lightgbm_tpu_torch trains uint8 bins only (max_bin <= 256)")
-        out = np.zeros((n, len(self.groups)), dtype=np.uint8)
+        """Per-feature bin columns packed into the (n, num_groups) matrix of
+        ``bin_dtype`` (JAX dataset.py ``_pack_groups``): in a bundle, a
+        feature's bins other than its most frequent shift by its offset
+        (minus 1 when that bin is 0), and a row where two features
+        conflict takes the later feature's bin."""
+        out = np.zeros((n, len(self.groups)), dtype=self.bin_dtype)
         for g, grp in enumerate(self.groups):
             if len(grp.feature_indices) == 1:
                 out[:, g] = cols[grp.feature_indices[0]]
@@ -314,6 +317,12 @@ class BinnedDataset:
     @property
     def max_group_bins(self) -> int:
         return max((g.num_total_bin for g in self.groups), default=2)
+
+    @property
+    def bin_dtype(self):
+        """The bin matrix's dtype (JAX dataset.py ``_bin_dtype``): uint8
+        while every group has at most 256 bins, else uint16."""
+        return np.uint8 if self.max_group_bins <= 256 else np.uint16
 
 
 def groups_from_spec(groups: Sequence) -> List[FeatureGroupInfo]:

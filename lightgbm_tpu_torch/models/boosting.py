@@ -30,7 +30,7 @@ Host-side per-row data crosses into the physical order through the row
 ids of payload row 2 (``rows_to_phys``, the inverse of
 ``scores_from_phys``): a custom objective's gradients
 (``train_one_iter(grad, hess)``) and a continued model's train scores
-(``continue_from``).  Validation sets keep their (N_valid, G) uint8 bin
+(``continue_from``).  Validation sets keep their (N_valid, G) bin
 matrix and f32 scores on the booster's device; after each tree the
 scores gain the tree's f32 shrunk leaf values at the leaves of
 ``ops/predict.py:predict_leaf_binned``, walked over the node arrays of
@@ -123,7 +123,7 @@ class GBDT:
         self.feature_names: List[str] = []
         self.label_idx = 0
         self.train_metrics = []
-        # (dataset, metrics, (N_valid, G) uint8 bins on the device)
+        # (dataset, metrics, (N_valid, G) uint8 or uint16 bins on the device)
         self.valid_sets: List[Tuple[BinnedDataset, list, torch.Tensor]] = []
         # (N_valid,) scores, (K, N_valid) for K classes
         self.valid_scores: List[torch.Tensor] = []

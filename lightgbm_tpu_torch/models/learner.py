@@ -4,7 +4,7 @@ bodies, one leaf a step or, on the mega path, up to K (the frontier).
 Port of lightgbm_tpu/models/learner.py (``SerialTreeLearner``: the K=1
 path ``_build_tree_impl`` with the Pallas pair search, and the
 frontier-batched path ``_build_tree_frontier`` / ``_renumber_frontier``
-of ``tpu_frontier_k`` > 1) for uint8 data.
+of ``tpu_frontier_k`` > 1) for uint8 and uint16 data.
 
 With EFB bundles (dataset.py) the histograms are per group and the pair
 search reads one row a feature: as in the JAX package, which then runs
@@ -21,10 +21,20 @@ package's general search does.  Their rows carry FM_IS_CAT in the pair
 search's metadata, so ``split_pair`` scans only the numerical features,
 and ``ops/split_cat.py`` then searches the categorical ones and merges
 its best into each child's row by JAX's argmax rule, writing the child's
-category set (8 words of bins) beside it.  The bookkeeping carries the
-sets: ``leafcat`` (L+1, 8) per leaf, ``nodecat`` (nodes+1, 8) per node,
-and the elected split's set in the step block, where the partition reads
-it (ops/partition.py ``decide_left``).
+category set (W words of bins, ``cat_words``: 8 up to 256 bins) beside
+it.  The bookkeeping carries the sets: ``leafcat`` (L+1, W) per leaf,
+``nodecat`` (nodes+1, W) per node, and the elected split's set in the
+step block (SB_CAT + W words), where the partition reads it
+(ops/partition.py ``decide_left``).
+
+Wide bins (JAX dataset.py ``_bin_dtype``): once a group has more than
+256 bins -- ``max_bin`` or ``max_bin_by_feature`` past 255, or a
+categorical of more than 256 levels -- the whole (G, N_pad) matrix is
+uint16, ``B`` the widest group's bins and the histograms (G, Bp) at that
+width.  As in the JAX package, whose mega kernel needs uint8 and
+B <= 256, such data takes the histogram-subtraction body at K=1; every
+kernel of that body (partition, leaf_hist with its state, feat_view,
+split_pair, split_cat, tree_step) has its uint16 or wide arm.
 
 Row and feature sampling reach the tree through two device buffers the
 bookkeeping kernels read at the root and at every child: ``bag``, the
@@ -34,10 +44,10 @@ it; N without sampling), and ``fmask``, the tree's (F,) feature mask
 Neither is a launch argument, so one captured graph serves every draw.
 
 Rows are physically partitioned by leaf, as in the JAX learner: the
-(G, N_pad) uint8 bin matrix and the (8, N_pad) f32 payload (grad, hess,
-row-id bits, score, objective rows) are reordered together on every
-split, so each leaf is one contiguous row range.  The body is chosen at
-construction from ``tpu_megakernel``:
+(G, N_pad) uint8 (or uint16) bin matrix and the (8, N_pad) f32 payload
+(grad, hess, row-id bits, score, objective rows) are reordered together
+on every split, so each leaf is one contiguous row range.  The body is
+chosen at construction from ``tpu_megakernel``:
 
   * the mega path (``auto`` / ``pallas``, the default): per split,
     ``ops/split_mega.py`` partitions the chosen leaf and, from the same
@@ -122,10 +132,10 @@ from ..ops.frontier import MODE_ROOT as FR_ROOT
 from ..ops.frontier import MODE_STEP as FR_STEP
 from ..ops.feat_view import View, feat_view
 from ..ops.hist_state import leaf_hist_rmw, leaf_hist_rmw_step, new_state
-from ..ops.partition import (CAT_WORDS, S_CNT, SB_DONE, SB_ERR, SB_MADE,
-                             SB_S, SB_STEPS, STEP_WORDS, Workspace,
-                             make_scalars, partition_leaf, partition_step,
-                             scalars_start, step_words)
+from ..ops.partition import (S_CNT, SB_DONE, SB_ERR, SB_MADE, SB_S,
+                             SB_STEPS, Workspace, cat_words, make_scalars,
+                             partition_leaf, partition_step, scalars_start,
+                             step_len, step_words)
 from ..ops.split_cat import cat_params, new_work, split_cat
 from ..ops.split_mega import (hist_geometry, split_mega, split_mega_step,
                               unpack_hist4)
@@ -173,8 +183,8 @@ def frontier_k(config: Config, eligible: bool, L: int, device) -> int:
         if k > 1 and not eligible:
             log.warning("tpu_frontier_k=%d needs the mega path "
                         "(tpu_megakernel auto/pallas, no EFB bundles, no "
-                        "categorical features) and at least one feature; "
-                        "using 1", k)
+                        "categorical features, uint8 bins) and at least "
+                        "one feature; using 1", k)
             k = 1
     return max(1, min(k, L - 1))
 
@@ -196,6 +206,10 @@ class SerialTreeLearner:
         meta = dataset.feature_meta_arrays()
         self.G = max(dataset.num_groups, 1)
         self.B = max(dataset.max_group_bins, 2)
+        # the bin matrix's dtype (JAX dataset.py _bin_dtype) and the
+        # category sets' words (the step block is SB_CAT + W words)
+        self.bin_dtype = dataset.bin_dtype
+        self.W = cat_words(hist_geometry(self.B)[1])
         self.F = len(meta["feature"])
         self.L = config.num_leaves
         self.max_splits = self.L - 1
@@ -238,7 +252,7 @@ class SerialTreeLearner:
         self.row_chunk = C
         self.row0 = C
         self.N_pad = C + ((self.N + C - 1) // C + 2) * C
-        pad = np.zeros((self.G, self.N_pad), np.uint8)
+        pad = np.zeros((self.G, self.N_pad), self.bin_dtype)
         if dataset.binned is not None and F:
             pad[:, C:C + self.N] = dataset.binned.T
         self.part0 = torch.as_tensor(pad, device=self.device)
@@ -252,15 +266,18 @@ class SerialTreeLearner:
         self.max_depth = int(config.max_depth)
         self.syncs = 0          # device-to-host round trips, all trees
         # the histogram-subtraction body keeps one histogram slot per leaf;
-        # EFB bundles and categorical features take it whatever
-        # tpu_megakernel says, as the JAX package's mega kernel needs the
-        # plain all-numerical per-feature view
+        # EFB bundles, categorical features and uint16 bins take it
+        # whatever tpu_megakernel says, as the JAX package's mega kernel
+        # needs the plain all-numerical per-feature view and uint8 bins
+        # (learner.py:867-870)
         mega = str(config.tpu_megakernel).strip().lower()
-        self.subtract = mega == "off" or self.bundled or self.has_cat
-        if (self.bundled or self.has_cat) and mega == "pallas":
+        wide = self.bin_dtype != np.uint8
+        self.subtract = (mega == "off" or self.bundled or self.has_cat
+                         or wide)
+        if (self.bundled or self.has_cat or wide) and mega == "pallas":
             log.warning("tpu_megakernel=pallas needs the plain "
                         "all-numerical path without EFB bundles or "
-                        "categorical features; using the "
+                        "categorical features, on uint8 bins; using the "
                         "histogram-subtraction path")
         self.state = (new_state(self.L, self.G, self.B, self.device)
                       if self.subtract else None)
@@ -274,6 +291,7 @@ class SerialTreeLearner:
     def _alloc(self) -> None:
         """Everything a tree's steps touch, allocated once on the device."""
         L, F, G, K, dev = self.L, self.F, self.G, self.K, self.device
+        W, SW = self.W, step_len(self.W)
         nodes = self.max_splits
         BH, Bp = hist_geometry(self.B)
         self.fmeta = torch.as_tensor(
@@ -282,30 +300,28 @@ class SerialTreeLearner:
         # step records and the root's step block in one flat buffer: the
         # host reads the finished tree in one copy
         a, b, c, d = self._layout()
-        self._tree_dev = torch.zeros(d + (K + 1) * STEP_WORDS,
+        self._tree_dev = torch.zeros(d + (K + 1) * SW,
                                      dtype=torch.float32, device=dev)
         self.leafmat = self._tree_dev[:a].view(NLF, L + 1)
         self.nodemat = self._tree_dev[a:b].view(NND, nodes + 1)
         self.nodecat = self._tree_dev[b:c].view(torch.int32).view(
-            nodes + 1, CAT_WORDS)
-        self.leafcat = self._tree_dev[c:d].view(torch.int32).view(
-            L + 1, CAT_WORDS)
-        self.steps = self._tree_dev[d:d + K * STEP_WORDS].view(
-            torch.int32).view(K, STEP_WORDS)
+            nodes + 1, W)
+        self.leafcat = self._tree_dev[c:d].view(torch.int32).view(L + 1, W)
+        self.steps = self._tree_dev[d:d + K * SW].view(
+            torch.int32).view(K, SW)
         self.step = self.steps[0]
-        self.root_step = self._tree_dev[d + K * STEP_WORDS:].view(torch.int32)
+        self.root_step = self._tree_dev[d + K * SW:].view(torch.int32)
         # the children's category sets (ops/split_cat.py), the categorical
         # features' indices and the search kernel's scratch
-        self.paircat = torch.zeros((2, CAT_WORDS), dtype=torch.int32,
-                                   device=dev)
+        self.paircat = torch.zeros((2, W), dtype=torch.int32, device=dev)
         self.cat_feats = torch.as_tensor(
             np.nonzero(self.is_cat)[0].astype(np.int32), device=dev)
-        self.cat_work = (new_work(2, int(self.is_cat.sum()), dev)
+        self.cat_work = (new_work(2, int(self.is_cat.sum()), dev, Bp)
                          if self.has_cat else None)
         # the root's range, an all-left decision (the mega path's
         # histogram-only call) and, for the histogram state, slot 0
         self.root_step.copy_(torch.tensor(step_words(make_scalars(
-            self.row0, self.N, 0, 0, 0, self.B, 0, 0, 255, 0)),
+            self.row0, self.N, 0, 0, 0, self.B, 0, 0, 255, 0, 0, (0,) * W)),
             dtype=torch.int32))
         # per step: K left counts; the pair search over the 2K children
         # (the left children first), its feature metadata repeated
@@ -363,15 +379,15 @@ class SerialTreeLearner:
         tree buffer (f32 words)."""
         a = NLF * (self.L + 1)
         b = a + NND * self.L
-        c = b + CAT_WORDS * self.L
-        return a, b, c, c + CAT_WORDS * (self.L + 1)
+        c = b + self.W * self.L
+        return a, b, c, c + self.W * (self.L + 1)
 
     # ------------------------------------------------------------------
     def _search(self, hg, hh, info, out=None, cat_out=None):
         """The best splits of the children whose (cF, Bp) histograms are
         hg / hh: (c, 13) f32 on the device; with categorical features the
         categorical search merges into them and writes the children's
-        sets to ``cat_out`` (c, 8) (the learner's ``paircat`` when not
+        sets to ``cat_out`` (c, W) (the learner's ``paircat`` when not
         given)."""
         c = hg.shape[0] // max(self.F, 1)
         kw = dict(l1=self.l1, l2=self.l2, max_delta_step=self.max_delta_step,
@@ -629,7 +645,7 @@ class SerialTreeLearner:
         self.syncs += 1
         L, nodes, K = self.L, self.max_splits, self.K
         a, b, c, d = self._layout()
-        steps = host[d:].view(np.int32).reshape(K + 1, STEP_WORDS)
+        steps = host[d:].view(np.int32).reshape(K + 1, step_len(self.W))
         err = int(np.bitwise_or.reduce(steps[:, SB_ERR]))
         if err:
             raise RuntimeError(
@@ -644,7 +660,7 @@ class SerialTreeLearner:
                                   host[a:b].reshape(NND, nodes + 1),
                                   int(steps[0, SB_S]),
                                   host[b:c].view(np.int32).reshape(
-                                      nodes + 1, CAT_WORDS))
+                                      nodes + 1, self.W))
 
     # -- the oracle: the host loop -----------------------------------------
     def _info(self, halves):
@@ -668,7 +684,7 @@ class SerialTreeLearner:
             feat_view(ch, info, self.state, step, self._absmax, kcnt=self.N,
                       view=self.view, out=fv)
             hg, hh = fv[0].reshape(2 * F, -1), fv[1].reshape(2 * F, -1)
-        cats = torch.zeros((2, CAT_WORDS), dtype=torch.int32,
+        cats = torch.zeros((2, self.W), dtype=torch.int32,
                            device=self.device)
         return self._search(hg, hh, info, cat_out=cats), cats
 
@@ -724,13 +740,13 @@ class SerialTreeLearner:
         tree moved onto the device), with the bag count read from the
         device word ``bag``.  Leaves the tree in ``leafmat`` too, where
         ``before_read`` then works on it."""
-        L, F = self.L, self.F
+        L, F, W = self.L, self.F, self.W
         bag_cnt = int(self.bag[0])
         nodes = self.max_splits
         lm = empty_leafmat(L)
         nm = np.zeros((NND, nodes + 1), np.float32)
-        lc = np.zeros((L + 1, CAT_WORDS), np.int32)
-        nc = np.zeros((nodes + 1, CAT_WORDS), np.int32)
+        lc = np.zeros((L + 1, W), np.int32)
+        nc = np.zeros((nodes + 1, W), np.int32)
 
         # the card's fixed-point histograms (split_mega, leaf_hist_rmw)
         # are scaled by one bound of |grad| and |hess| per tree, kept on
@@ -750,8 +766,7 @@ class SerialTreeLearner:
             tile, cats = tile[0], cats[0]
         else:
             tile = torch.full((13,), NEG_INF, device=self.device)
-            cats = torch.zeros(CAT_WORDS, dtype=torch.int32,
-                               device=self.device)
+            cats = torch.zeros(W, dtype=torch.int32, device=self.device)
         host = torch.cat([sum_g.reshape(1), sum_h.reshape(1), tile,
                           cats.view(torch.float32)]).cpu()
         self.syncs += 1
@@ -809,7 +824,7 @@ class SerialTreeLearner:
             self.syncs += 1
             host = host.numpy()
             lc[[best_leaf, new_leaf]] = host[27:].view(np.int32).reshape(
-                2, CAT_WORDS)
+                2, W)
             left_cnt = int(_f2i(host[0]))
             lm[:, best_leaf] = leaf_column(
                 start, left_cnt, left_cnt_g, lsg, lsh, depth_child, lout, s,

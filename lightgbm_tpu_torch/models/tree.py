@@ -240,7 +240,7 @@ class Tree:
 
 
 def _cat_bitsets(t: Tree, nodes, sets, bin_mappers) -> np.ndarray:
-    """The categorical ``nodes``' sets of bins (``sets``, 8 int32 words a
+    """The categorical ``nodes``' sets of bins (``sets``, W int32 words a
     node) as bitsets of category values appended to ``t.cat_threshold``
     / ``t.cat_boundaries`` in node order (a node's words up to its
     largest category); returns each node's index into them."""
@@ -279,8 +279,8 @@ def tree_from_device_record(record: Dict[str, np.ndarray], num_nodes: int,
     Tree::RealThreshold); a categorical node's threshold is an index into
     ``cat_boundaries``, its set a bitset of category values in
     ``cat_threshold`` (reference: Tree::SplitCategorical; JAX
-    models/tree.py).  ``node_cat_set`` holds each node's set as 8 words
-    of bins.
+    models/tree.py).  ``node_cat_set`` holds each node's set as W words
+    of bins (the learner's width: 8 up to 256 bins).
     """
     num_leaves = num_nodes + 1
     t = Tree(num_leaves)

@@ -29,7 +29,8 @@ A bin that is empty in exact arithmetic is exactly 0 on the card; the
 CPU's f32 fix may leave a rounding residue there, as JAX's does (its
 f32 sums in another order), so the CPU view matches JAX's to f32
 rounding (tests/test_torch_efb.py states the tolerance).  A step of no
-rows (``cnt == 0``) gives zeros.
+rows (``cnt == 0``) gives zeros.  Any width: a uint16 dataset's groups
+(Bp past 256) take the kernel's striding arm.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ import numpy as np
 import torch
 
 from . import kernels
-from .partition import SB_CNT, SB_WA, SB_WB, STEP_WORDS
+from .partition import SB_CNT, SB_WA, SB_WB, check_step_block
 from .split_mega import fixed_exponent
 
 # launches of the CUDA kernel by this wrapper, a launch recorded into a
@@ -149,11 +150,11 @@ def feat_view_cuda(state, step, absmax, *, kcnt: int, view: View,
     if state.dim() != 4 or tuple(state.shape[1:]) != (2, G, Bp):
         raise ValueError(f"feat_view: state must be (slots, 2, {G}, {Bp}), "
                          f"got {tuple(state.shape)}")
-    if not (0 < kcnt < (1 << 24) and 0 < Bp <= 256 and F > 0):
+    if not (0 < kcnt < (1 << 24) and 0 < Bp and F > 0):
         raise ValueError(f"feat_view: kcnt {kcnt}, Bp {Bp}, F {F}")
+    check_step_block(step)
     for t, dtype, name, shape in (
             (state, torch.int64, "state", None),
-            (step, torch.int32, "step block", (STEP_WORDS,)),
             (absmax, torch.float32, "absmax", (2,)),
             (view.meta, torch.int32, "view", (4, F)),
             (out, torch.float32, "out", (2, 2, F, Bp))):

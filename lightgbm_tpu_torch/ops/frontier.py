@@ -73,7 +73,8 @@ from .partition import (ERR_STEP, SB_BSTART, SB_CNT, SB_COL, SB_DBIN, SB_DL,
                         SB_ERR, SB_ISB, SB_LEAF, SB_MADE, SB_MTYPE, SB_NB,
                         SB_NEW, SB_PARENT, SB_S, SB_SIDE, SB_SIL, SB_START,
                         SB_STEPS, SB_THR, SB_VALID, SB_WA, SB_WB, STEP_WORDS,
-                        GHI_ROWS, check_bufs, scratch_rows, workspace)
+                        GHI_ROWS, check_bufs, require_uint8,
+                        scratch_rows, workspace)
 from .split import frontier_topk, oracle_next_pick
 from .tree_step import (FMETA_ROWS, LM_BDL, LM_BFEAT, LM_BGAIN, LM_BLCNT,
                         LM_BLOUT, LM_BLSG, LM_BLSH, LM_BRCNT, LM_BROUT,
@@ -484,7 +485,9 @@ def frontier_undo(part_bins, part_ghi, fr: Frontier, *, bound: int,
     of up to ``bound`` rows together: the plain version for CPU tensors,
     csrc/frontier.cu for CUDA tensors (a merge of each range's two
     children by position into the workspace's right-side scratch, then
-    back)."""
+    back).  uint8 bins only (the frontier runs on the mega path): a
+    uint16 tensor raises."""
+    require_uint8(part_bins, "frontier_undo")
     if part_bins.device.type == "cpu":
         return frontier_undo_plain(part_bins, part_ghi, fr)
     check_bufs(part_bins, part_ghi, "frontier_undo")

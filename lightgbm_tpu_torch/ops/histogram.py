@@ -4,7 +4,8 @@ over one leaf's contiguous rows.
 Counterpart of the TPU kernel ``leaf_hist_pallas`` and its XLA form
 ``leaf_hist_slice`` (lightgbm_tpu/ops/histogram.py), which share one
 contract: the (G, B, 2) grad/hess histogram of the partitioned rows
-``[start, start + cnt)`` of the (R, N_pad) uint8 bin rows, grad and hess
+``[start, start + cnt)`` of the (R, N_pad) uint8 or uint16 bin rows (the
+dataset's dtype: uint16 once a group has more than 256 bins), grad and hess
 from payload rows 0 and 1 of the (8, N_pad) f32 payload.  ``leaf_hist``
 dispatches on the device of its inputs: CPU tensors run
 ``leaf_hist_plain``, CUDA tensors launch the hand-written kernel
@@ -46,7 +47,10 @@ per tree); without it the kernel's wrapper takes it over
 The kernel reads its rows from a step block on the device (ops/
 partition.py ``SB_*``: the range, and in SB_SIDE the child); ``launch``
 takes one, with the grid sized for ``bound`` rows, and the host-int
-entries fill one for a call.
+entries fill one for a call.  It has an instantiation for each bin
+dtype, and serves any width: past ~14,500 bins a group no longer fits a
+block's shared memory, and its wide arm adds into the accumulator in
+device memory by 64-bit global atomics, as exact and as order-free.
 
 ``leaf_hist_reference`` returns the f64 sums with each bin's absolute
 mass, the yardstick any f32 rounding of the sums is held to:
@@ -61,14 +65,18 @@ from typing import Optional, Tuple
 import torch
 
 from . import kernels
-from .partition import (check_rows, check_step, make_scalars, step_block,
-                        workspace)
+from .partition import (bin_values, check_rows, check_step, make_scalars,
+                        step_block, workspace)
 from .split_mega import fixed_rows, hist_geometry, leaf_absmax
 
 # launches of the CUDA kernel by this wrapper, a launch recorded into a
 # CUDA graph under capture included (a replay launches without the
 # wrapper and is not counted; nor is the plain version)
 launches = 0
+
+# the widest bin axis the kernel takes (csrc/hist_fixed.cuh MAX_BP):
+# every uint16 bin
+MAX_BP = 65536
 
 
 def as_gb2(planes: torch.Tensor, num_bins: int) -> torch.Tensor:
@@ -88,7 +96,7 @@ def _planes(part_bins, vals, s: int, c: int, G: int, Bp: int):
     """(2, G, Bp) sums of the two (c,) value rows ``vals`` (grad-like,
     hess-like; their dtype) over the bins of the rows [s, s + c)."""
     dev = part_bins.device
-    idx = (part_bins[:G, s:s + c].long()
+    idx = (bin_values(part_bins[:G, s:s + c]).long()
            + (torch.arange(G, device=dev) * Bp)[:, None]).reshape(-1)
     out = torch.zeros((2, G * Bp), dtype=vals[0].dtype, device=dev)
     for p in range(2):
@@ -221,7 +229,7 @@ def launch(part_bins, part_ghi, step, *, num_bins, num_groups, nl, absmax,
     G = num_groups
     _, Bp = hist_geometry(num_bins)
     check_step(part_bins, part_ghi, step, nl, bound, "leaf_hist")
-    if not (0 < G <= R and Bp <= 256):
+    if not (0 < G <= R and Bp <= MAX_BP):
         raise ValueError(f"leaf_hist: bad geometry G={G} R={R} "
                          f"num_bins={num_bins}")
     if kcnt and not bound <= kcnt < (1 << 24):
@@ -240,12 +248,13 @@ def launch(part_bins, part_ghi, step, *, num_bins, num_groups, nl, absmax,
                    + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p,
                                               ctypes.c_int]
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
     err = fn(kernels.ptr(part_bins), R, Np, kernels.ptr(part_ghi),
              kernels.ptr(step), int(bound),
              None if nl is None else kernels.ptr(nl), int(kcnt),
              kernels.ptr(absmax), kernels.ptr(acc), kernels.ptr(done), G, Bp,
              kernels.ptr(out), None if state is None else kernels.ptr(state),
-             slots, kernels.stream_ptr(dev))
+             slots, part_bins.element_size(), kernels.stream_ptr(dev))
     kernels.check(err, "leaf_hist_launch")
     launches += 1

@@ -31,7 +31,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from .partition import CAT_WORDS, decide_left
+from .partition import CAT_WORDS, bin_words, decide_left
 
 K_ZERO_THRESHOLD = 1e-35
 
@@ -190,16 +190,17 @@ def predict_leaf_thridx(packed_vals: torch.Tensor,
 BINNED_NODE_FIELDS = ("col", "bin_start", "is_bundled", "num_bin",
                       "default_bin", "missing_type", "threshold",
                       "default_left", "left", "right", "is_cat")
-# after them, a categorical node's set: 8 rows of bitset words of bins
+# after them, a categorical node's set: W rows of bitset words of bins
 
 
 def pack_binned_nodes(node: Dict[str, np.ndarray], device) -> torch.Tensor:
-    """The node fields as one (19, nodes) int32 matrix on ``device``: one
-    gather a level reads a row's node.  From the host, the copy to the
-    card is pinned and asynchronous (no sync)."""
+    """The node fields as one (11 + W, nodes) int32 matrix on ``device``
+    (W the sets' words, ``cat_set`` (nodes, W)): one gather a level reads
+    a row's node.  From the host, the copy to the card is pinned and
+    asynchronous (no sync)."""
     n = len(node["left"])
     cat = np.asarray(node.get("cat_set", np.zeros((n, CAT_WORDS))),
-                     np.int64).astype(np.int32).reshape(n, CAT_WORDS)
+                     np.int64).astype(np.int32).reshape(n, -1)
     mat = torch.from_numpy(np.concatenate([np.stack([
         np.asarray(node.get(k, np.zeros(n))).astype(np.int32)
         for k in BINNED_NODE_FIELDS]), cat.T]))
@@ -212,7 +213,8 @@ def predict_leaf_binned(binned: torch.Tensor, node: Dict[str, np.ndarray],
                         depth: Optional[int] = None,
                         packed: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
-    """Leaf index (int64) of every row of an (n, G) bin matrix.
+    """Leaf index (int64) of every row of an (n, G) bin matrix (uint8
+    or uint16).
 
     ``node`` holds the per-internal-node arrays of BINNED_NODE_FIELDS
     (children >= 0 internal, < 0 ~leaf); ``depth`` is the tree's depth
@@ -229,13 +231,20 @@ def predict_leaf_binned(binned: torch.Tensor, node: Dict[str, np.ndarray],
         packed = pack_binned_nodes(node, dev)
     rows = torch.arange(n, device=dev)
     has_cat = bool(np.any(node.get("is_cat", 0)))
+    # uint16 bins are gathered as their int16 bits (ops/partition.py
+    # bin_words; decide_left widens them)
+    src = bin_words(binned)
+
+    def colv(col):
+        v = src[rows, col.long()]
+        return v.view(torch.uint16) if binned.dtype == torch.uint16 else v
 
     def decide(nid):
         (col, bstart, isb, nb, dbin, mtype, thr, dl, _, _,
          iscat) = packed[:len(BINNED_NODE_FIELDS), nid]
         cat = (packed[len(BINNED_NODE_FIELDS):, nid] if has_cat else ())
-        return decide_left(binned[rows, col.long()], bstart, isb, nb, dbin,
-                           mtype, thr, dl, iscat if has_cat else 0, *cat)
+        return decide_left(colv(col), bstart, isb, nb, dbin, mtype, thr, dl,
+                           iscat if has_cat else 0, *cat)
 
     return _walk(n, {"left": packed[8], "right": packed[9]}, dev, decide,
                  depth)

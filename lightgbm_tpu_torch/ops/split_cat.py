@@ -19,8 +19,11 @@ Inputs: the pair search's ``hist_g`` / ``hist_h`` (C F, BF), ``fmeta``
 (C F, 8) and ``info`` (C F, 8) (ops/split_pair.py), ``cat_feats`` (NC,)
 int32, the categorical features' indices in increasing order, and the
 pair search's (C, 13) rows ``pair``, merged in place.  Output
-``cat_out`` (C, 8) int32: each child's category set as a bitset of bins
-(bit b & 31 of word b >> 5), zero where the numerical split stays.
+``cat_out`` (C, W) int32: each child's category set as a bitset of bins
+(bit b & 31 of word b >> 5), zero where the numerical split stays;
+W = ops/partition.py ``cat_words(BF)``, 8 up to 256 bins.  Any width:
+past 256 bins (uint16 data) the kernel's arm strides its threads over
+the bins, with its per-bin rows in device scratch (``new_work``).
 
 Per (child, categorical feature), as JAX's ``find_best_split_categorical``
 (reference: FindBestThresholdCategoricalInner):
@@ -50,12 +53,14 @@ import ctypes
 import torch
 
 from . import kernels
+from .partition import cat_words
 from .split import K_EPSILON, leaf_gain, leaf_output, prefix_sum
 from .split_pair import (FM_NUM_BIN, IN_DEPTH, IN_MASK, IN_NUM_DATA,
                          IN_SUM_G, IN_SUM_H, OUT_FIELDS)
 
-CAT_WORDS = 8       # a set of up to 256 bins as uint32 words
-REC_WORDS = 16      # the kernel's per-(child, feature) scratch record
+REC_FIELDS = 8      # a kernel record's words before its set's W words
+WIDE_ROWS = 11      # per-bin scratch rows of the kernel's wide arm
+NARROW_BF = 256     # the widest row of the kernel's shared-memory arm
 
 # launches of the CUDA kernel by this wrapper, a launch recorded into a
 # CUDA graph under capture included (a replay launches without the
@@ -121,14 +126,16 @@ def per_feature(G, H, nb, inf, *, l1, l2, max_delta_step, min_gain_to_split,
     best_oh, best_oh_gain = _first_argmax(torch.where(valid_oh, gain_oh, neg))
     oh_sel = best_oh[:, None]
 
-    # sorted prefix sets: exact ranks by counting, NaN ratios as +inf
+    # sorted prefix sets: a bin's rank is the count of bins of a smaller
+    # ratio, or of an equal one and a smaller index (NaN ratios as +inf),
+    # the kernel's exact count; a stable sort gives the same ranks (+ 0.0
+    # makes -0.0 +0.0, which the count holds equal) in O(BF log BF)
     valid_s = in_range & (cnt_bin >= cat_smooth)
     ratio = torch.where(valid_s, G / (H + cat_smooth), torch.inf)
-    ratio = torch.where(torch.isnan(ratio), torch.inf, ratio)
-    rj, ri = ratio[:, None, :], ratio[:, :, None]
-    jlt = (torch.arange(BF, device=dev)[None, :]
-           < torch.arange(BF, device=dev)[:, None])[None]
-    rank = ((rj < ri) | ((rj == ri) & jlt)).sum(dim=2)          # (R, BF)
+    ratio = torch.where(torch.isnan(ratio), torch.inf, ratio) + 0.0
+    order = torch.sort(ratio, dim=1, stable=True).indices
+    rank = torch.empty_like(order).scatter_(
+        1, order, torch.arange(BF, device=dev).expand(R, BF))  # (R, BF)
     used = valid_s.sum(dim=1, keepdim=True)
     max_num_cat = torch.clamp(torch.div(used + 1, 2, rounding_mode="floor"),
                               max=max_cat_threshold)
@@ -205,12 +212,12 @@ def per_feature(G, H, nb, inf, *, l1, l2, max_delta_step, min_gain_to_split,
 
 
 def pack_set(member) -> torch.Tensor:
-    """(R, BF) bool -> (R, 8) int32 bitsets."""
+    """(R, BF) bool -> (R, W) int32 bitsets, W = cat_words(BF)."""
     R, BF = member.shape
-    m = torch.zeros((R, 32 * CAT_WORDS), dtype=torch.int64,
-                    device=member.device)
+    W = cat_words(BF)
+    m = torch.zeros((R, 32 * W), dtype=torch.int64, device=member.device)
     m[:, :BF] = member.to(torch.int64)
-    w = (m.view(R, CAT_WORDS, 32)
+    w = (m.view(R, W, 32)
          << torch.arange(32, device=member.device)).sum(dim=2)
     return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
 
@@ -287,10 +294,21 @@ def split_cat(hist_g, hist_h, fmeta, info, cat_feats, pair, cat_out, *,
                           cat_out, children=children, work=work, **kw)
 
 
-def new_work(children: int, ncat: int, device) -> torch.Tensor:
-    """The kernel's scratch: one REC_WORDS record a (child, categorical
-    feature) and the done counter, which the last block leaves at 0."""
-    return torch.zeros(children * ncat * REC_WORDS + 1, dtype=torch.int32,
+def work_words(children: int, ncat: int, width: int) -> int:
+    """Words of the kernel's scratch for rows of ``width`` bins: one
+    record (REC_FIELDS + W words) a (child, categorical feature), the done
+    counter, and past 256 bins the wide arm's WIDE_ROWS rows of ``width``
+    a record."""
+    n = children * ncat
+    wide = n * WIDE_ROWS * width if width > NARROW_BF else 0
+    return n * (REC_FIELDS + cat_words(width)) + 1 + wide
+
+
+def new_work(children: int, ncat: int, device,
+             width: int = NARROW_BF) -> torch.Tensor:
+    """The kernel's scratch (``work_words``), zero: the done counter
+    starts at 0 and the last block leaves it there."""
+    return torch.zeros(work_words(children, ncat, width), dtype=torch.int32,
                        device=device)
 
 
@@ -300,30 +318,31 @@ def split_cat_cuda(hist_g, hist_h, fmeta, info, cat_feats, pair, cat_out, *,
     C = children
     F2, BF = hist_g.shape
     NC = cat_feats.shape[0]
-    if C < 1 or F2 % C or F2 == 0 or not 1 <= BF <= 256 or NC == 0:
-        raise ValueError(f"split_cat needs ({C}F, BF<=256) histograms and "
-                         f"a categorical feature, got {tuple(hist_g.shape)} "
+    if C < 1 or F2 % C or F2 == 0 or BF < 1 or NC == 0:
+        raise ValueError(f"split_cat needs ({C}F, BF) histograms and a "
+                         f"categorical feature, got {tuple(hist_g.shape)} "
                          f"and {NC}")
+    W = cat_words(BF)
     kernels.require_cuda(hist_g, torch.float32, "hist_g")
     kernels.require_cuda(hist_h, torch.float32, "hist_h", (F2, BF))
     kernels.require_cuda(fmeta, torch.int32, "fmeta", (F2, 8))
     kernels.require_cuda(info, torch.float32, "info", (F2, 8))
     kernels.require_cuda(cat_feats, torch.int32, "cat_feats", (NC,))
     kernels.require_cuda(pair, torch.float32, "pair", (C, OUT_FIELDS))
-    kernels.require_cuda(cat_out, torch.int32, "cat_out", (C, CAT_WORDS))
+    kernels.require_cuda(cat_out, torch.int32, "cat_out", (C, W))
     if work is None:
-        work = new_work(C, NC, hist_g.device)
+        work = new_work(C, NC, hist_g.device, BF)
     kernels.require_cuda(work, torch.int32, "work",
-                         (C * NC * REC_WORDS + 1,))
+                         (work_words(C, NC, BF),))
     fn = kernels.load("split_cat").split_cat_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                    + [ctypes.c_float] * 6 + [ctypes.c_int]
                    + [ctypes.c_int, ctypes.c_float, ctypes.c_float,
                       ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p])
     err = fn(kernels.ptr(hist_g), kernels.ptr(hist_h), kernels.ptr(fmeta),
              kernels.ptr(info), kernels.ptr(cat_feats), kernels.ptr(pair),
-             kernels.ptr(cat_out), kernels.ptr(work), F2 // C, C, BF, NC,
+             kernels.ptr(cat_out), kernels.ptr(work), F2 // C, C, BF, NC, W,
              kw["l1"], kw["l2"], kw["max_delta_step"],
              kw["min_gain_to_split"], float(kw["min_data_in_leaf"]),
              kw["min_sum_hessian"], int(kw["max_depth"]),

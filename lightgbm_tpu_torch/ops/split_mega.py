@@ -10,7 +10,9 @@ CUDA tensors launch the hand-written kernel ``csrc/split_mega.cu`` or
 raise.
 
 Buffers (partitioned IN PLACE):
-  part_bins: (R, N_pad) uint8, one row per feature group (R >= G);
+  part_bins: (R, N_pad) uint8, one row per feature group (R >= G); a
+    uint16 tensor raises ValueError (the JAX package takes its mega
+    kernel only at B <= 256: wider data takes the subtraction body);
   part_ghi: (8, N_pad) f32 payload rows (grad, hess, row-id bits, score,
     objective rows), moved as raw 32-bit words;
   scalars: the leaf range and split decision, ``ops/partition.py
@@ -55,7 +57,8 @@ from . import kernels
 from .partition import (GHI_ROWS, PART_ARGTYPES, S_CNT, S_COL, as_scalars,
                         check_rows, check_step, leaf_decisions,
                         part_launch_args, partition_leaf_plain,
-                        scalars_start, step_block, workspace)
+                        require_uint8, scalars_start, step_block,
+                        workspace)
 
 FIXED_BITS = 62             # a bin's fixed-point sum stays below 2^62
 
@@ -190,6 +193,7 @@ def split_mega(part_bins, part_ghi, scalars, *, num_bins: int,
     ``(left_count, hist)`` (see module doc; the CPU's plain version does
     not use ``absmax``)."""
     kw = dict(num_bins=num_bins, num_groups=num_groups, move=move)
+    require_uint8(part_bins, "split_mega")
     if part_bins.device.type == "cpu":
         return split_mega_plain(part_bins, part_ghi, scalars, **kw)
     start, cnt, col = scalars_start(scalars), scalars[S_CNT], scalars[S_COL]
@@ -212,7 +216,9 @@ def split_mega_step(part_bins, part_ghi, step, nl_out, hist_out, *,
     """split_mega of the leaf named by the step block ``step``, into
     ``nl_out`` (1,) and ``hist_out`` (G, 4 * BH, 16): the plain version
     for CPU tensors, csrc/split_mega.cu for CUDA tensors, whose grids and
-    scratch are sized for ``bound`` rows (``absmax`` required there)."""
+    scratch are sized for ``bound`` rows (``absmax`` required there).
+    uint8 bins only: a uint16 tensor raises."""
+    require_uint8(part_bins, "split_mega")
     if part_bins.device.type == "cpu":
         nl, hist = split_mega_plain(part_bins, part_ghi, step,
                                     num_bins=num_bins, num_groups=num_groups,

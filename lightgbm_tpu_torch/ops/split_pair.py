@@ -22,13 +22,16 @@ Output: (C, 13) f32, one row per child: the leafmat segment
 (feature, threshold, left/right count) bitcast into f32 -- read them
 with ``.view(torch.int32)``, never with a value cast.
 
-The winner is the minimum preference key among the maximum-gain
-candidates (per feature the reverse scan's thresholds descending, then
-the forward scan's ascending; smaller feature first), the reference's
-scan-order tie-break.  Counts ride f32, exact below 2^24 rows.  Each
-child's search reads only its own rows, so a child's row has the same
-bits whatever C is: the frontier runs one launch over its 2K children
-where the JAX frontier runs K pair searches.
+The winner is the minimum preference key among the maximum-gain candidates
+(per feature the reverse scan's thresholds descending, then the forward
+scan's ascending; smaller feature first), the reference's scan-order
+tie-break.  Counts ride f32, exact below 2^24 rows.  Any width BF: past
+256 bins (uint16 data) the kernel's lanes walk ceil(BF / 32) bins each
+from device memory instead of 8 in registers, with the same association of
+the f64 prefix sums, so the two versions still agree bit for bit.  Each
+child's search reads only its own rows, so a child's row has the same bits
+whatever C is: the frontier runs one launch over its 2K children where the
+JAX frontier runs K pair searches.
 """
 
 from __future__ import annotations
@@ -179,9 +182,9 @@ def split_pair(hist_g, hist_h, fmeta, info, *, l1: float, l2: float,
 def check_args(hist_g, hist_h, fmeta, info, children=2) -> None:
     """The wrapper's checks of its inputs on the card."""
     F2, BF = hist_g.shape
-    if (children < 1 or F2 % children or F2 == 0 or not 1 <= BF <= 256):
-        raise ValueError(f"split_pair needs ({children}F, BF<=256) "
-                         f"histograms, got {tuple(hist_g.shape)}")
+    if children < 1 or F2 % children or F2 == 0 or BF < 1:
+        raise ValueError(f"split_pair needs ({children}F, BF) histograms, "
+                         f"got {tuple(hist_g.shape)}")
     kernels.require_cuda(hist_g, torch.float32, "hist_g")
     kernels.require_cuda(hist_h, torch.float32, "hist_h", (F2, BF))
     kernels.require_cuda(fmeta, torch.int32, "fmeta", (F2, 8))

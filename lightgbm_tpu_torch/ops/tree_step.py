@@ -36,7 +36,9 @@ One call, by ``mode``:
 
 Every call also takes the category sets as bitsets of bins
 (JAX learner.py ``best_cat_set`` / ``node_cat_set``): ``leafcat``
-(L + 1, 8), ``nodecat`` (nodes + 1, 8) and ``paircat`` (2, 8) int32.  The
+(L + 1, W), ``nodecat`` (nodes + 1, W) and ``paircat`` (2, W) int32, W
+the learner's set width (ops/partition.py ``cat_words``: 8 up to 256
+bins; the step block is SB_CAT + W words).  The
 root's reset zeroes the first two; a commit copies each child's set from
 ``paircat`` (ops/split_cat.py) into its leaf's row beside its leafmat
 column; an election copies the leaf's set into the node's row, writes
@@ -58,7 +60,7 @@ from .partition import (CAT_WORDS, ERR_STEP, SB_CAT, SB_CNT, SB_COL,
                         SB_DBIN, SB_DL, SB_DONE, SB_ERR, SB_ISCAT, SB_LEAF,
                         SB_MTYPE, SB_NB, SB_NEW, SB_PARENT, SB_PEND, SB_S,
                         SB_SIDE, SB_SIL, SB_START, SB_THR, SB_VALID, SB_WA,
-                        SB_WB, SB_BSTART, SB_ISB, STEP_WORDS)
+                        SB_WB, SB_BSTART, SB_ISB, step_len)
 
 NEG_INF = float("-inf")
 
@@ -228,7 +230,7 @@ def tree_step_plain(mode, lm, nm, step, nl, pair, fmeta, info, sums, bag,
     nmf[ND_IS_CAT, s] = iscat
     nc[s] = lc[best]
     w[SB_ISCAT] = iscat
-    w[SB_CAT:SB_CAT + CAT_WORDS] = lc[best]
+    w[SB_CAT:] = lc[best]
     if parent >= 0:
         nmi[ND_LEFT if int(pci[LM_PSIDE]) == 0 else ND_RIGHT, parent] = s
     lcg, rcg = int(pci[LM_BLCNT]), int(pci[LM_BRCNT])
@@ -265,13 +267,15 @@ def tree_step_cuda(mode, lm, nm, step, nl, pair, fmeta, info, sums, bag,
                    fmask, leafcat, nodecat, paircat, *, row0, N) -> None:
     global launches
     L, nodes, F = lm.shape[1] - 1, nm.shape[1] - 1, fmeta.shape[1]
-    if mode not in (MODE_ROOT, MODE_STEP, MODE_FINAL) or nodes != L - 1:
-        raise ValueError(f"tree_step: mode {mode}, {L} leaves and {nodes} "
-                         f"nodes")
+    W = paircat.shape[-1]
+    if (mode not in (MODE_ROOT, MODE_STEP, MODE_FINAL) or nodes != L - 1
+            or W < CAT_WORDS):
+        raise ValueError(f"tree_step: mode {mode}, {L} leaves, {nodes} "
+                         f"nodes and sets of {W} words")
     for t, dtype, name, shape in (
             (lm, torch.float32, "leafmat", (NLF, L + 1)),
             (nm, torch.float32, "nodemat", (NND, nodes + 1)),
-            (step, torch.int32, "step block", (STEP_WORDS,)),
+            (step, torch.int32, "step block", (step_len(W),)),
             (nl, torch.int32, "left count", (1,)),
             (pair, torch.float32, "pair rows", (2, 13)),
             (fmeta, torch.int32, "fmeta", (FMETA_ROWS, F)),
@@ -279,18 +283,18 @@ def tree_step_cuda(mode, lm, nm, step, nl, pair, fmeta, info, sums, bag,
             (sums, torch.float32, "sums", (2,)),
             (bag, torch.int32, "bag count", (1,)),
             (fmask, torch.float32, "feature mask", (F,)),
-            (leafcat, torch.int32, "leafcat", (L + 1, CAT_WORDS)),
-            (nodecat, torch.int32, "nodecat", (nodes + 1, CAT_WORDS)),
-            (paircat, torch.int32, "paircat", (2, CAT_WORDS))):
+            (leafcat, torch.int32, "leafcat", (L + 1, W)),
+            (nodecat, torch.int32, "nodecat", (nodes + 1, W)),
+            (paircat, torch.int32, "paircat", (2, W))):
         kernels.require_cuda(t, dtype, name, shape)
     fn = kernels.load("tree_step").tree_step_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     err = fn(*(kernels.ptr(t) for t in (lm, nm, step, nl, pair, fmeta, info,
                                         sums, bag, fmask, leafcat, nodecat,
                                         paircat)),
-             L, nodes, F, int(row0), int(N), int(mode),
+             L, nodes, F, int(row0), int(N), int(mode), W,
              kernels.stream_ptr(lm.device))
     kernels.check(err, "tree_step_launch")
     launches += 1

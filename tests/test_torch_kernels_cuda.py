@@ -1206,3 +1206,231 @@ def test_other_objectives_on_the_card(card, body, objective):
     np.testing.assert_allclose(a.predict(X, raw_score=True),
                                cpu.predict(X, raw_score=True), rtol=0,
                                atol=1e-5)
+
+
+# ---- wide bins: uint16 bin matrices, rows wider than 256 bins -------------
+#
+# Every uint16 and wide arm against its plain version, max_abs_err 0: the
+# partition (words moved), leaf_hist and its state launch (exact int64
+# sums: bit-identical), the wide histogram arm past one block's shared
+# memory (max_bin 16383), split_pair and split_cat at BF > 256 (the same
+# f32 operations and blocked f64 prefix sums), feat_view at Bp > 256 and
+# tree_step with sets of more than 8 words; the mega kernel and the
+# frontier's undo raise on uint16 bins.
+
+def _u16_buffers(seed, G=4, n_pad=1 << 17, top=1023):
+    rng = np.random.RandomState(seed)
+    pb = torch.as_tensor(rng.randint(0, top, (G, n_pad)).astype(np.uint16))
+    pg = torch.as_tensor(rng.randn(8, n_pad).astype(np.float32))
+    pg[1] = pg[1].abs()
+    pg[2] = torch.arange(n_pad, dtype=torch.int32).view(torch.float32)
+    return pb, pg
+
+
+U16_PART_CASES = {
+    "unaligned": (4096 + 77, 60_001, 1, 0, 0, 1023, 0, 0, 500, 1),
+    "offset1": (4097, 5000, 2, 0, 0, 1023, 0, 0, 300, 0),
+    "zero_missing": (9000, 50_000, 3, 0, 0, 1023, 40, 1, 900, 1),
+    "nan_missing": (9000, 50_000, 0, 0, 0, 1023, 0, 2, 100, 0),
+    "bundled": (123, 33_333, 2, 700, 1, 200, 0, 1, 30, 0),
+    "cnt0": (5000, 0, 3, 0, 0, 1023, 0, 0, 100, 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cat", [False, True])
+@pytest.mark.parametrize("case", sorted(U16_PART_CASES))
+def test_partition_kernel_u16_bit_identical_to_plain(card, case, cat):
+    """The uint16 instantiation of the partition, numerical or with a
+    set of 32 words (a step block of SB_CAT + 32): bins, payload words
+    and the left count against partition_leaf_plain."""
+    pb, pg = _u16_buffers(7)
+    sc = U16_PART_CASES[case]
+    if cat:
+        words = [int(v) for v in np.random.RandomState(3).randint(
+            -2 ** 31, 2 ** 31, 32)]
+        sc = make_scalars(*sc, 1, words)
+    else:
+        sc = make_scalars(*sc)
+    b, g = pb.to(card), pg.to(card)
+    nl = tpart.partition_leaf(b, g, sc)
+    b0, g0 = pb.clone(), pg.clone()
+    enl = tpart.partition_leaf_plain(b0, g0, sc)
+    assert int(nl) == int(enl)
+    assert torch.equal(b.cpu(), b0)
+    assert torch.equal(g.cpu().view(torch.int32), g0.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,G,n", [(1023, 28, 1 << 18), (300, 5, 1 << 17),
+                                   (16383, 4, 1 << 18)])
+def test_leaf_hist_u16_and_wide_arm_bit_identical_to_plain(card, B, G, n):
+    """The uint16 histogram (B = 300 and 1023: shared memory; B = 16383:
+    the wide arm, one group's planes past a block's shared memory) and
+    its state launch, root then the smaller child of a partition, against
+    leaf_hist_fixed_plain / leaf_hist_rmw_fixed_plain bit for bit."""
+    pb, pg = _u16_buffers(B, G, n, B)
+    start, cnt = 4096 + 3, n - 8192
+    sc = make_scalars(start, cnt, 1, 0, 0, B, 0, 0, B // 3, 1)
+    b, g = pb.to(card), pg.to(card)
+    absmax = g[:2].abs().amax(dim=1)
+    hmax = absmax.cpu()
+    kw = dict(num_bins=B, num_groups=G)
+    got = th.leaf_hist(b, g, start, cnt, absmax=absmax, **kw)
+    want = th.leaf_hist_fixed_plain(pb, pg, start, cnt, absmax=hmax, **kw)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    kcnt = 1 << 20
+    state = hs.new_state(4, G, B, card)
+    want_state = state.cpu()
+    got = hs.leaf_hist_rmw(b, g, start, cnt, state=state, idx=(-1, 1, 1, 0),
+                           absmax=absmax, kcnt=kcnt, **kw)
+    want = hs.leaf_hist_rmw_fixed_plain(pb, pg, start, cnt,
+                                        state=want_state, idx=(-1, 1, 1, 0),
+                                        absmax=hmax, kcnt=kcnt, **kw)
+    assert torch.equal(state.cpu(), want_state)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    nl = tpart.partition_leaf(b, g, sc)
+    hb, hg, hnl = b.cpu(), g.cpu(), nl.cpu()
+    idx = (1, 1, 3, 1)
+    got = hs.leaf_hist_rmw(b, g, start, cnt, child=(nl, 0), state=state,
+                           idx=idx, absmax=absmax, kcnt=kcnt, **kw)
+    want = hs.leaf_hist_rmw_fixed_plain(hb, hg, start, cnt, child=(hnl, 0),
+                                        state=want_state, idx=idx,
+                                        absmax=hmax, kcnt=kcnt, **kw)
+    assert torch.equal(state.cpu(), want_state)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(28, 1024), (7, 257), (3, 3000),
+                                   (2, 16384)])
+@pytest.mark.parametrize("pi", range(len(PARAMS)))
+def test_split_pair_kernel_wide_bit_identical_to_plain(card, shape, pi):
+    """split_pair past 256 bins (each lane walks ceil(BF / 32) bins):
+    all 13 fields bit-identical to split_pair_plain."""
+    F, BF = shape
+    hg, hh, fm, info = _pair_case(BF + pi, F, BF)
+    want = sp.split_pair_plain(hg, hh, fm, info, **PARAMS[pi])
+    got = sp.split_pair(*(t.to(card) for t in (hg, hh, fm, info)),
+                        **PARAMS[pi])
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(10, 1024), (6, 400), (4, 2048)])
+@pytest.mark.parametrize("ci", range(len(CAT_PARAMS)))
+def test_split_cat_kernel_wide_bit_identical_to_plain(card, shape, ci):
+    """split_cat's wide arm (BF > 256, sets of ceil(BF / 32) words)
+    against split_cat_plain on the card and on the CPU, bit for bit; a
+    second launch on the same scratch gives the same bits."""
+    F, BF = shape
+    hg, hh, fm, info, cats = cat_case(F + BF + ci, F, BF, min(4, F))
+    kw = dict(PARAMS[0], **CAT_PARAMS[ci])
+    W = tpart.cat_words(BF)
+    pair = sp.split_pair_plain(hg, hh, fm, info, **PARAMS[0])
+    want, wset = pair.clone(), torch.zeros((2, W), dtype=torch.int32)
+    scat.split_cat(hg, hh, fm, info, cats, want, wset, **kw)
+    dev = [t.to(card) for t in (hg, hh, fm, info, cats)]
+    work = scat.new_work(2, len(cats), card, BF)
+    for _ in range(2):
+        got = pair.to(card)
+        gset = torch.full((2, W), 7, dtype=torch.int32, device=card)
+        scat.split_cat(*dev, got, gset, work=work, **kw)
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+        assert torch.equal(gset.cpu(), wset)
+    plain = pair.to(card)
+    pset = torch.zeros((2, W), dtype=torch.int32, device=card)
+    scat.split_cat_plain(*dev, plain, pset, **kw)
+    assert torch.equal(pset.cpu(), wset)
+    assert int(work[scat.work_words(2, len(cats), BF)
+                    - 1 - 2 * len(cats) * scat.WIDE_ROWS * BF]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bp", [512, 1024])
+def test_feat_view_kernel_wide_bit_identical_to_plain(card, Bp):
+    """feat_view past 256 bins (threads striding over the bins) against
+    feat_view_fixed_plain, bit for bit."""
+    view, state = _view_case(2, Bp=Bp)
+    step = torch.zeros(tpart.step_len(tpart.cat_words(Bp)),
+                       dtype=torch.int32)
+    step[tpart.SB_CNT] = 1000
+    step[tpart.SB_WA], step[tpart.SB_WB] = 3, 1
+    absmax = torch.tensor([0.8, 0.24])
+    want = fv.feat_view_fixed_plain(state, step, absmax, 1 << 20, view)
+    out = torch.zeros((2, 2, view.F, view.Bp), device=card)
+    fv.feat_view(None, None, state.to(card), step.to(card), absmax.to(card),
+                 kcnt=1 << 20, view=view.to(card), out=out)
+    assert torch.equal(out.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["root", "step", "final"])
+def test_tree_step_kernel_with_wide_sets(card, case):
+    """tree_step with sets of 32 words (a step block of SB_CAT + 32),
+    bit for bit against tree_step_plain."""
+    mode = {"root": ts.MODE_ROOT, "final": ts.MODE_FINAL}.get(case,
+                                                             ts.MODE_STEP)
+    c = _tl.tree_case(5, W=32)
+    L = c[0].shape[1] - 1
+    c[0][ts.LM_BISCAT, :L] = torch.arange(L) % 2
+    dev = [t.to(card) for t in c]
+    kw = dict(row0=_tl.ROW0, N=_tl.N)
+    ts.tree_step(mode, *dev, **kw)
+    ts.tree_step_plain(mode, *c, **kw)
+    for got, want in zip(dev, c):
+        assert torch.equal(_tl._bits(got.cpu()), _tl._bits(want))
+
+
+@pytest.mark.cuda
+def test_mega_and_frontier_raise_on_u16_bins(card):
+    """The kernels that read bins as bytes raise on a uint16 tensor."""
+    from lightgbm_tpu_torch.ops import frontier as fro
+    pb = torch.zeros((4, 8192), dtype=torch.uint16, device=card)
+    pg = torch.zeros((8, 8192), device=card)
+    sc = make_scalars(0, 100, 0, 0, 0, 255, 0, 0, 1, 0)
+    with pytest.raises(ValueError):
+        sm.split_mega(pb, pg, sc, num_bins=300, num_groups=4)
+    with pytest.raises(ValueError):
+        sm.split_mega_step(pb, pg, tpart.step_block(sc, card),
+                           torch.zeros(1, dtype=torch.int32, device=card),
+                           torch.zeros((4, 4 * 19, 16), device=card),
+                           num_bins=300, num_groups=4, bound=100,
+                           absmax=torch.ones(2, device=card))
+    with pytest.raises(ValueError):
+        fro.frontier_undo(pb, pg, None, bound=100)
+
+
+def _wide_rows(n=6000, seed=4):
+    """Three numerical columns and a 400-level categorical."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, 3)
+    c = rng.randint(0, 400, n).astype(float)
+    y = (x[:, 0] + np.isin(c % 17, (1, 5, 9)) * 1.5
+         + 0.3 * rng.randn(n) > 0.5).astype(float)
+    return np.column_stack([x, c]), y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["max_bin_1023", "cat400"])
+def test_u16_graph_trees_equal_eager_oracle(card, case):
+    """uint16 data through the graph (the subtraction body at K=1 on
+    every uint16 arm): trees, sets and row order equal the eager oracle's
+    on the card, bit for bit; one capture, one host read a tree."""
+    X, y = _wide_rows()
+    params = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+              "min_data_per_group": 20}
+    if case == "max_bin_1023":
+        params["max_bin"] = 1023
+        X = X[:, :3]
+    else:
+        params["categorical_feature"] = "3"
+    for a, b in _tl.lockstep(X, y, params, "cuda", trees=3):
+        _tl.assert_same_tree(a, b)
+        assert torch.equal(a._gbdt.learner.nodecat, b._gbdt.learner.nodecat)
+    lr = a._gbdt.learner
+    assert lr.bin_dtype == np.uint16 and lr.subtract and lr.K == 1
+    assert lr.captures == 1 and lr.syncs == 3
+    if case == "cat400":
+        assert lr.W > 8 and sum(t.num_cat for t in a._gbdt.models) > 0

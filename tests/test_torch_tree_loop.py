@@ -24,8 +24,7 @@ from lightgbm_tpu_torch.models import learner as lm
 from lightgbm_tpu_torch.ops import partition as tpart
 from lightgbm_tpu_torch.ops import tree_step as ts
 from lightgbm_tpu_torch.ops.partition import (CAT_WORDS, SB_CNT, SB_DONE,
-                                              SB_LEAF, SB_NEW, SB_PEND, SB_S,
-                                              STEP_WORDS)
+                                              SB_LEAF, SB_NEW, SB_PEND, SB_S)
 from lightgbm_tpu_torch.ops.tree_step import (
     LM_BDL, LM_BFEAT, LM_BGAIN, LM_BISCAT, LM_BLCNT, LM_BLOUT, LM_BLSG,
     LM_BLSH, LM_BRCNT, LM_BROUT, LM_BRSG, LM_BRSH, LM_BTHR, LM_CNT, LM_CNT_G,
@@ -44,11 +43,13 @@ def _bits(t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
-def tree_case(seed, L=9, F=5, made=4, gains=None, sil_tie=False):
+def tree_case(seed, L=9, F=5, made=4, gains=None, sil_tie=False,
+              W=CAT_WORDS):
     """A tree part-grown: ``made`` splits done (leaves 0..made), the last
     one pending commit, random best splits in every leaf, the pair
     search's rows for the pending children, the left count, fmeta.
-    ``gains`` overrides LM_BGAIN of the leaves after the commit."""
+    ``gains`` overrides LM_BGAIN of the leaves after the commit; ``W`` the
+    category sets' words (the step block is SB_CAT + W)."""
     rng = np.random.RandomState(seed)
     nodes = L - 1
     lmat = ts.empty_leafmat(L)
@@ -78,7 +79,7 @@ def tree_case(seed, L=9, F=5, made=4, gains=None, sil_tie=False):
         start += cnt
     for node in range(made - 1):
         nmat[:, node] = rng.randn(NND).astype(np.float32)
-    step = np.zeros(STEP_WORDS, np.int32)
+    step = np.zeros(tpart.step_len(W), np.int32)
     pending = int(rng.randint(0, made))
     step[[SB_S, SB_LEAF, SB_NEW, SB_PEND]] = [made, pending, made, 2]
     pair = np.stack([seg(), seg()])
@@ -96,7 +97,7 @@ def tree_case(seed, L=9, F=5, made=4, gains=None, sil_tie=False):
     # the category sets of the leaves, the nodes and the pending children
     # (random words: LM_BISCAT above is random too, so some leaves are
     # categorical)
-    cats = [rng.randint(-2 ** 31, 2 ** 31, (r, CAT_WORDS)).astype(np.int32)
+    cats = [rng.randint(-2 ** 31, 2 ** 31, (r, W)).astype(np.int32)
             for r in (L + 1, nodes + 1, 2)]
     return [torch.as_tensor(a) for a in (lmat, nmat, step, nl, pair, fmeta,
                                          info, sums, bag, fmask, *cats)]
@@ -302,7 +303,7 @@ def assert_same_tree(a, b):
               "internal_count", "split_gain"):
         assert np.array_equal(getattr(ta, f), getattr(tb, f)), f
     (pa, ga), (pb, gb) = a._gbdt._phys, b._gbdt._phys
-    assert torch.equal(pa, pb)
+    assert torch.equal(pa.cpu(), pb.cpu())
     assert torch.equal(ga.view(torch.int32), gb.view(torch.int32))
 
 

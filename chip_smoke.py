@@ -111,13 +111,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the first difference an exact tie in f64); feat_view and split_pair
      at F = 284 bit-identical to their plain versions on 13 states of a
      real tree, with their times; s/iteration and device ms;
-  4f. categorical features: 4e's 2,000,000 rows with the 8 categoricals
-     as integer columns (``categorical_feature``) and two more of 3 and
-     200 levels (F = 38): the learner on the subtraction body at K=1 with
-     split_cat after the pair search; the first tree bit-identical to the
-     eager oracle's (category sets and row order included), with
-     one-vs-rest and sorted-arm categorical nodes, and equal to the CPU
-     plain loop's (or its first difference an exact tie in f64); every
+  4f. categorical features (in a child process, ``--cat``: its
+     profiled launch counts, as the frontier window's, are read in a
+     process that made no profile before): 4e's 2,000,000 rows with the
+     8 categoricals as integer columns (``categorical_feature``) and two
+     more of 3 and 200 levels (F = 38): the learner on the subtraction
+     body at K=1 with split_cat after the pair search; the first tree
+     bit-identical to the eager oracle's (category sets and row order
+     included), with
+     one-vs-rest and sorted-arm categorical nodes; on a 500,000-row cut
+     the card's first tree equal to the CPU plain loop's (or its first
+     difference an exact tie in f64); every
      wrapper's count set to 0 before 4 profiled iterations and read after,
      the device launches by function, one capture, one tree read a tree,
      logloss falling; split_cat bit-identical to split_cat_plain on every
@@ -161,6 +165,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      wide histogram arm (max_bin 16383, one group's planes past a block's
      shared memory) on 500,000 rows x 4 against its plain version and
      through a short training;
+  4i. (after 4h) quantized-gradient training (``use_quantized_grad``,
+     4 bins) at the HIGGS shape on the mega body (auto: K=4) and the
+     subtraction body: float, quantized and quantized with
+     ``quant_train_renew_leaf``, 4 iterations each, every wrapper's count
+     set to 0 before a run and read after it (the body's kernels, and
+     ``quantize`` once an iteration), one capture and one tree read a
+     tree, logloss falling; s/iteration, device ms an iteration and the
+     training AUC beside the float run; ``quantize`` bit-identical to
+     quantize_plain on each quantized run's first call, and its ms a
+     launch beside its bound, its plain version and torch.rand with the
+     elementwise operations; split_mega's and leaf_hist's scale arms on
+     the quantized runs' payloads bit-identical to their plain twins,
+     timed beside their unscaled launches; on a 200,000-row cut (L2 from
+     a zero score) the card's carriers and trees equal the CPU plain
+     loop's, or part at an exact tie of the carriers' f64 gains; 3-class
+     multiclass with bagging (the eager draws); a pandas frame of 500,000
+     rows with bundling one-hot columns, a category and a bool column
+     through feat_view (its scale arm against its twin) and split_cat,
+     its model text's pandas_categorical reloaded;
   5. each kernel against its plain version on inputs captured from the
      first tree of its path, through its host-int entry and through the
      step entry the graph loop launches (a step block made beforehand,
@@ -178,7 +201,7 @@ last line is {"ok": true, "device": {...}}.
 trains the HIGGS shape 2 iterations on each body and prints a sha256 of
 the trees and row buffers a body, to compare two checkouts on one card;
 ``python3 chip_smoke.py --wide`` runs phase 4h alone, ``--efb`` phase 4e
-alone.
+alone, ``--quant`` phase 4i alone.
 """
 
 import contextlib
@@ -1736,6 +1759,18 @@ def make_efb_data(rows):
     return out, y
 
 
+def split_sets(tree, lv):
+    """Per split of ``tree``: (the rows under it, the rows under its left
+    child), as masks over ``lv``, the rows' leaf indices in ``tree``."""
+    ns = tree.num_leaves - 1
+    lc, rc = tree.left_child[:ns], tree.right_child[:ns]
+
+    def below(c):
+        return {~c} if c < 0 else below(lc[c]) | below(rc[c])
+    return [(np.isin(lv, list(below(s))), np.isin(lv, list(below(lc[s]))))
+            for s in range(ns)]
+
+
 def first_tie(a, b, X, y, scores_before, what):
     """The first split where trees ``a`` and ``b`` partition the rows
     differently, checked to be an exact tie: both choices' gains recounted
@@ -1749,15 +1784,6 @@ def first_tie(a, b, X, y, scores_before, what):
     p = 1.0 / (1.0 + np.exp(-scores_before))
     g, h = p - y, p * (1.0 - p)
 
-    def sets(tree, lv):
-        ns = tree.num_leaves - 1
-        lc, rc = tree.left_child[:ns], tree.right_child[:ns]
-
-        def below(c):
-            return {~c} if c < 0 else below(lc[c]) | below(rc[c])
-        return [(np.isin(lv, list(below(s))), np.isin(lv, list(below(lc[s]))))
-                for s in range(ns)]
-
     def gain(rows, left):
         out = []
         for m in (left, rows & ~left, rows):
@@ -1765,7 +1791,7 @@ def first_tie(a, b, X, y, scores_before, what):
             out.append(sg * sg / sh if sh > 0 else 0.0)
         return out[0] + out[1] - out[2], sum(abs(v) for v in out)
 
-    sa, sb = sets(ta, la), sets(tb, lb)
+    sa, sb = split_sets(ta, la), split_sets(tb, lb)
     for s in range(min(len(sa), len(sb))):
         if np.array_equal(sa[s][0], sb[s][0]) and np.array_equal(
                 sa[s][1], sb[s][1]):
@@ -2002,6 +2028,7 @@ def efb_path(lgt, learner_mod, mods):
 # ---- phase 4f: categorical features (categorical_feature) ---------------
 CAT_ITERS, CAT_SMALL, CAT_WIDE = 4, 3, 200
 CAT_PART_CHECKS = 8             # categorical splits whose partition is held
+CAT_CUT = 500_000               # rows of the card-vs-CPU first tree
 
 
 def make_cat_data(rows):
@@ -2068,16 +2095,7 @@ def first_cat_tie(ta, tb, X, y, score, mappers, what):
     p = 1.0 / (1.0 + np.exp(-score))
     g, h = p - y, p * (1.0 - p)
 
-    def sets(tree, lv):
-        ns = tree.num_leaves - 1
-        lc, rc = tree.left_child[:ns], tree.right_child[:ns]
-
-        def below(c):
-            return {~c} if c < 0 else below(lc[c]) | below(rc[c])
-        return [(np.isin(lv, list(below(s))), np.isin(lv, list(below(lc[s]))))
-                for s in range(ns)]
-
-    sa, sb = sets(ta, la), sets(tb, lb)
+    sa, sb = split_sets(ta, la), split_sets(tb, lb)
     for s in range(min(len(sa), len(sb))):
         if np.array_equal(sa[s][0], sb[s][0]) and np.array_equal(
                 sa[s][1], sb[s][1]):
@@ -2181,9 +2199,10 @@ def cat_path(lgt, mods, efb):
     8 categoricals as integer columns with ``categorical_feature`` plus a
     3-level and a 200-level one (F = 38): the learner takes the
     subtraction body at K=1 with split_cat after the pair search.  The
-    first tree on the card bit-identical to the eager oracle's and equal
-    to the CPU plain loop's (or its first difference an exact tie in
-    f64), with categorical nodes on both arms; every wrapper's count set
+    first tree on the card bit-identical to the eager oracle's, with
+    categorical nodes on both arms; on the first CAT_CUT rows the card's
+    first tree equal to the CPU plain loop's (or its first difference an
+    exact tie in f64); every wrapper's count set
     to 0 before 4 profiled iterations and read after, the device launches
     by function, one capture, one tree read a tree, logloss falling;
     split_cat bit-identical to split_cat_plain on every launch of a tree
@@ -2286,24 +2305,30 @@ def cat_path(lgt, mods, efb):
     for k, (ms, n) in sorted(per.items()):
         print(f"  cat {k}: {ms:.3f} ms device time per iteration, {n} "
               f"device launches", flush=True)
-    # the first tree on the CPU, by the plain versions
+    # the first tree on the card and on the CPU (the plain versions), on
+    # the first CAT_CUT rows
     t0 = time.time()
-    cpu = lgt.Booster(params=dict(params, device_type="cpu"), train_set=ds)
-    cpu.update()
-    tc = cpu._gbdt.models[0]
+    d_cut = relabeled(lgt, ds, X, y, CAT_CUT)
+    cuts = []
+    for dev_kw in ({}, {"device_type": "cpu"}):
+        cb = lgt.Booster(params=dict(params, **dev_kw), train_set=d_cut)
+        cb.update()
+        cuts.append((cb._gbdt.models[0], cb._gbdt.init_scores[0]))
+    (tk, init), (tc, _) = cuts
     tie = None
-    if not (same_trees([first], [tc], exact=False)
-            and first.cat_threshold == tc.cat_threshold):
-        tie = first_cat_tie(first, tc, X.astype(np.float64), y,
-                            np.full(len(y), bst._gbdt.init_scores[0]),
-                            mappers, "cat card vs CPU tree 0")
-    say(f"cat first tree against the CPU plain loop: "
+    if not (same_trees([tk], [tc], exact=False)
+            and tk.cat_threshold == tc.cat_threshold):
+        tie = first_cat_tie(tk, tc, X[:CAT_CUT].astype(np.float64),
+                            y[:CAT_CUT], np.full(CAT_CUT, init), mappers,
+                            "cat card vs CPU tree 0")
+    say(f"cat first tree on a {CAT_CUT}-row cut against the CPU plain "
+        f"loop: "
         + ("equal (structure, leaf values within rtol 1e-4 / atol 1e-5)"
            if tie is None else f"equal up to split {tie}, an exact tie in "
                                f"f64")
-        + f"; the CPU tree's nodes by arm {cat_arms(tc, mappers, 4)}; "
-          f"{time.time() - t0:.1f} s")
-    del cpu
+        + f"; nodes by arm: the card's tree {cat_arms(tk, mappers, 4)}, "
+          f"the CPU's {cat_arms(tc, mappers, 4)}; {time.time() - t0:.1f} s")
+    del d_cut, cuts, cb
     pb_, pg_ = bst._gbdt._phys
     err, nk, part_nb, st = check_cat_kernels(scat, sp, tpart, lr, pb_, pg_)
     say(f"cat kernels: split_cat bit-identical to split_cat_plain on all "
@@ -2557,29 +2582,20 @@ def first_grads(name, params, y, init):
     return p - Y, p * (1.0 - p)
 
 
-def tree_tie(ta, tb, X, g, h, what):
+def tree_tie(ta, tb, X, g, h, what, exact=False):
     """The first split where host trees ``ta`` (the card's) and ``tb``
     (the CPU's) partition the rows of ``X`` differently, checked to be a
-    tie at the CPU's f32 resolution: both choices' f64 gains from ``g`` /
-    ``h`` differ by less than the sum of their error bounds.  The card's
-    histograms are exact integers; the CPU sums f32 values, whose sum of
-    n terms is off by at most n 2^-24 times the sum of their magnitudes,
-    so a gain G^2 / H is off by at most 2 |G| / H eG + G^2 / H^2 eH (eG,
-    eH those bounds of G and H) -- gains closer than that the CPU cannot
-    part.  None when every split agrees, else (split, gain difference,
-    bound)."""
-    def sets(tree):
-        lv = tree.predict_leaf(X)
-        ns = tree.num_leaves - 1
-        lc, rc = tree.left_child[:ns], tree.right_child[:ns]
-
-        def below(c):
-            return {~c} if c < 0 else below(lc[c]) | below(rc[c])
-        return [(np.isin(lv, list(below(s))), np.isin(lv, list(below(lc[s]))))
-                for s in range(ns)]
-
+    tie: both choices' f64 gains from ``g`` / ``h`` differ by less than
+    the CPU's f32 resolution, or with ``exact`` by less than 1e-9 of
+    their mass (integer carriers, which both devices sum exactly; both
+    gains are printed then).  The card's histograms are exact integers;
+    the CPU sums f32 values, whose sum of n terms is off by at most n
+    2^-24 times the sum of their magnitudes, so a gain G^2 / H is off by
+    at most 2 |G| / H eG + G^2 / H^2 eH (eG, eH those bounds of G and H)
+    -- gains closer than that the CPU cannot part.  None when every split
+    agrees, else (split, the card's gain, the CPU's, the bound)."""
     def gain(rows, left):
-        total = err = 0.0
+        total = err = mass = 0.0
         for sign, m in ((1, left), (1, rows & ~left), (-1, rows)):
             n, sg, sh = int(m.sum()), g[m].sum(), h[m].sum()
             if sh <= 0:
@@ -2587,20 +2603,24 @@ def tree_tie(ta, tb, X, g, h, what):
             eg, eh = (n * 2.0 ** -24 * np.abs(v[m]).sum() for v in (g, h))
             total += sign * sg * sg / sh
             err += 2 * abs(sg) / sh * eg + sg * sg / (sh * sh) * eh
-        return total, err
+            mass += sg * sg / sh
+        return total, 1e-9 * max(1.0, mass) if exact else err
 
-    sa, sb = sets(ta), sets(tb)
+    sa, sb = (split_sets(t, t.predict_leaf(X)) for t in (ta, tb))
     for s in range(max(len(sa), len(sb))):
         if s < min(len(sa), len(sb)) and np.array_equal(
                 sa[s][0], sb[s][0]) and np.array_equal(sa[s][1], sb[s][1]):
             continue
         (va, ea), (vb, eb) = (gain(*x[s]) if s < len(x) else (0.0, 0.0)
                               for x in (sa, sb))
-        check(abs(va - vb) <= ea + eb,
+        tol = max(ea, eb) if exact else ea + eb
+        if exact:
+            print(f"  {what}: split {s} partitions differently; f64 gains "
+                  f"card {va!r}, CPU {vb!r}", flush=True)
+        check(abs(va - vb) <= tol,
               f"{what}: split {s} partitions differently with f64 gains "
-              f"{va!r} and {vb!r}, further apart than the CPU's f32 sums' "
-              f"bound {ea + eb:.3g}")
-        return s, float(abs(va - vb)), float(ea + eb)
+              f"{va!r} and {vb!r}, further apart than {tol:.3g}")
+        return s, float(va), float(vb), float(tol)
     return None
 
 
@@ -3390,6 +3410,512 @@ def wide_path(lgt, mods, ds255, X, y, params):
     return out
 
 
+# ---- phase 4i: quantized-gradient training (use_quantized_grad) ---------
+QUANT_ITERS = 4
+QUANT_CUT = 200_000             # rows of the card-vs-CPU trees
+QUANT_MIX_ROWS = 500_000        # the frame with bundles and a category
+QUANT_RUNS = (("float", {}),
+              ("quant", {"use_quantized_grad": True}),
+              ("quant_renew", {"use_quantized_grad": True,
+                               "quant_train_renew_leaf": True}))
+
+
+@contextlib.contextmanager
+def quant_carriers(bmod):
+    """Each tree's (grad, hess) as its histograms sum them -- the integer
+    carriers times the scale, f64 in original row order, on the host --
+    recorded as the port discretizes."""
+    out = []
+    orig = bmod.GBDT._quantize
+
+    def record(self, ghi, eager):
+        orig(self, ghi, eager)
+        s = self.learner.qscale.double()
+        out.append(tuple((bmod.scores_from_phys(ghi, self.num_data, r)
+                          .double() * s[r]).cpu().numpy() for r in (0, 1)))
+
+    bmod.GBDT._quantize = record
+    yield out
+    bmod.GBDT._quantize = orig
+
+
+def quant_mix_frame(X, y):
+    """QUANT_MIX_ROWS rows of X as a pandas DataFrame: the 28 features, 8
+    one-hot columns of a seeded 8-level draw (they bundle), a 12-level
+    category column and a bool column, with a label they move."""
+    import pandas as pd
+    n = QUANT_MIX_ROWS
+    rng = np.random.RandomState(13)
+    lev = rng.randint(0, 8, n)
+    cat = rng.randint(0, 12, n)
+    df = pd.DataFrame(X[:n], columns=[f"f{i}" for i in range(FEATURES)])
+    for k in range(8):
+        df[f"onehot{k}"] = (lev == k).astype(np.float32)
+    names = [f"c{i}" for i in range(12)]
+    df["cat"] = pd.Categorical([names[i] for i in cat], categories=names)
+    df["flag"] = rng.rand(n) < 0.3
+    yy = y[:n].copy()
+    flip = ((cat % 4 == 1) | (lev == 3)) & (rng.rand(n) < 0.5)
+    yy[flip] = 1.0 - yy[flip]
+    return df, yy
+
+
+def quant_path(lgt, mods, ds, X, y, params):
+    """Phase 4i: quantized-gradient training.
+
+    At the HIGGS shape (``ds``; binary, 255 leaves) on the mega body
+    (auto: the frontier at K=4) and the subtraction body, each of three
+    runs of QUANT_ITERS iterations -- float, quantized (4 bins), and
+    quantized with ``quant_train_renew_leaf`` -- with every wrapper's
+    count set to 0 before and read after: the body's kernels and, when
+    quantized, ``quantize`` once an iteration launched, one capture and
+    one tree read a tree, the training logloss falling every iteration;
+    s/iteration, device ms an iteration (torch.profiler, one more
+    iteration) and the training AUC (a report).  The discretizer's first
+    call of each quantized run is held to ``quantize_plain`` on the same
+    inputs bit for bit (payload words and the scale word); on the real
+    payload after the quantized runs, split_mega's and leaf_hist's scale
+    arms (the histogram and the state launch) are held to their plain
+    twins bit for bit and timed beside their unscaled launches.  On a
+    QUANT_CUT-row cut the card's first two iterations' trees (renewal
+    on, each body) equal the CPU plain loop's split for split, or part
+    at an exact tie of the carriers' f64 gains, printed.  Multiclass (3
+    classes, bagged: the eager draws) trains 3 iterations; a pandas
+    frame of QUANT_MIX_ROWS rows with bundling one-hot columns, a
+    category and a bool column trains 3 quantized iterations through
+    feat_view (whose scale arm is held to its twin on the run's state)
+    and split_cat, and its model text carries ``pandas_categorical``."""
+    from lightgbm_tpu_torch.models import boosting as bmod
+    from lightgbm_tpu_torch.ops import quantize as qz
+    from lightgbm_tpu_torch.ops import partition as tpart
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.time()
+    fv, hs, sm = mods["feat_view"], mods["hist_rmw"], mods["split_mega"]
+    mods = dict(mods, quantize=qz)
+    p0 = dict(params, metric="binary_logloss,auc")
+
+    # the discretizer's first call of each run against its plain twin
+    real_q = bmod.quantize
+    held = {"err": 0.0, "checked": 0, "inputs": None}
+    check_next = [False]
+
+    def quant_checked(ghi, absmax, scale, **kw):
+        if not check_next[0]:
+            return real_q(ghi, absmax, scale, **kw)
+        check_next[0] = False
+        g0, a0 = ghi.clone(), absmax.clone()
+        if held["inputs"] is None:
+            held["inputs"] = (ghi.clone(), a0.clone(), dict(kw))
+        real_q(ghi, absmax, scale, **kw)
+        s0 = torch.zeros_like(scale)
+        qz.quantize_plain(g0, a0, s0, **kw)
+        check(torch.equal(ghi.view(torch.int32), g0.view(torch.int32))
+              and torch.equal(scale.view(torch.int32), s0.view(torch.int32)),
+              f"quantize: the kernel differs from quantize_plain on the "
+              f"run's inputs ({kw})")
+        held["err"] = max(held["err"], float((ghi[:2] - g0[:2]).abs().max()),
+                          float((scale - s0).abs().max()))
+        held["checked"] += 1
+    bmod.quantize = quant_checked
+
+    def timed(bst, iters, losses):
+        times = []
+        for _ in range(iters):
+            t0 = time.time()
+            bst.update()
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+            losses.append(bst.eval_train()[0][2])
+        return times
+
+    def device_ms(bst):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            bst.update()
+            torch.cuda.synchronize()
+        return sum(ms for _, ms, _ in device_rows(prof))
+
+    out = {"runs": {}, "arms": {}}
+    for body in ("mega", "subtraction"):
+        for run, extra in QUANT_RUNS:
+            quant = run != "float"
+            bst = lgt.Booster(dict(p0, **BODIES[body], **extra), ds)
+            g, lr = bst._gbdt, bst._gbdt.learner
+            for m in mods.values():
+                m.launches = 0
+            check_next[0] = quant
+            losses = []
+            times = timed(bst, QUANT_ITERS, losses)
+            calls = {k: m.launches for k, m in mods.items()}
+            check(all(calls[k] > 0 for k in BODY_KERNELS[body]),
+                  f"quantized {body} {run}: a kernel of the body was not "
+                  f"launched: {calls}")
+            check(calls["quantize"] == (QUANT_ITERS if quant else 0),
+                  f"quantized {body} {run}: quantize launched "
+                  f"{calls['quantize']} times in {QUANT_ITERS} iterations")
+            check(lr.captures == 1 and lr.syncs == lr.replays == QUANT_ITERS,
+                  f"quantized {body} {run}: {lr.captures} captures, "
+                  f"{lr.replays} replays, {lr.syncs} tree reads")
+            check(all(a > b_ for a, b_ in zip(losses, losses[1:])),
+                  f"quantized {body} {run}: the training logloss does not "
+                  f"fall: {losses}")
+            check((lr.qscale is not None) == quant and (
+                g._renew_rows is not None) == (run == "quant_renew"),
+                  f"quantized {body} {run}: the learner's scale word or the "
+                  f"renewal rows do not match the params")
+            auc = [v for _, n, v, _ in bst.eval_train() if n == "auc"][0]
+            dms = device_ms(bst)
+            out["runs"][f"{body} {run}"] = {
+                "iter_s": float(np.median(times[1:])), "iter_all": times,
+                "device_ms": dms, "auc": auc, "losses": losses,
+                "K": lr.K, "calls": calls}
+            say(f"quantized {body} {run} (K={lr.K}): s/iteration "
+                f"{[round(t, 4) for t in times]}, device ms an iteration "
+                f"{dms:.2f}, training AUC after {QUANT_ITERS} iterations "
+                f"{auc:.6f}, logloss {losses}; launches {calls}")
+            if run == "quant":
+                out["arms"][body] = quant_arms(bst, sm, hs, tpart)
+            del bst, g, lr
+            gc.collect()
+            torch.cuda.empty_cache()
+    check(held["checked"] == 4, f"quantize: {held['checked']} checked calls")
+    bmod.quantize = real_q
+
+    # the discretizer's ms a launch on the first run's true inputs (the
+    # gradients as they came in): each launch rewrites its payload, so
+    # each gets a fresh copy, made before the launches are queued
+    ghi_in, amax, kw = held["inputs"]
+    Np, dev = ghi_in.shape[1], ghi_in.device
+    scale = torch.zeros(2, device=dev)
+
+    def fresh_ms(fn, n, queued=True):
+        copies = [ghi_in.clone() for _ in range(n)]
+        if queued:
+            ms, k = queued_ms([lambda c=c: fn(c) for c in copies])
+            return ms / k
+        # the plain version waits on the host (its constants reach the
+        # card by a blocking copy), so it runs between two events as
+        # cuda_ms times it
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for c in copies:
+            fn(c)
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / n
+    q_ms = fresh_ms(lambda c: qz.quantize(c, amax, scale, **kw), 10)
+    # with quant_train_renew_leaf: the true rows copied too (8 bytes more)
+    q_renew_ms = fresh_ms(lambda c: qz.quantize(
+        c, amax, scale, **dict(kw, renew_rows=(5, 6))), 10)
+    q_plain_ms = fresh_ms(lambda c: qz.quantize_plain(c, amax, scale, **kw),
+                          3, queued=False)
+    g_in, h_in = ghi_in[0], ghi_in[1]
+    gq, hq = torch.empty_like(g_in), torch.empty_like(h_in)
+
+    def library():
+        # torch.rand for the two draws and the discretizer's elementwise
+        # operations: the nearest library calls
+        r = torch.rand((2, Np), device=dev)
+        gs = torch.clamp_min(amax[0] / 2.0, 1e-30)
+        hs_ = torch.clamp_min(amax[1] / 4.0, 1e-30)
+        torch.trunc(g_in / gs + torch.where(g_in >= 0, r[0], -r[0]), out=gq)
+        torch.trunc(h_in / hs_ + r[1], out=hq)
+    q_lib_ms = cuda_ms(library, 10)
+    q_rows = 12 + 8 + (8 if kw.get("renew_rows") else 0)
+    q_bound = bound(Np * q_rows, Np * 10)
+    q_renew_bound = bound(Np * (q_rows + 8), Np * 10)
+    out["quantize"] = {"ms": q_ms, "plain_ms": q_plain_ms,
+                       "library_ms": q_lib_ms, "bound": q_bound,
+                       "err": held["err"], "rows": Np, "bytes_a_row": q_rows,
+                       "ms_renew": q_renew_ms,
+                       "bound_ms_renew": q_renew_bound[0]}
+    say(f"quantize @ {Np} payload rows: {q_ms:.4f} ms a launch, plain "
+        f"{q_plain_ms:.3f} ms, "
+        f"bound {q_bound[0]:.4f} ms ({q_bound[1]}: {q_rows} bytes a row; "
+        f"the draws' ~170 int32 operations a row are not in the bound's "
+        f"table); with the renewal's rows {q_renew_ms:.4f} ms, bound "
+        f"{q_renew_bound[0]:.4f} ms ({q_rows + 8} bytes a row); "
+        f"torch.rand and the elementwise operations "
+        f"{q_lib_ms:.3f} ms; bit-identical to quantize_plain on the first "
+        f"call of each of the {held['checked']} quantized runs")
+    del ghi_in, g_in, h_in, gq, hq
+    torch.cuda.empty_cache()
+
+    # the card's trees against the CPU's on a cut: L2 on the continuous
+    # label from a zero score, whose gradients are f32 subtractions with
+    # the same bits on both devices, so the carriers are too
+    yc, _ = objective_labels(X)
+    d_cut = relabeled(lgt, ds, X, yc, QUANT_CUT)
+    cut64 = X[:QUANT_CUT].astype(np.float64)
+    out["card_vs_cpu"] = {}
+    for body in ("mega", "subtraction"):
+        for renew, iters in ((False, 2), (True, 1)):
+            p = dict(params, **BODIES[body], objective="regression",
+                     boost_from_average=False, use_quantized_grad=True,
+                     quant_train_renew_leaf=renew)
+            models = []
+            for dev_kw in ({}, {"device_type": "cpu"}):
+                with quant_carriers(bmod) as rec:
+                    cb = lgt.Booster(dict(p, **dev_kw), d_cut)
+                    for _ in range(iters):
+                        cb.update()
+                models.append((cb._gbdt.models, rec))
+            (ma, reca), (mb, recb) = models
+            what = f"quantized {body}{' renew' if renew else ''} card vs CPU"
+            ties = []
+            for t, (ta, tb) in enumerate(zip(ma, mb)):
+                check(all(np.array_equal(a, b) for a, b in zip(reca[t],
+                                                               recb[t])),
+                      f"{what}: tree {t}'s carriers differ")
+                s = tree_tie(ta, tb, cut64, *reca[t], f"{what} tree {t}",
+                             exact=True)
+                if s is not None:
+                    ties.append((t,) + s)
+                    break
+                # the renewal's f64 sums run in another order on each
+                # device; without it the values come from the same search
+                check(np.allclose(ta.leaf_value, tb.leaf_value, rtol=1e-6,
+                                  atol=0) if renew else np.array_equal(
+                                      ta.leaf_value, tb.leaf_value),
+                      f"{what} tree {t}: leaf values differ by "
+                      f"{np.abs(ta.leaf_value - tb.leaf_value).max()!r}")
+            out["card_vs_cpu"][f"{body} renew={renew}"] = ties
+            say(f"{what} on {QUANT_CUT} rows (L2 from a zero score): the "
+                f"carriers bit-identical, the card's {len(ma)} trees "
+                + ("equal the CPU plain loop's split for split (leaf values "
+                   + ("within rtol 1e-6)" if renew else "bit for bit)")
+                   if not ties else f"part from the CPU's at exact ties "
+                                    f"{ties}"))
+    del d_cut
+
+    # multiclass: 3 classes, bagged (the eager draws)
+    y3 = np.searchsorted(np.quantile(yc, [1 / 3, 2 / 3]), yc,
+                         side="right").astype(np.float32)
+    d3 = relabeled(lgt, ds, X, y3)
+    bst = lgt.Booster(dict(params, **BODIES["mega"], objective="multiclass",
+                           num_class=3, metric="multi_logloss",
+                           use_quantized_grad=True, bagging_fraction=0.8,
+                           bagging_freq=1), d3)
+    for m in mods.values():
+        m.launches = 0
+    losses = []
+    times = timed(bst, 3, losses)
+    lr = bst._gbdt.learner
+    check(bst._gbdt._eager_quant and mods["quantize"].launches == 9
+          and lr.captures == 1 and lr.syncs == 9
+          and all(a > b_ for a, b_ in zip(losses, losses[1:])),
+          f"quantized multiclass: eager {bst._gbdt._eager_quant}, quantize "
+          f"{mods['quantize'].launches}, captures {lr.captures}, tree reads "
+          f"{lr.syncs}, multi_logloss {losses}")
+    out["multiclass"] = {"iter_s": times, "losses": losses, "K": lr.K}
+    say(f"quantized multiclass (3 classes, bagged, K={lr.K}): s/iteration "
+        f"{[round(t, 4) for t in times]}, multi_logloss {losses}, 9 class "
+        f"trees, one capture, quantize launched once a class tree")
+    del bst, d3, lr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a pandas frame: bundling one-hot columns, a category, a bool
+    df, ym = quant_mix_frame(X, y)
+    pm = dict(params, use_quantized_grad=True, quant_train_renew_leaf=True,
+              min_data_per_group=50)
+    bst = lgt.Booster(pm, lgt.Dataset(df, label=ym))
+    lr = bst._gbdt.learner
+    pc = bst.pandas_categorical
+    check(lr.bundled and lr.has_cat and lr.subtract and len(pc) == 2
+          and pc[0] == [f"c{i}" for i in range(12)]
+          and sorted(pc[1]) == [False, True],
+          f"quantized frame: bundled {lr.bundled}, categorical {lr.has_cat}, "
+          f"pandas_categorical {bst.pandas_categorical}")
+    for m in mods.values():
+        m.launches = 0
+    losses = []
+    times = timed(bst, 3, losses)
+    fv_launches = mods["feat_view"].launches
+    check(all(mods[k].launches > 0 for k in ("feat_view", "split_cat",
+                                             "quantize", "leaf_hist"))
+          and all(a > b_ for a, b_ in zip(losses, losses[1:])),
+          f"quantized frame: launches "
+          f"{ {k: m.launches for k, m in mods.items()} }, logloss {losses}")
+    # feat_view's scale arm on the run's state: two slots of the last tree
+    step = torch.zeros(tpart.step_len(lr.W), dtype=torch.int32,
+                       device=lr.device)
+    step[tpart.SB_CNT], step[tpart.SB_WA], step[tpart.SB_WB] = lr.N, 0, 1
+    fout = torch.empty_like(lr.fchildren)
+    kv = dict(kcnt=lr.N, view=lr.view, out=fout)
+    fv.feat_view(None, None, lr.state, step, lr._absmax, scale=lr.qscale, **kv)
+    want = fv.feat_view_fixed_plain(lr.state, step, lr._absmax, lr.N,
+                                    lr.view, scale=lr.qscale)
+    check(torch.equal(fout.view(torch.int32), want.view(torch.int32)),
+          "feat_view: the scale arm differs from feat_view_fixed_plain")
+    fv_err = float((fout - want).abs().max())
+    fv_ms = graph_ms(lambda: fv.feat_view(None, None, lr.state, step,
+                                          lr._absmax, scale=lr.qscale, **kv),
+                     100)
+    fv_unscaled_ms = graph_ms(lambda: fv.feat_view(
+        None, None, lr.state, step, lr._absmax, **kv), 100)
+    fv_plain_ms = cuda_ms(lambda: fv.feat_view_fixed_plain(
+        lr.state, step, lr._absmax, lr.N, lr.view, scale=lr.qscale), 5)
+    F, Bp = lr.view.F, lr.view.Bp
+    out["arms"]["feat_view"] = {
+        "ms": fv_ms, "ms_unscaled": fv_unscaled_ms, "plain_ms": fv_plain_ms,
+        "err": fv_err,
+        "bound": bound(2 * 2 * lr.G * Bp * 8 + 2 * 2 * F * Bp * 4, 0),
+        "launches": fv_launches, "F": F, "Bp": Bp}
+    dfp, _ = quant_mix_frame(X[-QUANT_MIX_ROWS:], y[-QUANT_MIX_ROWS:])
+    dfp.loc[dfp.index[:1000], "cat"] = np.nan
+    raw = bst.predict(dfp.iloc[:100_000], raw_score=True)
+    text = bst.model_to_string()
+    again = lgt.Booster(model_str=text, params={
+        k: v for k, v in pm.items() if k == "device_type"})
+    check(text.rstrip().split("\n")[-1].startswith("pandas_categorical:")
+          and np.isfinite(raw).all() and np.array_equal(
+              again.predict(dfp.iloc[:100_000], raw_score=True), raw),
+          "quantized frame: the model text's pandas_categorical line, or "
+          "the reloaded model's predictions")
+    out["frame"] = {"iter_s": times, "losses": losses}
+    say(f"quantized frame ({QUANT_MIX_ROWS} rows, 8 one-hot columns in a "
+        f"bundle, a 12-level category and a bool column; subtraction body): "
+        f"s/iteration {[round(t, 4) for t in times]}, logloss {losses}; "
+        f"feat_view's scale arm bit-identical to its twin on the run's "
+        f"state, {fv_ms:.4f} ms a launch (unscaled {fv_unscaled_ms:.4f}); "
+        f"the model text's pandas_categorical reloads and predicts a frame "
+        f"bit for bit")
+    del bst, again, lr, df, dfp
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"quantized (phase 4i): {time.time() - t_phase:.1f} s")
+    return out
+
+
+def quant_arms(bst, sm, hs, tpart):
+    """split_mega's (mega body) or leaf_hist's state launch's
+    (subtraction body) scale arm on the quantized run's real payload --
+    the last tree's integer carriers, its scale word and bound: bit-
+    identical to the plain twin on the root's rows and, for the state
+    launch, a child of them; times by graph replay, scaled and unscaled,
+    and the plain twin's."""
+    lr = bst._gbdt.learner
+    pb, pg = bst._gbdt._phys
+    N, C, G, B, dev = lr.N, lr.row0, lr.G, lr.B, lr.device
+    Bp = sm.hist_geometry(B)[1]
+    amax, scale = lr._absmax.clone(), lr.qscale.clone()
+    nl = torch.zeros(1, dtype=torch.int32, device=dev)
+    if not lr.subtract:
+        # the root's rows, a decision on group 0 at bin 128
+        sc = tpart.make_scalars(C, N, 0, 0, 0, 255, 0, 0, 128, 0)
+        want = sm.hist_fixed_plain(pb, pg, sc, num_bins=B, num_groups=G,
+                                   absmax=amax, scale=scale)
+        got = sm.split_mega(pb, pg, sc, num_bins=B, num_groups=G,
+                            move=False, absmax=amax, scale=scale)[1]
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              "split_mega: the scale arm differs from hist_fixed_plain")
+        step = tpart.step_block(sc, dev)
+        h4 = torch.empty_like(got)
+        sk = dict(num_bins=B, num_groups=G, absmax=amax, bound=N, move=False)
+        ms = graph_ms(lambda: sm.split_mega_step(pb, pg, step, nl, h4,
+                                                 scale=scale, **sk), 10)
+        ms0 = graph_ms(lambda: sm.split_mega_step(pb, pg, step, nl, h4, **sk),
+                       10)
+        plain = cuda_ms(lambda: sm.hist_fixed_plain(
+            pb, pg, sc, num_bins=B, num_groups=G, absmax=amax, scale=scale),
+            2, 1)
+        res = {"name": "split_mega", "err": float((got - want).abs().max()),
+               "ms": ms, "ms_unscaled": ms0, "plain_ms": plain,
+               "bound": bound(N * (G + 8) + G * 4 * Bp * 4, 2 * N * G),
+               "rows": N}
+    else:
+        st = torch.zeros((3, 2, G, Bp), dtype=torch.int64, device=dev)
+        kw = dict(num_bins=B, num_groups=G, absmax=amax, kcnt=N, scale=scale)
+        res = {"name": "leaf_hist", "err": 0.0, "rows": N}
+        for idx, cnt in (((-1, 0, 0, 0), N), ((0, 0, 1, 1), N // 3)):
+            s_card, s_plain = st.clone(), st.clone()
+            got = hs.leaf_hist_rmw(pb, pg, C, cnt, state=s_card, idx=idx,
+                                   **kw)
+            want = hs.leaf_hist_rmw_fixed_plain(pb, pg, C, cnt, state=s_plain,
+                                                idx=idx, **kw)
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32))
+                  and torch.equal(s_card, s_plain),
+                  f"leaf_hist: the state launch's scale arm differs from "
+                  f"leaf_hist_rmw_fixed_plain (idx {idx})")
+            res["err"] = max(res["err"], float((got - want).abs().max()))
+            st = s_card
+        sc = tpart.make_scalars(C, N, 0, 0, 0, 0, 0, 0, 0, 0)
+        step = tpart.step_block(sc, dev, (-1, 2, 2, 0))
+        children = torch.empty((2, 2, G, Bp), device=dev)
+        lk = dict(num_bins=B, num_groups=G, absmax=amax, kcnt=N, bound=N,
+                  state=st, out=children)
+        ms = graph_ms(lambda: hs.leaf_hist_rmw_step(pb, pg, step, None,
+                                                    scale=scale, **lk), 10)
+        ms0 = graph_ms(lambda: hs.leaf_hist_rmw_step(pb, pg, step, None,
+                                                     **lk), 10)
+        plain = cuda_ms(lambda: hs.leaf_hist_rmw_fixed_plain(
+            pb, pg, C, N, state=st.clone(), idx=(-1, 2, 2, 0), **kw), 2, 1)
+        res.update(ms=ms, ms_unscaled=ms0, plain_ms=plain,
+                   bound=bound(N * (G + 8) + 2 * G * Bp * (8 + 16 + 8),
+                               2 * N * G))
+    say(f"{res['name']}'s scale arm on the quantized run's payload "
+        f"({N} rows): bit-identical to its plain twin; {res['ms']:.3f} ms "
+        f"(unscaled {res['ms_unscaled']:.3f} ms, graph replay), plain "
+        f"{res['plain_ms']:.3f} ms, bound {res['bound'][0]:.3f} ms "
+        f"({res['bound'][1]})")
+    return res
+
+
+def quant_summary(quant):
+    """Phase 4i's numbers for the log: per body, s/iteration, device ms
+    an iteration and training AUC of the float and quantized runs."""
+    return {"runs": {k: {n: r[n] for n in ("iter_s", "device_ms", "auc",
+                                           "K")}
+                     for k, r in quant["runs"].items()},
+            "card_vs_cpu_ties": quant["card_vs_cpu"],
+            "multiclass_iter_s": quant["multiclass"]["iter_s"],
+            "frame_iter_s": quant["frame"]["iter_s"]}
+
+
+def quant_rows(quant):
+    """The kernels line's rows of phase 4i: the discretizer and the three
+    scale arms (each its kernel's launch with the scale word, against the
+    plain twin; ``ms_unscaled`` the same launch without it), launches the
+    wrapper's count over the quantized run of the path (set to 0 just
+    before it)."""
+    qd, qa, runs = quant["quantize"], quant["arms"], quant["runs"]
+    rows = [{"name": "quantize", "route": "cuda",
+             "source": "lightgbm_tpu_torch/csrc/quantize.cu",
+             "replaces": "lightgbm_tpu/models/boosting.py:921",
+             "launches": runs["mega quant"]["calls"]["quantize"],
+             "max_abs_err": qd["err"], "ms": qd["ms"],
+             "plain_ms": qd["plain_ms"], "bound_ms": qd["bound"][0],
+             "bound_by": qd["bound"][1], "library_ms": qd["library_ms"],
+             "library_call": "torch.rand of (2, N_pad) and the "
+                             "discretizer's elementwise operations",
+             "rows": qd["rows"], "bytes_a_row": qd["bytes_a_row"],
+             "ms_renew": qd["ms_renew"],
+             "bound_ms_renew": qd["bound_ms_renew"]}]
+    for name, arm, source, replaces, launches in (
+            ("split_mega_scale", qa["mega"], "split_mega.cu",
+             "lightgbm_tpu/models/learner.py:1303",
+             runs["mega quant"]["calls"]["split_mega"]),
+            ("leaf_hist_scale", qa["subtraction"], "leaf_hist.cu",
+             "lightgbm_tpu/models/learner.py:970",
+             runs["subtraction quant"]["calls"]["leaf_hist"]),
+            ("feat_view_scale", qa["feat_view"], "feat_view.cu",
+             "lightgbm_tpu/models/learner.py:970", qa["feat_view"][
+                 "launches"])):
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"lightgbm_tpu_torch/csrc/{source}",
+                     "replaces": replaces, "launches": launches,
+                     "max_abs_err": arm["err"], "ms": arm["ms"],
+                     "plain_ms": arm["plain_ms"], "bound_ms": arm["bound"][0],
+                     "bound_by": arm["bound"][1], "library_ms": None,
+                     "ms_unscaled": arm["ms_unscaled"]})
+    return rows
+
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -3672,13 +4198,15 @@ def main():
     torch.cuda.empty_cache()
     # ---- 4e. EFB bundles ------------------------------------------------
     efb = efb_path(lgt, learner_mod, mods)
-    # ---- 4f. categorical features ---------------------------------------
-    cat = cat_path(lgt, mods, efb)
-    # ---- 4h. wide bins (uint16 bin matrices): after 4e and 4f, whose
-    # checks count device launches by the profiler's kernel names, which
-    # hold only for a process's first few profiled graphs (PERF.md
-    # section 7); 4h's own checks count wrapper calls
+    # ---- 4f. categorical features, in a process of its own ---------------
+    cat = child_phase("--cat", "categorical phase", str(float(efb["iter_s"])))
+    # ---- 4h. wide bins (uint16 bin matrices): after 4e, whose checks
+    # count device launches by the profiler's kernel names, which hold
+    # only for a process's first few profiled graphs (PERF.md section 7);
+    # 4h's own checks count wrapper calls
     wide = wide_path(lgt, mods, ds, X, y, params)
+    # ---- 4i. quantized-gradient training --------------------------------
+    quant = quant_path(lgt, mods, ds, X, y, params)
     del X, y, ds
     gc.collect()
     torch.cuda.empty_cache()
@@ -4076,6 +4604,8 @@ def main():
          "launches_note": "wrapper calls of phase 4h's training at max_bin "
                           f"{ARM_MAX_BIN} (the sizing run and the capture)"},
     ]
+    print(f"quantized (phase 4i, {card}): " + json.dumps(quant_summary(quant)),
+          flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": [
         row("split_mega", "split_mega.cu",
@@ -4144,7 +4674,7 @@ def main():
          "library_ms": None, "iter_ms": cat["per"]["split_cat"][0],
          "iter_bound_ms": cat["iter_bound"], "ms_from_python": cat["py_ms"],
          "partition_cat_max_abs_err": cat["part_err"]},
-    ] + wide_rows}), flush=True)
+    ] + wide_rows + quant_rows(quant)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -4179,20 +4709,38 @@ def frontier_window():
     print(json.dumps(device), flush=True)
 
 
-def frontier_window_launches():
-    """Run ``frontier_window`` in a child process on the card; its device
-    launches by function: {function: [ms, launches]}."""
+def child_phase(flag, what, *args):
+    """Run ``chip_smoke.py flag args`` in a child process on the card,
+    its output lines printed here; its last line, a JSON object."""
     t0 = time.time()
-    r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--frontier-window"], cwd=ROOT, capture_output=True,
-                       text=True, timeout=900)
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), flag,
+                        *args], cwd=ROOT, capture_output=True, text=True,
+                       timeout=900)
     for line in r.stdout.splitlines()[:-1]:
-        print(f"  (frontier window) {line}", flush=True)
-    check(r.returncode == 0, f"the frontier's profiled window failed:\n"
-                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-    device = json.loads(r.stdout.splitlines()[-1])
-    say(f"frontier window (a process of its own): {time.time() - t0:.1f} s")
-    return device
+        print(f"  ({what}) {line}", flush=True)
+    check(r.returncode == 0, f"{what} failed:\n{r.stdout[-3000:]}\n"
+                             f"{r.stderr[-3000:]}")
+    out = json.loads(r.stdout.splitlines()[-1])
+    say(f"{what} (a process of its own): {time.time() - t0:.1f} s")
+    return out
+
+
+def frontier_window_launches():
+    """``frontier_window`` in a child process on the card; its device
+    launches by function: {function: [ms, launches]}."""
+    return child_phase("--frontier-window", "frontier window")
+
+
+def cat_only(efb_iter_s):
+    """``python3 chip_smoke.py --cat [s]``: phase 4f in a process of its
+    own (``s``: phase 4e's s/iteration, for its comparison); prints
+    cat_path's result as the last line, a JSON object.  Its checks count
+    device launches by the profiler's kernel names, which the profiler
+    gets right in a fresh process and has missed by one after the
+    earlier phases' windows and graphs (PERF.md section 7)."""
+    lgt, mods = standalone("--cat")
+    cat = cat_path(lgt, mods, {"iter_s": float(efb_iter_s)})
+    print(json.dumps(cat, default=lambda o: o.tolist()), flush=True)
 
 
 def digest():
@@ -4258,6 +4806,21 @@ def efb_only():
                                           "device_ms")}), flush=True)
 
 
+def quant_only():
+    """``python3 chip_smoke.py --quant``: phase 4i alone (the HIGGS shape
+    made and constructed), its checks and numbers printed; the last line
+    its kernel rows and summary, a JSON object."""
+    lgt, mods = standalone("--quant")
+    X, y = make_data(ROWS)
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+              "learning_rate": 0.1, "verbosity": -1}
+    ds = lgt.Dataset(X, label=y)
+    ds.construct(params)
+    quant = quant_path(lgt, mods, ds, X, y, params)
+    print(json.dumps({"summary": quant_summary(quant),
+                      "kernels": quant_rows(quant)}), flush=True)
+
+
 def wide_only():
     """``python3 chip_smoke.py --wide``: phase 4h alone (the HIGGS shape
     made and constructed at max_bin 255 for the run beside max_bin 1023),
@@ -4285,5 +4848,9 @@ if __name__ == "__main__":
         wide_only()
     elif sys.argv[1:] == ["--efb"]:
         efb_only()
+    elif sys.argv[1:] == ["--quant"]:
+        quant_only()
+    elif sys.argv[1:2] == ["--cat"] and len(sys.argv) <= 3:
+        cat_only(sys.argv[2] if len(sys.argv) == 3 else "nan")
     else:
         main()

@@ -1,8 +1,12 @@
 """Python API of the port: ``Dataset`` and ``Booster``.
 
-Port of lightgbm_tpu/basic.py: a ``Dataset`` over a matrix or a CSV /
-TSV / LibSVM file (utils/textio.py), its categorical columns named by
-``categorical_feature`` (ints, names or the config string), with
+Port of lightgbm_tpu/basic.py: a ``Dataset`` over a matrix, a pandas
+DataFrame or a CSV / TSV / LibSVM file (utils/textio.py), its categorical
+columns named by ``categorical_feature`` (ints, names or the config
+string) or, for a DataFrame, found by their dtype (category, object,
+string and bool columns become integer codes; ``pandas_categorical``
+keeps each one's categories, rides the model text and encodes every
+later frame -- validation, prediction -- with the training codes), with
 ``create_valid`` for validation sets binned like the training set; a
 ``Booster`` that trains (``update``, with a custom objective ``fobj`` or
 ``boost(grad, hess)``), evaluates the training and validation sets
@@ -16,6 +20,7 @@ text the JAX package writes and reads.  Training and prediction run on
 
 from __future__ import annotations
 
+import json
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
@@ -30,11 +35,73 @@ from .utils.log import LightGBMError
 from .utils.textio import load_text_file
 
 
-def _to_matrix(data) -> np.ndarray:
+def _is_cat_dtype(dt: str) -> bool:
+    return (dt == "category" or dt in ("object", "bool", "boolean")
+            or dt.startswith("str"))
+
+
+def _dataframe_to_matrix(df, pandas_categorical=None):
+    """pandas DataFrame -> (matrix, auto categorical column indices,
+    pandas_categorical) (JAX basic.py ``_dataframe_to_matrix``).
+
+    category/object/str/bool dtype columns are encoded as integer codes;
+    missing/unseen values become NaN.  The per-column category lists are
+    persisted in the model (reference: basic.py _data_from_pandas +
+    the `pandas_categorical` model-file line written by the Python
+    wrapper) so predict-time frames are mapped with the TRAINING codes."""
+    cols = []
+    auto_cats = []
+    maps_out = []
+    cat_i = 0
+    for j, name in enumerate(df.columns):
+        col = df[name]
+        dt = str(col.dtype)
+        if not _is_cat_dtype(dt):
+            cols.append(np.asarray(col, dtype=np.float64))
+            continue
+        if pandas_categorical is not None:   # predict: reuse training maps
+            if cat_i >= len(pandas_categorical):
+                raise ValueError(
+                    "DataFrame has more categorical columns than the model "
+                    "was trained with")
+            lookup = {v: i for i, v in enumerate(pandas_categorical[cat_i])}
+            codes = np.array([float(lookup.get(v, -1))
+                              for v in col.tolist()], dtype=np.float64)
+        elif dt == "category":
+            maps_out.append(list(col.cat.categories))
+            codes = np.asarray(col.cat.codes, dtype=np.float64)
+        else:
+            seen: Dict[Any, int] = {}
+            vals = col.tolist()
+            codes = np.empty(len(vals), dtype=np.float64)
+            for i, v in enumerate(vals):
+                if v is None or (isinstance(v, float) and np.isnan(v)):
+                    codes[i] = -1
+                    continue
+                if v not in seen:
+                    seen[v] = len(seen)
+                codes[i] = seen[v]
+            maps_out.append(list(seen.keys()))
+        cols.append(np.where(codes < 0, np.nan, codes))
+        auto_cats.append(j)
+        cat_i += 1
+    mat = np.column_stack(cols) if cols else np.zeros((len(df), 0))
+    if pandas_categorical is None:
+        pandas_categorical = maps_out
+    return mat, auto_cats, pandas_categorical
+
+
+def _is_frame(data) -> bool:
+    return hasattr(data, "columns") and hasattr(data, "dtypes")
+
+
+def _to_matrix(data, pandas_categorical=None) -> np.ndarray:
     if isinstance(data, str):
         raise NotImplementedError(
             "lightgbm_tpu_torch reads a file path only as the data of a "
             "Dataset it constructs; pass a matrix")
+    if _is_frame(data):
+        return _dataframe_to_matrix(data, pandas_categorical)[0]
     if hasattr(data, "to_numpy"):
         data = data.to_numpy()
     mat = np.asarray(data)
@@ -82,6 +149,7 @@ class Dataset:
         self.categorical_feature = categorical_feature
         self.params = dict(params) if params else {}
         self._inner: Optional[BinnedDataset] = None
+        self.pandas_categorical: Optional[List[List[Any]]] = None
 
     def construct(self, extra_params: Optional[Dict[str, Any]] = None
                   ) -> "Dataset":
@@ -101,12 +169,26 @@ class Dataset:
         ref = None
         if self.reference is not None:
             ref = self.reference.construct(extra_params)._inner
+        auto_cats: List[int] = []
+        self.pandas_categorical = None
+        if _is_frame(self.data):
+            # a validation frame is encoded with the training codes
+            # (reference: _data_from_pandas with pandas_categorical)
+            ref_maps = (self.reference.pandas_categorical
+                        if self.reference is not None else None)
+            mat, auto_cats, self.pandas_categorical = \
+                _dataframe_to_matrix(self.data, ref_maps)
+        else:
+            mat = _to_matrix(self.data)
+        cats = _resolve_categoricals(self.categorical_feature, names, cfg)
+        if not cats and not isinstance(self.categorical_feature,
+                                       (list, tuple)) \
+                and not cfg.categorical_feature:
+            cats = auto_cats   # pandas category dtypes ("auto" mode)
         self._inner = BinnedDataset.from_matrix(
-            _to_matrix(self.data), cfg, label=self.label, weight=self.weight,
+            mat, cfg, label=self.label, weight=self.weight,
             init_score=self.init_score, feature_names=names,
-            categorical_features=_resolve_categoricals(
-                self.categorical_feature, names, cfg),
-            reference=ref)
+            categorical_features=cats, reference=ref)
         return self
 
     def _load_file(self, cfg: Config) -> None:
@@ -190,12 +272,16 @@ class Booster:
         self._train_data_name = "training"
         self._init_booster: Optional["Booster"] = None
         self._gbdt: Optional[GBDT] = None
+        # the training frame's category lists (a model text's
+        # pandas_categorical line), which encode every frame predicted
+        self.pandas_categorical: Optional[List[List[Any]]] = None
         if train_set is not None:
             self.config.check_supported()
             device = self.config.torch_device()
             train_set.construct(self.params)
             self._gbdt = GBDT(self.config, train_set._inner,
                               create_objective(self.config), device)
+            self.pandas_categorical = train_set.pandas_categorical
         elif model_file is not None:
             with open(model_file) as fh:
                 self._load_model_string(fh.read())
@@ -221,7 +307,7 @@ class Booster:
         ig = init_bst._gbdt
         if not ig.models:
             return self
-        raw = self._raw_matrix(self.train_set)
+        raw = self._raw_matrix(self.train_set, init_bst)
         if raw is None:
             raise ValueError(
                 "continued training needs the raw train rows to score the "
@@ -234,18 +320,23 @@ class Booster:
         return {k: v for k, v in self.params.items()
                 if Config.canonical_name(k) == "device_type"}
 
-    @staticmethod
-    def _raw_matrix(dataset: Optional[Dataset]):
+    def _raw_matrix(self, dataset: Optional[Dataset], init_bst: "Booster"):
+        """The raw rows of ``dataset`` for the init model to score, a frame
+        encoded with the init model's own category lists (JAX basic.py
+        ``_raw_matrix``)."""
         if dataset is None or dataset.data is None or isinstance(
                 dataset.data, str):
             return None
-        return _to_matrix(dataset.data)
+        cats = (init_bst.pandas_categorical
+                if init_bst.pandas_categorical is not None
+                else self.pandas_categorical)
+        return _to_matrix(dataset.data, cats)
 
     def add_valid(self, data: Dataset, name: str) -> "Booster":
         data.construct(self.params)
         extra = None
         if self._init_booster is not None:
-            raw = self._raw_matrix(data)
+            raw = self._raw_matrix(data, self._init_booster)
             if raw is None:
                 raise ValueError("continued training needs the raw rows of "
                                  "validation sets to score the init model")
@@ -340,7 +431,8 @@ class Booster:
         if num_iteration is None or num_iteration == 0:
             num_iteration = (self.best_iteration if self.best_iteration > 0
                              else -1)
-        mat = np.asarray(_to_matrix(data), dtype=np.float64)
+        mat = np.asarray(_to_matrix(data, self.pandas_categorical),
+                         dtype=np.float64)
         if mat.ndim == 1:
             mat = mat.reshape(1, -1)
         if mat.shape[1] != self.num_feature():
@@ -403,6 +495,12 @@ class Booster:
                      else f"{n}={float(v):g}\n")
         body += ("\nparameters:\n" + self.config.save_to_string()
                  + "\nend of parameters\n")
+        if self.pandas_categorical is not None:
+            # the final line, as the reference Python wrapper writes it
+            # (basic.py _dump_pandas_categorical)
+            body += ("pandas_categorical:"
+                     + json.dumps(self.pandas_categorical, default=str)
+                     + "\n")
         return body
 
     def save_model(self, filename: str, num_iteration: int = -1,
@@ -416,7 +514,14 @@ class Booster:
     def _load_model_string(self, text: str) -> None:
         """reference: GBDT::LoadModelFromString.  The model's saved
         params are restored, except ``device_type``: a loaded model
-        predicts on the device this Booster's own params ask for."""
+        predicts on the device this Booster's own params ask for; a
+        ``pandas_categorical`` line among the last restores the category
+        lists."""
+        for line in reversed(text.rstrip().split("\n")[-5:]):
+            if line.startswith("pandas_categorical:"):
+                self.pandas_categorical = json.loads(
+                    line[len("pandas_categorical:"):])
+                break
         header: Dict[str, str] = {}
         for line in text.split("\n"):
             line = line.strip()

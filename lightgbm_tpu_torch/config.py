@@ -683,7 +683,6 @@ _UNSUPPORTED = [
     ("feature_contri", lambda c: not _off(c.feature_contri)
      and any(float(v) != 1.0 for v in
              str(c.feature_contri).replace(" ", "").split(",") if v)),
-    ("use_quantized_grad", lambda c: bool(c.use_quantized_grad)),
     ("tree_learner", lambda c: c.tree_learner != "serial"),
     # reference: config.cpp CheckParamConflict -- one class but for the
     # multiclass objectives, which need two or more (a custom objective,

@@ -18,7 +18,10 @@
 // column b of g's row (alone) or column bin_start + b (bundled, b >= 1);
 // a bundled feature's bin 0 is the group's total minus its bins 1 ..
 // num_bin - 1, exact in int64; bins past num_bin are 0.  Every value is
-// then (int64 -> double) * 2^-k -> f32, as the state's f32 children are.
+// then (int64 -> double) * 2^-k -> f32, as the state's f32 children are,
+// and in quantized training (scale != null: the (2,) device word of
+// csrc/quantize.cu) times the plane's scale, one f32 product (the scale
+// arm, as csrc/leaf_hist.cu's children).
 // A step of no rows (cnt == 0) gives zeros.
 //
 // What bounds it on this card: latency.  Per split it reads two slots'
@@ -53,11 +56,17 @@ __device__ __forceinline__ long long block_sum(long long v, long long* red) {
   return s;
 }
 
+// The scale arm: the f32 value times the plane's quantization scale.
+__device__ __forceinline__ float scaled(float v, const float* scale, int p) {
+  return scale ? __fmul_rn(v, scale[p]) : v;
+}
+
 // grid (F, 2): blockIdx.x the feature, blockIdx.y the child.
 __global__ void __launch_bounds__(FV_THREADS)
 feat_view(const long long* __restrict__ state, const int* step,
           const float* absmax, const int* __restrict__ meta, int slots,
-          int G, int F, int Bp, int kcnt, float* __restrict__ out) {
+          int G, int F, int Bp, int kcnt, const float* scale,
+          float* __restrict__ out) {
   __shared__ long long red[FV_THREADS / 32];
   const int f = blockIdx.x, c = blockIdx.y, b = threadIdx.x;
   const int cnt = step[SB_CNT];
@@ -80,7 +89,7 @@ feat_view(const long long* __restrict__ state, const int* step,
     if (b < Bp) {
       const double inv = ldexp(1.0, -fixed_exponent(absmax[p], kcnt));
       out[(((long long)p * 2 + c) * F + f) * Bp + b] =
-          (float)((double)v * inv);
+          scaled((float)((double)v * inv), scale, p);
     }
   }
 }
@@ -95,7 +104,8 @@ feat_view(const long long* __restrict__ state, const int* step,
 __global__ void __launch_bounds__(FV_THREADS)
 feat_view_wide(const long long* __restrict__ state, const int* step,
                const float* absmax, const int* __restrict__ meta, int slots,
-               int G, int F, int Bp, int kcnt, float* __restrict__ out) {
+               int G, int F, int Bp, int kcnt, const float* scale,
+               float* __restrict__ out) {
   __shared__ long long red[FV_THREADS / 32];
   const int f = blockIdx.x, c = blockIdx.y, tid = threadIdx.x;
   const int cnt = step[SB_CNT];
@@ -123,7 +133,7 @@ feat_view_wide(const long long* __restrict__ state, const int* step,
       if (live && b < nb && (!isb || b >= 1)) v = row[isb ? bs + b : b];
       if (isb && b == 0) v = fix;
       out[(((long long)p * 2 + c) * F + f) * Bp + b] =
-          (float)((double)v * inv);
+          scaled((float)((double)v * inv), scale, p);
     }
   }
 }
@@ -131,15 +141,16 @@ feat_view_wide(const long long* __restrict__ state, const int* step,
 extern "C" int feat_view_launch(const long long* state, const int* step,
                                 const float* absmax, const int* meta,
                                 int slots, int G, int F, int Bp, int kcnt,
-                                float* out, void* stream) {
+                                const float* scale, float* out,
+                                void* stream) {
   if (F < 1 || G < 1 || Bp < 1 || kcnt < 1 || state == nullptr ||
       out == nullptr)
     return (int)cudaErrorInvalidValue;
   if (Bp > FV_THREADS)
     feat_view_wide<<<dim3(F, 2), FV_THREADS, 0, (cudaStream_t)stream>>>(
-        state, step, absmax, meta, slots, G, F, Bp, kcnt, out);
+        state, step, absmax, meta, slots, G, F, Bp, kcnt, scale, out);
   else
     feat_view<<<dim3(F, 2), FV_THREADS, 0, (cudaStream_t)stream>>>(
-        state, step, absmax, meta, slots, G, F, Bp, kcnt, out);
+        state, step, absmax, meta, slots, G, F, Bp, kcnt, scale, out);
   return (int)cudaGetLastError();
 }

@@ -43,6 +43,12 @@
 // fixed-point histogram of its own rows at the tree's scale.  No sum
 // overflows: rows < 2^24 and |v| <= the bound give |sum| < 2^62.
 //
+// Quantized training (scale != null, the (2,) device word of
+// csrc/quantize.cu): grad and hess are integer carriers, the state keeps
+// their exact sums, and every f32 output -- the planes, the children -- is
+// the f32 value of its exact sum times the plane's scale, one f32 product
+// (the scale arm; JAX learner.py _scale_hist).
+//
 // What bounds it on this card: bytes by the roofline -- each row's G bin
 // bytes and its grad and hess words are read once; the epilogue reads a
 // parent slot and writes two slots and two f32 children, 32 bytes an
@@ -95,6 +101,7 @@ struct LeafArgs {
   float* out;                   // (2, G, Bp) planes; state: (2, 2, G, Bp)
   long long* state;             // (slots, 2, G, Bp) int64 (state launch)
   int slots;
+  const float* scale;           // (2,) quantized training: (gs, hs), or null
 };
 
 // What one launch sums, read from the step block by one thread.
@@ -194,13 +201,13 @@ __device__ __forceinline__ void leaf_hist_body(const LeafArgs<BinT>& a) {
       [&](int i) { return sub ? a.state[lr.parent * n + entry(i)] : 0ll; },
       [&](int i, long long v, long long parent, float f) {
         const long long e = entry(i);
+        const int p = (i / Bp) & 1;
         if (!STATE) {
-          a.out[e] = f;
+          a.out[e] = a.scale ? __fmul_rn(f, a.scale[p]) : f;
           return;
         }
         // children (plane, child, G, Bp): plane p's left child at
         // e + p * plane, its right child at e + (p + 1) * plane
-        const int p = (i / Bp) & 1;
         long long left = v, right = v;
         if (sub) {
           const long long large = parent - v;
@@ -212,8 +219,14 @@ __device__ __forceinline__ void leaf_hist_body(const LeafArgs<BinT>& a) {
           a.state[lr.wa * n + e] = v;
         }
         const double inv = p ? ih : ig;
-        a.out[e + p * plane] = (float)((double)left * inv);
-        a.out[e + (p + 1) * plane] = (float)((double)right * inv);
+        float fl = (float)((double)left * inv);
+        float fr = (float)((double)right * inv);
+        if (a.scale) {
+          fl = __fmul_rn(fl, a.scale[p]);
+          fr = __fmul_rn(fr, a.scale[p]);
+        }
+        a.out[e + p * plane] = fl;
+        a.out[e + (p + 1) * plane] = fr;
       });
 }
 
@@ -271,7 +284,8 @@ extern "C" int leaf_hist_launch(const void* bins, int R, long long Np,
                                 const int* nl, int kcnt, const float* absmax,
                                 unsigned long long* acc, unsigned* done,
                                 int G, int Bp, float* out, long long* state,
-                                int slots, int bin_bytes, void* stream) {
+                                int slots, int bin_bytes, const float* scale,
+                                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const bool st = state != nullptr;
   if (Bp < 16 || Bp > MAX_BP || Bp % 16 || G < 1 || G > R || bound < 0 ||
@@ -284,14 +298,14 @@ extern "C" int leaf_hist_launch(const void* bins, int R, long long Np,
     const LeafArgs<uint8_t> a{(const uint8_t*)bins, Np,    R,     ghi,
                               step, bound, nl,    kcnt,  G,     0,
                               Bp,   0,     absmax, acc,  done,  out,
-                              state, slots};
+                              state, slots, scale};
     return (int)launch_bins(a, nu_bound, s);
   }
   if (bin_bytes == 2) {
     const LeafArgs<uint16_t> a{(const uint16_t*)bins, Np,    R,     ghi,
                                step, bound, nl,    kcnt,  G,     0,
                                Bp,   0,     absmax, acc,  done,  out,
-                               state, slots};
+                               state, slots, scale};
     return (int)launch_bins(a, nu_bound, s);
   }
   return (int)cudaErrorInvalidValue;

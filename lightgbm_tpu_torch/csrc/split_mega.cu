@@ -14,7 +14,11 @@
 // partition.  cnt == 0 moves nothing and returns zeros; move == 0 builds
 // the histogram only and reports cnt as the left count.  The TPU
 // kernel's packed payload and roll-network compaction are its own
-// mechanism and are not carried over.
+// mechanism and are not carried over.  Quantized training (scale != null,
+// the (2,) device word of csrc/quantize.cu): the grad and hess are
+// integer carriers, and each entry is the f32 value of its exact sum
+// times the plane's scale, one f32 product (the scale arm; JAX
+// learner.py _split_leaf_mega's scaled planes).
 //
 // What bounds it on this card: bytes by the roofline, (R + 32) per row
 // moved by the partition and G + 9 read by the histogram; in practice
@@ -58,6 +62,7 @@ struct HistArgs {
   unsigned long long* acc;      // (G, 4, Bp), zero before and after
   unsigned* done;               // one per group set, zero before and after
   float* hist;                  // (G, 4, Bp)
+  const float* scale;           // (2,) quantized training: (gs, hs), or null
   int* nl_out;
   int move;                     // 0: write cnt to nl_out
 };
@@ -112,7 +117,10 @@ __global__ void __launch_bounds__(HIST_THREADS, 1) mega_hist(HistArgs a) {
   float* out = a.hist + base;
   hist_fixed_finish(slo, shi, gn * 4 * Bp, Bp, sp.nrb, a.acc + base,
                     a.done + set, ldexp(1.0, -kg), ldexp(1.0, -kh), NoPre(),
-                    [&](int i, long long, long long, float v) { out[i] = v; });
+                    [&](int i, long long, long long, float v) {
+                      out[i] = a.scale ? __fmul_rn(v, a.scale[(i / Bp) & 1])
+                                       : v;
+                    });
 }
 
 // The step's histogram, then (move) its partition.  Every grid comes
@@ -123,7 +131,8 @@ extern "C" int split_mega_launch(
     int* nl_out, unsigned long long* status, unsigned* ticket,
     unsigned* epoch, int T, uint8_t* sbins, uint32_t* sghi, long long scap,
     const float* absmax, unsigned long long* acc, unsigned* done,
-    float* hist, int G, int Bp, int move, void* stream) {
+    float* hist, const float* scale, int G, int Bp, int move,
+    void* stream) {
   static int smem_set = 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (Bp < 16 || Bp > MEGA_MAX_BP || Bp % 16 || G < 1 || G > R ||
@@ -141,7 +150,7 @@ extern "C" int split_mega_launch(
   if (e != cudaSuccess) return (int)e;
   const HistArgs h{bins, Np,    R,      (const float*)ghi, step, bound, G,
                    g.GB, Bp,    g.nsm,  absmax, acc,  done,  hist,
-                   nl_out, move};
+                   scale, nl_out, move};
   mega_hist<<<g.nblocks, HIST_THREADS, g.smem, s>>>(h);
   e = cudaGetLastError();
   if (e != cudaSuccess || !move) return (int)e;

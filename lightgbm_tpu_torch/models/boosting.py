@@ -26,6 +26,22 @@ values go back into its score row through the same ids -- so any K runs
 through the same captured tree loop, the frontier included.  One feature
 mask and one bag serve the K trees of an iteration.
 
+Quantized training (``use_quantized_grad``; JAX ``_setup_fused_phys``'s
+in-program discretizer and the eager ``_discretize_gradients``): after
+sampling, one pass of ops/quantize.py turns payload rows 0 and 1 into
+integer carriers and writes their scale into the learner's device word
+``qscale``, which the histogram kernels' scale arms read.  The draw
+follows the JAX package's iteration for the configuration: its fused
+one (``fold_in(PRNGKey(seed), iter + 1)`` drawn at the physical
+position) for objectives with payload gradients, its eager one (the
+``quant_rng`` chain drawn in original row order, and the eager bag) for
+multiclass, custom gradients, the renewing objectives and the objectives
+whose gradients JAX does not fuse (``reference_fused``).  With
+``quant_train_renew_leaf`` the true grad and hess ride payload rows
+``4 + fields`` and ``5 + fields`` through the partition, and each leaf's
+value is renewed from their sums before the tree's host read (before the
+L1-family renewal, as JAX orders them).
+
 Host-side per-row data crosses into the physical order through the row
 ids of payload row 2 (``rows_to_phys``, the inverse of
 ``scores_from_phys``): a custom objective's gradients
@@ -47,14 +63,15 @@ import torch
 
 from ..config import Config
 from ..dataset import BinnedDataset
-from ..ops.frontier import KEY_ROW
 from ..ops.predict import (ThresholdIndex, pack_binned_nodes,
                            predict_leaf_binned, predict_leaf_thridx,
                            tree_depth)
+from ..ops.quantize import quantize
 from ..ops.sample import (MODE_BAG, MODE_BALANCED, MODE_GOSS, goss_threshold,
                           sample)
+from ..ops.split import leaf_output
 from ..ops.split_mega import GHI_ROWS
-from ..ops.tree_step import LM_CNT, LM_START, LM_VALUE
+from ..ops.tree_step import LM_CNT, LM_PARENT, LM_START, LM_VALUE
 from ..utils import log
 from ..utils import random as jrandom
 from .learner import SerialTreeLearner
@@ -66,13 +83,15 @@ from .tree import Tree, tree_from_device_record
 K_EPSILON = 1e-15
 
 
-def scores_from_phys(ghi: torch.Tensor, num_data: int) -> torch.Tensor:
-    """Scatter the physically ordered score row back to original row order
-    (row ids ride row 2 as int32 bits; pad rows carry ``num_data``)."""
+def scores_from_phys(ghi: torch.Tensor, num_data: int,
+                     row: int = 3) -> torch.Tensor:
+    """Scatter the physically ordered score row (or payload row ``row``)
+    back to original row order (row ids ride row 2 as int32 bits; pad
+    rows carry ``num_data``)."""
     rowid = ghi[2].view(torch.int32).long()
     keep = rowid < num_data
     out = torch.zeros(num_data, dtype=torch.float32, device=ghi.device)
-    out[rowid[keep]] = ghi[3][keep]
+    out[rowid[keep]] = ghi[row][keep]
     return out
 
 
@@ -138,13 +157,22 @@ class GBDT:
     def _setup_training(self, train_data: BinnedDataset) -> None:
         cfg = self.config
         dev = self.device
-        self.learner = SerialTreeLearner(train_data, cfg, dev)
         self.num_data = N = train_data.num_data
         self.max_feature_idx = train_data.num_total_features - 1
         self.feature_names = list(train_data.feature_names)
         obj = self.objective
         if obj is not None:
             obj.init(train_data.metadata, dev)
+        payload = obj.payload() if obj is not None else []
+        self._payload_names = [n for n, _ in payload]
+        self._setup_quant(len(payload))
+        rows = 4 + len(payload) + (2 if self._renew_rows else 0)
+        if rows > GHI_ROWS:
+            raise NotImplementedError(
+                f"the payload holds {GHI_ROWS} rows; objective "
+                f"{obj.name} with quantized leaf renewal needs {rows}")
+        self.learner = SerialTreeLearner(train_data, cfg, dev,
+                                         payload_rows=rows)
         self.train_metrics = create_metrics(cfg, obj.name if obj else None)
         for m in self.train_metrics:
             m.init(train_data.metadata, dev)
@@ -175,12 +203,6 @@ class GBDT:
         ghi[2] = rowid.to(torch.int32).view(torch.float32)
         if K == 1:
             ghi[3, C:C + N] = scores[0]
-        payload = obj.payload() if obj is not None else []
-        self._payload_names = [n for n, _ in payload]
-        if lr.K > 1 and 4 + len(self._payload_names) > KEY_ROW:
-            raise NotImplementedError(
-                f"tpu_frontier_k > 1 keeps payload row {KEY_ROW} for its "
-                f"row keys; objective {obj.name} fills it")
         for i, (_, arr) in enumerate(payload):
             ghi[4 + i, C:C + N] = arr
         self._phys = (lr.part0, ghi)
@@ -194,7 +216,33 @@ class GBDT:
         # objectives as its eager iteration draws, which they take there
         self._class_fused_draw = (K > 1 and obj is not None
                                   and not self.goss
-                                  and not self.balanced_bagging)
+                                  and not self.balanced_bagging
+                                  and not self.use_quant)
+        # quantized, the JAX package takes its eager iteration for
+        # multiclass, the renewing objectives and the objectives it does
+        # not fuse: the port samples and discretizes as that one draws
+        self._eager_quant = self.use_quant and (
+            K > 1 or obj is None or self._renew_alpha is not None
+            or not obj.reference_fused)
+
+    def _setup_quant(self, fields: int) -> None:
+        """Quantized training's state (JAX boosting.py ``GBDT.__init__``
+        and ``_setup_fused_phys``): the eager iteration's key chain
+        ``quant_rng``, the fused one's key, the (2,) bound of |grad| and
+        |hess| the discretizer reads, and the payload rows of the true
+        gradients with ``quant_train_renew_leaf``."""
+        cfg = self.config
+        self.use_quant = bool(cfg.use_quantized_grad)
+        self._renew_rows = None
+        if not self.use_quant:
+            return
+        seed = cfg.seed if cfg.seed is not None else 12345
+        self.quant_rng = jrandom.PRNGKey(seed)
+        self._q_key = jrandom.PRNGKey(seed)
+        self._q_absmax = torch.zeros(2, dtype=torch.float32,
+                                     device=self.device)
+        if cfg.quant_train_renew_leaf:
+            self._renew_rows = (4 + fields, 5 + fields)
 
     def _setup_sampling(self, train_data: BinnedDataset) -> None:
         """Row and feature sampling as the JAX package sets it up
@@ -264,20 +312,30 @@ class GBDT:
             g, h = self.objective.gradients_from_payload(ghi[3], *payload)
             ghi[0] = g * vf
             ghi[1] = h * vf
-            self._sample_fused(ghi)
+            eager = self._eager_quant
+            if eager:
+                # the eager iteration's bag, drawn in original row order
+                g, h = self._sample_eager(scores_from_phys(ghi, N, 0),
+                                          scores_from_phys(ghi, N, 1))
+                ghi[0] = rows_to_phys(ghi, g, N)
+                ghi[1] = rows_to_phys(ghi, h, N)
+            else:
+                self._sample_fused(ghi)
         else:
             g, h = self._sample_eager(host_rows(grad, N, self.device),
                                       host_rows(hess, N, self.device))
             ghi[0] = rows_to_phys(ghi, g, N)
             ghi[1] = rows_to_phys(ghi, h, N)
+            eager = True
+        if self.use_quant:
+            self._quantize(ghi, eager)
         mask = self._feature_mask()
         if not np.array_equal(mask, self._fmask_set):
             lr.set_feature_mask(mask)
             self._fmask_set = mask
         renew = (self._renew_alpha is not None and grad is None
                  and hess is None)
-        rec = lr.build_tree(pb, ghi, (lambda: self._renew(ghi)) if renew
-                            else None)
+        rec = lr.build_tree(pb, ghi, self._before_read(ghi, renew))
         num_nodes = int(rec["s"])
         self._add_leaf_values(ghi)
         if self.valid_sets:
@@ -288,6 +346,74 @@ class GBDT:
             log.warning("Stopped training because there are no more leaves "
                         "that meet the split requirements")
         return num_nodes == 0
+
+    def _before_read(self, ghi, renew: bool):
+        """The device work on a finished tree before its host read: the
+        quantized leaf renewal, then the L1 family's (JAX boosting.py
+        orders them so; a leaf with no in-bag row then keeps the tree's
+        own value, as JAX's eager renewal starts from the record's);
+        None when there is none."""
+        quant = self._renew_rows is not None
+        if not quant and not renew:
+            return None
+
+        def run():
+            lr = self.learner
+            tree_values = lr.leafmat[LM_VALUE, :lr.L].clone()
+            if quant:
+                self._renew_quant(ghi)
+            if renew:
+                self._renew(ghi, tree_values)
+        return run
+
+    def _quantize(self, ghi, eager: bool) -> None:
+        """Discretize payload rows 0 and 1 into integer carriers and the
+        learner's scale word (ops/quantize.py), with the JAX package's draw:
+        its fused iteration's key ``fold_in(PRNGKey(seed), iter + 1)`` at
+        the physical position, or (``eager``) the next split of
+        ``quant_rng`` at the original row id, where sampling also turns
+        off the constant-hessian shortcut (boosting.py
+        ``_discretize_gradients``)."""
+        cfg, obj = self.config, self.objective
+        torch.amax(ghi[:2].abs(), dim=1, out=self._q_absmax)
+        const_h = obj is not None and obj.is_constant_hessian
+        keys = None
+        if eager:
+            const_h = const_h and not (self.goss or self.need_bagging)
+            if cfg.stochastic_rounding:
+                self.quant_rng, sub = jrandom.split(self.quant_rng)
+                keys = jrandom.split(sub)
+        elif cfg.stochastic_rounding:
+            keys = jrandom.split(jrandom.fold_in(self._q_key, self.iter + 1))
+        quantize(ghi, self._q_absmax, self.learner.qscale, N=self.num_data,
+                 bins=int(cfg.num_grad_quant_bins), const_h=const_h,
+                 keys=keys, by_rowid=eager, renew_rows=self._renew_rows)
+
+    def _renew_quant(self, ghi) -> None:
+        """Quantized leaf renewal (JAX boosting.py ``_quant_renew_device``;
+        reference: RenewIntGradTreeOutput): each leaf of a tree with a
+        split gets the output of its rows' true grad and hess sums, read
+        from the renewal rows after the partition -- f64 prefix
+        differences at the leaf ranges, rounded to f32 once."""
+        lr, N, cfg = self.learner, self.num_data, self.config
+        C = lr.row0
+        lm = lr.leafmat[:, :lr.L]
+        start = (lm[LM_START].view(torch.int32) - C).long().clamp(0, N)
+        cnt = lm[LM_CNT].view(torch.int32).long()
+        end = (start + cnt).clamp(0, N)
+        sums = []
+        for r in self._renew_rows:
+            # one row at a time: a 1-D cumulative sum is one device-wide
+            # scan on the card, a (2, N) one a block per row (PERF.md 6)
+            cs = torch.nn.functional.pad(
+                torch.cumsum(ghi[r, C:C + N].double(), 0), (1, 0))
+            sums.append((cs[end] - cs[start]).float())
+        new = leaf_output(sums[0], sums[1] + 2e-15, float(cfg.lambda_l1),
+                          float(cfg.lambda_l2), float(cfg.max_delta_step))
+        # leaf 1 has a parent once the tree has split (a stump keeps its
+        # value, as in the JAX package)
+        split = lm[LM_PARENT, 1].view(torch.int32) >= 0
+        lm[LM_VALUE] = torch.where((cnt > 0) & split, new, lm[LM_VALUE])
 
     def _append_tree(self, rec, num_nodes: int, k: int) -> None:
         """The host tree of record ``rec`` into the model list, the
@@ -336,7 +462,9 @@ class GBDT:
             ghi[1] = rows_to_phys(ghi, h[k], N)
             if fused_draw:
                 self._sample_fused(ghi)
-            rec = lr.build_tree(pb, ghi)
+            if self.use_quant:
+                self._quantize(ghi, True)
+            rec = lr.build_tree(pb, ghi, self._before_read(ghi, False))
             num_nodes = int(rec["s"])
             stop = stop and num_nodes == 0
             rowid = ghi[2, C:C + N].view(torch.int32).long()
@@ -359,11 +487,11 @@ class GBDT:
                       else np.asarray(values, np.float32).T.copy())
         return host_rows(values, N * K, self.device).reshape(K, N)
 
-    def _renew(self, ghi) -> None:
+    def _renew(self, ghi, old) -> None:
         """Renew the tree's leaf values in leafmat on the device, before
         its host read (see models/renew.py): the percentile of label -
         score over each leaf's in-bag rows, the payload's rows after the
-        partition."""
+        partition; a leaf with no in-bag row gets its value in ``old``."""
         lr, N = self.learner, self.num_data
         C = lr.row0
         names = self._payload_names
@@ -374,16 +502,18 @@ class GBDT:
         lm = lr.leafmat[:, :lr.L]
         lm[LM_VALUE] = renew_leaves(
             lm[LM_START].view(torch.int32) - C, lm[LM_CNT].view(torch.int32),
-            lm[LM_VALUE], label - ghi[3, C:C + N],
+            old, label - ghi[3, C:C + N],
             self._in_bag(ghi[:, C:C + N]), w, self._renew_alpha)
 
     def _in_bag(self, ghi) -> torch.Tensor:
         """(N,) bool: the rows of the iteration's bag, by the fused draw
-        at each row's id (``_sample_fused``)."""
-        N = self.num_data
+        at each row's id (``_sample_fused``), or the eager bag's mask at
+        it where the iteration drew eagerly (``_sample_eager``)."""
         if not self.need_bagging:
             return torch.ones(ghi.shape[1], dtype=torch.bool,
                               device=ghi.device)
+        if self._eager_quant:
+            return self._cached_bag[0][ghi[2].view(torch.int32).long()]
         key = jrandom.fold_in(self._bag_key, self.iter // self._bag_freq)
         u = jrandom.torch_uniform_at(key, ghi[2].view(torch.int32).long())
         if self.balanced_bagging:

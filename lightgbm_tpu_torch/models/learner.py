@@ -109,6 +109,16 @@ blocks of about sqrt(L) with an IF node each, so a tree that stopped
 skips the rest of its block node by node and each later block at once.
 On the CPU the same steps run in a Python loop.
 
+Quantized training (``use_quantized_grad``; JAX ``hist_scale``): payload
+rows 0 and 1 hold integer carriers (ops/quantize.py writes them before
+the tree) and the learner's (2,) f32 device word ``qscale`` their scale
+(gs, hs), which changes every tree and is read on the device like the
+bag count.  Every histogram kernel's scale arm multiplies its f32 output
+by it (split_mega, leaf_hist's state children, feat_view), so the search
+reads the gain domain; the histogram state keeps the integer sums; the
+root's totals are the carriers' exact sums, as f32, times the scale.
+Without quantization ``qscale`` is None and no arm runs.
+
 ``build_tree_eager`` keeps the loop this port ran before, with the
 bookkeeping on the host and one sync a split, as the oracle the tests
 hold the device loop to.
@@ -124,7 +134,7 @@ import torch
 
 from ..config import Config, DEFAULT_ROW_CHUNK, parse_row_chunk
 from ..dataset import BinnedDataset
-from ..ops.frontier import (FS_NPRUNED, FS_RUN, Frontier, IfNode,
+from ..ops.frontier import (FS_NPRUNED, FS_RUN, KEY_ROW, Frontier, IfNode,
                             cond_handles, frontier_key, frontier_step,
                             frontier_undo)
 from ..ops.frontier import MODE_FINAL as FR_FINAL
@@ -183,8 +193,9 @@ def frontier_k(config: Config, eligible: bool, L: int, device) -> int:
         if k > 1 and not eligible:
             log.warning("tpu_frontier_k=%d needs the mega path "
                         "(tpu_megakernel auto/pallas, no EFB bundles, no "
-                        "categorical features, uint8 bins) and at least "
-                        "one feature; using 1", k)
+                        "categorical features, uint8 bins), at least one "
+                        "feature and payload row %d free for its row keys; "
+                        "using 1", k, KEY_ROW)
             k = 1
     return max(1, min(k, L - 1))
 
@@ -199,7 +210,11 @@ def _pow2ceil(x: int) -> int:
 class SerialTreeLearner:
     """Builds one tree per call on ``device`` (see module doc)."""
 
-    def __init__(self, dataset: BinnedDataset, config: Config, device):
+    def __init__(self, dataset: BinnedDataset, config: Config, device,
+                 payload_rows: int = 4):
+        """``payload_rows``: the payload rows the booster fills (the
+        frontier needs row KEY_ROW free).  ``use_quantized_grad`` in
+        ``config`` allocates the scale word ``qscale`` (see module doc)."""
         self.ds = dataset
         self.cfg = config
         self.device = torch.device(device)
@@ -283,8 +298,10 @@ class SerialTreeLearner:
                       if self.subtract else None)
         # frontier-batched growth on the mega path (the JAX package's
         # eligibility: the pair search without the mega kernel is not)
-        self.K = frontier_k(config, not self.subtract and self.F > 0,
-                            self.L, self.device)
+        self.K = frontier_k(config, not self.subtract and self.F > 0
+                            and payload_rows <= KEY_ROW, self.L, self.device)
+        self.qscale = (torch.ones(2, dtype=torch.float32, device=self.device)
+                       if config.use_quantized_grad else None)
         self.last_steps = self.last_made = 0
         self._alloc()
 
@@ -429,7 +446,8 @@ class SerialTreeLearner:
         if self.bundled:
             feat_view(ch, self.info, self.state,
                       self.step if step is None else step, self._absmax,
-                      kcnt=self.N, view=self.view, out=self.fchildren)
+                      kcnt=self.N, view=self.view, out=self.fchildren,
+                      scale=self.qscale)
             ch = self.fchildren
         Bp = ch.shape[-1]
         self._search(ch[0].view(-1, Bp), ch[1].view(-1, Bp), self.info,
@@ -437,13 +455,14 @@ class SerialTreeLearner:
 
     def _mega_kw(self):
         return dict(num_bins=self.B, num_groups=self.G, bound=self.N,
-                    ws=self.ws, absmax=self._absmax)
+                    ws=self.ws, absmax=self._absmax, scale=self.qscale)
 
     def _body(self, pb, pg, step) -> None:
         """One split body on the leaf of ``step`` (the root's: its
         histogram only), into the children's planes."""
         G, B, N = self.G, self.B, self.N
-        kw = dict(num_bins=B, num_groups=G, bound=N, ws=self.ws)
+        kw = dict(num_bins=B, num_groups=G, bound=N, ws=self.ws,
+                  scale=self.qscale)
         root = step is self.root_step
         if self.subtract:
             if not root:
@@ -465,11 +484,22 @@ class SerialTreeLearner:
         histogram and sums, tree_step's reset, the root's search."""
         torch.amax(pg[:2].abs(), dim=1, out=self._absmax)
         self._body(pb, pg, self.root_step)
-        torch.stack([self.children[0, 0, 0].sum(),
-                     self.children[1, 0, 0].sum()], out=self.sums)
+        self._root_sums(pg, self.children[0, 0, 0], self.children[1, 0, 0],
+                        self.sums)
         self._step(MODE_ROOT)
         if self.F:
             self._pair(self.root_step)
+
+    def _root_sums(self, pg, hg0, hh0, out) -> None:
+        """The root's grad and hess totals into ``out`` (2,): the sums of
+        group 0's histogram rows ``hg0`` / ``hh0``; quantized, the exact
+        sums of the integer carriers as f32 times the scale (JAX
+        learner.py: the integer-domain root totals times hist_scale)."""
+        if self.qscale is None:
+            torch.stack([hg0.sum(), hh0.sum()], out=out)
+            return
+        torch.mul(pg[:2].sum(dim=1, dtype=torch.float64).float(),
+                  self.qscale, out=out)
 
     def _sequence(self, pb, pg) -> None:
         """The whole tree as a fixed sequence of launches (the graph)."""
@@ -518,8 +548,8 @@ class SerialTreeLearner:
         split_mega_step(pb, pg, self.root_step, self.nl[:1], self.hist4[0],
                         move=False, **self._mega_kw())
         self._fr_children()
-        torch.stack([self.children[0, 0, 0].sum(),
-                     self.children[1, 0, 0].sum()], out=self.sums)
+        self._root_sums(pg, self.children[0, 0, 0], self.children[1, 0, 0],
+                        self.sums)
         self._fstep(FR_ROOT)
         self._pair()
         self._fstep(FR_STEP, handles)
@@ -682,7 +712,7 @@ class SerialTreeLearner:
                 device=self.device)
             fv = torch.empty_like(self.fchildren)
             feat_view(ch, info, self.state, step, self._absmax, kcnt=self.N,
-                      view=self.view, out=fv)
+                      view=self.view, out=fv, scale=self.qscale)
             hg, hh = fv[0].reshape(2 * F, -1), fv[1].reshape(2 * F, -1)
         cats = torch.zeros((2, self.W), dtype=torch.int32,
                            device=self.device)
@@ -696,14 +726,14 @@ class SerialTreeLearner:
             ch = leaf_hist_rmw(part_bins, part_ghi, self.row0, self.N,
                                num_bins=B, num_groups=G, state=self.state,
                                idx=(-1, 0, 0, 0), absmax=self._absmax,
-                               kcnt=self.N)
+                               kcnt=self.N, scale=self.qscale)
             return ch[0].reshape(2 * G, -1), ch[1].reshape(2 * G, -1)
         # an all-left mega call that moves no rows
         _, acc = split_mega(part_bins, part_ghi,
                             make_scalars(self.row0, self.N, 0, 0, 0, B, 0,
                                          0, 255, 0),
                             num_bins=B, num_groups=G, move=False,
-                            absmax=self._absmax)
+                            absmax=self._absmax, scale=self.qscale)
         hl_g, hl_h, _, _ = unpack_hist4(acc, B)
         return torch.cat([hl_g, hl_g]), torch.cat([hl_h, hl_h])
 
@@ -723,10 +753,12 @@ class SerialTreeLearner:
                                state=self.state,
                                idx=(leaf, leaf, new_leaf,
                                     int(small_is_left)),
-                               absmax=self._absmax, kcnt=self.N)
+                               absmax=self._absmax, kcnt=self.N,
+                               scale=self.qscale)
             return nl, ch[0].reshape(2 * G, -1), ch[1].reshape(2 * G, -1)
         nl, acc = split_mega(part_bins, part_ghi, scalars, num_bins=B,
-                             num_groups=G, absmax=self._absmax)
+                             num_groups=G, absmax=self._absmax,
+                             scale=self.qscale)
         hl_g, hl_h, hr_g, hr_h = unpack_hist4(acc, B)
         return nl, torch.cat([hl_g, hr_g]), torch.cat([hl_h, hr_h])
 
@@ -755,8 +787,9 @@ class SerialTreeLearner:
         # root: its histogram, then the best split from a pair search
         # over (root, root)
         hg, hh = self._root_hist(part_bins, part_ghi)
-        sum_g = hg[0].sum()
-        sum_h = hh[0].sum()
+        sums = torch.empty(2, device=self.device)
+        self._root_sums(part_ghi, hg[0], hh[0], sums)
+        sum_g, sum_h = sums[0], sums[1]
         if F:
             info = self._info([(0, 0, bag_cnt, 0)] * 2)
             info[:, 0] = sum_g

@@ -39,6 +39,14 @@ class ObjectiveFunction:
     # row-aligned attribute tensors the gradients read; they ride the
     # partition payload (rows 4.. of part_ghi)
     payload_fields = ()
+    # every hessian is one (JAX ``is_constant_hessian``): quantized
+    # training then makes every integer hessian 1
+    is_constant_hessian = False
+    # the JAX package's fused physical-order iteration runs this objective
+    # (its concrete class defines gradients_from_payload); where it does
+    # not, the JAX package samples and quantizes in its eager iteration,
+    # and with quantized gradients the port draws as that iteration does
+    reference_fused = True
 
     def __init__(self, config: Config):
         self.config = config
@@ -91,12 +99,18 @@ class RegressionL2(ObjectiveFunction):
     """reference: regression_objective.hpp RegressionL2loss."""
     name = "regression"
     payload_fields = ("label", "weight")
+    is_constant_hessian = True
 
     def __init__(self, config: Config):
         super().__init__(config)
         if bool(config.reg_sqrt):
             raise NotImplementedError(
                 "lightgbm_tpu_torch does not support reg_sqrt yet")
+
+    def init(self, metadata: Metadata, device) -> None:
+        super().init(metadata, device)
+        if self.weight is not None:
+            self.is_constant_hessian = False
 
     def gradients_from_payload(self, score, label, weight=None):
         return _weighted(score - label, torch.ones_like(score), weight)
@@ -132,6 +146,7 @@ class RegressionL1(_L1Family, RegressionL2):
 class RegressionHuber(RegressionL2):
     """reference: regression_objective.hpp RegressionHuberLoss."""
     name = "huber"
+    reference_fused = False
 
     def __init__(self, config: Config):
         super().__init__(config)
@@ -148,6 +163,7 @@ class RegressionFair(ObjectiveFunction):
     """reference: regression_objective.hpp RegressionFairLoss."""
     name = "fair"
     payload_fields = ("label", "weight")
+    reference_fused = False
 
     def __init__(self, config: Config):
         super().__init__(config)
@@ -356,6 +372,7 @@ class CrossEntropyLambda(CrossEntropy):
     """reference: xentropy_objective.hpp CrossEntropyLambda
     (:223-252)."""
     name = "cross_entropy_lambda"
+    reference_fused = False
 
     def init(self, metadata: Metadata, device) -> None:
         ObjectiveFunction.init(self, metadata, device)
@@ -382,6 +399,7 @@ class _Multiclass(ObjectiveFunction):
     """K trees an iteration; the gradients of all K classes come at once
     from the (K, N) scores in original row order (``class_gradients``),
     and nothing rides the payload."""
+    reference_fused = False
 
     def __init__(self, config: Config):
         super().__init__(config)

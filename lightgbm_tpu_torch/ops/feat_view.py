@@ -25,6 +25,12 @@ grad and hess inputs (ops/split_pair.py).  It dispatches on the device:
     -> f32, as the state's f32 children are.  ``feat_view_fixed_plain``
     is its arithmetic in plain PyTorch, bit for bit.
 
+Quantized training (``scale``, the (2,) f32 device word of
+ops/quantize.py): the kernel multiplies each f32 value by its plane's
+scale, one f32 product (the scale arm), as ``feat_view_fixed_plain``
+does; the CPU's view reads children and totals that are scaled already,
+as JAX's ``_feat_view`` reads the scaled histogram.
+
 A bin that is empty in exact arithmetic is exactly 0 on the card; the
 CPU's f32 fix may leave a rounding residue there, as JAX's does (its
 f32 sums in another order), so the CPU view matches JAX's to f32
@@ -43,6 +49,7 @@ import torch
 
 from . import kernels
 from .partition import SB_CNT, SB_WA, SB_WB, check_step_block
+from .quantize import scale_planes
 from .split_mega import fixed_exponent
 
 # launches of the CUDA kernel by this wrapper, a launch recorded into a
@@ -112,11 +119,11 @@ def scale_inverse(absmax, kcnt: int) -> torch.Tensor:
                          for a in absmax.tolist()], dtype=torch.float64)
 
 
-def feat_view_fixed_plain(state, step, absmax, kcnt: int,
-                          view: View) -> torch.Tensor:
+def feat_view_fixed_plain(state, step, absmax, kcnt: int, view: View,
+                          scale=None) -> torch.Tensor:
     """The card's view in plain PyTorch, bit for bit: the children's
     exact int64 sums from the state slots of ``step``, the fix in int64,
-    then (int64 -> double) * 2^-k -> f32."""
+    then (int64 -> double) * 2^-k -> f32, times ``scale`` when given."""
     w = step.tolist()
     out = torch.zeros((2, 2, view.F, view.Bp), dtype=torch.float32,
                       device=state.device)
@@ -128,11 +135,12 @@ def feat_view_fixed_plain(state, step, absmax, kcnt: int,
     fix = torch.where(view.fix, total - feat.sum(dim=3), 0)
     feat[:, :, :, 0] += fix
     inv = scale_inverse(absmax, kcnt).to(state.device)
-    return (feat.double() * inv[:, None, None, None]).float()
+    return scale_planes((feat.double() * inv[:, None, None, None]).float(),
+                        scale, 0)
 
 
 def feat_view(children, info, state, step, absmax, *, kcnt: int,
-              view: View, out) -> None:
+              view: View, out, scale=None) -> None:
     """The (2, 2, F, Bp) view of the split's children into ``out`` (see
     module doc): CPU tensors run ``feat_view_plain`` on ``children`` and
     ``info``; CUDA tensors launch the kernel on ``state``, ``step``,
@@ -140,11 +148,12 @@ def feat_view(children, info, state, step, absmax, *, kcnt: int,
     if out.device.type == "cpu":
         out.copy_(feat_view_plain(children, info, view))
         return
-    feat_view_cuda(state, step, absmax, kcnt=kcnt, view=view, out=out)
+    feat_view_cuda(state, step, absmax, kcnt=kcnt, view=view, out=out,
+                   scale=scale)
 
 
 def feat_view_cuda(state, step, absmax, *, kcnt: int, view: View,
-                   out) -> None:
+                   out, scale=None) -> None:
     global launches
     F, G, Bp = view.F, view.G, view.Bp
     if state.dim() != 4 or tuple(state.shape[1:]) != (2, G, Bp):
@@ -159,12 +168,15 @@ def feat_view_cuda(state, step, absmax, *, kcnt: int, view: View,
             (view.meta, torch.int32, "view", (4, F)),
             (out, torch.float32, "out", (2, 2, F, Bp))):
         kernels.require_cuda(t, dtype, name, shape)
+    if scale is not None:
+        kernels.require_cuda(scale, torch.float32, "scale", (2,))
     fn = kernels.load("feat_view").feat_view_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_void_p] * 3
     err = fn(kernels.ptr(state), kernels.ptr(step), kernels.ptr(absmax),
              kernels.ptr(view.meta), int(state.shape[0]), G, F, Bp,
-             int(kcnt), kernels.ptr(out), kernels.stream_ptr(out.device))
+             int(kcnt), None if scale is None else kernels.ptr(scale),
+             kernels.ptr(out), kernels.stream_ptr(out.device))
     kernels.check(err, "feat_view_launch")
     launches += 1

@@ -44,6 +44,12 @@ the card's arithmetic in plain PyTorch, bit for bit.  ``hist_rmw``
 alone runs on the CPU only: on the card the update exists only fused
 into the histogram launch.
 
+Quantized training (``scale``, the (2,) f32 device word of
+ops/quantize.py): the state keeps the integer carriers' sums (exact on
+both devices while they stay below 2^24 in f32), and only the children
+handed to the search are multiplied by the plane's scale, one f32
+product (the scale arm).
+
 ``leaf_hist_rmw_step`` is the entry of the learner's tree loop: the rows,
 the child's side and the slots come from a step block on the device
 (ops/partition.py ``SB_*``), the children go to a preallocated buffer,
@@ -59,6 +65,7 @@ import torch
 
 from . import histogram, kernels
 from .partition import S_CNT, scalars_start, step_fields
+from .quantize import scale_planes
 from .split_mega import hist_geometry
 
 # launches of the CUDA kernel with the state epilogue (each is also a
@@ -94,14 +101,15 @@ def hist_rmw_plain(state, small, idx: Sequence[int]) -> torch.Tensor:
     return children
 
 
-def hist_rmw_fixed_plain(state, small, idx: Sequence[int],
-                         inv) -> torch.Tensor:
+def hist_rmw_fixed_plain(state, small, idx: Sequence[int], inv,
+                         scale=None) -> torch.Tensor:
     """The card's update in plain PyTorch: ``hist_rmw_plain`` on the int64
     state and the smaller child's (2, G, Bp) int64 sums, then the
     children (int64 -> double) * 2^-k -> f32, with ``inv`` the (2,) f64
-    factors 2^-k of the two planes."""
+    factors 2^-k of the two planes, times ``scale`` when given."""
     children = hist_rmw_plain(state, small, idx)
-    return (children.double() * inv[:, None, None, None]).float()
+    return scale_planes((children.double()
+                         * inv[:, None, None, None]).float(), scale, 0)
 
 
 def hist_rmw(state, small, idx: Sequence[int]) -> torch.Tensor:
@@ -123,23 +131,25 @@ def _no_children(num_groups, num_bins, state) -> torch.Tensor:
 
 def leaf_hist_rmw_plain(part_bins, part_ghi, start: int, cnt: int, *,
                         num_bins: int, num_groups: int, state,
-                        idx: Sequence[int], child=None) -> torch.Tensor:
+                        idx: Sequence[int], child=None,
+                        scale=None) -> torch.Tensor:
     """What the CPU runs: the f32 ``leaf_hist_plain`` of the rows, then
-    ``hist_rmw_plain`` on the f32 state.  A range of no rows (a step that
-    splits nothing) writes no slot and gives zero children."""
+    ``hist_rmw_plain`` on the f32 state, the children times ``scale`` when
+    given.  A range of no rows (a step that splits nothing) writes no slot
+    and gives zero children."""
     if cnt == 0:
         return _no_children(num_groups, num_bins, state)
     small = histogram.leaf_hist_plain(part_bins, part_ghi, start, cnt,
                                       num_bins=num_bins,
                                       num_groups=num_groups, child=child,
                                       planes=True)
-    return hist_rmw_plain(state, small, idx)
+    return scale_planes(hist_rmw_plain(state, small, idx), scale, 0)
 
 
 def leaf_hist_rmw_fixed_plain(part_bins, part_ghi, start: int, cnt: int, *,
                               num_bins: int, num_groups: int, state,
                               idx: Sequence[int], absmax, kcnt: int,
-                              child=None) -> torch.Tensor:
+                              child=None, scale=None) -> torch.Tensor:
     """The card's arithmetic in plain PyTorch, bit for bit:
     ``leaf_hist_fixed_sums`` of the rows at the scale of ``absmax`` and
     ``kcnt``, then ``hist_rmw_fixed_plain`` on the int64 state.  A range
@@ -149,14 +159,14 @@ def leaf_hist_rmw_fixed_plain(part_bins, part_ghi, start: int, cnt: int, *,
     small, inv = histogram.leaf_hist_fixed_sums(
         part_bins, part_ghi, start, cnt, num_bins=num_bins,
         num_groups=num_groups, child=child, absmax=absmax, kcnt=kcnt)
-    return hist_rmw_fixed_plain(state, small, idx, inv)
+    return hist_rmw_fixed_plain(state, small, idx, inv, scale)
 
 
 def leaf_hist_rmw(part_bins, part_ghi, start: int, cnt: int, *,
                   num_bins: int, num_groups: int, state, idx: Sequence[int],
                   absmax, kcnt: int,
-                  child: Optional[Tuple[torch.Tensor, int]] = None
-                  ) -> torch.Tensor:
+                  child: Optional[Tuple[torch.Tensor, int]] = None,
+                  scale=None) -> torch.Tensor:
     """The histogram of the rows ``[start, start + cnt)`` (or of the child
     ``child=(nl, side)`` of their partition, as ops/histogram.py
     ``leaf_hist``), folded into ``state`` by ``idx``; returns the
@@ -164,7 +174,7 @@ def leaf_hist_rmw(part_bins, part_ghi, start: int, cnt: int, *,
     ``kcnt`` (the tree's bound and root row count) set the card's scale;
     the CPU's f32 plain versions do not use them."""
     kw = dict(num_bins=num_bins, num_groups=num_groups, state=state,
-              idx=idx, child=child)
+              idx=idx, child=child, scale=scale)
     if part_bins.device.type == "cpu":
         return leaf_hist_rmw_plain(part_bins, part_ghi, start, cnt, **kw)
     return leaf_hist_rmw_cuda(part_bins, part_ghi, start, cnt, absmax=absmax,
@@ -173,7 +183,7 @@ def leaf_hist_rmw(part_bins, part_ghi, start: int, cnt: int, *,
 
 def leaf_hist_rmw_cuda(part_bins, part_ghi, start, cnt, *, num_bins,
                        num_groups, state, idx, absmax, kcnt,
-                       child=None) -> torch.Tensor:
+                       child=None, scale=None) -> torch.Tensor:
     G = num_groups
     _, Bp = hist_geometry(num_bins)
     check_state(state, G, Bp)
@@ -191,7 +201,7 @@ def leaf_hist_rmw_cuda(part_bins, part_ghi, start, cnt, *, num_bins,
     histogram.host_launch(part_bins, part_ghi, start, cnt, num_bins=num_bins,
                           num_groups=G, child=child, absmax=absmax,
                           kcnt=kcnt, out=children, state=state,
-                          idx=(parent, wa, wb, sil))
+                          idx=(parent, wa, wb, sil), scale=scale)
     _count()
     return children
 
@@ -210,7 +220,7 @@ def _count() -> None:
 
 def leaf_hist_rmw_step(part_bins, part_ghi, step, nl, *, num_bins: int,
                        num_groups: int, state, absmax, kcnt: int, out,
-                       bound: int, ws=None) -> None:
+                       bound: int, ws=None, scale=None) -> None:
     """``leaf_hist_rmw`` of the rows the step block ``step`` names (its
     range, or the child SB_SIDE of the partition whose left count is
     ``nl``), folded into ``state`` by its slots (SB_PARENT, SB_WA, SB_WB,
@@ -224,7 +234,7 @@ def leaf_hist_rmw_step(part_bins, part_ghi, step, nl, *, num_bins: int,
         out.copy_(leaf_hist_rmw_plain(
             part_bins, part_ghi, scalars_start(sc), sc[S_CNT],
             num_bins=num_bins, num_groups=num_groups, state=state, idx=idx,
-            child=child))
+            child=child, scale=scale))
         return
     G = num_groups
     _, Bp = hist_geometry(num_bins)
@@ -232,5 +242,5 @@ def leaf_hist_rmw_step(part_bins, part_ghi, step, nl, *, num_bins: int,
     kernels.require_cuda(out, torch.float32, "children", (2, 2, G, Bp))
     histogram.launch(part_bins, part_ghi, step, num_bins=num_bins,
                      num_groups=G, nl=nl, absmax=absmax, kcnt=kcnt, out=out,
-                     bound=bound, state=state, ws=ws)
+                     bound=bound, state=state, ws=ws, scale=scale)
     _count()

@@ -52,6 +52,11 @@ dtype, and serves any width: past ~14,500 bins a group no longer fits a
 block's shared memory, and its wide arm adds into the accumulator in
 device memory by 64-bit global atomics, as exact and as order-free.
 
+Quantized training (``scale``, the (2,) f32 device word of
+ops/quantize.py): grad and hess are integer carriers and each f32 plane
+entry is multiplied by its plane's scale, one f32 product (the scale
+arm, ``ops/quantize.py:scale_planes``), in both versions.
+
 ``leaf_hist_reference`` returns the f64 sums with each bin's absolute
 mass, the yardstick any f32 rounding of the sums is held to:
 ``|h - ref| <= rtol * |ref| + atol * mass``.
@@ -67,6 +72,7 @@ import torch
 from . import kernels
 from .partition import (bin_values, check_rows, check_step, make_scalars,
                         step_block, workspace)
+from .quantize import scale_planes
 from .split_mega import fixed_rows, hist_geometry, leaf_absmax
 
 # launches of the CUDA kernel by this wrapper, a launch recorded into a
@@ -125,11 +131,12 @@ def leaf_hist_reference(part_bins, part_ghi, start: int, cnt: int, *,
 
 def leaf_hist_plain(part_bins, part_ghi, start: int, cnt: int, *,
                     num_bins: int, num_groups: int, child=None,
-                    planes: bool = False) -> torch.Tensor:
+                    planes: bool = False, scale=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same contract)."""
     _, Bp = hist_geometry(num_bins)
     s, c = child_range(start, cnt, child)
     h = _planes64(part_bins, part_ghi, s, c, num_groups, Bp, False).float()
+    h = scale_planes(h, scale, 0)
     return h if planes else as_gb2(h, num_bins)
 
 
@@ -152,13 +159,14 @@ def leaf_hist_fixed_sums(part_bins, part_ghi, start: int, cnt: int, *,
 def leaf_hist_fixed_plain(part_bins, part_ghi, start: int, cnt: int, *,
                           num_bins: int, num_groups: int, child=None,
                           planes: bool = False, absmax=None,
-                          kcnt: Optional[int] = None):
+                          kcnt: Optional[int] = None, scale=None):
     """The kernel's arithmetic in plain PyTorch, bit for bit:
-    ``leaf_hist_fixed_sums``, then (int64 -> double) * 2^-k -> f32."""
+    ``leaf_hist_fixed_sums``, then (int64 -> double) * 2^-k -> f32, times
+    ``scale`` when given."""
     acc, inv = leaf_hist_fixed_sums(part_bins, part_ghi, start, cnt,
                                     num_bins=num_bins, num_groups=num_groups,
                                     child=child, absmax=absmax, kcnt=kcnt)
-    h = (acc.double() * inv[:, None, None]).float()
+    h = scale_planes((acc.double() * inv[:, None, None]).float(), scale, 0)
     return h if planes else as_gb2(h, num_bins)
 
 
@@ -166,11 +174,11 @@ def leaf_hist(part_bins, part_ghi, start: int, cnt: int, *, num_bins: int,
               num_groups: int,
               child: Optional[Tuple[torch.Tensor, int]] = None,
               planes: bool = False, absmax=None,
-              kcnt: Optional[int] = None) -> torch.Tensor:
+              kcnt: Optional[int] = None, scale=None) -> torch.Tensor:
     """The leaf's histogram (see module doc; the CPU's plain version does
     not use ``absmax`` or ``kcnt``)."""
     kw = dict(num_bins=num_bins, num_groups=num_groups, child=child,
-              planes=planes)
+              planes=planes, scale=scale)
     if part_bins.device.type == "cpu":
         return leaf_hist_plain(part_bins, part_ghi, start, cnt, **kw)
     return leaf_hist_cuda(part_bins, part_ghi, start, cnt, absmax=absmax,
@@ -179,19 +187,19 @@ def leaf_hist(part_bins, part_ghi, start: int, cnt: int, *, num_bins: int,
 
 def leaf_hist_cuda(part_bins, part_ghi, start, cnt, *, num_bins, num_groups,
                    child=None, planes=False, absmax=None,
-                   kcnt=None) -> torch.Tensor:
+                   kcnt=None, scale=None) -> torch.Tensor:
     _, Bp = hist_geometry(num_bins)
     hist = torch.empty((2, num_groups, Bp), dtype=torch.float32,
                        device=part_bins.device)
     host_launch(part_bins, part_ghi, start, cnt, num_bins=num_bins,
                 num_groups=num_groups, child=child, absmax=absmax, kcnt=kcnt,
-                out=hist)
+                out=hist, scale=scale)
     return hist if planes else as_gb2(hist, num_bins)
 
 
 def host_launch(part_bins, part_ghi, start, cnt, *, num_bins, num_groups,
                 child, absmax, kcnt, out, state=None,
-                idx=(-1, 0, 0, 0)) -> None:
+                idx=(-1, 0, 0, 0), scale=None) -> None:
     """One launch for host ints: check the range, fill a step block (the
     range, the child's side and the state slots ``idx``) and ``launch``
     with the grid sized for the range's rows."""
@@ -211,11 +219,11 @@ def host_launch(part_bins, part_ghi, start, cnt, *, num_bins, num_groups,
                       part_bins.device, idx, side)
     launch(part_bins, part_ghi, step, num_bins=num_bins,
            num_groups=num_groups, nl=nl, absmax=absmax, kcnt=kcnt, out=out,
-           bound=cnt, state=state)
+           bound=cnt, state=state, scale=scale)
 
 
 def launch(part_bins, part_ghi, step, *, num_bins, num_groups, nl, absmax,
-           kcnt, out, bound, state=None, ws=None) -> None:
+           kcnt, out, bound, state=None, ws=None, scale=None) -> None:
     """Check the host-known arguments and launch csrc/leaf_hist.cu into
     ``out`` for the rows the step block ``step`` names (its range, or with
     SB_SIDE 1 / 2 the left / right child of the partition whose left count
@@ -223,7 +231,8 @@ def launch(part_bins, part_ghi, step, *, num_bins, num_groups, nl, absmax,
     ``state`` (the int64 histogram state, slots from the step block)
     ``leaf_hist_state`` into (2, 2, G, Bp) children (ops/hist_state.py).
     The grid is sized for ``bound`` rows; ``kcnt`` is 0 (the rows summed
-    set the scale) or at least ``bound``."""
+    set the scale) or at least ``bound``; ``scale`` the scale arm's (2,)
+    device word, or None."""
     global launches
     R, Np = part_bins.shape
     G = num_groups
@@ -237,6 +246,8 @@ def launch(part_bins, part_ghi, step, *, num_bins, num_groups, nl, absmax,
                          f"{bound} or over 2^24")
     kernels.require_cuda(absmax, torch.float32, "absmax", (2,))
     kernels.require_cuda(out, torch.float32, "out")
+    if scale is not None:
+        kernels.require_cuda(scale, torch.float32, "scale", (2,))
     dev = part_bins.device
     ws = ws or workspace(dev)
     acc = ws.buffer("leaf_acc", G * 2 * Bp, torch.int64, zero=True)
@@ -249,12 +260,14 @@ def launch(part_bins, part_ghi, step, *, num_bins, num_groups, nl, absmax,
                                               ctypes.c_int]
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_void_p] * 2)
     err = fn(kernels.ptr(part_bins), R, Np, kernels.ptr(part_ghi),
              kernels.ptr(step), int(bound),
              None if nl is None else kernels.ptr(nl), int(kcnt),
              kernels.ptr(absmax), kernels.ptr(acc), kernels.ptr(done), G, Bp,
              kernels.ptr(out), None if state is None else kernels.ptr(state),
-             slots, part_bins.element_size(), kernels.stream_ptr(dev))
+             slots, part_bins.element_size(),
+             None if scale is None else kernels.ptr(scale),
+             kernels.stream_ptr(dev))
     kernels.check(err, "leaf_hist_launch")
     launches += 1

@@ -38,6 +38,13 @@ buffers' device over at least the leaf's rows (the learner passes one
 per tree); without it the kernel's wrapper takes it over the leaf.  The
 CUDA kernel needs N_pad a multiple of 16 and 16-byte aligned buffers.
 
+Quantized training (``scale``, the (2,) f32 device word of
+ops/quantize.py): grad and hess are integer carriers, and every entry of
+the histogram is its f32 sum times the plane's scale, one f32 product
+(the scale arm, ``ops/quantize.py:scale_planes``): the plain version's
+f32 sums of small integers are exact, the kernel's exact sums become
+f32, so the two agree bit for bit while the sums stay below 2^24.
+
 ``split_mega_step`` is the entry of the learner's tree loop: the leaf
 comes from a step block on the device (ops/partition.py ``SB_*``), the
 outputs go to preallocated buffers, and the grids and scratch are sized
@@ -59,6 +66,7 @@ from .partition import (GHI_ROWS, PART_ARGTYPES, S_CNT, S_COL, as_scalars,
                         part_launch_args, partition_leaf_plain,
                         require_uint8, scalars_start, step_block,
                         workspace)
+from .quantize import scale_planes
 
 FIXED_BITS = 62             # a bin's fixed-point sum stays below 2^62
 
@@ -113,9 +121,9 @@ def hist_reference(part_bins, part_ghi, scalars, *, num_bins: int,
 
 
 def split_mega_plain(part_bins, part_ghi, scalars, *, num_bins: int,
-                     num_groups: int, move: bool = True):
+                     num_groups: int, move: bool = True, scale=None):
     """Plain PyTorch version of the kernel (same contract; ``scalars``
-    host ints or a step block)."""
+    host ints or a step block; ``scale`` the scale arm's (gs, hs))."""
     G = num_groups
     BH, Bp = hist_geometry(num_bins)
     dev = part_bins.device
@@ -128,11 +136,10 @@ def split_mega_plain(part_bins, part_ghi, scalars, *, num_bins: int,
     s, e = start, start + cnt
     _hist_add(hist, part_bins[:G, s:e], gl, part_ghi[0, s:e],
               part_ghi[1, s:e], Bp)
+    hist = scale_planes(hist.view(G, 4, Bp), scale, 1).view(G, 4 * BH, 16)
     if not move:
-        return (torch.full((1,), cnt, dtype=torch.int32, device=dev),
-                hist.view(G, 4 * BH, 16))
-    return (partition_leaf_plain(part_bins, part_ghi, scalars),
-            hist.view(G, 4 * BH, 16))
+        return torch.full((1,), cnt, dtype=torch.int32, device=dev), hist
+    return partition_leaf_plain(part_bins, part_ghi, scalars), hist
 
 
 def fixed_exponent(amax: float, cnt: int) -> int:
@@ -169,10 +176,11 @@ def fixed_rows(part_ghi, s: int, c: int, absmax, kcnt: Optional[int] = None):
 
 
 def hist_fixed_plain(part_bins, part_ghi, scalars, *, num_bins: int,
-                     num_groups: int, absmax=None):
+                     num_groups: int, absmax=None, scale=None):
     """The kernel's histogram in plain PyTorch, bit for bit: ``fixed_rows``,
-    ``index_add_`` in int64, then (int64 -> double) * 2^-k -> f32.
-    ``absmax`` as for the kernel (default: over the leaf)."""
+    ``index_add_`` in int64, then (int64 -> double) * 2^-k -> f32, times
+    ``scale`` when given.  ``absmax`` as for the kernel (default: over the
+    leaf)."""
     G = num_groups
     BH, Bp = hist_geometry(num_bins)
     start, cnt, gl = leaf_decisions(part_bins, scalars)
@@ -183,16 +191,17 @@ def hist_fixed_plain(part_bins, part_ghi, scalars, *, num_bins: int,
         absmax = leaf_absmax(part_ghi, start, cnt)
     (g, h), inv = fixed_rows(part_ghi, start, cnt, absmax)
     _hist_add(acc, part_bins[:G, start:start + cnt], gl, g, h, Bp)
-    return ((acc.view(G, 4, Bp).double() * inv.repeat(2)[:, None]).float()
-            .view(G, 4 * BH, 16))
+    hist = (acc.view(G, 4, Bp).double() * inv.repeat(2)[:, None]).float()
+    return scale_planes(hist, scale, 1).view(G, 4 * BH, 16)
 
 
 def split_mega(part_bins, part_ghi, scalars, *, num_bins: int,
-               num_groups: int, move: bool = True, absmax=None):
+               num_groups: int, move: bool = True, absmax=None, scale=None):
     """Partition the leaf of ``scalars`` in place and return
     ``(left_count, hist)`` (see module doc; the CPU's plain version does
     not use ``absmax``)."""
-    kw = dict(num_bins=num_bins, num_groups=num_groups, move=move)
+    kw = dict(num_bins=num_bins, num_groups=num_groups, move=move,
+              scale=scale)
     require_uint8(part_bins, "split_mega")
     if part_bins.device.type == "cpu":
         return split_mega_plain(part_bins, part_ghi, scalars, **kw)
@@ -212,17 +221,18 @@ def split_mega(part_bins, part_ghi, scalars, *, num_bins: int,
 
 def split_mega_step(part_bins, part_ghi, step, nl_out, hist_out, *,
                     num_bins: int, num_groups: int, move: bool = True,
-                    absmax=None, bound: int, ws=None) -> None:
+                    absmax=None, bound: int, ws=None, scale=None) -> None:
     """split_mega of the leaf named by the step block ``step``, into
     ``nl_out`` (1,) and ``hist_out`` (G, 4 * BH, 16): the plain version
     for CPU tensors, csrc/split_mega.cu for CUDA tensors, whose grids and
     scratch are sized for ``bound`` rows (``absmax`` required there).
-    uint8 bins only: a uint16 tensor raises."""
+    uint8 bins only: a uint16 tensor raises.  ``scale``: the scale arm's
+    (2,) device word, or None."""
     require_uint8(part_bins, "split_mega")
     if part_bins.device.type == "cpu":
         nl, hist = split_mega_plain(part_bins, part_ghi, step,
                                     num_bins=num_bins, num_groups=num_groups,
-                                    move=move)
+                                    move=move, scale=scale)
         nl_out.copy_(nl)
         hist_out.copy_(hist)
         return
@@ -236,17 +246,21 @@ def split_mega_step(part_bins, part_ghi, step, nl_out, hist_out, *,
                          f"num_bins={num_bins}")
     kernels.require_cuda(absmax, torch.float32, "absmax", (2,))
     kernels.require_cuda(hist_out, torch.float32, "hist", (G, 4 * BH, 16))
+    if scale is not None:
+        kernels.require_cuda(scale, torch.float32, "scale", (2,))
     ws = ws or workspace(part_bins.device)
     acc = ws.buffer("acc", G * 4 * Bp, torch.int64, zero=True)
     done = ws.buffer("done", G, torch.int32, zero=True)
     fn = kernels.load("split_mega").split_mega_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = PART_ARGTYPES + [ctypes.c_void_p] * 4 + [
+    fn.argtypes = PART_ARGTYPES + [ctypes.c_void_p] * 5 + [
         ctypes.c_int] * 3 + [ctypes.c_void_p]
     err = fn(*part_launch_args(part_bins, part_ghi, step, nl_out, bound, ws,
                                move),
              kernels.ptr(absmax), kernels.ptr(acc), kernels.ptr(done),
-             kernels.ptr(hist_out), G, Bp, int(bool(move)),
+             kernels.ptr(hist_out),
+             None if scale is None else kernels.ptr(scale), G, Bp,
+             int(bool(move)),
              kernels.stream_ptr(part_bins.device))
     kernels.check(err, "split_mega_launch")
     launches += 1

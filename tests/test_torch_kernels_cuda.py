@@ -32,7 +32,11 @@ equal the K=1 graph loop's bit for bit, row order included.  The
 sampling pass and the EFB feature view are bit-identical to
 sample_plain and feat_view_fixed_plain (integer draws and sums, the same
 f32 operations), and trees grown on bundled, bagged data through the
-graph equal the eager oracle's, one capture for every draw.
+graph equal the eager oracle's, one capture for every draw.  Quantized
+training: the discretizer is bit-identical to quantize_plain (integer
+draws, single f32 operations), each kernel's scale arm to its plain
+twin's (the exact integer sums as f32, one f32 product), and quantized
+trees on the card equal the CPU's split for split.
 """
 
 import numpy as np
@@ -1434,3 +1438,177 @@ def test_u16_graph_trees_equal_eager_oracle(card, case):
     assert lr.captures == 1 and lr.syncs == 3
     if case == "cat400":
         assert lr.W > 8 and sum(t.num_cat for t in a._gbdt.models) > 0
+
+
+# ---- quantized training: the discretizer and the scale arms -------------
+from lightgbm_tpu_torch.ops import quantize as qz  # noqa: E402
+
+
+def _quant_payload(seed, n=(1 << 18) + 3, pad=4096):
+    """A (8, n + 2 pad) payload: normal grads, positive hessians, a third
+    of the rows zeroed (out of a bag), row ids permuted, pads with the
+    sentinel n."""
+    rng = np.random.RandomState(seed)
+    Np = n + 2 * pad + (-(n + 2 * pad)) % 16
+    ghi = torch.zeros((8, Np))
+    g = rng.randn(n).astype(np.float32) * 2
+    h = (rng.rand(n) + 0.05).astype(np.float32)
+    off = rng.rand(n) < 0.3
+    g[off], h[off] = 0.0, 0.0
+    ghi[0, pad:pad + n] = torch.as_tensor(g)
+    ghi[1, pad:pad + n] = torch.as_tensor(h)
+    rowid = torch.full((Np,), n, dtype=torch.int32)
+    rowid[pad:pad + n] = torch.as_tensor(rng.permutation(n).astype(np.int32))
+    ghi[2] = rowid.view(torch.float32)
+    return ghi, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("renew", [False, True], ids=["plain", "renew"])
+@pytest.mark.parametrize("by_rowid", [False, True], ids=["fused", "eager"])
+@pytest.mark.parametrize("const_h", [False, True], ids=["hess", "const_h"])
+@pytest.mark.parametrize("stoch", [True, False], ids=["stoch", "nearest"])
+def test_quantize_kernel_bit_identical_to_plain(card, stoch, const_h,
+                                                by_rowid, renew):
+    """csrc/quantize.cu against quantize_plain: the payload words (the
+    carriers, the true rows with the renewal) and the scale word."""
+    ghi, N = _quant_payload(7)
+    keys = jr.split(jr.fold_in(jr.PRNGKey(0), 3)) if stoch else None
+    kw = dict(N=N, bins=4 if const_h else 6, const_h=const_h, keys=keys,
+              by_rowid=by_rowid, renew_rows=(5, 6) if renew else None)
+    out = []
+    for dev in ("cpu", card):
+        t = ghi.clone().to(dev)
+        absmax = t[:2].abs().amax(dim=1)
+        scale = torch.zeros(2, device=dev)
+        qz.quantize(t, absmax, scale, **kw)
+        out.append((t.cpu(), scale.cpu()))
+    (a, sa), (b, sb) = out
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert torch.equal(sa.view(torch.int32), sb.view(torch.int32))
+    assert torch.equal(a[:2], torch.trunc(a[:2])) and a[0].abs().max() > 1
+
+
+def _int_carriers(G, n_pad, B, seed):
+    rng = np.random.RandomState(seed)
+    pb = torch.as_tensor(rng.randint(0, B, (G, n_pad)).astype(np.uint8))
+    pg = torch.zeros((8, n_pad))
+    pg[0] = torch.as_tensor(rng.randint(-3, 4, n_pad).astype(np.float32))
+    pg[1] = torch.as_tensor(rng.randint(0, 5, n_pad).astype(np.float32))
+    pg[2] = torch.arange(n_pad, dtype=torch.int32).view(torch.float32)
+    return pb, pg, torch.tensor([0.0137, 0.00291])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("move", [False, True])
+def test_split_mega_scale_arm_bit_identical_to_plain(card, move):
+    G, B, n_pad = 28, 255, 1 << 18
+    pb, pg, scale = _int_carriers(G, n_pad, B, 3)
+    sc = make_scalars(4096 + 5, 200_001, 4, 0, 0, 255, 0, 0, 120, 1)
+    absmax = pg[:2, 4101:4101 + 200_001].abs().amax(dim=1)
+    want = sm.hist_fixed_plain(pb, pg, sc, num_bins=B, num_groups=G,
+                               absmax=absmax, scale=scale)
+    _, got = sm.split_mega(pb.to(card), pg.to(card), sc, num_bins=B,
+                           num_groups=G, move=move, absmax=absmax.to(card),
+                           scale=scale.to(card))
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    unscaled = sm.hist_fixed_plain(pb, pg, sc, num_bins=B, num_groups=G,
+                                   absmax=absmax)
+    assert not torch.equal(unscaled, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", [False, True], ids=["planes", "state"])
+def test_leaf_hist_scale_arm_bit_identical_to_plain(card, state):
+    G, B, n_pad = 28, 255, 1 << 18
+    pb, pg, scale = _int_carriers(G, n_pad, B, 4)
+    start, cnt = 4096 + 3, 150_000
+    absmax = pg[:2].abs().amax(dim=1)
+    kw = dict(num_bins=B, num_groups=G)
+    if not state:
+        want = th.leaf_hist_fixed_plain(pb, pg, start, cnt, planes=True,
+                                        absmax=absmax, scale=scale, **kw)
+        got = th.leaf_hist(pb.to(card), pg.to(card), start, cnt, planes=True,
+                           absmax=absmax.to(card), scale=scale.to(card),
+                           **kw)
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+        return
+    st = torch.zeros((4, 2, G, 256), dtype=torch.int64)
+    # the root into slot 0, then a split of it: both children scaled,
+    # the state's integer sums unscaled
+    outs = []
+    for dev in ("cpu", card):
+        s = st.clone().to(dev)
+        a = dict(absmax=absmax.to(dev), kcnt=cnt, scale=scale.to(dev), **kw)
+        b, g = pb.to(dev), pg.to(dev)
+        f = (hs.leaf_hist_rmw_fixed_plain if dev == "cpu"
+             else hs.leaf_hist_rmw)
+        f(b, g, start, cnt, state=s, idx=(-1, 0, 0, 0), **a)
+        ch = f(b, g, start, 70_001, state=s, idx=(0, 0, 1, 1), **a)
+        outs.append((ch.cpu(), s.cpu()))
+    (wc, ws), (gc, gs) = outs
+    assert torch.equal(gs, ws)
+    assert torch.equal(gc.view(torch.int32), wc.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_feat_view_scale_arm_bit_identical_to_plain(card):
+    view, state = _view_case(2)
+    step = torch.zeros(tpart.STEP_WORDS, dtype=torch.int32)
+    step[tpart.SB_CNT] = 1000
+    step[tpart.SB_WA], step[tpart.SB_WB] = 3, 1
+    absmax = torch.tensor([3.0, 4.0])
+    scale = torch.tensor([0.0137, 0.00291])
+    want = fv.feat_view_fixed_plain(state, step, absmax, 1 << 20, view,
+                                    scale=scale)
+    out = torch.zeros((2, 2, view.F, view.Bp), device=card)
+    fv.feat_view(None, None, state.to(card), step.to(card), absmax.to(card),
+                 kcnt=1 << 20, view=view.to(card), out=out,
+                 scale=scale.to(card))
+    assert torch.equal(out.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("renew", [False, True], ids=["plain", "renew"])
+@pytest.mark.parametrize("case", ["mega", "mega_k4", "subtraction", "efb"])
+def test_quantized_trees_on_the_card_equal_the_cpu(card, case, renew):
+    """Quantized L2 training from a zero score (bagged): the gradients are
+    f32 subtractions, the same bits on both devices, so the carriers are;
+    the card's exact integer histograms and the CPU's f32 sums of them
+    agree, so 4 trees equal the CPU's bit for bit.  With the leaf renewal
+    (one tree: its f64 sums of the true gradients run in another order on
+    each device), and on bundled data (the CPU rebuilds a bundled
+    feature's default bin in f32 as JAX does, the card exactly), the
+    trees equal the CPU's split for split and their leaf values agree
+    within rtol 1e-6.  One capture, one host read a tree."""
+    X, _ = _onehot()
+    y = X[:, 0] * 2 + X[:, 1] ** 2 + 0.1 * X[:, 2]
+    if case != "efb":
+        X = X[:, :4]
+    params = {"objective": "regression", "num_leaves": 15, "verbosity": -1,
+              "use_quantized_grad": True, "boost_from_average": False,
+              "quant_train_renew_leaf": renew, "bagging_fraction": 0.8,
+              "bagging_freq": 1}
+    params.update({"mega": {"tpu_frontier_k": 1},
+                   "mega_k4": {"tpu_frontier_k": 4},
+                   "subtraction": {"tpu_megakernel": "off"},
+                   "efb": {}}[case])
+    trees = 1 if renew else 4
+    b = {}
+    for dev in ("cpu", "cuda"):
+        b[dev] = lgt.train(dict(params, device_type=dev),
+                           lgt.Dataset(X, label=y), trees)
+    for ta, tb in zip(b["cpu"]._gbdt.models, b["cuda"]._gbdt.models):
+        for f in ("split_feature", "threshold_bin", "left_child",
+                  "right_child", "leaf_count"):
+            assert np.array_equal(getattr(ta, f), getattr(tb, f)), f
+        if renew or case == "efb":
+            np.testing.assert_allclose(tb.leaf_value, ta.leaf_value,
+                                       rtol=1e-6)
+        else:
+            assert np.array_equal(tb.leaf_value, ta.leaf_value)
+    lr = b["cuda"]._gbdt.learner
+    assert lr.captures == 1 and lr.syncs == trees
+    assert lr.K == (4 if case == "mega_k4" else 1)
+    assert lr.bundled == (case == "efb")

@@ -184,6 +184,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      rows with bundling one-hot columns, a category and a bool column
      through feat_view (its scale arm against its twin) and split_cat,
      its model text's pandas_categorical reloaded;
+  4j. (after 4, before 4b) monotone constraints at the HIGGS shape
+     (``monotone_constraints`` the sign of make_data's weight on the
+     first 8 features): the unconstrained subtraction run, ``basic``,
+     ``intermediate`` and ``basic`` with ``monotone_penalty`` 1, 4
+     iterations each, every wrapper's count set to 0 before a run and
+     read after it, one capture and one tree read a tree, logloss
+     falling; s/iteration and device ms (a profiled iteration), whose
+     device launches by function equal what the graph holds; every new
+     arm and kernel (split_pair's monotone arm, tree_step's commit and
+     election with the bin boxes, mono_refresh, mono_planes,
+     mono_overlay) bit-identical to its plain twin on 6 refreshes of a
+     real tree, and its ms a launch beside its bound; the monotonicity
+     sweep on 1,000 rows of the basic and intermediate models; on a
+     200,000-row cut (quantized L2 from a zero score, 63 leaves,
+     intermediate, penalty 1) the card's first tree equals the CPU's bit for
+     bit; 4i's frame of 500,000 rows (bundles, a category, a bool)
+     intermediate and quantized: split_cat's clamp arm and the bundled
+     planes against their twins, split_cat over the L leaves timed;
   5. each kernel against its plain version on inputs captured from the
      first tree of its path, through its host-int entry and through the
      step entry the graph loop launches (a step block made beforehand,
@@ -201,7 +219,7 @@ last line is {"ok": true, "device": {...}}.
 trains the HIGGS shape 2 iterations on each body and prints a sha256 of
 the trees and row buffers a body, to compare two checkouts on one card;
 ``python3 chip_smoke.py --wide`` runs phase 4h alone, ``--efb`` phase 4e
-alone, ``--quant`` phase 4i alone.
+alone, ``--quant`` phase 4i alone, ``--mono`` phase 4j alone.
 """
 
 import contextlib
@@ -239,14 +257,15 @@ def say(msg):
     print(f"[{time.time() - T0:7.1f} s] {msg}", flush=True)
 
 
-def make_data(rows):
-    """bench.py _make_data: HIGGS-shaped synthetic binary data."""
+def make_data(rows, weights=False):
+    """bench.py _make_data: HIGGS-shaped synthetic binary data; with
+    ``weights`` its (FEATURES,) weight vector too."""
     rng = np.random.RandomState(7)
     X = rng.normal(size=(rows, FEATURES)).astype(np.float32)
     w = rng.normal(size=FEATURES)
     logit = X.dot(w) * 0.5
     y = (logit + rng.normal(size=rows) > 0).astype(np.float32)
-    return X, y
+    return (X, y, w) if weights else (X, y)
 
 
 def cuda_ms(fn, reps, warmup=2):
@@ -3722,7 +3741,9 @@ def quant_path(lgt, mods, ds, X, y, params):
     df, ym = quant_mix_frame(X, y)
     pm = dict(params, use_quantized_grad=True, quant_train_renew_leaf=True,
               min_data_per_group=50)
-    bst = lgt.Booster(pm, lgt.Dataset(df, label=ym))
+    # the constructed frame stays for phase 4j's run on it
+    out["frame_ds"] = lgt.Dataset(df, label=ym)
+    bst = lgt.Booster(pm, out["frame_ds"])
     lr = bst._gbdt.learner
     pc = bst.pandas_categorical
     check(lr.bundled and lr.has_cat and lr.subtract and len(pc) == 2
@@ -3916,6 +3937,615 @@ def quant_rows(quant):
 
 
 
+MONO_ITERS = 4
+MONO_STEPS = 6                  # refreshes of a tree held kernel by kernel
+MONO_CUT = 200_000              # rows of the card-vs-CPU trees
+MONO_CUT_LEAVES = 63
+MONO_SWEEP_ROWS = 1000
+MONO_COPIES = 20                # fresh states a one-shot launch is timed on
+MONO_RUNS = (("unconstrained", {}),
+             ("basic", {"monotone_constraints_method": "basic"}),
+             ("intermediate",
+              {"monotone_constraints_method": "intermediate"}),
+             ("basic_penalty", {"monotone_constraints_method": "basic",
+                                "monotone_penalty": 1.0}))
+# the device functions of the monotone bodies (the subtraction body's,
+# and intermediate's refresh) and their launches a tree: the refresh runs
+# between every commit of a split and the next election (SPLITS - 1 times)
+MONO_FUNCS = ("part_tiles", "part_copyback", "leaf_hist_state",
+              "pair_search", "tree_step", "mono_refresh", "mono_planes",
+              "mono_overlay")
+
+
+def mono_zero(mods, tmono):
+    """Every wrapper's launch count set to 0, mono.cu's three included."""
+    for m in mods.values():
+        m.launches = 0
+    for k in tmono.launches:
+        tmono.launches[k] = 0
+
+
+def mono_calls(mods, tmono):
+    """Every wrapper's launch count, mono.cu's three by kernel."""
+    return dict({k: m.launches for k, m in mods.items()}, **tmono.launches)
+
+
+def mono_constraints(w):
+    """``monotone_constraints`` of phase 4j: the sign of make_data's
+    weight on each of the first 8 features, 0 on the rest (a user
+    constraining the features whose direction is known)."""
+    return [int(np.sign(v)) for v in w[:8]] + [0] * (len(w) - 8)
+
+
+def mono_per_tree(intermediate):
+    """Each device function's launches a tree of the subtraction body,
+    with intermediate's refresh."""
+    r = SPLITS - 1 if intermediate else 0
+    return {"part_tiles": SPLITS, "part_copyback": SPLITS,
+            "leaf_hist_state": SPLITS + 1, "pair_search": SPLITS + 1 + r,
+            "tree_step": SPLITS + 2 + r, "mono_refresh": r,
+            "mono_planes": r, "mono_overlay": r}
+
+
+def mono_sweep(bst, X, mc, rows):
+    """The card's raw predictions for ``rows`` seeded base rows of ``X``,
+    each constrained feature set to every bin threshold of its mapper
+    (and past the last): never falling along a +1 feature, never rising
+    along a -1 one.  Returns the constrained steps checked."""
+    rng = np.random.RandomState(17)
+    base = X[rng.choice(len(X), rows, replace=False)].astype(np.float64)
+    mappers = bst._gbdt.train_data.bin_mappers
+    steps = 0
+    for f, sign in enumerate(mc):
+        if not sign:
+            continue
+        ub = np.asarray(mappers[f].bin_upper_bound, np.float64)
+        grid = np.append(ub[np.isfinite(ub)], ub[np.isfinite(ub)][-1] + 1)
+        Z = np.repeat(base, len(grid), axis=0)
+        Z[:, f] = np.tile(grid, rows)
+        p = np.asarray(bst.predict(Z, raw_score=True)).reshape(rows, -1)
+        d = np.diff(p, axis=1) * sign
+        check(d.min() >= 0.0, f"monotone sweep: feature {f} ({sign:+d}) "
+                              f"moves the prediction against its direction "
+                              f"by {d.min()!r}")
+        steps += d.size
+    return steps
+
+
+def check_mono_steps(lr, pb, pg, steps, sp, scat, ts, tmono, tpart):
+    """Every kernel of the monotone body against its plain twin, bit for
+    bit, on the states of a real tree: the learner's own sequence on
+    copies of its row buffers -- the root, the first step, then ``steps``
+    times the commit, the refresh (mono_refresh, mono_planes, the pair
+    search over the L leaves with split_cat's clamp arm when there are
+    categorical features, mono_overlay) and the election, each split's
+    pair search -- each launch's inputs copied to the host before it runs
+    and its plain twin run there; then the rest of the tree unchecked.
+    Returns the largest bit difference a kernel, the plain twins' host
+    ms, the inputs kept for the timings (of the refresh with the most
+    live leaves among those that changed the most leaves, of the last
+    commit and election) and the changed leaves of each held refresh."""
+    pb, pg = pb.clone(), pg.clone()
+    kw = dict(row0=lr.row0, N=lr.N)
+    kp = dict(l1=lr.l1, l2=lr.l2, max_delta_step=lr.max_delta_step,
+              min_gain_to_split=lr.min_gain_to_split,
+              min_data_in_leaf=lr.min_data_in_leaf,
+              min_sum_hessian=lr.min_sum_hessian, max_depth=lr.max_depth)
+    pen = None if lr.mc_pen is None else lr.mc_pen.cpu()
+    err = {k: 0 for k in ("tree_step", "split_pair", "split_cat",
+                          "mono_refresh", "mono_planes", "mono_overlay")}
+    plain = {k: [] for k in err}
+    last = {}
+
+    def same(k, got, want, what):
+        got = got.cpu()
+        if got.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        if got.numel():
+            err[k] = max(err[k], int((got.long() - want.long()).abs().max()))
+        check(torch.equal(got, want), f"{what}: the kernel differs from its "
+                                      f"plain twin")
+
+    def host_ms(k, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        plain[k].append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def step(mode, what):
+        host = [t.cpu() for t in tree_args(lr)] + [lr.boxes.cpu()]
+        if mode in (ts.MODE_COMMIT, ts.MODE_ELECT):
+            last[mode] = [t.clone() for t in tree_args(lr)] + [
+                lr.boxes.clone()]
+        ts.tree_step(mode, *tree_args(lr), boxes=lr.boxes, **kw)
+        host_ms("tree_step", lambda: ts.tree_step_plain(
+            mode, *host[:-1], boxes=host[-1], **kw))
+        for got, want in zip(list(tree_args(lr)) + [lr.boxes], host):
+            same("tree_step", got, want, f"tree_step {what}")
+
+    def search(hg, hh, info, out, cat_out, cat_work, what):
+        c = hg.shape[0] // lr.F
+        fm = lr.fmeta_pair[:c * lr.F]
+        args = [t.cpu() for t in (hg, hh, fm, info)]
+        lr._search(hg, hh, info, out=out, cat_out=cat_out, cat_work=cat_work)
+        want = host_ms("split_pair", lambda: sp.split_pair_plain(
+            *args, children=c, mono=True, pen=pen, **kp))
+        if lr.has_cat:
+            cats = torch.zeros((c, lr.W), dtype=torch.int32)
+            host_ms("split_cat", lambda: scat.split_cat_plain(
+                *args, lr.cat_feats.cpu(), want, cats, children=c,
+                mono=True, **kp, **lr.cat_kw))
+            same("split_cat", cat_out if cat_out is not None else lr.paircat,
+                 cats, f"split_cat {what}")
+        same("split_pair", out, want, f"split_pair {what}")
+
+    def pair(what, root=False):
+        ch = lr.children
+        if lr.bundled:
+            from lightgbm_tpu_torch.ops.feat_view import feat_view
+            feat_view(ch, lr.info, lr.state, lr.root_step if root
+                      else lr.step, lr._absmax, kcnt=lr.N, view=lr.view,
+                      out=lr.fchildren, scale=lr.qscale)
+            ch = lr.fchildren
+        Bp = ch.shape[-1]
+        search(ch[0].reshape(-1, Bp), ch[1].reshape(-1, Bp), lr.info,
+               lr.pair_out, None, None, what)
+
+    def refresh(what):
+        ins = [lr.leafmat, lr.boxes, lr.fmeta, lr.step, lr.fmask]
+        host = [t.cpu() for t in ins]
+        hch = torch.zeros_like(lr.mc_changed, device="cpu")
+        hinfo = torch.zeros_like(lr.mc_info, device="cpu")
+        tmono.mono_refresh(*ins, lr.mc_changed, lr.mc_info)
+        host_ms("mono_refresh", lambda: tmono.mono_refresh_plain(
+            *host, hch, hinfo))
+        for got, want in ((lr.leafmat, host[0]), (lr.mc_changed, hch),
+                          (lr.mc_info, hinfo)):
+            same("mono_refresh", got, want, f"mono_refresh {what}")
+        view = None if lr.view is None else lr.view.to("cpu")
+        scale = None if lr.qscale is None else lr.qscale.cpu()
+        tmono.mono_planes(lr.state, lr.mc_changed, lr._absmax, lr.mc_info,
+                          kcnt=lr.N, out=lr.mc_planes, view=lr.view,
+                          scale=lr.qscale)
+        want = host_ms("mono_planes", lambda: tmono.mono_planes_fixed_plain(
+            lr.state.cpu(), hch, lr._absmax.cpu(), kcnt=lr.N, view=view,
+            scale=scale))
+        keep = hch.bool()
+        same("mono_planes", lr.mc_planes[:, keep.to(lr.device)],
+             want[:, keep], f"mono_planes {what}")
+        Bp = lr.mc_planes.shape[-1]
+        search(lr.mc_planes[0].view(-1, Bp), lr.mc_planes[1].view(-1, Bp),
+               lr.mc_info, lr.mc_rows, lr.mc_cats, lr.mc_cat_work,
+               f"{what} (the L leaves)")
+        hl, hc = lr.leafmat.cpu(), lr.leafcat.cpu()
+        cats = lr.mc_cats if lr.has_cat else None
+        tmono.mono_overlay(lr.leafmat, lr.leafcat, lr.mc_changed, lr.mc_rows,
+                           cats)
+        host_ms("mono_overlay", lambda: tmono.mono_overlay_plain(
+            hl, hc, hch, lr.mc_rows.cpu(),
+            None if cats is None else cats.cpu()))
+        same("mono_overlay", lr.leafmat, hl, f"mono_overlay {what}")
+        same("mono_overlay", lr.leafcat, hc, f"mono_overlay {what}")
+        return int(hch.sum())
+
+    torch.amax(pg[:2].abs(), dim=1, out=lr._absmax)
+    lr._body(pb, pg, lr.root_step)
+    lr._root_sums(pg, lr.children[0, 0, 0], lr.children[1, 0, 0], lr.sums)
+    step(ts.MODE_ROOT, "root")
+    pair("root", root=True)
+    step(ts.MODE_STEP, "step 0")
+    lr._body(pb, pg, lr.step)
+    pair("step 0")
+    changed = []
+    for i in range(1, steps + 1):
+        step(ts.MODE_COMMIT, f"commit {i}")
+        changed.append(refresh(f"refresh {i}"))
+        step(ts.MODE_ELECT, f"elect {i}")
+        lr._body(pb, pg, lr.step)
+        pair(f"step {i}")
+    # the rest of the tree, unchecked, keeping for the timings the inputs
+    # of the refresh with the most live leaves that changed some, and of
+    # the last commit and election
+    most = -1
+    while not int(lr.step[tpart.SB_DONE]) and int(lr.step[
+            tpart.SB_S]) < lr.max_splits:
+        last[ts.MODE_COMMIT] = [t.clone() for t in tree_args(lr)] + [
+            lr.boxes.clone()]
+        lr._step(ts.MODE_COMMIT)
+        ins = [t.clone() for t in (lr.leafmat, lr.boxes, lr.fmeta, lr.step,
+                                   lr.fmask)]
+        lr._refresh()
+        n = int(lr.mc_changed.sum())
+        if n and n >= most:
+            most = n
+            last["refresh"] = ins
+            last["planes"] = lr.mc_changed.clone()
+        last[ts.MODE_ELECT] = [t.clone() for t in tree_args(lr)] + [
+            lr.boxes.clone()]
+        lr._step(ts.MODE_ELECT)
+        if int(lr.step[tpart.SB_DONE]):
+            break
+        lr._body(pb, pg, lr.step)
+        lr._pair()
+    check(most > 0, "mono: no refresh of the tree changed a leaf's bounds")
+    return err, {k: float(np.median(v)) for k, v in plain.items() if v}, \
+        last, changed
+
+
+def mono_times(lr, last, sp, ts, tmono, SB_S):
+    """ms a launch of each new kernel and arm on the inputs of the last
+    refresh held (graph replay; the commit and the election by CUDA
+    events on fresh copies of their states, queued back to back), with
+    its bound from the run's own sizes: the L-leaf pair search's and the
+    changed leaves' planes.  Returns {name: (ms, (bound ms, by))}."""
+    L, F, W, dev = lr.L, lr.F, lr.W, lr.device
+    ins = [t.clone() for t in last["refresh"]]
+    live = int(ins[3][SB_S]) + 1
+    changed = last["planes"]
+    n_ch = int(changed.sum())
+    info, planes = lr.mc_info.clone(), lr.mc_planes.clone()
+    rows, cats = lr.mc_rows.clone(), lr.mc_cats.clone()
+    lm, lc = lr.leafmat.clone(), lr.leafcat.clone()
+    out = {}
+    ch = torch.zeros_like(changed)
+    out["mono_refresh"] = (graph_ms(lambda: tmono.mono_refresh(
+        *ins, ch, info), 50), bound(
+            (2 * (L + 1) * F + 6 * L + L * F * 8 + L) * 4,
+            2 * L * live * F))
+    Bp = planes.shape[-1]
+    out["mono_planes"] = (graph_ms(lambda: tmono.mono_planes(
+        lr.state, changed, lr._absmax, info, kcnt=lr.N, out=planes,
+        view=lr.view, scale=lr.qscale), 50), bound(
+            n_ch * 2 * F * Bp * (8 + 4) + L * 4, 0))
+    fm = lr.fmeta_pair[:L * F]
+    kp = dict(l1=lr.l1, l2=lr.l2, max_delta_step=lr.max_delta_step,
+              min_gain_to_split=lr.min_gain_to_split,
+              min_data_in_leaf=lr.min_data_in_leaf,
+              min_sum_hessian=lr.min_sum_hessian, max_depth=lr.max_depth,
+              children=L, mono=True, pen=lr.mc_pen)
+    pout = torch.empty((L, 13), device=dev)
+    hg, hh = planes[0].view(-1, Bp), planes[1].view(-1, Bp)
+    out["split_pair_mono"] = (graph_ms(lambda: sp.split_pair(
+        hg, hh, fm, info, out=pout, **kp), 50), bound(
+            2 * L * F * Bp * 4 + 2 * L * F * 8 * 4 + L * 13 * 4,
+            L * F * Bp * 80))
+    out["split_pair_mono_plain_ms"] = cuda_ms(
+        lambda: sp.split_pair_plain(hg, hh, fm, info, **kp), 3)
+    ov = 13 + (W if lr.has_cat else 0)
+    out["mono_overlay"] = (graph_ms(lambda: tmono.mono_overlay(
+        lm, lc, changed, rows, cats if lr.has_cat else None), 50), bound(
+            L * 4 + n_ch * ov * 4 * 2, 0))
+    kw = dict(row0=lr.row0, N=lr.N)
+    for mode, name in ((ts.MODE_COMMIT, "tree_step_commit"),
+                       (ts.MODE_ELECT, "tree_step_elect")):
+        copies = [[t.clone() for t in last[mode]]
+                  for _ in range(MONO_COPIES)]
+        ms, k = queued_ms([lambda c=c: ts.tree_step(
+            mode, *c[:-1], boxes=c[-1], **kw) for c in copies])
+        nbytes = ((25 + 2 * 25 + 2 * 13 + 1 + 3 * 2 * F + 2 * W) * 4
+                  if mode == ts.MODE_COMMIT else
+                  (L + 25 + 17 + 2 * F * 8 + 33 + 2 * W) * 4)
+        out[name] = (ms / k, bound(nbytes, 0))
+    out["live"], out["changed"] = live, n_ch
+    return out
+
+
+def mono_path(lgt, mods, ds, X, y, w, params):
+    """Phase 4j: monotone constraints at the HIGGS shape.
+
+    ``monotone_constraints`` = the sign of make_data's weight on the
+    first 8 features (``mono_constraints``).  On the subtraction body
+    (the JAX package's body for monotone constraints), MONO_ITERS
+    iterations each of the unconstrained run, ``basic``,
+    ``intermediate`` and ``basic`` with ``monotone_penalty`` 1 from
+    ``ds``, every wrapper's count set to 0 before a run and read after
+    (twice a tree's calls: the run that sizes everything, then the
+    capture), one capture and one tree read a tree, the logloss falling;
+    s/iteration (median of iterations 2-4) and, one more iteration
+    under torch.profiler, device ms and the device launches by function,
+    equal to what the graph holds a tree.  On the intermediate run's
+    learner, every new arm and kernel against its plain twin bit for bit
+    on MONO_STEPS refreshes of a real tree (``check_mono_steps``) and
+    its ms a launch (``mono_times``); the monotonicity sweep on
+    MONO_SWEEP_ROWS rows of the basic and intermediate models.  On a
+    MONO_CUT-row cut (L2 on 4g's continuous label from a zero score,
+    quantized: integer carriers both devices sum exactly; MONO_CUT_LEAVES
+    leaves, intermediate, penalty 1) the card's first tree equals the
+    CPU plain loop's bit for bit.  Phase 4i's frame is ``mono_frame``'s,
+    after 4i."""
+    from lightgbm_tpu_torch.models import boosting as bmod
+    from lightgbm_tpu_torch.ops import mono as tmono
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.time()
+    sp, scat, ts = mods["split_pair"], mods["split_cat"], mods["tree_step"]
+    mc = mono_constraints(w)
+    out = {"mc": mc, "runs": {}}
+
+    keep = {}
+    for run, extra in MONO_RUNS:
+        p = dict(params, tpu_megakernel="off", **extra)
+        if run != "unconstrained":
+            p["monotone_constraints"] = mc
+        bst = lgt.Booster(p, ds)
+        lr = bst._gbdt.learner
+        inter = run == "intermediate"
+        check(lr.subtract and lr.K == 1 and lr.use_mc == (
+            run != "unconstrained") and (lr.mc_mode == "intermediate")
+              == inter and (lr.mc_pen is not None) == ("penalty" in run),
+              f"mono {run}: subtract {lr.subtract} K {lr.K} use_mc "
+              f"{lr.use_mc} mode {lr.mc_mode}")
+        mono_zero(mods, tmono)
+        times, losses = [], []
+        for _ in range(MONO_ITERS):
+            t0 = time.time()
+            bst.update()
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+            losses.append(bst.eval_train()[0][2])
+        got = mono_calls(mods, tmono)
+        want = {"partition": SPLITS, "leaf_hist": SPLITS + 1,
+                "hist_rmw": SPLITS + 1,
+                "split_pair": SPLITS + 1 + (SPLITS - 1 if inter else 0),
+                "tree_step": SPLITS + 2 + (SPLITS - 1 if inter else 0),
+                "mono_refresh": SPLITS - 1 if inter else 0,
+                "mono_planes": SPLITS - 1 if inter else 0,
+                "mono_overlay": SPLITS - 1 if inter else 0}
+        for k, n in want.items():
+            check(got.get(k, 0) == 2 * n, f"mono {run}: {k}: {got.get(k)} "
+                                          f"wrapper calls, expected {2 * n}")
+        check(lr.captures == 1 and lr.syncs == lr.replays == MONO_ITERS,
+              f"mono {run}: {lr.captures} captures, {lr.replays} replays, "
+              f"{lr.syncs} tree reads")
+        check(all(a > b for a, b in zip(losses, losses[1:])),
+              f"mono {run}: the training logloss does not fall: {losses}")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            bst.update()
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+        del prof
+        dms = sum(ms for _, ms, _ in rows)
+        by_fn = {}
+        for key, ms, n in rows:
+            fn = func(key)
+            if fn in MONO_FUNCS:
+                t, c = by_fn.get(fn, (0.0, 0))
+                by_fn[fn] = (t + ms, c + n)
+        for fn, n in mono_per_tree(inter).items():
+            check(by_fn.get(fn, (0, 0))[1] == n,
+                  f"mono {run}: {fn}: {by_fn.get(fn, (0, 0))[1]} device "
+                  f"launches in the profiled tree, expected {n}")
+        med = float(np.median(times[1:]))
+        out["runs"][run] = {"iter_s": med, "iter_all": times,
+                            "device_ms": dms, "losses": losses,
+                            "calls": got, "by_fn": by_fn}
+        say(f"mono {run} (subtraction, K=1): s/iteration "
+            f"{[round(t, 4) for t in times]} (median of 2-{MONO_ITERS} "
+            f"{med:.4f}), device ms an iteration {dms:.2f}, logloss "
+            f"{losses}; wrapper calls {got}; device launches a tree "
+            f"{ {k: v[1] for k, v in by_fn.items()} } (as the graph holds)")
+        if run in ("basic", "intermediate"):
+            n = mono_sweep(bst, X, mc, MONO_SWEEP_ROWS)
+            out["runs"][run]["sweep_steps"] = n
+            say(f"mono {run}: the card's model monotone along each "
+                f"constrained feature over its bin thresholds on "
+                f"{MONO_SWEEP_ROWS} rows ({n} steps)")
+        if inter:
+            keep["bst"] = bst
+        else:
+            del bst
+        del lr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # every new arm and kernel on a real tree's states, and their times
+    bst = keep.pop("bst")
+    lr = bst._gbdt.learner
+    pb_, pg_ = bst._gbdt._phys
+    err, plain, last, changed = check_mono_steps(lr, pb_, pg_, MONO_STEPS, sp,
+                                                 scat, ts, tmono,
+                                                 mods["partition"])
+    times = mono_times(lr, last, sp, ts, tmono, mods["partition"].SB_S)
+    out.update(err=err, plain=plain, times=times, changed=changed)
+    say(f"mono kernels: tree_step (commit, election, boxes), split_pair's "
+        f"monotone arm (the pair and the {lr.L} leaves), mono_refresh, "
+        f"mono_planes and mono_overlay bit-identical to their plain twins "
+        f"on {MONO_STEPS} refreshes of a real tree (changed leaves "
+        f"{changed}); ms a launch " + ", ".join(
+            f"{k} {v[0]:.4f} (bound {v[1][0]:.4f}, {v[1][1]})"
+            for k, v in times.items() if isinstance(v, tuple))
+        + f"; plain host ms {plain}")
+    del bst, lr, pb_, pg_
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # card against CPU on a cut: quantized L2 from a zero score
+    yc, _ = objective_labels(X)
+    d_cut = relabeled(lgt, ds, X, yc, MONO_CUT)
+    p = dict(params, tpu_megakernel="off", objective="regression",
+             boost_from_average=False, use_quantized_grad=True,
+             num_leaves=MONO_CUT_LEAVES, monotone_constraints=mc,
+             monotone_constraints_method="intermediate",
+             monotone_penalty=1.0)
+    models = []
+    for dev_kw in ({}, {"device_type": "cpu"}):
+        with quant_carriers(bmod) as rec:
+            cb = lgt.Booster(dict(p, **dev_kw), d_cut)
+            cb.update()
+        models.append((cb._gbdt.models, rec))
+    (ma, reca), (mb, recb) = models
+    for t, (ta, tb) in enumerate(zip(ma, mb)):
+        check(all(np.array_equal(a, b) for a, b in zip(reca[t], recb[t])),
+              f"mono card vs CPU: tree {t}'s carriers differ")
+        for f in ("split_feature", "threshold", "left_child", "right_child",
+                  "leaf_value", "internal_value", "leaf_count"):
+            check(np.array_equal(getattr(ta, f), getattr(tb, f)),
+                  f"mono card vs CPU: tree {t}'s {f} differs")
+    out["card_vs_cpu"] = [int(t.num_leaves) for t in ma]
+    say(f"mono card vs CPU on {MONO_CUT} rows (quantized L2 from a zero "
+        f"score, intermediate, penalty 1, {MONO_CUT_LEAVES} leaves): the "
+        f"carriers and the card's first tree ({out['card_vs_cpu']} leaves) "
+        f"equal the CPU plain loop's bit for bit")
+    del d_cut, models, ma, mb
+
+    say(f"monotone (phase 4j, the HIGGS shape): {time.time() - t_phase:.1f} "
+        f"s")
+    return out
+
+
+def mono_frame(lgt, mods, dsf, mc, params):
+    """Phase 4j on phase 4i's frame (``dsf``, constructed: 500,000 rows
+    of the HIGGS features, one-hot columns that bundle, a category and a
+    bool): intermediate constraints (``mc`` on the HIGGS features) and
+    quantized gradients, 3 iterations, the wrappers' counts set to 0
+    before and read after (split_cat, feat_view and the refresh's
+    kernels launched), the logloss falling; split_cat's clamp arm and
+    the bundled planes held to their twins on 4 refreshes of a real tree
+    (``check_mono_steps``), split_cat over the L leaves timed."""
+    from lightgbm_tpu_torch.ops import mono as tmono
+    t_phase = time.time()
+    sp, scat, ts = mods["split_pair"], mods["split_cat"], mods["tree_step"]
+
+    pm = dict(params, use_quantized_grad=True, min_data_per_group=50,
+              monotone_constraints=mc,
+              monotone_constraints_method="intermediate")
+    bst = lgt.Booster(pm, dsf)
+    lr = bst._gbdt.learner
+    check(lr.bundled and lr.has_cat and lr.use_mc and lr.subtract
+          and lr.qscale is not None and lr.mc_mode == "intermediate",
+          f"mono frame: bundled {lr.bundled} categorical {lr.has_cat} "
+          f"use_mc {lr.use_mc}")
+    mono_zero(mods, tmono)
+    losses, ftimes = [], []
+    for _ in range(3):
+        t0 = time.time()
+        bst.update()
+        torch.cuda.synchronize()
+        ftimes.append(time.time() - t0)
+        losses.append(bst.eval_train()[0][2])
+    fcalls = mono_calls(mods, tmono)
+    check(all(fcalls[k] > 0 for k in ("split_cat", "feat_view",
+                                      "mono_refresh", "mono_planes"))
+          and all(a > b for a, b in zip(losses, losses[1:])),
+          f"mono frame: launches {fcalls}, logloss {losses}")
+    pb_, pg_ = bst._gbdt._phys
+    ferr, fplain, _, fchanged = check_mono_steps(lr, pb_, pg_, 4, sp, scat,
+                                                 ts, tmono,
+                                                 mods["partition"])
+    # split_cat's clamp arm on the L-leaf search's inputs of the last
+    # refresh held
+    L, F, Bp = lr.L, lr.F, lr.mc_planes.shape[-1]
+    kp = dict(l1=lr.l1, l2=lr.l2, max_delta_step=lr.max_delta_step,
+              min_gain_to_split=lr.min_gain_to_split,
+              min_data_in_leaf=lr.min_data_in_leaf,
+              min_sum_hessian=lr.min_sum_hessian, max_depth=lr.max_depth)
+    fm = lr.fmeta_pair[:L * F]
+    hg, hh = lr.mc_planes[0].view(-1, Bp), lr.mc_planes[1].view(-1, Bp)
+    rows = lr.mc_rows.clone()
+    sets = lr.mc_cats.clone()
+    ck = dict(children=L, mono=True, **kp, **lr.cat_kw)
+    cat_ms = graph_ms(lambda: scat.split_cat(
+        hg, hh, fm, lr.mc_info, lr.cat_feats, rows, sets,
+        work=lr.mc_cat_work, **ck), 20)
+    cat_plain = cuda_ms(lambda: scat.split_cat_plain(
+        hg, hh, fm, lr.mc_info, lr.cat_feats, rows.clone(), sets.clone(),
+        **ck), 2, 1)
+    NC = int(lr.cat_feats.numel())
+    nbs = lr.fmeta_pair[lr.cat_feats.long(), 0].cpu().numpy().astype(
+        np.float64)
+    out = {"iter_s": ftimes, "losses": losses, "calls": fcalls,
+           "err": ferr, "plain": fplain, "changed": fchanged,
+           "split_cat": (cat_ms, bound(
+               L * (2 * nbs.sum() * 4 + NC * 64 + NC * 4 + 2 * 13 * 4
+                    + lr.W * 4),
+               L * float((nbs * (np.ceil(np.log2(nbs)) + 60)).sum()))),
+           "split_cat_plain_ms": cat_plain, "NC": NC}
+    say(f"mono frame ({QUANT_MIX_ROWS} rows: one-hot columns that bundle, "
+        f"a category, a bool; intermediate, quantized): s/iteration "
+        f"{[round(t, 4) for t in ftimes]}, logloss {losses}; split_cat's "
+        f"clamp arm and the bundled planes bit-identical to their twins on "
+        f"4 refreshes of a real tree (changed leaves {fchanged}); split_cat "
+        f"over the {L} leaves {cat_ms:.4f} ms a launch (plain "
+        f"{cat_plain:.3f})")
+    del bst, lr, pb_, pg_
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"monotone (phase 4j, the frame): {time.time() - t_phase:.1f} s")
+    return out
+
+
+def mono_summary(mono):
+    """Phase 4j's numbers for the log: per run s/iteration and device
+    ms; the kernels' times; the frame's."""
+    return {"mc": mono["mc"],
+            "runs": {k: {n: r[n] for n in ("iter_s", "device_ms")}
+                     for k, r in mono["runs"].items()},
+            "changed": mono["changed"], "live": mono["times"]["live"],
+            "frame_iter_s": mono["frame"]["iter_s"]}
+
+
+def mono_rows(mono):
+    """The kernels line's rows of phase 4j: each new kernel and arm, its
+    launches the wrapper's count over the intermediate run (set to 0 just
+    before it; split_cat's over the frame's run), its ms a launch against
+    its bound, its plain twin's host ms (the device's for the L-leaf pair
+    search and split_cat), and its device ms an iteration from the
+    profiled tree."""
+    tm, runs = mono["times"], mono["runs"]
+    calls, by_fn = runs["intermediate"]["calls"], runs["intermediate"][
+        "by_fn"]
+    rows = []
+    tree_ms = by_fn["tree_step"][0] / max(by_fn["tree_step"][1], 1)
+    for name, src, replaces, kern, launches, iter_ms, extra in (
+            ("split_pair_mono", "split_pair.cu",
+             "lightgbm_tpu/ops/split.py:715", "split_pair",
+             calls["split_pair"], by_fn["pair_search"][0],
+             {"children": "L = 255 (the refresh's search); the pair "
+                          "search's launches (2 children) run the same "
+                          "arm", "plain_on": "the card"}),
+            ("tree_step_commit", "tree_step.cu",
+             "lightgbm_tpu/models/learner.py:2361", "tree_step",
+             calls["tree_step"], by_fn["tree_step"][0],
+             {"launches_note": "tree_step's wrapper calls of every mode; "
+                               "iter_ms all its launches"}),
+            ("tree_step_elect", "tree_step.cu",
+             "lightgbm_tpu/models/learner.py:2115", "tree_step",
+             calls["tree_step"], by_fn["tree_step"][0],
+             {"tree_step_mean_ms": tree_ms}),
+            ("mono_refresh", "mono.cu",
+             "lightgbm_tpu/models/learner.py:1570", "mono_refresh",
+             calls["mono_refresh"], by_fn["mono_refresh"][0],
+             {"live_leaves": tm["live"]}),
+            ("mono_planes", "mono.cu",
+             "lightgbm_tpu/models/learner.py:1643", "mono_planes",
+             calls["mono_planes"], by_fn["mono_planes"][0],
+             {"changed_leaves": tm["changed"]}),
+            ("mono_overlay", "mono.cu",
+             "lightgbm_tpu/models/learner.py:1657", "mono_overlay",
+             calls["mono_overlay"], by_fn["mono_overlay"][0], {})):
+        ms, (bms, by) = tm[name]
+        plain = (tm["split_pair_mono_plain_ms"] if kern == "split_pair"
+                 else mono["plain"][kern])
+        rows.append(dict({"name": name, "route": "cuda",
+                          "source": f"lightgbm_tpu_torch/csrc/{src}",
+                          "replaces": replaces, "launches": launches,
+                          "max_abs_err": float(mono["err"][kern]),
+                          "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                          "bound_by": by, "library_ms": None,
+                          "iter_ms": iter_ms}, **extra))
+    fr = mono["frame"]
+    cms, (cb, cby) = fr["split_cat"]
+    rows.append({"name": "split_cat_clamp", "route": "cuda",
+                 "source": "lightgbm_tpu_torch/csrc/split_cat.cu",
+                 "replaces": "lightgbm_tpu/ops/split.py:129",
+                 "launches": fr["calls"]["split_cat"],
+                 "max_abs_err": float(fr["err"]["split_cat"]), "ms": cms,
+                 "plain_ms": fr["split_cat_plain_ms"], "bound_ms": cb,
+                 "bound_by": cby, "library_ms": None,
+                 "children": 255, "categorical_features": fr["NC"]})
+    return rows
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -4060,7 +4690,7 @@ def main():
     # (2F, 8) metadata and info blocks, the two 13-word results
     pair_bytes = 2 * (2 * G) * 256 * 4 + 2 * (2 * G) * 8 * 4 + 2 * 13 * 4
     t0 = time.time()
-    X, y = make_data(ROWS)
+    X, y, w = make_data(ROWS, weights=True)
     say(f"data: {X.shape} in {time.time() - t0:.1f} s")
     params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
               "learning_rate": 0.1, "verbosity": -1}
@@ -4160,6 +4790,10 @@ def main():
                     else {"tpu_megakernel": "off"}, label)
         del bst, lr, pb_, pg_
         torch.cuda.empty_cache()
+    # ---- 4j. monotone constraints: early in the process, whose first
+    # profiled graphs the profiler names and counts right (PERF.md
+    # section 7)
+    mono = mono_path(lgt, mods, ds, X, y, w, params)
     # ---- 4b. the frontier (K > 1) on the mega path ------------------
     from lightgbm_tpu_torch.ops import frontier as fro
     fr_device = frontier_window_launches()
@@ -4207,6 +4841,9 @@ def main():
     wide = wide_path(lgt, mods, ds, X, y, params)
     # ---- 4i. quantized-gradient training --------------------------------
     quant = quant_path(lgt, mods, ds, X, y, params)
+    # ---- 4j on 4i's frame (constructed there) ---------------------------
+    mono["frame"] = mono_frame(lgt, mods, quant.pop("frame_ds"), mono["mc"],
+                               params)
     del X, y, ds
     gc.collect()
     torch.cuda.empty_cache()
@@ -4606,6 +5243,8 @@ def main():
     ]
     print(f"quantized (phase 4i, {card}): " + json.dumps(quant_summary(quant)),
           flush=True)
+    print(f"monotone (phase 4j, {card}): " + json.dumps(mono_summary(mono)),
+          flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": [
         row("split_mega", "split_mega.cu",
@@ -4674,7 +5313,7 @@ def main():
          "library_ms": None, "iter_ms": cat["per"]["split_cat"][0],
          "iter_bound_ms": cat["iter_bound"], "ms_from_python": cat["py_ms"],
          "partition_cat_max_abs_err": cat["part_err"]},
-    ] + wide_rows + quant_rows(quant)}), flush=True)
+    ] + wide_rows + quant_rows(quant) + mono_rows(mono)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -4821,6 +5460,24 @@ def quant_only():
                       "kernels": quant_rows(quant)}), flush=True)
 
 
+def mono_only():
+    """``python3 chip_smoke.py --mono``: phase 4j alone (the HIGGS shape
+    made and constructed), its checks and numbers printed; the last line
+    its kernel rows and summary, a JSON object."""
+    lgt, mods = standalone("--mono")
+    X, y, w = make_data(ROWS, weights=True)
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+              "learning_rate": 0.1, "verbosity": -1}
+    ds = lgt.Dataset(X, label=y)
+    ds.construct(params)
+    mono = mono_path(lgt, mods, ds, X, y, w, params)
+    df, ym = quant_mix_frame(X, y)
+    mono["frame"] = mono_frame(lgt, mods, lgt.Dataset(df, label=ym),
+                               mono["mc"], params)
+    print(json.dumps({"summary": mono_summary(mono),
+                      "kernels": mono_rows(mono)}), flush=True)
+
+
 def wide_only():
     """``python3 chip_smoke.py --wide``: phase 4h alone (the HIGGS shape
     made and constructed at max_bin 255 for the run beside max_bin 1023),
@@ -4850,6 +5507,8 @@ if __name__ == "__main__":
         efb_only()
     elif sys.argv[1:] == ["--quant"]:
         quant_only()
+    elif sys.argv[1:] == ["--mono"]:
+        mono_only()
     elif sys.argv[1:2] == ["--cat"] and len(sys.argv) <= 3:
         cat_only(sys.argv[2] if len(sys.argv) == 3 else "nan")
     else:

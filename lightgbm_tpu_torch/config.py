@@ -641,6 +641,13 @@ def _off(v) -> bool:
         "", "none", "off", "0", "false")
 
 
+def _monotone_on(c) -> bool:
+    """A ``monotone_constraints`` value with a nonzero entry."""
+    return not _off(c.monotone_constraints) and any(
+        v.strip() not in ("0", "") for v in
+        str(c.monotone_constraints).strip("()[]").split(","))
+
+
 _PORTED_OBJECTIVES = (
     "regression", "regression_l1", "huber", "fair", "poisson", "quantile",
     "mape", "gamma", "tweedie", "binary", "multiclass", "multiclassova",
@@ -668,9 +675,11 @@ _UNSUPPORTED = [
     ("feature_fraction_bynode", lambda c: c.feature_fraction_bynode < 1.0),
     ("extra_trees", lambda c: bool(c.extra_trees)),
     ("linear_tree", lambda c: bool(c.linear_tree)),
-    ("monotone_constraints", lambda c: not _off(c.monotone_constraints)
-     and any(v.strip() not in ("0", "") for v in
-             str(c.monotone_constraints).strip("()[]").split(","))),
+    # monotone constraints train by the basic and intermediate methods;
+    # advanced needs per-threshold bounds in the pair search
+    ("monotone_constraints_method",
+     lambda c: c.monotone_constraints_method == "advanced"
+     and _monotone_on(c)),
     ("interaction_constraints", lambda c: not _off(c.interaction_constraints)),
     ("forcedsplits_filename", lambda c: not _off(c.forcedsplits_filename)),
     ("forcedbins_filename", lambda c: not _off(c.forcedbins_filename)),

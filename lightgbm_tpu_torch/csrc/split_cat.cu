@@ -36,6 +36,13 @@
 // the records) instead of shared memory, so any width fits; the warp
 // scans take ceil(BF / 32) positions a lane, the prefix_sum blocks of
 // that width.  A set is W = max(8, ceil(BF / 32)) words.
+//
+// The monotone arm (the template's MONO, a launch argument): the
+// children's outputs are clipped to the child's bounds (info columns
+// IN_CMIN, IN_CMAX), every gain -- the leaf's shift, one-vs-rest, both
+// ends' -- is taken at the clipped outputs (JAX
+// find_best_split_categorical with cmin / cmax), and the merged winner's
+// outputs are clipped.  Without it the arm is not in the launched kernel.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -59,6 +66,8 @@
 #define IN_NUM_DATA 2
 #define IN_DEPTH 3
 #define IN_MASK 4
+#define IN_CMIN 5         // the child's output bounds (monotone)
+#define IN_CMAX 6
 
 struct Params {
   float l1, l2, max_delta_step, min_gain_to_split, min_data_in_leaf,
@@ -93,6 +102,41 @@ __device__ __forceinline__ float leaf_gain(float g, float h, float l1,
     return -((2.0f * s) * out + ((h + l2) * out) * out);
   }
   return (s * s) / (h + l2);
+}
+
+__device__ __forceinline__ float clip_out(float v, float lo, float hi) {
+  return fminf(fmaxf(v, lo), hi);
+}
+
+// The gain at a given output (GetLeafGainGivenOutput).
+__device__ __forceinline__ float gain_given(float g, float h, float l1,
+                                           float l2, float out) {
+  const float s = thr_l1(g, l1);
+  return -((2.0f * s) * out + ((h + l2) * out) * out);
+}
+
+// The two children's gain at l2: the sum of their leaf gains, or (MONO)
+// the gains at their outputs clipped to [cmin, cmax].
+template <bool MONO>
+__device__ __forceinline__ float pair_gain(float lg, float lh, float rg,
+                                           float rh, float l1, float l2,
+                                           float mds, float cmin,
+                                           float cmax) {
+  if (!MONO) return leaf_gain(lg, lh, l1, l2, mds) + leaf_gain(rg, rh, l1, l2, mds);
+  const float lo = clip_out(leaf_out(lg, lh, l1, l2, mds), cmin, cmax);
+  const float ro = clip_out(leaf_out(rg, rh, l1, l2, mds), cmin, cmax);
+  return gain_given(lg, lh, l1, l2, lo) + gain_given(rg, rh, l1, l2, ro);
+}
+
+// The leaf's own gain, the shift its candidates must beat (MONO: at its
+// clipped output).
+template <bool MONO>
+__device__ __forceinline__ float shift_gain(float sg, float sh, float l1,
+                                            float l2, float mds, float cmin,
+                                            float cmax) {
+  if (!MONO) return leaf_gain(sg, sh, l1, l2, mds);
+  return gain_given(sg, sh, l1, l2,
+                    clip_out(leaf_out(sg, sh, l1, l2, mds), cmin, cmax));
 }
 
 // Inclusive prefix sums of 256 positions of a shared row, by one warp,
@@ -130,13 +174,13 @@ __device__ __forceinline__ bool first_max(float a, int ia, float b, int ib) {
 // (largest gain, smaller feature on ties) merged into the pair search's
 // row when it wins by the JAX argmax rule, and its W-word set written
 // (zeros where the numerical split stays).  Records are rec words apart.
+// MONO: the outputs clipped to the child's bounds.
+template <bool MONO>
 __device__ __forceinline__ void merge_best(
     float* __restrict__ pair, int* __restrict__ cat_out, const int* work,
     const float* __restrict__ info, const int* __restrict__ cat_feats, int F,
     int C, int NC, int rec, int W, float l1, float mds) {
-  const int t = threadIdx.x;
-  if (t < C) {
-    const int cc = t;
+  for (int cc = threadIdx.x; cc < C; cc += NT) {
     const volatile int* rv = work + cc * NC * rec;
     int kb = 0;
     float g = __int_as_float(rv[0]);
@@ -163,6 +207,14 @@ __device__ __forceinline__ void merge_best(
       const float lg = __int_as_float(rb[1]), lh = __int_as_float(rb[2]);
       const float lc = __int_as_float(rb[3]), l2e = __int_as_float(rb[4]);
       const float rg = sg - lg, rh = sh - lh, rc = nd - lc;
+      float lout = leaf_out(lg, lh, l1, l2e, mds);
+      float rout = leaf_out(rg, rh, l1, l2e, mds);
+      if (MONO) {
+        const float cmin = info[(cc * F) * 8 + IN_CMIN];
+        const float cmax = info[(cc * F) * 8 + IN_CMAX];
+        lout = clip_out(lout, cmin, cmax);
+        rout = clip_out(rout, cmin, cmax);
+      }
       o[0] = rel;
       o[1] = __int_as_float(feat);
       o[2] = __int_as_float(0);
@@ -173,8 +225,8 @@ __device__ __forceinline__ void merge_best(
       o[7] = lh - K_EPS;
       o[8] = rg;
       o[9] = rh - K_EPS;
-      o[10] = leaf_out(lg, lh, l1, l2e, mds);
-      o[11] = leaf_out(rg, rh, l1, l2e, mds);
+      o[10] = lout;
+      o[11] = rout;
       o[12] = 1.0f;
       for (int j = 0; j < W; ++j) co[j] = rb[REC_FIELDS + j];
     } else {
@@ -183,6 +235,7 @@ __device__ __forceinline__ void merge_best(
   }
 }
 
+template <bool MONO>
 __global__ void __launch_bounds__(NT)
     cat_search(const float* __restrict__ hg, const float* __restrict__ hh,
                const int* __restrict__ fmeta, const float* __restrict__ info,
@@ -216,8 +269,11 @@ __global__ void __launch_bounds__(NT)
   const bool fmask = info[r * 8 + IN_MASK] > 0.0f;
   const float cnt_factor = num_data / sum_h_tot;
   const float l1 = p.l1, mds = p.max_delta_step;
+  const float cmin = MONO ? info[r * 8 + IN_CMIN] : 0.0f;
+  const float cmax = MONO ? info[r * 8 + IN_CMAX] : 0.0f;
   const float mgs =
-      leaf_gain(sum_g, sum_h_tot, l1, p.l2, mds) + p.min_gain_to_split;
+      shift_gain<MONO>(sum_g, sum_h_tot, l1, p.l2, mds, cmin, cmax) +
+      p.min_gain_to_split;
   const float mdl = p.min_data_in_leaf, msh = p.min_sum_hessian;
   const float mdpg = q.min_data_per_group;
 
@@ -230,8 +286,8 @@ __global__ void __launch_bounds__(NT)
     const float other_g = sum_g - G;
     const float other_h = (sum_h_tot - H) - K_EPS;
     const float other_cnt = num_data - cnt;
-    const float gain = leaf_gain(G, hess_t, l1, p.l2, mds) +
-                       leaf_gain(other_g, other_h, l1, p.l2, mds);
+    const float gain = pair_gain<MONO>(G, hess_t, other_g, other_h, l1, p.l2,
+                                       mds, cmin, cmax);
     const bool valid = in_range && cnt >= mdl && H >= msh &&
                        other_cnt >= mdl && other_h >= msh && gain > mgs;
     float v = valid ? gain : -INFINITY;
@@ -310,8 +366,8 @@ __global__ void __launch_bounds__(NT)
       const float rg = sum_g - lg, rh = sum_h_tot - lh, rc = num_data - lc;
       const bool left_ok = lc >= mdl && lh >= msh;
       const bool broken = rc < mdl || rc < mdpg || rh < msh;
-      const float gain = leaf_gain(lg, lh, l1, q.l2c, mds) +
-                         leaf_gain(rg, rh, l1, q.l2c, mds);
+      const float gain =
+          pair_gain<MONO>(lg, lh, rg, rh, l1, q.l2c, mds, cmin, cmax);
       (dir ? s_gr : s_gf)[t] = gain;
       (dir ? s_okr : s_okf)[t] = left_ok && in_loop;
       (dir ? s_brr : s_brf)[t] = broken;
@@ -393,8 +449,8 @@ __global__ void __launch_bounds__(NT)
   __threadfence();
 
   // ---- the last block: merge each child's best into its row --------
-  merge_best(pair, cat_out, work, info, cat_feats, F, C, NC, REC, CAT_WORDS,
-             l1, mds);
+  merge_best<MONO>(pair, cat_out, work, info, cat_feats, F, C, NC, REC,
+                   CAT_WORDS, l1, mds);
   if (t == 0) work[C * NC * REC] = 0;
 }
 
@@ -431,6 +487,7 @@ __device__ __forceinline__ void warp_scan_wide(const float* src, float* dst,
 // flags), which the block's barriers make visible to all its threads.
 // Every value is the 256-bin kernel's arithmetic on the same operands,
 // so the two agree with split_cat_plain at their widths.
+template <bool MONO>
 __global__ void __launch_bounds__(NT)
     cat_search_wide(const float* __restrict__ hg,
                     const float* __restrict__ hh,
@@ -475,8 +532,11 @@ __global__ void __launch_bounds__(NT)
   const bool fmask = info[r * 8 + IN_MASK] > 0.0f;
   const float cnt_factor = num_data / sum_h_tot;
   const float l1 = p.l1, mds = p.max_delta_step;
+  const float cmin = MONO ? info[r * 8 + IN_CMIN] : 0.0f;
+  const float cmax = MONO ? info[r * 8 + IN_CMAX] : 0.0f;
   const float mgs =
-      leaf_gain(sum_g, sum_h_tot, l1, p.l2, mds) + p.min_gain_to_split;
+      shift_gain<MONO>(sum_g, sum_h_tot, l1, p.l2, mds, cmin, cmax) +
+      p.min_gain_to_split;
   const float mdl = p.min_data_in_leaf, msh = p.min_sum_hessian;
   const float mdpg = q.min_data_per_group;
   if (t == 0) s_used = 0;
@@ -494,8 +554,8 @@ __global__ void __launch_bounds__(NT)
     const float other_g = sum_g - G;
     const float other_h = (sum_h_tot - H) - K_EPS;
     const float other_cnt = num_data - cnt;
-    const float gain = leaf_gain(G, hess_t, l1, p.l2, mds) +
-                       leaf_gain(other_g, other_h, l1, p.l2, mds);
+    const float gain = pair_gain<MONO>(G, hess_t, other_g, other_h, l1, p.l2,
+                                       mds, cmin, cmax);
     const bool valid = in_range && cnt >= mdl && H >= msh &&
                        other_cnt >= mdl && other_h >= msh && gain > mgs;
     const float gv = valid ? gain : -INFINITY;
@@ -584,8 +644,8 @@ __global__ void __launch_bounds__(NT)
       const float rg = sum_g - lg, rh = sum_h_tot - lh, rc = num_data - lc;
       const bool left_ok = lc >= mdl && lh >= msh;
       const bool broken = rc < mdl || rc < mdpg || rh < msh;
-      const float gain = leaf_gain(lg, lh, l1, q.l2c, mds) +
-                         leaf_gain(rg, rh, l1, q.l2c, mds);
+      const float gain =
+          pair_gain<MONO>(lg, lh, rg, rh, l1, q.l2c, mds, cmin, cmax);
       (dir ? x_gr : x_gf)[b] = gain;
       flag |= ((left_ok && in_loop) ? 1 : 0) << dir;
       flag |= (broken ? 4 : 0) << dir;
@@ -679,14 +739,31 @@ __global__ void __launch_bounds__(NT)
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  merge_best(pair, cat_out, work, info, cat_feats, F, C, NC, rec_words, W,
-             l1, mds);
+  merge_best<MONO>(pair, cat_out, work, info, cat_feats, F, C, NC, rec_words,
+                   W, l1, mds);
   if (t == 0) work[C * NC * rec_words] = 0;
 }
 
 // BF <= 256: cat_search, W = 8 and the records 16 words; wider:
 // cat_search_wide, W = ceil(BF / 32) and its scratch rows after the
-// records and the ticket (ops/split_cat.py new_work).
+// records and the ticket (ops/split_cat.py new_work).  mono: the
+// monotone arm.
+template <bool MONO>
+static void launch(bool wide, cudaStream_t st, const float* hg,
+                   const float* hh, const int* fmeta, const float* info,
+                   const int* cat_feats, float* pair, int* cat_out, int* work,
+                   int F, int C, int BF, int NC, int W, const Params& p,
+                   const CatParams& q) {
+  if (wide)
+    cat_search_wide<MONO><<<dim3(NC, C), NT, 0, st>>>(
+        hg, hh, fmeta, info, cat_feats, pair, cat_out, work, F, C, BF, NC, W,
+        p, q);
+  else
+    cat_search<MONO><<<dim3(NC, C), NT, 0, st>>>(
+        hg, hh, fmeta, info, cat_feats, pair, cat_out, work, F, C, BF, NC,
+        p, q);
+}
+
 extern "C" int split_cat_launch(const float* hg, const float* hh,
                                 const int* fmeta, const float* info,
                                 const int* cat_feats, float* pair,
@@ -697,22 +774,22 @@ extern "C" int split_cat_launch(const float* hg, const float* hh,
                                 int max_depth, int max_cat_threshold,
                                 float l2c, float cat_smooth,
                                 int max_cat_to_onehot,
-                                float min_data_per_group, void* stream) {
+                                float min_data_per_group, int mono,
+                                void* stream) {
   const bool wide = BF > MAX_BF;
-  if (BF < 1 || F < 1 || C < 1 || C > NT || NC < 1 || NC > F ||
+  if (BF < 1 || F < 1 || C < 1 || C > 65535 || NC < 1 || NC > F ||
       W != (wide ? (BF + 31) / 32 : CAT_WORDS))
     return (int)cudaErrorInvalidValue;
   const Params p{l1, l2, max_delta_step, min_gain_to_split, min_data_in_leaf,
                  min_sum_hessian, max_depth};
   const CatParams q{max_cat_threshold, l2c, cat_smooth, max_cat_to_onehot,
                     min_data_per_group};
-  if (wide)
-    cat_search_wide<<<dim3(NC, C), NT, 0, (cudaStream_t)stream>>>(
-        hg, hh, fmeta, info, cat_feats, pair, cat_out, work, F, C, BF, NC, W,
-        p, q);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (mono)
+    launch<true>(wide, st, hg, hh, fmeta, info, cat_feats, pair, cat_out,
+                 work, F, C, BF, NC, W, p, q);
   else
-    cat_search<<<dim3(NC, C), NT, 0, (cudaStream_t)stream>>>(
-        hg, hh, fmeta, info, cat_feats, pair, cat_out, work, F, C, BF, NC,
-        p, q);
+    launch<false>(wide, st, hg, hh, fmeta, info, cat_feats, pair, cat_out,
+                  work, F, C, BF, NC, W, p, q);
   return (int)cudaGetLastError();
 }

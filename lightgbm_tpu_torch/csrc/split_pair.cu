@@ -35,6 +35,18 @@
 //   the cluster's blocks through distributed shared memory -- the
 //   reference's scan-order tie-break -- and one lane writes the 13
 //   leafmat fields (int fields bitcast into f32).
+//
+// The monotone arm (the template's MONO, a launch argument: without
+// monotone constraints it is not in the launched kernel): each child's
+// outputs are clipped to its bounds (info columns IN_CMIN, IN_CMAX) and
+// every gain, the leaf's shift among them, is taken at the clipped
+// output; a candidate whose outputs go against its feature's direction
+// (fmeta column FM_MONO) is not valid; the winner's outputs are clipped.
+// One warp then takes both scans of a feature, so that the feature's best
+// is known before it competes: with a penalty table (monotone_penalty by
+// depth) a monotone feature's best gain relative to the shift is
+// multiplied by the entry at the child's depth, JAX find_best_split's
+// feature-level rule.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -56,11 +68,14 @@ namespace cg = cooperative_groups;
 #define FM_MISSING 1
 #define FM_DEFAULT 2
 #define FM_IS_CAT 3             // categorical: not scanned here
+#define FM_MONO 4               // monotone direction: +1, -1 or 0
 #define IN_SUM_G 0
 #define IN_SUM_H 1
 #define IN_NUM_DATA 2
 #define IN_DEPTH 3
 #define IN_MASK 4
+#define IN_CMIN 5               // the child's output bounds (monotone)
+#define IN_CMAX 6
 
 struct Params {
   float l1, l2, max_delta_step, min_gain_to_split, min_data_in_leaf,
@@ -87,6 +102,41 @@ __device__ __forceinline__ float leaf_gain(float g, float h, const Params& p) {
     return -((2.0f * s) * out + ((h + p.l2) * out) * out);
   }
   return (s * s) / (h + p.l2);
+}
+
+// The gain at a given output (GetLeafGainGivenOutput).
+__device__ __forceinline__ float gain_given(float g, float h, float out,
+                                           const Params& p) {
+  const float s = thr_l1(g, p.l1);
+  return -((2.0f * s) * out + ((h + p.l2) * out) * out);
+}
+
+__device__ __forceinline__ float clip_out(float v, float lo, float hi) {
+  return fminf(fmaxf(v, lo), hi);
+}
+
+// The two children's gain of a candidate: the sum of their leaf gains, or
+// (MONO) the gains at their outputs clipped to [cmin, cmax], -inf when
+// the outputs go against the direction dir.
+template <bool MONO>
+__device__ __forceinline__ float pair_gain(float lg, float lh, float rg,
+                                           float rh, const Params& p,
+                                           float cmin, float cmax, int dir) {
+  if (!MONO) return leaf_gain(lg, lh, p) + leaf_gain(rg, rh, p);
+  const float lo = clip_out(leaf_out(lg, lh, p), cmin, cmax);
+  const float ro = clip_out(leaf_out(rg, rh, p), cmin, cmax);
+  if ((dir > 0 && lo > ro) || (dir < 0 && lo < ro)) return -INFINITY;
+  return gain_given(lg, lh, lo, p) + gain_given(rg, rh, ro, p);
+}
+
+// The leaf's own gain, the shift its candidates must beat: at its clipped
+// output with MONO.
+template <bool MONO>
+__device__ __forceinline__ float shift_gain(float sg, float sh,
+                                            const Params& p, float cmin,
+                                            float cmax) {
+  if (!MONO) return leaf_gain(sg, sh, p);
+  return gain_given(sg, sh, clip_out(leaf_out(sg, sh, p), cmin, cmax), p);
 }
 
 // A candidate: its gain, preference key and left sums.  Candidates
@@ -156,11 +206,12 @@ __device__ __forceinline__ float row_at(const float (&v)[LANE_BINS], int b) {
 // whose registers the struct would spill); both agree with
 // split_pair_plain bit for bit.
 struct ScanRow {
-  int nb, dflt, bmax, key0, BF;
-  float sum_g, sum_h_tot, num_data, cnt_factor, mgs, mdl;
+  int nb, dflt, bmax, key0, BF, dir;
+  float sum_g, sum_h_tot, num_data, cnt_factor, mgs, mdl, cmin, cmax;
   bool zero_m, two_scan, fmask, depth_ok, reverse;
 };
 
+template <bool MONO>
 __device__ __forceinline__ ScanRow scan_row(const int* __restrict__ fmeta,
                                             const float* __restrict__ info,
                                             int r, int f, bool reverse,
@@ -179,7 +230,11 @@ __device__ __forceinline__ ScanRow scan_row(const int* __restrict__ fmeta,
   const bool nan_m = mtype == 2;
   m.two_scan = (m.nb > 2) && (mtype != 0);
   m.bmax = m.nb - 1 - ((nan_m && m.two_scan) ? 1 : 0);
-  m.mgs = leaf_gain(m.sum_g, m.sum_h_tot, p) + p.min_gain_to_split;
+  m.cmin = MONO ? info[r * 8 + IN_CMIN] : 0.0f;
+  m.cmax = MONO ? info[r * 8 + IN_CMAX] : 0.0f;
+  m.dir = MONO ? fmeta[r * 8 + FM_MONO] : 0;
+  m.mgs = shift_gain<MONO>(m.sum_g, m.sum_h_tot, p, m.cmin, m.cmax) +
+          p.min_gain_to_split;
   m.mdl = p.min_data_in_leaf;
   m.depth_ok = p.max_depth <= 0 || depth < (float)p.max_depth;
   m.key0 = f * (2 * BF);
@@ -209,6 +264,7 @@ __device__ __forceinline__ void mask_bin(const ScanRow& m, int t, float& g,
 // keys ascend with the threshold after the reverse scan's) or the
 // reverse scan (missing values go left; right sums are the row's total
 // minus the prefix sums; keys descend with the threshold).
+template <bool MONO>
 __device__ __forceinline__ Cand bin_cand(const ScanRow& m, const Params& p,
                                          int t, float sg, float sh, float sn,
                                          float tg, float th, float tn) {
@@ -236,7 +292,7 @@ __device__ __forceinline__ Cand bin_cand(const ScanRow& m, const Params& p,
               !(m.zero_m && t == m.dflt);
     key = m.key0 + m.BF + t;
   }
-  const float gain = leaf_gain(lg, lh, p) + leaf_gain(rg, rh, p);
+  const float gain = pair_gain<MONO>(lg, lh, rg, rh, p, m.cmin, m.cmax, m.dir);
   const bool ok = lc >= m.mdl && rc >= m.mdl && lh >= p.min_sum_hessian &&
                   rh >= p.min_sum_hessian;
   const bool valid = allowed && ok && gain > m.mgs && m.fmask && m.depth_ok;
@@ -250,6 +306,7 @@ __device__ __forceinline__ Cand bin_cand(const ScanRow& m, const Params& p,
 // sums are the row's total minus the prefix sums; keys descend with the
 // threshold).  The two need no data of each other, so two warps take
 // them.
+template <bool MONO>
 __device__ __forceinline__ Cand scan_best(const float* __restrict__ hg,
                                           const float* __restrict__ hh,
                                           const int* __restrict__ fmeta,
@@ -278,7 +335,11 @@ __device__ __forceinline__ Cand scan_best(const float* __restrict__ hg,
   const bool zero_m = mtype == 1, nan_m = mtype == 2;
   const bool two_scan = (nb > 2) && (mtype != 0);
   const int bmax = nb - 1 - ((nan_m && two_scan) ? 1 : 0);
-  const float mgs = leaf_gain(sum_g, sum_h_tot, p) + p.min_gain_to_split;
+  const float cmin = MONO ? info[r * 8 + IN_CMIN] : 0.0f;
+  const float cmax = MONO ? info[r * 8 + IN_CMAX] : 0.0f;
+  const int dir = MONO ? fmeta[r * 8 + FM_MONO] : 0;
+  const float mgs =
+      shift_gain<MONO>(sum_g, sum_h_tot, p, cmin, cmax) + p.min_gain_to_split;
   const float mdl = p.min_data_in_leaf;
   const bool depth_ok = p.max_depth <= 0 || depth < (float)p.max_depth;
   const int key0 = f * (2 * BF);
@@ -333,7 +394,7 @@ __device__ __forceinline__ Cand scan_best(const float* __restrict__ hg,
       allowed = two_scan && t < nb && t <= nb - 2 && !(zero_m && t == dflt);
       key = key0 + BF + t;
     }
-    const float gain = leaf_gain(lg, lh, p) + leaf_gain(rg, rh, p);
+    const float gain = pair_gain<MONO>(lg, lh, rg, rh, p, cmin, cmax, dir);
     const bool ok = lc >= mdl && rc >= mdl && lh >= p.min_sum_hessian &&
                     rh >= p.min_sum_hessian;
     const bool valid = allowed && ok && gain > mgs && fmask && depth_ok;
@@ -363,11 +424,12 @@ __device__ __forceinline__ double lane_offset(double tot, int lane) {
 // after the lane scan, for the running sums beside its offset and each
 // bin's candidate.  Every sum is associated as in the 8-bin arm, so the
 // two agree with prefix_sum bit for bit at their widths.
+template <bool MONO>
 __device__ __forceinline__ Cand scan_best_wide(
     const float* __restrict__ hg, const float* __restrict__ hh,
     const int* __restrict__ fmeta, const float* __restrict__ info, int r,
     int f, bool reverse, int BF, const Params& p, int lane) {
-  const ScanRow m = scan_row(fmeta, info, r, f, reverse, BF, p);
+  const ScanRow m = scan_row<MONO>(fmeta, info, r, f, reverse, BF, p);
   const int per = (BF + 31) / 32;
   const int t0 = lane * per;
   const float* rg = hg + (long long)r * BF;
@@ -406,14 +468,16 @@ __device__ __forceinline__ Cand scan_best_wide(
     lh = j ? lh + (double)h : (double)h;
     ln = j ? ln + (double)n : (double)n;
     if (t >= BF) continue;
-    const Cand c = bin_cand(m, p, t, (float)(og + lg), (float)(oh + lh),
+    const Cand c = bin_cand<MONO>(m, p, t, (float)(og + lg), (float)(oh + lh),
                             (float)(on + ln), ag, ah, an);
     if (better(c, best)) best = c;
   }
   return warp_best(best);
 }
 
-// Write child c's 13 leafmat fields from its best candidate b.
+// Write child c's 13 leafmat fields from its best candidate b (MONO: the
+// shift at the clipped output, the outputs clipped).
+template <bool MONO>
 __device__ void write_best(const Cand& b, const int* __restrict__ fmeta,
                            const float* __restrict__ info, int c, int F,
                            int BF, const Params& p, float* __restrict__ o) {
@@ -434,7 +498,15 @@ __device__ void write_best(const Cand& b, const int* __restrict__ fmeta,
   const float nd = info[(c * F) * 8 + IN_NUM_DATA];
   const float lg = b.lg, lh = b.lh, lc = b.lc;
   const float rg = sg - lg, rh = sh - lh, rc = nd - lc;
-  const float shift = leaf_gain(sg, sh, p) + p.min_gain_to_split;
+  const float cmin = MONO ? info[(c * F) * 8 + IN_CMIN] : 0.0f;
+  const float cmax = MONO ? info[(c * F) * 8 + IN_CMAX] : 0.0f;
+  const float shift =
+      shift_gain<MONO>(sg, sh, p, cmin, cmax) + p.min_gain_to_split;
+  float lout = leaf_out(lg, lh, p), rout = leaf_out(rg, rh, p);
+  if (MONO) {
+    lout = clip_out(lout, cmin, cmax);
+    rout = clip_out(rout, cmin, cmax);
+  }
   o[0] = has_win ? b.gain - shift : -INFINITY;
   o[1] = __int_as_float(wfeat);
   o[2] = __int_as_float(thr);
@@ -445,16 +517,40 @@ __device__ void write_best(const Cand& b, const int* __restrict__ fmeta,
   o[7] = lh - K_EPS;
   o[8] = rg;
   o[9] = rh - K_EPS;
-  o[10] = leaf_out(lg, lh, p);
-  o[11] = leaf_out(rg, rh, p);
+  o[10] = lout;
+  o[11] = rout;
   o[12] = 0.0f;
 }
 
-template <bool WIDE>
+// The monotone penalty of one feature's best gain (row r: its child's
+// shift and depth, the feature's direction): relative to the shift,
+// times the table's entry at the depth when the feature is monotone.
+__device__ __forceinline__ float penalized(float gain,
+                                           const int* __restrict__ fmeta,
+                                           const float* __restrict__ info,
+                                           int r, const Params& p,
+                                           const float* __restrict__ pen,
+                                           int pen_len) {
+  if (!(gain > -INFINITY)) return -INFINITY;
+  const float cmin = info[r * 8 + IN_CMIN], cmax = info[r * 8 + IN_CMAX];
+  const float mgs =
+      shift_gain<true>(info[r * 8 + IN_SUM_G], info[r * 8 + IN_SUM_H] + 2e-15f,
+                       p, cmin, cmax) +
+      p.min_gain_to_split;
+  float rel = gain - mgs;
+  if (fmeta[r * 8 + FM_MONO] != 0) {
+    const int d = min(max((int)info[r * 8 + IN_DEPTH], 0), pen_len - 1);
+    rel = rel * pen[d];
+  }
+  return mgs + rel;
+}
+
+template <bool WIDE, bool MONO>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
     pair_search(const float* __restrict__ hg, const float* __restrict__ hh,
                 const int* __restrict__ fmeta,
                 const float* __restrict__ info, int F, int BF, Params p,
+                const float* __restrict__ pen, int pen_len,
                 float* __restrict__ out) {
   __shared__ Cand s_best[MAX_WARPS];
   __shared__ Cand s_block;
@@ -467,14 +563,23 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
   const int nw = blockDim.x >> 5;
   const Cand none{-INFINITY, 0.0f, 0.0f, 0.0f, BIG_KEY};
   Cand best = none;
-  // work items: (feature row, scan direction), 2F a child
-  for (int u = w * ncl + rank; u < 2 * F; u += nw * ncl) {
-    const int f = u >> 1;
-    const Cand rb =
-        WIDE ? scan_best_wide(hg, hh, fmeta, info, c * F + f, f, u & 1, BF,
-                              p, lane)
-             : scan_best(hg, hh, fmeta, info, c * F + f, f, u & 1, BF, p,
-                         lane);
+  // work items: (feature row, scan direction), 2F a child; MONO: a
+  // feature row, both of its scans
+  const int items = MONO ? F : 2 * F;
+  for (int u = w * ncl + rank; u < items; u += nw * ncl) {
+    const int f = MONO ? u : u >> 1;
+    Cand rb;
+    for (int k = 0; k < (MONO ? 2 : 1); ++k) {
+      const bool rev = MONO ? k == 0 : (u & 1);
+      const Cand sb =
+          WIDE ? scan_best_wide<MONO>(hg, hh, fmeta, info, c * F + f, f, rev,
+                                      BF, p, lane)
+               : scan_best<MONO>(hg, hh, fmeta, info, c * F + f, f, rev, BF,
+                                 p, lane);
+      if (k == 0 || better(sb, rb)) rb = sb;
+    }
+    if (MONO && pen != nullptr)
+      rb.gain = penalized(rb.gain, fmeta, info, c * F + f, p, pen, pen_len);
     if (better(rb, best)) best = rb;
   }
   if (lane == 0) s_best[w] = best;
@@ -487,11 +592,14 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
   if (rank == 0 && w == 0) {
     const Cand b = warp_best(
         lane < ncl ? *cluster.map_shared_rank(&s_block, lane) : none);
-    if (lane == 0) write_best(b, fmeta, info, c, F, BF, p, out + c * 13);
+    if (lane == 0)
+      write_best<MONO>(b, fmeta, info, c, F, BF, p, out + c * 13);
   }
   cluster.sync();   // the blocks' shared memory stays until it is read
 }
 
+// mono: the monotone arm (MONO); pen / pen_len: its penalty table by
+// depth, or null.
 extern "C" int split_pair_launch(const float* hg, const float* hh,
                                  const int* fmeta, const float* info,
                                  float* out, int F, int C, int BF, float l1,
@@ -499,12 +607,15 @@ extern "C" int split_pair_launch(const float* hg, const float* hh,
                                  float min_gain_to_split,
                                  float min_data_in_leaf,
                                  float min_sum_hessian, int max_depth,
+                                 int mono, const float* pen, int pen_len,
                                  void* stream) {
-  if (BF < 1 || F < 1 || C < 1) return (int)cudaErrorInvalidValue;
+  if (BF < 1 || F < 1 || C < 1 || (pen != nullptr && (!mono || pen_len < 1)))
+    return (int)cudaErrorInvalidValue;
   const Params p{l1, l2, max_delta_step, min_gain_to_split, min_data_in_leaf,
                  min_sum_hessian, max_depth};
-  const int ncl = 2 * F < MAX_CLUSTER ? 2 * F : MAX_CLUSTER;
-  const int per = (2 * F + ncl - 1) / ncl;
+  const int items = mono ? F : 2 * F;
+  const int ncl = items < MAX_CLUSTER ? items : MAX_CLUSTER;
+  const int per = (items + ncl - 1) / ncl;
   const int nw = per < MAX_WARPS ? per : MAX_WARPS;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(C * ncl);
@@ -517,9 +628,12 @@ extern "C" int split_pair_launch(const float* hg, const float* hh,
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  if (BF > MAX_BF)
-    return (int)cudaLaunchKernelEx(&cfg, pair_search<true>, hg, hh, fmeta,
-                                   info, F, BF, p, out);
-  return (int)cudaLaunchKernelEx(&cfg, pair_search<false>, hg, hh, fmeta,
-                                 info, F, BF, p, out);
+  const bool wide = BF > MAX_BF;
+  if (mono)
+    return (int)cudaLaunchKernelEx(
+        &cfg, wide ? pair_search<true, true> : pair_search<false, true>, hg,
+        hh, fmeta, info, F, BF, p, pen, pen_len, out);
+  return (int)cudaLaunchKernelEx(
+      &cfg, wide ? pair_search<true, false> : pair_search<false, false>, hg,
+      hh, fmeta, info, F, BF, p, pen, pen_len, out);
 }

@@ -55,8 +55,8 @@
 #define NND 17
 
 // fmeta rows: feature id, group row, bin_start, is_bundled, num_bin,
-// default_bin, missing_type; one column per feature
-#define FMETA_ROWS 7
+// default_bin, missing_type, monotone direction; one column per feature
+#define FMETA_ROWS 8
 #define SEG 13          // LM_BGAIN .. LM_BISCAT, the pair search's row
 
 // One leafmat column (models/learner.py _leaf_column) at col, its rows

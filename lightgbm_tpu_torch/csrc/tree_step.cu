@@ -48,6 +48,17 @@
 // (SB_ISCAT, SB_CAT) for the partition.  On numerical data split_pair
 // writes LM_BISCAT = 0 and paircat stays zero, so all of these are 0.
 //
+// Monotone constraints (fmeta row 7: each feature's direction, zeros
+// without them): the children's output bounds are the parent's
+// [LM_CMIN, LM_CMAX], tightened to the mid of the two outputs on the side
+// a monotone feature's direction says for a numerical split (the
+// reference's BasicLeafConstraints, child_bounds below).  The election
+// writes them into the children's info rows (columns 5, 6), the commit
+// into their leafmat columns; the root's are -inf and +inf.  With the
+// boxes (intermediate constraints: (2, L + 1, F) int32, each leaf's lowest
+// and highest bin per feature, or null) the root's reset writes row 0 and
+// a commit the two children's boxes (child_boxes below).
+//
 // What bounds it on this card: latency.  It moves two leafmat columns, a
 // nodemat column, the info block and the step block (a few KB) and reads
 // the L gains; one block of 256 threads does it in a few dependent steps.
@@ -79,8 +90,49 @@ struct TreeArgs {
   int* leafcat;         // (L + 1, W)
   int* nodecat;         // (nodes + 1, W)
   const int* paircat;   // (2, W)
+  int* boxes;           // (2, L + 1, F) or null: the leaves' bin boxes
   int L, nodes, F, row0, N, mode, W;
 };
+
+// The children's bounds (left cmin, left cmax, right cmin, right cmax) of
+// the split in the leafmat column pcol on a feature of direction mono.
+__device__ __forceinline__ void child_bounds(const float* pcol, int mono,
+                                             float* b) {
+  const float pmin = pcol[LM_CMIN], pmax = pcol[LM_CMAX];
+  const float mid = (pcol[LM_BLOUT] + pcol[LM_BROUT]) * 0.5f;
+  const bool num = !(pcol[LM_BISCAT] > 0.5f);
+  b[0] = num && mono < 0 ? fmaxf(pmin, mid) : pmin;
+  b[1] = num && mono > 0 ? fminf(pmax, mid) : pmax;
+  b[2] = num && mono > 0 ? fmaxf(pmin, mid) : pmin;
+  b[3] = num && mono < 0 ? fminf(pmax, mid) : pmax;
+}
+
+// The children's boxes of the split of `leaf` (column pcol) into rows
+// `leaf` and `nw`, feature f by thread (JAX learner.py _child_boxes): the
+// parent's box; along a numerical split's feature the left child's upper
+// end min(hi, thr) unless the missing / default bin goes left from past
+// the threshold, the right child's lower end max(lo, thr + 1) unless it
+// goes right from at or below it.
+__device__ __forceinline__ void child_boxes(const TreeArgs& a,
+                                            const float* pcol, int leaf,
+                                            int nw) {
+  const int L1F = (a.L + 1) * a.F, F = a.F;
+  const int fe = __float_as_int(pcol[LM_BFEAT]);
+  const int thr = __float_as_int(pcol[LM_BTHR]);
+  const bool dl = pcol[LM_BDL] > 0.5f, iscat = pcol[LM_BISCAT] > 0.5f;
+  const int nb = a.fmeta[4 * F + fe], dbin = a.fmeta[5 * F + fe];
+  const int mtype = a.fmeta[6 * F + fe];
+  const int d_eff = mtype == 2 ? nb - 1 : dbin;
+  const bool miss_l = mtype != 0 && dl && d_eff > thr;
+  const bool miss_r = mtype != 0 && !dl && d_eff <= thr;
+  for (int f = threadIdx.x; f < F; f += blockDim.x) {
+    const int lo = a.boxes[leaf * F + f], hi = a.boxes[L1F + leaf * F + f];
+    const bool cut = f == fe && !iscat;
+    a.boxes[L1F + leaf * F + f] = cut && !miss_l ? min(hi, thr) : hi;
+    a.boxes[nw * F + f] = cut && !miss_r ? max(lo, thr + 1) : lo;
+    a.boxes[L1F + nw * F + f] = hi;
+  }
+}
 
 __device__ __forceinline__ void leaf_column(
     const TreeArgs& a, int leaf, int start, int cnt, int cnt_g, float sg,
@@ -111,13 +163,18 @@ __global__ void __launch_bounds__(STEP_THREADS) tree_step(TreeArgs a) {
     }
     for (int i = tid; i < NND * N1; i += STEP_THREADS) a.nm[i] = 0.0f;
     const float in[8] = {a.sums[0], a.sums[1], (float)*a.bag, 0.0f, 0.0f,
-                         0.0f, 0.0f, 0.0f};
+                         -INFINITY, INFINITY, 0.0f};
     for (int i = tid; i < 2 * F * 8; i += STEP_THREADS)
       a.info[i] = (i & 7) == 4 ? a.fmask[(i >> 3) % F] : in[i & 7];
     for (int i = tid; i < SB_CAT + W; i += STEP_THREADS)
       step[i] = i == SB_PEND ? 1 : 0;
     for (int i = tid; i < L1 * W; i += STEP_THREADS) a.leafcat[i] = 0;
     for (int i = tid; i < N1 * W; i += STEP_THREADS) a.nodecat[i] = 0;
+    if (a.boxes)
+      for (int f = tid; f < F; f += STEP_THREADS) {
+        a.boxes[f] = 0;
+        a.boxes[L1 * F + f] = a.fmeta[4 * F + f] - 1;
+      }
     return;
   }
 
@@ -141,6 +198,9 @@ __global__ void __launch_bounds__(STEP_THREADS) tree_step(TreeArgs a) {
     const int depth = __float_as_int(pcol[LM_DEPTH]) + 1;
     const int nl = *a.nl;
     const int node = s_s - 1;
+    float b[4];
+    child_bounds(pcol, a.fmeta[7 * F + __float_as_int(pcol[LM_BFEAT])], b);
+    const int leaf = tid == 0 ? s_leaf : s_new;
     if (tid == 0)
       leaf_column(a, s_leaf, start, nl, __float_as_int(pcol[LM_BLCNT]),
                   pcol[LM_BLSG], pcol[LM_BLSH], depth, pcol[LM_BLOUT], node,
@@ -150,7 +210,12 @@ __global__ void __launch_bounds__(STEP_THREADS) tree_step(TreeArgs a) {
                   __float_as_int(pcol[LM_BRCNT]), pcol[LM_BRSG],
                   pcol[LM_BRSH], depth, pcol[LM_BROUT], node, 1,
                   a.pair + SEG);
+    a.lm[LM_CMIN * L1 + leaf] = b[2 * tid];
+    a.lm[LM_CMAX * L1 + leaf] = b[2 * tid + 1];
   }
+  // the children's boxes by the other threads (their reads of the
+  // parent's row come before their writes, feature by feature)
+  if (pend == 2 && a.boxes) child_boxes(a, pcol, s_leaf, s_new);
   // the sets by the second warp, beside the first's leaf columns
   if (tid >= CAT_WARP && tid < CAT_WARP + 32) {
     for (int i = tid - CAT_WARP; i < 2 * W; i += 32) {
@@ -260,6 +325,8 @@ __global__ void __launch_bounds__(STEP_THREADS) tree_step(TreeArgs a) {
     step[SB_CAT + j] = word;
   }
   if (tid == 0) step[SB_ISCAT] = pcol[LM_BISCAT] > 0.5f;
+  float b[4];
+  child_bounds(pcol, fm[7 * F], b);
   for (int i = tid; i < 2 * F * 8; i += STEP_THREADS) {
     const int c = i / (F * 8), k = i & 7;
     float v = 0.0f;
@@ -268,6 +335,8 @@ __global__ void __launch_bounds__(STEP_THREADS) tree_step(TreeArgs a) {
     if (k == 2) v = (float)(c ? rcg : lcg);
     if (k == 3) v = (float)s_depth;
     if (k == 4) v = a.fmask[(i >> 3) % F];
+    if (k == 5) v = b[2 * c];
+    if (k == 6) v = b[2 * c + 1];
     a.info[i] = v;
   }
   if (tid == 0) {
@@ -304,18 +373,18 @@ extern "C" int tree_step_launch(float* lm, float* nm, int* step,
                                 const int* fmeta, float* info,
                                 const float* sums, const int* bag,
                                 const float* fmask, int* leafcat,
-                                int* nodecat, const int* paircat, int L,
-                                int nodes, int F, int row0, int N, int mode,
-                                int W, void* stream) {
+                                int* nodecat, const int* paircat, int* boxes,
+                                int L, int nodes, int F, int row0, int N,
+                                int mode, int W, void* stream) {
   if (L < 2 || nodes != L - 1 || F < 0 || W < CAT_WORDS ||
       W * sizeof(int) > 48 * 1024 || mode < MODE_ROOT || mode > MODE_FINAL ||
       lm == nullptr || nm == nullptr || step == nullptr || bag == nullptr ||
       leafcat == nullptr || nodecat == nullptr || paircat == nullptr)
     return (int)cudaErrorInvalidValue;
-  const TreeArgs a{lm,      nm,      step,    nl,    pair, fmeta,
+  const TreeArgs a{lm,      nm,      step,    nl,    pair,  fmeta,
                    info,    sums,    bag,     fmask, leafcat,
-                   nodecat, paircat, L,       nodes, F,    row0,
-                   N,       mode,    W};
+                   nodecat, paircat, boxes,   L,     nodes, F,
+                   row0,    N,       mode,    W};
   if (W == CAT_WORDS)
     tree_step<CAT_WORDS>
         <<<1, STEP_THREADS, W * sizeof(int), (cudaStream_t)stream>>>(a);

@@ -119,9 +119,27 @@ reads the gain domain; the histogram state keeps the integer sums; the
 root's totals are the carriers' exact sums, as f32, times the scale.
 Without quantization ``qscale`` is None and no arm runs.
 
+Monotone constraints (``monotone_constraints``; JAX
+``find_best_split``'s monotone arms, the reference's monotone
+constraints): as in the JAX package, whose fast search they turn off,
+they take the histogram-subtraction body at K=1.  fmeta row 7 and the
+pair search's FM_MONO column hold each used feature's direction (0 for a
+categorical one), the pair search (and the categorical search) runs its
+monotone arm, and ``tree_step`` carries each leaf's output bounds
+(``LM_CMIN`` / ``LM_CMAX``, the basic rule) into the children's info
+rows.  ``monotone_penalty`` is a table of factors by depth
+(``penalty_table``, ``mc_pen``).  ``monotone_constraints_method``
+``intermediate`` adds the leaves' bin boxes (``boxes``) and, after each
+split's commit and before the next election, the refresh of
+ops/mono.py: every leaf's bounds from the leaves it is comparable with,
+the planes of the leaves whose bounds changed from the histogram state,
+one pair search over all L leaves, and the overlay of their rows.
+``advanced`` is refused by the config.
+
 ``build_tree_eager`` keeps the loop this port ran before, with the
 bookkeeping on the host and one sync a split, as the oracle the tests
-hold the device loop to.
+hold the device loop to (not on monotone data, whose oracle is the JAX
+package).
 """
 
 from __future__ import annotations
@@ -142,6 +160,7 @@ from ..ops.frontier import MODE_ROOT as FR_ROOT
 from ..ops.frontier import MODE_STEP as FR_STEP
 from ..ops.feat_view import View, feat_view
 from ..ops.hist_state import leaf_hist_rmw, leaf_hist_rmw_step, new_state
+from ..ops.mono import mono_overlay, mono_planes, mono_refresh
 from ..ops.partition import (S_CNT, SB_DONE, SB_ERR, SB_MADE, SB_S,
                              SB_STEPS, Workspace, cat_words, make_scalars,
                              partition_leaf, partition_step, scalars_start,
@@ -149,7 +168,7 @@ from ..ops.partition import (S_CNT, SB_DONE, SB_ERR, SB_MADE, SB_S,
 from ..ops.split_cat import cat_params, new_work, split_cat
 from ..ops.split_mega import (hist_geometry, split_mega, split_mega_step,
                               unpack_hist4)
-from ..ops.split_pair import split_pair
+from ..ops.split_pair import OUT_FIELDS, penalty_table, split_pair
 from ..ops.tree_step import (LM_BDL, LM_BFEAT, LM_BGAIN, LM_BISCAT,
                              LM_BLCNT, LM_BLOUT, LM_BLSG, LM_BLSH, LM_BRCNT,
                              LM_BROUT, LM_BRSG, LM_BRSH, LM_BTHR, LM_CNT,
@@ -161,7 +180,8 @@ from ..ops.tree_step import (LM_BDL, LM_BFEAT, LM_BGAIN, LM_BISCAT,
                              ND_IS_BUNDLED, ND_IS_CAT, ND_IVALUE,
                              ND_IWEIGHT, ND_LEFT,
                              ND_MISSING, ND_NUM_BIN, ND_RIGHT, ND_THRESHOLD,
-                             MODE_FINAL, MODE_ROOT, MODE_STEP,
+                             MODE_COMMIT, MODE_ELECT, MODE_FINAL, MODE_ROOT,
+                             MODE_STEP, FMETA_ROWS,
                              NEG_INF, NLF, NND, _f2i, empty_leafmat,
                              info_block, leaf_column, node_column, tree_step)
 from ..utils import log
@@ -193,11 +213,37 @@ def frontier_k(config: Config, eligible: bool, L: int, device) -> int:
         if k > 1 and not eligible:
             log.warning("tpu_frontier_k=%d needs the mega path "
                         "(tpu_megakernel auto/pallas, no EFB bundles, no "
-                        "categorical features, uint8 bins), at least one "
+                        "categorical features, uint8 bins, no monotone "
+                        "constraints), at least one "
                         "feature and payload row %d free for its row keys; "
                         "using 1", k, KEY_ROW)
             k = 1
     return max(1, min(k, L - 1))
+
+
+def parse_monotone_constraints(spec, num_total_features: int) -> np.ndarray:
+    """The ``monotone_constraints`` param ("1,-1,0" or a list) as a
+    per-original-feature int32 array, missing entries 0 (JAX
+    learner.py ``parse_monotone_constraints``)."""
+    out = np.zeros(num_total_features, dtype=np.int32)
+    if spec is None:
+        return out
+    if isinstance(spec, str):
+        spec = spec.strip().strip("()[]")
+        if not spec:
+            return out
+        items = [s for s in spec.replace(" ", "").split(",") if s]
+    else:
+        items = list(spec)
+    vals = [int(v) for v in items]
+    if len(vals) > num_total_features:
+        raise ValueError(
+            f"monotone_constraints has {len(vals)} entries but the dataset "
+            f"has {num_total_features} features")
+    out[:len(vals)] = vals
+    if np.any((out < -1) | (out > 1)):
+        raise ValueError("monotone_constraints entries must be -1, 0 or 1")
+    return out
 
 
 def _pow2ceil(x: int) -> int:
@@ -232,9 +278,21 @@ class SerialTreeLearner:
         if self.N >= (1 << 24):
             raise NotImplementedError(
                 "lightgbm_tpu_torch trains below 2^24 rows (counts ride f32)")
-        # per-feature metadata as columns: feature id, group row,
-        # bin_start, is_bundled, num_bin, default_bin, missing_type
+        # monotone constraints over the used features, categorical ones
+        # unconstrained (JAX learner.py: mono_used, mc_mode)
         F = self.F
+        mono = parse_monotone_constraints(
+            config.monotone_constraints,
+            dataset.num_total_features)[meta["feature"]].astype(np.int32)
+        mono[meta["is_categorical"] != 0] = 0
+        self.use_mc = bool(np.any(mono != 0))
+        self.mc_mode = ("intermediate" if self.use_mc and
+                        config.monotone_constraints_method == "intermediate"
+                        else "basic")
+        self.monotone_penalty = float(config.monotone_penalty)
+        # per-feature metadata as columns: feature id, group row,
+        # bin_start, is_bundled, num_bin, default_bin, missing_type,
+        # monotone direction
         is_bundled = np.zeros(F, np.int32)
         for g, grp in enumerate(dataset.groups):
             if len(grp.feature_indices) > 1:
@@ -242,7 +300,7 @@ class SerialTreeLearner:
         self._fmeta = np.stack([
             meta["feature"], meta["group"], meta["bin_start"], is_bundled,
             meta["num_bin"], meta["default_bin"],
-            meta["missing_type"]]).astype(np.int32) if F else None
+            meta["missing_type"], mono]).astype(np.int32) if F else None
         # EFB bundles: the pair search reads the per-feature view
         # (ops/feat_view.py) of the group histograms (JAX _plain_view)
         self.bundled = bool(is_bundled.any())
@@ -257,6 +315,7 @@ class SerialTreeLearner:
             half[:, 1] = meta["missing_type"]
             half[:, 2] = meta["default_bin"]
             half[:, 3] = self.is_cat
+            half[:, 4] = mono
         self._fmeta_half = half
 
         # row geometry (learner.py:387-405): [C front pad][N rows][>= 2C
@@ -281,19 +340,20 @@ class SerialTreeLearner:
         self.max_depth = int(config.max_depth)
         self.syncs = 0          # device-to-host round trips, all trees
         # the histogram-subtraction body keeps one histogram slot per leaf;
-        # EFB bundles, categorical features and uint16 bins take it
-        # whatever tpu_megakernel says, as the JAX package's mega kernel
-        # needs the plain all-numerical per-feature view and uint8 bins
-        # (learner.py:867-870)
+        # EFB bundles, categorical features, uint16 bins and monotone
+        # constraints take it whatever tpu_megakernel says, as the JAX
+        # package's mega kernel needs its fast search on the plain
+        # all-numerical per-feature view and uint8 bins (learner.py:590,
+        # 867-870)
         mega = str(config.tpu_megakernel).strip().lower()
         wide = self.bin_dtype != np.uint8
-        self.subtract = (mega == "off" or self.bundled or self.has_cat
-                         or wide)
-        if (self.bundled or self.has_cat or wide) and mega == "pallas":
+        general = self.bundled or self.has_cat or wide or self.use_mc
+        self.subtract = mega == "off" or general
+        if general and mega == "pallas":
             log.warning("tpu_megakernel=pallas needs the plain "
-                        "all-numerical path without EFB bundles or "
-                        "categorical features, on uint8 bins; using the "
-                        "histogram-subtraction path")
+                        "all-numerical path without EFB bundles, "
+                        "categorical features or monotone constraints, on "
+                        "uint8 bins; using the histogram-subtraction path")
         self.state = (new_state(self.L, self.G, self.B, self.device)
                       if self.subtract else None)
         # frontier-batched growth on the mega path (the JAX package's
@@ -312,7 +372,8 @@ class SerialTreeLearner:
         nodes = self.max_splits
         BH, Bp = hist_geometry(self.B)
         self.fmeta = torch.as_tensor(
-            self._fmeta if F else np.zeros((7, 0), np.int32), device=dev)
+            self._fmeta if F else np.zeros((FMETA_ROWS, 0), np.int32),
+            device=dev)
         # leafmat, nodemat, the nodes' and leaves' category sets, the K
         # step records and the root's step block in one flat buffer: the
         # host reads the finished tree in one copy
@@ -350,8 +411,25 @@ class SerialTreeLearner:
         self.fmask = torch.ones(F, dtype=torch.float32, device=dev)
         self.pair_out = torch.full((2 * K, 13), NEG_INF, device=dev)
         self.info = torch.zeros((2 * K * F, 8), device=dev)
-        self.fmeta_pair = torch.as_tensor(
-            np.concatenate([self._fmeta_half] * (2 * K)), device=dev)
+        inter = self.mc_mode == "intermediate"
+        self.fmeta_pair = torch.as_tensor(np.concatenate(
+            [self._fmeta_half] * max(2 * K, L if inter else 0)), device=dev)
+        # monotone constraints: the penalty's table by depth and, for
+        # intermediate ones, the leaves' boxes and the refresh's buffers
+        # (ops/mono.py): changed flags, info rows, planes, rows and sets
+        # of the L-leaf re-search and its categorical scratch
+        self.mc_pen = (penalty_table(self.monotone_penalty, L).to(dev)
+                       if self.use_mc and self.monotone_penalty > 0 else None)
+        self.boxes = (torch.zeros((2, L + 1, F), dtype=torch.int32,
+                                  device=dev) if inter else None)
+        if inter:
+            self.mc_changed = torch.zeros(L, dtype=torch.int32, device=dev)
+            self.mc_info = torch.zeros((L * F, 8), device=dev)
+            self.mc_planes = torch.zeros((2, L, F, Bp), device=dev)
+            self.mc_rows = torch.zeros((L, OUT_FIELDS), device=dev)
+            self.mc_cats = torch.zeros((L, W), dtype=torch.int32, device=dev)
+            self.mc_cat_work = (new_work(L, int(self.is_cat.sum()), dev, Bp)
+                                if self.has_cat else None)
         self.sums = torch.zeros(2, device=dev)
         self._absmax = torch.zeros(2, device=dev)
         # the children's planes (plane, child, G, Bp): [0] and [1] viewed
@@ -400,12 +478,14 @@ class SerialTreeLearner:
         return a, b, c, c + self.W * (self.L + 1)
 
     # ------------------------------------------------------------------
-    def _search(self, hg, hh, info, out=None, cat_out=None):
+    def _search(self, hg, hh, info, out=None, cat_out=None, cat_work=None):
         """The best splits of the children whose (cF, Bp) histograms are
         hg / hh: (c, 13) f32 on the device; with categorical features the
         categorical search merges into them and writes the children's
         sets to ``cat_out`` (c, W) (the learner's ``paircat`` when not
-        given)."""
+        given), its scratch ``cat_work`` (the learner's two children's
+        when not given).  Monotone constraints run both searches'
+        monotone arms."""
         c = hg.shape[0] // max(self.F, 1)
         kw = dict(l1=self.l1, l2=self.l2, max_delta_step=self.max_delta_step,
                   min_gain_to_split=self.min_gain_to_split,
@@ -413,11 +493,14 @@ class SerialTreeLearner:
                   min_sum_hessian=self.min_sum_hessian,
                   max_depth=self.max_depth)
         fm = self.fmeta_pair[:c * self.F]
-        rows = split_pair(hg, hh, fm, info, out=out, children=c, **kw)
+        rows = split_pair(hg, hh, fm, info, out=out, children=c,
+                          mono=self.use_mc, pen=self.mc_pen, **kw)
         if self.has_cat:
             split_cat(hg, hh, fm, info, self.cat_feats, rows,
                       self.paircat if cat_out is None else cat_out,
-                      children=c, work=self.cat_work, **kw, **self.cat_kw)
+                      children=c, mono=self.use_mc,
+                      work=self.cat_work if cat_work is None else cat_work,
+                      **kw, **self.cat_kw)
         return rows
 
     def set_feature_mask(self, mask) -> None:
@@ -435,7 +518,37 @@ class SerialTreeLearner:
         tree_step(mode, self.leafmat, self.nodemat, self.step, self.nl,
                   self.pair_out, self.fmeta, self.info, self.sums, self.bag,
                   self.fmask, self.leafcat, self.nodecat, self.paircat,
-                  row0=self.row0, N=self.N)
+                  row0=self.row0, N=self.N, boxes=self.boxes)
+
+    def _refresh(self) -> None:
+        """Intermediate monotone constraints between a split's commit and
+        the next election (ops/mono.py): every leaf's bounds, the changed
+        leaves' planes from the histogram state, the pair search over the
+        L leaves and the overlay of the changed leaves' rows and sets."""
+        mono_refresh(self.leafmat, self.boxes, self.fmeta, self.step,
+                     self.fmask, self.mc_changed, self.mc_info)
+        mono_planes(self.state, self.mc_changed, self._absmax, self.mc_info,
+                    kcnt=self.N, out=self.mc_planes, view=self.view,
+                    scale=self.qscale)
+        Bp = self.mc_planes.shape[-1]
+        self._search(self.mc_planes[0].view(-1, Bp),
+                     self.mc_planes[1].view(-1, Bp), self.mc_info,
+                     out=self.mc_rows, cat_out=self.mc_cats,
+                     cat_work=self.mc_cat_work)
+        mono_overlay(self.leafmat, self.leafcat, self.mc_changed,
+                     self.mc_rows, self.mc_cats if self.has_cat else None)
+
+    def _next(self, first: bool) -> None:
+        """The bookkeeping before a split body: the commit of what is due
+        and the next election, with the refresh of intermediate monotone
+        constraints between the two after a split (not after the
+        root)."""
+        if first or self.mc_mode != "intermediate":
+            self._step(MODE_STEP)
+            return
+        self._step(MODE_COMMIT)
+        self._refresh()
+        self._step(MODE_ELECT)
 
     def _pair(self, step=None) -> None:
         """The pair search over the children's planes; with bundles, over
@@ -504,8 +617,8 @@ class SerialTreeLearner:
     def _sequence(self, pb, pg) -> None:
         """The whole tree as a fixed sequence of launches (the graph)."""
         self._root(pb, pg)
-        for _ in range(self.max_splits if self.F else 1):
-            self._step(MODE_STEP)
+        for i in range(self.max_splits if self.F else 1):
+            self._next(i == 0)
             if self.F:
                 self._body(pb, pg, self.step)
                 self._pair()
@@ -517,8 +630,10 @@ class SerialTreeLearner:
         if self.K > 1:
             return self._fr_loop(pb, pg)
         self._root(pb, pg)
+        first = True
         while True:
-            self._step(MODE_STEP)
+            self._next(first)
+            first = False
             if int(self.step[SB_DONE]):
                 break
             self._body(pb, pg, self.step)
@@ -772,6 +887,10 @@ class SerialTreeLearner:
         tree moved onto the device), with the bag count read from the
         device word ``bag``.  Leaves the tree in ``leafmat`` too, where
         ``before_read`` then works on it."""
+        if self.use_mc:
+            raise NotImplementedError(
+                "build_tree_eager: monotone constraints grow on the device "
+                "loop only (the JAX package is their oracle)")
         L, F, W = self.L, self.F, self.W
         bag_cnt = int(self.bag[0])
         nodes = self.max_splits
@@ -821,7 +940,7 @@ class SerialTreeLearner:
             thr = int(_f2i(pcol[LM_BTHR]))
             dl = bool(pcol[LM_BDL] > 0.5)
             _, col, bstart, isb, nb, dbin, mtype = (
-                int(v) for v in self._fmeta[:, f_enum])
+                int(v) for v in self._fmeta[:7, f_enum])
             start = int(_f2i(pcol[LM_START]))
             cnt = int(_f2i(pcol[LM_CNT]))
             left_cnt_g = int(_f2i(pcol[LM_BLCNT]))

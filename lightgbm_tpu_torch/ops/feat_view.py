@@ -100,13 +100,13 @@ def _gather(planes, view: View):
 
 
 def feat_view_plain(children, info, view: View) -> torch.Tensor:
-    """The CPU's view (see module doc): ``children`` (2, 2, G, Bp) f32,
-    ``info`` the pair search's (2F, 8) rows (each child's sums in
-    columns 0 and 1)."""
+    """The CPU's view (see module doc): ``children`` (2, C, G, Bp) f32
+    (C = 2: a split's children), ``info`` the pair search's (C F, 8) rows
+    (each child's sums in columns 0 and 1)."""
     F = view.F
     feat = _gather(children, view)
-    known = feat.sum(dim=3)                                   # (2, 2, F)
-    tot = info.view(2, F, 8)[:, 0, :2].t()                    # (plane, child)
+    known = feat.sum(dim=3)                                   # (2, C, F)
+    tot = info.view(-1, F, 8)[:, 0, :2].t()                   # (plane, child)
     fix = torch.where(view.fix, tot[:, :, None] - known, 0.0)
     feat[:, :, :, 0] += fix
     return feat

@@ -127,7 +127,7 @@ class Frontier:
     ``leafmat`` / ``nodemat``, the K step records ``steps`` (K,
     STEP_WORDS), the left counts ``nl`` (K,), the pair search's rows
     ``pair`` (2K, 13) and info block ``info`` (2KF, 8), the root sums
-    ``sums`` (2,), the feature metadata ``fmeta`` (7, F), the bag-aware
+    ``sums`` (2,), the feature metadata ``fmeta`` (8, F), the bag-aware
     root count ``bag`` (1,) int32 and the tree's feature mask ``fmask``
     (F,) f32."""
 
@@ -289,7 +289,7 @@ def frontier_step_plain(mode, fr: Frontier, *, row0: int, N: int) -> None:
         r = w[k]
         r[SB_START] = pci[LM_START]
         r[SB_CNT] = pci[LM_CNT]
-        r[[SB_COL, SB_BSTART, SB_ISB, SB_NB, SB_DBIN, SB_MTYPE]] = fm[1:]
+        r[[SB_COL, SB_BSTART, SB_ISB, SB_NB, SB_DBIN, SB_MTYPE]] = fm[1:7]
         r[SB_THR] = pci[LM_BTHR]
         r[SB_DL] = int(pc[LM_BDL] > 0.5)
         r[[SB_PARENT, SB_WA, SB_WB, SB_SIL]] = [slot, slot, j + 1, sil]

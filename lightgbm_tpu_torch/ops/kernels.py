@@ -29,7 +29,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 KERNELS = ("split_pair", "split_mega", "partition", "leaf_hist", "tree_step",
-           "frontier", "feat_view", "sample", "split_cat", "quantize")
+           "frontier", "feat_view", "sample", "split_cat", "quantize", "mono")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -73,6 +73,19 @@ def leaf_gain(sum_g, sum_h, l1: float, l2: float, max_delta_step: float):
     return s * s / (sum_h + l2)
 
 
+def gain_given(sum_g, sum_h, l1: float, l2: float, out):
+    """The leaf's gain at a given output (reference:
+    GetLeafGainGivenOutput), the monotone arms' gain at a clipped one."""
+    s = threshold_l1(sum_g, l1)
+    return -(2.0 * s * out + (sum_h + l2) * out * out)
+
+
+def clip_out(out, cmin, cmax):
+    """``out`` clipped to [cmin, cmax] (tensors), as the kernels' fminf /
+    fmaxf clip: a NaN output takes the bound."""
+    return torch.fmin(torch.fmax(out, cmin), cmax)
+
+
 SCAN_LANES = 32     # lanes of the pair kernel's warp scan
 SCAN_BINS = 8       # bins a lane holds (256 bins / 32 lanes)
 

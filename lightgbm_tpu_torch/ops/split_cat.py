@@ -44,6 +44,13 @@ the leaf is strictly greater, or equal (and finite) with a smaller
 feature index -- the JAX argmax over features.  The row's fields: the
 relative gain, the feature, threshold 0, default_left 0, the left count,
 sums and outputs (``l2_eff`` the arm's), and LM_BISCAT = 1.
+
+The monotone arm (``mono=True``; JAX ``find_best_split_categorical``
+with the leaf's bounds): a categorical feature is never monotone itself,
+but its children's outputs are clipped to the child's bounds ``[IN_CMIN,
+IN_CMAX]`` (ops/split_pair.py) and every gain, the leaf's shift among
+them, is taken at the clipped outputs; the winner's outputs are clipped.
+Without ``mono`` the arm is not compiled into the launch.
 """
 
 from __future__ import annotations
@@ -54,13 +61,15 @@ import torch
 
 from . import kernels
 from .partition import cat_words
-from .split import K_EPSILON, leaf_gain, leaf_output, prefix_sum
-from .split_pair import (FM_NUM_BIN, IN_DEPTH, IN_MASK, IN_NUM_DATA,
-                         IN_SUM_G, IN_SUM_H, OUT_FIELDS)
+from .split import (K_EPSILON, clip_out, gain_given, leaf_gain, leaf_output,
+                    prefix_sum)
+from .split_pair import (FM_NUM_BIN, IN_CMAX, IN_CMIN, IN_DEPTH, IN_MASK,
+                         IN_NUM_DATA, IN_SUM_G, IN_SUM_H, OUT_FIELDS)
 
 REC_FIELDS = 8      # a kernel record's words before its set's W words
 WIDE_ROWS = 11      # per-bin scratch rows of the kernel's wide arm
 NARROW_BF = 256     # the widest row of the kernel's shared-memory arm
+MAX_CHILDREN = 65535    # the launch grid's y extent
 
 # launches of the CUDA kernel by this wrapper, a launch recorded into a
 # CUDA graph under capture included (a replay launches without the
@@ -87,9 +96,10 @@ def _first_argmax(x):
 def per_feature(G, H, nb, inf, *, l1, l2, max_delta_step, min_gain_to_split,
                 min_data_in_leaf, min_sum_hessian, max_depth,
                 max_cat_threshold, cat_l2, cat_smooth, max_cat_to_onehot,
-                min_data_per_group):
+                min_data_per_group, mono=False):
     """Each row's best categorical split: rows of (BF,) f32 histograms
-    ``G`` / ``H`` with their (R, 1) num_bin ``nb`` and (R, 8) info rows.
+    ``G`` / ``H`` with their (R, 1) num_bin ``nb`` and (R, 8) info rows
+    (``mono``: the monotone arm, the bounds from the info rows).
     Returns (gain (R,), member (R, BF) bool, lg, lh incl. eps, lc, l2_eff,
     min_gain_shift)."""
     R, BF = G.shape
@@ -97,7 +107,6 @@ def per_feature(G, H, nb, inf, *, l1, l2, max_delta_step, min_gain_to_split,
     f32 = torch.float32
     args = (l1, l2, max_delta_step)
     l2c = l2 + cat_l2
-    argsc = (l1, l2c, max_delta_step)
     neg = torch.tensor(float("-inf"), dtype=f32, device=dev)
     z = torch.zeros((), dtype=f32, device=dev)
     sum_g = inf[:, IN_SUM_G:IN_SUM_G + 1]
@@ -106,7 +115,26 @@ def per_feature(G, H, nb, inf, *, l1, l2, max_delta_step, min_gain_to_split,
     depth = inf[:, IN_DEPTH]
     fmask = inf[:, IN_MASK] > 0
     cnt_factor = num_data / sum_h_tot
-    mgs = leaf_gain(sum_g, sum_h_tot, *args) + min_gain_to_split
+    cmin = inf[:, IN_CMIN:IN_CMIN + 1]
+    cmax = inf[:, IN_CMAX:IN_CMAX + 1]
+
+    def pair_gain(lg, lh, rg, rh, l2e):
+        """The two children's gain at l2 ``l2e`` (clipped outputs with
+        ``mono``)."""
+        a = (l1, l2e, max_delta_step)
+        if not mono:
+            return leaf_gain(lg, lh, *a) + leaf_gain(rg, rh, *a)
+        lo = clip_out(leaf_output(lg, lh, *a), cmin, cmax)
+        ro = clip_out(leaf_output(rg, rh, *a), cmin, cmax)
+        return (gain_given(lg, lh, l1, l2e, lo)
+                + gain_given(rg, rh, l1, l2e, ro))
+
+    if mono:
+        mgs = gain_given(sum_g, sum_h_tot, l1, l2, clip_out(
+            leaf_output(sum_g, sum_h_tot, *args), cmin, cmax)) \
+            + min_gain_to_split
+    else:
+        mgs = leaf_gain(sum_g, sum_h_tot, *args) + min_gain_to_split
     mdl = float(min_data_in_leaf)
     msh = min_sum_hessian
     mdpg = float(min_data_per_group)
@@ -120,7 +148,7 @@ def per_feature(G, H, nb, inf, *, l1, l2, max_delta_step, min_gain_to_split,
     other_g = sum_g - G
     other_h = (sum_h_tot - H) - K_EPSILON
     other_cnt = num_data - cnt_bin
-    gain_oh = leaf_gain(G, hess_t, *args) + leaf_gain(other_g, other_h, *args)
+    gain_oh = pair_gain(G, hess_t, other_g, other_h, l2)
     valid_oh = (in_range & (cnt_bin >= mdl) & (H >= msh)
                 & (other_cnt >= mdl) & (other_h >= msh) & (gain_oh > mgs))
     best_oh, best_oh_gain = _first_argmax(torch.where(valid_oh, gain_oh, neg))
@@ -179,7 +207,7 @@ def per_feature(G, H, nb, inf, *, l1, l2, max_delta_step, min_gain_to_split,
             e = ok[:, i] & (c >= mdpg)
             ev[:, i] = e
             c = torch.where(e, z, c)
-        gain = leaf_gain(lg, lh, *argsc) + leaf_gain(rg, rh, *argsc)
+        gain = pair_gain(lg, lh, rg, rh, l2c)
         return torch.where(ev & (gain > mgs), gain, neg)
 
     bi_f, bg_f = _first_argmax(candidates(lg_f, lh_f, lc_f, step_f))
@@ -223,7 +251,7 @@ def pack_set(member) -> torch.Tensor:
 
 
 def split_cat_plain(hist_g, hist_h, fmeta, info, cat_feats, pair, cat_out,
-                    *, children: int = 2, **kw) -> None:
+                    *, children: int = 2, mono: bool = False, **kw) -> None:
     """Plain version of the kernel, in place on ``pair`` / ``cat_out``
     (see module doc)."""
     C = children
@@ -238,7 +266,7 @@ def split_cat_plain(hist_g, hist_h, fmeta, info, cat_feats, pair, cat_out,
     rows = (torch.arange(C, device=dev)[:, None] * F + cf[None, :]).reshape(-1)
     gain, member, lg, lh, lc, l2e, mgs = per_feature(
         hist_g[rows], hist_h[rows], fmeta[rows, FM_NUM_BIN:FM_NUM_BIN + 1],
-        info[rows], **kw)
+        info[rows], mono=mono, **kw)
     words = pack_set(member)
     neg = float("-inf")
     l1, mds = kw["l1"], kw["max_delta_step"]
@@ -263,11 +291,15 @@ def split_cat_plain(hist_g, hist_h, fmeta, info, cat_feats, pair, cat_out,
         ints = torch.tensor([feat, 0, int(l_c), int(r_c)], dtype=i32,
                             device=dev).view(f32)
         zero = torch.zeros((), dtype=f32, device=dev)
+        lout = leaf_output(l_g, l_h, l1, l2v, mds)
+        rout = leaf_output(r_g, r_h, l1, l2v, mds)
+        if mono:
+            lo_c, hi_c = info[row0, IN_CMIN], info[row0, IN_CMAX]
+            lout = clip_out(lout, lo_c, hi_c)
+            rout = clip_out(rout, lo_c, hi_c)
         pair[c] = torch.stack([
             rel, ints[0], ints[1], zero, ints[2], ints[3], l_g,
-            l_h - K_EPSILON, r_g, r_h - K_EPSILON,
-            leaf_output(l_g, l_h, l1, l2v, mds),
-            leaf_output(r_g, r_h, l1, l2v, mds), zero + 1.0])
+            l_h - K_EPSILON, r_g, r_h - K_EPSILON, lout, rout, zero + 1.0])
         cat_out[c] = words[r]
 
 
@@ -276,10 +308,12 @@ def split_cat(hist_g, hist_h, fmeta, info, cat_feats, pair, cat_out, *,
               min_gain_to_split: float, min_data_in_leaf: int,
               min_sum_hessian: float, max_depth: int, max_cat_threshold: int,
               cat_l2: float, cat_smooth: float, max_cat_to_onehot: int,
-              min_data_per_group: int, children: int = 2, work=None) -> None:
+              min_data_per_group: int, children: int = 2, work=None,
+              mono: bool = False) -> None:
     """Merge the children's best categorical splits into ``pair`` and
     write their sets to ``cat_out``, in place (see module doc); ``work``
-    is the kernel's scratch on the card (``new_work``)."""
+    is the kernel's scratch on the card (``new_work``); ``mono`` the
+    monotone arm."""
     kw = dict(l1=l1, l2=l2, max_delta_step=max_delta_step,
               min_gain_to_split=min_gain_to_split,
               min_data_in_leaf=min_data_in_leaf,
@@ -289,9 +323,10 @@ def split_cat(hist_g, hist_h, fmeta, info, cat_feats, pair, cat_out, *,
               min_data_per_group=min_data_per_group)
     if hist_g.device.type == "cpu":
         return split_cat_plain(hist_g, hist_h, fmeta, info, cat_feats, pair,
-                               cat_out, children=children, **kw)
+                               cat_out, children=children, mono=mono, **kw)
     return split_cat_cuda(hist_g, hist_h, fmeta, info, cat_feats, pair,
-                          cat_out, children=children, work=work, **kw)
+                          cat_out, children=children, work=work, mono=mono,
+                          **kw)
 
 
 def work_words(children: int, ncat: int, width: int) -> int:
@@ -313,12 +348,13 @@ def new_work(children: int, ncat: int, device,
 
 
 def split_cat_cuda(hist_g, hist_h, fmeta, info, cat_feats, pair, cat_out, *,
-                   children, work=None, **kw) -> None:
+                   children, work=None, mono=False, **kw) -> None:
     global launches
     C = children
     F2, BF = hist_g.shape
     NC = cat_feats.shape[0]
-    if C < 1 or F2 % C or F2 == 0 or BF < 1 or NC == 0:
+    if (C < 1 or F2 % C or F2 == 0 or BF < 1 or NC == 0
+            or C > MAX_CHILDREN):
         raise ValueError(f"split_cat needs ({C}F, BF) histograms and a "
                          f"categorical feature, got {tuple(hist_g.shape)} "
                          f"and {NC}")
@@ -339,7 +375,8 @@ def split_cat_cuda(hist_g, hist_h, fmeta, info, cat_feats, pair, cat_out, *,
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                    + [ctypes.c_float] * 6 + [ctypes.c_int]
                    + [ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                      ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_float, ctypes.c_int]
+                   + [ctypes.c_void_p])
     err = fn(kernels.ptr(hist_g), kernels.ptr(hist_h), kernels.ptr(fmeta),
              kernels.ptr(info), kernels.ptr(cat_feats), kernels.ptr(pair),
              kernels.ptr(cat_out), kernels.ptr(work), F2 // C, C, BF, NC, W,
@@ -349,6 +386,6 @@ def split_cat_cuda(hist_g, hist_h, fmeta, info, cat_feats, pair, cat_out, *,
              int(kw["max_cat_threshold"]),
              float(kw["l2"] + kw["cat_l2"]), kw["cat_smooth"],
              int(kw["max_cat_to_onehot"]), float(kw["min_data_per_group"]),
-             kernels.stream_ptr(hist_g.device))
+             int(bool(mono)), kernels.stream_ptr(hist_g.device))
     kernels.check(err, "split_cat_launch")
     launches += 1

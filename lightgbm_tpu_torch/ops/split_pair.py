@@ -38,13 +38,16 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import kernels
-from .split import K_EPSILON, leaf_gain, leaf_output, prefix_sum
+from .split import (K_EPSILON, clip_out, gain_given, leaf_gain, leaf_output,
+                    prefix_sum)
 
-FM_NUM_BIN, FM_MISSING, FM_DEFAULT, FM_IS_CAT = 0, 1, 2, 3
-IN_SUM_G, IN_SUM_H, IN_NUM_DATA, IN_DEPTH, IN_MASK = 0, 1, 2, 3, 4
+FM_NUM_BIN, FM_MISSING, FM_DEFAULT, FM_IS_CAT, FM_MONO = 0, 1, 2, 3, 4
+(IN_SUM_G, IN_SUM_H, IN_NUM_DATA, IN_DEPTH, IN_MASK, IN_CMIN,
+ IN_CMAX) = range(7)
 OUT_FIELDS = 13
 _BIG_KEY = 1 << 30
 
@@ -57,9 +60,11 @@ launches = 0
 def split_pair_plain(hist_g, hist_h, fmeta, info, *, l1: float, l2: float,
                      max_delta_step: float, min_gain_to_split: float,
                      min_data_in_leaf: int, min_sum_hessian: float,
-                     max_depth: int, children: int = 2) -> torch.Tensor:
+                     max_depth: int, children: int = 2, mono: bool = False,
+                     pen=None) -> torch.Tensor:
     """Plain PyTorch version: the JAX kernel's arithmetic in f32, with
-    the kernel's blocked f64 prefix sums (ops/split.py prefix_sum)."""
+    the kernel's blocked f64 prefix sums (ops/split.py prefix_sum); the
+    monotone arm with ``mono`` (see module doc)."""
     F2, BF = hist_g.shape
     F = F2 // children
     dev = hist_g.device
@@ -97,9 +102,27 @@ def split_pair_plain(hist_g, hist_h, fmeta, info, *, l1: float, l2: float,
     rh_r = (cs[4, :, BF - 1:] - cs[4]) + K_EPSILON
     rc_r = cs[5, :, BF - 1:] - cs[5]
     lg_r, lh_r, lc_r = sum_g - rg_r, sum_h_tot - rh_r, num_data - rc_r
-    gain_f = leaf_gain(lg_f, lh_f, *args) + leaf_gain(rg_f, rh_f, *args)
-    gain_r = leaf_gain(lg_r, lh_r, *args) + leaf_gain(rg_r, rh_r, *args)
-    mgs = leaf_gain(sum_g, sum_h_tot, *args) + min_gain_to_split
+    if mono:
+        cmin = info[:, IN_CMIN:IN_CMIN + 1]
+        cmax = info[:, IN_CMAX:IN_CMAX + 1]
+        mdir = fmeta[:, FM_MONO:FM_MONO + 1]
+
+        def pair_gain(lg, lh, rg, rh):
+            lo = clip_out(leaf_output(lg, lh, *args), cmin, cmax)
+            ro = clip_out(leaf_output(rg, rh, *args), cmin, cmax)
+            g = gain_given(lg, lh, l1, l2, lo) + gain_given(rg, rh, l1, l2, ro)
+            bad = ((mdir > 0) & (lo > ro)) | ((mdir < 0) & (lo < ro))
+            return torch.where(bad, float("-inf"), g)
+
+        gain_f = pair_gain(lg_f, lh_f, rg_f, rh_f)
+        gain_r = pair_gain(lg_r, lh_r, rg_r, rh_r)
+        mgs = gain_given(sum_g, sum_h_tot, l1, l2, clip_out(
+            leaf_output(sum_g, sum_h_tot, *args), cmin, cmax)) \
+            + min_gain_to_split
+    else:
+        gain_f = leaf_gain(lg_f, lh_f, *args) + leaf_gain(rg_f, rh_f, *args)
+        gain_r = leaf_gain(lg_r, lh_r, *args) + leaf_gain(rg_r, rh_r, *args)
+        mgs = leaf_gain(sum_g, sum_h_tot, *args) + min_gain_to_split
     mdl = float(min_data_in_leaf)
 
     def ok(lc, rc, lh, rh):
@@ -122,57 +145,112 @@ def split_pair_plain(hist_g, hist_h, fmeta, info, *, l1: float, l2: float,
     pref_r = feat * (2 * BF) + (BF - 1 - bins)
     pref_f = feat * (2 * BF) + BF + bins
     snan = (~two_scan & nan_m)[:, 0]
+    if pen is not None:
+        # each feature's best (the largest gain, the smaller key), its
+        # gain relative to the shift times the penalty at the child's
+        # depth when the feature is monotone (JAX's feature-level rule);
+        # only that candidate stays, with the penalized gain
+        gall = torch.cat([gr, gf], dim=1)                     # (CF, 2BF)
+        fmax = gall.max(dim=1, keepdim=True).values
+        fkey = torch.where(gall >= fmax, torch.cat([pref_r, pref_f], 1),
+                           _BIG_KEY).min(dim=1, keepdim=True).values
+        p = pen[depth.long().clamp(0, pen.shape[0] - 1)]
+        rel = fmax - mgs
+        rel = torch.where(fmeta[:, FM_MONO:FM_MONO + 1] != 0, rel * p, rel)
+        fgain = torch.where(fmax > neg, mgs + rel, neg)
+        gr = torch.where(pref_r == fkey, fgain, neg)
+        gf = torch.where(pref_f == fkey, fgain, neg)
 
-    rows = []
-    for c in range(children):
-        s = slice(c * F, (c + 1) * F)
-        gmax = torch.maximum(gf[s].max(), gr[s].max())
-        key_r = torch.where(gr[s] >= gmax, pref_r[s], _BIG_KEY)
-        key_f = torch.where(gf[s] >= gmax, pref_f[s], _BIG_KEY)
-        keys = torch.cat([key_r, key_f], dim=1).reshape(-1)   # (F*2BF,)
-        idx = torch.argmin(keys)
-        win = keys[idx]
-        row, col = idx // (2 * BF), idx % (2 * BF)
-        is_rev = col < BF
+    # per child: the largest gain, the smallest key among the candidates
+    # that reach it, its candidate's sums (every child at once)
+    C = children
+    gmax = torch.maximum(gf.view(C, -1).max(dim=1).values,
+                         gr.view(C, -1).max(dim=1).values)        # (C,)
+    gm = gmax.repeat_interleave(F)[:, None]
+    keys = torch.cat([torch.where(gr >= gm, pref_r, _BIG_KEY),
+                      torch.where(gf >= gm, pref_f, _BIG_KEY)],
+                     dim=1).view(C, -1)                            # (C, 2FBF)
+    idx = torch.argmin(keys, dim=1, keepdim=True)
+    win = keys.gather(1, idx)[:, 0]
+    row = idx[:, 0] // (2 * BF)
+    is_rev = idx[:, 0] % (2 * BF) < BF
 
-        def pick(a_r, a_f):
-            return torch.cat([a_r[s], a_f[s]], dim=1).reshape(-1)[idx]
+    def pick(a_r, a_f):
+        return torch.cat([a_r.expand(-1, BF), a_f.expand(-1, BF)],
+                         dim=1).view(C, -1).gather(1, idx)[:, 0]
 
-        lg, lh, lc = pick(lg_r, lg_f), pick(lh_r, lh_f), pick(lc_r, lc_f)
-        wfeat = win // (2 * BF)
-        r = win - wfeat * (2 * BF)
-        thr = torch.where(r < BF, BF - 1 - r, r - BF)
-        dl = is_rev.to(f32) * (1.0 - snan[s][row].to(f32))
-        sg = info[c * F, IN_SUM_G]
-        sh = info[c * F, IN_SUM_H] + 2 * K_EPSILON
-        nd = info[c * F, IN_NUM_DATA]
-        rg, rh, rc = sg - lg, sh - lh, nd - lc
+    lg, lh, lc = pick(lg_r, lg_f), pick(lh_r, lh_f), pick(lc_r, lc_f)
+    wfeat = win // (2 * BF)
+    r = win - wfeat * (2 * BF)
+    thr = torch.where(r < BF, BF - 1 - r, r - BF)
+    dl = is_rev.to(f32) * (1.0 - snan.view(C, F).gather(
+        1, row[:, None])[:, 0].to(f32))
+    head = info.view(C, F, 8)[:, 0]
+    sg = head[:, IN_SUM_G]
+    sh = head[:, IN_SUM_H] + 2 * K_EPSILON
+    nd = head[:, IN_NUM_DATA]
+    rg, rh, rc = sg - lg, sh - lh, nd - lc
+    lout = leaf_output(lg, lh, *args)
+    rout = leaf_output(rg, rh, *args)
+    if mono:
+        lo_c, hi_c = head[:, IN_CMIN], head[:, IN_CMAX]
+        shift = gain_given(sg, sh, l1, l2, clip_out(
+            leaf_output(sg, sh, *args), lo_c, hi_c)) + min_gain_to_split
+        lout = clip_out(lout, lo_c, hi_c)
+        rout = clip_out(rout, lo_c, hi_c)
+    else:
         shift = leaf_gain(sg, sh, *args) + min_gain_to_split
-        gain_rel = torch.where(win < _BIG_KEY, gmax - shift, neg)
+    gain_rel = torch.where(win < _BIG_KEY, gmax - shift, neg)
 
-        def bitf(v):
-            return v.to(i32).view(f32)
+    def bitf(v):
+        return v.to(i32).view(f32)
 
-        rows.append(torch.stack([
-            gain_rel, bitf(wfeat), bitf(thr), dl, bitf(lc), bitf(rc),
-            lg, lh - K_EPSILON, rg, rh - K_EPSILON,
-            leaf_output(lg, lh, *args), leaf_output(rg, rh, *args),
-            torch.zeros((), dtype=f32, device=dev)]))
-    return torch.stack(rows)
+    return torch.stack([
+        gain_rel, bitf(wfeat), bitf(thr), dl, bitf(lc), bitf(rc),
+        lg, lh - K_EPSILON, rg, rh - K_EPSILON, lout, rout,
+        torch.zeros(C, dtype=f32, device=dev)], dim=1)
+
+
+def penalty_table(penalty: float, L: int) -> torch.Tensor:
+    """(P,) f32 factors of ``monotone_penalty`` by depth 0 .. P - 1 (JAX
+    ``find_best_split``, reference monotone_constraints.hpp:357): K_EPSILON
+    while ``penalty >= depth + 1``, else ``1 - penalty / 2^depth`` (penalty
+    at most 1) or ``1 - 2^(penalty - 1 - depth)``, plus K_EPSILON, in f32.
+    Past depth ``penalty + 40`` every factor is 1.0 in f32, so P is at
+    most that (and at most L, the deepest leaf's depth + 1); a deeper
+    child reads the last entry."""
+    f = np.float32
+    pen = f(penalty)
+    P = max(1, min(int(L), int(np.ceil(penalty)) + 40))
+    out = np.empty(P, np.float32)
+    for d in range(P):
+        df = f(d)
+        if pen >= df + f(1.0):
+            out[d] = f(K_EPSILON)
+        elif pen <= f(1.0):
+            out[d] = f(1.0) - pen / np.exp2(df) + f(K_EPSILON)
+        else:
+            out[d] = f(1.0) - np.exp2(f(penalty - 1.0) - df) + f(K_EPSILON)
+    return torch.from_numpy(out)
 
 
 def split_pair(hist_g, hist_h, fmeta, info, *, l1: float, l2: float,
                max_delta_step: float, min_gain_to_split: float,
                min_data_in_leaf: int, min_sum_hessian: float,
-               max_depth: int, out=None, children: int = 2) -> torch.Tensor:
+               max_depth: int, out=None, children: int = 2,
+               mono: bool = False, pen=None) -> torch.Tensor:
     """(children, 13) f32 best-split rows (see module doc), written into
     ``out`` when it is given (the learner's preallocated rows).  CPU
-    tensors run the plain version; CUDA tensors launch the kernel."""
+    tensors run the plain version; CUDA tensors launch the kernel.
+    ``mono`` turns the monotone arm on, ``pen`` (``penalty_table``, on the
+    inputs' device) its penalty."""
+    if pen is not None and not mono:
+        raise ValueError("split_pair: the monotone penalty needs mono=True")
     kw = dict(l1=l1, l2=l2, max_delta_step=max_delta_step,
               min_gain_to_split=min_gain_to_split,
               min_data_in_leaf=min_data_in_leaf,
               min_sum_hessian=min_sum_hessian, max_depth=max_depth,
-              children=children)
+              children=children, mono=mono, pen=pen)
     if hist_g.device.type == "cpu":
         rows = split_pair_plain(hist_g, hist_h, fmeta, info, **kw)
         return rows if out is None else out.copy_(rows)
@@ -196,20 +274,24 @@ def launcher():
     fn = kernels.load("split_pair").split_pair_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                   + [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float] * 6 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     return fn
 
 
 def launch_args(hist_g, hist_h, fmeta, info, out, *, l1, l2, max_delta_step,
                 min_gain_to_split, min_data_in_leaf, min_sum_hessian,
-                max_depth, children=2) -> list:
+                max_depth, children=2, mono=False, pen=None) -> list:
     """The arguments of ``launcher()`` for one launch."""
     F2, BF = hist_g.shape
     return [kernels.ptr(hist_g), kernels.ptr(hist_h), kernels.ptr(fmeta),
             kernels.ptr(info), kernels.ptr(out), F2 // children, children,
             BF, l1, l2,
             max_delta_step, min_gain_to_split, float(min_data_in_leaf),
-            min_sum_hessian, int(max_depth), kernels.stream_ptr(hist_g.device)]
+            min_sum_hessian, int(max_depth), int(bool(mono)),
+            None if pen is None else kernels.ptr(pen),
+            0 if pen is None else int(pen.shape[0]),
+            kernels.stream_ptr(hist_g.device)]
 
 
 def split_pair_cuda(hist_g, hist_h, fmeta, info, *, out=None,
@@ -222,6 +304,8 @@ def split_pair_cuda(hist_g, hist_h, fmeta, info, *, out=None,
         out = torch.empty((C, OUT_FIELDS), dtype=torch.float32,
                           device=hist_g.device)
     kernels.require_cuda(out, torch.float32, "out", (C, OUT_FIELDS))
+    if kw["pen"] is not None:
+        kernels.require_cuda(kw["pen"], torch.float32, "pen")
     err = fn(*launch_args(hist_g, hist_h, fmeta, info, out, **kw))
     kernels.check(err, "split_pair_launch")
     launches += 1

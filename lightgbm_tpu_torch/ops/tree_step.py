@@ -46,6 +46,23 @@ column; an election copies the leaf's set into the node's row, writes
 step block (``SB_ISCAT``, ``SB_CAT``) for the partition's decision.  On
 numerical data the pair search writes ``LM_BISCAT`` = 0 and ``paircat``
 stays zero, so all of these are zeros.
+
+Monotone constraints (fmeta row 7, each feature's direction; zeros
+without them): the children's output bounds follow the reference's
+BasicLeafConstraints (JAX learner.py, the basic bounds of a split): the
+parent's ``[LM_CMIN, LM_CMAX]``, and for a numerical split on a monotone
+feature the mid ``(LM_BLOUT + LM_BROUT) / 2`` of the two outputs as the
+bound on the side the direction says.  The election writes them into
+the children's info rows (``IN_CMIN``, ``IN_CMAX``: ops/split_pair.py),
+the commit into their leafmat columns; the root's are -inf and +inf.
+Without a monotone feature every bound stays -inf / +inf.  ``boxes``
+(intermediate constraints; JAX ``leaf_lo`` / ``leaf_hi``): (2, L + 1, F)
+int32, each leaf's lowest and highest bin per feature.  The root's reset
+writes row 0 (every bin), a commit the two children's (JAX
+``_child_boxes``): the parent's box, the left child's upper end and the
+right child's lower end cut at the threshold along a numerical split's
+feature, unless the missing / default bin falls on the far side of the
+child it goes to.
 """
 
 from __future__ import annotations
@@ -75,9 +92,14 @@ NLF = 25
  ND_IS_BUNDLED, ND_NUM_BIN, ND_DEFAULT_BIN, ND_MISSING, ND_IS_CAT) = range(17)
 NND = 17
 
-FMETA_ROWS = 7      # feature, group, bin_start, is_bundled, num_bin,
-#                     default_bin, missing_type
+FMETA_ROWS = 8      # feature, group, bin_start, is_bundled, num_bin,
+#                     default_bin, missing_type, monotone direction
 MODE_ROOT, MODE_STEP, MODE_FINAL = 0, 1, 2
+# intermediate monotone constraints refresh every leaf between a split's
+# commit and the next election: the commit is a final step's launch (it
+# commits what is due and leaves nothing due), the election a step's
+# launch that finds nothing due
+MODE_COMMIT, MODE_ELECT = MODE_FINAL, MODE_STEP
 
 # launches of the CUDA kernel by this wrapper, a launch recorded into a
 # CUDA graph under capture included (a replay launches without the
@@ -128,7 +150,8 @@ def node_column(pcol, gain, fmeta_col, best_leaf, new_leaf) -> np.ndarray:
     f_enum = int(_f2i(pcol[LM_BFEAT]))
     thr = int(_f2i(pcol[LM_BTHR]))
     dl = bool(pcol[LM_BDL] > 0.5)
-    orig_feat, col, bstart, isb, nb, dbin, mtype = (int(v) for v in fmeta_col)
+    orig_feat, col, bstart, isb, nb, dbin, mtype = (int(v) for v in
+                                                    fmeta_col[:7])
     ncol = np.zeros(NND, np.float32)
     ncol[[ND_DL, ND_GAIN, ND_IVALUE, ND_IWEIGHT]] = [
         float(dl), gain, pcol[LM_VALUE], pcol[LM_SUM_H]]
@@ -143,25 +166,67 @@ def node_column(pcol, gain, fmeta_col, best_leaf, new_leaf) -> np.ndarray:
 
 def info_block(F: int, halves, fmask=None) -> np.ndarray:
     """(2F, 8) f32 info block of the pair search from two (sum_g, sum_h,
-    cnt, depth): each child's rows carry its sums, count, depth and the
-    feature mask ``fmask`` (F,) (default all 1)."""
+    cnt, depth[, cmin, cmax]): each child's rows carry its sums, count,
+    depth, the feature mask ``fmask`` (F,) (default all 1) and its output
+    bounds (default -inf, +inf)."""
     info = np.zeros((2 * F, 8), np.float32)
-    for c, (sg, sh, cnt, depth) in enumerate(halves):
+    for c, half in enumerate(halves):
+        sg, sh, cnt, depth = half[:4]
+        cmin, cmax = half[4:] if len(half) > 4 else (-np.inf, np.inf)
         rows = slice(c * F, (c + 1) * F)
         info[rows, 0] = sg
         info[rows, 1] = sh
         info[rows, 2] = np.float32(cnt)
         info[rows, 3] = np.float32(depth)
         info[rows, 4] = 1.0 if fmask is None else fmask
+        info[rows, 5] = cmin
+        info[rows, 6] = cmax
     return info
+
+
+def child_bounds(pcol, mono: int):
+    """The (left cmin, left cmax, right cmin, right cmax) f32 bounds of
+    the children of the split in leafmat column ``pcol`` on a feature of
+    direction ``mono`` (see module doc)."""
+    pmin, pmax = pcol[LM_CMIN], pcol[LM_CMAX]
+    mid = (pcol[LM_BLOUT] + pcol[LM_BROUT]) * np.float32(0.5)
+    num = not pcol[LM_BISCAT] > 0.5
+    return (np.fmax(pmin, mid) if num and mono < 0 else pmin,
+            np.fmin(pmax, mid) if num and mono > 0 else pmax,
+            np.fmax(pmin, mid) if num and mono > 0 else pmin,
+            np.fmin(pmax, mid) if num and mono < 0 else pmax)
+
+
+def child_boxes(boxes, leaf: int, new: int, pcol, fm) -> None:
+    """The two children's boxes of the split in leafmat column ``pcol`` of
+    ``leaf`` into rows ``leaf`` and ``new`` of ``boxes`` (2, L + 1, F),
+    ``fm`` the split feature's fmeta column (see module doc)."""
+    pci = pcol.view(np.int32)
+    fe, thr = int(pci[LM_BFEAT]), int(pci[LM_BTHR])
+    dl, iscat = bool(pcol[LM_BDL] > 0.5), bool(pcol[LM_BISCAT] > 0.5)
+    nb, dbin, mtype = int(fm[4]), int(fm[5]), int(fm[6])
+    d_eff = nb - 1 if mtype == 2 else dbin
+    miss_l = mtype != 0 and dl and d_eff > thr
+    miss_r = mtype != 0 and not dl and d_eff <= thr
+    lo, hi = boxes[0, leaf].copy(), boxes[1, leaf].copy()
+    l_hi, r_lo = hi.copy(), lo.copy()
+    if not iscat:
+        if not miss_l:
+            l_hi[fe] = min(hi[fe], thr)
+        if not miss_r:
+            r_lo[fe] = max(lo[fe], thr + 1)
+    boxes[0, leaf], boxes[1, leaf] = lo, l_hi
+    boxes[0, new], boxes[1, new] = r_lo, hi
 
 
 def tree_step_plain(mode, lm, nm, step, nl, pair, fmeta, info, sums, bag,
                     fmask, leafcat, nodecat, paircat, *, row0: int,
-                    N: int) -> None:
+                    N: int, boxes=None) -> None:
     """Plain version of the kernel, in place on CPU tensors (see module
     doc)."""
     L, nodes, F = lm.shape[1] - 1, nm.shape[1] - 1, fmeta.shape[1]
+    bx = None if boxes is None else boxes.numpy()
+    fmn = fmeta.numpy()
     lc, nc, pc = leafcat.numpy(), nodecat.numpy(), paircat.numpy()
     bag_cnt, fm_np = int(bag[0]), fmask.numpy()
     lmf, nmf = lm.numpy(), nm.numpy()
@@ -179,6 +244,9 @@ def tree_step_plain(mode, lm, nm, step, nl, pair, fmeta, info, sums, bag,
         w[SB_PEND] = 1
         lc[:] = 0
         nc[:] = 0
+        if bx is not None:
+            bx[0, 0] = 0
+            bx[1, 0] = fmn[4] - 1
         return
     p = pair.numpy()
     if w[SB_PEND] == 1:
@@ -199,6 +267,12 @@ def tree_step_plain(mode, lm, nm, step, nl, pair, fmeta, info, sums, bag,
         lmf[:, new] = leaf_column(start + left, cnt - left, pci[LM_BRCNT],
                                   pcol[LM_BRSG], pcol[LM_BRSH], depth,
                                   pcol[LM_BROUT], node, 1, p[1])
+        fm = fmn[:, int(pci[LM_BFEAT])]
+        b = child_bounds(pcol, int(fm[7]))
+        lmf[[LM_CMIN, LM_CMAX], leaf] = b[:2]
+        lmf[[LM_CMIN, LM_CMAX], new] = b[2:]
+        if bx is not None:
+            child_boxes(bx, leaf, new, pcol, fm)
         lc[leaf] = pc[0]
         lc[new] = pc[1]
     if mode == MODE_FINAL:
@@ -224,7 +298,7 @@ def tree_step_plain(mode, lm, nm, step, nl, pair, fmeta, info, sums, bag,
         w[SB_PEND] = 0
         return
     new = s + 1
-    fm = fmeta.numpy()[:, fe]
+    fm = fmn[:, fe]
     nmf[:, s] = node_column(pcol, gain, fm, best, new)
     iscat = int(pcol[LM_BISCAT] > 0.5)
     nmf[ND_IS_CAT, s] = iscat
@@ -235,13 +309,14 @@ def tree_step_plain(mode, lm, nm, step, nl, pair, fmeta, info, sums, bag,
         nmi[ND_LEFT if int(pci[LM_PSIDE]) == 0 else ND_RIGHT, parent] = s
     lcg, rcg = int(pci[LM_BLCNT]), int(pci[LM_BRCNT])
     depth = int(pci[LM_DEPTH]) + 1
-    inf[:] = info_block(F, [(pcol[LM_BLSG], pcol[LM_BLSH], lcg, depth),
-                            (pcol[LM_BRSG], pcol[LM_BRSH], rcg, depth)],
+    b = child_bounds(pcol, int(fm[7]))
+    inf[:] = info_block(F, [(pcol[LM_BLSG], pcol[LM_BLSH], lcg, depth) + b[:2],
+                            (pcol[LM_BRSG], pcol[LM_BRSH], rcg, depth) + b[2:]],
                         fm_np)
     sil = int(lcg <= rcg)
     w[SB_START] = pci[LM_START]
     w[SB_CNT] = pci[LM_CNT]
-    w[[SB_COL, SB_BSTART, SB_ISB, SB_NB, SB_DBIN, SB_MTYPE]] = fm[1:]
+    w[[SB_COL, SB_BSTART, SB_ISB, SB_NB, SB_DBIN, SB_MTYPE]] = fm[1:7]
     w[SB_THR] = pci[LM_BTHR]
     w[SB_DL] = int(pcol[LM_BDL] > 0.5)
     w[[SB_PARENT, SB_WA, SB_WB, SB_SIL]] = [best, best, new, sil]
@@ -254,17 +329,20 @@ def tree_step_plain(mode, lm, nm, step, nl, pair, fmeta, info, sums, bag,
 
 
 def tree_step(mode, lm, nm, step, nl, pair, fmeta, info, sums, bag, fmask,
-              leafcat, nodecat, paircat, *, row0: int, N: int) -> None:
-    """One bookkeeping step in place (see module doc)."""
+              leafcat, nodecat, paircat, *, row0: int, N: int,
+              boxes=None) -> None:
+    """One bookkeeping step in place (see module doc); ``boxes`` the
+    leaves' bin boxes of intermediate monotone constraints, or None."""
     args = (mode, lm, nm, step, nl, pair, fmeta, info, sums, bag, fmask,
             leafcat, nodecat, paircat)
     if lm.device.type == "cpu":
-        return tree_step_plain(*args, row0=row0, N=N)
-    return tree_step_cuda(*args, row0=row0, N=N)
+        return tree_step_plain(*args, row0=row0, N=N, boxes=boxes)
+    return tree_step_cuda(*args, row0=row0, N=N, boxes=boxes)
 
 
 def tree_step_cuda(mode, lm, nm, step, nl, pair, fmeta, info, sums, bag,
-                   fmask, leafcat, nodecat, paircat, *, row0, N) -> None:
+                   fmask, leafcat, nodecat, paircat, *, row0, N,
+                   boxes=None) -> None:
     global launches
     L, nodes, F = lm.shape[1] - 1, nm.shape[1] - 1, fmeta.shape[1]
     W = paircat.shape[-1]
@@ -287,13 +365,16 @@ def tree_step_cuda(mode, lm, nm, step, nl, pair, fmeta, info, sums, bag,
             (nodecat, torch.int32, "nodecat", (nodes + 1, W)),
             (paircat, torch.int32, "paircat", (2, W))):
         kernels.require_cuda(t, dtype, name, shape)
+    if boxes is not None:
+        kernels.require_cuda(boxes, torch.int32, "boxes", (2, L + 1, F))
     fn = kernels.load("tree_step").tree_step_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     err = fn(*(kernels.ptr(t) for t in (lm, nm, step, nl, pair, fmeta, info,
                                         sums, bag, fmask, leafcat, nodecat,
                                         paircat)),
+             None if boxes is None else kernels.ptr(boxes),
              L, nodes, F, int(row0), int(N), int(mode), W,
              kernels.stream_ptr(lm.device))
     kernels.check(err, "tree_step_launch")

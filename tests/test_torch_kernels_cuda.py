@@ -36,7 +36,14 @@ graph equal the eager oracle's, one capture for every draw.  Quantized
 training: the discretizer is bit-identical to quantize_plain (integer
 draws, single f32 operations), each kernel's scale arm to its plain
 twin's (the exact integer sums as f32, one f32 product), and quantized
-trees on the card equal the CPU's split for split.
+trees on the card equal the CPU's split for split.  Monotone
+constraints: the monotone arm of split_pair (the register arm and past
+256 bins, 2 and 31 children, with and without the penalty table) and
+the clamp arm of split_cat (narrow, wide, 300 children) bit-identical to
+their plain versions on the card and on the CPU; tree_step's bounds and
+bin boxes in every mode, and mono_refresh, mono_planes and mono_overlay,
+bit-identical to their twins; constrained trees through the graph stay
+monotone.
 """
 
 import numpy as np
@@ -1612,3 +1619,289 @@ def test_quantized_trees_on_the_card_equal_the_cpu(card, case, renew):
     assert lr.captures == 1 and lr.syncs == trees
     assert lr.K == (4 if case == "mega_k4" else 1)
     assert lr.bundled == (case == "efb")
+
+
+# ---- monotone constraints: the search arms, the bookkeeping, the refresh --
+from lightgbm_tpu_torch.ops import mono as tmono  # noqa: E402
+
+
+def _mono_info(fm, info, C, seed, l2=1e-3):
+    """Directions in FM_MONO (every third feature free) and, per child,
+    bounds around its own output (none, below, above, both)."""
+    rng = np.random.RandomState(seed)
+    F = fm.shape[0] // C
+    fm, info = fm.clone(), info.clone()
+    mono = torch.as_tensor(rng.choice([-1, 1], F) * (np.arange(F) % 3 != 2),
+                           dtype=torch.int32)
+    fm[:, sp.FM_MONO] = mono.repeat(C)
+    for c in range(C):
+        r = slice(c * F, (c + 1) * F)
+        out = float(-info[c * F, 0] / (info[c * F, 1] + l2))
+        lo, hi = [(-np.inf, np.inf), (out - 0.05, np.inf),
+                  (-np.inf, out + 0.05), (out - 0.1, out + 0.02)][c % 4]
+        info[r, sp.IN_CMIN], info[r, sp.IN_CMAX] = lo, hi
+    return fm, info
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(28, 255), (7, 31), (28, 1024), (5, 300)])
+@pytest.mark.parametrize("penalty", [0.0, 2.0, 0.5])
+@pytest.mark.parametrize("C", [2, 31])
+@pytest.mark.parametrize("pi", range(len(PARAMS)))
+def test_split_pair_monotone_arm_bit_identical_to_plain(card, shape,
+                                                        penalty, C, pi):
+    """split_pair's monotone arm (clipped outputs, directions, the penalty
+    table; the register arm and the arm past 256 bins; a pair and the
+    refresh's C children) against split_pair_plain on the CPU and on the
+    card, all 13 fields bit for bit."""
+    F, BF = shape
+    hg, hh, fm, info = _pair_case(BF + C + pi, F, BF)
+    reps = (C + 1) // 2
+    hg, hh = hg.repeat(reps, 1)[:C * F], hh.repeat(reps, 1)[:C * F]
+    fm, info = fm.repeat(reps, 1)[:C * F], info.repeat(reps, 1)[:C * F]
+    info[:, 3] = torch.arange(C).repeat_interleave(F).float() % 6
+    fm, info = _mono_info(fm, info, C, BF + pi)
+    pen = sp.penalty_table(penalty, 31) if penalty > 0 else None
+    kw = dict(PARAMS[pi], children=C, mono=True)
+    want = sp.split_pair_plain(hg, hh, fm, info, pen=pen, **kw)
+    dev = [t.to(card) for t in (hg, hh, fm, info)]
+    dpen = None if pen is None else pen.to(card)
+    got = sp.split_pair(*dev, pen=dpen, **kw)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    on_card = sp.split_pair_plain(*dev, pen=dpen, **kw)
+    assert torch.equal(on_card.cpu().view(torch.int32),
+                       want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_split_pair_unconstrained_bits_untouched_by_the_info_bounds(card):
+    """Without ``mono`` the kernel reads no bound or direction: the
+    unconstrained rows are the same bits whatever IN_CMIN / IN_CMAX and
+    FM_MONO hold."""
+    hg, hh, fm, info = _pair_case(11)
+    base = sp.split_pair(*(t.to(card) for t in (hg, hh, fm, info)),
+                         **PARAMS[0])
+    fm2, info2 = _mono_info(fm, info, 2, 3)
+    again = sp.split_pair(*(t.to(card) for t in (hg, hh, fm2, info2)),
+                          **PARAMS[0])
+    assert torch.equal(base.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,C", [((10, 255), 2), ((6, 16), 2),
+                                     ((10, 1024), 2), ((8, 255), 300)])
+@pytest.mark.parametrize("ci", range(len(CAT_PARAMS)))
+def test_split_cat_monotone_arm_bit_identical_to_plain(card, shape, C, ci):
+    """split_cat's clamp arm (narrow and wide; 300 children: the merge's
+    loop past a block of threads) against split_cat_plain on the CPU and
+    on the card, rows and sets bit for bit."""
+    F, BF = shape
+    hg, hh, fm, info, cats = cat_case(F + BF + ci + C, F, BF, min(4, F),
+                                      C=C if C % 2 == 0 else C + 1)
+    fm, info = _mono_info(fm, info, C, F + ci)
+    fm[:, sp.FM_MONO] = torch.where(fm[:, 3] == 1, 0, fm[:, sp.FM_MONO])
+    kw = dict(PARAMS[0], **CAT_PARAMS[ci])
+    W = tpart.cat_words(BF)
+    pair = sp.split_pair_plain(hg, hh, fm, info, children=C, mono=True,
+                               **PARAMS[0])
+    want, wset = pair.clone(), torch.zeros((C, W), dtype=torch.int32)
+    scat.split_cat(hg, hh, fm, info, cats, want, wset, children=C, mono=True,
+                   **kw)
+    dev = [t.to(card) for t in (hg, hh, fm, info, cats)]
+    work = scat.new_work(C, len(cats), card, BF)
+    for _ in range(2):
+        got = pair.to(card)
+        gset = torch.full((C, W), 7, dtype=torch.int32, device=card)
+        scat.split_cat(*dev, got, gset, children=C, mono=True, work=work,
+                       **kw)
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+        assert torch.equal(gset.cpu(), wset)
+
+
+def mono_tree_case(seed, L=9, F=5):
+    """tree_case with directions in fmeta row 7, bounds and some
+    categorical best splits in leafmat and (2, L + 1, F) bin boxes: the
+    pending split on a monotone feature."""
+    rng = np.random.RandomState(seed)
+    c = _tl.tree_case(seed, L=L, F=F)
+    lm, step, fmeta = c[0], c[2], c[5]
+    fmeta[7] = torch.as_tensor(rng.choice([-1, 0, 1], F), dtype=torch.int32)
+    L1 = L + 1
+    lm[ts.LM_CMIN] = torch.as_tensor(np.where(
+        rng.rand(L1) < 0.5, -np.inf, rng.randn(L1) - 2).astype(np.float32))
+    lm[ts.LM_CMAX] = torch.as_tensor(np.where(
+        rng.rand(L1) < 0.5, np.inf, rng.randn(L1) + 2).astype(np.float32))
+    lm[ts.LM_BISCAT] = torch.as_tensor((rng.rand(L1) < 0.2)
+                                       .astype(np.float32))
+    leaf = int(step[tpart.SB_LEAF])
+    fe = int(lm[ts.LM_BFEAT, leaf:leaf + 1].view(torch.int32))
+    fmeta[7, fe] = int(rng.choice([-1, 1]))
+    nb = fmeta[4].numpy()
+    lo = rng.randint(0, 3, (L1, F))
+    hi = np.maximum(lo, nb[None, :] - 1 - rng.randint(0, 3, (L1, F)))
+    thr = int(rng.randint(lo[leaf, fe], hi[leaf, fe] + 1))
+    lm[ts.LM_BTHR, leaf] = torch.tensor([thr], dtype=torch.int32).view(
+        torch.float32)[0]
+    return c, torch.as_tensor(np.stack([lo, hi]).astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["root", "step", "commit", "elect"])
+@pytest.mark.parametrize("seed", range(4))
+def test_tree_step_kernel_monotone_bounds_and_boxes(card, mode, seed):
+    """tree_step with directions, leaf bounds and bin boxes: the root's
+    reset, a step, and intermediate's commit and election launches,
+    against tree_step_plain bit for bit (boxes included)."""
+    c, boxes = mono_tree_case(seed)
+    m = {"root": ts.MODE_ROOT, "step": ts.MODE_STEP,
+         "commit": ts.MODE_COMMIT, "elect": ts.MODE_ELECT}[mode]
+    kw = dict(row0=_tl.ROW0, N=_tl.N)
+    if mode == "elect":       # after a commit: nothing due
+        ts.tree_step_plain(ts.MODE_COMMIT, *c, boxes=boxes, **kw)
+    dev = [t.to(card) for t in c]
+    dbox = boxes.to(card)
+    ts.tree_step(m, *dev, boxes=dbox, **kw)
+    ts.tree_step_plain(m, *c, boxes=boxes, **kw)
+    for got, want in zip(dev + [dbox], c + [boxes]):
+        assert torch.equal(_tl._bits(got.cpu()), _tl._bits(want))
+
+
+def _refresh_case(seed, L=31, F=6, live=None):
+    """A leafmat of ``live`` leaves grown by random numerical splits
+    (their boxes), outputs mostly along the directions, some bounds."""
+    rng = np.random.RandomState(seed)
+    live = live or int(rng.randint(2, L + 1))
+    nb = rng.randint(4, 60, F)
+    lo = np.zeros((L + 1, F), np.int32)
+    hi = np.tile(nb - 1, (L + 1, 1)).astype(np.int32)
+    for new in range(1, live):
+        leaf = int(rng.randint(new))
+        cand = [f for f in range(F) if hi[leaf, f] > lo[leaf, f]]
+        f = int(rng.choice(cand))
+        t = int(rng.randint(lo[leaf, f], hi[leaf, f]))
+        lo[new], hi[new] = lo[leaf], hi[leaf]
+        hi[leaf, f], lo[new, f] = t, t + 1
+    fmeta = np.zeros((ts.FMETA_ROWS, F), np.int32)
+    fmeta[4] = nb
+    fmeta[7] = rng.choice([-1, 0, 1], F)
+    lm = ts.empty_leafmat(L)
+    for leaf in range(live):
+        lm[:, leaf] = ts.leaf_column(
+            0, 100, int(rng.randint(10, 900)), rng.randn(),
+            abs(rng.randn()) + 1, int(rng.randint(1, 9)), 0.0, -1, 0,
+            rng.randn(13).astype(np.float32))
+    lm[ts.LM_VALUE, :live] = ((lo[:live] + hi[:live]) * fmeta[7] / nb).sum(1) \
+        + 0.1 * rng.randn(live)
+    lm[ts.LM_CMIN, :live:3] = -0.5
+    step = torch.zeros(tpart.step_len(8), dtype=torch.int32)
+    step[tpart.SB_S] = live - 1
+    return [torch.as_tensor(a) for a in (lm, np.stack([lo, hi]), fmeta)] + [
+        step, torch.as_tensor((rng.rand(F) > 0.2).astype(np.float32))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(6))
+def test_mono_refresh_kernel_bit_identical_to_plain(card, seed):
+    """mono_refresh against mono_refresh_plain (CPU and card): leafmat
+    (every bound), the changed flags and the info rows bit for bit; a
+    stopped tree's launch writes nothing but zero flags."""
+    L, F = 31, 6
+    lm, boxes, fmeta, step, fmask = _refresh_case(seed, L, F,
+                                                  live=31 if seed == 0 else None)
+    outs = [torch.zeros(L, dtype=torch.int32), torch.zeros((L * F, 8))]
+    dev = [t.to(card) for t in (lm, boxes, fmeta, step, fmask)]
+    douts = [t.to(card) for t in outs]
+    tmono.mono_refresh(*dev, *douts)
+    tmono.mono_refresh_plain(lm, boxes, fmeta, step, fmask, *outs)
+    assert outs[0].any()
+    for got, want in zip([dev[0]] + douts, [lm] + outs):
+        assert torch.equal(_tl._bits(got.cpu()), _tl._bits(want))
+    on_card = [t.to(card) for t in (lm, boxes, fmeta, step, fmask)]
+    tmono.mono_refresh_plain(*on_card, *[t.to(card) for t in outs])
+    dev[3][tpart.SB_DONE] = 1
+    before = dev[0].clone()
+    douts[1].fill_(3.0)
+    tmono.mono_refresh(*dev, *douts)
+    assert torch.equal(dev[0].view(torch.int32), before.view(torch.int32))
+    assert not douts[0].any() and bool((douts[1] == 3.0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bundled", [False, True])
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("Bp", [48, 512])
+def test_mono_planes_kernel_bit_identical_to_plain(card, bundled, scaled,
+                                                   Bp):
+    """mono_planes against mono_planes_fixed_plain: the changed leaves'
+    planes from the int64 state, unbundled (group rows) or through the
+    EFB view, with and without the quantized scale, bit for bit."""
+    view, state = _view_case(3, Bp=Bp, slots=12)
+    L = state.shape[0]
+    F = view.F if bundled else state.shape[2]
+    rng = np.random.RandomState(Bp + bundled)
+    changed = torch.as_tensor((rng.rand(L) < 0.6).astype(np.int32))
+    absmax = torch.tensor([3.0, 1.5])
+    scale = torch.tensor([0.25, 0.125]) if scaled else None
+    v = view if bundled else None
+    want = tmono.mono_planes_fixed_plain(state, changed, absmax, kcnt=5000,
+                                         view=v, scale=scale)
+    out = torch.full((2, L, F, Bp), 9.0, device=card)
+    tmono.mono_planes(state.to(card), changed.to(card), absmax.to(card),
+                      None, kcnt=5000, out=out,
+                      view=v.to(card) if v is not None else None,
+                      scale=None if scale is None else scale.to(card))
+    keep = changed.bool()
+    assert torch.equal(out.cpu()[:, keep].view(torch.int32),
+                       want[:, keep].view(torch.int32))
+    assert bool((out.cpu()[:, ~keep] == 9.0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_sets", [False, True])
+def test_mono_overlay_kernel_bit_identical_to_plain(card, with_sets):
+    L, W = 31, 8
+    rng = np.random.RandomState(with_sets)
+    lm = torch.as_tensor(ts.empty_leafmat(L))
+    leafcat = torch.as_tensor(rng.randint(-9, 9, (L + 1, W)).astype(np.int32))
+    changed = torch.as_tensor((rng.rand(L) < 0.5).astype(np.int32))
+    rows = torch.as_tensor(rng.randn(L, 13).astype(np.float32))
+    cats = (torch.as_tensor(rng.randint(-9, 9, (L, W)).astype(np.int32))
+            if with_sets else None)
+    dev = [t.to(card) for t in (lm, leafcat, changed, rows)]
+    tmono.mono_overlay(*dev, None if cats is None else cats.to(card))
+    tmono.mono_overlay_plain(lm, leafcat, changed, rows, cats)
+    for got, want in zip(dev[:2], (lm, leafcat)):
+        assert torch.equal(_tl._bits(got.cpu()), _tl._bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["basic", "intermediate"])
+def test_monotone_graph_trees_on_the_card(card, method):
+    """Intermediate and basic constraints through the graph loop on the
+    card: one capture, one tree read a tree, the refresh's kernels
+    launched (intermediate), and the model monotone along each
+    constrained feature."""
+    rng = np.random.RandomState(0)
+    X = rng.randn(6000, 6)
+    y = X[:, 0] - X[:, 1] + 0.5 * X[:, 2] ** 2 + 0.2 * rng.randn(6000)
+    mc = [1, -1, 0, 1, 0, 0]
+    for k in tmono.launches:
+        tmono.launches[k] = 0
+    b = lgt.train({"objective": "regression", "num_leaves": 31,
+                   "verbosity": -1, "monotone_constraints": mc,
+                   "monotone_constraints_method": method,
+                   "monotone_penalty": 1.0}, lgt.Dataset(X, label=y), 4)
+    lr = b._gbdt.learner
+    assert lr.captures == 1 and lr.syncs == 4 and lr.subtract
+    assert (tmono.launches["mono_refresh"] == 2 * (lr.L - 2)) == (
+        method == "intermediate")
+    base = X[:100]
+    for f, s in enumerate(mc):
+        if not s:
+            continue
+        grid = np.linspace(-3, 3, 41)
+        Z = np.repeat(base, len(grid), axis=0)
+        Z[:, f] = np.tile(grid, len(base))
+        p = b.predict(Z, raw_score=True).reshape(len(base), len(grid))
+        assert (np.diff(p, axis=1) * s).min() >= -1e-6

@@ -56,7 +56,8 @@ def tree_case(seed, L=9, F=5, made=4, gains=None, sil_tie=False,
     nmat = np.zeros((NND, nodes + 1), np.float32)
     fmeta = np.stack([rng.permutation(F) + 3, rng.permutation(F),
                       np.zeros(F), np.zeros(F), rng.randint(3, 255, F),
-                      rng.randint(0, 3, F), rng.randint(0, 3, F)]
+                      rng.randint(0, 3, F), rng.randint(0, 3, F),
+                      np.zeros(F)]          # no monotone feature
                      ).astype(np.int32)
 
     def seg():
@@ -154,7 +155,7 @@ def reference_step(mode, lmat, nmat, step, nl, pair, fmeta, info, sums, bag,
     dc = _i(pcol[LM_DEPTH]) + 1
     info = ts.info_block(F, [(pcol[LM_BLSG], pcol[LM_BLSH], lcg, dc),
                              (pcol[LM_BRSG], pcol[LM_BRSH], rcg, dc)], fmask)
-    _, col, bstart, isb, nb, dbin, mtype = (int(v) for v in fmeta[:, fe])
+    _, col, bstart, isb, nb, dbin, mtype = (int(v) for v in fmeta[:7, fe])
     sc = tpart.make_scalars(_i(pcol[LM_START]), _i(pcol[LM_CNT]), col,
                             bstart, isb, nb, dbin, mtype, _i(pcol[LM_BTHR]),
                             bool(pcol[LM_BDL] > 0.5), iscat, lc[best])

@@ -7,7 +7,10 @@ string) or, for a DataFrame, found by their dtype (category, object,
 string and bool columns become integer codes; ``pandas_categorical``
 keeps each one's categories, rides the model text and encodes every
 later frame -- validation, prediction -- with the training codes), with
-``create_valid`` for validation sets binned like the training set; a
+``create_valid`` for validation sets binned like the training set, and
+for ranking its query groups (``group`` / ``set_group``, a LibSVM file's
+``qid:`` runs or a CSV / TSV ``group_column``) and presentation
+positions (``position``); a
 ``Booster`` that trains (``update``, with a custom objective ``fobj`` or
 ``boost(grad, hess)``), evaluates the training and validation sets
 (built-in metrics and ``feval``), continues from a model
@@ -136,14 +139,13 @@ class Dataset:
                  feature_name: Union[str, List[str]] = "auto",
                  categorical_feature: Union[str, List] = "auto",
                  params: Optional[Dict[str, Any]] = None,
-                 free_raw_data: bool = True):
-        if group is not None:
-            raise NotImplementedError(
-                "lightgbm_tpu_torch does not support group (ranking) yet")
+                 free_raw_data: bool = True, position=None):
         self.data = data
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.group = group
+        self.position = position
         self.init_score = init_score
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
@@ -188,24 +190,25 @@ class Dataset:
         self._inner = BinnedDataset.from_matrix(
             mat, cfg, label=self.label, weight=self.weight,
             init_score=self.init_score, feature_names=names,
-            categorical_features=cats, reference=ref)
+            categorical_features=cats, reference=ref, group=self.group,
+            position=self.position)
         return self
 
     def _load_file(self, cfg: Config) -> None:
         """A text file as ``data`` (JAX basic.py Dataset.construct): its
-        matrix, and its label, weight and header names where the caller
-        gave none."""
+        matrix, and its label, weight, query groups (a LibSVM file's
+        ``qid:`` runs, a CSV / TSV ``group_column``) and header names
+        where the caller gave none."""
         loaded = load_text_file(
             self.data, has_header=bool(cfg.header),
             label_column=cfg.label_column, weight_column=cfg.weight_column,
             group_column=cfg.group_column, ignore_column=cfg.ignore_column)
-        if loaded.group is not None:
-            raise NotImplementedError(
-                "lightgbm_tpu_torch does not support group (ranking) yet")
         if self.label is None:
             self.label = loaded.label
         if self.weight is None:
             self.weight = loaded.weight
+        if self.group is None:
+            self.group = loaded.group
         self.data = loaded.X
         if loaded.feature_names and not isinstance(self.feature_name, list):
             self.feature_name = loaded.feature_names
@@ -229,6 +232,13 @@ class Dataset:
             self._inner.metadata.set_weight(weight)
         return self
 
+    def set_group(self, group) -> "Dataset":
+        """Per-query sizes, in row order (ranking)."""
+        self.group = group
+        if self._inner is not None:
+            self._inner.metadata.set_group(group)
+        return self
+
     def set_init_score(self, init_score) -> "Dataset":
         self.init_score = init_score
         if self._inner is not None:
@@ -250,6 +260,9 @@ class Dataset:
 
     def get_weight(self):
         return self.weight
+
+    def get_group(self):
+        return self.group
 
 
 class Booster:

@@ -651,7 +651,8 @@ def _monotone_on(c) -> bool:
 _PORTED_OBJECTIVES = (
     "regression", "regression_l1", "huber", "fair", "poisson", "quantile",
     "mape", "gamma", "tweedie", "binary", "multiclass", "multiclassova",
-    "cross_entropy", "cross_entropy_lambda", "none")
+    "cross_entropy", "cross_entropy_lambda", "lambdarank", "rank_xendcg",
+    "none")
 MULTICLASS_OBJECTIVES = ("multiclass", "multiclassova")
 # the objectives whose leaves are renewed after the tree
 RENEW_OBJECTIVES = ("regression_l1", "quantile", "mape")
@@ -832,6 +833,8 @@ class Config:
             m = _METRIC_ALIASES.get(m, m)
             if m and m not in self.metric_list:
                 self.metric_list.append(m)
+        self.eval_at_list = [int(x) for x in str(self.eval_at).split(",")
+                             if x.strip()]
         # tree_learner aliases (reference: config.cpp Config::Set)
         tl = str(self.tree_learner).lower()
         tl = {"serial": "serial", "feature": "feature", "feature_parallel": "feature",

@@ -27,14 +27,55 @@ from .utils import log
 
 
 class Metadata:
-    """Per-row side data: label / weight / init_score
-    (reference: include/LightGBM/dataset.h Metadata)."""
+    """Per-row side data: label / weight / query groups / positions /
+    init_score (reference: include/LightGBM/dataset.h Metadata; JAX
+    dataset.py ``Metadata``)."""
 
     def __init__(self, num_data: int):
         self.num_data = num_data
         self.label: Optional[np.ndarray] = None
         self.weight: Optional[np.ndarray] = None
+        self.query_boundaries: Optional[np.ndarray] = None  # int32 [nq+1]
         self.init_score: Optional[np.ndarray] = None
+        self.positions: Optional[np.ndarray] = None         # int32 ids/row
+        self.position_ids: Optional[List[str]] = None       # id -> label
+
+    def set_position(self, position) -> None:
+        """Per-row presentation positions for unbiased lambdarank
+        (reference: Metadata::SetPosition), factorized to compact ids in
+        order of first appearance."""
+        if position is None:
+            self.positions = None
+            self.position_ids = None
+            return
+        vals = np.asarray(position).reshape(-1)
+        if vals.shape[0] != self.num_data:
+            log.fatal("Length of position (%d) != num_data (%d)",
+                      vals.shape[0], self.num_data)
+        uniq, first, inv = np.unique(vals, return_index=True,
+                                     return_inverse=True)
+        order = np.argsort(first, kind="stable")
+        remap = np.empty(len(uniq), dtype=np.int32)
+        remap[order] = np.arange(len(uniq), dtype=np.int32)
+        self.positions = remap[inv.reshape(-1)]
+        self.position_ids = [str(uniq[o]) for o in order]
+
+    def set_group(self, group) -> None:
+        """Per-query sizes (the reference's query counts), in row order."""
+        if group is None:
+            self.query_boundaries = None
+            return
+        arr = np.asarray(group, dtype=np.int64).reshape(-1)
+        if arr.sum() != self.num_data:
+            log.fatal("Sum of query counts (%d) != num_data (%d)", arr.sum(),
+                      self.num_data)
+        self.query_boundaries = np.concatenate(
+            [[0], np.cumsum(arr)]).astype(np.int32)
+
+    @property
+    def num_queries(self) -> int:
+        return (0 if self.query_boundaries is None
+                else len(self.query_boundaries) - 1)
 
     def set_label(self, label) -> None:
         arr = np.asarray(label, dtype=np.float32).reshape(-1)
@@ -96,8 +137,8 @@ class BinnedDataset:
                     init_score=None,
                     feature_names: Optional[List[str]] = None,
                     categorical_features: Optional[Sequence[int]] = None,
-                    reference: Optional["BinnedDataset"] = None
-                    ) -> "BinnedDataset":
+                    reference: Optional["BinnedDataset"] = None,
+                    group=None, position=None) -> "BinnedDataset":
         data = np.asarray(data)
         if data.ndim != 2:
             log.fatal("Data must be 2-dimensional")
@@ -109,7 +150,9 @@ class BinnedDataset:
         if label is not None:
             ds.metadata.set_label(label)
         ds.metadata.set_weight(weight)
+        ds.metadata.set_group(group)
         ds.metadata.set_init_score(init_score)
+        ds.metadata.set_position(position)
         if reference is not None:
             ds.bin_mappers = reference.bin_mappers
             ds.used_features = reference.used_features

@@ -45,8 +45,10 @@ L1-family renewal, as JAX orders them).
 Host-side per-row data crosses into the physical order through the row
 ids of payload row 2 (``rows_to_phys``, the inverse of
 ``scores_from_phys``): a custom objective's gradients
-(``train_one_iter(grad, hess)``) and a continued model's train scores
-(``continue_from``).  Validation sets keep their (N_valid, G) bin
+(``train_one_iter(grad, hess)``), a ranking objective's (its
+``get_gradients`` reads the scores in original row order; the iteration
+then samples and quantizes as a custom objective's, JAX's eager draws)
+and a continued model's train scores (``continue_from``).  Validation sets keep their (N_valid, G) bin
 matrix and f32 scores on the booster's device; after each tree the
 scores gain the tree's f32 shrunk leaf values at the leaves of
 ``ops/predict.py:predict_leaf_binned``, walked over the node arrays of
@@ -266,6 +268,10 @@ class GBDT:
         self.need_bagging = (not self.goss and cfg.bagging_freq > 0
                              and (cfg.bagging_fraction < 1.0
                                   or self.balanced_bagging))
+        if cfg.bagging_by_query:
+            log.warning("bagging_by_query is accepted for config "
+                        "compatibility but is not implemented by the "
+                        "reference this framework tracks; it is IGNORED")
         self._cached_bag = None
         self._sign_row = None
         if self.need_bagging and self.balanced_bagging:
@@ -303,13 +309,19 @@ class GBDT:
         pb, ghi = self._phys
         lr = self.learner
         N = self.num_data
+        obj = self.objective
+        if (grad is None or hess is None) and obj is not None \
+                and not hasattr(obj, "gradients_from_payload"):
+            # ranking: gradients from the scores in original row order,
+            # then the custom-gradient route, as JAX's eager iteration
+            grad, hess = obj.get_gradients(scores_from_phys(ghi, N))
         if grad is None or hess is None:
-            if self.objective is None:
+            if obj is None:
                 raise ValueError("objective=none needs gradients: pass fobj "
                                  "to Booster.update or grad and hess")
             vf = (ghi[2].view(torch.int32) != N).to(torch.float32)
             payload = [ghi[4 + i] for i in range(len(self._payload_names))]
-            g, h = self.objective.gradients_from_payload(ghi[3], *payload)
+            g, h = obj.gradients_from_payload(ghi[3], *payload)
             ghi[0] = g * vf
             ghi[1] = h * vf
             eager = self._eager_quant

@@ -1,5 +1,5 @@
-"""Evaluation metrics: the regression, binary, cross-entropy and
-multiclass metrics of the JAX package, by its names.
+"""Evaluation metrics: the regression, binary, cross-entropy, multiclass
+and ranking metrics of the JAX package, by its names.
 
 Port of lightgbm_tpu/models/metric.py.  Pointwise losses are f32
 PyTorch on the scores' device; AUC and average precision sort the
@@ -7,7 +7,9 @@ scores and sum in float64 on the scores' device too (the tie-aware
 sorted cumulative sums of the reference's AUCMetric::Eval and
 AveragePrecisionMetric::Eval).  Each metric reads one float back, but
 ``auc_mu``, which the JAX package too computes on the host in numpy
-float64.  Multiclass metrics take (N, K) scores.
+float64.  Multiclass metrics take (N, K) scores.  NDCG and MAP sort
+each query bucket's scores on the device and read back one (buckets, k)
+block of f32 sums an evaluation.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from ..config import Config
 from ..dataset import Metadata
 from ..utils import log
+from .objective import QueryBucket, label_gains, query_buckets
 
 K_EPSILON = 1e-15
 
@@ -376,6 +379,109 @@ def auc_mu(score: np.ndarray, lbl: np.ndarray, w: Optional[np.ndarray],
     return (2.0 * total / K) / (K - 1)
 
 
+# ---------------------------------------------------------------------------
+# Ranking metrics (reference: src/metric/rank_metric.hpp, dcg_calculator.cpp)
+# ---------------------------------------------------------------------------
+class _RankMetric(Metric):
+    """Queries bucketed by padded size as the ranking objectives bucket
+    them; each bucket's per-``k`` sums are f32 on the scores' device, read
+    back once an evaluation and totalled in f64 on the host (JAX
+    ``NDCGMetric.eval``)."""
+    is_max_better = True
+
+    def init(self, metadata: Metadata, device) -> None:
+        super().init(metadata, device)
+        if metadata.query_boundaries is None:
+            log.fatal("The %s metric requires query information",
+                      self.name.upper())
+        self.eval_at = list(self.config.eval_at_list) or [1, 2, 3, 4, 5]
+        self.num_queries = metadata.num_queries
+        self.buckets = [QueryBucket(*b, device, pairwise=False)
+                        for b in query_buckets(metadata.query_boundaries)]
+
+    def bucket_sums(self, b, s, idx, valid):
+        raise NotImplementedError
+
+    def eval(self, score, objective):
+        sums = []
+        for b, bucket in enumerate(self.buckets):
+            (_, idx, valid, _, _), = bucket.chunks
+            sums.append(self.bucket_sums(
+                b, torch.where(valid, score[idx], -math.inf), idx, valid))
+        totals = (torch.stack(sums).cpu().numpy().astype(np.float64).sum(0)
+                  if sums else np.zeros(len(self.eval_at)))
+        return [(f"{self.name}@{k}", totals[ki] / self.num_queries)
+                for ki, k in enumerate(self.eval_at)]
+
+
+class NDCGMetric(_RankMetric):
+    """NDCG@k (JAX models/metric.py ``NDCGMetric``): 1 for a query whose
+    ideal DCG is 0."""
+    name = "ndcg"
+
+    def init(self, metadata: Metadata, device) -> None:
+        super().init(metadata, device)
+        gains = label_gains(self.config)
+        qb = np.asarray(metadata.query_boundaries)
+        sizes = np.diff(qb)
+        gain_of = gains[np.asarray(metadata.label).astype(np.int32)]
+        self.idcg = []
+        for bucket in self.buckets:
+            idcg = np.zeros((len(bucket.qs), len(self.eval_at)))
+            for row, q in enumerate(bucket.qs):
+                n = sizes[q]
+                g_sorted = np.sort(gain_of[qb[q]:qb[q + 1]])[::-1]
+                disc = 1.0 / np.log2(np.arange(2, n + 2))
+                for ki, k in enumerate(self.eval_at):
+                    kk = min(k, n)
+                    idcg[row, ki] = np.sum(g_sorted[:kk] * disc[:kk])
+            self.idcg.append(torch.as_tensor(idcg.astype(np.float32),
+                                             device=device))
+        self.gains_dev = torch.as_tensor(gain_of.astype(np.float32),
+                                         device=device)
+
+    def bucket_sums(self, b, s, idx, valid):
+        P = self.buckets[b].P
+        g = torch.where(valid, self.gains_dev[idx], 0.0)
+        order = torch.sort(-s, dim=1, stable=True).indices
+        g_sorted = g.gather(1, order)
+        disc = 1.0 / torch.log2(2.0 + torch.arange(
+            P, dtype=torch.float32, device=s.device))
+        out = []
+        for ki, k in enumerate(self.eval_at):
+            kk = min(k, P)
+            dcg = torch.sum(g_sorted[:, :kk] * disc[:kk], dim=1)
+            idcg = self.idcg[b][:, ki]
+            ndcg = torch.where(idcg > 0, dcg / torch.clamp_min(idcg,
+                                                               K_EPSILON),
+                               1.0)
+            out.append(ndcg.sum())
+        return torch.stack(out)
+
+
+class MapMetric(_RankMetric):
+    """MAP@k (JAX models/metric.py ``MapMetric``): a document is relevant
+    when its label is above 0; the average precision's denominator is
+    min(relevant documents, k), at least 1."""
+    name = "map"
+
+    def bucket_sums(self, b, s, idx, valid):
+        P = self.buckets[b].P
+        y = torch.where(valid, self.label[idx] > 0, False)
+        order = torch.sort(-s, dim=1, stable=True).indices
+        y_sorted = y.gather(1, order).to(torch.float32)
+        cum_rel = torch.cumsum(y_sorted, dim=1)
+        prec = cum_rel / torch.arange(1, P + 1, dtype=torch.float32,
+                                      device=s.device)
+        out = []
+        for k in self.eval_at:
+            kk = min(k, P)
+            ap_num = torch.sum(prec[:, :kk] * y_sorted[:, :kk], dim=1)
+            denom = torch.clamp(cum_rel[:, -1], max=float(kk)).clamp_min(1.0)
+            out.append(torch.sum(ap_num / denom))
+        return torch.stack(out)
+
+
 _METRICS = {
     "l2": L2Metric, "mse": L2Metric, "rmse": RMSEMetric, "l1": L1Metric,
     "mae": L1Metric, "quantile": QuantileMetric, "huber": HuberMetric,
@@ -386,6 +492,7 @@ _METRICS = {
     "auc": AUCMetric, "average_precision": AveragePrecisionMetric,
     "multi_logloss": MultiLoglossMetric, "multi_error": MultiErrorMetric,
     "auc_mu": AucMuMetric,
+    "ndcg": NDCGMetric, "map": MapMetric,
     "xentropy": CrossEntropyMetric, "xentlambda": CrossEntropyLambdaMetric,
     "kullback_leibler": KLDivMetric,
 }
@@ -396,6 +503,7 @@ _DEFAULT_METRIC_FOR_OBJECTIVE = {
     "binary": "binary_logloss",
     "multiclass": "multi_logloss", "multiclassova": "multi_logloss",
     "cross_entropy": "xentropy", "cross_entropy_lambda": "xentlambda",
+    "lambdarank": "ndcg", "rank_xendcg": "ndcg",
 }
 
 

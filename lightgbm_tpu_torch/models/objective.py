@@ -1,4 +1,4 @@
-"""Objective functions: every pointwise objective and multiclass.
+"""Objective functions: every pointwise objective, multiclass and ranking.
 
 Port of lightgbm_tpu/models/objective.py (the regression family, binary,
 cross-entropy, multiclass softmax and one-vs-all, ``create_objective``,
@@ -10,7 +10,10 @@ of the fused iteration from the payload rows named by
 a percentile of its rows' residuals after the tree
 (``renew_leaf_alpha``; models/renew.py).  The multiclass objectives
 compute all K classes' gradients at once from the (K, N) scores in
-original row order (``class_gradients``).
+original row order (``class_gradients``).  The ranking objectives
+(``lambdarank``, ``rank_xendcg``) compute each query bucket's lambdas in
+plain PyTorch from the scores in original row order (``get_gradients``),
+as the JAX package computes them in XLA.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 from ..config import Config
 from ..dataset import Metadata
 from ..utils import log
+from ..utils import random as jrandom
 
 K_EPSILON = 1e-15
 
@@ -497,6 +501,268 @@ def _class_is(k):
     return lambda lbl: lbl == k
 
 
+# ---------------------------------------------------------------------------
+# Ranking (reference: src/objective/rank_objective.hpp)
+# ---------------------------------------------------------------------------
+def query_buckets(query_boundaries):
+    """Queries bucketed by their size padded to a power of two, at least
+    2 (JAX ``LambdarankNDCG.init``): ``[(P, queries, doc_idx)]`` in
+    increasing P, ``doc_idx`` the (Q_b, P) int32 row of each query's
+    documents, -1 in the padding."""
+    qb = np.asarray(query_boundaries)
+    sizes = np.diff(qb)
+    by_p = {}
+    for q, sz in enumerate(sizes):
+        p = 1
+        while p < sz:
+            p <<= 1
+        by_p.setdefault(max(p, 2), []).append(q)
+    out = []
+    for p, qs in sorted(by_p.items()):
+        qs = np.asarray(qs)
+        doc_idx = np.full((len(qs), p), -1, dtype=np.int32)
+        cols = np.arange(p)
+        mask = cols[None, :] < sizes[qs][:, None]
+        doc_idx[mask] = (qb[qs][:, None] + cols[None, :])[mask]
+        out.append((p, qs, doc_idx))
+    return out
+
+
+# the (P, P) f32 temporaries a query's pairwise lambdas hold at once, and
+# the bytes a chunk of queries may take (JAX vmaps a whole bucket: on the
+# card a 2,048-wide bucket of thousands of queries would not fit)
+PAIR_TEMPS = 20
+PAIR_BUDGET = 1 << 30
+
+
+class QueryBucket:
+    """One bucket's queries (``qs``) on the device, in chunks of at most
+    ``PAIR_BUDGET`` bytes of pairwise temporaries (one chunk unless
+    ``pairwise``): each chunk's (Q, P) document rows (``idx``, padding
+    at row 0), valid mask, and the flat positions ``sel`` of its valid
+    slots with their rows ``rows``, so results scatter back with no host
+    sync."""
+
+    def __init__(self, P, qs, doc_idx, device, pairwise):
+        self.P, self.qs = P, qs
+        step = (max(1, PAIR_BUDGET // (PAIR_TEMPS * P * P * 4)) if pairwise
+                else len(doc_idx))
+        self.chunks = []
+        for lo in range(0, len(doc_idx), step):
+            d = doc_idx[lo:lo + step]
+            flat = d.reshape(-1)
+            sel = np.nonzero(flat >= 0)[0]
+            self.chunks.append((
+                lo, torch.as_tensor(np.maximum(d, 0).astype(np.int64),
+                                    device=device),
+                torch.as_tensor(d >= 0, device=device),
+                torch.as_tensor(sel, device=device),
+                torch.as_tensor(flat[sel].astype(np.int64), device=device)))
+
+
+def label_gains(config: Config) -> np.ndarray:
+    """``label_gain`` as f64 (the reference's default 2^i - 1 for i <
+    32)."""
+    if config.label_gain:
+        return np.asarray([float(x) for x in
+                           str(config.label_gain).split(",")])
+    return 2.0 ** np.arange(32) - 1.0
+
+
+class LambdarankNDCG(ObjectiveFunction):
+    """LambdaRank with NDCG weighting (reference: rank_objective.hpp
+    LambdarankNDCG; JAX models/objective.py ``LambdarankNDCG``): each
+    bucket's queries as batched (Q, P, P) f32 pairwise matrices in
+    plain PyTorch on the scores' device, in chunks (``QueryBucket``).  The
+    gradients read the scores in original row order, so the iteration
+    takes the eager route (``reference_fused``): GBDT gathers them into
+    the physical order.  With positions, the unbiased variant adds the
+    learned per-position bias to the scores and takes a Newton step on
+    the biases after each gradient."""
+
+    name = "lambdarank"
+    reference_fused = False
+
+    def __init__(self, config: Config):
+        super().__init__(config)
+        self.sigmoid = float(config.sigmoid)
+        self.norm = bool(config.lambdarank_norm)
+        self.truncation_level = int(config.lambdarank_truncation_level)
+        self.label_gain = label_gains(config)
+
+    def init(self, metadata: Metadata, device) -> None:
+        super().init(metadata, device)
+        if metadata.query_boundaries is None:
+            log.fatal("Ranking tasks require query information")
+        qb = np.asarray(metadata.query_boundaries)
+        sizes = np.diff(qb)
+        lbl = np.asarray(metadata.label).astype(np.int32)
+        if lbl.max() >= len(self.label_gain):
+            log.fatal("Label %d exceeds label_gain size %d", int(lbl.max()),
+                      len(self.label_gain))
+        # per-query inverse max DCG at the truncation level (reference:
+        # DCGCalculator::CalMaxDCGAtK)
+        gains = self.label_gain[lbl]
+        inv_max_dcg = np.zeros(len(sizes), dtype=np.float64)
+        for q in range(len(sizes)):
+            g = np.sort(gains[qb[q]:qb[q + 1]])[::-1][:self.truncation_level]
+            dcg = np.sum(g / np.log2(np.arange(2, len(g) + 2)))
+            inv_max_dcg[q] = 1.0 / dcg if dcg > 0 else 0.0
+        self.buckets = [QueryBucket(*b, device, pairwise=True)
+                        for b in query_buckets(qb)]
+        self.inv_max_dcg = [torch.as_tensor(
+            inv_max_dcg[b.qs].astype(np.float32), device=device)
+            for b in self.buckets]
+        self.label_gain_dev = torch.as_tensor(
+            self.label_gain.astype(np.float32), device=device)
+        self.label_int = torch.as_tensor(lbl, device=device).long()
+        # position bias state (reference: rank_objective.hpp:43-56)
+        self.positions = None
+        if metadata.positions is not None:
+            self.positions = torch.as_tensor(metadata.positions,
+                                             device=device).long()
+            self.pos_biases = torch.zeros(len(metadata.position_ids),
+                                          dtype=torch.float32, device=device)
+            self.position_bias_regularization = float(
+                self.config.lambdarank_position_bias_regularization)
+            self.bias_learning_rate = float(self.config.learning_rate)
+
+    def _chunk_lambdas(self, score_all, idx, valid, inv_max_dcg, P):
+        """(Q, P) lambdas and hessians in each query's document order
+        (JAX ``_bucket_grad_fn``'s ``one_query``, batched)."""
+        dev = score_all.device
+        score = torch.where(valid, score_all[idx], -math.inf)
+        lbl = torch.where(valid, self.label_int[idx], -1)
+        # argsort(-score, stable=True): the first iteration's scores all
+        # tie, and order-preserving ties decide its lambdas
+        order = torch.sort(-score, dim=1, stable=True).indices
+        ss = score.gather(1, order)
+        sl = lbl.gather(1, order)
+        svalid = valid.gather(1, order)
+        gains = self.label_gain_dev[torch.clamp_min(sl, 0)]
+        pos = torch.arange(P, device=dev)
+        discount = 1.0 / torch.log2(2.0 + pos.to(torch.float32))
+        upper = ((pos[:, None] < pos[None, :])
+                 & (pos[:, None] < self.truncation_level))
+        upper = upper & svalid[:, :, None] & svalid[:, None, :]
+        li, lj = sl[:, :, None], sl[:, None, :]
+        sym = (upper | upper.transpose(1, 2)) & (li != lj)
+        del upper
+        delta_ndcg = (torch.abs(gains[:, :, None] - gains[:, None, :])
+                      * torch.abs(discount[:, None] - discount[None, :])
+                      * inv_max_dcg[:, None, None])
+        i_is_high = li > lj
+        si, sj = ss[:, :, None], ss[:, None, :]
+        delta_score = torch.where(i_is_high, si - sj, sj - si)
+        if self.norm:
+            best = ss[:, 0]
+            worst_i = torch.clamp_min(svalid.sum(1) - 1, 0)
+            worst = ss.gather(1, worst_i[:, None])[:, 0]
+            scale = torch.where((best != worst)[:, None, None],
+                                1.0 / (0.01 + torch.abs(delta_score)), 1.0)
+            delta_ndcg = delta_ndcg * scale
+            del scale
+        p_lambda0 = 1.0 / (1.0 + torch.exp(self.sigmoid * delta_score))
+        del delta_score
+        p_hess0 = p_lambda0 * (1.0 - p_lambda0)
+        p_lambda = -self.sigmoid * delta_ndcg * p_lambda0
+        p_hess = self.sigmoid * self.sigmoid * delta_ndcg * p_hess0
+        del p_lambda0, p_hess0, delta_ndcg
+        zero = torch.zeros((), device=dev)
+        lam_pair = torch.where(sym, p_lambda, zero)
+        lam_sorted = torch.where(i_is_high, lam_pair, -lam_pair).sum(2)
+        hes_sorted = torch.where(sym, p_hess, zero).sum(2)
+        if self.norm:
+            sum_lambdas = -lam_pair.sum((1, 2))
+            nf = torch.where(sum_lambdas > 0, torch.log2(1.0 + sum_lambdas)
+                             / torch.clamp_min(sum_lambdas, K_EPSILON), 1.0)
+            lam_sorted = lam_sorted * nf[:, None]
+            hes_sorted = hes_sorted * nf[:, None]
+        # unsort back to query-document order
+        lam = torch.zeros_like(lam_sorted).scatter_(1, order, lam_sorted)
+        hes = torch.zeros_like(hes_sorted).scatter_(1, order, hes_sorted)
+        return lam, hes
+
+    def get_gradients(self, score):
+        """(N,) f32 grad and hess from the (N,) scores in original row
+        order."""
+        if self.positions is not None:
+            # unbiased lambdarank (reference: rank_objective.hpp:66-71)
+            score = score + self.pos_biases[self.positions]
+        grad = torch.zeros_like(score)
+        hess = torch.zeros_like(score)
+        for b, inv in zip(self.buckets, self.inv_max_dcg):
+            for lo, idx, valid, sel, rows in b.chunks:
+                lam, hes = self._chunk_lambdas(score, idx, valid,
+                                               inv[lo:lo + len(idx)], b.P)
+                grad[rows] = lam.reshape(-1)[sel]
+                hess[rows] = hes.reshape(-1)[sel]
+        if self.positions is not None:
+            self._update_position_bias(grad, hess)
+        return grad, hess
+
+    def _update_position_bias(self, grad, hess):
+        """Newton-Raphson step on the per-position bias factors with L2
+        regularization (reference: UpdatePositionBiasFactors,
+        rank_objective.hpp:290-328)."""
+        npos = len(self.pos_biases)
+        seg = self.positions
+        z = torch.zeros(npos, dtype=torch.float32, device=grad.device)
+        first = z.index_add(0, seg, -grad)
+        second = z.index_add(0, seg, -hess)
+        counts = z.index_add(0, seg, torch.ones_like(grad))
+        reg = self.position_bias_regularization
+        first = first - self.pos_biases * reg * counts
+        second = second - reg * counts
+        self.pos_biases = self.pos_biases + \
+            self.bias_learning_rate * first / (torch.abs(second) + 0.001)
+
+
+class RankXENDCG(ObjectiveFunction):
+    """XE-NDCG (reference: rank_objective.hpp RankXENDCG; JAX
+    models/objective.py ``RankXENDCG``): per query the gradients of a
+    softmax cross-entropy against gumbel-perturbed relevance targets.
+    Iteration ``i``'s noise for bucket ``b`` is ``jax.random.gumbel`` of
+    ``fold_in(fold_in(PRNGKey(objective_seed), i), b)`` over the bucket's
+    whole padded (Q_b, P) block, as JAX draws it."""
+
+    name = "rank_xendcg"
+    reference_fused = False
+
+    def __init__(self, config: Config):
+        super().__init__(config)
+        self.seed = int(config.objective_seed)
+        self._iter = 0
+
+    def init(self, metadata: Metadata, device) -> None:
+        super().init(metadata, device)
+        if metadata.query_boundaries is None:
+            log.fatal("Ranking tasks require query information")
+        self.buckets = [QueryBucket(*b, device, pairwise=False)
+                        for b in query_buckets(metadata.query_boundaries)]
+
+    def get_gradients(self, score):
+        self._iter += 1
+        key = jrandom.fold_in(jrandom.PRNGKey(self.seed), self._iter)
+        grad = torch.zeros_like(score)
+        hess = torch.zeros_like(score)
+        for bi, b in enumerate(self.buckets):
+            (_, idx, valid, sel, rows), = b.chunks
+            s = torch.where(valid, score[idx], -math.inf)
+            lbl = torch.where(valid, self.label[idx], 0.0)
+            eps = jrandom.torch_gumbel(jrandom.fold_in(key, bi), s.shape,
+                                       score.device)
+            # gumbel-perturbed relevance -> the target distribution
+            phi = torch.where(valid, (2.0 ** lbl - 1.0) + eps, -math.inf)
+            rho_tgt = torch.where(valid, torch.softmax(phi, dim=1), 0.0)
+            rho = torch.where(valid, torch.softmax(s, dim=1), 0.0)
+            g = rho - rho_tgt
+            h = torch.clamp_min(rho * (1.0 - rho), K_EPSILON)
+            grad[rows] = g.reshape(-1)[sel]
+            hess[rows] = h.reshape(-1)[sel]
+        return grad, hess
+
+
 def weighted_percentile_host(values: np.ndarray,
                              weights: Optional[np.ndarray],
                              alpha: float) -> float:
@@ -545,6 +811,8 @@ _OBJECTIVES = {
     "multiclassova": MulticlassOVA,
     "cross_entropy": CrossEntropy,
     "cross_entropy_lambda": CrossEntropyLambda,
+    "lambdarank": LambdarankNDCG,
+    "rank_xendcg": RankXENDCG,
 }
 
 

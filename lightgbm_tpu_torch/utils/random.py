@@ -2,7 +2,8 @@
 
 The port's own copy of the ``jax.random`` functions that the JAX
 package's sampling calls (``PRNGKey``, ``split``, ``fold_in``,
-``random_bits``, ``uniform``, ``permutation``), with the default
+``random_bits``, ``uniform``, ``permutation``, ``gumbel``), with the
+default
 implementation of jax 0.9.0: ``threefry2x32`` with
 ``jax_threefry_partitionable`` on.  Each gives the same bits as
 ``jax.random`` for the same key.
@@ -20,7 +21,10 @@ and low words:
   * ``uniform`` = ``bits >> 9 | 0x3F800000`` read as an f32, minus 1;
   * ``permutation(key, n)``: ``ceil(3 ln n / ln(2^32 - 1))`` rounds of
     ``key, sub = split(key)`` and a stable sort of the values by
-    ``random_bits(sub, (n,))`` (JAX ``_shuffle``).
+    ``random_bits(sub, (n,))`` (JAX ``_shuffle``);
+  * ``gumbel(key, shape)``: jax 0.9.0's default ``mode="low"``,
+    ``-log(-log(u))`` of ``u = uniform(key, shape, minval=tiny,
+    maxval=1)``, the f32 ``tiny`` the smallest normal.
 
 The numpy functions serve the host (the feature mask); the ``torch_*``
 ones compute the same in int64 tensors that carry uint32 values, on any
@@ -159,3 +163,18 @@ def torch_permutation(key, n: int, device) -> torch.Tensor:
         order = torch.sort(torch_random_bits_at(sub, idx), stable=True)[1]
         x = x[order]
     return x
+
+
+def torch_gumbel(key, shape, device) -> torch.Tensor:
+    """f32 ``jax.random.gumbel(key, shape)`` (its default ``mode="low"``)
+    on ``device``: the uniform over ``[tiny, 1)`` of the row-major flat
+    index's bits, then ``-log(-log(u))``."""
+    n = math.prod(shape)
+    bits = torch_random_bits_at(key, torch.arange(n, dtype=torch.int64,
+                                                  device=device))
+    fb = (bits >> 9) | 0x3F800000
+    f = fb.to(torch.int32).view(torch.float32) - 1.0
+    tiny = float(np.finfo(np.float32).tiny)
+    # JAX: max(minval, f * (maxval - minval) + minval), (1 - tiny) == 1 in f32
+    u = torch.clamp_min(f + tiny, tiny)
+    return (-torch.log(-torch.log(u))).reshape(shape)

@@ -32,6 +32,7 @@ from lightgbm_tpu.utils import log as jlog
 from lightgbm_tpu_torch.ops.predict import (predict_leaf_binned,
                                             predict_leaf_binned_t)
 from lightgbm_tpu_torch.utils import log as tlog
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

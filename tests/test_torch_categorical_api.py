@@ -21,6 +21,7 @@ import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lgt
 
 from test_torch_categorical import cat_data
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 PARAMS = {"objective": "regression", "num_leaves": 15, "verbosity": -1,
           "min_data_in_leaf": 20, "min_data_per_group": 50}

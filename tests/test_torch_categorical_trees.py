@@ -26,6 +26,7 @@ import lightgbm_tpu_torch as lgt
 
 from test_torch_categorical import CATS, cat_data
 from test_torch_train import _leaf_gain64, _leaf_sets
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROUNDS = 5
 CASES = {
@@ -157,14 +158,67 @@ def equal_ratio_data(seed=2, n=3000):
     return X, (z + rng.randn(n) > 0).astype(float)
 
 
+def complement_data(n=3000):
+    """ROADMAP section C.2's frame: ``a``, ``b`` normal, ``c`` a pandas
+    category of 6 levels drawn uniformly, ``d`` bool, and a binary label
+    that the odd levels of ``c`` raise."""
+    import pandas as pd
+    rng = np.random.default_rng(0)
+    df = pd.DataFrame({"a": rng.normal(size=n), "b": rng.normal(size=n)})
+    df["c"] = pd.Categorical.from_codes(rng.integers(0, 6, n),
+                                        categories=list("pqrstu"))
+    df["d"] = rng.random(n) < 0.5
+    z = df["a"] + (df["c"].cat.codes % 2) * 0.8 + rng.normal(0, 0.5, n)
+    return df, (z > 0.3).astype(float).values
+
+
+def _is_complement(jb, tb, X, t, s):
+    """Split s of tree t holds the same rows in both packages, and the
+    rows one sends left the other sends right."""
+    port_in_jax = lgb.Booster(model_str=tb.model_to_string())
+    sets = []
+    for tree, bst in ((jb._gbdt.models[t], jb), (tb._gbdt.models[t],
+                                                 port_in_jax)):
+        lv = np.asarray(bst.predict(X, pred_leaf=True))[:, t]
+        u, v = _leaf_sets(tree)[s]
+        sets.append((np.isin(lv, list(u)), np.isin(lv, list(v))))
+    (rj, lj), (rt, lt) = sets
+    return np.array_equal(rj, rt) and np.array_equal(lj, rt & ~lt)
+
+
 # ROADMAP section C.2: at cat_smooth 1, levels of the 60-level feature
 # with equal row counts and labels have equal sort keys G / (H +
 # cat_smooth) in exact arithmetic, and each package's f32 residues order
 # them; the sets differ at a split of equal f64 gain.  At cat_smooth 10
-# (the default) the same data meet no tie.
-@pytest.mark.parametrize("cat_smooth,tie", [(1.0, (0, 10)), (10.0, None)])
+# (the default) the same data meet no tie.  The complement tie: on
+# complement_data, a leaf's best set is half of the 6 levels, which both
+# scan ends reach at exactly equal gain; tree 1 split 2 takes {p, r, t}
+# in the port and {q, s, u} in JAX (the rows agree, the sides swap).
+COMPLEMENT = ("complement", 1, 2)
+
+
+@pytest.mark.parametrize("cat_smooth,tie", [
+    (1.0, (0, 10)), (10.0, None),
+    pytest.param(10.0, COMPLEMENT, id="complement-10.0")])
 def test_equal_ratio_categories_tie_only_at_small_cat_smooth(cat_smooth,
                                                              tie):
+    if tie == COMPLEMENT:
+        X, y = complement_data()
+        params = {"objective": "binary", "num_leaves": 15, "verbosity": -1,
+                  "min_data_in_leaf": 20, "tpu_megakernel": "off"}
+        jb = lgb.train(dict(params, tpu_frontier_k=1), lgb.Dataset(
+            X, label=y), num_boost_round=5)
+        jb.num_trees()
+        tb = lgt.train(dict(params, device_type="cpu"),
+                       lgt.Dataset(X, label=y), num_boost_round=5)
+        mappers = tb._gbdt.train_data.bin_mappers
+        assert _compare(X, y, "binary", params, jb, tb, mappers,
+                        None) == tie[1:]
+        assert _is_complement(jb, tb, X, *tie[1:])
+        a, b = (bst._gbdt.models[tie[1]] for bst in (jb, tb))
+        # the tree's first categorical split: bits {0, 2, 4} against {1, 3, 5}
+        assert sorted([a.cat_threshold[0], b.cat_threshold[0]]) == [21, 42]
+        return
     X, y = equal_ratio_data()
     params = {"objective": "binary", "num_leaves": 15, "verbosity": -1,
               "min_data_in_leaf": 20, "cat_smooth": cat_smooth}

@@ -22,6 +22,7 @@ import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch import convert
 from lightgbm_tpu_torch.ops import feat_view as fv
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROUNDS = 5
 LEVELS = (5, 8, 3, 6)

@@ -9,6 +9,7 @@ import numpy as np
 import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lgt
 from test_torch_efb import LABELS, X, _same_trees
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def test_validation_set_and_early_stopping_on_bundles():

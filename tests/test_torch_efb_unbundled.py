@@ -7,6 +7,7 @@ than 10 s.
 import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lgt
 from test_torch_efb import LABELS, ROUNDS, X, _same_trees
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def test_enable_bundle_false_gives_the_unbundled_trees():

@@ -24,6 +24,7 @@ from lightgbm_tpu.ops import split as jsplit
 from lightgbm_tpu_torch.config import Config
 from lightgbm_tpu_torch.models import learner as lm
 from lightgbm_tpu_torch.ops import split as tsplit
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -123,11 +123,23 @@ def test_split_pair_kernel_bit_identical_to_plain(card, shape, pi):
 @pytest.mark.cuda
 @pytest.mark.parametrize("trial", [0, 1, 2])
 def test_split_mega_kernel_matches_plain(card, trial):
+    _split_mega_trial(card, trial, 28, 1 << 20, 900_000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trial", [0, 1])
+def test_split_mega_kernel_matches_plain_at_136_groups(card, trial):
+    """MSLR-WEB30K's 136 dense features: more groups than one block's
+    shared memory holds planes for, so a launch runs several group
+    sets."""
+    _split_mega_trial(card, trial, 136, 1 << 19, 400_000)
+
+
+def _split_mega_trial(card, trial, G, n_pad, cnt):
     rng = np.random.RandomState(trial)
-    G, n_pad = 28, 1 << 20
     pb = torch.as_tensor(rng.randint(0, 255, (G, n_pad)).astype(np.uint8))
     pg = torch.as_tensor(rng.randn(8, n_pad).astype(np.float32))
-    sc = make_scalars(4096 + trial, 900_000 + 77 * trial, trial + 3, 0, 0,
+    sc = make_scalars(4096 + trial, cnt + 77 * trial, trial + 3, 0, 0,
                       255, int(rng.randint(0, 255)), trial,
                       int(rng.randint(0, 255)), 1)
     outs = []
@@ -720,7 +732,17 @@ def test_frontier_key_and_undo_kernels_bit_identical_to_plain(card):
 def test_split_pair_2k_children_equal_per_pair_launches(card, k):
     """One launch over 2K children gives each child the bits of the pair
     launch that holds it."""
-    F, BF = 28, 256
+    _pair_2k(card, k, 28)
+
+
+@pytest.mark.cuda
+def test_split_pair_8_children_at_136_features(card):
+    """The frontier's 2K = 8 children at MSLR-WEB30K's 136 features."""
+    _pair_2k(card, 4, 136)
+
+
+def _pair_2k(card, k, F):
+    BF = 256
     pairs = [_pair_case(100 + i, F, BF) for i in range(k)]
     # children order of the frontier: the K left children, then the K
     # right ones
@@ -1905,3 +1927,95 @@ def test_monotone_graph_trees_on_the_card(card, method):
         Z[:, f] = np.tile(grid, len(base))
         p = b.predict(Z, raw_score=True).reshape(len(base), len(grid))
         assert (np.diff(p, axis=1) * s).min() >= -1e-6
+
+
+# ---- ranking: the lambdas in plain PyTorch on the card ---------------------
+def _rank_metadata(sizes, seed=0):
+    from lightgbm_tpu_torch.dataset import Metadata
+    rng = np.random.RandomState(seed)
+    n = int(np.sum(sizes))
+    md = Metadata(n)
+    label = rng.randint(0, 5, n).astype(np.float64)
+    label[rng.rand(n) < 0.6] = 0
+    md.set_label(label)
+    md.set_group(sizes)
+    md.set_position(rng.randint(0, 8, n))
+    return md
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective", ["lambdarank", "lambdarank_positions",
+                                       "rank_xendcg"])
+def test_rank_gradients_on_the_card_equal_the_cpu(card, objective,
+                                                  monkeypatch):
+    """The ranking objectives' gradients from the same scores on the card
+    and on the CPU, three calls in a row (XE-NDCG's draws, the position
+    biases), within the CPU tests' bar against the JAX package (rtol 1e-5
+    / atol 1e-6): queries of 1 to 70 documents and three past 1,024 (a
+    2,048-wide bucket), the budget cut so that the 2,048-wide bucket runs
+    in chunks of one query on both."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.models import objective as tobj
+    monkeypatch.setattr(tobj, "PAIR_BUDGET",
+                        tobj.PAIR_TEMPS * 2048 * 2048 * 4)
+    sizes = np.concatenate([np.random.RandomState(1).permutation(
+        np.arange(1, 71)), [1100, 1500, 2048]])
+    md = _rank_metadata(sizes)
+    if objective != "lambdarank_positions":
+        md.set_position(None)
+    params = {"objective": objective.split("_positions")[0],
+              "lambdarank_position_bias_regularization": 0.1}
+    objs = []
+    for dev in ("cpu", card):
+        o = tobj.create_objective(Config(params))
+        o.init(md, dev)
+        objs.append(o)
+    if objective != "rank_xendcg":
+        big = [b for b in objs[1].buckets if b.P == 2048][0]
+        assert len(big.chunks) == 3
+    rng = np.random.RandomState(2)
+    for it in range(3):
+        s = (rng.randn(md.num_data).astype(np.float32) if it
+             else np.zeros(md.num_data, np.float32))
+        want = objs[0].get_gradients(torch.as_tensor(s))
+        got = objs[1].get_gradients(torch.as_tensor(s, device=card))
+        for a, b in zip(got, want):
+            assert a.device == torch.device(card)
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                       rtol=1e-5, atol=1e-6)
+    if objective == "lambdarank_positions":
+        np.testing.assert_allclose(objs[1].pos_biases.cpu().numpy(),
+                                   objs[0].pos_biases.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", [{}, {"tpu_megakernel": "off"}])
+def test_rank_graph_trees_on_the_card(card, body):
+    """lambdarank through the graph loop on the card on both bodies (the
+    mega path at the auto K = 4): one capture, one tree read a tree, and
+    the training NDCG@10 rising; ndcg@10 equal to its evaluation on the
+    CPU from the card's scores."""
+    from lightgbm_tpu_torch.models.metric import NDCGMetric
+    from lightgbm_tpu_torch.config import Config
+    rng = np.random.RandomState(0)
+    sizes = rng.randint(5, 60, 200)
+    n = int(sizes.sum())
+    X = rng.randn(n, 12)
+    y = np.clip(np.round(X[:, 0] + 0.5 * X[:, 1] + rng.randn(n)), 0, 4)
+    ev = {}
+    b = lgt.train(dict({"objective": "lambdarank", "num_leaves": 31,
+                        "verbosity": -1, "metric": "ndcg", "eval_at": 10},
+                       **body), lgt.Dataset(X, label=y, group=sizes), 5,
+                  valid_sets=[lgt.Dataset(X, label=y, group=sizes)],
+                  valid_names=["v"], callbacks=[lgt.record_evaluation(ev)])
+    lr = b._gbdt.learner
+    assert lr.captures == 1 and lr.syncs == 5
+    assert lr.subtract == bool(body) and lr.K == (1 if body else 4)
+    hist = ev["v"]["ndcg@10"]
+    assert hist[-1] > hist[0]
+    m = NDCGMetric(Config({"eval_at": 10}))
+    m.init(b._gbdt.train_data.metadata, "cpu")
+    (_, v), = m.eval(b._gbdt.scores.cpu(), None)
+    w = {k: x for k, x, _ in b._gbdt.eval_train()}["ndcg@10"]
+    assert abs(v - w) <= 1e-6

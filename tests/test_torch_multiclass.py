@@ -30,6 +30,7 @@ import lightgbm_tpu_torch as lgt
 
 from test_torch_objectives_train import grads64, walk_ties
 from test_torch_train import _structure
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K = 5

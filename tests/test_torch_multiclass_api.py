@@ -29,6 +29,7 @@ import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch import convert
 
 from test_torch_multiclass import K, mc_data
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASE = {"objective": "multiclass", "num_class": K, "num_leaves": 15,
@@ -142,8 +143,8 @@ def test_auc_mu_and_multi_error_against_numpy(port2, top_k):
      ("data_sample_strategy", "objective")),
     ({"objective": "regression", "num_class": 3}, ("num_class", "objective")),
     ({"objective": "multiclass", "num_class": 1}, ("num_class", "objective")),
-    ({"objective": "lambdarank"}, ("objective",)),
-    ({"objective": "rank_xendcg"}, ("objective",))])
+    ({"objective": "lambdarank", "boosting": "dart"}, ("boosting",)),
+    ({"objective": "rank_xendcg", "linear_tree": True}, ("linear_tree",))])
 def test_refused_combinations_name_their_params(extra, names):
     X, y = mc_data()
     with pytest.raises(NotImplementedError) as err:

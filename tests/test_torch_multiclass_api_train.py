@@ -14,6 +14,7 @@ import lightgbm_tpu_torch as lgt
 
 from test_torch_multiclass import K, mc_data
 from test_torch_multiclass_api import BASE, CPU, JAX, ROOT, port2  # noqa
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def test_continued_training_matches_jax(port2):

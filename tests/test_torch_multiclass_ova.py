@@ -6,6 +6,7 @@ init_score)."""
 import pytest
 
 from test_torch_multiclass import FILES, check_case
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("case", FILES["ova"])

@@ -147,15 +147,11 @@ def _aliases(table_name):
 @pytest.mark.parametrize("alias", _aliases("_OBJECTIVE_ALIASES"))
 def test_objective_alias_resolves_as_jax(alias):
     """Each objective name and alias means what it means to the JAX
-    package; the port builds it, or refuses it by name (ranking)."""
+    package, and the port builds it."""
     params = {"objective": alias, "num_class": 3 if "multi" in alias
               or alias in ("softmax", "ova", "ovr") else 1}
     jc, tc = jconfig.Config(params), tconfig.Config(params)
     assert tc.objective == jc.objective
-    if tc.objective in ("lambdarank", "rank_xendcg"):
-        with pytest.raises(NotImplementedError, match="objective"):
-            tc.check_supported()
-        return
     tc.check_supported()
     o = tobj.create_objective(tc)
     want = jobj.create_objective(jc)
@@ -167,15 +163,11 @@ def test_objective_alias_resolves_as_jax(alias):
 @pytest.mark.parametrize("alias", _aliases("_METRIC_ALIASES"))
 def test_metric_alias_resolves_as_jax(alias):
     """Each metric alias names the JAX package's metric; the port builds
-    every one but ranking's (ndcg, map), which it refuses by name."""
+    every one."""
     from lightgbm_tpu.models import metric as jmetric
     from lightgbm_tpu_torch.models import metric as tmetric
     jc, tc = (m.Config({"metric": alias, "num_class": 3})
               for m in (jconfig, tconfig))
     assert tc.metric_list == jc.metric_list
-    if set(tc.metric_list) & {"ndcg", "map"}:
-        with pytest.raises(NotImplementedError, match="metric"):
-            tmetric.create_metrics(tc)
-        return
     assert [m.name for m in tmetric.create_metrics(tc)] == \
         [m.name for m in jmetric.create_metrics(jc)]

@@ -7,6 +7,7 @@ sets out (its tie rule, tolerances and cases)."""
 import pytest
 
 from test_torch_objectives_train import CASES, HERE, check_case
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("case", sorted(set(CASES) - set(HERE)))

@@ -30,6 +30,7 @@ import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch.basic import _dataframe_to_matrix
 
 from test_torch_categorical_trees import _compare
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PARAMS = {"objective": "binary", "num_leaves": 15, "verbosity": -1,

@@ -19,6 +19,7 @@ from lightgbm_tpu.ops.partition_pallas import (make_scalars,
                                                partition_leaf_pallas,
                                                sc_rows_for)
 from lightgbm_tpu_torch.ops import partition as tpart
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 C, R = 256, 32
 NP = 8 * C

@@ -35,6 +35,7 @@ from lightgbm_tpu_torch.ops import split_mega as sm
 from lightgbm_tpu_torch.ops.partition import make_scalars
 from lightgbm_tpu_torch.ops.quantize import quantize, scale_planes
 from lightgbm_tpu_torch.utils import random as jrandom
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 N, NPAD, C = 900, 1280, 128
 

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 from test_torch_quantized_trees import check, example, train_jax, train_port
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def _data(case):

@@ -11,6 +11,7 @@ over the eager bag after the quantized one.
 import numpy as np
 
 from test_torch_quantized_trees import check, example, train_jax, train_port
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 BAG = dict(bagging_fraction=0.7, bagging_freq=1)
 

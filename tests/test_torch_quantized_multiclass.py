@@ -17,6 +17,7 @@ import pytest
 
 from test_torch_quantized_trees import (check, compare, example, train_jax,
                                         train_port)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 CASES = {"softmax": False, "softmax_init": True}
 TIES = {"softmax": (3, 10)}

@@ -13,6 +13,7 @@ import numpy as np
 
 import lightgbm_tpu as lgb
 from test_torch_quantized_trees import check, example, train_jax, train_port
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def test_weighted_renewal_takes_k1_and_matches_jax():

@@ -8,6 +8,7 @@ gradients of each class tree ride payload rows 4 and 5.
 
 from test_torch_quantized_multiclass import train_both
 from test_torch_quantized_trees import check
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def test_ova_frontier_bagged_renewal_trees_match_jax():

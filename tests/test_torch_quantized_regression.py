@@ -9,6 +9,7 @@ import pytest
 
 from test_torch_quantized_trees import (BODIES, check, example, run_bodies,
                                         train_port)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 from test_torch_quantized_trees import check, example, train_jax, train_port
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 CASES = {
     "bagging": ("binary", dict(bagging_fraction=0.7, bagging_freq=1)),

@@ -32,6 +32,7 @@ from lightgbm_tpu_torch.models.boosting import GBDT, scores_from_phys
 
 from test_torch_categorical_trees import _gain64, _l2_of
 from test_torch_train import _leaf_sets
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROUNDS = 4

@@ -28,6 +28,7 @@ from test_torch_efb import _structure
 from test_torch_sampling import _load
 from test_torch_sampling_iter import _orig
 from test_torch_train import _first_tie, _leaf_sets, _split_gain64
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROUNDS = 5
 BASE = {"objective": "binary", "num_leaves": 15, "verbosity": -1}

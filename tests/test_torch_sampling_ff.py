@@ -17,6 +17,7 @@ import lightgbm_tpu_torch as lgt
 from test_torch_sampling import _load
 from test_torch_sampling_trees import _bag, check_case
 from test_torch_train import _compare_with_ties
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 CASES = {
     "feature_fraction": dict(feature_fraction=0.6),

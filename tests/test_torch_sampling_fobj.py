@@ -15,6 +15,7 @@ import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lgt
 from test_torch_efb import _same_trees
 from test_torch_sampling import _load
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROUNDS = 5
 BASE = {"objective": "binary", "num_leaves": 15, "verbosity": -1}

@@ -16,6 +16,7 @@ import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lgt
 from test_torch_sampling import _load
 from test_torch_efb import _same_trees
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ITER_CASES = {
     "bag": dict(bagging_fraction=0.7, bagging_freq=2),

@@ -22,6 +22,7 @@ import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch.utils import random as jr
 from test_torch_sampling import _load
 from test_torch_train import _compare_with_ties
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROUNDS = 5
 # case -> (params, JAX's megakernel path, the (tree, split) where the

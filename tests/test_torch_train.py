@@ -23,6 +23,7 @@ import pytest
 import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch import convert
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROUNDS = 5
@@ -176,18 +177,39 @@ def _check_model_text(pair, tmp_path):
                                   tb.predict(X, raw_score=True))
 
 
+def _cat_jax(rounds):
+    """The JAX package's regression booster on _cat_data (15 leaves,
+    column 0 categorical)."""
+    X, y = _cat_data()
+    jb = lgb.train({"objective": "regression", "num_leaves": 15,
+                    "verbosity": -1, "tpu_frontier_k": 1},
+                   lgb.Dataset(X, label=y, categorical_feature=[0]),
+                   num_boost_round=rounds)
+    jb.num_trees()
+    return jb
+
+
+# the JAX boosters on categorical data, trained once for every case of
+# `pair` that reads them
+@pytest.fixture(scope="module")
+def cat_jax3():
+    return _cat_jax(3)
+
+
+@pytest.fixture(scope="module")
+def cat_jax():
+    return _cat_jax(ROUNDS)
+
+
 @pytest.mark.parametrize("key", ["num_cat", "is_linear"])
-def test_loading_categorical_or_linear_trees_raises(pair, key):
+def test_loading_categorical_or_linear_trees_raises(pair, key, request):
     """Linear trees are not part of the port: model text with one raises
     instead of losing it.  A JAX-written model with categorical trees
     loads and predicts what JAX predicts, NaN and unseen categories
     included."""
     if key == "num_cat":
         X, y = _cat_data()
-        jb = lgb.train({"objective": "regression", "num_leaves": 15,
-                        "verbosity": -1, "tpu_frontier_k": 1},
-                       lgb.Dataset(X, label=y, categorical_feature=[0]),
-                       num_boost_round=3)
+        jb = request.getfixturevalue("cat_jax3")
         tl = lgt.Booster(params={"device_type": "cpu"},
                          model_str=jb.model_to_string())
         assert sum(t.num_cat for t in tl._gbdt.models) > 0
@@ -211,16 +233,13 @@ def _cat_data(n=2000, seed=0):
     return np.column_stack([cat, x1]), y
 
 
-def test_categorical_bin_mapper_raises(pair):
+def test_categorical_bin_mapper_raises(pair, cat_jax):
     """convert.dataset_from_arrays carries the JAX package's categorical
     bin mappers across bit for bit, and the port grows JAX's trees on
     them."""
     X, y = _cat_data()
     params = {"objective": "regression", "num_leaves": 15, "verbosity": -1}
-    jb = lgb.train(dict(params, tpu_frontier_k=1),
-                   lgb.Dataset(X, label=y, categorical_feature=[0]),
-                   num_boost_round=ROUNDS)
-    jb.num_trees()
+    jb = cat_jax
     jd = jb._gbdt.train_data
     ds = convert.dataset_from_arrays(
         np.asarray(jd.host_binned()), [bm.to_dict() for bm in jd.bin_mappers],
@@ -301,7 +320,7 @@ def test_dataset_from_jax_arrays_trains_the_same_trees(pair):
 
 @pytest.mark.parametrize("param,value", [
     ("feature_fraction_bynode", 0.5), ("extra_trees", True),
-    ("objective", "multiclass"), ("objective", "lambdarank"),
+    ("objective", "multiclass"), ("boosting", "dart"),
     ("tpu_ab_double", "hist"),
     ("linear_tree", True), ("tree_learner", "data"),
     ("tpu_megakernel", "xla"), ("tpu_hist_dtype", "float16"),

@@ -30,6 +30,7 @@ from lightgbm_tpu_torch.ops.tree_step import (
     LM_BLSH, LM_BRCNT, LM_BROUT, LM_BRSG, LM_BRSH, LM_BTHR, LM_CNT, LM_CNT_G,
     LM_DEPTH, LM_PARENT, LM_PSIDE, LM_START, LM_SUM_H, LM_VALUE, ND_IS_CAT,
     ND_LEFT, ND_RIGHT, NND, _f2i, _i2f)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROW0, N, BAG = 256, 5000, 5000

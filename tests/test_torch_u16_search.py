@@ -19,6 +19,7 @@ from lightgbm_tpu.ops import split as jsplit
 from lightgbm_tpu_torch.ops import partition as tpart
 from lightgbm_tpu_torch.ops import split_cat as scat
 from lightgbm_tpu_torch.ops import split_pair as sp
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def _wide_pair(seed, F=4, BF=1024):

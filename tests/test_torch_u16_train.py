@@ -24,6 +24,7 @@ import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lgt
 
 from test_torch_categorical_trees import _compare
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROUNDS = 5

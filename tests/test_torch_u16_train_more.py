@@ -15,6 +15,7 @@ import lightgbm_tpu_torch as lgt
 from test_torch_multiclass import class_grads, mc_data
 from test_torch_objectives_train import walk_ties
 from test_torch_u16_train import example, train_and_check
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def test_max_bin_by_feature_trains_as_jax():

@@ -219,6 +219,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the card's lambdas against the CPU's (rtol 1e-5 / atol 1e-6), the
      first tree against the CPU's (``tree_tie``), and 3 iterations each
      of rank_xendcg and of lambdarank with positions, NDCG rising;
+  4l. (after 4i) DART, random forest, the eager iteration and rollback
+     on the HIGGS rows and Dataset of phase 4 (binary, 255 leaves): DART
+     (``drop_rate`` 0.3, ``skip_drop`` 0, ``max_drop`` 50) 10 iterations
+     on the mega body (auto: K=4) and the subtraction body beside GBDT's
+     10 on the same body, the dropped count each iteration, s/iteration
+     (median of 2-9), the walks of past trees (CUDA events) a walk and an
+     iteration, the device's busy share of a profiled iteration; RF
+     (bagging 0.632, ``feature_fraction`` 0.8) 10 iterations, the
+     training AUC each; ``tpu_fused_iteration=false`` with bagging 0.7
+     beside the fused run; GOSS with ``regression_l1`` on 4g's continuous
+     label, the renewal's ms a tree; rollback (5 iterations, 2 rolled
+     back: the scores within 1e-6 of a 3-iteration run's, the trees
+     equal); each run's body kernels launched (counts set to 0 before
+     it), one capture and one tree read a tree; a saved DART and a saved
+     RF model reloaded predict bit for bit; on a 200,000-row cut at 63
+     leaves the card against the CPU plain loop for DART, RF, eager
+     bagging and GOSS with L1, quantized (both sum exact integer
+     carriers): DART's
+     drop sets equal, the trees equal up to an exact tie (``tree_tie``)
+     and, with none, the scores within atol 1e-5;
+     ``python3 chip_smoke.py --boost`` runs it alone;
   5. each kernel against its plain version on inputs captured from the
      first tree of its path, through its host-int entry and through the
      step entry the graph loop launches (a step block made beforehand,
@@ -237,7 +258,7 @@ trains the HIGGS shape 2 iterations on each body and prints a sha256 of
 the trees and row buffers a body, to compare two checkouts on one card;
 ``python3 chip_smoke.py --wide`` runs phase 4h alone, ``--efb`` phase 4e
 alone, ``--quant`` phase 4i alone, ``--mono`` phase 4j alone, ``--rank``
-phase 4k alone.
+phase 4k alone, ``--boost`` phase 4l alone.
 """
 
 import atexit
@@ -1179,22 +1200,6 @@ def iteration_timer(times, snaps=None):
     return cb
 
 
-def keep_records(recs):
-    """A before-iteration callback that makes the booster keep each tree's
-    host record as the validation update gets it."""
-    def cb(env):
-        g = env.model._gbdt
-        if env.iteration == 0:
-            orig = g._add_valid_values
-
-            def kept(rec):
-                recs.append(rec)
-                orig(rec)
-            g._add_valid_values = kept
-    cb.before_iteration = True
-    return cb
-
-
 def same_trees(a, b, exact=True):
     """Tree lists equal in structure (features, bins, children, counts);
     leaf values bit for bit or within rtol 1e-4 / atol 1e-5."""
@@ -1263,9 +1268,9 @@ def api_path(lgt, mods, fro, card):
             m.launches = 0
         for k in fro.launches:
             fro.launches[k] = 0
-        valid_t, ev, snaps, recs = [], {}, [], []
+        valid_t, ev, snaps = [], {}, []
         bv = lgt.train(p, ds, API_ITERS, valid_sets=[dv], callbacks=[
-            iteration_timer(valid_t, snaps), keep_records(recs),
+            iteration_timer(valid_t, snaps),
             lgt.record_evaluation(ev), lgt.early_stopping(50, verbose=False)])
         counts = dict({k: m.launches for k, m in mods.items()},
                       **fro.launches)
@@ -1305,19 +1310,20 @@ def api_path(lgt, mods, fro, card):
               f"api {label}: valid logloss does not fall: "
               f"{rec['binary_logloss']}")
         # the validation update of the last tree, again, on its own
-        last = recs[-1]
-        depth = learner_depth(last)
+        last = len(gv.models) - 1
+        depth = learner_depth(gv.device_trees[last])
         reps = 5
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
-                type(gv)._add_valid_values(gv, last)
+                gv._tree_to_scores(last, 1.0, train=False)
             torch.cuda.synchronize()
         trav_ms = sum(ms for _, ms, _ in device_rows(prof)) / reps
         check(trav_ms > 0, f"api {label}: the profiler saw no device time "
                            f"in the validation update")
-        trav_ev_ms = cuda_ms(lambda: type(gv)._add_valid_values(gv, last), 5)
+        trav_ev_ms = cuda_ms(
+            lambda: gv._tree_to_scores(last, 1.0, train=False), 5)
         out[label] = {
             "s_per_iter_no_valid": float(np.median(plain_t)),
             "s_per_iter_valid": float(np.median(valid_t)),
@@ -1335,7 +1341,7 @@ def api_path(lgt, mods, fro, card):
             f"depth {depth}; valid scores vs predict {verr:.2e}; metrics vs "
             f"numpy f64 {merr}; one tree read a tree; trees equal without "
             f"the valid set; wrapper counts {counts}")
-        del b0, bv, g0, gv, snaps, recs
+        del b0, bv, g0, gv, snaps
         torch.cuda.empty_cache()
 
     # early stopping on examples/binary_classification: card and CPU
@@ -1420,11 +1426,10 @@ def api_path(lgt, mods, fro, card):
     return out
 
 
-def learner_depth(rec):
-    """The depth of the tree in a learner's host record."""
+def learner_depth(dt):
+    """The depth of the tree of a booster's device record."""
     from lightgbm_tpu_torch.ops.predict import tree_depth
-    s = int(rec["s"])
-    return tree_depth(rec["node_left"][:s], rec["node_right"][:s])
+    return tree_depth(dt["node"]["left"], dt["node"]["right"])
 
 
 FR_K, FR_TREES = 4, 4          # the frontier phase: K, and trees a booster
@@ -2860,6 +2865,345 @@ def objectives_path(lgt, mods, ds, X, params):
         f"tree at {ROWS} rows (median of {len(renew['ms'])}; bit-identical "
         f"to the plain renewal on the host on the first tree of each "
         f"body); {time.time() - t_phase:.1f} s")
+    return out
+
+
+# ---- phase 4l: DART, random forest, the eager iteration, rollback -------
+BOOST_ITERS = 10
+BOOST_CUT = 200_000             # rows of the card-vs-CPU runs
+BOOST_CUT_LEAVES = 63           # their leaves: the CPU's plain loop
+                                # grows 255 in ~12 s a run
+DART_P = {"boosting": "dart", "drop_rate": 0.3, "skip_drop": 0.0,
+          "max_drop": 50}
+RF_P = {"boosting": "rf", "bagging_fraction": 0.632, "bagging_freq": 1,
+        "feature_fraction": 0.8}
+BAG7 = {"bagging_fraction": 0.7, "bagging_freq": 1}
+EAGER_P = dict(BAG7, tpu_fused_iteration=False)
+GOSS_L1_P = {"objective": "regression_l1", "data_sample_strategy": "goss",
+             "metric": "l1"}
+AUTO = {"tpu_frontier_k": "auto"}
+
+
+def busy_share(bst):
+    """One more iteration under torch.profiler: (device busy ms, wall
+    ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        bst.update()
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+    return sum(ms for _, ms, _ in device_rows(prof)), wall
+
+
+def first_grads_of(bst):
+    """Wrap ``bst``'s learner so each tree's (grad, hess) -- payload rows
+    0 and 1 as the tree starts, f64 in original row order, quantized
+    carriers times their scale -- is kept."""
+    from lightgbm_tpu_torch.models.boosting import scores_from_phys
+    lr, out = bst._gbdt.learner, []
+    build = lr.build_tree
+
+    def rec(pb, pg, before_read=None):
+        sc = lr.qscale.double().cpu()
+        out.append(tuple((scores_from_phys(pg, lr.N, r).double().cpu()
+                          * sc[r]).numpy() for r in (0, 1)))
+        return build(pb, pg, before_read)
+    lr.build_tree = rec
+    return out
+
+
+def boost_path(lgt, mods, ds, X, y, params):
+    """Phase 4l (``--boost``): DART, random forest, the eager iteration
+    and rollback at the HIGGS shape (see the module doc); returns the
+    summary printed by ``--boost``."""
+    from lightgbm_tpu_torch.models import boosting as bmod
+    t_phase = time.time()
+    walks = []                  # (run's iteration, train?, start, end)
+    cur = [0]
+    real_walk = bmod.GBDT._tree_to_scores
+
+    def timed_walk(self, t, factor, train=True, valid=True):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        real_walk(self, t, factor, train, valid)
+        e1.record()
+        walks.append((cur[0], train, e0, e1))
+    bmod.GBDT._tree_to_scores = timed_walk
+    renews = []
+    real_renew = bmod.renew_leaves
+
+    def timed_renew(*args):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real_renew(*args)
+        e1.record()
+        renews.append((e0, e1))
+        return out
+    bmod.renew_leaves = timed_renew
+    Xp = X[:100_000].astype(np.float64)
+    out = {}
+
+    def run(label, p, data, iters, body, auc=False):
+        """``iters`` iterations of a fresh booster, counts set to 0 before
+        and read after; its per-iteration wall s (a device sync ends
+        each), the dropped count (DART) and training AUC each iteration."""
+        bst = lgt.Booster(p, data)
+        g, lr = bst._gbdt, bst._gbdt.learner
+        for m in mods.values():
+            m.launches = 0
+        del walks[:]
+        times, drops, aucs = [], [], []
+        for i in range(iters):
+            cur[0] = i
+            t0 = time.time()
+            bst.update()
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+            if isinstance(g, bmod.DART):
+                drops.append(len(g.last_drops))
+            if auc:
+                aucs.append(bst.eval_train()[0][2])
+        calls = {k: m.launches for k, m in mods.items()}
+        check(all(calls[k] > 0 for k in BODY_KERNELS[body]),
+              f"{label}: a kernel of the {body} body was not launched: "
+              f"{calls}")
+        check(lr.captures == 1 and lr.syncs == lr.replays == iters
+              and len(g.models) == iters,
+              f"{label}: {lr.captures} captures, {lr.replays} replays, "
+              f"{lr.syncs} tree reads, {len(g.models)} trees for {iters}")
+        sc = g.scores.cpu().numpy()
+        check(sc.shape == (len(y),) and np.isfinite(sc).all(),
+              f"{label}: train scores not finite")
+        return bst, times, drops, aucs
+
+    # ---- DART on both bodies, beside GBDT --------------------------------
+    for body, extra in (("mega", AUTO), ("subtraction", BODIES["subtraction"])):
+        _, gt, _, _ = run(f"gbdt {body}", dict(params, **extra), ds,
+                          BOOST_ITERS, body)
+        label = f"dart {body}"
+        bst, times, drops, _ = run(label, dict(params, **DART_P, **extra),
+                                   ds, BOOST_ITERS, body)
+        torch.cuda.synchronize()
+        per_walk = [e0.elapsed_time(e1) for _, tr, e0, e1 in walks if tr]
+        per_iter = {}
+        for it, tr, e0, e1 in walks:
+            if tr:
+                per_iter[it] = per_iter.get(it, 0.0) + e0.elapsed_time(e1)
+        check(sum(drops) > 0 and len(per_walk) == 2 * sum(drops),
+              f"{label}: {drops} dropped, {len(per_walk)} train walks")
+        g = bst._gbdt
+        # the init score sits in host tree 0 only (ROADMAP section C): the
+        # model predicts the train scores plus init * (F0 - 1), F0 tree
+        # 0's factors
+        init = g.init_scores[0]
+        d0 = g.device_trees[0]["delta"].double().cpu().numpy()
+        F0 = ((g.models[0].leaf_value[0] - d0[0]) / init
+              if abs(init) > 1e-15 else 1.0)
+        gap = (bst.predict(Xp, raw_score=True)
+               - g.scores.cpu().numpy()[:len(Xp)] - init * (F0 - 1.0))
+        check(np.abs(gap).max() <= 1e-4,
+              f"{label}: raw predictions part from the train scores by "
+              f"{np.abs(gap).max()!r} beyond the init fold")
+        busy, wall = busy_share(bst)
+        iter_s, gbdt_s = float(np.median(times[1:9])), float(
+            np.median(gt[1:9]))
+        walk_ms = float(np.median(per_walk))
+        walk_iter = float(np.median([per_iter.get(i, 0.0)
+                                     for i in range(1, 9)]))
+        out[label] = {"drops": drops, "iter_s": iter_s, "gbdt_s": gbdt_s,
+                      "walk_ms": walk_ms, "walk_ms_iter": walk_iter,
+                      "busy_ms": busy, "wall_ms": wall, "F0": F0}
+        say(f"dart {body} (K={g.learner.K}): dropped per iteration {drops}; "
+            f"s/iteration {iter_s:.4f} (median of 2-9) against GBDT "
+            f"{gbdt_s:.4f}; a walk of a past tree {walk_ms:.3f} ms "
+            f"(median of {len(per_walk)}), {walk_iter:.3f} ms an iteration "
+            f"(median of 2-9); a profiled iteration {wall:.1f} ms wall, "
+            f"device busy {busy:.1f} ms ({100 * busy / wall:.1f}%); the "
+            f"model predicts the scores + init * (F0 - 1), F0 {F0:.4f}")
+        if body == "mega":
+            dart_bst = bst
+        else:
+            del bst, g
+        torch.cuda.empty_cache()
+
+    # ---- RF ----------------------------------------------------------------
+    rf_bst, times, _, aucs = run("rf", dict(params, metric="auc", **RF_P,
+                                            **AUTO), ds, BOOST_ITERS, "mega",
+                                 auc=True)
+    g = rf_bst._gbdt
+    n_bag = int(len(y) * RF_P["bagging_fraction"])
+    check(all(t.internal_count[0] == n_bag for t in g.models),
+          f"rf: in-bag counts {[t.internal_count[0] for t in g.models]}, "
+          f"want {n_bag}")
+    raw = rf_bst.predict(Xp, raw_score=True)
+    err = float(np.abs(raw * BOOST_ITERS
+                       - g.scores.cpu().numpy()[:len(Xp)]).max())
+    check(err <= 1e-4, f"rf: the averaged prediction times {BOOST_ITERS} "
+                       f"parts from the running sum by {err!r}")
+    out["rf"] = {"iter_s": float(np.median(times[1:9])), "auc": aucs}
+    say(f"rf (bagging 0.632, feature_fraction 0.8): s/iteration "
+        f"{out['rf']['iter_s']:.4f} (median of 2-9); training AUC of the "
+        f"running sum each iteration {[round(a, 5) for a in aucs]}; the "
+        f"averaged prediction is the sum over {BOOST_ITERS}")
+
+    # ---- a saved DART and a saved RF model reload bit for bit -----------
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, b in (("dart", dart_bst), ("rf", rf_bst)):
+            path = os.path.join(tmp, f"{label}.txt")
+            b.save_model(path)
+            again = lgt.Booster(model_file=path)
+            check(np.array_equal(again.predict(Xp, raw_score=True),
+                                 b.predict(Xp, raw_score=True))
+                  and np.array_equal(again.predict(Xp), b.predict(Xp)),
+                  f"{label}: the reloaded model predicts other scores")
+    say("dart and rf: saved models reload and predict 100,000 rows bit for "
+        "bit (raw and converted)")
+    del dart_bst, rf_bst, g
+    torch.cuda.empty_cache()
+
+    # ---- the eager iteration beside the fused one -------------------------
+    res = {}
+    draws = []
+    real_draw = bmod.GBDT._sample_eager
+
+    def timed_draw(self, grad, hess):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        g_, h_ = real_draw(self, grad, hess)
+        e1.record()
+        draws.append((e0, e1))
+        return g_, h_
+    bmod.GBDT._sample_eager = timed_draw
+    for label, extra in (("fused", BAG7), ("eager", EAGER_P)):
+        b, times, _, _ = run(f"{label} bagging", dict(params, **extra,
+                                                      **AUTO), ds,
+                             BOOST_ITERS, "mega")
+        res[label] = float(np.median(times[1:9]))
+        if label == "eager":
+            n_bag = int(len(y) * 0.7)
+            check(b._gbdt._eager and all(t.internal_count[0] == n_bag
+                                         for t in b._gbdt.models),
+                  f"eager bagging: in-bag counts "
+                  f"{[t.internal_count[0] for t in b._gbdt.models]}")
+            busy, wall = busy_share(b)
+        del b
+    bmod.GBDT._sample_eager = real_draw
+    torch.cuda.synchronize()
+    draw_ms = float(np.median([e0.elapsed_time(e1) for e0, e1 in draws]))
+    from lightgbm_tpu_torch.utils import random as jrandom
+    perm_ms = cuda_ms(lambda: jrandom.torch_permutation(
+        jrandom.PRNGKey(3), len(y), torch.device("cuda")), 3)
+    res.update(draw_ms=draw_ms, perm_ms=perm_ms, busy_ms=busy, wall_ms=wall)
+    out["eager"] = res
+    say(f"tpu_fused_iteration=false, bagging 0.7: s/iteration "
+        f"{res['eager']:.4f} against the fused draw's {res['fused']:.4f} "
+        f"(median of 2-9; the eager bag an exact count by a permutation); "
+        f"the eager draw {draw_ms:.3f} ms an iteration (CUDA events, "
+        f"median of {len(draws)}), of it the permutation of {len(y)} ids "
+        f"{perm_ms:.3f} ms (plain PyTorch: Threefry bits and stable sorts); "
+        f"a profiled iteration {wall:.1f} ms wall, device busy {busy:.1f} "
+        f"ms ({100 * busy / wall:.1f}%)")
+
+    # ---- GOSS with regression_l1 on 4g's continuous label ---------------
+    yc, _ = objective_labels(X)
+    d_l1 = relabeled(lgt, ds, X, yc)
+    del renews[:]
+    b, times, _, _ = run("goss l1", dict(params, **GOSS_L1_P, **AUTO), d_l1,
+                         5, "mega")
+    torch.cuda.synchronize()
+    renew_ms = [e0.elapsed_time(e1) for e0, e1 in renews]
+    check(len(renew_ms) == 5 and b._gbdt._eager,
+          f"goss l1: {len(renew_ms)} renewals for 5 trees")
+    out["goss_l1"] = {"iter_s": float(np.median(times[1:])),
+                      "renew_ms": float(np.median(renew_ms))}
+    say(f"goss regression_l1: s/iteration {out['goss_l1']['iter_s']:.4f} "
+        f"(median of 2-5); the renewal over GOSS's rows "
+        f"{out['goss_l1']['renew_ms']:.3f} ms a tree (median of 5)")
+    del b, d_l1
+    torch.cuda.empty_cache()
+
+    # ---- rollback ----------------------------------------------------------
+    pa = dict(params, **AUTO)
+    a = lgt.Booster(pa, ds)
+    for _ in range(3):
+        a.update()
+    b = lgt.Booster(pa, ds)
+    for _ in range(5):
+        b.update()
+    b.rollback_one_iter()
+    b.rollback_one_iter()
+    sa, sb = (x._gbdt.scores.cpu().numpy() for x in (a, b))
+    err = float(np.abs(sa - sb).max())
+    check(b.current_iteration == 3 and same_trees(a._gbdt.models,
+                                                  b._gbdt.models)
+          and err <= 1e-6, f"rollback: {b.current_iteration} iterations, "
+                           f"scores {err!r} from the 3-iteration run's")
+    out["rollback_err"] = err
+    say(f"rollback: 5 iterations less 2 against 3: the trees equal, the "
+        f"scores within {err:.2e}")
+    del a, b
+    torch.cuda.empty_cache()
+    bmod.GBDT._tree_to_scores = real_walk
+    bmod.renew_leaves = real_renew
+
+    # ---- the card against the CPU on a quantized 200,000-row cut: both
+    # sum integer carriers exactly, so trees part only at exact ties (the
+    # CPU's f32 float sums part from the card's exact ones beyond
+    # tree_tie's bound at 255 leaves; PERF.md section 6) ----------------
+    cut64 = X[:BOOST_CUT].astype(np.float64)
+    cuts = {"dart": (dict(DART_P, drop_rate=0.5), y, 4),
+            "rf": (RF_P, y, 2), "eager bagging": (EAGER_P, y, 2),
+            "goss l1": (GOSS_L1_P, yc, 2)}
+    out["cut"] = {}
+    for label, (extra, lab, iters) in cuts.items():
+        d_cut = relabeled(lgt, ds, X, lab, BOOST_CUT)
+        p = dict(params, use_quantized_grad=True,
+                 num_leaves=BOOST_CUT_LEAVES, **extra, **AUTO)
+        card, cpu = (lgt.Booster(dict(p, **kw), d_cut)
+                     for kw in ({}, {"device_type": "cpu"}))
+        grads = first_grads_of(card)
+        drops = {"card": [], "cpu": []}
+        for _ in range(iters):
+            for key, bb in (("card", card), ("cpu", cpu)):
+                bb.update()
+                drops[key].append(list(getattr(bb._gbdt, "last_drops", [])))
+        check(drops["card"] == drops["cpu"],
+              f"{label} cut: the card dropped {drops['card']}, the CPU "
+              f"{drops['cpu']}")
+        tie = None
+        for t, (ta, tb) in enumerate(zip(card._gbdt.models,
+                                         cpu._gbdt.models)):
+            s = tree_tie(ta, tb, cut64, *grads[t],
+                         f"{label} card vs CPU tree {t}", exact=True)
+            if s is not None:
+                tie = (t,) + s
+                break
+            check(np.allclose(ta.leaf_value, tb.leaf_value, rtol=1e-4,
+                              atol=1e-5),
+                  f"{label} cut: tree {t}'s leaf values differ")
+        err = None
+        if tie is None:
+            sc, sp = (bb._gbdt.scores.cpu().numpy() for bb in (card, cpu))
+            err = float(np.abs(sc - sp).max())
+            check(err <= 1e-5, f"{label} cut: card and CPU scores differ "
+                               f"by {err!r}")
+        out["cut"][label] = {"drops": drops["card"], "tie": tie,
+                             "scores_err": err}
+        say(f"{label} on a quantized {BOOST_CUT}-row cut, "
+            f"{BOOST_CUT_LEAVES} leaves, {iters} iterations, card against "
+            f"the CPU plain loop: "
+            + (f"drops {drops['card']} equal; " if label == "dart" else "")
+            + (f"the trees equal up to tree {tie[0]}, where they part at a "
+               f"tie (split, gains card / CPU, bound) {tie[1:]}"
+               if tie else f"the trees equal, scores within {err:.2e}"))
+        del card, cpu, d_cut
+    say(f"phase 4l: {time.time() - t_phase:.1f} s")
     return out
 
 
@@ -5226,6 +5570,8 @@ def main():
     # ---- 4j on 4i's frame (constructed there) ---------------------------
     mono["frame"] = mono_frame(lgt, mods, quant.pop("frame_ds"), mono["mc"],
                                params)
+    # ---- 4l. DART, random forest, the eager iteration and rollback -------
+    boost_path(lgt, mods, ds, X, y, params)
     del X, y, ds
     gc.collect()
     torch.cuda.empty_cache()
@@ -5888,6 +6234,19 @@ def wide_only():
                       "arm": wide["arm"]}, default=str), flush=True)
 
 
+def boost_only():
+    """``python3 chip_smoke.py --boost``: phase 4l alone (the HIGGS shape
+    made and constructed), its checks and numbers printed; the last line
+    its summary, a JSON object."""
+    lgt, mods = standalone("--boost")
+    X, y = make_data(ROWS)
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+              "learning_rate": 0.1, "verbosity": -1}
+    ds = lgt.Dataset(X, label=y)
+    ds.construct(params)
+    print(json.dumps(boost_path(lgt, mods, ds, X, y, params)), flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--frontier-window"]:
         frontier_window()
@@ -5901,6 +6260,8 @@ if __name__ == "__main__":
         quant_only()
     elif sys.argv[1:] == ["--mono"]:
         mono_only()
+    elif sys.argv[1:] == ["--boost"]:
+        boost_only()
     elif sys.argv[1:2] == ["--rank"] and len(sys.argv) <= 3:
         rank_only(sys.argv[2:] == ["--wait"])
     elif sys.argv[1:2] == ["--cat"] and len(sys.argv) <= 3:

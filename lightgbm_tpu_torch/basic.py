@@ -12,9 +12,10 @@ for ranking its query groups (``group`` / ``set_group``, a LibSVM file's
 ``qid:`` runs or a CSV / TSV ``group_column``) and presentation
 positions (``position``); a
 ``Booster`` that trains (``update``, with a custom objective ``fobj`` or
-``boost(grad, hess)``), evaluates the training and validation sets
-(built-in metrics and ``feval``), continues from a model
-(``_continue_from``), predicts raw and converted scores and leaf
+``boost(grad, hess)``; GBDT, DART or random forest by ``boosting``),
+rolls the last iteration back (``rollback_one_iter``), evaluates the
+training and validation sets (built-in metrics and ``feval``), continues
+from a model (``_continue_from``), predicts raw and converted scores and leaf
 indices, and writes / reads the reference's model text
 (``model_to_string``, ``save_model``, ``_load_model_string``) -- the same
 text the JAX package writes and reads.  Training and prediction run on
@@ -30,7 +31,7 @@ import numpy as np
 
 from .config import Config
 from .dataset import BinnedDataset
-from .models.boosting import GBDT
+from .models.boosting import GBDT, RF, create_boosting
 from .models.objective import create_objective
 from .models.tree import Tree
 from .utils import log
@@ -292,8 +293,9 @@ class Booster:
             self.config.check_supported()
             device = self.config.torch_device()
             train_set.construct(self.params)
-            self._gbdt = GBDT(self.config, train_set._inner,
-                              create_objective(self.config), device)
+            self._gbdt = create_boosting(self.config, train_set._inner,
+                                         create_objective(self.config),
+                                         device)
             self.pandas_categorical = train_set.pandas_categorical
         elif model_file is not None:
             with open(model_file) as fh:
@@ -320,6 +322,11 @@ class Booster:
         ig = init_bst._gbdt
         if not ig.models:
             return self
+        if isinstance(self._gbdt, RF):
+            # RF's gradients at the init score cannot come from a loaded
+            # model (JAX basic.py _continue_from)
+            raise ValueError(
+                "init_model continuation is not supported for boosting=rf")
         raw = self._raw_matrix(self.train_set, init_bst)
         if raw is None:
             raise ValueError(
@@ -373,6 +380,11 @@ class Booster:
     def boost(self, grad, hess) -> bool:
         """One iteration on the given gradients (original row order)."""
         return self._gbdt.train_one_iter(grad, hess)
+
+    def rollback_one_iter(self) -> "Booster":
+        """Take the last iteration out of the model and the scores."""
+        self._gbdt.rollback_one_iter()
+        return self
 
     def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
         """New params for the next iterations: the config and the
@@ -481,6 +493,8 @@ class Booster:
                  f"max_feature_idx={g.max_feature_idx}"]
         if g.objective is not None:
             lines.append(f"objective={g.objective.to_string()}")
+        if g.average_output:
+            lines.append("average_output")
         lines.append("feature_names=" + " ".join(g.feature_names))
         infos = ([bm.feature_info() for bm in g.train_data.bin_mappers]
                  if g.train_data is not None else [])
@@ -543,6 +557,8 @@ class Booster:
             if "=" in line:
                 k, v = line.split("=", 1)
                 header[k.strip()] = v.strip()
+            elif line == "average_output":
+                header["average_output"] = "1"
         saved: Dict[str, Any] = {}
         if "\nparameters:" in text:
             psec = text.split("\nparameters:", 1)[1]
@@ -557,10 +573,6 @@ class Booster:
         saved["objective"] = header.get(
             "objective", saved.get("objective", "regression")).split(" ")[0]
         saved["num_class"] = int(header.get("num_class", 1))
-        if "average_output" in header:
-            raise NotImplementedError(
-                "lightgbm_tpu_torch loads GBDT models only, not random "
-                "forests (average_output)")
         device = self.config.torch_device()
         saved.update({k: v for k, v in self.params.items()
                       if Config.canonical_name(k) == "device_type"})
@@ -575,6 +587,7 @@ class Booster:
         g.label_idx = int(header.get("label_index", 0))
         g.max_feature_idx = int(header.get("max_feature_idx", 0))
         g.feature_names = header.get("feature_names", "").split()
+        g.average_output = "average_output" in header
         for blk in text.split("Tree=")[1:]:
             g.models.append(Tree.from_string(
                 "Tree=" + blk.split("end of trees")[0]))

@@ -509,7 +509,9 @@ _PARAMS: List[_Param] = [
     _p("tpu_pack_rowid", False, bool),
     # disable the fused single-program iteration (A/B + debugging; the
     # eager per-stage dispatch path is the fallback)
-    # GPU: True only; the port has the fused physical-order iteration.
+    # GPU: False takes the eager iteration (models/boosting.py: the
+    # bag, GOSS and quantization drawn in original row order, JAX's
+    # eager draws), as DART, RF and GOSS with a renewing objective do.
     _p("tpu_fused_iteration", True, bool),
     # data-parallel histogram sync: "scatter" = ReduceScatter ownership
     # (psum_scatter + per-device feature ownership + winner election),
@@ -654,8 +656,6 @@ _PORTED_OBJECTIVES = (
     "cross_entropy", "cross_entropy_lambda", "lambdarank", "rank_xendcg",
     "none")
 MULTICLASS_OBJECTIVES = ("multiclass", "multiclassova")
-# the objectives whose leaves are renewed after the tree
-RENEW_OBJECTIVES = ("regression_l1", "quantile", "mape")
 
 
 # Params whose non-default values select a path this port does not have
@@ -665,12 +665,7 @@ RENEW_OBJECTIVES = ("regression_l1", "quantile", "mape")
 # path.
 _UNSUPPORTED = [
     ("objective", lambda c: c.objective not in _PORTED_OBJECTIVES),
-    # GOSS keeps rows by |grad * hess| of the tree's own draw, which the
-    # renewal after the tree cannot recover from the payload (the JAX
-    # package renews through its eager iteration there)
-    ("data_sample_strategy", lambda c: c.data_sample_strategy == "goss"
-     and c.objective in RENEW_OBJECTIVES, "objective"),
-    ("boosting", lambda c: c.boosting != "gbdt"),
+    ("boosting", lambda c: c.boosting not in ("gbdt", "dart", "rf")),
     ("data_sample_strategy", lambda c: c.data_sample_strategy
      not in ("bagging", "goss")),
     ("feature_fraction_bynode", lambda c: c.feature_fraction_bynode < 1.0),
@@ -721,7 +716,6 @@ _UNSUPPORTED = [
     ("tpu_hist_dtype", lambda c: str(c.tpu_hist_dtype).lower()
      not in ("float32", "bfloat16_pair")),
     ("tpu_ab_double", lambda c: not _off(c.tpu_ab_double)),
-    ("tpu_fused_iteration", lambda c: not bool(c.tpu_fused_iteration)),
     ("pred_early_stop", lambda c: bool(c.pred_early_stop)),
     ("device_type", lambda c: str(c.device_type).lower()
      not in ("cuda", "gpu", "cpu")),

@@ -53,12 +53,27 @@ matrix and f32 scores on the booster's device; after each tree the
 scores gain the tree's f32 shrunk leaf values at the leaves of
 ``ops/predict.py:predict_leaf_binned``, walked over the node arrays of
 the tree's one host read, outside the captured graph.
+
+The eager iteration (JAX boosting.py ``GBDT.train_one_iter``), taken
+with ``tpu_fused_iteration=false``, by DART and RF, by GOSS with a
+renewing objective and where quantized training draws eagerly: the
+gradients leave the payload for original row order, where the bag, GOSS
+and the quantization are drawn as that iteration draws them (an exact
+count by a permutation, ``quant_rng`` at the row id), and go back into
+the physical order before the tree's graph replay.  Every tree appended
+keeps a device record (JAX ``device_trees``): its bin-space node arrays
+and its f32 shrunk leaf values.  ``_tree_to_scores`` walks a past tree
+over the learner's live physical bin matrix (the order of payload row
+3) and over the validation sets, to add its values times a factor:
+``rollback_one_iter`` takes the last iteration out, ``DART`` drops and
+renormalises trees.  ``RF`` averages trees grown from the gradients at
+the init score.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,8 +81,8 @@ import torch
 from ..config import Config
 from ..dataset import BinnedDataset
 from ..ops.predict import (ThresholdIndex, pack_binned_nodes,
-                           predict_leaf_binned, predict_leaf_thridx,
-                           tree_depth)
+                           predict_leaf_binned, predict_leaf_binned_t,
+                           predict_leaf_thridx, tree_depth)
 from ..ops.quantize import quantize
 from ..ops.sample import (MODE_BAG, MODE_BALANCED, MODE_GOSS, goss_threshold,
                           sample)
@@ -126,6 +141,9 @@ def host_rows(values, num_data: int, device) -> torch.Tensor:
 class GBDT:
     """Gradient Boosting Decision Tree engine (reference: gbdt.cpp)."""
 
+    # DART and RF train every iteration eagerly
+    eager_engine = False
+
     def __init__(self, config: Config, train_data: Optional[BinnedDataset],
                  objective: Optional[ObjectiveFunction], device):
         self.config = config
@@ -133,6 +151,10 @@ class GBDT:
         self.train_data = train_data
         self.objective = objective
         self.models: List[Tree] = []
+        # per tree: its bin-space node arrays and f32 shrunk leaf values
+        # on the device (None for an init model's trees)
+        self.device_trees: List[Optional[Dict[str, Any]]] = []
+        self.average_output = False
         self.iter = 0
         self.shrinkage_rate = float(config.learning_rate)
         self.num_class = max(int(config.num_class), 1)
@@ -210,8 +232,19 @@ class GBDT:
         self._phys = (lr.part0, ghi)
         lr.part0 = None
         self._setup_sampling(train_data)
-        # (GOSS with a renewing objective is refused by the config)
         self._renew_alpha = obj.renew_leaf_alpha if obj is not None else None
+        # quantized, the JAX package takes its eager iteration for
+        # multiclass, the renewing objectives and the objectives it does
+        # not fuse: the port samples and discretizes as that one draws
+        self._eager_quant = self.use_quant and (
+            K > 1 or obj is None or self._renew_alpha is not None
+            or not obj.reference_fused)
+        # the eager iteration (see module doc), where the JAX package
+        # takes it: asked for, DART and RF, GOSS with a renewing objective
+        # (its in-bag rows are the eager mask's), and quantized as above
+        self._eager = (self.eager_engine or not cfg.tpu_fused_iteration
+                       or (self.goss and self._renew_alpha is not None)
+                       or self._eager_quant)
         # K classes bag as the JAX package's fused multiclass program
         # draws (boosting.py _setup_fused_multiclass: one uniform draw by
         # row id, as the binary one); GOSS, balanced bagging and custom
@@ -219,13 +252,8 @@ class GBDT:
         self._class_fused_draw = (K > 1 and obj is not None
                                   and not self.goss
                                   and not self.balanced_bagging
-                                  and not self.use_quant)
-        # quantized, the JAX package takes its eager iteration for
-        # multiclass, the renewing objectives and the objectives it does
-        # not fuse: the port samples and discretizes as that one draws
-        self._eager_quant = self.use_quant and (
-            K > 1 or obj is None or self._renew_alpha is not None
-            or not obj.reference_fused)
+                                  and not self.use_quant
+                                  and not self._eager)
 
     def _setup_quant(self, fields: int) -> None:
         """Quantized training's state (JAX boosting.py ``GBDT.__init__``
@@ -273,6 +301,9 @@ class GBDT:
                         "compatibility but is not implemented by the "
                         "reference this framework tracks; it is IGNORED")
         self._cached_bag = None
+        # the eager draw's in-bag rows in original row order (JAX
+        # ``_bag_mask_host``: the bag, or GOSS's kept rows); None for all
+        self._bag_mask = None
         self._sign_row = None
         if self.need_bagging and self.balanced_bagging:
             names = self._payload_names
@@ -300,64 +331,81 @@ class GBDT:
         return scores_from_phys(self._phys[1], self.num_data)
 
     def train_one_iter(self, grad=None, hess=None) -> bool:
-        """One fused iteration; returns True when the tree is a stump
-        (no split met the requirements).  ``grad`` / ``hess`` (a custom
-        objective's, in original row order; for K classes (N, K), or N *
-        K values class-major) replace the objective's."""
+        """One iteration, fused or eager (see module doc); returns True
+        when the tree is a stump (no split met the requirements).
+        ``grad`` / ``hess`` (a custom objective's, in original row order;
+        for K classes (N, K), or N * K values class-major) replace the
+        objective's."""
         if self.num_tree_per_iteration > 1:
             return self._train_classes(grad, hess)
         pb, ghi = self._phys
         lr = self.learner
         N = self.num_data
         obj = self.objective
-        if (grad is None or hess is None) and obj is not None \
-                and not hasattr(obj, "gradients_from_payload"):
+        custom = grad is not None and hess is not None
+        if custom:
+            g, h = (host_rows(v, N, self.device) for v in (grad, hess))
+        elif obj is None:
+            raise ValueError("objective=none needs gradients: pass fobj "
+                             "to Booster.update or grad and hess")
+        elif self._eager or not hasattr(obj, "gradients_from_payload"):
             # ranking: gradients from the scores in original row order,
             # then the custom-gradient route, as JAX's eager iteration
-            grad, hess = obj.get_gradients(scores_from_phys(ghi, N))
-        if grad is None or hess is None:
-            if obj is None:
-                raise ValueError("objective=none needs gradients: pass fobj "
-                                 "to Booster.update or grad and hess")
-            vf = (ghi[2].view(torch.int32) != N).to(torch.float32)
-            payload = [ghi[4 + i] for i in range(len(self._payload_names))]
-            g, h = obj.gradients_from_payload(ghi[3], *payload)
-            ghi[0] = g * vf
-            ghi[1] = h * vf
-            eager = self._eager_quant
-            if eager:
-                # the eager iteration's bag, drawn in original row order
-                g, h = self._sample_eager(scores_from_phys(ghi, N, 0),
-                                          scores_from_phys(ghi, N, 1))
-                ghi[0] = rows_to_phys(ghi, g, N)
-                ghi[1] = rows_to_phys(ghi, h, N)
-            else:
-                self._sample_fused(ghi)
+            g, h = self._gradients(ghi)
         else:
-            g, h = self._sample_eager(host_rows(grad, N, self.device),
-                                      host_rows(hess, N, self.device))
+            self._payload_gradients(ghi, ghi[3])
+            g = h = None
+        eager = g is not None
+        if eager:
+            # the eager iteration's draws, in original row order
+            g, h = self._sample_eager(g, h)
             ghi[0] = rows_to_phys(ghi, g, N)
             ghi[1] = rows_to_phys(ghi, h, N)
-            eager = True
+        else:
+            self._sample_fused(ghi)
         if self.use_quant:
             self._quantize(ghi, eager)
         mask = self._feature_mask()
         if not np.array_equal(mask, self._fmask_set):
             lr.set_feature_mask(mask)
             self._fmask_set = mask
-        renew = (self._renew_alpha is not None and grad is None
-                 and hess is None)
+        renew = self._renew_alpha is not None and not custom
         rec = lr.build_tree(pb, ghi, self._before_read(ghi, renew))
         num_nodes = int(rec["s"])
-        self._add_leaf_values(ghi)
+        dt = self._device_record(rec)
+        ghi[3, lr.row0:lr.row0 + N] += self._row_deltas(dt["delta"])
+        self._append_tree(rec, num_nodes, 0, dt)
         if self.valid_sets:
-            self._add_valid_values(rec)
-        self._append_tree(rec, num_nodes, 0)
+            self._tree_to_scores(len(self.models) - 1, 1.0, train=False)
         self.iter += 1
         if num_nodes == 0:
             log.warning("Stopped training because there are no more leaves "
                         "that meet the split requirements")
         return num_nodes == 0
+
+    def _gradients(self, ghi):
+        """The objective's (grad, hess) at the train scores in original
+        row order: (N,) each, or (K, N) for K classes.  From the payload
+        (rows 0 and 1 written in the physical order, then scattered
+        back), or for an objective without payload gradients (ranking)
+        from the scores in original row order."""
+        obj, N = self.objective, self.num_data
+        if self.num_tree_per_iteration > 1:
+            return obj.class_gradients(self._class_scores)
+        if not hasattr(obj, "gradients_from_payload"):
+            return obj.get_gradients(scores_from_phys(ghi, N))
+        self._payload_gradients(ghi, ghi[3])
+        return scores_from_phys(ghi, N, 0), scores_from_phys(ghi, N, 1)
+
+    def _payload_gradients(self, ghi, score) -> None:
+        """Payload rows 0 and 1 := the objective's grad and hess at the
+        physically ordered ``score`` row (0 on pad rows)."""
+        N = self.num_data
+        vf = (ghi[2].view(torch.int32) != N).to(torch.float32)
+        payload = [ghi[4 + i] for i in range(len(self._payload_names))]
+        g, h = self.objective.gradients_from_payload(score, *payload)
+        ghi[0] = g * vf
+        ghi[1] = h * vf
 
     def _before_read(self, ghi, renew: bool):
         """The device work on a finished tree before its host read: the
@@ -427,9 +475,11 @@ class GBDT:
         split = lm[LM_PARENT, 1].view(torch.int32) >= 0
         lm[LM_VALUE] = torch.where((cnt > 0) & split, new, lm[LM_VALUE])
 
-    def _append_tree(self, rec, num_nodes: int, k: int) -> None:
+    def _append_tree(self, rec, num_nodes: int, k: int, dt) -> None:
         """The host tree of record ``rec`` into the model list, the
-        class's boost-from-average folded into its first tree."""
+        class's boost-from-average folded into its first tree (into the
+        host tree only, as the JAX package folds it), and its device
+        record ``dt`` beside it."""
         tree = tree_from_device_record(rec, num_nodes,
                                        self.train_data.bin_mappers,
                                        shrinkage=self.shrinkage_rate)
@@ -442,6 +492,7 @@ class GBDT:
             else:
                 tree.leaf_value = np.asarray([init])
         self.models.append(tree)
+        self.device_trees.append(dt)
 
     def _train_classes(self, grad, hess) -> bool:
         """One iteration of K class trees: all K classes' gradients from
@@ -458,7 +509,7 @@ class GBDT:
             if self.objective is None:
                 raise ValueError("objective=none needs gradients: pass fobj "
                                  "to Booster.update or grad and hess")
-            g, h = self.objective.class_gradients(self._class_scores)
+            g, h = self._gradients(ghi)
         else:
             g, h = (self._class_rows(v) for v in (grad, hess))
         if not fused_draw:
@@ -479,11 +530,12 @@ class GBDT:
             rec = lr.build_tree(pb, ghi, self._before_read(ghi, False))
             num_nodes = int(rec["s"])
             stop = stop and num_nodes == 0
+            dt = self._device_record(rec)
             rowid = ghi[2, C:C + N].view(torch.int32).long()
-            self._class_scores[k, rowid] += self._row_deltas()
+            self._class_scores[k, rowid] += self._row_deltas(dt["delta"])
+            self._append_tree(rec, num_nodes, k, dt)
             if self.valid_sets:
-                self._add_valid_values(rec, k)
-            self._append_tree(rec, num_nodes, k)
+                self._tree_to_scores(len(self.models) - 1, 1.0, train=False)
         self.iter += 1
         if stop:
             log.warning("Stopped training because there are no more leaves "
@@ -519,13 +571,14 @@ class GBDT:
 
     def _in_bag(self, ghi) -> torch.Tensor:
         """(N,) bool: the rows of the iteration's bag, by the fused draw
-        at each row's id (``_sample_fused``), or the eager bag's mask at
-        it where the iteration drew eagerly (``_sample_eager``)."""
-        if not self.need_bagging:
+        at each row's id (``_sample_fused``), or the eager draw's mask at
+        it (the bag or GOSS's kept rows, ``_sample_eager``) where the
+        iteration drew eagerly."""
+        if self._eager and self._bag_mask is not None:
+            return self._bag_mask[ghi[2].view(torch.int32).long()]
+        if self._eager or not self.need_bagging:
             return torch.ones(ghi.shape[1], dtype=torch.bool,
                               device=ghi.device)
-        if self._eager_quant:
-            return self._cached_bag[0][ghi[2].view(torch.int32).long()]
         key = jrandom.fold_in(self._bag_key, self.iter // self._bag_freq)
         u = jrandom.torch_uniform_at(key, ghi[2].view(torch.int32).long())
         if self.balanced_bagging:
@@ -592,7 +645,8 @@ class GBDT:
             mult = torch.tensor(np.float32((N - top_k) / other_k),
                                 device=dev)
             scale = torch.where(top, 1.0, torch.where(keep, mult, 0.0))
-            lr.bag.copy_((top | keep).sum().to(torch.int32).reshape(1))
+            self._bag_mask = top | keep
+            lr.bag.copy_(self._bag_mask.sum().to(torch.int32).reshape(1))
             return grad * scale, hess * scale
         if not self.need_bagging:
             lr.bag.fill_(N)
@@ -615,6 +669,7 @@ class GBDT:
                 cnt = torch.tensor(k, dtype=torch.int32, device=dev)
             self._cached_bag = (mask, cnt.reshape(1))
         mask, cnt = self._cached_bag
+        self._bag_mask = mask
         lr.bag.copy_(cnt)
         return torch.where(mask, grad, 0.0), torch.where(mask, hess, 0.0)
 
@@ -633,46 +688,94 @@ class GBDT:
         mask[jrandom.permutation(sub, F)[:k]] = True
         return mask
 
-    def _add_leaf_values(self, ghi) -> None:
-        """Add each leaf's shrunk value to its contiguous physical row
-        range (the score row)."""
-        lr = self.learner
-        ghi[3, lr.row0:lr.row0 + self.num_data] += self._row_deltas()
-
-    def _row_deltas(self) -> torch.Tensor:
+    def _row_deltas(self, delta: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
         """(N,) the shrunk value of each physical row's leaf, from the
         tree the learner keeps on the device (no host sync): the L leafmat
-        columns in the order of their starts, each value repeated over its
-        count (columns of no leaf have count 0)."""
+        columns in the order of their starts, each value (of ``delta``,
+        else ``_leaf_deltas()``) repeated over its count (columns of no
+        leaf have count 0)."""
         lr = self.learner
+        if delta is None:
+            delta = self._leaf_deltas()
         lm = lr.leafmat[:, :lr.L]
         starts = lm[LM_START].view(torch.int32)
         order = torch.argsort(starts, stable=True)
         cnts = lm[LM_CNT].view(torch.int32)[order].long()
-        return torch.repeat_interleave(self._leaf_deltas()[order], cnts,
+        return torch.repeat_interleave(delta[order], cnts,
                                        output_size=self.num_data)
 
     def _leaf_deltas(self) -> torch.Tensor:
-        """The tree's f32 shrunk leaf values, on the device."""
+        """The tree's f32 shrunk leaf values, on the device (a new
+        tensor: leafmat is the next tree's)."""
         lr = self.learner
         return lr.leafmat[LM_VALUE, :lr.L] * self.shrinkage_rate
 
-    def _add_valid_values(self, rec, k: int = 0) -> None:
-        """Each validation set's scores (class ``k``'s row for K classes)
-        += the f32 shrunk value of the leaf its rows reach (JAX
-        boosting.py _materialize_pending), by a traversal of the node
-        arrays of the tree's host record; nothing is read back."""
-        node = self.learner.node_arrays_for_predict(rec)
-        depth = tree_depth(node["left"], node["right"])
-        packed = (pack_binned_nodes(node, self.device)
-                  if node["num_nodes"] else None)
-        delta = self._leaf_deltas()
+    def _device_record(self, rec) -> Dict[str, Any]:
+        """The device record of the tree just grown (JAX
+        ``device_trees``): the bin-space node arrays of its host record
+        ``rec`` and its f32 shrunk leaf values; the walk's depth and
+        packed node matrix are added at its first walk."""
+        return {"node": self.learner.node_arrays_for_predict(rec),
+                "delta": self._leaf_deltas()}
+
+    def _tree_to_scores(self, t: int, factor: float, train: bool = True,
+                        valid: bool = True) -> None:
+        """Add past tree ``t``'s f32 shrunk leaf values times ``factor``
+        (an f32 product, as the JAX package multiplies by a Python
+        float) to the train scores and / or each validation set's (JAX
+        boosting.py ``_traverse_train``, ``DART._add_tree_to_scores``).
+        The train rows' leaves come from a walk of the learner's live
+        physical bin matrix, in the order of payload row 3 (K classes:
+        scattered into class ``t % K``'s row by payload row 2's ids); the
+        validation sets' from their bin matrices.  Nothing is read
+        back."""
+        dt = self.device_trees[t]
+        node = dt["node"]
+        if "depth" not in dt:
+            dt["depth"] = tree_depth(node["left"], node["right"])
+            dt["packed"] = (pack_binned_nodes(node, self.device)
+                            if node["num_nodes"] else None)
+        depth, packed = dt["depth"], dt["packed"]
+        delta = dt["delta"] if factor == 1.0 else dt["delta"] * factor
+        K = self.num_tree_per_iteration
+        k = t % K
+        if train:
+            lr, N = self.learner, self.num_data
+            pb, ghi = self._phys
+            C = lr.row0
+            leaf = predict_leaf_binned_t(pb[:, C:C + N], node, depth, packed)
+            if K == 1:
+                ghi[3, C:C + N] += delta[leaf]
+            else:
+                rowid = ghi[2, C:C + N].view(torch.int32).long()
+                self._class_scores[k, rowid] += delta[leaf]
+        if not valid:
+            return
         for vi, (_, _, binned) in enumerate(self.valid_sets):
             leaf = predict_leaf_binned(binned, node, depth, packed)
-            if self.num_tree_per_iteration > 1:
+            if K > 1:
                 self.valid_scores[vi][k] += delta[leaf]
             else:
                 self.valid_scores[vi] += delta[leaf]
+
+    def rollback_one_iter(self) -> None:
+        """Take the last iteration's K trees out of the train and
+        validation scores and the model (JAX boosting.py
+        ``rollback_one_iter``; reference: gbdt.cpp RollbackOneIter); an
+        init model's trees stay."""
+        if self.iter <= 0:
+            return
+        K = self.num_tree_per_iteration
+        if any(self.device_trees[-k] is None for k in range(1, K + 1)):
+            log.warning("cannot roll back past the init_model boundary "
+                        "(loaded trees have no device arrays)")
+            return
+        for _ in range(K):
+            self._tree_to_scores(len(self.models) - 1, -1.0)
+            self.device_trees.pop()
+            self.models.pop()
+        self.iter -= 1
 
     def add_valid_data(self, valid_data: BinnedDataset,
                        extra_score=None) -> None:
@@ -715,6 +818,7 @@ class GBDT:
             raise ValueError("continue_from requires a fresh booster")
         N, K = self.num_data, self.num_tree_per_iteration
         self.models = [copy.deepcopy(t) for t in trees]
+        self.device_trees = [None] * len(self.models)
         self.iter = len(self.models) // K
         self._continued = True
         # the loaded model's boost-from-average sits in its first trees
@@ -779,7 +883,8 @@ class GBDT:
     def predict_raw(self, data: np.ndarray, start_iteration: int = 0,
                     num_iteration: int = -1) -> np.ndarray:
         """Raw scores (f64 sums of the trees' leaf values) on the device:
-        (n,), or (n, K) for K classes."""
+        (n,), or (n, K) for K classes; with ``average_output`` (RF) the
+        sums over the iterations taken, divided by their count."""
         K = self.num_tree_per_iteration
         out = torch.zeros((np.shape(data)[0], K), dtype=torch.float64,
                           device=self.device)
@@ -789,6 +894,8 @@ class GBDT:
                                  device=self.device)
             out[:, i % K] += lv[leaf]
         out = out.cpu().numpy()
+        if self.average_output and trees:
+            out /= len(trees) // K
         return out[:, 0] if K == 1 else out
 
     def predict_leaf_index(self, data: np.ndarray, start_iteration: int = 0,
@@ -805,3 +912,171 @@ class GBDT:
         if raw_score or self.objective is None:
             return raw
         return self.objective.convert_output(torch.as_tensor(raw)).numpy()
+
+
+class DART(GBDT):
+    """DART boosting (JAX boosting.py ``DART``; reference: dart.hpp): each
+    iteration drops some earlier iterations' trees from the train scores,
+    grows its tree at the shrinkage that leaves room for them, and scales
+    the dropped trees by k / (k + 1) (k / (k + learning_rate) in
+    ``xgboost_dart_mode``).  The drops are drawn on the host by
+    ``drop_rng``, in the JAX package's order."""
+
+    eager_engine = True
+
+    def __init__(self, config: Config, train_data: Optional[BinnedDataset],
+                 objective: Optional[ObjectiveFunction], device):
+        if config.linear_tree:
+            log.fatal("Cannot use linear tree with DART boosting "
+                      "(reference: config.cpp linear_tree checks)")
+        super().__init__(config, train_data, objective, device)
+        self.drop_rng = np.random.RandomState(config.drop_seed)
+        # one weight per iteration this booster trained (dart.hpp)
+        self.tree_weights: List[float] = []
+        self.sum_weight = 0.0
+        # iterations below this one came from an init model: never dropped
+        self.init_iters = 0
+        # the iterations the last iteration dropped
+        self.last_drops: List[int] = []
+
+    def continue_from(self, trees, train_pred) -> None:
+        super().continue_from(trees, train_pred)
+        self.init_iters = self.iter
+
+    def _drops(self) -> List[int]:
+        """This iteration's dropped iterations (JAX ``DART.train_one_iter``;
+        reference: dart.hpp DroppingTrees): skipped with probability
+        ``skip_drop``, else a Bernoulli draw per droppable iteration at
+        ``drop_rate`` (weighted by the tree's weight over the average
+        unless ``uniform_drop``), at most ``max_drop`` of them."""
+        cfg = self.config
+        n = len(self.models) // self.num_tree_per_iteration - self.init_iters
+        drops: List[int] = []
+        if n <= 0 or self.drop_rng.rand() < cfg.skip_drop:
+            return drops
+        rate, max_drop = float(cfg.drop_rate), int(cfg.max_drop)
+        if cfg.uniform_drop:
+            if max_drop > 0:
+                rate = min(rate, max_drop / n)
+            probs = [rate] * n
+        else:
+            inv_avg = (len(self.tree_weights) / self.sum_weight
+                       if self.sum_weight > 0 else 0.0)
+            if max_drop > 0 and self.sum_weight > 0:
+                rate = min(rate, max_drop * inv_avg / self.sum_weight)
+            probs = [rate * w * inv_avg for w in self.tree_weights[:n]]
+        for i, p in enumerate(probs):
+            if self.drop_rng.rand() < p:
+                drops.append(self.init_iters + i)
+                if max_drop > 0 and len(drops) >= max_drop:
+                    break
+        return drops
+
+    def train_one_iter(self, grad=None, hess=None) -> bool:
+        cfg = self.config
+        K = self.num_tree_per_iteration
+        drops = self._drops()
+        k_drop = len(drops)
+        # the dropped trees leave the train scores only; the validation
+        # scores are corrected by the normalisation
+        for it in drops:
+            for k in range(K):
+                self._tree_to_scores(it * K + k, -1.0, valid=False)
+        base_lr = float(cfg.learning_rate)
+        if cfg.xgboost_dart_mode:
+            self.shrinkage_rate = (base_lr if k_drop == 0
+                                   else base_lr / (base_lr + k_drop))
+        else:
+            self.shrinkage_rate = base_lr / (1.0 + k_drop)
+        stop = super().train_one_iter(grad, hess)
+        if k_drop > 0:
+            kf = float(k_drop)
+            final = (kf / (kf + base_lr) if cfg.xgboost_dart_mode
+                     else kf / (kf + 1.0))
+            for it in drops:
+                for k in range(K):
+                    t = it * K + k
+                    self._tree_to_scores(t, final, valid=False)
+                    self._tree_to_scores(t, final - 1.0, train=False)
+                    self._scale_tree(t, final)
+                if not cfg.uniform_drop:
+                    self.tree_weights[it - self.init_iters] *= final
+            if not cfg.uniform_drop:
+                self.sum_weight = sum(self.tree_weights)
+        if not cfg.uniform_drop:
+            self.tree_weights.append(self.shrinkage_rate)
+            self.sum_weight += self.shrinkage_rate
+        self.last_drops = drops
+        return stop
+
+    def rollback_one_iter(self) -> None:
+        n = len(self.models)
+        super().rollback_one_iter()
+        if (len(self.models) < n and not self.config.uniform_drop
+                and self.tree_weights):
+            self.sum_weight -= self.tree_weights.pop()
+
+    def _scale_tree(self, t: int, factor: float) -> None:
+        """Tree ``t`` times ``factor``: the host tree's values in f64, its
+        device record's in f32 (JAX ``DART._scale_tree``)."""
+        tree = self.models[t]
+        tree.leaf_value = tree.leaf_value * factor
+        tree.internal_value = tree.internal_value * factor
+        dt = self.device_trees[t]
+        dt["delta"] = dt["delta"] * factor
+
+
+class RF(GBDT):
+    """Random forest (JAX boosting.py ``RF``; reference: rf.hpp): every
+    tree grown at shrinkage 1 from the gradients at the init score, taken
+    once, with the eager draws; the train scores keep the running sum, as
+    the JAX package's do, and predictions average the iterations."""
+
+    eager_engine = True
+
+    def __init__(self, config: Config, train_data: Optional[BinnedDataset],
+                 objective: Optional[ObjectiveFunction], device):
+        if config.bagging_freq <= 0 or config.bagging_fraction >= 1.0:
+            if config.feature_fraction >= 1.0:
+                log.fatal("Random forest mode requires bagging "
+                          "(bagging_freq > 0 and bagging_fraction < 1) or "
+                          "feature_fraction < 1")
+        super().__init__(config, train_data, objective, device)
+        self.average_output = True
+        self.shrinkage_rate = 1.0
+        self._base_grad = None
+
+    def _gradients(self, ghi):
+        """The gradients at the init score (``init_scores``, 0 with a
+        dataset init_score), computed at the first iteration and kept: the
+        same f32 values as the JAX package's ``get_gradients(base)``."""
+        if self._base_grad is None:
+            obj, N, K = self.objective, self.num_data, \
+                self.num_tree_per_iteration
+            if K > 1:
+                base = torch.zeros((K, N), dtype=torch.float32,
+                                   device=self.device)
+                for k in range(K):
+                    if abs(self.init_scores[k]) > K_EPSILON:
+                        base[k] = base[k] + self.init_scores[k]
+                self._base_grad = obj.class_gradients(base)
+            elif not hasattr(obj, "gradients_from_payload"):
+                self._base_grad = obj.get_gradients(torch.full(
+                    (N,), self.init_scores[0], dtype=torch.float32,
+                    device=self.device))
+            else:
+                self._payload_gradients(
+                    ghi, torch.full_like(ghi[3], self.init_scores[0]))
+                self._base_grad = (scores_from_phys(ghi, N, 0),
+                                   scores_from_phys(ghi, N, 1))
+        return self._base_grad
+
+
+def create_boosting(config: Config, train_data: Optional[BinnedDataset],
+                    objective: Optional[ObjectiveFunction], device) -> GBDT:
+    """The engine of ``config.boosting`` (JAX boosting.py
+    ``create_boosting``; reference: Boosting::CreateBoosting)."""
+    engines = {"gbdt": GBDT, "dart": DART, "rf": RF}
+    if config.boosting not in engines:
+        log.fatal("Unknown boosting type %s", config.boosting)
+    return engines[config.boosting](config, train_data, objective, device)

@@ -17,9 +17,9 @@ on the host (-1 for NaN, a negative value or one past int32), against
 the node's bitset of category values (the reference's
 CategoricalDecision: an unseen or missing category goes right).
 
-``predict_leaf_binned`` walks a tree the learner just grew over a
-binned matrix (the validation sets' scores after each tree,
-models/boosting.py), by the bin-space decision of the partition
+``predict_leaf_binned`` walks a tree the learner grew over a binned
+matrix (the validation sets' scores after each tree, and a past tree
+over the train rows, models/boosting.py), by the bin-space decision of the partition
 (ops/partition.py ``decide_left``, a categorical node's set of bins
 included).
 """
@@ -252,6 +252,9 @@ def predict_leaf_binned(binned: torch.Tensor, node: Dict[str, np.ndarray],
 
 def predict_leaf_binned_t(binned_t: torch.Tensor,
                           node: Dict[str, np.ndarray],
-                          depth: Optional[int] = None) -> torch.Tensor:
-    """``predict_leaf_binned`` over a transposed (G, n) bin matrix."""
-    return predict_leaf_binned(binned_t.T, node, depth)
+                          depth: Optional[int] = None,
+                          packed: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """``predict_leaf_binned`` over a transposed (G, n) bin matrix (the
+    learner's physical bin rows, models/boosting.py ``_tree_to_scores``)."""
+    return predict_leaf_binned(binned_t.T, node, depth, packed)

@@ -43,7 +43,9 @@ the clamp arm of split_cat (narrow, wide, 300 children) bit-identical to
 their plain versions on the card and on the CPU; tree_step's bounds and
 bin boxes in every mode, and mono_refresh, mono_planes and mono_overlay,
 bit-identical to their twins; constrained trees through the graph stay
-monotone.
+monotone.  The train walk of a past tree (DART, rollback) over the
+card's physical bin matrix finds the CPU's leaves and updates the scores
+bit for bit, and DART's trees and drops on the card equal the CPU's.
 """
 
 import numpy as np
@@ -2019,3 +2021,83 @@ def test_rank_graph_trees_on_the_card(card, body):
     (_, v), = m.eval(b._gbdt.scores.cpu(), None)
     w = {k: x for k, x, _ in b._gbdt.eval_train()}["ndcg@10"]
     assert abs(v - w) <= 1e-6
+
+
+def _walk_case(kind):
+    """(X, y, Dataset kwargs, params) of binary.train with bundles, a
+    categorical feature or uint16 bins (``kind`` uint8: as it is)."""
+    import os
+    d = np.loadtxt(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples", "binary_classification",
+        "binary.train"))
+    X, y = d[:, 1:], d[:, 0]
+    rng = np.random.RandomState(0)
+    if kind == "efb":
+        return np.hstack([X, np.eye(6)[rng.randint(0, 6, len(y))]]), y, {}, {}
+    if kind == "categorical":
+        X = np.column_stack([X, rng.randint(0, 9, len(y))])
+        return X, y, {"categorical_feature": [X.shape[1] - 1]}, {}
+    return X, y, {}, {"max_bin": 1023} if kind == "uint16" else {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["uint8", "uint16", "efb", "categorical"])
+def test_train_walk_on_the_card_equals_the_cpu(card, kind):
+    """The walk of every past tree over the card's live physical bin
+    matrix (models/boosting.py ``_tree_to_scores``) finds the leaves the
+    CPU's walk of a copy of the same matrix finds, and its score update
+    (-1, then a DART factor) is bit-identical to the CPU's."""
+    from lightgbm_tpu_torch.ops.predict import predict_leaf_binned_t
+    X, y, ds_kw, extra = _walk_case(kind)
+    b = lgt.train(dict({"objective": "binary", "num_leaves": 15,
+                        "verbosity": -1}, **extra),
+                  lgt.Dataset(X, label=y, **ds_kw), 4)
+    g = b._gbdt
+    lr = g.learner
+    assert {"uint8": lr.K == 4, "uint16": lr.bin_dtype == np.uint16,
+            "efb": lr.bundled, "categorical": lr.has_cat}[kind]
+    pb, ghi = g._phys
+    C, N = lr.row0, g.num_data
+    bins_cpu = pb[:, C:C + N].cpu()
+    for t, dt in enumerate(g.device_trees):
+        leaf = predict_leaf_binned_t(pb[:, C:C + N], dt["node"])
+        want = predict_leaf_binned_t(bins_cpu, dt["node"])
+        assert torch.equal(leaf.cpu(), want)
+        score_cpu = ghi[3, C:C + N].cpu()
+        for f in (-1.0, 0.6666666666666666):
+            g._tree_to_scores(t, f, valid=False)
+            score_cpu += (dt["delta"].cpu() * f)[want]
+            assert torch.equal(ghi[3, C:C + N].cpu().view(torch.int32),
+                               score_cpu.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", [{}, {"tpu_megakernel": "off"}])
+def test_dart_on_the_card_equals_the_cpu(card, body):
+    """5 DART iterations on binary.train (15 leaves, drop_rate 0.5,
+    skip_drop 0) on the card and on the CPU: the same drops, the same
+    trees (the card's exact histograms and the CPU's f32 ones meet no
+    tie there), leaf values within rtol 1e-4 / atol 1e-5, raw predictions
+    within atol 1e-5."""
+    X, y, _, _ = _walk_case("uint8")
+    p = dict({"objective": "binary", "num_leaves": 15, "verbosity": -1,
+              "boosting": "dart", "drop_rate": 0.5, "skip_drop": 0.0},
+             **body)
+    out = []
+    for kw in ({}, {"device_type": "cpu"}):
+        b = lgt.Booster(dict(p, **kw), lgt.Dataset(X, label=y))
+        drops = []
+        for _ in range(5):
+            b.update()
+            drops.append(list(b._gbdt.last_drops))
+        out.append((b, drops))
+    (bc, dc), (bh, dh) = out
+    assert dc == dh and sum(map(len, dc)) > 0
+    for a, t in zip(bc._gbdt.models, bh._gbdt.models):
+        assert a.split_feature.tolist() == t.split_feature.tolist()
+        assert a.threshold_bin.tolist() == t.threshold_bin.tolist()
+        np.testing.assert_allclose(a.leaf_value, t.leaf_value, rtol=1e-4,
+                                   atol=1e-5)
+    np.testing.assert_allclose(bc.predict(X, raw_score=True),
+                               bh.predict(X, raw_score=True), rtol=0,
+                               atol=1e-5)

@@ -137,13 +137,15 @@ def test_auc_mu_and_multi_error_against_numpy(port2, top_k):
 
 
 @pytest.mark.parametrize("extra,names", [
-    ({"objective": "quantile", "data_sample_strategy": "goss"},
-     ("data_sample_strategy", "objective")),
-    ({"objective": "regression_l1", "boosting": "goss"},
-     ("data_sample_strategy", "objective")),
+    ({"objective": "quantile", "monotone_constraints": [1],
+      "monotone_constraints_method": "advanced"},
+     ("monotone_constraints_method",)),
+    ({"objective": "regression_l1", "boosting": "goss",
+      "cegb_penalty_split": 0.5}, ("cegb_penalty_split",)),
     ({"objective": "regression", "num_class": 3}, ("num_class", "objective")),
     ({"objective": "multiclass", "num_class": 1}, ("num_class", "objective")),
-    ({"objective": "lambdarank", "boosting": "dart"}, ("boosting",)),
+    ({"objective": "lambdarank", "boosting": "dart", "linear_tree": True},
+     ("linear_tree",)),
     ({"objective": "rank_xendcg", "linear_tree": True}, ("linear_tree",))])
 def test_refused_combinations_name_their_params(extra, names):
     X, y = mc_data()

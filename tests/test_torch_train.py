@@ -320,7 +320,7 @@ def test_dataset_from_jax_arrays_trains_the_same_trees(pair):
 
 @pytest.mark.parametrize("param,value", [
     ("feature_fraction_bynode", 0.5), ("extra_trees", True),
-    ("objective", "multiclass"), ("boosting", "dart"),
+    ("objective", "multiclass"), ("cegb_penalty_split", 0.5),
     ("tpu_ab_double", "hist"),
     ("linear_tree", True), ("tree_learner", "data"),
     ("tpu_megakernel", "xla"), ("tpu_hist_dtype", "float16"),

@@ -240,6 +240,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      drop sets equal, the trees equal up to an exact tie (``tree_tie``)
      and, with none, the scores within atol 1e-5;
      ``python3 chip_smoke.py --boost`` runs it alone;
+  4m. (after 4l) linear trees (``linear_tree``) at the HIGGS shape:
+     regression on 4g's continuous label (a linear combination of the
+     features plus noise), phase 4's bins with 1% of the rows NaN in
+     each of three features (rebinned by their mappers) and the raw f32
+     rows on the card: ``linear_tree_mode`` refit 10 iterations on the
+     mega body (auto: K=4) and the subtraction body beside GBDT's 10 on
+     the same body, s/iteration (median of 2-9), the leaf fit's and the
+     linear score update's ms a tree (CUDA events), the leaves by fit
+     status, a profiled iteration's busy share, the iteration's peak
+     memory; leafwise_gain 10 iterations (the subtraction body at K=1:
+     the linear search in the graph), the search's ms a split (graph
+     replay: CUDA events, and device ms and launches by torch.profiler);
+     training
+     L2 falling every iteration; each run's body kernels launched (counts
+     set to 0 before it), one capture and one tree read a tree; 100,000
+     rows predicted (NaN rows at their leaves' constant values) within
+     1e-5 of the train scores and 1e-9 of the host trees' f64 oracle, bit
+     for bit after a save and reload; on a quantized 200,000-row cut at
+     63 leaves the card against the CPU plain loop (refit at K=4,
+     leafwise_gain), the trees equal up to an exact tie (``tree_tie``)
+     and the linear leaves within rtol 1e-4 / atol 1e-5;
+     ``python3 chip_smoke.py --linear`` runs it alone;
   5. each kernel against its plain version on inputs captured from the
      first tree of its path, through its host-int entry and through the
      step entry the graph loop launches (a step block made beforehand,
@@ -258,7 +280,7 @@ trains the HIGGS shape 2 iterations on each body and prints a sha256 of
 the trees and row buffers a body, to compare two checkouts on one card;
 ``python3 chip_smoke.py --wide`` runs phase 4h alone, ``--efb`` phase 4e
 alone, ``--quant`` phase 4i alone, ``--mono`` phase 4j alone, ``--rank``
-phase 4k alone, ``--boost`` phase 4l alone.
+phase 4k alone, ``--boost`` phase 4l alone, ``--linear`` phase 4m alone.
 """
 
 import atexit
@@ -3207,6 +3229,311 @@ def boost_path(lgt, mods, ds, X, y, params):
     return out
 
 
+# ---- phase 4m: linear trees ----------------------------------------------
+LIN_ITERS = 10
+LIN_CUT = 200_000               # rows of the card-vs-CPU runs
+LIN_CUT_LEAVES = 63
+LIN_NAN_FEATURES = (0, 1, 2)    # 1% of the rows NaN in each
+LIN_P = {"objective": "regression", "metric": "l2", "linear_tree": True}
+LEAFWISE_P = dict(LIN_P, linear_tree_mode="leafwise_gain",
+                  tpu_megakernel="off")
+
+
+def linear_data(lgt, ds, X, label):
+    """``ds``'s bins with ``label`` and 1% of the rows NaN in each of
+    LIN_NAN_FEATURES (those rows rebinned by the feature's mapper, as a
+    Dataset built with ``reference=ds`` bins them), the raw f32 rows kept
+    for the linear leaves: (Dataset, the rows with their NaNs)."""
+    rng = np.random.RandomState(13)
+    inner = ds._inner
+    meta = inner.feature_meta_arrays()
+    Xn = X.copy()
+    binned = inner.binned.copy()
+    for f in LIN_NAN_FEATURES:
+        g = int(meta["group"][list(meta["feature"]).index(f)])
+        check(inner.groups[g].feature_indices == [f],
+              f"linear data: feature {f} is bundled")
+        rows = rng.rand(len(X)) < 0.01
+        Xn[rows, f] = np.nan
+        binned[rows, g] = inner.bin_mappers[f].values_to_bins(Xn[rows, f])
+    out = relabeled(lgt, ds, Xn, label)
+    out._inner.binned = binned
+    out._inner.raw_data = Xn
+    return out, Xn
+
+
+def linear_cut(lgt, dsn, Xn, label, rows):
+    """``dsn`` cut to its first ``rows`` rows, raw rows and NaNs kept."""
+    out = relabeled(lgt, dsn, Xn, label, rows)
+    out._inner.raw_data = np.ascontiguousarray(Xn[:rows])
+    return out
+
+
+def search_times(lr, reps):
+    """The leafwise learner's search of a split's two children and the
+    store of their own models (``lr._pair`` on its last step's buffers),
+    ``reps`` times in one captured graph: (ms a search by CUDA events,
+    device ms a search and device launches a search by torch.profiler
+    over one replay)."""
+    from torch.profiler import ProfilerActivity, profile
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        lr._pair()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            lr._pair()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    return (t0.elapsed_time(t1) / reps, sum(ms for _, ms, _ in rows) / reps,
+            sum(n for _, _, n in rows) // reps)
+
+
+def linear_path(lgt, mods, ds, X, params):
+    """Phase 4m (``--linear``): linear trees at the HIGGS shape (see the
+    module doc); returns the summary printed by ``--linear``."""
+    from lightgbm_tpu_torch.models import boosting as bmod
+    from lightgbm_tpu_torch.models import linear as linmod
+    t_phase = time.time()
+    yc, _ = objective_labels(X)
+    dsn, Xn = linear_data(lgt, ds, X, yc)
+    N = len(yc)
+    base = dict(params, objective="regression", metric="l2")
+    Xp = Xn[:100_000].astype(np.float64)
+    n_nan = int(np.isnan(Xp).any(1).sum())
+    check(n_nan > 0.02 * len(Xp),
+          f"linear: {n_nan} rows with a NaN in {len(Xp)}")
+    spans = {"rows": [], "fit": [], "update": []}
+    live = [False]
+    real = {"rows": linmod.physical_rows, "fit": linmod.fit_leaves,
+            "update": linmod.tile_output}
+
+    def timed(key):
+        def run(*a, **k):
+            if not live[0]:
+                return real[key](*a, **k)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = real[key](*a, **k)
+            e1.record()
+            spans[key].append((e0, e1))
+            return out
+        return run
+    linmod.physical_rows, linmod.fit_leaves, linmod.tile_output = (
+        timed("rows"), timed("fit"), timed("update"))
+    # the fit and the linear update run on the card without a host sync
+    # (the tree's one read carries their results)
+    real_leaves = bmod.GBDT._linear_leaves
+
+    def strict_leaves(self, ghi):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real_leaves(self, ghi)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    bmod.GBDT._linear_leaves = strict_leaves
+    out = {"rows": N, "nan_rows_predicted": n_nan}
+
+    def run(label, p, body, iters=LIN_ITERS):
+        """``iters`` iterations of a fresh booster, counts set to 0 before
+        and read after: its per-iteration wall s, training L2 after each
+        iteration and the leaves' fit statuses."""
+        bst = lgt.Booster(p, dsn)
+        g, lr = bst._gbdt, bst._gbdt.learner
+        for m in mods.values():
+            m.launches = 0
+        for v in spans.values():
+            del v[:]
+        times, l2, status = [], [], np.zeros(5, np.int64)
+        live[0] = True
+        for _ in range(iters):
+            t0 = time.time()
+            bst.update()
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+            l2.append(bst.eval_train()[0][2])
+            if g.last_linear_status is not None:
+                status += np.bincount(g.last_linear_status, minlength=5)
+        live[0] = False
+        calls = {k: m.launches for k, m in mods.items()}
+        need = [k for k in BODY_KERNELS[body]
+                if not (lr.linear_gain and k == "split_pair")]
+        check(all(calls[k] > 0 for k in need),
+              f"{label}: a kernel of the {body} body was not launched: "
+              f"{calls}")
+        check(lr.captures == 1 and lr.syncs == lr.replays == iters
+              and len(g.models) == iters,
+              f"{label}: {lr.captures} captures, {lr.replays} replays, "
+              f"{lr.syncs} tree reads, {len(g.models)} trees for {iters}")
+        check(all(b < a for a, b in zip(l2, l2[1:])),
+              f"{label}: training L2 does not fall: {l2}")
+        sc = g.scores.cpu().numpy()
+        check(sc.shape == (N,) and np.isfinite(sc).all(),
+              f"{label}: train scores not finite")
+        return bst, times, l2, status
+
+    def span_ms(key):
+        torch.cuda.synchronize()
+        v = [e0.elapsed_time(e1) for e0, e1 in spans[key]]
+        return float(np.median(v)) if v else None
+
+    def check_model(label, bst):
+        """The train scores against the raw predictions of 100,000 rows
+        (NaN rows included), those against the host trees' f64 oracle;
+        the model saved and reloaded predicts bit for bit."""
+        g = bst._gbdt
+        raw = bst.predict(Xp, raw_score=True)
+        err = float(np.abs(raw - g.scores.cpu().numpy()[:len(Xp)]).max())
+        check(err <= 1e-5, f"{label}: raw predictions part from the train "
+                           f"scores by {err!r}")
+        host = sum(t.predict(Xp) for t in g.models)
+        herr = float(np.abs(host - raw).max())
+        check(herr <= 1e-9, f"{label}: the device's linear outputs part "
+                            f"from the host trees' by {herr!r}")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "linear.txt")
+            bst.save_model(path)
+            again = lgt.Booster(model_file=path)
+            check(np.array_equal(again.predict(Xp, raw_score=True), raw),
+                  f"{label}: the reloaded model predicts other scores")
+        return err, herr
+
+    # ---- refit on both bodies, beside GBDT on the same body ------------
+    for body, extra in (("mega", AUTO), ("subtraction", BODIES["subtraction"])):
+        _, gt, gl2, _ = run(f"gbdt {body}", dict(base, **extra), body)
+        label = f"refit {body}"
+        bst, times, l2, status = run(label, dict(base, **LIN_P, **extra),
+                                     body)
+        rows_ms, fit_ms, upd_ms = (span_ms(k) for k in ("rows", "fit",
+                                                        "update"))
+        check(len(spans["fit"]) == LIN_ITERS
+              and len(spans["update"]) == LIN_ITERS,
+              f"{label}: {len(spans['fit'])} fits, "
+              f"{len(spans['update'])} updates for {LIN_ITERS} trees")
+        check(status[linmod.LIN_OK] > 0.5 * status.sum(),
+              f"{label}: leaves by fit status {status.tolist()}")
+        err, herr = check_model(label, bst)
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        live[0] = True
+        bst.update()
+        live[0] = False
+        peak = (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+        busy, wall = busy_share(bst)
+        iter_s, gbdt_s = (float(np.median(v[1:9])) for v in (times, gt))
+        out[label] = {"iter_s": iter_s, "gbdt_s": gbdt_s, "rows_ms": rows_ms,
+                      "fit_ms": fit_ms, "update_ms": upd_ms,
+                      "busy_ms": busy, "wall_ms": wall,
+                      "l2": l2, "gbdt_l2": gl2, "status": status.tolist(),
+                      "peak_gib": peak, "pred_err": err, "host_err": herr,
+                      "K": bst._gbdt.learner.K}
+        say(f"linear refit {body} (K={bst._gbdt.learner.K}): s/iteration "
+            f"{iter_s:.4f} against GBDT's {gbdt_s:.4f} (median of 2-9); "
+            f"the raw rows' gather into the physical order {rows_ms:.3f} "
+            f"ms, the fit {fit_ms:.3f} ms, the linear update "
+            f"{upd_ms:.3f} ms a tree (CUDA events, medians of "
+            f"{LIN_ITERS}); a profiled iteration {wall:.1f} ms wall, "
+            f"device busy {busy:.1f} ms ({100 * busy / wall:.1f}%); the "
+            f"iteration's peak above the resident state {peak:.2f} GiB; "
+            f"leaves by fit status (linear, no features, few rows, "
+            f"singular, not finite) {status.tolist()}; training L2 "
+            f"{[round(v, 5) for v in l2]} (GBDT {[round(v, 5) for v in gl2]}); "
+            f"predictions of 100,000 rows ({n_nan} with a NaN) within "
+            f"{err:.2e} of the train scores, {herr:.2e} of the host trees, "
+            f"bit for bit after a reload")
+        del bst
+        torch.cuda.empty_cache()
+
+    # ---- leafwise_gain on the subtraction body ----------------------------
+    bst, times, l2, _ = run("leafwise", dict(base, **LEAFWISE_P),
+                            "subtraction")
+    lr = bst._gbdt.learner
+    check(lr.linear_gain and lr.subtract and lr.K == 1,
+          "leafwise: not the linear search on the subtraction body at K=1")
+    n_search = SPLITS + 1
+    search_ms, prof_ms, launches = search_times(lr, 20)
+    err, herr = check_model("leafwise", bst)
+    iter_s = float(np.median(times[1:9]))
+    out["leafwise"] = {"iter_s": iter_s, "search_ms": search_ms,
+                       "search_ms_iter": search_ms * n_search,
+                       "search_prof_ms": prof_ms,
+                       "search_prof_ms_iter": prof_ms * n_search,
+                       "search_launches": launches, "l2": l2,
+                       "pred_err": err, "host_err": herr}
+    say(f"linear leafwise_gain (subtraction, K=1): s/iteration "
+        f"{iter_s:.4f} (median of 2-9); the linear search and its stores "
+        f"{search_ms:.4f} ms a search (graph replay, CUDA events), "
+        f"{prof_ms:.4f} ms of device time ({launches} launches; "
+        f"torch.profiler), so {search_ms * n_search:.2f} ms / "
+        f"{prof_ms * n_search:.2f} ms an iteration of {n_search} searches; "
+        f"training L2 {[round(v, 5) for v in l2]}; predictions of 100,000 "
+        f"rows within {err:.2e} of the train scores, {herr:.2e} of the "
+        f"host trees, bit for bit after a reload")
+    del bst, lr
+    torch.cuda.empty_cache()
+    linmod.physical_rows, linmod.fit_leaves, linmod.tile_output = (
+        real["rows"], real["fit"], real["update"])
+    bmod.GBDT._linear_leaves = real_leaves
+
+    # ---- the card against the CPU on a quantized 200,000-row cut ------
+    cut64 = Xn[:LIN_CUT].astype(np.float64)
+    d_cut = linear_cut(lgt, dsn, Xn, yc, LIN_CUT)
+    out["cut"] = {}
+    for mode, extra in (("refit", dict(LIN_P, **AUTO)),
+                        ("leafwise_gain", LEAFWISE_P)):
+        p = dict(base, use_quantized_grad=True, num_leaves=LIN_CUT_LEAVES,
+                 **extra)
+        card, cpu = (lgt.Booster(dict(p, **kw), d_cut)
+                     for kw in ({}, {"device_type": "cpu"}))
+        grads = first_grads_of(card)
+        for _ in range(2):
+            card.update()
+            cpu.update()
+        tie, lin_err = None, 0.0
+        for t, (ta, tb) in enumerate(zip(card._gbdt.models,
+                                         cpu._gbdt.models)):
+            s = tree_tie(ta, tb, cut64, *grads[t],
+                         f"linear {mode} card vs CPU tree {t}", exact=True)
+            if s is not None:
+                tie = (t,) + s
+                break
+            check(ta.leaf_features == tb.leaf_features,
+                  f"linear {mode} cut: tree {t}'s leaf features differ")
+            for a, b in ((ta.leaf_const, tb.leaf_const),
+                         (np.concatenate([np.asarray(c, np.float64) for c
+                                          in ta.leaf_coeff]),
+                          np.concatenate([np.asarray(c, np.float64) for c
+                                          in tb.leaf_coeff]))):
+                check(np.allclose(a, b, rtol=1e-4, atol=1e-5),
+                      f"linear {mode} cut: tree {t}'s linear leaves differ")
+                if len(a):
+                    lin_err = max(lin_err, float(np.abs(a - b).max()))
+        out["cut"][mode] = {"tie": tie, "linear_err": lin_err}
+        say(f"linear {mode} on a quantized {LIN_CUT}-row cut, "
+            f"{LIN_CUT_LEAVES} leaves, 2 iterations, card against the CPU "
+            f"plain loop: " + (f"the trees part at tree {tie[0]}, a tie "
+                               f"(split, gains card / CPU, bound) {tie[1:]}"
+                               if tie else "the trees equal")
+            + f", the linear leaves within {lin_err:.2e}")
+        del card, cpu
+    say(f"phase 4m: {time.time() - t_phase:.1f} s")
+    return out
+
+
 # ---- phase 4h: wide bins (uint16 bin matrices) --------------------------
 WIDE_MAX_BIN = 1023             # the HIGGS shape at max_bin 1023
 WIDE_LEVELS = 1000              # the high-cardinality categorical
@@ -5572,6 +5899,8 @@ def main():
                                params)
     # ---- 4l. DART, random forest, the eager iteration and rollback -------
     boost_path(lgt, mods, ds, X, y, params)
+    # ---- 4m. linear trees -----------------------------------------------
+    linear = linear_path(lgt, mods, ds, X, params)
     del X, y, ds
     gc.collect()
     torch.cuda.empty_cache()
@@ -5975,6 +6304,7 @@ def main():
           flush=True)
     print(f"ranking (phase 4k, {card}): " + json.dumps(rank_summary(rank)),
           flush=True)
+    print(f"linear (phase 4m, {card}): " + json.dumps(linear), flush=True)
     for label, higgs in (("rank_mega", "mega"),
                          ("subtraction", "subtraction")):
         for k, (ms, n) in sorted(rank["bodies"][label]["per"].items()):
@@ -6234,6 +6564,19 @@ def wide_only():
                       "arm": wide["arm"]}, default=str), flush=True)
 
 
+def linear_only():
+    """``python3 chip_smoke.py --linear``: phase 4m alone (the HIGGS shape
+    made and constructed), its checks and numbers printed; the last line
+    its summary, a JSON object."""
+    lgt, mods = standalone("--linear")
+    X, y = make_data(ROWS)
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+              "learning_rate": 0.1, "verbosity": -1}
+    ds = lgt.Dataset(X, label=y)
+    ds.construct(params)
+    print(json.dumps(linear_path(lgt, mods, ds, X, params)), flush=True)
+
+
 def boost_only():
     """``python3 chip_smoke.py --boost``: phase 4l alone (the HIGGS shape
     made and constructed), its checks and numbers printed; the last line
@@ -6262,6 +6605,8 @@ if __name__ == "__main__":
         mono_only()
     elif sys.argv[1:] == ["--boost"]:
         boost_only()
+    elif sys.argv[1:] == ["--linear"]:
+        linear_only()
     elif sys.argv[1:2] == ["--rank"] and len(sys.argv) <= 3:
         rank_only(sys.argv[2:] == ["--wait"])
     elif sys.argv[1:2] == ["--cat"] and len(sys.argv) <= 3:

@@ -279,14 +279,14 @@ _PARAMS: List[_Param] = [
     _p("stochastic_rounding", True, bool),
     # --- IO / dataset ---
     _p("linear_tree", False, bool, ("linear_trees",)),
-    # piece-wise linear trees: "refit" keeps the historical behaviour
-    # (tree structure chosen by constant-leaf gain, leaf-local linear
-    # models fit post-hoc on the host); "leafwise_gain" computes split
-    # gain over leaf-local linear models inside the device search
-    # (ops/split.py:find_best_split_linear) so the STRUCTURE itself is
-    # PL-aware, and the per-leaf models come out of the winning split
-    # candidates — no extra data pass.  Ineligible configs (see
-    # learner._linear_gain_eligible) fall back to refit with a warning
+    # piece-wise linear trees: "refit" grows the tree by the
+    # constant-leaf gain and then fits each leaf's ridge model on the
+    # device (models/linear.py); "leafwise_gain" computes split gain
+    # over leaf-local linear models inside the tree's search
+    # (ops/split_linear.py) so the STRUCTURE itself is PL-aware, and the
+    # per-leaf models come out of the winning split candidates -- no
+    # extra data pass.  Ineligible configs (models/learner.py
+    # ``linear_gain_blockers``) fall back to refit with a warning
     _p("linear_tree_mode", "refit", str),
     _p("max_bin", 255, int, ("max_bins",), ">1"),
     _p("max_bin_by_feature", "", str),
@@ -670,7 +670,6 @@ _UNSUPPORTED = [
      not in ("bagging", "goss")),
     ("feature_fraction_bynode", lambda c: c.feature_fraction_bynode < 1.0),
     ("extra_trees", lambda c: bool(c.extra_trees)),
-    ("linear_tree", lambda c: bool(c.linear_tree)),
     # monotone constraints train by the basic and intermediate methods;
     # advanced needs per-threshold bounds in the pair search
     ("monotone_constraints_method",
@@ -703,8 +702,6 @@ _UNSUPPORTED = [
     ("checkpoint_resume", lambda c: bool(c.checkpoint_resume)),
     ("telemetry", lambda c: str(c.telemetry).lower() != "off"),
     ("health", lambda c: str(c.health).lower() != "off"),
-    ("linear_tree_mode", lambda c: bool(c.linear_tree)
-     and c.linear_tree_mode != "refit"),
     ("tpu_megakernel", lambda c: str(c.tpu_megakernel).strip().lower()
      not in ("auto", "pallas", "", "off")),
     ("tpu_partition_kernel",

@@ -129,6 +129,10 @@ class BinnedDataset:
         self.groups: List[FeatureGroupInfo] = []
         # (num_data, G), uint8 or uint16 (``bin_dtype``)
         self.binned: Optional[np.ndarray] = None
+        # linear trees: the raw matrix, f32 and contiguous (JAX
+        # ``raw_data``), which the leaf fits and the linear score
+        # updates read
+        self.raw_data: Optional[np.ndarray] = None
         self.metadata: Optional[Metadata] = None
 
     # -- construction ---------------------------------------------------
@@ -164,6 +168,8 @@ class BinnedDataset:
             cols = ds._used_columns(data)
             ds._build_groups(cols)
             ds.binned = ds._pack_groups(cols, ds.num_data)
+        if config.linear_tree:
+            ds.raw_data = np.ascontiguousarray(data, dtype=np.float32)
         return ds
 
     def _construct_mappers(self, data: np.ndarray,

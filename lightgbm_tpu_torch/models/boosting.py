@@ -88,9 +88,11 @@ from ..ops.sample import (MODE_BAG, MODE_BALANCED, MODE_GOSS, goss_threshold,
                           sample)
 from ..ops.split import leaf_output
 from ..ops.split_mega import GHI_ROWS
+from ..ops.partition import SB_S
 from ..ops.tree_step import LM_CNT, LM_PARENT, LM_START, LM_VALUE
 from ..utils import log
 from ..utils import random as jrandom
+from . import linear as linmod
 from .learner import SerialTreeLearner
 from .metric import create_metrics
 from .objective import ObjectiveFunction
@@ -170,6 +172,9 @@ class GBDT:
         self.valid_sets: List[Tuple[BinnedDataset, list, torch.Tensor]] = []
         # (N_valid,) scores, (K, N_valid) for K classes
         self.valid_scores: List[torch.Tensor] = []
+        # linear trees: each validation set's raw f32 rows on the device
+        self._valid_raw: List[Optional[torch.Tensor]] = []
+        self.linear = False
         self._continued = False        # set by continue_from
         self._phys: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         # K > 1: the (K, N) class scores in original row order
@@ -188,6 +193,7 @@ class GBDT:
         if obj is not None:
             obj.init(train_data.metadata, dev)
         payload = obj.payload() if obj is not None else []
+        self._setup_linear(train_data)
         self._payload_names = [n for n, _ in payload]
         self._setup_quant(len(payload))
         rows = 4 + len(payload) + (2 if self._renew_rows else 0)
@@ -241,10 +247,14 @@ class GBDT:
             or not obj.reference_fused)
         # the eager iteration (see module doc), where the JAX package
         # takes it: asked for, DART and RF, GOSS with a renewing objective
-        # (its in-bag rows are the eager mask's), and quantized as above
+        # (its in-bag rows are the eager mask's), linear trees, and
+        # quantized as above
         self._eager = (self.eager_engine or not cfg.tpu_fused_iteration
                        or (self.goss and self._renew_alpha is not None)
-                       or self._eager_quant)
+                       or self._eager_quant or self.linear)
+        if self.linear:
+            log.info("fused single-program iteration DISABLED (linear_tree): "
+                     "each iteration pays per-dispatch host latency")
         # K classes bag as the JAX package's fused multiclass program
         # draws (boosting.py _setup_fused_multiclass: one uniform draw by
         # row id, as the binary one); GOSS, balanced bagging and custom
@@ -254,6 +264,57 @@ class GBDT:
                                   and not self.balanced_bagging
                                   and not self.use_quant
                                   and not self._eager)
+
+    def _setup_linear(self, train_data: BinnedDataset) -> None:
+        """Linear trees (``linear_tree``; see models/linear.py): the train
+        rows' raw f32 matrix on the device and the leaves' widest path
+        D."""
+        cfg = self.config
+        self.linear = bool(cfg.linear_tree)
+        self._raw = None
+        self._lin = None
+        self._lin_delta = None
+        self.last_linear_status = None
+        if not self.linear:
+            return
+        if train_data.raw_data is None:
+            raise ValueError("linear_tree needs the raw train rows: "
+                             "construct the Dataset with linear_tree in "
+                             "its params")
+        self._raw = torch.as_tensor(train_data.raw_data, device=self.device)
+        self._lin_D = linmod.width(train_data.num_total_features,
+                                   int(cfg.num_leaves), int(cfg.max_depth))
+
+    def _linear_leaves(self, ghi) -> torch.Tensor:
+        """The finished tree's linear leaves on the device, before its
+        host read: from the leafwise search's rows (``linear_tree_mode``
+        leafwise_gain) or by the refit of models/linear.py on the true
+        gradients in the payload; and each train row's linear output, f32
+        in the physical order.  Returns them packed for the host: per
+        leaf the constant, the fit's status, D coefficients and D feature
+        ids (-1 where inactive), f64."""
+        lr, N = self.learner, self.num_data
+        C = lr.row0
+        start, cnt = linmod.leaf_ranges(lr.leafmat, C, N)
+        rowid = ghi[2, C:C + N].view(torch.int32).long()
+        value = lr.leafmat[LM_VALUE, :lr.L]
+        shr = self.shrinkage_rate
+        rawp = linmod.physical_rows(self._raw, rowid)
+        if lr.linear_gain:
+            lin = linmod.from_leafwise(*lr.leaf_linear(), value, shr)
+        else:
+            gr, hr = self._renew_rows if self.use_quant else (0, 1)
+            feat, ok = linmod.path_features(
+                lr.leafmat, lr.nodemat, lr.steps[0, SB_S],
+                self.train_data.num_total_features, self._lin_D)
+            lin = linmod.fit_leaves(
+                rawp, start, cnt, ghi[gr, C:C + N], ghi[hr, C:C + N], feat,
+                ok, value, lam=float(self.config.linear_lambda),
+                shrinkage=shr)
+        self._lin = lin
+        self._lin_delta = linmod.tile_output(rawp, start, cnt, lin,
+                                             N).float()
+        return linmod.pack(lin)
 
     def _setup_quant(self, fields: int) -> None:
         """Quantized training's state (JAX boosting.py ``GBDT.__init__``
@@ -271,7 +332,9 @@ class GBDT:
         self._q_key = jrandom.PRNGKey(seed)
         self._q_absmax = torch.zeros(2, dtype=torch.float32,
                                      device=self.device)
-        if cfg.quant_train_renew_leaf:
+        # the true gradients ride two payload rows for the renewal and
+        # for the linear leaves' fit (JAX fits on ``gk_true``)
+        if cfg.quant_train_renew_leaf or self.linear:
             self._renew_rows = (4 + fields, 5 + fields)
 
     def _setup_sampling(self, train_data: BinnedDataset) -> None:
@@ -373,7 +436,8 @@ class GBDT:
         rec = lr.build_tree(pb, ghi, self._before_read(ghi, renew))
         num_nodes = int(rec["s"])
         dt = self._device_record(rec)
-        ghi[3, lr.row0:lr.row0 + N] += self._row_deltas(dt["delta"])
+        ghi[3, lr.row0:lr.row0 + N] += (self._lin_delta if self.linear
+                                        else self._row_deltas(dt["delta"]))
         self._append_tree(rec, num_nodes, 0, dt)
         if self.valid_sets:
             self._tree_to_scores(len(self.models) - 1, 1.0, train=False)
@@ -413,17 +477,22 @@ class GBDT:
         orders them so; a leaf with no in-bag row then keeps the tree's
         own value, as JAX's eager renewal starts from the record's);
         None when there is none."""
-        quant = self._renew_rows is not None
-        if not quant and not renew:
+        quant = (self._renew_rows is not None
+                 and bool(self.config.quant_train_renew_leaf))
+        if not quant and not renew and not self.linear:
             return None
 
         def run():
             lr = self.learner
-            tree_values = lr.leafmat[LM_VALUE, :lr.L].clone()
+            if quant or renew:
+                tree_values = lr.leafmat[LM_VALUE, :lr.L].clone()
             if quant:
                 self._renew_quant(ghi)
             if renew:
                 self._renew(ghi, tree_values)
+            if self.linear:
+                return self._linear_leaves(ghi)
+            return None
         return run
 
     def _quantize(self, ghi, eager: bool) -> None:
@@ -458,8 +527,7 @@ class GBDT:
         lr, N, cfg = self.learner, self.num_data, self.config
         C = lr.row0
         lm = lr.leafmat[:, :lr.L]
-        start = (lm[LM_START].view(torch.int32) - C).long().clamp(0, N)
-        cnt = lm[LM_CNT].view(torch.int32).long()
+        start, cnt = linmod.leaf_ranges(lr.leafmat, C, N)
         end = (start + cnt).clamp(0, N)
         sums = []
         for r in self._renew_rows:
@@ -483,14 +551,20 @@ class GBDT:
         tree = tree_from_device_record(rec, num_nodes,
                                        self.train_data.bin_mappers,
                                        shrinkage=self.shrinkage_rate)
+        if "extra" in rec:
+            self.last_linear_status = linmod.unpack(tree, rec["extra"])
         init = self.init_scores[k]
         if len(self.models) < self.num_tree_per_iteration and \
                 abs(init) > K_EPSILON:
             if num_nodes > 0:
                 tree.leaf_value = tree.leaf_value + init
                 tree.internal_value = tree.internal_value + init
+                if tree.is_linear:
+                    tree.leaf_const = tree.leaf_const + init
             else:
                 tree.leaf_value = np.asarray([init])
+                if tree.is_linear:
+                    tree.leaf_const = np.asarray([init])
         self.models.append(tree)
         self.device_trees.append(dt)
 
@@ -532,7 +606,9 @@ class GBDT:
             stop = stop and num_nodes == 0
             dt = self._device_record(rec)
             rowid = ghi[2, C:C + N].view(torch.int32).long()
-            self._class_scores[k, rowid] += self._row_deltas(dt["delta"])
+            self._class_scores[k, rowid] += (
+                self._lin_delta if self.linear
+                else self._row_deltas(dt["delta"]))
             self._append_tree(rec, num_nodes, k, dt)
             if self.valid_sets:
                 self._tree_to_scores(len(self.models) - 1, 1.0, train=False)
@@ -716,8 +792,11 @@ class GBDT:
         ``device_trees``): the bin-space node arrays of its host record
         ``rec`` and its f32 shrunk leaf values; the walk's depth and
         packed node matrix are added at its first walk."""
-        return {"node": self.learner.node_arrays_for_predict(rec),
-                "delta": self._leaf_deltas()}
+        dt = {"node": self.learner.node_arrays_for_predict(rec),
+              "delta": self._leaf_deltas()}
+        if self.linear:
+            dt["lin"] = self._lin
+        return dt
 
     def _tree_to_scores(self, t: int, factor: float, train: bool = True,
                         valid: bool = True) -> None:
@@ -738,6 +817,16 @@ class GBDT:
                             if node["num_nodes"] else None)
         depth, packed = dt["depth"], dt["packed"]
         delta = dt["delta"] if factor == 1.0 else dt["delta"] * factor
+        lin = dt.get("lin")
+
+        def values(leaf, raw, rows=None):
+            # a linear tree's rows: their linear output, f32 (JAX
+            # ``_linear_tree_deltas``), times the factor
+            if lin is None:
+                return delta[leaf]
+            out = linmod.linear_output(raw, leaf, lin, rows=rows).float()
+            return out if factor == 1.0 else out * factor
+
         K = self.num_tree_per_iteration
         k = t % K
         if train:
@@ -745,19 +834,21 @@ class GBDT:
             pb, ghi = self._phys
             C = lr.row0
             leaf = predict_leaf_binned_t(pb[:, C:C + N], node, depth, packed)
+            rowid = ghi[2, C:C + N].view(torch.int32).long()
+            d = values(leaf, self._raw, rowid)
             if K == 1:
-                ghi[3, C:C + N] += delta[leaf]
+                ghi[3, C:C + N] += d
             else:
-                rowid = ghi[2, C:C + N].view(torch.int32).long()
-                self._class_scores[k, rowid] += delta[leaf]
+                self._class_scores[k, rowid] += d
         if not valid:
             return
         for vi, (_, _, binned) in enumerate(self.valid_sets):
             leaf = predict_leaf_binned(binned, node, depth, packed)
+            d = values(leaf, self._valid_raw[vi])
             if K > 1:
-                self.valid_scores[vi][k] += delta[leaf]
+                self.valid_scores[vi][k] += d
             else:
-                self.valid_scores[vi] += delta[leaf]
+                self.valid_scores[vi] += d
 
     def rollback_one_iter(self) -> None:
         """Take the last iteration's K trees out of the train and
@@ -772,7 +863,17 @@ class GBDT:
                         "(loaded trees have no device arrays)")
             return
         for _ in range(K):
-            self._tree_to_scores(len(self.models) - 1, -1.0)
+            t = len(self.models) - 1
+            tree = self.models[t]
+            if tree.is_linear:
+                # its rows' outputs again from the host tree, the first
+                # iteration's folded init score taken out (JAX
+                # ``rollback_one_iter``)
+                init = self.init_scores[t % K]
+                adj = init if t < K and abs(init) > K_EPSILON else 0.0
+                self.device_trees[t]["lin"] = linmod.from_tree(
+                    tree, self.device, adj)
+            self._tree_to_scores(t, -1.0)
             self.device_trees.pop()
             self.models.pop()
         self.iter -= 1
@@ -805,6 +906,14 @@ class GBDT:
                              "need the init model's predictions "
                              "(Booster.add_valid computes them)")
         binned = torch.as_tensor(valid_data.binned, device=dev)
+        raw = None
+        if self.linear:
+            if valid_data.raw_data is None:
+                raise ValueError("linear_tree needs a validation set's raw "
+                                 "rows: construct it with linear_tree in "
+                                 "its params")
+            raw = torch.as_tensor(valid_data.raw_data, device=dev)
+        self._valid_raw.append(raw)
         self.valid_sets.append((valid_data, metrics, binned))
         self.valid_scores.append(score[0] if K == 1 else score)
 
@@ -889,7 +998,17 @@ class GBDT:
         out = torch.zeros((np.shape(data)[0], K), dtype=torch.float64,
                           device=self.device)
         trees, leaves = self._leaves(data, start_iteration, num_iteration)
+        raw = None
         for i, (tree, leaf) in enumerate(zip(trees, leaves)):
+            if tree.is_linear:
+                # f64 linear leaves over the raw values (JAX tree.py
+                # ``_linear_output``)
+                if raw is None:
+                    raw = torch.as_tensor(np.asarray(data, np.float64),
+                                          device=self.device)
+                out[:, i % K] += linmod.linear_output(
+                    raw, leaf, linmod.from_tree(tree, self.device))
+                continue
             lv = torch.as_tensor(tree.leaf_value, dtype=torch.float64,
                                  device=self.device)
             out[:, i % K] += lv[leaf]

@@ -161,13 +161,15 @@ from ..ops.frontier import MODE_STEP as FR_STEP
 from ..ops.feat_view import View, feat_view
 from ..ops.hist_state import leaf_hist_rmw, leaf_hist_rmw_step, new_state
 from ..ops.mono import mono_overlay, mono_planes, mono_refresh
-from ..ops.partition import (S_CNT, SB_DONE, SB_ERR, SB_MADE, SB_S,
-                             SB_STEPS, Workspace, cat_words, make_scalars,
+from ..ops.partition import (S_CNT, SB_DONE, SB_ERR, SB_LEAF, SB_MADE,
+                             SB_NEW, SB_S, SB_STEPS, SB_VALID, Workspace,
+                             cat_words, make_scalars,
                              partition_leaf, partition_step, scalars_start,
                              step_len, step_words)
 from ..ops.split_cat import cat_params, new_work, split_cat
 from ..ops.split_mega import (hist_geometry, split_mega, split_mega_step,
                               unpack_hist4)
+from ..ops.split_linear import LIN_FIELDS, linear_static, split_linear
 from ..ops.split_pair import OUT_FIELDS, penalty_table, split_pair
 from ..ops.tree_step import (LM_BDL, LM_BFEAT, LM_BGAIN, LM_BISCAT,
                              LM_BLCNT, LM_BLOUT, LM_BLSG, LM_BLSH, LM_BRCNT,
@@ -243,6 +245,24 @@ def parse_monotone_constraints(spec, num_total_features: int) -> np.ndarray:
     out[:len(vals)] = vals
     if np.any((out < -1) | (out > 1)):
         raise ValueError("monotone_constraints entries must be -1, 0 or 1")
+    return out
+
+
+def linear_gain_blockers(has_cat: bool, use_mc: bool, N: int, l1: float,
+                         max_delta_step: float, F: int) -> list:
+    """What keeps a learner out of ``linear_tree_mode`` leafwise_gain
+    (JAX learner.py's envelope, in its words; CEGB, ``path_smooth``,
+    forced splits, ``feature_contri`` and parallel learners are refused
+    by the port's config)."""
+    out = []
+    if has_cat or use_mc or N >= (1 << 24):
+        out.append("categorical/monotone/CEGB/path_smooth/huge-N configs")
+    if l1 > 0.0:
+        out.append("lambda_l1 > 0")
+    if max_delta_step > 0.0:
+        out.append("max_delta_step > 0")
+    if F == 0:
+        out.append("no usable features")
     return out
 
 
@@ -345,15 +365,18 @@ class SerialTreeLearner:
         # package's mega kernel needs its fast search on the plain
         # all-numerical per-feature view and uint8 bins (learner.py:590,
         # 867-870)
+        self._setup_linear_gain(dataset, meta)
         mega = str(config.tpu_megakernel).strip().lower()
         wide = self.bin_dtype != np.uint8
-        general = self.bundled or self.has_cat or wide or self.use_mc
+        general = (self.bundled or self.has_cat or wide or self.use_mc
+                   or self.linear_gain)
         self.subtract = mega == "off" or general
         if general and mega == "pallas":
             log.warning("tpu_megakernel=pallas needs the plain "
                         "all-numerical path without EFB bundles, "
-                        "categorical features or monotone constraints, on "
-                        "uint8 bins; using the histogram-subtraction path")
+                        "categorical features, monotone constraints or "
+                        "linear_tree_mode=leafwise_gain, on uint8 bins; "
+                        "using the histogram-subtraction path")
         self.state = (new_state(self.L, self.G, self.B, self.device)
                       if self.subtract else None)
         # frontier-batched growth on the mega path (the JAX package's
@@ -364,6 +387,45 @@ class SerialTreeLearner:
                        if config.use_quantized_grad else None)
         self.last_steps = self.last_made = 0
         self._alloc()
+
+    def _setup_linear_gain(self, dataset: BinnedDataset, meta) -> None:
+        """``linear_tree_mode`` leafwise_gain (JAX learner.py: the linear
+        search of ops/split_linear.py in place of the pair search): its
+        eligibility, warned about in the JAX package's words and trained
+        as refit outside it, and each used feature's representative raw
+        values (F, Bp) on the device, from the raw train columns."""
+        cfg = self.cfg
+        self.linear_gain = (bool(cfg.linear_tree)
+                            and cfg.linear_tree_mode == "leafwise_gain")
+        self.linear_lambda = float(cfg.linear_lambda)
+        self.lin_static = None
+        if not self.linear_gain:
+            return
+        blockers = linear_gain_blockers(self.has_cat, self.use_mc, self.N,
+                                        float(cfg.lambda_l1),
+                                        float(cfg.max_delta_step), self.F)
+        if blockers:
+            log.warning("linear_tree_mode=leafwise_gain is not supported "
+                        "with %s; falling back to the post-hoc refit mode",
+                        ", ".join(blockers))
+            self.linear_gain = False
+            return
+        Bp = hist_geometry(self.B)[1]
+        raw = dataset.raw_data
+        rep = np.zeros((self.F, Bp), np.float32)
+        for i, orig in enumerate(meta["feature"]):
+            # a feature alone in its group: its bins are the group's column
+            grp = dataset.groups[meta["group"][i]]
+            bins = (dataset.binned[:, meta["group"][i]]
+                    if raw is not None and dataset.binned is not None
+                    and len(grp.feature_indices) == 1 else None)
+            rep[i] = dataset.bin_mappers[orig].bin_rep_values(
+                Bp, values=None if raw is None else raw[:, orig],
+                bins=bins)[:Bp]
+        self.lin_static = linear_static(
+            meta["num_bin"], meta["missing_type"], meta["default_bin"],
+            torch.as_tensor(rep, device=self.device),
+            meta["feature"].astype(np.int64), Bp)
 
     def _alloc(self) -> None:
         """Everything a tree's steps touch, allocated once on the device."""
@@ -377,18 +439,22 @@ class SerialTreeLearner:
         # leafmat, nodemat, the nodes' and leaves' category sets, the K
         # step records and the root's step block in one flat buffer: the
         # host reads the finished tree in one copy
-        a, b, c, d = self._layout()
-        self._tree_dev = torch.zeros(d + (K + 1) * SW,
+        a, b, c, d, e = self._layout()
+        self._tree_dev = torch.zeros(e + (K + 1) * SW,
                                      dtype=torch.float32, device=dev)
         self.leafmat = self._tree_dev[:a].view(NLF, L + 1)
         self.nodemat = self._tree_dev[a:b].view(NND, nodes + 1)
         self.nodecat = self._tree_dev[b:c].view(torch.int32).view(
             nodes + 1, W)
         self.leafcat = self._tree_dev[c:d].view(torch.int32).view(L + 1, W)
-        self.steps = self._tree_dev[d:d + K * SW].view(
+        # leafwise_gain: each leaf's own model (const, coeff, feature id
+        # bits; JAX LM_LIN_*), and the children's from the search
+        self.leaflin = self._tree_dev[d:e].view(-1, L + 1)
+        self.pair_lin = torch.zeros((2 * K, LIN_FIELDS), device=dev)
+        self.steps = self._tree_dev[e:e + K * SW].view(
             torch.int32).view(K, SW)
         self.step = self.steps[0]
-        self.root_step = self._tree_dev[d + K * SW:].view(torch.int32)
+        self.root_step = self._tree_dev[e + K * SW:].view(torch.int32)
         # the children's category sets (ops/split_cat.py), the categorical
         # features' indices and the search kernel's scratch
         self.paircat = torch.zeros((2, W), dtype=torch.int32, device=dev)
@@ -470,12 +536,14 @@ class SerialTreeLearner:
         self.captures = 0       # graphs captured (a new row buffer each)
 
     def _layout(self):
-        """Ends of leafmat, nodemat, nodecat and leafcat in the flat
-        tree buffer (f32 words)."""
+        """Ends of leafmat, nodemat, nodecat, leafcat and leaflin in the
+        flat tree buffer (f32 words)."""
         a = NLF * (self.L + 1)
         b = a + NND * self.L
         c = b + self.W * self.L
-        return a, b, c, c + self.W * (self.L + 1)
+        d = c + self.W * (self.L + 1)
+        return a, b, c, d, d + (LIN_FIELDS * (self.L + 1)
+                                if self.linear_gain else 0)
 
     # ------------------------------------------------------------------
     def _search(self, hg, hh, info, out=None, cat_out=None, cat_work=None):
@@ -493,6 +561,14 @@ class SerialTreeLearner:
                   min_sum_hessian=self.min_sum_hessian,
                   max_depth=self.max_depth)
         fm = self.fmeta_pair[:c * self.F]
+        if self.linear_gain:
+            return split_linear(
+                hg, hh, info, self.lin_static, l2=self.l2,
+                min_gain_to_split=self.min_gain_to_split,
+                min_data_in_leaf=self.min_data_in_leaf,
+                min_sum_hessian=self.min_sum_hessian,
+                max_depth=self.max_depth, lam=self.linear_lambda,
+                children=c, out=out, lin_out=self.pair_lin[:c])[0]
         rows = split_pair(hg, hh, fm, info, out=out, children=c,
                           mono=self.use_mc, pen=self.mc_pen, **kw)
         if self.has_cat:
@@ -565,6 +641,27 @@ class SerialTreeLearner:
         Bp = ch.shape[-1]
         self._search(ch[0].view(-1, Bp), ch[1].view(-1, Bp), self.info,
                      out=self.pair_out)
+        if self.linear_gain:
+            self._store_linear(step is self.root_step)
+
+    def _store_linear(self, root: bool) -> None:
+        """The searched leaves' own models into ``leaflin``: the root's
+        into column 0, a split's two children's into the slots of the
+        step block (``SB_LEAF``, ``SB_NEW``), into the spare column L
+        when the step made no split; read on the device, so the graph
+        replays it for every tree."""
+        if root:
+            self.leaflin[:, 0] = self.pair_lin[0]
+            return
+        w = self.step
+        slots = torch.where(w[SB_VALID] != 0, w[SB_LEAF:SB_NEW + 1], self.L)
+        self.leaflin.index_copy_(1, slots.long(), self.pair_lin[:2].T)
+
+    def leaf_linear(self):
+        """The tree's (L,) own-model constants and slopes (f32) and
+        original feature ids (int32) on the device (leafwise_gain)."""
+        lin = self.leaflin[:, :self.L]
+        return lin[0], lin[1], lin[2].view(torch.int32)
 
     def _mega_kw(self):
         return dict(num_bins=self.B, num_groups=self.G, bound=self.N,
@@ -771,26 +868,33 @@ class SerialTreeLearner:
         with the tree loop on the device (see module doc).  The bag-aware
         row count is the device word ``bag`` (the sampling pass writes
         it).  ``before_read`` runs device work on the finished tree (the
-        leaf renewal rewrites leafmat's values) before its host read.
-        Returns the host record of ``_unpack_state``; ``leafmat`` keeps
-        the tree on the device."""
+        leaf renewal rewrites leafmat's values, the linear fit) before its
+        host read; a tensor it returns is read in the same copy, as the
+        record's ``extra``.  Returns the host record of
+        ``_unpack_state``; ``leafmat`` keeps the tree on the device."""
+        extra = None
         if self.device.type == "cuda":
             self._replay(part_bins, part_ghi)
             if before_read is not None:
-                before_read()
+                extra = before_read()
             self._host.copy_(self._tree_dev, non_blocking=True)
+            if extra is not None:
+                ex = torch.empty(extra.shape, dtype=extra.dtype,
+                                 pin_memory=True)
+                ex.copy_(extra, non_blocking=True)
+                extra = ex
             self._done.record()
             self._done.synchronize()
             host = self._host.numpy().copy()
         else:
             self._loop(part_bins, part_ghi)
             if before_read is not None:
-                before_read()
+                extra = before_read()
             host = self._tree_dev.numpy().copy()
         self.syncs += 1
         L, nodes, K = self.L, self.max_splits, self.K
-        a, b, c, d = self._layout()
-        steps = host[d:].view(np.int32).reshape(K + 1, step_len(self.W))
+        a, b, c, d, e = self._layout()
+        steps = host[e:].view(np.int32).reshape(K + 1, step_len(self.W))
         err = int(np.bitwise_or.reduce(steps[:, SB_ERR]))
         if err:
             raise RuntimeError(
@@ -801,11 +905,19 @@ class SerialTreeLearner:
         if K > 1:
             self.last_made = int(steps[0, SB_MADE])
             self.last_steps = int(steps[0, SB_STEPS])
-        return self._unpack_state(host[:a].reshape(NLF, L + 1),
-                                  host[a:b].reshape(NND, nodes + 1),
-                                  int(steps[0, SB_S]),
-                                  host[b:c].view(np.int32).reshape(
-                                      nodes + 1, self.W))
+        rec = self._unpack_state(host[:a].reshape(NLF, L + 1),
+                                 host[a:b].reshape(NND, nodes + 1),
+                                 int(steps[0, SB_S]),
+                                 host[b:c].view(np.int32).reshape(
+                                     nodes + 1, self.W))
+        if self.linear_gain:
+            # each leaf's own model (JAX learner.py ``leaf_lin_*``)
+            lin = host[d:e].reshape(LIN_FIELDS, L + 1)[:, :L]
+            rec.update({"leaf_lin_const": lin[0], "leaf_lin_coeff": lin[1],
+                        "leaf_lin_feat": lin[2].view(np.int32)})
+        if extra is not None:
+            rec["extra"] = extra.numpy().copy()
+        return rec
 
     # -- the oracle: the host loop -----------------------------------------
     def _info(self, halves):
@@ -887,10 +999,11 @@ class SerialTreeLearner:
         tree moved onto the device), with the bag count read from the
         device word ``bag``.  Leaves the tree in ``leafmat`` too, where
         ``before_read`` then works on it."""
-        if self.use_mc:
+        if self.use_mc or self.linear_gain:
             raise NotImplementedError(
-                "build_tree_eager: monotone constraints grow on the device "
-                "loop only (the JAX package is their oracle)")
+                "build_tree_eager: monotone constraints and leafwise_gain "
+                "grow on the device loop only (the JAX package is their "
+                "oracle)")
         L, F, W = self.L, self.F, self.W
         bag_cnt = int(self.bag[0])
         nodes = self.max_splits

@@ -1,9 +1,10 @@
 """Host-side tree model: structure and text serde.
 
-A copy of the constant-leaf part of lightgbm_tpu/models/tree.py (the port
-imports nothing of the JAX package), numerical and categorical splits, so
-both packages write and parse the same model text.  Linear trees are not
-part of the port: parsing one raises NotImplementedError.  Prediction runs
+A copy of lightgbm_tpu/models/tree.py (the port imports nothing of the
+JAX package): numerical and categorical splits and linear leaves
+(``is_linear``: a leaf predicts ``leaf_const + leaf_coeff . x`` over its
+``leaf_features``' raw values, ``leaf_value`` where one of them is NaN),
+so both packages write and parse the same model text.  Prediction runs
 on the device (ops/predict.py); ``predict_leaf`` is the host traversal
 (the reference's NumericalDecision / CategoricalDecision), kept as the
 oracle of the device walk.
@@ -57,6 +58,13 @@ class Tree:
         self.num_cat: int = 0
         self.cat_boundaries: List[int] = [0]
         self.cat_threshold: List[int] = []
+        # linear leaves (reference: tree.h leaf_const_ / leaf_features_ /
+        # leaf_coeff_; JAX tree.py)
+        self.is_linear: bool = False
+        self.leaf_const: np.ndarray = np.zeros(num_leaves, dtype=np.float64)
+        self.leaf_features: List[List[int]] = [[] for _ in
+                                               range(num_leaves)]
+        self.leaf_coeff: List[List[float]] = [[] for _ in range(num_leaves)]
 
     # -- decision bits --------------------------------------------------
     @staticmethod
@@ -117,11 +125,35 @@ class Tree:
         return result
 
     def predict(self, data: np.ndarray) -> np.ndarray:
-        """Raw output per row on the host (f64 leaf values)."""
+        """Raw output per row on the host (f64 leaf values; a linear
+        tree's leaf models)."""
+        if self.is_linear:
+            return self._linear_output(data, self.predict_leaf(data))
         if self.num_leaves <= 1:
             return np.full(data.shape[0], self.leaf_value[0]
                            if len(self.leaf_value) else 0.0)
         return self.leaf_value[self.predict_leaf(data)]
+
+    def _linear_output(self, data: np.ndarray, leaf: np.ndarray
+                       ) -> np.ndarray:
+        """Each row's linear leaf output in f64, the constant leaf value
+        where one of its leaf's features is NaN (reference: tree.cpp
+        PredictLinear; JAX tree.py ``_linear_output``): the host oracle
+        of ops/predict.py ``linear_output``."""
+        out = np.empty(len(leaf), dtype=np.float64)
+        for lf in np.unique(leaf):
+            sel = leaf == lf
+            feats = self.leaf_features[lf]
+            if not feats:
+                out[sel] = self.leaf_const[lf]
+                continue
+            sub = data[np.ix_(sel, np.asarray(feats, dtype=np.intp))] \
+                .astype(np.float64)
+            vals = self.leaf_const[lf] + sub.dot(
+                np.asarray(self.leaf_coeff[lf], dtype=np.float64))
+            nan_rows = np.isnan(sub).any(axis=1)
+            out[sel] = np.where(nan_rows, self.leaf_value[lf], vals)
+        return out
 
     def categorical_decision(self, nid, fval) -> np.ndarray:
         """Bitset membership of raw values at categorical nodes ``nid``
@@ -177,7 +209,19 @@ class Tree:
         else:
             lines.append("leaf_value=" + repr(float(
                 self.leaf_value[0] if len(self.leaf_value) else 0.0)))
-        lines.append("is_linear=0")
+        lines.append(f"is_linear={int(self.is_linear)}")
+        if self.is_linear:
+            # reference: Tree::ToString's linear block (tree.cpp:377-399)
+            lines.append("leaf_const=" + " ".join(
+                repr(float(v)) for v in self.leaf_const[:self.num_leaves]))
+            lines.append("num_features=" + join(
+                [len(c) for c in self.leaf_coeff[:self.num_leaves]], "{:d}"))
+            lines.append("leaf_features=" + " ".join(
+                " ".join(str(f) for f in feats)
+                for feats in self.leaf_features[:self.num_leaves]))
+            lines.append("leaf_coeff=" + " ".join(
+                " ".join(repr(float(c)) for c in coefs)
+                for coefs in self.leaf_coeff[:self.num_leaves]))
         lines.append(f"shrinkage={self.shrinkage:g}")
         lines.append("")
         lines.append("")
@@ -192,10 +236,6 @@ class Tree:
                 k, v = line.split("=", 1)
                 kv[k] = v
 
-        if int(kv.get("is_linear", 0)) != 0:
-            raise NotImplementedError(
-                f"lightgbm_tpu_torch loads constant-leaf trees only "
-                f"(is_linear={kv['is_linear']})")
         num_leaves = int(kv.get("num_leaves", 1))
         t = cls(num_leaves)
         t.num_cat = int(kv.get("num_cat", 0))
@@ -227,12 +267,80 @@ class Tree:
         else:
             t.leaf_value = np.asarray([float(kv.get("leaf_value", 0.0))])
         t.shrinkage = float(kv.get("shrinkage", 1.0))
+        t.is_linear = bool(int(kv.get("is_linear", 0)))
+        if t.is_linear:
+            t.leaf_const = parse("leaf_const", np.float64, num_leaves)
+            nfeat = parse("num_features", np.int64, num_leaves)
+            flat_f = [int(x) for x in kv.get("leaf_features", "").split()]
+            flat_c = [float(x) for x in kv.get("leaf_coeff", "").split()]
+            pos = 0
+            for i in range(num_leaves):
+                k = int(nfeat[i])
+                t.leaf_features[i] = flat_f[pos:pos + k]
+                t.leaf_coeff[i] = flat_c[pos:pos + k]
+                pos += k
         return t
 
+    def to_json(self) -> dict:
+        """The tree as a dict (reference: Tree::ToJSON, tree.cpp:411;
+        JAX tree.py ``to_json``), a linear leaf with its model."""
+        out = {"num_leaves": int(self.num_leaves),
+               "num_cat": int(self.num_cat), "shrinkage": self.shrinkage}
+        if self.num_leaves == 1:
+            out["tree_structure"] = {"leaf_value": float(
+                self.leaf_value[0] if len(self.leaf_value) else 0.0)}
+        else:
+            out["tree_structure"] = self._node_json(0)
+        return out
+
+    def _cats_of_node(self, node: int) -> List[int]:
+        """A categorical node's bitset as its category values."""
+        cat_idx = int(self.threshold[node])
+        lo = self.cat_boundaries[cat_idx]
+        hi = self.cat_boundaries[cat_idx + 1]
+        return [(w - lo) * 32 + b for w in range(lo, hi) for b in range(32)
+                if (self.cat_threshold[w] >> b) & 1]
+
+    def _node_json(self, node: int) -> dict:
+        if node >= 0:
+            d = int(self.decision_type[node])
+            cat = bool(d & K_CATEGORICAL_MASK)
+            thr = ("||".join(str(c) for c in self._cats_of_node(node))
+                   if cat else float(self.threshold[node]))
+            return {
+                "split_index": int(node),
+                "split_feature": int(self.split_feature[node]),
+                "split_gain": float(self.split_gain[node]),
+                "threshold": thr,
+                "decision_type": "==" if cat else "<=",
+                "default_left": bool(d & K_DEFAULT_LEFT_MASK),
+                "missing_type": ["None", "Zero", "NaN"][(d >> 2) & 3],
+                "internal_value": float(self.internal_value[node]),
+                "internal_weight": float(self.internal_weight[node]),
+                "internal_count": int(self.internal_count[node]),
+                "left_child": self._node_json(int(self.left_child[node])),
+                "right_child": self._node_json(int(self.right_child[node])),
+            }
+        leaf = ~node
+        out = {"leaf_index": int(leaf),
+               "leaf_value": float(self.leaf_value[leaf]),
+               "leaf_weight": float(self.leaf_weight[leaf]),
+               "leaf_count": int(self.leaf_count[leaf])}
+        if self.is_linear:
+            out["leaf_const"] = float(self.leaf_const[leaf])
+            out["leaf_features"] = list(self.leaf_features[leaf])
+            out["leaf_coeff"] = [float(c) for c in self.leaf_coeff[leaf]]
+        return out
+
     def apply_shrinkage(self, rate: float) -> None:
-        """reference: Tree::Shrinkage (tree.h)."""
+        """reference: Tree::Shrinkage (tree.h); a linear leaf's constant
+        and coefficients too."""
         self.leaf_value = self.leaf_value * rate
         self.internal_value = self.internal_value * rate
+        if self.is_linear:
+            self.leaf_const = self.leaf_const * rate
+            self.leaf_coeff = [[c * rate for c in cs]
+                               for cs in self.leaf_coeff]
         self.shrinkage *= rate
 
     def num_nodes(self) -> int:

@@ -405,6 +405,46 @@ class BinMapper:
             return float(self.bin_2_categorical[bin_idx])
         return self.bin_upper_bound[bin_idx]
 
+    def bin_rep_values(self, width: int | None = None,
+                       values: np.ndarray | None = None,
+                       bins: np.ndarray | None = None) -> np.ndarray:
+        """Per-bin representative raw value of the linear moment planes
+        (JAX binning.py ``bin_rep_values``; linear_tree_mode
+        leafwise_gain, ops/split_linear.py): with the raw training column
+        ``values``, each bin's empirical mean of its finite values, else
+        the bin's upper bound clipped to ``[min_val, max_val]``; 0 at the
+        NaN bin and at the MISSING_ZERO default bin (missing rows carry
+        no moment mass), and everywhere for a categorical or trivial
+        mapper.  ``width`` right-pads with zeros.  ``bins``, when given, are
+        ``values``' bins (``values_to_bins(values)``, as a Dataset holds
+        them), which spares binning the column again.  f32."""
+        n = self.num_bin
+        out = np.zeros(max(int(width or 0), n), dtype=np.float32)
+        if self.bin_type == BIN_CATEGORICAL or self.is_trivial:
+            return out
+        ub = np.asarray(self.bin_upper_bound, dtype=np.float64)[:n]
+        hi = self.max_val if math.isfinite(self.max_val) else 0.0
+        lo = self.min_val if math.isfinite(self.min_val) else 0.0
+        ub = np.clip(np.nan_to_num(ub, nan=0.0, posinf=hi, neginf=lo),
+                     min(lo, hi), max(lo, hi))
+        out[:len(ub)] = ub.astype(np.float32)
+        if values is not None and len(values):
+            vals = np.asarray(values, dtype=np.float64).ravel()
+            finite = np.isfinite(vals)
+            if finite.any():
+                bins = (self.values_to_bins(vals[finite]) if bins is None
+                        else np.asarray(bins).ravel()[finite])
+                cnt = np.bincount(bins, minlength=n).astype(np.float64)
+                tot = np.bincount(bins, weights=vals[finite], minlength=n)
+                filled = cnt[:n] > 0
+                out[:n][filled] = (tot[:n][filled]
+                                   / cnt[:n][filled]).astype(np.float32)
+        if self.missing_type == MISSING_NAN:
+            out[n - 1] = 0.0
+        elif self.missing_type == MISSING_ZERO:
+            out[self.default_bin] = 0.0
+        return out
+
     def feature_info(self) -> str:
         """`feature_infos` entry for the model file (reference: gbdt_model_text)."""
         if self.is_trivial:

@@ -91,10 +91,15 @@ SCAN_BINS = 8       # bins a lane holds (256 bins / 32 lanes)
 
 
 def prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """``prefix_sum64`` rounded to f32 per bin (see there)."""
+    return prefix_sum64(x).float()
+
+
+def prefix_sum64(x: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix sum along the last axis of an f32 tensor, in f64
-    with the pair kernel's blocked association (csrc/split_pair.cu), and
-    rounded to f32 per bin, so the two agree bit for bit on the CPU and
-    on the card.  The axis is padded with zeros to 32 lanes of at least
+    with the pair kernel's blocked association (csrc/split_pair.cu), so
+    the two agree bit for bit on the CPU and on the card (an f64 input
+    is summed as it is).  The axis is padded with zeros to 32 lanes of at least
     8 bins; each lane's bins are summed from the left, the 32 lane totals
     scanned in 5 shifted-add steps, and each lane's exclusive offset
     added to its bins.  Elementwise f64 adds only (``torch.cumsum`` leaves
@@ -117,7 +122,7 @@ def prefix_sum(x: torch.Tensor) -> torch.Tensor:
         d *= 2
     off = torch.nn.functional.pad(tot[..., :-1], (1, 0))
     out = off[..., None] + torch.stack(loc, dim=-1)
-    return out.reshape(*x.shape[:-1], SCAN_LANES * per)[..., :n].float()
+    return out.reshape(*x.shape[:-1], SCAN_LANES * per)[..., :n]
 
 
 def find_best_split_fast(feat_hist, ctx: SplitContext, sum_g, sum_h,

@@ -128,7 +128,7 @@ def test_skip_drop_one_is_gbdt(body):
 
 def test_linear_trees_are_refused():
     """DART with linear trees: the engine raises LightGBMError as JAX's
-    does; through the API the port refuses ``linear_tree`` by name."""
+    does, and so does the API, in both packages."""
     p = {"boosting": "dart", "linear_tree": True, "device_type": "cpu"}
     with pytest.raises(LightGBMError, match="linear tree"):
         DART(Config(p), None, None, "cpu")
@@ -137,8 +137,12 @@ def test_linear_trees_are_refused():
     with pytest.raises(JaxLightGBMError, match="linear tree"):
         JDART(JConfig({"boosting": "dart", "linear_tree": True}), None, None)
     X, y = example(BIN)
-    with pytest.raises(NotImplementedError, match="linear_tree"):
+    with pytest.raises(LightGBMError, match="linear tree"):
         lgt.train(dict(p, objective="binary"), lgt.Dataset(X, label=y), 1)
+    with pytest.raises(JaxLightGBMError, match="linear tree"):
+        lgb.train({"boosting": "dart", "linear_tree": True,
+                   "objective": "binary", "verbosity": -1},
+                  lgb.Dataset(X, label=y), 1)
 
 
 def test_drop_factors_round_as_jax():

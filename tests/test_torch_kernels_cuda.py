@@ -2101,3 +2101,149 @@ def test_dart_on_the_card_equals_the_cpu(card, body):
     np.testing.assert_allclose(bc.predict(X, raw_score=True),
                                bh.predict(X, raw_score=True), rtol=0,
                                atol=1e-5)
+
+
+def _linear_tree_case(seed=0, n=6000, F=6, L=31, nan=True):
+    """A finished linear tree of ``L`` leaves on the CPU (regression on a
+    label with a linear part, NaNs in two columns) and the inputs of its
+    fit: raw rows, row ids, leaf ranges, true gradients, path features."""
+    from lightgbm_tpu_torch.models import linear as linmod
+    from lightgbm_tpu_torch.ops.partition import SB_S
+    rng = np.random.RandomState(seed)
+    X = rng.normal(size=(n, F)).astype(np.float32)
+    if nan:
+        X[rng.rand(n) < 0.05, 1] = np.nan
+        X[rng.rand(n) < 0.02, 3] = np.nan
+    y = X[:, 0] * 2 - np.nan_to_num(X[:, 1]) + np.sin(X[:, 2]) \
+        + 0.1 * rng.normal(size=n)
+    b = lgt.train({"objective": "regression", "num_leaves": L,
+                   "linear_tree": True, "device_type": "cpu",
+                   "verbosity": -1}, lgt.Dataset(X, label=y), 2)
+    g, lr = b._gbdt, b._gbdt.learner
+    pb, ghi = g._phys
+    C, N = lr.row0, g.num_data
+    start, cnt = linmod.leaf_ranges(lr.leafmat, C, N)
+    D = linmod.width(F, L, -1)
+    feat, ok = linmod.path_features(lr.leafmat, lr.nodemat,
+                                    lr.steps[0, SB_S], F, D)
+    rowid = ghi[2, C:C + N].view(torch.int32).long()
+    return dict(raw=g._raw, rowid=rowid,
+                rawp=linmod.physical_rows(g._raw, rowid), start=start,
+                cnt=cnt,
+                g=ghi[0, C:C + N].clone(), h=ghi[1, C:C + N].clone(),
+                feat=feat, ok=ok, value=lr.leafmat[ts.LM_VALUE, :L].clone(),
+                lm=lr.leafmat.clone(), nm=lr.nodemat.clone(),
+                s=lr.steps[0, SB_S].clone(), F=F, D=D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_linear_fit_on_the_card_equals_the_cpu(card, seed):
+    """models/linear.py on the card against the same functions on the
+    CPU: the path features and the physical raw rows equal, the batched
+    leaf fit's statuses and active columns equal, its constants and
+    coefficients within rtol 1e-9 (f64, other summation orders), the
+    linear score update (by pieces, and by rows and leaves) within 1e-9
+    before its cast to f32."""
+    from lightgbm_tpu_torch.models import linear as linmod
+    c = _linear_tree_case(seed)
+    dc = {k: (v.to(card) if isinstance(v, torch.Tensor) else v)
+          for k, v in c.items()}
+    feat, ok = linmod.path_features(dc["lm"], dc["nm"], dc["s"], c["F"],
+                                    c["D"])
+    assert torch.equal(feat.cpu(), c["feat"]) and torch.equal(ok.cpu(),
+                                                              c["ok"])
+    kw = dict(lam=0.25, shrinkage=0.1)
+    want = linmod.fit_leaves(c["rawp"], c["start"], c["cnt"], c["g"],
+                             c["h"], c["feat"], c["ok"], c["value"], **kw)
+    rawp = linmod.physical_rows(dc["raw"], dc["rowid"])
+    assert torch.equal(rawp.cpu().view(torch.int32),
+                       c["rawp"].view(torch.int32))
+    got = linmod.fit_leaves(rawp, dc["start"], dc["cnt"], dc["g"], dc["h"],
+                            feat, ok, dc["value"], **kw)
+    assert torch.equal(got.status.cpu(), want.status)
+    assert torch.equal(got.active.cpu(), want.active)
+    assert int((want.status == linmod.LIN_OK).sum()) > 10
+    np.testing.assert_allclose(got.const.cpu().numpy(), want.const.numpy(),
+                               rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(got.coeff.cpu().numpy(), want.coeff.numpy(),
+                               rtol=1e-9, atol=1e-12)
+    N = len(c["rowid"])
+    order = torch.argsort(c["start"], stable=True)
+    leaf = torch.repeat_interleave(order, c["cnt"][order])
+    out_cpu = linmod.linear_output(c["raw"], leaf, want, rows=c["rowid"])
+    out = linmod.linear_output(dc["raw"], leaf.to(card), got,
+                               rows=dc["rowid"], chunk=1000)
+    tiles = linmod.tile_output(rawp, dc["start"], dc["cnt"], got, N)
+    assert torch.isnan(c["raw"]).any()
+    for o in (out, tiles):
+        np.testing.assert_allclose(o.cpu().numpy(), out_cpu.numpy(),
+                                   rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_linear_search_on_the_card_equals_the_cpu(card):
+    """ops/split_linear.py on the card against the CPU on split_pair's
+    seeded pair cases with representative values: the (2, 13) rows and
+    the own models bit for bit (the same blocked f64 prefix sums, the
+    same f64 and f32 operations)."""
+    from lightgbm_tpu_torch.ops.split_linear import (linear_static,
+                                                     split_linear)
+    for seed in range(4):
+        hg, hh, fm, info = _pair_case(seed, F=28, BF=255)
+        rng = np.random.RandomState(seed)
+        rep = torch.as_tensor(rng.uniform(-2, 2, (28, 256)).astype(
+            np.float32))
+        fid = torch.arange(28) * 2
+        kw = dict(l2=1e-3, min_gain_to_split=0.0, min_data_in_leaf=5,
+                  min_sum_hessian=1e-3, max_depth=0, lam=0.5)
+        meta = [fm[:28, i] for i in range(3)]
+        want = split_linear(hg, hh, info,
+                            linear_static(*meta, rep, fid, 255), **kw)
+        got = split_linear(hg.to(card), hh.to(card), info.to(card),
+                           linear_static(*(m.to(card) for m in meta),
+                                         rep.to(card), fid, 255), **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu().view(torch.int32),
+                               b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["refit", "leafwise_gain"])
+@pytest.mark.parametrize("body", [{}, {"tpu_megakernel": "off"}])
+def test_linear_trees_on_the_card(card, mode, body):
+    """Linear trees through the graph loop on the card, quantized
+    (integer carriers, exact on both): the trees equal the CPU's, one
+    host read a tree and one capture; the constants within rtol 1e-6 for
+    refit (f64 fits of the same true gradients) and the coefficients
+    within the leaf bar (rtol 1e-4 / atol 1e-5: a near-collinear leaf's
+    system, conditioned by the 1e-10 ridge alone, carries the two
+    devices' summation orders into its slopes), and all of them within
+    the leaf bar for leafwise_gain, whose own models read
+    the histograms through ``var``'s cancellation (the CPU's larger
+    children are f32 differences of scaled sums, the card's exact); the
+    train scores equal the raw predictions (atol 1e-5), and a saved model
+    reloads and predicts bit for bit."""
+    X, y, _, _ = _walk_case("uint8")
+    p = dict({"objective": "binary", "num_leaves": 15, "verbosity": -1,
+              "linear_tree": True, "linear_tree_mode": mode,
+              "use_quantized_grad": True}, **body)
+    bc = lgt.train(p, lgt.Dataset(X, label=y), 4)
+    bh = lgt.train(dict(p, device_type="cpu"), lgt.Dataset(X, label=y), 4)
+    lr = bc._gbdt.learner
+    assert lr.captures == 1 and lr.syncs == 4
+    assert lr.linear_gain == (mode == "leafwise_gain")
+    for a, t in zip(bc._gbdt.models, bh._gbdt.models):
+        assert a.split_feature.tolist() == t.split_feature.tolist()
+        assert a.threshold_bin.tolist() == t.threshold_bin.tolist()
+        assert a.leaf_features == t.leaf_features
+        rtol, atol = (1e-6, 1e-9) if mode == "refit" else (1e-4, 1e-5)
+        np.testing.assert_allclose(a.leaf_const, t.leaf_const, rtol=rtol,
+                                   atol=atol)
+        for ca, ct in zip(a.leaf_coeff, t.leaf_coeff):
+            np.testing.assert_allclose(ca, ct, rtol=1e-4, atol=1e-5)
+    raw = bc.predict(X, raw_score=True)
+    np.testing.assert_allclose(bc._gbdt.scores.cpu().numpy(), raw, rtol=0,
+                               atol=1e-5)
+    again = lgt.Booster(model_str=bc.model_to_string())
+    np.testing.assert_array_equal(again.predict(X, raw_score=True), raw)

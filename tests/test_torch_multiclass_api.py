@@ -27,6 +27,7 @@ import pytest
 import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch import convert
+from lightgbm_tpu_torch.utils.log import LightGBMError
 
 from test_torch_multiclass import K, mc_data
 from torch_one_thread import one_torch_thread  # noqa: F401
@@ -136,6 +137,9 @@ def test_auc_mu_and_multi_error_against_numpy(port2, top_k):
                                (err * w).sum() / w.sum(), rtol=1e-6)
 
 
+# DART with linear trees is refused by the engine, as the JAX package's
+# DART refuses it (LightGBMError); rank_xendcg with linear trees trains
+# (tests/test_torch_linear_boost.py)
 @pytest.mark.parametrize("extra,names", [
     ({"objective": "quantile", "monotone_constraints": [1],
       "monotone_constraints_method": "advanced"},
@@ -144,12 +148,14 @@ def test_auc_mu_and_multi_error_against_numpy(port2, top_k):
       "cegb_penalty_split": 0.5}, ("cegb_penalty_split",)),
     ({"objective": "regression", "num_class": 3}, ("num_class", "objective")),
     ({"objective": "multiclass", "num_class": 1}, ("num_class", "objective")),
-    ({"objective": "lambdarank", "boosting": "dart", "linear_tree": True},
-     ("linear_tree",)),
-    ({"objective": "rank_xendcg", "linear_tree": True}, ("linear_tree",))])
+    ({"objective": "lambdarank", "boosting": "dart", "linear_tree": True,
+      "num_class": 1}, ("linear tree", "DART")),
+    ({"objective": "rank_xendcg", "path_smooth": 1.0}, ("path_smooth",))])
 def test_refused_combinations_name_their_params(extra, names):
     X, y = mc_data()
-    with pytest.raises(NotImplementedError) as err:
+    error = (LightGBMError if extra.get("boosting") == "dart"
+             else NotImplementedError)
+    with pytest.raises(error) as err:
         lgt.train(dict(BASE, **dict(extra, **CPU)), lgt.Dataset(X, label=y),
                   1)
     for n in names:

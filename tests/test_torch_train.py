@@ -203,10 +203,10 @@ def cat_jax():
 
 @pytest.mark.parametrize("key", ["num_cat", "is_linear"])
 def test_loading_categorical_or_linear_trees_raises(pair, key, request):
-    """Linear trees are not part of the port: model text with one raises
-    instead of losing it.  A JAX-written model with categorical trees
-    loads and predicts what JAX predicts, NaN and unseen categories
-    included."""
+    """JAX-written models with categorical trees or linear trees load and
+    predict what JAX predicts: NaN and unseen categories included, and
+    a linear tree's NaN rows at their leaves' constant values.  (Both
+    raised before the port had these trees; the name stayed.)"""
     if key == "num_cat":
         X, y = _cat_data()
         jb = request.getfixturevalue("cat_jax3")
@@ -218,9 +218,18 @@ def test_loading_categorical_or_linear_trees_raises(pair, key, request):
                                    jb.predict(X, raw_score=True), rtol=0,
                                    atol=1e-9)
         return
-    text = pair[4].model_to_string().replace(f"{key}=0", f"{key}=1", 1)
-    with pytest.raises(NotImplementedError, match=key):
-        lgt.Booster(params={"device_type": "cpu"}, model_str=text)
+    X, y = _load(CASES["regression"][0])
+    jb = lgb.train({"objective": "regression", "num_leaves": 15,
+                    "linear_tree": True, "verbosity": -1},
+                   lgb.Dataset(X, label=y), 3)
+    tl = lgt.Booster(params={"device_type": "cpu"},
+                     model_str=jb.model_to_string())
+    assert all(t.is_linear for t in tl._gbdt.models)
+    X = X.copy()
+    X[:5, :4] = np.nan
+    np.testing.assert_allclose(tl.predict(X, raw_score=True),
+                               jb.predict(X, raw_score=True), rtol=0,
+                               atol=1e-9)
 
 
 def _cat_data(n=2000, seed=0):
@@ -322,7 +331,7 @@ def test_dataset_from_jax_arrays_trains_the_same_trees(pair):
     ("feature_fraction_bynode", 0.5), ("extra_trees", True),
     ("objective", "multiclass"), ("cegb_penalty_split", 0.5),
     ("tpu_ab_double", "hist"),
-    ("linear_tree", True), ("tree_learner", "data"),
+    ("path_smooth", 1.0), ("tree_learner", "data"),
     ("tpu_megakernel", "xla"), ("tpu_hist_dtype", "float16"),
     ("tpu_hist_state", "flat")])
 def test_unsupported_param_raises_naming_it(param, value):
